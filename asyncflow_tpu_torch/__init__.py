@@ -1,13 +1,15 @@
 """PyTorch / CUDA port of asyncflow-tpu for NVIDIA Hopper cards.
 
 The JAX package (``asyncflow_tpu``) is the reference; this package imports
-nothing of it.  The first slice ports the event-kernel sweep path:
+nothing of it.  It ports the event-kernel sweep path:
 
     payload -> compile_payload -> KernelEngine.run_batch -> SweepResults
 
 where the Pallas DES kernel of the reference is a hand-written CUDA kernel
 (``csrc/des_kernel.cu``) with a plain PyTorch twin
-(``engines/torchsim/des_reference.py``).  Entry points run on ``cuda``
+(``engines/torchsim/des_reference.py``); slice 2 added event injection,
+the server overload controls and the LB circuit breaker.  Entry points run
+on ``cuda``
 unless the caller passes ``device="cpu"``; with no device given and no GPU
 present they raise :class:`~asyncflow_tpu_torch.errors.NoDeviceError`.
 """
@@ -17,6 +19,7 @@ from asyncflow_tpu_torch.errors import (
     KernelLaunchError,
     NoDeviceError,
     PayloadError,
+    ProofHeadroomError,
     UnsupportedFeatureError,
 )
 
@@ -25,5 +28,6 @@ __all__ = [
     "KernelLaunchError",
     "NoDeviceError",
     "PayloadError",
+    "ProofHeadroomError",
     "UnsupportedFeatureError",
 ]

@@ -13,7 +13,16 @@ reference's:
   chain; each server's single out-edge leads to a server, the LB or the
   client;
 - the request pool and the iteration cap come from the same fluid
-  capacity model, so both packages size the kernel identically.
+  capacity model, so both packages size the kernel identically;
+- each overload control (ready-queue cap, connection cap, token-bucket
+  rate limit, dequeue deadline) is modelled only where the reference's
+  non-binding proof fails; a control the proof shows unreachable is
+  lowered away, and ``proof_rate_headroom`` records how far the workload
+  may be scaled before that proof breaks;
+- the LB circuit breaker is modelled only where a failure channel exists
+  (a modelled control on a covered server, or dropout on an LB edge);
+- event injection becomes a cumulative spike table per edge and a sorted
+  outage timeline of LB slots (END before START on ties).
 
 :func:`plan_from_arrays` carries a plan's fields, as numpy arrays, across
 from the reference package; features outside the slice that such a plan
@@ -29,7 +38,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from asyncflow_tpu_torch.config.constants import Distribution, LbAlgorithmsName
+from asyncflow_tpu_torch.config.constants import (
+    Distribution,
+    EventDescription,
+    LbAlgorithmsName,
+)
 from asyncflow_tpu_torch.errors import PayloadError
 from asyncflow_tpu_torch.schemas.endpoint import Endpoint
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload
@@ -101,6 +114,14 @@ class StaticPlan:
     lb_algo: int  # 0 = round robin, 1 = least connections
     lb_edge_index: np.ndarray  # (EL,) i32 edge index per LB slot
     lb_target: np.ndarray  # (EL,) i32 server index per LB slot
+    # ---- event injection ----
+    # spike breakpoints: cumulative spike per edge on [t_k, t_{k+1})
+    spike_times: np.ndarray  # (NB,) f32, spike_times[0] == 0
+    spike_values: np.ndarray  # (NB, NE) f32
+    # outage timeline (END before START on ties)
+    timeline_times: np.ndarray  # (NTL,) f32
+    timeline_down: np.ndarray  # (NTL,) i32 (1 = down, 0 = up)
+    timeline_slot: np.ndarray  # (NTL,) i32 LB slot affected (-1 none)
     # ---- workload (one generator) ----
     user_mean: float
     user_var: float  # < 0 => Poisson users, else truncated-Gaussian scale
@@ -110,6 +131,21 @@ class StaticPlan:
     horizon: float
     pool_size: int
     max_iterations: int
+    # ---- overload controls, per server; -1 = not modelled ----
+    server_queue_cap: np.ndarray  # (NS,) i32 ready-queue cap (shed)
+    server_conn_cap: np.ndarray  # (NS,) i32 connection cap (refuse)
+    server_rate_limit: np.ndarray  # (NS,) f32 token refill per second
+    server_rate_burst: np.ndarray  # (NS,) i32 bucket size (0 when unmodelled)
+    server_queue_timeout: np.ndarray  # (NS,) f32 dequeue deadline (abandon)
+    # ---- LB circuit breaker; threshold 0 = not modelled ----
+    breaker_threshold: int
+    breaker_cooldown: float
+    breaker_probes: int
+    #: a breaker was configured but lowered away (no failure channel)
+    breaker_lowered: bool
+    #: the largest workload-rate scale under which every lowered-away
+    #: non-binding proof still holds (inf when none was lowered away)
+    proof_rate_headroom: float
     #: features outside this slice that the plan carries (only plans
     #: carried across with :func:`plan_from_arrays` can have any)
     unsupported: tuple[str, ...] = ()
@@ -122,6 +158,34 @@ class StaticPlan:
     @property
     def has_ram(self) -> bool:
         return bool(np.max(self.endpoint_ram) > 0)
+
+    @property
+    def has_timeline(self) -> bool:
+        return len(self.timeline_times) > 0
+
+    @property
+    def has_spikes(self) -> bool:
+        return len(self.spike_times) > 1
+
+    @property
+    def has_queue_cap(self) -> bool:
+        return bool(np.any(self.server_queue_cap >= 0))
+
+    @property
+    def has_conn_cap(self) -> bool:
+        return bool(np.any(self.server_conn_cap >= 0))
+
+    @property
+    def has_rate_limit(self) -> bool:
+        return bool(np.any(self.server_rate_limit >= 0))
+
+    @property
+    def has_queue_timeout(self) -> bool:
+        return bool(np.any(self.server_queue_timeout >= 0))
+
+    @property
+    def has_breaker(self) -> bool:
+        return self.breaker_threshold > 0
 
 
 #: the StaticPlan fields the DES kernel reads, in declaration order
@@ -201,12 +265,315 @@ def _estimate_capacity(payload: SimulationPayload) -> tuple[int, int]:
             backlog += max(0.0, rate - capacity) * horizon
             burst_backlog += max(0.0, burst_rate - capacity) * min(window, horizon)
 
+    # spikes park in-flight requests on an edge, and their release floods the
+    # downstream queue: budget rate x (max concurrent spike) per edge, twice
+    spike_delay = 0.0
+    for event in payload.events or []:
+        if event.start.spike_s is not None:
+            spike_delay += float(event.start.spike_s)
+
     edge_delay = sum(edge.latency.mean for edge in payload.topology_graph.edges)
-    # the reference adds 2 x the summed network spikes here; the slice has none
-    in_flight = rate * (residence_max + edge_delay + 0.0)
+    in_flight = rate * (residence_max + edge_delay + 2.0 * spike_delay)
     want = 4.0 * in_flight + 1.5 * (backlog + burst_backlog) + 64.0
     pool = int(2 ** math.ceil(math.log2(max(64.0, want))))
     return max_requests, min(pool, 32768)
+
+
+def _server_entry_rates(payload: SimulationPayload) -> np.ndarray | None:
+    """(NS,) nominal request rate into each server (the reference's
+    ``_server_entry_rates`` for one generator).
+
+    The entry chain is walked to the first LB or server; an LB spreads the
+    rate uniformly over the servers it covers, and server-to-server exits
+    pass their rate downstream in topological order.  None when the server
+    chain has a cycle.  Dropout is ignored: these are upper bounds for the
+    non-binding proofs.
+    """
+    servers = payload.topology_graph.nodes.servers
+    server_index = {server.id: s for s, server in enumerate(servers)}
+    lb = payload.topology_graph.nodes.load_balancer
+    out_edge = {e.source: e for e in payload.topology_graph.edges}
+
+    srv_rate = np.zeros(len(servers))
+    workload = payload.rqs_input
+    rate = (
+        float(workload.avg_active_users.mean)
+        * float(workload.avg_request_per_minute_per_user.mean)
+        / 60.0
+    )
+    node = workload.id
+    for _ in range(len(payload.topology_graph.edges) + 1):
+        e = out_edge.get(node)
+        if e is None:
+            break
+        if e.target in server_index:
+            srv_rate[server_index[e.target]] += rate
+            break
+        if lb is not None and e.target == lb.id:
+            covered = sorted(lb.server_covered)
+            for sid in covered:
+                srv_rate[server_index[sid]] += rate / len(covered)
+            break
+        node = e.target
+
+    child = {}
+    indeg = [0] * len(servers)
+    for server in servers:
+        e = out_edge.get(server.id)
+        if e is not None and e.target in server_index:
+            child[server_index[server.id]] = server_index[e.target]
+            indeg[server_index[e.target]] += 1
+    frontier = [s for s in range(len(servers)) if indeg[s] == 0]
+    seen = 0
+    while frontier:
+        s = frontier.pop()
+        seen += 1
+        t = child.get(s)
+        if t is not None:
+            srv_rate[t] += srv_rate[s]
+            indeg[t] -= 1
+            if indeg[t] == 0:
+                frontier.append(t)
+    if seen != len(servers):
+        return None
+    return srv_rate
+
+
+def _rho_cap_needed(rho_b: float) -> float:
+    """Queue length whose stationary tail probability is below 1e-12 at
+    burst utilisation ``rho_b`` (inf when the queue is not stable enough)."""
+    if rho_b >= 0.9:
+        return math.inf
+    return math.log(1e-12) / math.log(max(rho_b, 1e-9)) + 16.0
+
+
+@dataclass
+class _Controls:
+    """The overload controls as the kernel models them, per server."""
+
+    queue_cap: np.ndarray
+    conn_cap: np.ndarray
+    rate_limit: np.ndarray
+    rate_burst: np.ndarray
+    queue_timeout: np.ndarray
+    proof_rate_headroom: float
+
+
+def _lower_overload(payload: SimulationPayload) -> _Controls:
+    """Model each configured overload control, or lower it away when the
+    reference's non-binding proof shows it unreachable (the reference's
+    ``_compile_payload``, ready-queue caps to deadlines).
+
+    The slice has no DB, cache, LLM or serving steps, so each step's
+    worst-case duration is its quantity and no DB pool is modelled.
+    """
+    servers = payload.topology_graph.nodes.servers
+    n_servers = len(servers)
+    srv_rates_est = _server_entry_rates(payload)
+    users_est = float(payload.rqs_input.avg_active_users.mean)
+    burst_factor = 1.0 + 3.0 / math.sqrt(max(users_est, 1.0))
+    headroom = math.inf
+
+    def cpu_time(server) -> float:
+        return max(
+            (sum(st.quantity for st in ep.steps if st.is_cpu) for ep in server.endpoints),
+            default=0.0,
+        )
+
+    # ready-queue caps: a stable queue's length has a geometric tail, so a
+    # cap with rho_b^(cap-16) < 1e-12 is unreachable and lowers away
+    queue_cap = np.full(n_servers, -1, dtype=np.int32)
+    for s_i, server in enumerate(servers):
+        cap = server.overload.max_ready_queue if server.overload else None
+        if cap is None:
+            continue
+        cpu_dur = cpu_time(server)
+        if cpu_dur <= 0 or srv_rates_est is None:
+            queue_cap[s_i] = cap if cpu_dur > 0 else -1
+            continue
+        cores = server.server_resources.cpu_cores
+        rho_b = srv_rates_est[s_i] * burst_factor * cpu_dur / max(cores, 1)
+        needed = _rho_cap_needed(rho_b)
+        cap = min(cap, 2**31 - 1)
+        if cap >= needed:
+            rho_max = min(0.9, math.exp(math.log(1e-12) / max(cap - 16.0, 1.0)))
+            headroom = min(headroom, rho_max / max(rho_b, 1e-12))
+        else:
+            queue_cap[s_i] = cap
+
+    # connection caps: residents ~ rate x (residence + core-queue waits) by
+    # Little's law; a cap comfortably above the burst-inflated bound lowers
+    # away, and the largest rate scale the proof covers is bisected
+    conn_cap = np.full(n_servers, -1, dtype=np.int32)
+    for s_i, server in enumerate(servers):
+        cap = server.overload.max_connections if server.overload else None
+        if cap is None:
+            continue
+        cap = min(cap, 2**31 - 1)
+        if srv_rates_est is None:
+            conn_cap[s_i] = cap
+            continue
+        endpoints = server.endpoints
+        residence = max(
+            (sum(st.quantity for st in ep.steps if not st.is_ram) for ep in endpoints),
+            default=0.0,
+        )
+        cpu_dur = cpu_time(server)
+        visits = max((sum(1 for st in ep.steps if st.is_cpu) for ep in endpoints), default=0)
+        max_ram = max(
+            (sum(st.quantity for st in ep.steps if st.is_ram) for ep in endpoints),
+            default=0.0,
+        )
+        cores = server.server_resources.cpu_cores
+        capacity_mb = float(server.server_resources.ram_mb)
+        rate_here = srv_rates_est[s_i]
+
+        def conn_proof_holds(scale: float, cap=cap, residence=residence,
+                             cpu_dur=cpu_dur, visits=visits, cores=cores,
+                             max_ram=max_ram, capacity_mb=capacity_mb,
+                             rate_here=rate_here) -> bool:
+            burst = rate_here * burst_factor * scale
+            rho = burst * cpu_dur / max(cores, 1)
+            if rho >= 0.95:
+                return False
+            wait = visits * rho / (1.0 - rho) * cpu_dur / max(cores, 1)
+            # RAM admission waits are outside the residence bound: the
+            # proof holds only while RAM itself cannot bind
+            if max_ram > 0 and capacity_mb / max_ram < 4.0 * burst * (residence + wait) + 4.0:
+                return False
+            m = burst * (residence + wait)
+            return cap >= 4.0 * m + 8.0
+
+        if conn_proof_holds(1.0):
+            lo, hi = 1.0, 1e6
+            for _ in range(48):
+                mid = (lo + hi) / 2.0
+                if conn_proof_holds(mid):
+                    lo = mid
+                else:
+                    hi = mid
+            headroom = min(headroom, lo)
+        else:
+            conn_cap[s_i] = cap
+
+    # token buckets: with burst-inflated demand below the refill rate the
+    # bucket's deficit walk has a geometric tail; rho_rl^(burst-8) < 1e-12
+    # never empties and lowers away
+    rate_limit = np.full(n_servers, -1.0, dtype=np.float32)
+    rate_burst = np.zeros(n_servers, dtype=np.int32)
+    for s_i, server in enumerate(servers):
+        rps = server.overload.rate_limit_rps if server.overload else None
+        if rps is None:
+            continue
+        burst = int(server.overload.effective_burst)
+        if srv_rates_est is None:
+            rate_limit[s_i] = rps
+            rate_burst[s_i] = burst
+            continue
+        rho_rl = srv_rates_est[s_i] * burst_factor / rps
+        if rho_rl < 0.9 and rho_rl ** max(burst - 8.0, 1.0) < 1e-12:
+            rho_max = min(0.9, math.exp(math.log(1e-12) / max(burst - 8.0, 1.0)))
+            headroom = min(headroom, rho_max / max(rho_rl, 1e-12))
+        else:
+            rate_limit[s_i] = rps
+            rate_burst[s_i] = burst
+
+    # dequeue deadlines: a wait of D needs ~D * cores / cpu_dur requests
+    # ahead, so the queue-cap tail bound applies at that length
+    queue_timeout = np.full(n_servers, -1.0, dtype=np.float32)
+    for s_i, server in enumerate(servers):
+        deadline = server.overload.queue_timeout_s if server.overload else None
+        if deadline is None:
+            continue
+        cpu_dur = cpu_time(server)
+        if cpu_dur <= 0:
+            continue  # no core queue: the deadline is inert
+        if srv_rates_est is None:
+            queue_timeout[s_i] = deadline
+            continue
+        cores = server.server_resources.cpu_cores
+        rho_b = srv_rates_est[s_i] * burst_factor * cpu_dur / max(cores, 1)
+        eq_len = deadline * cores / cpu_dur
+        if eq_len >= _rho_cap_needed(rho_b):
+            rho_max = min(0.9, math.exp(math.log(1e-12) / max(eq_len - 16.0, 1.0)))
+            headroom = min(headroom, rho_max / max(rho_b, 1e-12))
+        else:
+            queue_timeout[s_i] = deadline
+
+    return _Controls(queue_cap, conn_cap, rate_limit, rate_burst, queue_timeout, headroom)
+
+
+def _lower_breaker(
+    lb, ctl: _Controls, lb_slots: list[int], lb_target: np.ndarray, edges,
+) -> tuple[int, float, int, bool]:
+    """(threshold, cooldown, probes, lowered) of the LB's circuit breaker.
+
+    Modelled only where a failure channel exists: a modelled control on a
+    covered server, or dropout on an LB out-edge (fault windows, the
+    reference's other channel, are outside the slice).  Otherwise the
+    breaker can never trip and lowers away.
+    """
+    breaker = lb.circuit_breaker if lb is not None else None
+    if breaker is None or not lb_slots:
+        return 0, 0.0, 0, False
+    covered = set(lb_target.tolist())
+    has_channel = any(
+        ctl.queue_cap[s] >= 0
+        or ctl.conn_cap[s] >= 0
+        or ctl.rate_limit[s] >= 0
+        or ctl.queue_timeout[s] >= 0
+        for s in covered
+    ) or any(float(edges[e].dropout_rate) > 0 for e in lb_slots)
+    if not has_channel:
+        return 0, 0.0, 0, True
+    return (
+        int(breaker.failure_threshold),
+        float(breaker.cooldown_s),
+        int(breaker.half_open_probes),
+        False,
+    )
+
+
+def _lower_events(
+    payload: SimulationPayload,
+    edge_index: dict[str, int],
+    server_index: dict[str, int],
+    lb_target: np.ndarray,
+) -> tuple[np.ndarray, ...]:
+    """(spike_times, spike_values, timeline_times, timeline_down,
+    timeline_slot): superposed spikes as a cumulative per-edge table on
+    their breakpoints, and outages as LB-slot removals and re-insertions
+    sorted by time, END before START on ties; a server the LB does not
+    cover gets slot -1."""
+    n_edges = len(edge_index)
+    spikes: list[tuple[float, float, int]] = []  # (time, delta, edge)
+    outages: list[tuple[float, int, int, int]] = []  # (time, start mark, down, slot)
+    lb_slot_of_server = {int(lb_target[slot]): slot for slot in range(len(lb_target))}
+    for event in payload.events or []:
+        if event.start.kind == EventDescription.NETWORK_SPIKE_START:
+            eidx = edge_index[event.target_id]
+            spike = float(event.start.spike_s or 0.0)
+            spikes.append((event.start.t_start, spike, eidx))
+            spikes.append((event.end.t_end, -spike, eidx))
+        else:
+            slot = lb_slot_of_server.get(server_index[event.target_id], -1)
+            outages.append((event.start.t_start, 1, 1, slot))
+            outages.append((event.end.t_end, 0, 0, slot))
+
+    change_times = sorted({0.0} | {t for t, _, _ in spikes})
+    time_pos = {t: i for i, t in enumerate(change_times)}
+    deltas = np.zeros((len(change_times), n_edges), dtype=np.float32)
+    for t, delta, eidx in spikes:
+        deltas[time_pos[t], eidx] += delta
+    outages.sort(key=lambda entry: (entry[0], entry[1]))
+    return (
+        np.array(change_times, dtype=np.float32),
+        np.cumsum(deltas, axis=0).astype(np.float32),
+        np.array([t for t, _, _, _ in outages], dtype=np.float32),
+        np.array([down for _, _, down, _ in outages], dtype=np.int32),
+        np.array([slot for _, _, _, slot in outages], dtype=np.int32),
+    )
+
 
 
 def compile_payload(
@@ -321,6 +688,13 @@ def compile_payload(
         else 0
     )
 
+    # ---- overload controls, breaker, events ----
+    ctl = _lower_overload(payload)
+    breaker = _lower_breaker(lb, ctl, lb_slots, lb_target, edges)
+    spike_times, spike_values, tl_times, tl_down, tl_slot = _lower_events(
+        payload, edge_index, server_index, lb_target,
+    )
+
     # ---- capacities ----
     max_requests, pool_estimate = _estimate_capacity(payload)
     events_per_request = (
@@ -328,7 +702,8 @@ def compile_payload(
         + 3 * (max_segments + 1)  # segment starts / ends + grants
         + 4
     )
-    max_iterations = max_requests * events_per_request + 1024
+    # one iteration per timeline entry
+    max_iterations = max_requests * events_per_request + len(tl_times) + 1024
 
     gen = payload.rqs_input
     users = gen.avg_active_users
@@ -358,6 +733,11 @@ def compile_payload(
         lb_algo=lb_algo,
         lb_edge_index=lb_edge_index,
         lb_target=lb_target,
+        spike_times=spike_times,
+        spike_values=spike_values,
+        timeline_times=tl_times,
+        timeline_down=tl_down,
+        timeline_slot=tl_slot,
         user_mean=float(users.mean),
         user_var=(
             float(users.variance)
@@ -369,6 +749,16 @@ def compile_payload(
         horizon=float(payload.sim_settings.total_simulation_time),
         pool_size=pool_size or pool_estimate,
         max_iterations=max_iterations,
+        server_queue_cap=ctl.queue_cap,
+        server_conn_cap=ctl.conn_cap,
+        server_rate_limit=ctl.rate_limit,
+        server_rate_burst=ctl.rate_burst,
+        server_queue_timeout=ctl.queue_timeout,
+        breaker_threshold=breaker[0],
+        breaker_cooldown=breaker[1],
+        breaker_probes=breaker[2],
+        breaker_lowered=breaker[3],
+        proof_rate_headroom=ctl.proof_rate_headroom,
     )
 
 
@@ -386,13 +776,6 @@ def _any(fields: Mapping, name: str, test) -> bool:
 
 #: (feature name, predicate over a reference plan's fields)
 _FEATURE_TESTS = (
-    ("timeline", lambda f: np.asarray(f.get("timeline_times", ())).size > 0),
-    ("spikes", lambda f: np.asarray(f.get("spike_times", (0.0,))).size > 1),
-    ("queue_cap", lambda f: _any(f, "server_queue_cap", lambda a: a >= 0)),
-    ("conn_cap", lambda f: _any(f, "server_conn_cap", lambda a: a >= 0)),
-    ("rate_limit", lambda f: _any(f, "server_rate_limit", lambda a: a >= 0)),
-    ("queue_timeout", lambda f: _any(f, "server_queue_timeout", lambda a: a >= 0)),
-    ("circuit_breaker", lambda f: int(f.get("breaker_threshold", 0)) > 0),
     ("multi_generator", lambda f: np.asarray(f.get("gen_user_mean", (0.0,))).size > 1),
     (
         "faults",
@@ -429,6 +812,8 @@ def plan_from_arrays(fields: Mapping[str, object]) -> StaticPlan:
             kw[name] = np.array(value, copy=True)
         elif spec.type == "int":
             kw[name] = int(value)
+        elif spec.type == "bool":
+            kw[name] = bool(value)
         else:
             kw[name] = float(value)
     unsupported = [name for name, test in _FEATURE_TESTS if test(fields)]

@@ -72,6 +72,15 @@ class LbAlgorithmsName(StrEnum):
     LEAST_CONNECTIONS = "least_connection"
 
 
+class EventDescription(StrEnum):
+    """Kinds of events that can be injected in a simulation window."""
+
+    SERVER_UP = "server_up"
+    SERVER_DOWN = "server_down"
+    NETWORK_SPIKE_START = "network_spike_start"
+    NETWORK_SPIKE_END = "network_spike_end"
+
+
 class SampledMetricName(StrEnum):
     """Fixed-cadence time-series metrics (accepted, not collected by sweeps)."""
 

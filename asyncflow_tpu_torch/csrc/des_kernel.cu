@@ -4,12 +4,33 @@
 // PallasEngine._kernel (launched by PallasEngine._get_call through
 // pl.pallas_call), cut to this port's slice: one generator; CPU, IO, RAM and
 // END segments; weighted endpoint pick; round-robin and least-connection LB;
-// all five edge distributions with dropout; RAM admission with the
-// strict-FIFO grant cascade; FIFO core handoff; pool overflow; truncation at
+// all five edge distributions with dropout and network spikes (a
+// breakpoint table per edge, looked up at the send time); the outage
+// timeline (_timeline_branch: an LB slot leaves the rotation with
+// _rot_remove and re-enters at its tail with _rot_insert); the per-slot LB
+// circuit breaker (_breaker_report, _breaker_server_report,
+// _lb_pick_breaker); the overload controls (ready-queue shed in _seg_start,
+// token bucket and connection cap in _arrive_srv_branch, dequeue deadline
+// in _cpu_handoff with _abandon_branch); RAM admission with the strict-FIFO
+// grant cascade; FIFO core handoff; pool overflow; truncation at
 // max_iterations.  Its plain twin is engines/torchsim/des_reference.py; the
 // two round alike because both evaluate float32 one operation at a time with
 // the IEEE logf / expf / cosf / sqrtf (build with --fmad=false, without
 // --use_fast_math).
+//
+// The features are compiled in only where the plan has them, as the
+// reference's static _has_* flags do: the kernel is a template on two
+// flags, kEvents (timeline and spikes) and kControls (the overload controls
+// and the breaker), and des_launch picks the instance from the plan's
+// counts.  Inside an instance each feature is still guarded by its own plan
+// flag (a table count, a has_* flag or the breaker threshold), and its
+// tables and scratch are null when the plan does not model it.  A plan
+// with neither group runs the slice-1 code alone: compiled in but never
+// taken, the new branches slowed the headline's kernel on the card, as a
+// latency-bound thread pays for every instruction and register of its
+// loop.  A timeline entry is an iteration of its own: the loop takes it
+// before the pool and the pool before an arrival, and the thread's
+// iteration counter advances on it as on any event.
 //
 // What bounds it on this card: neither bytes nor operations.  A scenario is a
 // sequential chain of ~400k events, each depending on the last, and the sweep
@@ -29,8 +50,9 @@
 // 128-byte line per slot.  Histogram and throughput rows are written
 // straight to the outputs.  The per-server wait counters let the core
 // handoff and the RAM cascade skip their pool scans when nobody waits;
-// nothing else is specialised.  Speed is later work: a warp per scenario
-// with the pool across lanes is the obvious next design.
+// beyond that and the two feature groups, nothing is specialised.  Speed is
+// later work: a warp per scenario with the pool across lanes is the obvious
+// next design.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +72,17 @@ constexpr int EV_SEG_END = 3;
 constexpr int EV_RESUME = 4;
 constexpr int EV_WAIT_CPU = 5;
 constexpr int EV_WAIT_RAM = 6;
+constexpr int EV_ABANDON = 8;
+
+// columns of the work output (engines/torchsim/des_reference.py:WORK_KINDS):
+// the slice-2 work, counted only in the instances that compile it in (a
+// counter on every event slowed the headline's kernel)
+enum Work { W_TIMELINE, W_REFILL, W_BREAKER, W_ABANDON, N_WORK };
+
+// circuit-breaker states
+constexpr int CB_CLOSED = 0;
+constexpr int CB_OPEN = 1;
+constexpr int CB_HALF_OPEN = 2;
 
 // segment kinds and hop targets (compiler/plan.py)
 constexpr int SEG_END = 0;
@@ -93,6 +126,17 @@ struct DesArgs {
   const int32_t* lb_edge_index;  // (max(EL,1),)
   const int32_t* lb_target;      // (max(EL,1),)
   const int32_t* entry_edges;    // (K,)
+  // optional plan tables, null when the feature is not modelled
+  const float* spike_times;      // (NB,)
+  const float* spike_vals;       // (NB*NE,)
+  const float* tl_times;         // (NTL,)
+  const int32_t* tl_down;        // (NTL,)
+  const int32_t* tl_slot;        // (NTL,)
+  const int32_t* queue_cap;      // (NS,)
+  const int32_t* conn_cap;       // (NS,)
+  const float* rate_limit;       // (NS,)
+  const float* rate_burst;       // (NS,)
+  const float* queue_timeout;    // (NS,)
   // outputs
   int32_t* hist;   // (S, B)
   int32_t* thr;    // (S, TH)
@@ -100,6 +144,7 @@ struct DesArgs {
   int32_t* momi;   // (S, 5)
   int32_t* trunc;  // (S,)
   int32_t* n_events;  // (S,)
+  int32_t* work;      // (S, N_WORK)
   // scratch, [field][slot][scenario] and [field][server][scenario]
   float* req_t;
   int32_t* req_ev;
@@ -118,11 +163,27 @@ struct DesArgs {
   int32_t* ram_wait_n;
   int32_t* lb_order;
   int32_t* lb_conn;
+  // optional scratch, null when the feature is not modelled
+  float* req_wait_t;      // [slot], deadline
+  int32_t* req_cbslot;    // [slot], breaker
+  int32_t* req_probe;     // [slot], breaker
+  int32_t* srv_conn;      // [server], connection cap
+  float* rl_tokens;       // [server], rate limit
+  float* rl_last;         // [server], rate limit
+  int32_t* cb_state;      // [lb slot], breaker
+  float* cb_open_until;   // [lb slot]
+  int32_t* cb_consec;     // [lb slot]
+  int32_t* cb_probes_out; // [lb slot]
+  int32_t* cb_probe_ok;   // [lb slot]
   // geometry
   int32_t S, P, NS, NE, NEP, NSEGP, EL, NW, B, TH, K;
   int32_t max_iterations;
   int32_t entry_ev, entry_target, lb_algo, has_ram;
+  int32_t NB, NTL;  // spike breakpoints, timeline entries (0 = none)
+  int32_t has_shed, has_conn, has_rl, has_timeout;
+  int32_t cb_threshold, cb_probes;  // cb_threshold 0 = no breaker
   float horizon, window, hist_lo, hist_scale;
+  float cb_cooldown;
 };
 
 namespace {
@@ -155,6 +216,7 @@ __device__ __forceinline__ float u24(uint32_t bits) {
   return (float)(int32_t)(bits >> 8) * 5.9604644775390625e-08f;
 }
 
+template <bool kEvents, bool kControls>
 struct Sim {
   const DesArgs& a;
   int sid;
@@ -162,8 +224,9 @@ struct Sim {
   // per-scenario scalars (registers)
   float smp_now, smp_window_end, next_arrival;
   int widx;
-  int lat_count, n_generated, n_dropped, n_overflow, lb_len;
+  int lat_count, n_generated, n_dropped, n_overflow, n_rejected, lb_len, tl_ptr;
   float lat_sum, lat_sumsq, lat_min, lat_max;
+  int work[N_WORK];  // indexed by constants only, so it stays in registers
 
   __device__ Sim(const DesArgs& args, int s) : a(args), sid(s) {}
 
@@ -198,8 +261,8 @@ struct Sim {
     return u0;
   }
 
-  // ---- _edge_draw (no spikes) ----
-  __device__ void edge_draw(uint32_t it, uint32_t site, int e, bool& dropped,
+  // ---- _edge_draw: the delay gains the spike in force at t_send ----
+  __device__ void edge_draw(uint32_t it, uint32_t site, int e, float t_send, bool& dropped,
                             float& delay) const {
     const bool ok = e >= 0 && e < a.NE;
     const size_t row = (size_t)sid * a.NE + e;
@@ -232,6 +295,12 @@ struct Sim {
         ++k;
       }
       delay = (float)k;
+    }
+    if (kEvents && a.NB > 0) {
+      // breakpoint: the last spike time at or before t_send (the first is 0)
+      int bp = -1;
+      for (int k = 0; k < a.NB; ++k) bp += a.spike_times[k] <= t_send ? 1 : 0;
+      delay = delay + ftab(a.spike_vals, a.NB * a.NE, bp * a.NE + e);
     }
     dropped = u_drop < drop_p;
   }
@@ -327,15 +396,121 @@ struct Sim {
     }
   }
 
+  // ---- LB rotation: remove a slot, or re-insert it at the tail ----
+  __device__ __forceinline__ int lb_width() const { return a.EL > 0 ? a.EL : 1; }
+
+  // _rot_remove: lanes at and past the slot shift left (those past lb_len
+  // too; the last lane keeps its value)
+  __device__ void rot_remove(int slot) {
+    const int el = lb_width();
+    int at = el;
+    for (int j = 0; j < el && j < lb_len; ++j) {
+      if (a.lb_order[lx(j)] == slot) {
+        at = j;
+        break;
+      }
+    }
+    if (at >= el) return;
+    for (int j = at; j < el - 1; ++j) a.lb_order[lx(j)] = a.lb_order[lx(j + 1)];
+    lb_len -= 1;
+  }
+
+  // _rot_insert: append at lb_len unless the slot is in the prefix already
+  __device__ void rot_insert(int slot) {
+    const int el = lb_width();
+    for (int j = 0; j < el && j < lb_len; ++j) {
+      if (a.lb_order[lx(j)] == slot) return;
+    }
+    a.lb_order[lx(min(max(lb_len, 0), el - 1))] = slot;
+    lb_len = min(lb_len + 1, el);
+  }
+
+  // ---- _timeline_branch ----
+  __device__ __forceinline__ float timeline_time() const {
+    return kEvents && tl_ptr < a.NTL ? a.tl_times[tl_ptr] : kInf;
+  }
+  __device__ void timeline_pop() {
+    work[W_TIMELINE] += 1;
+    const int ptr = min(max(tl_ptr, 0), a.NTL - 1);
+    const int slot = a.tl_slot[ptr];
+    if (slot >= 0) {
+      if (a.tl_down[ptr] == 1) {
+        rot_remove(slot);
+      } else {
+        rot_insert(slot);
+      }
+    }
+    tl_ptr += 1;
+  }
+
+  // ---- _breaker_report: one success or failure report to LB slot `slot` ----
+  __device__ void breaker_report(int slot, bool is_probe, bool failed, float now) {
+    work[W_BREAKER] += 1;
+    const size_t x = lx(slot);
+    const int stt = a.cb_state[x];
+    if (is_probe) a.cb_probes_out[x] = max(a.cb_probes_out[x] - 1, 0);
+    if (failed) {
+      bool opens = is_probe;
+      if (!is_probe && stt == CB_CLOSED) {
+        const int consec = a.cb_consec[x] + 1;
+        opens = consec >= a.cb_threshold;
+        a.cb_consec[x] = opens ? 0 : consec;
+      }
+      if (opens) {
+        a.cb_state[x] = CB_OPEN;
+        a.cb_open_until[x] = now + a.cb_cooldown;
+      }
+      return;
+    }
+    if (!is_probe) {
+      if (stt == CB_CLOSED) a.cb_consec[x] = 0;
+      return;
+    }
+    const int ok = a.cb_probe_ok[x] + 1;
+    a.cb_probe_ok[x] = ok;
+    if (stt == CB_HALF_OPEN && ok >= a.cb_probes) {
+      a.cb_state[x] = CB_CLOSED;
+      a.cb_consec[x] = 0;
+    }
+  }
+
+  // ---- _breaker_server_report: once per routed request ----
+  __device__ void breaker_server_report(int i, bool failed, float now) {
+    if (!kControls || a.cb_threshold <= 0) return;
+    const size_t xi = px(i);
+    const int slot = a.req_cbslot[xi];
+    if (slot < 0) return;
+    breaker_report(slot, a.req_probe[xi] > 0, failed, now);
+    a.req_cbslot[xi] = -1;
+    a.req_probe[xi] = 0;
+  }
+
+  // a refusal, shed or abandon: the slot frees, the request counts as
+  // rejected and reports a failure; `release` also returns RAM and socket
+  __device__ void reject(int i, int s, float now, bool release) {
+    if (release) {
+      release_ram(i, s, now);
+      if (a.has_conn) a.srv_conn[sx(s)] -= 1;
+    }
+    const size_t xi = px(i);
+    a.req_ev[xi] = EV_IDLE;
+    a.req_t[xi] = kInf;
+    n_rejected += 1;
+    breaker_server_report(i, true, now);
+  }
+
   // ---- _exit_flow ----
   __device__ void exit_flow(uint32_t it, int i, int s, float now) {
     release_ram(i, s, now);
+    if (kControls && a.has_conn) a.srv_conn[sx(s)] -= 1;
+    // departing the routed target is the breaker's success signal
+    breaker_server_report(i, false, now);
     const int e = itab(a.exit_edge, a.NS, s);
     const int kind = itab(a.exit_kind, a.NS, s);
     const int target = itab(a.exit_target, a.NS, s);
     bool dropped;
     float delay;
-    edge_draw(it, 48, e, dropped, delay);
+    edge_draw(it, 48, e, now, dropped, delay);
     const float arrive = now + delay;
     const size_t xi = px(i);
     if (dropped) {
@@ -357,7 +532,7 @@ struct Sim {
     a.req_lbslot[xi] = -1;
   }
 
-  // ---- _seg_start for CPU, IO and END ----
+  // ---- _seg_start for CPU, IO and END, with the ready-queue shed ----
   __device__ void seg_start(uint32_t it, int i, int s, int ep, int seg, float now) {
     const int sidx = seg_idx(s, ep, seg);
     const int kind = itab(a.seg_kind, n_seg_tab(), sidx);
@@ -370,11 +545,20 @@ struct Sim {
         a.req_ev[xi] = EV_SEG_END;
         a.req_t[xi] = now + dur;
       } else {
+        if (kControls && a.has_shed) {
+          const int cap = itab(a.queue_cap, a.NS, s);
+          if (cap >= 0 && a.cpu_wait_n[sx(s)] >= cap) {
+            a.req_seg[xi] = seg;
+            reject(i, s, now, true);  // joining a full ready queue: shed
+            return;
+          }
+        }
         a.cpu_ticket[sx(s)] += 1;
         a.cpu_wait_n[sx(s)] += 1;
         a.req_ev[xi] = EV_WAIT_CPU;
         a.req_t[xi] = kInf;
         a.req_ticket[xi] = a.cpu_ticket[sx(s)];
+        if (kControls && a.has_timeout) a.req_wait_t[xi] = now;
       }
     } else if (kind == SEG_IO) {
       a.req_ev[xi] = EV_SEG_END;
@@ -392,7 +576,8 @@ struct Sim {
     for (int j = 0; j < a.K; ++j) {
       bool dropped;
       float delay;
-      edge_draw(it, 64 + 4 * j, a.entry_edges[j], dropped, delay);
+      // a spike applies at the time the request reaches this edge
+      edge_draw(it, 64 + 4 * j, a.entry_edges[j], t_cur, dropped, delay);
       if (dropped) {
         n_dropped += 1;
         alive = false;
@@ -424,7 +609,33 @@ struct Sim {
     advance_arrival(it);
   }
 
-  // ---- _arrive_lb_branch with _lb_pick ----
+  // does LB slot o admit a request (closed, or half-open with a probe free)?
+  __device__ __forceinline__ bool cb_admits(int o) const {
+    if (o < 0 || o >= a.EL) return false;
+    const int st = a.cb_state[lx(o)];
+    return st == CB_CLOSED || (st == CB_HALF_OPEN && a.cb_probes_out[lx(o)] < a.cb_probes);
+  }
+
+  // least connections among positions j < lb_len that pass `admit` (every
+  // position when admit is false): first minimum of conn * EL + position;
+  // returns -1 when no position qualifies
+  __device__ int lc_pick(bool breaker) const {
+    long long best_key = 1LL << 30;
+    int best = -1;
+    for (int j = 0; j < a.EL && j < lb_len; ++j) {
+      const int o = a.lb_order[lx(j)];
+      if (breaker && !cb_admits(o)) continue;
+      const int conn = (o >= 0 && o < a.EL) ? a.lb_conn[lx(o)] : 0;
+      const long long key = (long long)conn * a.EL + j;
+      if (key < best_key) {
+        best_key = key;
+        best = j;
+      }
+    }
+    return best;
+  }
+
+  // ---- _arrive_lb_branch with _lb_pick / _lb_pick_breaker ----
   __device__ void arrive_lb(uint32_t it, int i, float now) {
     if (a.EL == 0) return;
     const size_t xi = px(i);
@@ -435,34 +646,60 @@ struct Sim {
       return;
     }
     int slot;
-    if (a.lb_algo == 0) {
+    if (kControls && a.cb_threshold > 0) {
+      // lazy cooldown expiry over every slot: open slots whose cooldown
+      // elapsed turn half-open with fresh probe counts
+      for (int j = 0; j < a.EL; ++j) {
+        const size_t x = lx(j);
+        if (a.cb_state[x] == CB_OPEN && now >= a.cb_open_until[x]) {
+          a.cb_state[x] = CB_HALF_OPEN;
+          a.cb_probes_out[x] = 0;
+          a.cb_probe_ok[x] = 0;
+        }
+      }
+      slot = -1;
+      if (a.lb_algo == 0) {
+        // round robin: the first admitting member moves to the tail
+        for (int j = 0; j < a.EL && j < lb_len; ++j) {
+          if (cb_admits(a.lb_order[lx(j)])) {
+            slot = a.lb_order[lx(j)];
+            break;
+          }
+        }
+        if (slot >= 0) {
+          rot_remove(slot);
+          rot_insert(slot);
+        }
+      } else {
+        const int best = lc_pick(true);
+        if (best >= 0) slot = a.lb_order[lx(best)];
+      }
+      if (slot < 0) {
+        // no member admits: the LB refuses the request
+        n_rejected += 1;
+        a.req_ev[xi] = EV_IDLE;
+        a.req_t[xi] = kInf;
+        return;
+      }
+      const bool probe = a.cb_state[lx(slot)] == CB_HALF_OPEN;
+      if (probe) a.cb_probes_out[lx(slot)] += 1;
+      a.req_cbslot[xi] = slot;
+      a.req_probe[xi] = probe ? 1 : 0;
+    } else if (a.lb_algo == 0) {
       // round robin: take the head, rotate it to the tail of the length-prefix
       slot = a.lb_order[lx(0)];
       for (int j = 0; j < lb_len - 1; ++j) a.lb_order[lx(j)] = a.lb_order[lx(j + 1)];
       a.lb_order[lx(lb_len - 1)] = slot;
     } else {
-      // least connections: first minimum of conn * EL + position
-      long long best_key = 1LL << 30;
-      int best = 0;
-      for (int j = 0; j < a.EL; ++j) {
-        long long key = 1LL << 30;
-        if (j < lb_len) {
-          const int o = a.lb_order[lx(j)];
-          const int conn = (o >= 0 && o < a.EL) ? a.lb_conn[lx(o)] : 0;
-          key = (long long)conn * a.EL + j;
-        }
-        if (key < best_key) {
-          best_key = key;
-          best = j;
-        }
-      }
-      slot = a.lb_order[lx(best)];
+      slot = a.lb_order[lx(max(lc_pick(false), 0))];
     }
     const int e = itab(a.lb_edge_index, a.EL, slot);
     bool dropped;
     float delay;
-    edge_draw(it, 32, e, dropped, delay);
+    edge_draw(it, 32, e, now, dropped, delay);
     if (dropped) {
+      // a dropped send on the routing edge is a connection failure
+      breaker_server_report(i, true, now);
       a.req_ev[xi] = EV_IDLE;
       a.req_t[xi] = kInf;
       n_dropped += 1;
@@ -475,7 +712,8 @@ struct Sim {
     a.req_lbslot[xi] = slot;
   }
 
-  // ---- _arrive_srv_branch: endpoint pick, RAM-first admission ----
+  // ---- _arrive_srv_branch: rate limit, connection cap, endpoint pick,
+  // RAM-first admission ----
   __device__ void arrive_srv(uint32_t it, int i, float now) {
     const size_t xi = px(i);
     const int s = a.req_srv[xi];
@@ -483,6 +721,31 @@ struct Sim {
       const int lbslot = a.req_lbslot[xi];
       if (lbslot >= 0 && lbslot < a.EL) a.lb_conn[lx(lbslot)] -= 1;
       a.req_lbslot[xi] = -1;
+    }
+    if (kControls && a.has_rl) {
+      // token bucket: lazy refill at arrival, refuse without a whole token
+      const float rps = ftab(a.rate_limit, a.NS, s);
+      if (rps >= 0.0f) {
+        work[W_REFILL] += 1;
+        const float refill = (now - a.rl_last[sx(s)]) * fmaxf(rps, 0.0f);
+        const float tokens = fminf(ftab(a.rate_burst, a.NS, s), a.rl_tokens[sx(s)] + refill);
+        const bool limited = tokens < 1.0f;
+        a.rl_tokens[sx(s)] = tokens - (limited ? 0.0f : 1.0f);
+        a.rl_last[sx(s)] = now;
+        if (limited) {
+          reject(i, s, now, false);
+          return;
+        }
+      }
+    }
+    if (kControls && a.has_conn) {
+      // the server refuses an arrival when it holds its cap of residents
+      const int cap = itab(a.conn_cap, a.NS, s);
+      if (cap >= 0 && a.srv_conn[sx(s)] >= cap) {
+        reject(i, s, now, false);
+        return;
+      }
+      a.srv_conn[sx(s)] += 1;
     }
     const float u = one(it, 4, 0);
     const int nep = itab(a.n_endpoints, a.NS, s);
@@ -512,7 +775,9 @@ struct Sim {
     }
   }
 
-  // ---- _cpu_handoff (no deadlines) ----
+  // ---- _cpu_handoff: release a core of s or grant it to the head FIFO
+  // waiter; a grantee past its dequeue deadline takes it for zero service
+  // as an abandon event at `now` ----
   __device__ void cpu_handoff(int s, float now) {
     if (a.cpu_wait_n[sx(s)] > 0) {
       int j;
@@ -520,14 +785,30 @@ struct Sim {
         const size_t xj = px(j);
         const float jdur = ftab(a.seg_dur, n_seg_tab(),
                                 seg_idx(a.req_srv[xj], a.req_ep[xj], a.req_seg[xj]));
+        int ev_next = EV_SEG_END;
+        float t_next = now + jdur;
+        if (kControls && a.has_timeout) {
+          const float deadline = ftab(a.queue_timeout, a.NS, s);
+          if (deadline >= 0.0f && now - a.req_wait_t[xj] > deadline) {
+            ev_next = EV_ABANDON;
+            t_next = now;
+          }
+        }
         a.cpu_wait_n[sx(s)] -= 1;
-        a.req_ev[xj] = EV_SEG_END;
-        a.req_t[xj] = now + jdur;
+        a.req_ev[xj] = ev_next;
+        a.req_t[xj] = t_next;
         a.req_ticket[xj] = kNoTicket;
         return;
       }
     }
     a.cores_free[sx(s)] += 1;
+  }
+
+  // ---- _abandon_branch ----
+  __device__ void abandon(int i, float now) {
+    const int s = a.req_srv[px(i)];
+    cpu_handoff(s, now);
+    reject(i, s, now, true);
   }
 
   // ---- _seg_end_branch ----
@@ -565,6 +846,11 @@ struct Sim {
       a.req_ticket[x] = kNoTicket;
       a.req_start[x] = 0.0f;
       a.req_lbslot[x] = -1;
+      if (kControls && a.has_timeout) a.req_wait_t[x] = 0.0f;
+      if (kControls && a.cb_threshold > 0) {
+        a.req_cbslot[x] = -1;
+        a.req_probe[x] = 0;
+      }
     }
     for (int s = 0; s < a.NS; ++s) {
       a.cores_free[sx(s)] = a.server_cores[s];
@@ -573,22 +859,37 @@ struct Sim {
       a.ram_ticket[sx(s)] = 0;
       a.cpu_wait_n[sx(s)] = 0;
       a.ram_wait_n[sx(s)] = 0;
+      if (kControls && a.has_conn) a.srv_conn[sx(s)] = 0;
+      if (kControls && a.has_rl) {
+        a.rl_tokens[sx(s)] = a.rate_burst[s];
+        a.rl_last[sx(s)] = 0.0f;
+      }
     }
-    const int el = a.EL > 0 ? a.EL : 1;
+    const int el = lb_width();
     for (int j = 0; j < el; ++j) {
       a.lb_order[lx(j)] = j;
       a.lb_conn[lx(j)] = 0;
+      if (kControls && a.cb_threshold > 0) {
+        a.cb_state[lx(j)] = CB_CLOSED;
+        a.cb_open_until[lx(j)] = 0.0f;
+        a.cb_consec[lx(j)] = 0;
+        a.cb_probes_out[lx(j)] = 0;
+        a.cb_probe_ok[lx(j)] = 0;
+      }
     }
     for (int b = 0; b < a.B; ++b) a.hist[(size_t)sid * a.B + b] = 0;
     for (int b = 0; b < a.TH; ++b) a.thr[(size_t)sid * a.TH + b] = 0;
     lb_len = a.EL;
+    tl_ptr = 0;
     smp_now = 0.0f;
     smp_window_end = 0.0f;
     widx = -1;
     next_arrival = 0.0f;
-    lat_count = n_generated = n_dropped = n_overflow = 0;
+    lat_count = n_generated = n_dropped = n_overflow = n_rejected = 0;
     lat_sum = lat_sumsq = lat_max = 0.0f;
     lat_min = kInf;
+#pragma unroll
+    for (int k = 0; k < N_WORK; ++k) work[k] = 0;
 
     advance_arrival(0);
     int nxt_i;
@@ -597,10 +898,15 @@ struct Sim {
     int it = 1;
     int events = 0;
     while (it < a.max_iterations) {
-      const float now = fminf(nxt_t, next_arrival);
+      const float t_tl = timeline_time();
+      const float now = kEvents ? fminf(fminf(nxt_t, next_arrival), t_tl)
+                                : fminf(nxt_t, next_arrival);
       if (!(now < a.horizon)) break;
       ++events;
-      if (nxt_t <= now) {
+      if (kEvents && t_tl <= now) {
+        // a timeline entry beats the pool and an arrival at the same time
+        timeline_pop();
+      } else if (nxt_t <= now) {
         // the pool beats an arrival at the same time
         switch (a.req_ev[px(nxt_i)]) {
           case EV_ARRIVE_LB:
@@ -618,6 +924,12 @@ struct Sim {
           case EV_SEG_END:
             seg_end(it, nxt_i, now);
             break;
+          case EV_ABANDON:
+            if (kControls && a.has_timeout) {
+              work[W_ABANDON] += 1;
+              abandon(nxt_i, now);
+            }
+            break;
           default:
             break;
         }
@@ -627,7 +939,8 @@ struct Sim {
       pool_min(nxt_i, nxt_t);
       ++it;
     }
-    const float t_min = fminf(nxt_t, next_arrival);
+    const float t_min = kEvents ? fminf(fminf(nxt_t, next_arrival), timeline_time())
+                                : fminf(nxt_t, next_arrival);
     a.trunc[sid] = (it >= a.max_iterations && t_min < a.horizon) ? 1 : 0;
     a.n_events[sid] = events;
     float* mf = a.momf + (size_t)sid * 6;
@@ -642,25 +955,41 @@ struct Sim {
     mi[1] = n_generated;
     mi[2] = n_dropped;
     mi[3] = n_overflow;
-    mi[4] = 0;
+    mi[4] = n_rejected;
+    int32_t* w = a.work + (size_t)sid * N_WORK;
+#pragma unroll
+    for (int k = 0; k < N_WORK; ++k) w[k] = work[k];
   }
 };
 
-__global__ void __launch_bounds__(32) des_kernel(const DesArgs args) {
+constexpr int kThreads = 32;
+
+template <bool kEvents, bool kControls>
+__global__ void __launch_bounds__(kThreads) des_kernel(const DesArgs args) {
   const int sid = blockIdx.x * blockDim.x + threadIdx.x;
   if (sid >= args.S) return;
-  Sim sim(args, sid);
+  Sim<kEvents, kControls> sim(args, sid);
   sim.run();
+}
+
+template <bool kEvents, bool kControls>
+int launch(const DesArgs& args, cudaStream_t stream) {
+  const int blocks = (args.S + kThreads - 1) / kThreads;
+  des_kernel<kEvents, kControls><<<blocks, kThreads, 0, stream>>>(args);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int des_args_size() { return (int)sizeof(DesArgs); }
 
-// Launch on `stream` (a cudaStream_t as a pointer); returns cudaGetLastError().
+// Launch on `stream` (a cudaStream_t as a pointer), on the instance that
+// compiles in the plan's features; returns cudaGetLastError().
 extern "C" int des_launch(const DesArgs* args, void* stream) {
-  const int threads = 32;
-  const int blocks = (args->S + threads - 1) / threads;
-  des_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
-  return (int)cudaGetLastError();
+  const bool events = args->NB > 0 || args->NTL > 0;
+  const bool controls = args->has_shed || args->has_conn || args->has_rl || args->has_timeout ||
+                        args->cb_threshold > 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (events) return controls ? launch<true, true>(*args, st) : launch<true, false>(*args, st);
+  return controls ? launch<false, true>(*args, st) : launch<false, false>(*args, st);
 }

@@ -38,7 +38,9 @@ class SweepResults:
     overflow_dropped: np.ndarray
     #: (S,) bool: the iteration cap fired with work pending
     truncated: np.ndarray
-    #: (S,) requests shed by overload policies (always 0 in this slice)
+    #: (S,) requests rejected: refused by a rate limit or connection cap, shed
+    #: from a full ready queue, abandoned past a dequeue deadline, or refused
+    #: by an LB whose breakers all stay open
     total_rejected: np.ndarray
     #: (S,) events each scenario simulated
     events: np.ndarray

@@ -13,6 +13,7 @@ import torch
 
 from asyncflow_tpu_torch.engines.torchsim import _build
 from asyncflow_tpu_torch.engines.torchsim.des_reference import (
+    WORK_KINDS,
     DesOutputs,
     DesTables,
     des_reference,
@@ -24,41 +25,63 @@ _PTR_FIELDS = (
     "seg_kind", "seg_dur", "ep_ram", "ep_cum", "edge_dist", "exit_edge",
     "exit_kind", "exit_target", "n_endpoints", "server_cores", "server_ram",
     "lb_edge_index", "lb_target", "entry_edges",
-    "hist", "thr", "momf", "momi", "trunc", "n_events",
+    "spike_times", "spike_vals", "tl_times", "tl_down", "tl_slot",
+    "queue_cap", "conn_cap", "rate_limit", "rate_burst", "queue_timeout",
+    "hist", "thr", "momf", "momi", "trunc", "n_events", "work",
     "req_t", "req_ev", "req_srv", "req_ep", "req_seg", "req_ram", "req_ticket",
     "req_start", "req_lbslot",
     "cores_free", "ram_free", "cpu_ticket", "ram_ticket", "cpu_wait_n", "ram_wait_n",
     "lb_order", "lb_conn",
+    "req_wait_t", "req_cbslot", "req_probe", "srv_conn", "rl_tokens", "rl_last",
+    "cb_state", "cb_open_until", "cb_consec", "cb_probes_out", "cb_probe_ok",
 )
 _INT_FIELDS = (
     "S", "P", "NS", "NE", "NEP", "NSEGP", "EL", "NW", "B", "TH", "K",
     "max_iterations", "entry_ev", "entry_target", "lb_algo", "has_ram",
+    "NB", "NTL", "has_shed", "has_conn", "has_rl", "has_timeout",
+    "cb_threshold", "cb_probes",
 )
-_FLOAT_FIELDS = ("horizon", "window", "hist_lo", "hist_scale")
+_FLOAT_FIELDS = ("horizon", "window", "hist_lo", "hist_scale", "cb_cooldown")
 _TABLE_FIELDS = (
     "seg_kind", "seg_dur", "ep_ram", "ep_cum", "edge_dist", "exit_edge", "exit_kind",
     "exit_target", "n_endpoints", "server_cores", "server_ram", "lb_edge_index",
     "lb_target", "entry_edges",
+    # optional: None when the plan does not model the feature
+    "spike_times", "spike_vals", "tl_times", "tl_down", "tl_slot",
+    "queue_cap", "conn_cap", "rate_limit", "rate_burst", "queue_timeout",
 )
-# scratch fields: (name, dtype, per-scenario rows: "pool" | "servers" | "lb")
+# scratch fields: (name, dtype, per-scenario rows: "pool" | "servers" | "lb",
+# the feature that needs it: None for always, "breaker", or the DesTables
+# table that is None when the plan does not model the feature)
 _SCRATCH = (
-    ("req_t", torch.float32, "pool"),
-    ("req_ev", torch.int32, "pool"),
-    ("req_srv", torch.int32, "pool"),
-    ("req_ep", torch.int32, "pool"),
-    ("req_seg", torch.int32, "pool"),
-    ("req_ram", torch.float32, "pool"),
-    ("req_ticket", torch.int32, "pool"),
-    ("req_start", torch.float32, "pool"),
-    ("req_lbslot", torch.int32, "pool"),
-    ("cores_free", torch.int32, "servers"),
-    ("ram_free", torch.float32, "servers"),
-    ("cpu_ticket", torch.int32, "servers"),
-    ("ram_ticket", torch.int32, "servers"),
-    ("cpu_wait_n", torch.int32, "servers"),
-    ("ram_wait_n", torch.int32, "servers"),
-    ("lb_order", torch.int32, "lb"),
-    ("lb_conn", torch.int32, "lb"),
+    ("req_t", torch.float32, "pool", None),
+    ("req_ev", torch.int32, "pool", None),
+    ("req_srv", torch.int32, "pool", None),
+    ("req_ep", torch.int32, "pool", None),
+    ("req_seg", torch.int32, "pool", None),
+    ("req_ram", torch.float32, "pool", None),
+    ("req_ticket", torch.int32, "pool", None),
+    ("req_start", torch.float32, "pool", None),
+    ("req_lbslot", torch.int32, "pool", None),
+    ("cores_free", torch.int32, "servers", None),
+    ("ram_free", torch.float32, "servers", None),
+    ("cpu_ticket", torch.int32, "servers", None),
+    ("ram_ticket", torch.int32, "servers", None),
+    ("cpu_wait_n", torch.int32, "servers", None),
+    ("ram_wait_n", torch.int32, "servers", None),
+    ("lb_order", torch.int32, "lb", None),
+    ("lb_conn", torch.int32, "lb", None),
+    ("req_wait_t", torch.float32, "pool", "queue_timeout"),
+    ("req_cbslot", torch.int32, "pool", "breaker"),
+    ("req_probe", torch.int32, "pool", "breaker"),
+    ("srv_conn", torch.int32, "servers", "conn_cap"),
+    ("rl_tokens", torch.float32, "servers", "rate_limit"),
+    ("rl_last", torch.float32, "servers", "rate_limit"),
+    ("cb_state", torch.int32, "lb", "breaker"),
+    ("cb_open_until", torch.float32, "lb", "breaker"),
+    ("cb_consec", torch.int32, "lb", "breaker"),
+    ("cb_probes_out", torch.int32, "lb", "breaker"),
+    ("cb_probe_ok", torch.int32, "lb", "breaker"),
 )
 
 
@@ -129,69 +152,100 @@ class DesKernel:
         return self._launch(tables, k0, k1, lam, em, ev, ed)
 
     def _launch(self, t: DesTables, k0, k1, lam, em, ev, ed) -> DesOutputs:
-        dev = k0.device
-        s = k0.shape[0]
-        _check("k0", k0, torch.int32, (s,), dev)
-        _check("k1", k1, torch.int32, (s,), dev)
-        _check("lam", lam, torch.float32, (s, t.n_windows), dev)
-        for name, x in (("em", em), ("ev", ev), ("ed", ed)):
-            _check(name, x, torch.float32, (s, t.n_edges), dev)
-        for name in _TABLE_FIELDS:
-            tab = getattr(t, name)
-            if tab.device != dev or not tab.is_contiguous():
-                msg = f"des_kernel: table {name} must be contiguous on {dev}"
-                raise ValueError(msg)
-        if s == 0 or s >= 2**31 // max(t.pool, 1):
-            msg = f"des_kernel: batch of {s} scenarios is out of range"
-            raise ValueError(msg)
-
-        out = DesOutputs(
-            hist=torch.empty((s, t.n_hist_bins), dtype=torch.int32, device=dev),
-            thr=torch.empty((s, t.n_thr), dtype=torch.int32, device=dev),
-            momf=torch.empty((s, 6), dtype=torch.float32, device=dev),
-            momi=torch.empty((s, 5), dtype=torch.int32, device=dev),
-            trunc=torch.empty((s,), dtype=torch.int32, device=dev),
-            n_events=torch.empty((s,), dtype=torch.int32, device=dev),
-        )
-        rows = {"pool": t.pool, "servers": t.n_servers, "lb": max(t.n_lb, 1)}
-        scratch = {
-            name: torch.empty((rows[kind], s), dtype=dtype, device=dev)
-            for name, dtype, kind in _SCRATCH
-        }
-        tensors = {
-            "k0": k0, "k1": k1, "lam": lam, "em": em, "ev": ev, "ed": ed,
-            **{name: getattr(t, name) for name in _TABLE_FIELDS},
-            **out._asdict(),
-            **scratch,
-        }
-        args = _DesArgs(
-            **{name: tensors[name].data_ptr() for name in _PTR_FIELDS},
-            S=s,
-            P=t.pool,
-            NS=t.n_servers,
-            NE=t.n_edges,
-            NEP=t.n_ep,
-            NSEGP=t.n_segp,
-            EL=t.n_lb,
-            NW=t.n_windows,
-            B=t.n_hist_bins,
-            TH=t.n_thr,
-            K=int(t.entry_edges.numel()),
-            max_iterations=t.max_iterations,
-            entry_ev=t.entry_ev,
-            entry_target=t.entry_target,
-            lb_algo=t.lb_algo,
-            has_ram=t.has_ram,
-            horizon=t.horizon,
-            window=t.window,
-            hist_lo=t.hist_lo,
-            hist_scale=t.hist_scale,
-        )
+        args, out, _keep = pack_args(t, k0, k1, lam, em, ev, ed)
         lib = _library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(k0.device).cuda_stream
         rc = lib.des_launch(ctypes.byref(args), ctypes.c_void_p(stream))
         if rc != 0:
             msg = f"des_kernel launch failed: cudaGetLastError() = {rc}"
             raise KernelLaunchError(msg)
         self.launches += 1
         return out
+
+
+def _feature_on(t: DesTables, feature: str | None) -> bool:
+    if feature is None:
+        return True
+    if feature == "breaker":
+        return t.breaker_threshold > 0
+    return getattr(t, feature) is not None
+
+
+def pack_args(t: DesTables, k0, k1, lam, em, ev, ed) -> tuple[_DesArgs, DesOutputs, dict]:
+    """Check the inputs and allocate the outputs and scratch of one launch:
+    ``(args, outputs, tensors)``, where ``args`` points into ``tensors``,
+    which must stay alive until the kernel has run."""
+    dev = k0.device
+    s = k0.shape[0]
+    _check("k0", k0, torch.int32, (s,), dev)
+    _check("k1", k1, torch.int32, (s,), dev)
+    _check("lam", lam, torch.float32, (s, t.n_windows), dev)
+    for name, x in (("em", em), ("ev", ev), ("ed", ed)):
+        _check(name, x, torch.float32, (s, t.n_edges), dev)
+    for name in _TABLE_FIELDS:
+        tab = getattr(t, name)
+        if tab is not None and (tab.device != dev or not tab.is_contiguous()):
+            msg = f"des_kernel: table {name} must be contiguous on {dev}"
+            raise ValueError(msg)
+    if s == 0 or s >= 2**31 // max(t.pool, 1):
+        msg = f"des_kernel: batch of {s} scenarios is out of range"
+        raise ValueError(msg)
+
+    out = DesOutputs(
+        hist=torch.empty((s, t.n_hist_bins), dtype=torch.int32, device=dev),
+        thr=torch.empty((s, t.n_thr), dtype=torch.int32, device=dev),
+        momf=torch.empty((s, 6), dtype=torch.float32, device=dev),
+        momi=torch.empty((s, 5), dtype=torch.int32, device=dev),
+        trunc=torch.empty((s,), dtype=torch.int32, device=dev),
+        n_events=torch.empty((s,), dtype=torch.int32, device=dev),
+        work=torch.empty((s, len(WORK_KINDS)), dtype=torch.int32, device=dev),
+    )
+    rows = {"pool": t.pool, "servers": t.n_servers, "lb": max(t.n_lb, 1)}
+    scratch = {
+        name: torch.empty((rows[kind], s), dtype=dtype, device=dev)
+        for name, dtype, kind, feature in _SCRATCH
+        if _feature_on(t, feature)
+    }
+    tensors = {
+        "k0": k0, "k1": k1, "lam": lam, "em": em, "ev": ev, "ed": ed,
+        **{name: getattr(t, name) for name in _TABLE_FIELDS},
+        **out._asdict(),
+        **scratch,
+    }
+    # a feature the plan does not model passes null pointers
+    args = _DesArgs(
+        **{
+            name: None if tensors.get(name) is None else tensors[name].data_ptr()
+            for name in _PTR_FIELDS
+        },
+        S=s,
+        P=t.pool,
+        NS=t.n_servers,
+        NE=t.n_edges,
+        NEP=t.n_ep,
+        NSEGP=t.n_segp,
+        EL=t.n_lb,
+        NW=t.n_windows,
+        B=t.n_hist_bins,
+        TH=t.n_thr,
+        K=int(t.entry_edges.numel()),
+        max_iterations=t.max_iterations,
+        entry_ev=t.entry_ev,
+        entry_target=t.entry_target,
+        lb_algo=t.lb_algo,
+        has_ram=t.has_ram,
+        NB=t.n_spikes,
+        NTL=t.n_timeline,
+        has_shed=int(t.queue_cap is not None),
+        has_conn=int(t.conn_cap is not None),
+        has_rl=int(t.rate_limit is not None),
+        has_timeout=int(t.queue_timeout is not None),
+        cb_threshold=t.breaker_threshold,
+        cb_probes=t.breaker_probes,
+        horizon=t.horizon,
+        window=t.window,
+        hist_lo=t.hist_lo,
+        hist_scale=t.hist_scale,
+        cb_cooldown=t.breaker_cooldown,
+    )
+    return args, out, tensors

@@ -5,9 +5,18 @@ A batched transcription of the reference's Pallas kernel
 and its helpers) into torch tensor operations on ``(S, P)`` tiles, cut to
 this slice's features: one generator; CPU, IO, RAM and END segments;
 weighted endpoint pick; round-robin and least-connection LB; all five edge
-distributions with dropout; RAM admission with the strict-FIFO grant
-cascade; FIFO core handoff; pool overflow and truncation at
-``max_iterations``.
+distributions with dropout and network spikes; the outage timeline (LB
+slots leave and re-enter the rotation); the per-slot LB circuit breaker;
+the overload controls (ready-queue shed, connection cap, token-bucket rate
+limit, dequeue deadline with its abandon event); RAM admission with the
+strict-FIFO grant cascade; FIFO core handoff; pool overflow and
+truncation at ``max_iterations``.  Each optional feature costs nothing
+when the plan does not model it: its tables are None and its state and
+branches are never built.
+
+Precedence inside an iteration is the reference's: a timeline entry, then
+the pool, then an arrival, at equal times.  A timeline pop is an iteration
+of its own, so it advances the row's event counter like any other event.
 
 Every scenario row advances by one event per loop iteration, so the shared
 iteration counter ``it`` is also each row's own event counter: the CUDA
@@ -46,6 +55,7 @@ from asyncflow_tpu_torch.engines.torchsim.keys import (
     uniform_from_bits,
 )
 from asyncflow_tpu_torch.engines.torchsim.params import (
+    EV_ABANDON,
     EV_ARRIVE_LB,
     EV_ARRIVE_SRV,
     EV_IDLE,
@@ -93,6 +103,17 @@ class DesTables:
     lb_edge_index: torch.Tensor  # (max(EL,1),) i32
     lb_target: torch.Tensor  # (max(EL,1),) i32
     entry_edges: torch.Tensor  # (K,) i32
+    # optional tables: None when the plan does not model the feature
+    spike_times: torch.Tensor | None  # (NB,) f32
+    spike_vals: torch.Tensor | None  # (NB*NE,) f32
+    tl_times: torch.Tensor | None  # (NTL,) f32
+    tl_down: torch.Tensor | None  # (NTL,) i32
+    tl_slot: torch.Tensor | None  # (NTL,) i32
+    queue_cap: torch.Tensor | None  # (NS,) i32
+    conn_cap: torch.Tensor | None  # (NS,) i32
+    rate_limit: torch.Tensor | None  # (NS,) f32
+    rate_burst: torch.Tensor | None  # (NS,) f32
+    queue_timeout: torch.Tensor | None  # (NS,) f32
     pool: int
     n_servers: int
     n_edges: int
@@ -112,6 +133,19 @@ class DesTables:
     hist_lo: float
     hist_scale: float
     dists: tuple[int, ...]  # distribution ids present on the plan's edges
+    breaker_threshold: int  # 0 = no breaker
+    breaker_cooldown: float  # float32 value
+    breaker_probes: int
+
+    @property
+    def n_spikes(self) -> int:
+        """Spike breakpoints (0 without spikes)."""
+        return 0 if self.spike_times is None else int(self.spike_times.numel())
+
+    @property
+    def n_timeline(self) -> int:
+        """Timeline entries (0 without a timeline)."""
+        return 0 if self.tl_times is None else int(self.tl_times.numel())
 
     def tensors(self) -> list[torch.Tensor]:
         """The table tensors (what the kernel reads besides its inputs)."""
@@ -119,7 +153,8 @@ class DesTables:
 
 
 def make_des_tables(plan: StaticPlan, *, device: torch.device | str) -> DesTables:
-    """The kernel's plan tables (``pallas_engine.py:382-447``, the slice's rows)."""
+    """The kernel's plan tables (``pallas_engine.py:382-447``, the slice's
+    rows); a feature's tables are built only when the plan models it."""
 
     def i32(a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32).reshape(-1), device=device)
@@ -127,8 +162,12 @@ def make_des_tables(plan: StaticPlan, *, device: torch.device | str) -> DesTable
     def fl32(a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=device)
 
+    def opt(flag: bool, make, a):
+        return make(a) if flag else None
+
     el = plan.n_lb_edges
     lo, scale = hist_constants()
+    spikes, tl = plan.has_spikes, plan.has_timeline
     return DesTables(
         seg_kind=i32(plan.seg_kind),
         seg_dur=fl32(plan.seg_dur),
@@ -144,6 +183,16 @@ def make_des_tables(plan: StaticPlan, *, device: torch.device | str) -> DesTable
         lb_edge_index=i32(plan.lb_edge_index if el else [0]),
         lb_target=i32(plan.lb_target if el else [0]),
         entry_edges=i32(plan.entry_edges),
+        spike_times=opt(spikes, fl32, plan.spike_times),
+        spike_vals=opt(spikes, fl32, plan.spike_values),
+        tl_times=opt(tl, fl32, plan.timeline_times),
+        tl_down=opt(tl, i32, plan.timeline_down),
+        tl_slot=opt(tl, i32, plan.timeline_slot),
+        queue_cap=opt(plan.has_queue_cap, i32, plan.server_queue_cap),
+        conn_cap=opt(plan.has_conn_cap, i32, plan.server_conn_cap),
+        rate_limit=opt(plan.has_rate_limit, fl32, plan.server_rate_limit),
+        rate_burst=opt(plan.has_rate_limit, fl32, plan.server_rate_burst),
+        queue_timeout=opt(plan.has_queue_timeout, fl32, plan.server_queue_timeout),
         pool=int(plan.pool_size),
         n_servers=plan.n_servers,
         n_edges=plan.n_edges,
@@ -163,7 +212,17 @@ def make_des_tables(plan: StaticPlan, *, device: torch.device | str) -> DesTable
         hist_lo=lo,
         hist_scale=scale,
         dists=tuple(sorted(set(np.asarray(plan.edge_dist).tolist()))),
+        breaker_threshold=int(plan.breaker_threshold),
+        breaker_cooldown=f32(plan.breaker_cooldown),
+        breaker_probes=int(plan.breaker_probes),
     )
+
+
+#: columns of the kernel's ``work`` output: the slice-2 work each scenario
+#: did, counted where the kernel does it (the bound in ``chip_smoke.py``
+#: prices them; the slice-1 work it counts from the other outputs)
+WORK_KINDS = ("timeline_pops", "token_refills", "breaker_reports", "abandons")
+W_TIMELINE, W_REFILL, W_BREAKER, W_ABANDON = range(len(WORK_KINDS))
 
 
 class DesOutputs(NamedTuple):
@@ -172,9 +231,10 @@ class DesOutputs(NamedTuple):
     hist: torch.Tensor  # (S, B) i32 latency histogram
     thr: torch.Tensor  # (S, TH) i32 completions per second
     momf: torch.Tensor  # (S, 6) f32 lat sum, sumsq, min, max, 0, 0
-    momi: torch.Tensor  # (S, 5) i32 completed, generated, dropped, overflow, 0
+    momi: torch.Tensor  # (S, 5) i32 completed, generated, dropped, overflow, rejected
     trunc: torch.Tensor  # (S,) i32 iteration cap fired with work pending
     n_events: torch.Tensor  # (S,) i32 events simulated
+    work: torch.Tensor  # (S, len(WORK_KINDS)) i32 work done, by kind
 
 
 def _first_min(values: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -205,6 +265,41 @@ def _add(arr: torch.Tensor, idx: torch.Tensor, val, pred: torch.Tensor) -> None:
     if isinstance(val, torch.Tensor):
         val = val[:, None]
     arr.scatter_(1, ix, torch.where(pred[:, None], old + val, old))
+
+
+def _gather_by_order(order: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``out[r, pos] = values[r, order[r, pos]]`` (0 where the order entry
+    is outside the row), over the tiny LB slot axis."""
+    out = torch.zeros_like(order, dtype=values.dtype)
+    for j in range(values.shape[1]):
+        out = torch.where(order == j, values[:, j : j + 1], out)
+    return out
+
+
+def _rot_remove(order, length, slot, pred):
+    """Remove ``slot`` from the length-prefix of the rotation: the lanes at
+    and past it shift left (those past ``length`` too; the last lane keeps
+    its value), and the length drops by one (``_rot_remove``)."""
+    el = order.shape[1]
+    lane = torch.arange(el, device=order.device)[None, :]
+    hit = torch.where((order == slot[:, None]) & (lane < length[:, None]), lane, el)
+    at = hit.min(dim=1).values
+    act = pred & (at < el)
+    shifted = torch.roll(order, -1, dims=1)
+    moved = act[:, None] & (lane >= at[:, None]) & (lane < el - 1)
+    return torch.where(moved, shifted, order), torch.where(act, length - 1, length)
+
+
+def _rot_insert(order, length, slot, pred):
+    """Append ``slot`` at the tail of the length-prefix unless it is there
+    already (``_rot_insert``)."""
+    el = order.shape[1]
+    lane = torch.arange(el, device=order.device)[None, :]
+    present = ((order == slot[:, None]) & (lane < length[:, None])).any(dim=1)
+    act = pred & ~present
+    idx = length.clamp(0, el - 1)
+    order = torch.where(act[:, None] & (lane == idx[:, None]), slot[:, None], order)
+    return order, torch.where(act, torch.clamp_max(length + 1, el), length)
 
 
 class _Twin:
@@ -271,7 +366,33 @@ class _Twin:
         self.n_generated = full((s,), 0, i32)
         self.n_dropped = full((s,), 0, i32)
         self.n_overflow = full((s,), 0, i32)
+        self.n_rejected = full((s,), 0, i32)
         self.n_events = full((s,), 0, i32)
+        self.work = full((s, len(WORK_KINDS)), 0, i32)
+        # state of the optional features, built only when the plan has them
+        self.has_shed = t.queue_cap is not None
+        self.has_conn = t.conn_cap is not None
+        self.has_rl = t.rate_limit is not None
+        self.has_timeout = t.queue_timeout is not None
+        self.has_breaker = t.breaker_threshold > 0
+        if t.n_timeline:
+            self.tl_ptr = full((s,), 0, i64)
+            self.tl_slot = t.tl_slot.long()
+        if self.has_conn:
+            self.srv_conn = full((s, ns), 0, i32)
+        if self.has_rl:
+            self.rl_tokens = t.rate_burst[None, :].expand(s, ns).clone()
+            self.rl_last = full((s, ns), 0.0, f)
+        if self.has_timeout:
+            self.req_wait_t = full((s, p), 0.0, f)
+        if self.has_breaker:
+            self.cb_state = full((s, el), 0, i32)
+            self.cb_open_until = full((s, el), 0.0, f)
+            self.cb_consec = full((s, el), 0, i32)
+            self.cb_probes_out = full((s, el), 0, i32)
+            self.cb_probe_ok = full((s, el), 0, i32)
+            self.req_cbslot = full((s, p), -1, i64)
+            self.req_probe = full((s, p), 0, i32)
         # long copies of the index tables
         self.seg_kind = t.seg_kind.long()
         self.exit_edge = t.exit_edge.long()
@@ -284,6 +405,9 @@ class _Twin:
 
     def seg_idx(self, s, ep, seg):
         return (s * self.t.n_ep + ep) * self.t.n_segp + seg
+
+    def count(self, kind: int, pred: torch.Tensor) -> None:
+        self.work[:, kind] += pred.to(torch.int32)
 
     # ---- randomness ----
 
@@ -302,8 +426,9 @@ class _Twin:
         b0, b1 = threefry2x32(self.k0, self.k1, x0, x1)
         return uniform_from_bits(b0), uniform_from_bits(b1)
 
-    def edge_draw(self, it: int, site: int, e: torch.Tensor, pred: torch.Tensor):
-        """(dropped, delay) on per-row edge ``e`` (``_edge_draw``, no spikes)."""
+    def edge_draw(self, it: int, site: int, e: torch.Tensor, pred: torch.Tensor, t_send):
+        """(dropped, delay) on per-row edge ``e``, the delay including the
+        spike in force at ``t_send`` (``_edge_draw``)."""
         t = self.t
         mean = _col(self.em, e)
         var = _col(self.ev, e)
@@ -338,6 +463,10 @@ class _Twin:
                 k = k + live.to(k.dtype)
                 seq += 1
             delay = torch.where(dist == D_POISSON, k.to(delay.dtype), delay)
+        if t.n_spikes:
+            # breakpoint in force at t_send; spike_times[0] == 0
+            bp = (t.spike_times[None, :] <= t_send[:, None]).sum(dim=1) - 1
+            delay = delay + t.spike_vals[bp * t.n_edges + e]
         return u_drop < drop_p, delay
 
     # ---- kernel pieces ----
@@ -425,16 +554,79 @@ class _Twin:
             _add(self.ram_free, srv, -_col(self.req_ram, head), fits)
             _add(self.ram_wait_n, srv, -1, fits)
 
+    def leave(self, i, pred) -> None:
+        """Free slot ``i``: the request leaves the system."""
+        _put(self.req_ev, i, EV_IDLE, pred)
+        _put(self.req_t, i, _INF, pred)
+
+    def reject(self, i, s, now, pred, *, release: bool) -> None:
+        """A refusal, shed or abandon: free the slot, count it rejected and
+        report a failure to the request's breaker slot; ``release`` also
+        gives back its RAM and its connection."""
+        if release:
+            self.release_ram(i, s, now, pred)
+            if self.has_conn:
+                _add(self.srv_conn, s, -1, pred)
+        self.leave(i, pred)
+        self.n_rejected = self.n_rejected + pred.to(torch.int32)
+        self.breaker_server_report(i, now, True, pred)
+
+    def breaker_report(self, slot, is_probe, failed: bool, now, pred) -> None:
+        """One success or failure report to breaker slot ``slot``: the
+        consecutive-failure, cooldown and half-open state machine
+        (``_breaker_report``)."""
+        t = self.t
+        self.count(W_BREAKER, pred)
+        probe = pred & is_probe
+        plain = pred & ~is_probe
+        stt = _col(self.cb_state, slot)
+        _add(self.cb_probes_out, slot, -1, probe)
+        self.cb_probes_out.clamp_(min=0)
+        if failed:
+            c_fail = plain & (stt == 0)
+            consec = _col(self.cb_consec, slot) + c_fail.to(torch.int32)
+            trips = c_fail & (consec >= t.breaker_threshold)
+            opens = probe | trips
+            _put(self.cb_consec, slot, torch.where(trips, 0, consec), pred)
+            _put(self.cb_state, slot, 1, opens)
+            _put(self.cb_open_until, slot, now + t.breaker_cooldown, opens)
+            return
+        _put(self.cb_consec, slot, 0, plain & (stt == 0))
+        probe_ok = _col(self.cb_probe_ok, slot) + probe.to(torch.int32)
+        closes = probe & (stt == 2) & (probe_ok >= t.breaker_probes)
+        _put(self.cb_probe_ok, slot, probe_ok, probe)
+        _put(self.cb_state, slot, 0, closes)
+        _put(self.cb_consec, slot, 0, closes)
+
+    def breaker_server_report(self, i, now, failed: bool, pred) -> None:
+        """Report slot ``i``'s routing outcome once; a no-op after the
+        report cleared its breaker slot (``_breaker_server_report``)."""
+        if not self.has_breaker:
+            return
+        slot = _col(self.req_cbslot, i)
+        act = pred & (slot >= 0)
+        if not bool(act.any()):
+            return
+        self.breaker_report(
+            slot.clamp_min(0), _col(self.req_probe, i) > 0, failed, now, act,
+        )
+        _put(self.req_cbslot, i, -1, act)
+        _put(self.req_probe, i, 0, act)
+
     def exit_flow(self, it, i, s, now, pred) -> None:
-        """Release RAM, route the exit edge, complete or drop (``_exit_flow``)."""
+        """Release RAM and the connection, report success, route the exit
+        edge, complete or drop (``_exit_flow``)."""
         if not bool(pred.any()):
             return
         t = self.t
         self.release_ram(i, s, now, pred)
+        if self.has_conn:
+            _add(self.srv_conn, s, -1, pred)
+        self.breaker_server_report(i, now, False, pred)
         e = self.exit_edge[s]
         kind = self.exit_kind[s]
         target = self.exit_target[s]
-        dropped, delay = self.edge_draw(it, 48, e, pred)
+        dropped, delay = self.edge_draw(it, 48, e, pred, now)
         arrive = now + delay
         to_server = pred & (kind == TARGET_SERVER) & ~dropped
         to_lb = pred & (kind == TARGET_LB) & ~dropped
@@ -455,7 +647,8 @@ class _Twin:
         self.n_dropped = self.n_dropped + drop_here.to(torch.int32)
 
     def seg_start(self, it, i, s, ep, seg, now, pred) -> None:
-        """Segment dispatch for CPU, IO and END (``_seg_start``)."""
+        """Segment dispatch for CPU, IO and END, with the ready-queue shed
+        (``_seg_start``)."""
         if not bool(pred.any()):
             return
         t = self.t
@@ -466,10 +659,15 @@ class _Twin:
         is_cpu = pred & (kind == SEG_CPU)
         is_io = pred & (kind == SEG_IO)
         is_end = pred & (kind == SEG_END)
-        has_waiters = _col(self.cpu_wait_n, s) > 0
-        can_take = (_col(self.cores_free, s) > 0) & ~has_waiters
+        waiting_n = _col(self.cpu_wait_n, s)
+        can_take = (_col(self.cores_free, s) > 0) & ~(waiting_n > 0)
         cpu_run = is_cpu & can_take
         cpu_wait = is_cpu & ~can_take
+        if self.has_shed:
+            # joining a full ready queue sheds the request
+            cap = t.queue_cap[s]
+            shed = cpu_wait & (cap >= 0) & (waiting_n >= cap)
+            cpu_wait = cpu_wait & ~shed
         run_now = cpu_run | is_io
         _add(self.cores_free, s, -1, cpu_run)
         _add(self.cpu_ticket, s, 1, cpu_wait)
@@ -478,6 +676,10 @@ class _Twin:
         _put(self.req_ev, i, torch.where(run_now, EV_SEG_END, EV_WAIT_CPU), parked)
         _put(self.req_t, i, torch.where(run_now, now + dur, _INF), parked)
         _put(self.req_ticket, i, _col(self.cpu_ticket, s), cpu_wait)
+        if self.has_timeout:
+            _put(self.req_wait_t, i, now, cpu_wait)
+        if self.has_shed and bool(shed.any()):
+            self.reject(i, s, now, shed, release=True)
         _put(self.req_seg, i, seg, pred)
         self.exit_flow(it, i, s, now, is_end)
 
@@ -489,7 +691,8 @@ class _Twin:
         t_cur = now
         for j, eidx in enumerate(self.entry):
             e = torch.full_like(self.lb_len, eidx)
-            dropped, delay = self.edge_draw(it, 64 + 4 * j, e, alive)
+            # a spike applies at the time the request reaches this edge
+            dropped, delay = self.edge_draw(it, 64 + 4 * j, e, alive, t_cur)
             self.n_dropped = self.n_dropped + (alive & dropped).to(torch.int32)
             survives = alive & ~dropped
             t_cur = torch.where(survives, t_cur + delay, t_cur)
@@ -509,40 +712,99 @@ class _Twin:
         self.n_overflow = self.n_overflow + (alive & ~has_free).to(torch.int32)
         self.advance_arrival(it, pred)
 
-    def arrive_lb(self, it, i, now, pred) -> None:
-        """LB routing and the LB edge (``_arrive_lb_branch`` with ``_lb_pick``)."""
+    def timeline(self, pred) -> None:
+        """Pop one timeline entry: the LB slot leaves the rotation (down) or
+        re-enters it at the tail (up) (``_timeline_branch``)."""
         t = self.t
-        if t.n_lb == 0:
-            return
+        self.count(W_TIMELINE, pred)
+        ptr = self.tl_ptr.clamp(0, t.n_timeline - 1)
+        slot = self.tl_slot[ptr]
+        down = t.tl_down[ptr] == 1
+        act = pred & (slot >= 0)
+        order, length = _rot_remove(self.lb_order, self.lb_len, slot, act & down)
+        self.lb_order, self.lb_len = _rot_insert(order, length, slot, act & ~down)
+        self.tl_ptr = self.tl_ptr + pred.to(torch.int64)
+
+    def lb_pick(self):
+        """(slot, rotated order) without a breaker (``_lb_pick``)."""
+        t = self.t
         el = t.n_lb
-        empty = self.lb_len <= 0
-        drop_empty = pred & empty
-        route = pred & ~empty
         lane = torch.arange(el, device=self.lb_order.device)[None, :]
         length = self.lb_len[:, None]
         if t.lb_algo == 0:
-            slot = self.lb_order[:, 0]
             shifted = torch.roll(self.lb_order, -1, dims=1)
             rotated = torch.where(
                 lane < length - 1,
                 shifted,
                 torch.where(lane == length - 1, self.lb_order[:, :1], self.lb_order),
             )
+            return self.lb_order[:, 0], rotated
+        conn_rot = _gather_by_order(self.lb_order, self.lb_conn)
+        key = torch.where(lane < length, conn_rot * el + lane, 2**30)
+        best, _ = _first_min(key)
+        return _col(self.lb_order, best), self.lb_order
+
+    def lb_pick_breaker(self, admits):
+        """(slot, rotated order, none admitting): RR takes the first
+        admitting rotation member and moves only it to the tail; LC takes
+        the first least-connection admitting member (``_lb_pick_breaker``)."""
+        t = self.t
+        el = t.n_lb
+        lane = torch.arange(el, device=self.lb_order.device)[None, :]
+        elig = (lane < self.lb_len[:, None]) & (
+            _gather_by_order(self.lb_order, admits.to(torch.int32)) > 0
+        )
+        any_elig = elig.any(dim=1)
+        if t.lb_algo == 0:
+            pos = torch.where(elig, lane, el).min(dim=1).values.clamp_max(el - 1)
+            slot = _col(self.lb_order, pos)
+            order, length = _rot_remove(self.lb_order, self.lb_len, slot, any_elig)
+            order, _ = _rot_insert(order, length, slot, any_elig)
+            return slot, order, ~any_elig
+        conn_rot = _gather_by_order(self.lb_order, self.lb_conn)
+        key = torch.where(elig, conn_rot * el + lane, 2**30)
+        best, _ = _first_min(key)
+        return _col(self.lb_order, best), self.lb_order, ~any_elig
+
+    def arrive_lb(self, it, i, now, pred) -> None:
+        """LB routing, the breaker's admission, the LB edge
+        (``_arrive_lb_branch``)."""
+        t = self.t
+        if t.n_lb == 0:
+            return
+        empty = self.lb_len <= 0
+        drop_empty = pred & empty
+        route = pred & ~empty
+        if self.has_breaker:
+            # lazy cooldown expiry over every slot of the row: open slots
+            # whose cooldown elapsed turn half-open with fresh probe counts
+            wake = route[:, None] & (self.cb_state == 1) & (now[:, None] >= self.cb_open_until)
+            self.cb_state = torch.where(wake, 2, self.cb_state)
+            self.cb_probes_out = torch.where(wake, 0, self.cb_probes_out)
+            self.cb_probe_ok = torch.where(wake, 0, self.cb_probe_ok)
+            admits = (self.cb_state == 0) | (
+                (self.cb_state == 2) & (self.cb_probes_out < t.breaker_probes)
+            )
+            slot, rotated, none_open = self.lb_pick_breaker(admits)
+            refused = route & none_open
+            route = route & ~none_open
+            self.n_rejected = self.n_rejected + refused.to(torch.int32)
+            self.leave(i, refused)
+            probe = route & (_col(self.cb_state, slot) == 2)
+            _add(self.cb_probes_out, slot, 1, probe)
+            _put(self.req_cbslot, i, slot, route)
+            _put(self.req_probe, i, probe.to(torch.int32), route)
         else:
-            conn_rot = torch.zeros_like(self.lb_order)
-            for j in range(el):
-                conn_j = self.lb_conn[:, j : j + 1]
-                conn_rot = torch.where(self.lb_order == j, conn_j, conn_rot)
-            key = torch.where(lane < length, conn_rot * el + lane, 2**30)
-            best, _ = _first_min(key)
-            slot = _col(self.lb_order, best)
-            rotated = self.lb_order
+            slot, rotated = self.lb_pick()
         self.lb_order = torch.where(route[:, None], rotated, self.lb_order)
         e = self.lb_edge_index[slot]
-        dropped, delay = self.edge_draw(it, 32, e, route)
+        dropped, delay = self.edge_draw(it, 32, e, route, now)
         arrive = now + delay
         ok = route & ~dropped
-        free = drop_empty | (route & dropped)
+        drop_edge = route & dropped
+        free = drop_empty | drop_edge
+        # a dropped send on the routing edge is a connection failure
+        self.breaker_server_report(i, now, True, drop_edge)
         _add(self.lb_conn, slot, 1, ok)
         _put(self.req_ev, i, torch.where(free, EV_IDLE, EV_ARRIVE_SRV), free | ok)
         _put(self.req_t, i, torch.where(free, _INF, arrive), free | ok)
@@ -551,13 +813,33 @@ class _Twin:
         self.n_dropped = self.n_dropped + free.to(torch.int32)
 
     def arrive_srv(self, it, i, now, pred) -> None:
-        """Endpoint pick and RAM-first admission (``_arrive_srv_branch``)."""
+        """Rate limit, connection cap, endpoint pick and RAM-first admission
+        (``_arrive_srv_branch``)."""
         t = self.t
         s = _col(self.req_srv, i)
         if t.n_lb > 0:
             lbslot = _col(self.req_lbslot, i)
             _add(self.lb_conn, torch.clamp_min(lbslot, 0), -1, pred & (lbslot >= 0))
             _put(self.req_lbslot, i, -1, pred)
+        if self.has_rl:
+            # token bucket: lazy refill at arrival, refuse without a whole token
+            rps = t.rate_limit[s]
+            limited_row = pred & (rps >= 0)
+            self.count(W_REFILL, limited_row)
+            refill = (now - _col(self.rl_last, s)) * torch.clamp_min(rps, 0.0)
+            tokens = torch.minimum(t.rate_burst[s], _col(self.rl_tokens, s) + refill)
+            limited = limited_row & (tokens < 1.0)
+            _put(self.rl_tokens, s, tokens - torch.where(limited, 0.0, 1.0), limited_row)
+            _put(self.rl_last, s, now, limited_row)
+            self.reject(i, s, now, limited, release=False)
+            pred = pred & ~limited
+        if self.has_conn:
+            # the server refuses an arrival when it holds its cap of residents
+            cap = t.conn_cap[s]
+            refuse = pred & (cap >= 0) & (_col(self.srv_conn, s) >= cap)
+            self.reject(i, s, now, refuse, release=False)
+            pred = pred & ~refuse
+            _add(self.srv_conn, s, 1, pred)
         u = self.pair(it, 4)[0]
         nep = self.n_endpoints[s]
         ep = torch.zeros_like(s)
@@ -591,7 +873,9 @@ class _Twin:
         self.seg_start(it, i, s, ep, torch.zeros_like(ep), now, pred)
 
     def cpu_handoff(self, s, now, was_cpu) -> None:
-        """Release one core of ``s`` or grant it to the head FIFO waiter."""
+        """Release one core of ``s`` or grant it to the head FIFO waiter; a
+        grantee past its dequeue deadline takes it for zero service as an
+        abandon event at ``now`` (``_cpu_handoff``)."""
         srv_col = torch.where(was_cpu, s, -1)
         waiting = (self.req_ev == EV_WAIT_CPU) & (self.req_srv == srv_col[:, None])
         tick = torch.where(waiting, self.req_ticket, NO_TICKET)
@@ -601,11 +885,26 @@ class _Twin:
         jdur = self.t.seg_dur[
             self.seg_idx(_col(self.req_srv, j), _col(self.req_ep, j), _col(self.req_seg, j))
         ]
+        ev_next = torch.full_like(j, EV_SEG_END)
+        t_next = now + jdur
+        if self.has_timeout:
+            deadline = self.t.queue_timeout[s]
+            expired = grant & (deadline >= 0) & (now - _col(self.req_wait_t, j) > deadline)
+            ev_next = torch.where(expired, EV_ABANDON, ev_next)
+            t_next = torch.where(expired, now, t_next)
         _add(self.cores_free, s, 1, release)
         _add(self.cpu_wait_n, s, -1, grant)
-        _put(self.req_ev, j, EV_SEG_END, grant)
-        _put(self.req_t, j, now + jdur, grant)
+        _put(self.req_ev, j, ev_next, grant)
+        _put(self.req_t, j, t_next, grant)
         _put(self.req_ticket, j, NO_TICKET, grant)
+
+    def abandon(self, it, i, now, pred) -> None:
+        """Dequeue deadline exceeded: hand the core on, release RAM and the
+        connection, count a rejection (``_abandon_branch``)."""
+        self.count(W_ABANDON, pred)
+        s = _col(self.req_srv, i)
+        self.cpu_handoff(s, now, pred)
+        self.reject(i, s, now, pred, release=True)
 
     def seg_end(self, it, i, now, pred) -> None:
         """Core handoff, then the next segment (``_seg_end_branch``)."""
@@ -617,27 +916,41 @@ class _Twin:
             self.cpu_handoff(s, now, was_cpu)
         self.seg_start(it, i, s, ep, seg + 1, now, pred)
 
+    def timeline_time(self) -> torch.Tensor:
+        """Time of each row's next timeline entry (INF past the last)."""
+        t = self.t
+        if not t.n_timeline:
+            return torch.full_like(self.next_arrival, _INF)
+        nxt = t.tl_times[self.tl_ptr.clamp(0, t.n_timeline - 1)]
+        return torch.where(self.tl_ptr < t.n_timeline, nxt, _INF)
+
     def run(self) -> DesOutputs:
         t = self.t
         horizon = t.horizon
         self.advance_arrival(0, torch.ones_like(self.lb_len, dtype=torch.bool))
         nxt_i, nxt_t = _first_min(self.req_t)
-        branches = (
+        branches = [
             (EV_ARRIVE_LB, self.arrive_lb),
             (EV_ARRIVE_SRV, self.arrive_srv),
             (EV_RESUME, self.resume),
             (EV_SEG_END, self.seg_end),
-        )
+        ]
+        if self.has_timeout:
+            branches.append((EV_ABANDON, self.abandon))
         it = 1
         while it < t.max_iterations:
-            now = torch.minimum(nxt_t, self.next_arrival)
+            t_tl = self.timeline_time()
+            now = torch.minimum(torch.minimum(nxt_t, self.next_arrival), t_tl)
             live = now < horizon
             if not bool(live.any()):
                 break
             self.n_events = self.n_events + live.to(torch.int32)
-            # precedence: the pool (t_pool <= now) beats an arrival at the same time
-            is_pool = live & (nxt_t <= now)
-            is_arr = live & ~is_pool
+            # precedence: the timeline, then the pool, then an arrival
+            is_tl = live & (t_tl <= now)
+            is_pool = live & ~is_tl & (nxt_t <= now)
+            is_arr = live & ~is_tl & ~is_pool
+            if bool(is_tl.any()):
+                self.timeline(is_tl)
             if bool(is_arr.any()):
                 self.spawn(it, now, is_arr)
             ev = _col(self.req_ev, nxt_i)
@@ -647,10 +960,9 @@ class _Twin:
                     branch(it, nxt_i, now, pred)
             nxt_i, nxt_t = _first_min(self.req_t)
             it += 1
-        t_min = torch.minimum(nxt_t, self.next_arrival)
+        t_min = torch.minimum(torch.minimum(nxt_t, self.next_arrival), self.timeline_time())
         trunc = ((it >= t.max_iterations) & (t_min < horizon)).to(torch.int32)
         zf = torch.zeros_like(self.lat_sum)
-        zi = torch.zeros_like(self.lat_count)
         return DesOutputs(
             hist=self.hist,
             thr=self.thr,
@@ -658,11 +970,13 @@ class _Twin:
                 [self.lat_sum, self.lat_sumsq, self.lat_min, self.lat_max, zf, zf], dim=1,
             ),
             momi=torch.stack(
-                [self.lat_count, self.n_generated, self.n_dropped, self.n_overflow, zi],
+                [self.lat_count, self.n_generated, self.n_dropped, self.n_overflow,
+                 self.n_rejected],
                 dim=1,
             ),
             trunc=trunc,
             n_events=self.n_events,
+            work=self.work,
         )
 
 

@@ -221,7 +221,7 @@ class KernelEngine:
         reference's uint32 key data); ``lam_table`` injects the (S, NW)
         arrival rates instead of drawing them."""
         out = self.kernel(*self.prepare(keys, overrides, lam_table))
-        hist, thr, momf, momi, trunc, n_events = (x.cpu().numpy() for x in out)
+        hist, thr, momf, momi, trunc, n_events = (x.cpu().numpy() for x in out[:6])
         return KernelState(
             hist=hist,
             lat_count=momi[:, 0],

@@ -22,6 +22,7 @@ EV_SEG_END = 3
 EV_RESUME = 4  # RAM granted; start the endpoint's segments at time t
 EV_WAIT_CPU = 5
 EV_WAIT_RAM = 6
+EV_ABANDON = 8  # granted the core past its dequeue deadline: abandon now
 
 
 class ScenarioOverrides(NamedTuple):

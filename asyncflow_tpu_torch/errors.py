@@ -22,6 +22,12 @@ class UnsupportedFeatureError(PayloadError):
         )
 
 
+class ProofHeadroomError(ValueError):
+    """Sweep overrides scale the workload past ``plan.proof_rate_headroom``:
+    an overload control that the compiler proved unreachable at the base
+    rate, and lowered away, could bind at the overridden rate."""
+
+
 class NoDeviceError(RuntimeError):
     """No device was given and no CUDA device is present.  The port never
     falls back to the CPU on its own: pass ``device="cpu"`` to ask for it."""

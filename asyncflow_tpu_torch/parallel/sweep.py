@@ -7,10 +7,17 @@ slice; the reference's fast path and event engine are not ported yet, so a
 plan outside the slice raises :class:`UnsupportedFeatureError` instead of
 being routed elsewhere.  Scenario ``i`` always gets key
 ``fold_in(PRNGKey(seed), i)``, so any chunking gives the same results.
+
+Overrides that raise the workload rate past ``plan.proof_rate_headroom``
+are refused with :class:`ProofHeadroomError` (the reference's
+``_guard_db_headroom``): the compiler lowered away an overload control
+that it proved unreachable at the base rate, and the proof does not cover
+the overridden one.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from collections.abc import Mapping
 from dataclasses import dataclass
@@ -27,7 +34,8 @@ from asyncflow_tpu_torch.engines.results import (
 )
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
-from asyncflow_tpu_torch.engines.torchsim.params import ScenarioOverrides
+from asyncflow_tpu_torch.engines.torchsim.params import ScenarioOverrides, base_overrides
+from asyncflow_tpu_torch.errors import ProofHeadroomError
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload
 
 
@@ -88,6 +96,33 @@ def _slice_overrides(
     return ScenarioOverrides(**fields)
 
 
+def _override_rate_scale(plan: StaticPlan, overrides: ScenarioOverrides) -> float:
+    """The largest workload-rate scale the overrides apply to the base plan:
+    max users x max requests per user, over the base rate."""
+    base = base_overrides(plan)
+    base_rate = float(base.user_mean) * float(base.req_rate)
+    if base_rate <= 0:
+        return 1.0
+    max_rate = float(np.max(overrides.user_mean)) * float(np.max(overrides.req_rate))
+    return max_rate / base_rate
+
+
+def _guard_rate_headroom(plan: StaticPlan, overrides: ScenarioOverrides | None) -> None:
+    """Refuse overrides that scale the workload past the headroom of a
+    lowered-away non-binding proof (``_guard_db_headroom``)."""
+    if overrides is None or math.isinf(plan.proof_rate_headroom):
+        return
+    scale = _override_rate_scale(plan, overrides)
+    if scale > plan.proof_rate_headroom * 1.001:
+        msg = (
+            f"overrides scale the workload {scale:.2f}x, past the "
+            f"{plan.proof_rate_headroom:.2f}x headroom of a non-binding proof (an "
+            "overload control was lowered away at the base rate and could bind at "
+            "this one); raise the base workload so the compiler models it"
+        )
+        raise ProofHeadroomError(msg)
+
+
 class SweepRunner:
     """Chunked Monte-Carlo sweep over one scenario family on one device."""
 
@@ -129,6 +164,7 @@ class SweepRunner:
         if n_scenarios < 1:
             msg = "n_scenarios must be at least 1"
             raise ValueError(msg)
+        _guard_rate_headroom(self.plan, overrides)
         chunk = chunk_size or n_scenarios
         parts = []
         t0 = time.perf_counter()

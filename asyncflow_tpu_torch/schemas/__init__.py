@@ -2,10 +2,13 @@
 
 from asyncflow_tpu_torch.schemas.edges import Edge
 from asyncflow_tpu_torch.schemas.endpoint import Endpoint, Step
+from asyncflow_tpu_torch.schemas.events import End, EventInjection, Start
 from asyncflow_tpu_torch.schemas.graph import TopologyGraph
 from asyncflow_tpu_torch.schemas.nodes import (
+    CircuitBreaker,
     Client,
     LoadBalancer,
+    OverloadPolicy,
     Server,
     ServerResources,
     TopologyNodes,
@@ -16,16 +19,21 @@ from asyncflow_tpu_torch.schemas.settings import SimulationSettings
 from asyncflow_tpu_torch.schemas.workload import RqsGenerator
 
 __all__ = [
+    "CircuitBreaker",
     "Client",
     "Edge",
+    "End",
     "Endpoint",
+    "EventInjection",
     "LoadBalancer",
+    "OverloadPolicy",
     "RVConfig",
     "RqsGenerator",
     "Server",
     "ServerResources",
     "SimulationPayload",
     "SimulationSettings",
+    "Start",
     "Step",
     "TopologyGraph",
     "TopologyNodes",

@@ -1,7 +1,10 @@
 """Full simulation input.
 
 Same contract as the reference ``SimulationPayload`` for the fields this
-slice models.  Event injection, the resilience blocks (retry policy, fault
+slice models, event injection included: event ids are unique; each event
+targets a declared server or edge of the right kind; windows sit inside
+the horizon; at no instant are all servers down; outage windows on one
+server never overlap.  The resilience blocks (retry policy, fault
 timeline, hedging, hazard model) and multi-generator workloads are refused
 by name.  PyYAML is imported only by :func:`load_payload`.
 """
@@ -11,19 +14,30 @@ from __future__ import annotations
 from dataclasses import dataclass
 from pathlib import Path
 
+from asyncflow_tpu_torch.config.constants import EventDescription
 from asyncflow_tpu_torch.errors import PayloadError, UnsupportedFeatureError
-from asyncflow_tpu_torch.schemas._fields import read_fields
+from asyncflow_tpu_torch.schemas._fields import as_list, read_fields
+from asyncflow_tpu_torch.schemas.events import EventInjection
 from asyncflow_tpu_torch.schemas.graph import TopologyGraph
 from asyncflow_tpu_torch.schemas.settings import SimulationSettings
 from asyncflow_tpu_torch.schemas.workload import RqsGenerator
 
 _UNSUPPORTED_BLOCKS = (
-    "events",
     "retry_policy",
     "fault_timeline",
     "hedge_policy",
     "hazard_model",
 )
+
+
+def _sweep_marks(
+    windows: list[tuple[float, float, str]],
+) -> list[tuple[float, bool, str]]:
+    """(time, is_start, tag) marks of (t_start, t_end, tag) windows, END
+    before START on time ties (back-to-back windows are legal)."""
+    marks = [(t0, True, tag) for t0, _, tag in windows]
+    marks += [(t1, False, tag) for _, t1, tag in windows]
+    return sorted(marks, key=lambda mark: (mark[0], mark[1]))
 
 
 @dataclass
@@ -33,6 +47,7 @@ class SimulationPayload:
     rqs_input: RqsGenerator
     topology_graph: TopologyGraph
     sim_settings: SimulationSettings
+    events: list[EventInjection] | None = None
 
     def __post_init__(self) -> None:
         graph = self.topology_graph
@@ -45,13 +60,90 @@ class SimulationPayload:
         if len(outs) != 1:
             msg = f"generator {gen.id!r} must source exactly one edge, found {len(outs)}"
             raise PayloadError(msg)
+        if self.events is not None:
+            self._check_events()
+
+    def _check_events(self) -> None:
+        """The reference's event validators, in its order."""
+        events = self.events
+        ids = [event.event_id for event in events]
+        if len(ids) != len(set(ids)):
+            msg = "The id's representing different events must be unique"
+            raise PayloadError(msg)
+        server_ids = {server.id for server in self.topology_graph.nodes.servers}
+        edge_ids = {edge.id for edge in self.topology_graph.edges}
+        for event in events:
+            if event.target_id not in server_ids | edge_ids:
+                msg = (
+                    f"The target id {event.target_id} related to "
+                    f"the event {event.event_id} does not exist"
+                )
+                raise PayloadError(msg)
+        horizon = float(self.sim_settings.total_simulation_time)
+        for event in events:
+            t_start, t_end = event.start.t_start, event.end.t_end
+            if t_start > horizon:
+                msg = (
+                    f"Event '{event.event_id}': start time t_start={t_start:.6f} "
+                    f"exceeds simulation horizon T={horizon:.6f}"
+                )
+                raise PayloadError(msg)
+            if t_end > horizon:
+                msg = (
+                    f"Event '{event.event_id}': end time t_end={t_end:.6f} "
+                    f"exceeds simulation horizon T={horizon:.6f}"
+                )
+                raise PayloadError(msg)
+        for event in events:
+            kind = event.start.kind
+            if kind == EventDescription.SERVER_DOWN and event.target_id not in server_ids:
+                msg = (
+                    f"The event {event.event_id} regarding a server does not have "
+                    "a compatible target id"
+                )
+                raise PayloadError(msg)
+            if kind == EventDescription.NETWORK_SPIKE_START and event.target_id not in edge_ids:
+                msg = (
+                    f"The event {event.event_id} regarding an edge does not have "
+                    "a compatible target id"
+                )
+                raise PayloadError(msg)
+        outages = [
+            (event.start.t_start, event.end.t_end, event.target_id)
+            for event in events
+            if event.start.kind == EventDescription.SERVER_DOWN
+            and event.target_id in server_ids
+        ]
+        down: set[str] = set()
+        for time, is_start, server_id in _sweep_marks(outages):
+            if not is_start:
+                down.discard(server_id)
+                continue
+            down.add(server_id)
+            if len(down) == len(server_ids):
+                msg = f"At time {time:.6f} all servers are down; keep at least one up"
+                raise PayloadError(msg)
+        for server_id in dict.fromkeys(sid for _, _, sid in outages):
+            active = 0
+            windows = [w for w in outages if w[2] == server_id]
+            for time, is_start, _ in _sweep_marks(windows):
+                if not is_start:
+                    active = max(0, active - 1)
+                    continue
+                if active >= 1:
+                    msg = (
+                        f"Overlapping events for server '{server_id}' at "
+                        f"t={time:.6f}; server outage windows must not overlap."
+                    )
+                    raise PayloadError(msg)
+                active += 1
 
     @classmethod
     def from_dict(cls, data: object) -> SimulationPayload:
         f = read_fields(
             data,
             "payload",
-            known=("rqs_input", "topology_graph", "sim_settings"),
+            known=("rqs_input", "topology_graph", "sim_settings", "events"),
             required=("rqs_input", "topology_graph", "sim_settings"),
             unsupported=_UNSUPPORTED_BLOCKS,
         )
@@ -64,6 +156,11 @@ class SimulationPayload:
             rqs_input=RqsGenerator.from_dict(rqs),
             topology_graph=TopologyGraph.from_dict(f["topology_graph"]),
             sim_settings=SimulationSettings.from_dict(f["sim_settings"]),
+            events=(
+                None
+                if f.get("events") is None
+                else [EventInjection.from_dict(e) for e in as_list(f["events"], "events")]
+            ),
         )
 
 

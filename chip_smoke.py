@@ -9,17 +9,22 @@ no result line):
 1. the card's name and power limit, the torch and nvcc versions, and the
    build of every CUDA source of the port (one nvcc per source, in parallel);
 2. the DES kernel against its plain PyTorch twin on the card, on the same
-   keys and the same arrival-rate table, for three plans: the main path's
-   own (two_servers_lb at 600 s, 2048 scenarios, pool 128) with its
-   iteration cap lowered so that every scenario truncates; and at 5 s,
-   least-connection routing over normal, lognormal, uniform and Poisson
-   edges with dropout, and a plan whose RAM binds, with the pool cut so
-   that overflow fires.  Integer outputs must be bit-exact, float moments
-   within rtol 1e-6;
-3. the main path: ``SweepRunner(two_servers_lb).run(2048, seed=0)`` at the
-   scenario's full 600 s, through the kernel (its launch count must move),
-   with no truncation and no overflow, request conservation per scenario,
-   and the pooled p95 within 2% of the JAX reference kernel's.
+   keys and arrival-rate tables: on each path's own plan at its 2048
+   scenarios (two_servers_lb, event_inj_lb and resilience_all at 600 s)
+   with only the iteration cap lowered, so that every scenario truncates
+   (event_inj_lb's windows are scaled into the capped time, and every
+   scenario must cross them all); and on 5 s plans: least-connection
+   routing over every edge distribution with dropout, a binding RAM with
+   an overflowing pool, each overload control (queue cap, connection cap,
+   rate limit, deadline) and an LC breaker with an outage, each of which
+   must reject requests.  Integer outputs must be bit-exact, float
+   moments within rtol 1e-6;
+3. the three paths: ``SweepRunner(payload).run(2048, seed=0)`` at the
+   payload's full 600 s, through the kernel (its launch count, set to 0
+   before each path, must move), with no truncation and no overflow,
+   request conservation per scenario, the pooled p95 within 2% of the JAX
+   reference kernel's and, for resilience_all, the rejected fraction
+   within 0.02 of it.
 
 It prints a JSON line of per-kernel measurements, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and
@@ -99,17 +104,91 @@ TWO_SERVERS_LB = {
     "sim_settings": {"total_simulation_time": 600, "sample_period_s": 0.05},
 }
 
+
+def _event_inj_lb() -> dict:
+    """examples/yaml_input/data/event_inj_lb.yml: the headline topology at
+    120 users with three 60 s network spikes and one 60 s outage per
+    server."""
+    data = copy.deepcopy(TWO_SERVERS_LB)
+    data["rqs_input"]["avg_active_users"] = {"mean": 120}
+    windows = (
+        ("spike-client-lb", "client-lb", 100.0, 160.0, 0.015),
+        ("outage-srv1", "srv-1", 180.0, 240.0, None),
+        ("spike-lb-srv2", "lb-srv2", 300.0, 360.0, 0.020),
+        ("outage-srv2", "srv-2", 360.0, 420.0, None),
+        ("spike-gen-client", "gen-client", 480.0, 540.0, 0.010),
+    )
+    data["events"] = [
+        {
+            "event_id": eid,
+            "target_id": target,
+            "start": (
+                {"kind": "server_down", "t_start": t0}
+                if spike is None
+                else {"kind": "network_spike_start", "t_start": t0, "spike_s": spike}
+            ),
+            "end": {"kind": "server_up" if spike is None else "network_spike_end",
+                    "t_end": t1},
+        }
+        for eid, target, t0, t1, spike in windows
+    ]
+    return data
+
+
+def _resilience_all() -> dict:
+    """examples/sweeps/resilience_controls.py, ``build_payload("all")`` at
+    its top load (150 users), over the YAML's own 600 s: srv-2 behind a
+    5 rps / burst-5 token bucket, srv-1 at CPU 18 ms with an 80 ms dequeue
+    deadline, and an LB breaker (5 failures, 3 s cooldown, 2 probes)."""
+    data = copy.deepcopy(TWO_SERVERS_LB)
+    data["rqs_input"]["avg_active_users"]["mean"] = 150.0
+    srv1, srv2 = data["topology_graph"]["nodes"]["servers"]
+    srv2["overload"] = {"rate_limit_rps": 5.0, "rate_limit_burst": 5}
+    srv1["endpoints"][0]["steps"][0]["step_operation"] = {"cpu_time": 0.018}
+    srv1["overload"] = {"queue_timeout_s": 0.080}
+    data["topology_graph"]["nodes"]["load_balancer"]["circuit_breaker"] = {
+        "failure_threshold": 5,
+        "cooldown_s": 3.0,
+        "half_open_probes": 2,
+    }
+    return data
+
+
+EVENT_INJ_LB = _event_inj_lb()
+RESILIENCE_ALL = _resilience_all()
+PAYLOADS = {
+    "two_servers_lb": TWO_SERVERS_LB,
+    "event_inj_lb": EVENT_INJ_LB,
+    "resilience_all": RESILIENCE_ALL,
+}
+
 MAIN_SCENARIOS = 2048
-#: iteration cap of the kernel-against-twin check on the main path's plan:
+#: iteration cap of the kernel-against-twin check on the headline's plan:
 #: every scenario truncates after ~10 s of simulated time, which keeps the
 #: twin (one batched step per event) near two minutes on the card
 CHECK_ITERATIONS = 8000
-#: pooled p95 (seconds) of the JAX reference kernel on this payload:
-#: PallasEngine(interpret=True) on scenarios 0..31 of seed 0 at 600 s, on
-#: the CPU (``python tests/test_torch_sweep.py --reference-p95``)
-REFERENCE_P95_S = 0.03367207812033652
+#: the same for the two other paths' plans (~16 s simulated at ~40 req/s)
+PATH_CHECK_ITERATIONS = 4000
+#: event_inj_lb's windows, scaled into the capped check's simulated time:
+#: they end by 10.8 s
+EVENT_CHECK_TIME_SCALE = 0.02
+#: the JAX reference kernel on each path's payload at its full 600 s:
+#: pooled p95 (seconds) and pooled rejected fraction of
+#: PallasEngine(interpret=True) on scenarios 0..31 of seed 0, on the CPU
+#: (``python tests/test_torch_sweep.py --reference-p95 PAYLOAD``; seed 1
+#: gave p95 0.043318 s on event_inj_lb and 0.110563 s, rejected 0.1088, on
+#: resilience_all)
+REFERENCE = {
+    "two_servers_lb": {"p95_s": 0.03367207812033652},
+    "event_inj_lb": {"p95_s": 0.0433515210548253},
+    "resilience_all": {"p95_s": 0.11077346238864245, "rejected_fraction": 0.10566745651478299},
+}
 P95_RTOL = 0.02
+REJECTED_ATOL = 0.02
 MOMENT_RTOL = 1e-6
+#: the headline kernel's time with the slice-1 kernel, measured by this
+#: script on an NVIDIA H100 80GB HBM3 at 700 W
+SLICE1_HEADLINE_KERNEL_MS = 2465.2
 
 # NVIDIA H100 SXM peaks: HBM3 bandwidth and fp32 outside the tensor cores
 # from the data sheet; int32 from the SM's 64 int32 lanes a clock (half its
@@ -128,6 +207,22 @@ ARGMIN_SLOT_OPS = (2, 1)
 #: the event loop itself: fminf and the horizon test; two counters, the
 #: cap test and the branch switch
 EVENT_OPS = (4, 2)
+#: a spike breakpoint lookup, per breakpoint: a float compare and an add
+SPIKE_BREAKPOINT_OPS = (1, 1)
+#: a timeline pop: the entry's three reads and the pointer step, then per LB
+#: slot of the rotation a compare and a move
+TIMELINE_OPS = (4, 0)
+ROTATION_SLOT_OPS = (2, 0)
+#: the breaker's admission at an LB arrival, per LB slot: the cooldown test
+#: (a float compare) and the admit test (two compares)
+BREAKER_SLOT_OPS = (2, 1)
+#: a breaker report: the state read, the probe and failure counters, the
+#: threshold test and the writes
+BREAKER_REPORT_OPS = (6, 0)
+#: a token refill: subtract, multiply, add, min, compare and subtract
+REFILL_OPS = (1, 5)
+#: an abandon's own bookkeeping (its core handoff is the handoff's)
+ABANDON_OPS = (4, 0)
 
 
 def operation_count(tables, out) -> tuple[int, int]:
@@ -137,20 +232,41 @@ def operation_count(tables, out) -> tuple[int, int]:
     counted per event kind: each spawn draws its arrival gap and its first
     entry edge, and each completed request also drew its other entry edges,
     the LB edge (where the plan has an LB), the endpoint pick and the exit
-    edge.  This is a lower count: the draws of requests that were dropped,
-    overflowed or are still in flight past those, window crossings of the
-    arrival sampler, second blocks of normal draws and Poisson loops are
-    left out, as are the branches' float work (a libm call would count as
-    one) and the first-free-slot scan.
+    edge; each of those edge draws also looks up the spike breakpoint where
+    the plan has spikes.  Where the LB has a breaker, each completed request
+    passed its admission over every LB slot.  Timeline pops, token refills,
+    breaker reports and abandons are the kernel's own counts (``work``).
+    This is a lower count: the draws of requests that were dropped,
+    overflowed, rejected or are still in flight past those, window
+    crossings of the arrival sampler, second blocks of normal draws and
+    Poisson loops are left out, as are the branches' other float work (a
+    libm call would count as one), the first-free-slot scan and the core
+    and RAM waiter scans.
     """
+    from asyncflow_tpu_torch.engines.torchsim.des_reference import WORK_KINDS
+
     events = int(out.n_events.sum().item())
     completed, generated = (int(x) for x in out.momi[:, :2].sum(dim=0).tolist())
-    per_completed = (tables.entry_edges.numel() - 1) + (tables.n_lb > 0) + 2
-    blocks = 2 * generated + out.n_events.numel() + per_completed * completed
-    int_ops, fp_ops = (
-        events * (EVENT_OPS[k] + tables.pool * ARGMIN_SLOT_OPS[k]) + blocks * THREEFRY_OPS[k]
-        for k in (0, 1)
+    work = dict(zip(WORK_KINDS, (int(x) for x in out.work.sum(dim=0).tolist())))
+    edges_per_completed = (tables.entry_edges.numel() - 1) + (tables.n_lb > 0) + 1
+    edge_draws = generated + edges_per_completed * completed
+    blocks = generated + out.n_events.numel() + edge_draws + completed
+    el = max(tables.n_lb, 1)
+    breaker_slots = completed * el if tables.breaker_threshold > 0 else 0
+    counts = (
+        (events, EVENT_OPS),
+        (events * tables.pool, ARGMIN_SLOT_OPS),
+        (blocks, THREEFRY_OPS),
+        (edge_draws * tables.n_spikes, SPIKE_BREAKPOINT_OPS),
+        (work["timeline_pops"], TIMELINE_OPS),
+        (work["timeline_pops"] * el, ROTATION_SLOT_OPS),
+        (breaker_slots, BREAKER_SLOT_OPS),
+        (work["breaker_reports"], BREAKER_REPORT_OPS),
+        (work["token_refills"], REFILL_OPS),
+        (work["abandons"], ABANDON_OPS),
     )
+    int_ops = sum(n * ops[0] for n, ops in counts)
+    fp_ops = sum(n * ops[1] for n, ops in counts)
     return int_ops, fp_ops
 
 
@@ -203,16 +319,16 @@ def _lc_mixed_payload() -> dict:
     return data
 
 
-def _ram_bound_payload() -> dict:
-    """One server whose RAM admits two requests at a time under ~90% load."""
+def _single_server_payload(users: float, steps: list, **server) -> dict:
+    """5 s of one server behind the client, no LB; ``users`` x 20 req/min."""
     data = copy.deepcopy(TWO_SERVERS_LB)
     data["sim_settings"]["total_simulation_time"] = 5
-    data["rqs_input"]["avg_active_users"] = {"mean": 60}
+    data["rqs_input"]["avg_active_users"] = {"mean": users}
     nodes = data["topology_graph"]["nodes"]
     del nodes["load_balancer"]
     srv = nodes["servers"][0]
-    srv["server_resources"] = {"cpu_cores": 1, "ram_mb": 256}
-    srv["endpoints"][0]["steps"][2]["step_operation"] = {"io_waiting_time": 0.09}
+    srv["endpoints"][0]["steps"] = steps
+    srv.update(server)
     nodes["servers"] = [srv]
     data["topology_graph"]["edges"] = [
         {"id": "gen-client", "source": "rqs-1", "target": "client-1",
@@ -222,6 +338,60 @@ def _ram_bound_payload() -> dict:
         {"id": "srv-client", "source": "srv-1", "target": "client-1",
          "latency": {"mean": 0.003, "distribution": "exponential"}},
     ]
+    return data
+
+
+def _cpu_io(cpu: float, io: float) -> list:
+    return [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": cpu}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": io}},
+    ]
+
+
+def _ram_bound_payload() -> dict:
+    """One server whose RAM admits two requests at a time under ~90% load."""
+    steps = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+        {"kind": "ram", "step_operation": {"necessary_ram": 128}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.09}},
+    ]
+    return _single_server_payload(
+        60, steps, server_resources={"cpu_cores": 1, "ram_mb": 256},
+    )
+
+
+#: one overload control each, on one server at a load where it binds
+#: (the reference's parity fixtures, tests/parity/test_pallas_engine.py)
+CONTROL_PAYLOADS = {
+    "queue_cap_3": lambda: _single_server_payload(
+        60, _cpu_io(0.040, 0.010), overload={"max_ready_queue": 3}),
+    "conn_cap_4": lambda: _single_server_payload(
+        60, _cpu_io(0.002, 0.200), overload={"max_connections": 4}),
+    "rate_limit_6rps": lambda: _single_server_payload(
+        45, _cpu_io(0.002, 0.010), overload={"rate_limit_rps": 6.0, "rate_limit_burst": 6}),
+    "deadline_120ms": lambda: _single_server_payload(
+        67.5, _cpu_io(0.045, 0.010), overload={"queue_timeout_s": 0.120}),
+}
+
+
+def _lc_breaker_outage_payload() -> dict:
+    """5 s, least connection with the breaker, a rate-limited srv-2 and a
+    srv-1 outage: the LC branch of the breaker's pick, and a slot removed
+    from an LC rotation."""
+    data = copy.deepcopy(TWO_SERVERS_LB)
+    data["sim_settings"]["total_simulation_time"] = 5
+    data["rqs_input"]["avg_active_users"] = {"mean": 60}
+    nodes = data["topology_graph"]["nodes"]
+    nodes["load_balancer"]["algorithms"] = "least_connection"
+    nodes["load_balancer"]["circuit_breaker"] = {
+        "failure_threshold": 3, "cooldown_s": 1.0, "half_open_probes": 2,
+    }
+    nodes["servers"][1]["overload"] = {"rate_limit_rps": 4.0, "rate_limit_burst": 4}
+    data["events"] = [{
+        "event_id": "srv1-down", "target_id": "srv-1",
+        "start": {"kind": "server_down", "t_start": 1.5},
+        "end": {"kind": "server_up", "t_end": 3.0},
+    }]
     return data
 
 
@@ -265,143 +435,218 @@ def _bound_text(b: dict) -> str:
     )
 
 
-def phase_kernel_vs_twin(torch) -> dict:
-    """Phase 2: the kernel against its twin on the card, three plans.
-
-    The first is the main path's own plan (two_servers_lb at 600 s, pool
-    128, 11 λ-windows, 600 throughput bins) at the main path's 2048
-    scenarios, with only its iteration cap lowered, so every tensor has the
-    main path's shape and the truncation path is checked too."""
-    from asyncflow_tpu_torch.compiler import compile_payload
+def _check_case(torch, name: str, eng, args, n: int) -> dict:
+    """The kernel against its twin on the same arguments: integer outputs
+    bit-exact, float moments within MOMENT_RTOL."""
     from asyncflow_tpu_torch.engines.torchsim.des_reference import des_reference
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin = des_reference(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = eng.kernel(*args)
+    torch.cuda.synchronize()
+    for field in ("hist", "thr", "momi", "trunc", "n_events", "work"):
+        a, b = getattr(got, field), getattr(twin, field)
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(a.shape[0], -1).any(dim=1).nonzero()[:5, 0].tolist()
+            msg = f"{name}: kernel and twin differ in {field} (scenarios {bad})"
+            raise SmokeError(msg)
+    err = (got.momf - twin.momf).abs()
+    if not torch.allclose(got.momf, twin.momf, rtol=MOMENT_RTOL, atol=0.0):
+        msg = f"{name}: float moments differ by up to {err.max().item()}"
+        raise SmokeError(msg)
+    momi = got.momi.sum(dim=0).tolist()
+    result = {
+        "out": got,
+        "plain_ms": plain_ms,
+        "max_abs_err": err.max().item(),
+        "events": int(got.n_events.sum().item()),
+        "truncated": int(got.trunc.sum().item()),
+        "momi": momi,
+    }
+    print(
+        f"kernel == twin on {name}: {n} scenarios, pool {eng.plan.pool_size}, "
+        f"{result['events']} events, completed {momi[0]}, generated {momi[1]}, "
+        f"dropped {momi[2]}, overflow {momi[3]}, rejected {momi[4]}, "
+        f"truncated {result['truncated']}; twin {plain_ms / 1e3:.1f} s",
+        flush=True,
+    )
+    return result
+
+
+def phase_kernel_vs_twin(torch) -> dict:
+    """Phase 2: the kernel against its twin on the card.
+
+    Each path's own plan at the path's 2048 scenarios, with only its
+    iteration cap lowered (and, for event_inj_lb, its windows scaled into
+    the capped time), so every tensor has the path's shape and the
+    truncation path is checked too; then 5 s plans that reach the other
+    branches: LC routing over every edge distribution, a binding RAM with
+    an overflowing pool, each overload control, and an LC breaker with an
+    outage.  Returns the measurements of the path checks by path name."""
+    import numpy as np
+
+    from asyncflow_tpu_torch.compiler import compile_payload
+    from asyncflow_tpu_torch.engines.torchsim.des_reference import WORK_KINDS
     from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
     from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
     from asyncflow_tpu_torch.schemas import SimulationPayload
 
-    main_plan = compile_payload(SimulationPayload.from_dict(TWO_SERVERS_LB))
-    cases = (
-        ("two_servers_lb_600s_capped",
-         dataclasses.replace(main_plan, max_iterations=CHECK_ITERATIONS), MAIN_SCENARIOS),
-        ("lc_mixed_dists",
-         compile_payload(SimulationPayload.from_dict(_lc_mixed_payload())), 256),
-        ("ram_bound_overflow",
-         compile_payload(SimulationPayload.from_dict(_ram_bound_payload()), pool_size=4), 256),
+    def plan_of(data, **kw):
+        return compile_payload(SimulationPayload.from_dict(data), **kw)
+
+    scale = np.float32(EVENT_CHECK_TIME_SCALE)
+    event_plan = plan_of(EVENT_INJ_LB)
+    event_plan = dataclasses.replace(
+        event_plan,
+        spike_times=event_plan.spike_times * scale,
+        timeline_times=event_plan.timeline_times * scale,
+        max_iterations=PATH_CHECK_ITERATIONS,
     )
+    paths = {
+        "two_servers_lb": dataclasses.replace(
+            plan_of(TWO_SERVERS_LB), max_iterations=CHECK_ITERATIONS),
+        "event_inj_lb": event_plan,
+        "resilience_all": dataclasses.replace(
+            plan_of(RESILIENCE_ALL), max_iterations=PATH_CHECK_ITERATIONS),
+    }
+    small = {
+        "lc_mixed_dists": (plan_of(_lc_mixed_payload()), 256),
+        "ram_bound_overflow": (plan_of(_ram_bound_payload(), pool_size=4), 256),
+        **{name: (plan_of(make()), 128) for name, make in CONTROL_PAYLOADS.items()},
+        "lc_breaker_outage": (plan_of(_lc_breaker_outage_payload()), 128),
+    }
     measured: dict = {"max_abs_err": 0.0}
-    for name, plan, n in cases:
+    for name, plan in paths.items():
+        case = f"{name}_600s_capped"
+        eng = KernelEngine(plan, device="cuda")
+        args = eng.prepare(scenario_keys(0, MAIN_SCENARIOS, device="cuda"))
+        res = _check_case(torch, case, eng, args, MAIN_SCENARIOS)
+        out = res["out"]
+        if res["truncated"] != MAIN_SCENARIOS:
+            msg = f"{case}: {MAIN_SCENARIOS - res['truncated']} scenarios ended before the cap"
+            raise SmokeError(msg)
+        if name == "event_inj_lb":
+            # every scenario completed requests after the last window closed
+            last = float(max(plan.spike_times.max(), plan.timeline_times.max()))
+            after = out.thr[:, int(np.ceil(last)):].sum(dim=1)
+            pops = out.work[:, WORK_KINDS.index("timeline_pops")]
+            if int((after == 0).sum()) or int(pops.min()) != len(plan.timeline_times):
+                msg = f"{case}: not every scenario crossed every window (last ends {last} s)"
+                raise SmokeError(msg)
+        if name == "resilience_all" and res["momi"][4] == 0:
+            raise SmokeError(f"{case}: no request was rejected")
+        ms = _time_kernel(torch, lambda eng=eng, args=args: eng.kernel(*args), repeats=3)
+        bound = _bound_ms(args, out)
+        measured["max_abs_err"] = max(measured["max_abs_err"], res["max_abs_err"])
+        measured[name] = {"ms": ms, "plain_ms": res["plain_ms"], "events": res["events"],
+                          **bound}
+        print(f"  kernel {ms:.2f} ms, twin {res['plain_ms']:.0f} ms, {_bound_text(bound)}")
+    for name, (plan, n) in small.items():
         eng = KernelEngine(plan, device="cuda")
         args = eng.prepare(scenario_keys(0, n, device="cuda"))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        twin = des_reference(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        got = eng.kernel(*args)
-        torch.cuda.synchronize()
-        for field in ("hist", "thr", "momi", "trunc", "n_events"):
-            a, b = getattr(got, field), getattr(twin, field)
-            if not torch.equal(a, b):
-                bad = (a != b).reshape(a.shape[0], -1).any(dim=1).nonzero()[:5, 0].tolist()
-                msg = f"{name}: kernel and twin differ in {field} (scenarios {bad})"
-                raise SmokeError(msg)
-        err = (got.momf - twin.momf).abs()
-        if not torch.allclose(got.momf, twin.momf, rtol=MOMENT_RTOL, atol=0.0):
-            msg = f"{name}: float moments differ by up to {err.max().item()}"
-            raise SmokeError(msg)
-        measured["max_abs_err"] = max(measured["max_abs_err"], err.max().item())
-        momi = got.momi.sum(dim=0).tolist()
-        events = int(got.n_events.sum().item())
-        truncated = int(got.trunc.sum().item())
-        print(
-            f"kernel == twin on {name}: {n} scenarios, pool {plan.pool_size}, "
-            f"{events} events, completed {momi[0]}, generated {momi[1]}, "
-            f"dropped {momi[2]}, overflow {momi[3]}, truncated {truncated}; "
-            f"twin {plain_ms:.0f} ms",
-        )
-        if name == "ram_bound_overflow" and momi[3] == 0:
-            msg = "the RAM-bound case did not overflow its pool"
-            raise SmokeError(msg)
-        if name == "two_servers_lb_600s_capped":
-            if truncated != n:
-                msg = f"{name}: {n - truncated} scenarios ended before the cap"
-                raise SmokeError(msg)
-            ms = _time_kernel(torch, lambda: eng.kernel(*args), repeats=3)
-            bound = _bound_ms(args, got)
-            measured.update(ms=ms, plain_ms=plain_ms, **bound)
-            print(f"  kernel {ms:.2f} ms, twin {plain_ms:.0f} ms, {_bound_text(bound)}")
+        res = _check_case(torch, name, eng, args, n)
+        measured["max_abs_err"] = max(measured["max_abs_err"], res["max_abs_err"])
+        if name == "ram_bound_overflow" and res["momi"][3] == 0:
+            raise SmokeError("the RAM-bound case did not overflow its pool")
+        if (name in CONTROL_PAYLOADS or name == "lc_breaker_outage") and res["momi"][4] == 0:
+            raise SmokeError(f"{name}: no request was rejected")
     return measured
 
 
-def phase_main_path(torch) -> dict:
-    """Phase 3: the full-width sweep through SweepRunner."""
+def phase_path(torch, name: str) -> dict:
+    """Phase 3, one path: ``SweepRunner(payload).run(2048, seed=0)`` at the
+    payload's full 600 s through the kernel, with no truncation and no
+    overflow, request conservation per scenario, the pooled p95 (and, where
+    the reference states it, the rejected fraction) against the JAX
+    reference kernel's, then the kernel alone on the same inputs."""
     import numpy as np
 
     from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
     from asyncflow_tpu_torch.parallel import SweepRunner
 
-    runner = SweepRunner(TWO_SERVERS_LB, device="cuda")
+    ref = REFERENCE[name]
+    runner = SweepRunner(PAYLOADS[name], device="cuda")
     kernel = runner.engine.kernel
     kernel.launches = 0
     report = runner.run(MAIN_SCENARIOS, seed=0)
     launches = kernel.launches
     if launches < 1:
-        msg = "the main path did not launch the DES kernel"
-        raise SmokeError(msg)
+        raise SmokeError(f"{name}: the sweep did not launch the DES kernel")
     summary = report.summary()
     res = report.results
     if summary["truncated_total"] != 0 or summary["overflow_total"] != 0:
         msg = (
-            f"truncated {summary['truncated_total']}, "
+            f"{name}: truncated {summary['truncated_total']}, "
             f"overflow {summary['overflow_total']}"
         )
         raise SmokeError(msg)
     in_flight = (
         res.total_generated - res.completed - res.total_dropped - res.overflow_dropped
+        - res.total_rejected
     )
     if np.any(in_flight < 0) or np.any(in_flight > runner.plan.pool_size):
-        msg = f"conservation broken: in-flight range [{in_flight.min()}, {in_flight.max()}]"
+        msg = (
+            f"{name}: conservation broken: in-flight range "
+            f"[{in_flight.min()}, {in_flight.max()}]"
+        )
         raise SmokeError(msg)
     for key in ("latency_p50_s", "latency_p95_s", "latency_p99_s", "latency_mean_s"):
         if not np.isfinite(summary[key]):
-            raise SmokeError(f"{key} is not finite")
+            raise SmokeError(f"{name}: {key} is not finite")
     p95 = summary["latency_p95_s"]
-    rel = p95 / REFERENCE_P95_S - 1.0
+    rel = p95 / ref["p95_s"] - 1.0
     if abs(rel) > P95_RTOL:
-        msg = f"pooled p95 {p95:.6f} s is {rel:+.2%} from the reference {REFERENCE_P95_S}"
+        msg = f"{name}: pooled p95 {p95:.6f} s is {rel:+.2%} from the reference {ref['p95_s']}"
+        raise SmokeError(msg)
+    rejected = float(res.total_rejected.sum() / max(res.total_generated.sum(), 1))
+    if "rejected_fraction" in ref and abs(rejected - ref["rejected_fraction"]) > REJECTED_ATOL:
+        msg = (
+            f"{name}: rejected fraction {rejected:.4f} is off the reference's "
+            f"{ref['rejected_fraction']:.4f} by more than {REJECTED_ATOL}"
+        )
         raise SmokeError(msg)
     events = int(res.events.sum())
 
     # the kernel alone on the same inputs, between CUDA events
     args = runner.engine.prepare(scenario_keys(0, MAIN_SCENARIOS, device="cuda"))
     out = []
-    kernel_ms = _time_kernel(
-        torch, lambda: out.append(runner.engine.kernel(*args)), repeats=1,
-    )
+    kernel_ms = _time_kernel(torch, lambda: out.append(kernel(*args)), repeats=1)
     bound = _bound_ms(args, out[0])
     print(
-        f"main path: {MAIN_SCENARIOS} scenarios x {runner.plan.horizon:.0f} s, "
-        f"{launches} launch(es), {report.wall_seconds:.2f} s wall, "
+        f"path {name}: {MAIN_SCENARIOS} scenarios x {runner.plan.horizon:.0f} s, pool "
+        f"{runner.plan.pool_size}, {launches} launch(es), {report.wall_seconds:.2f} s wall, "
         f"{summary['scenarios_per_second']:.1f} scen/s, kernel {kernel_ms:.1f} ms, "
         f"{events} events ({events / (kernel_ms / 1e3):.3e} events/s), "
         f"{_bound_text(bound)}",
+        flush=True,
     )
     print(
         f"  p50 {summary['latency_p50_s'] * 1e3:.3f} ms, p95 {p95 * 1e3:.3f} ms "
-        f"({rel:+.3%} vs the reference {REFERENCE_P95_S * 1e3:.3f} ms), "
+        f"({rel:+.3%} vs the reference {ref['p95_s'] * 1e3:.3f} ms), "
         f"p99 {summary['latency_p99_s'] * 1e3:.3f} ms, mean "
-        f"{summary['latency_mean_s'] * 1e3:.3f} ms; "
-        f"completed {summary['completed_total']}, "
-        f"dropped {summary['dropped_total']}",
+        f"{summary['latency_mean_s'] * 1e3:.3f} ms; completed {summary['completed_total']}, "
+        f"dropped {summary['dropped_total']}, rejected {summary['rejected_total']} "
+        f"(fraction {rejected:.4f})",
+        flush=True,
     )
+    if name == "two_servers_lb":
+        print(
+            f"  headline kernel {kernel_ms:.1f} ms against the slice-1 kernel's "
+            f"{SLICE1_HEADLINE_KERNEL_MS} ms ({kernel_ms / SLICE1_HEADLINE_KERNEL_MS - 1.0:+.2%})",
+        )
     return {
         "launches": launches,
-        "main_ms": kernel_ms,
-        "main_bound_ms": bound["bound_ms"],
-        "main_bound_by": bound["bound_by"],
-        "main_events": events,
-        "main_wall_s": report.wall_seconds,
+        "ms": kernel_ms,
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
+        "events": events,
+        "wall_s": report.wall_seconds,
         "scen_per_s": summary["scenarios_per_second"],
         "p95_s": p95,
+        "rejected_fraction": rejected,
     }
 
 
@@ -419,31 +664,48 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
+        t0 = time.perf_counter()
         phase_setup(torch)
+        t1 = time.perf_counter()
         check = phase_kernel_vs_twin(torch)
-        main_path = phase_main_path(torch)
+        t2 = time.perf_counter()
+        paths = {name: phase_path(torch, name) for name in PAYLOADS}
+        t3 = time.perf_counter()
     except (SmokeError, subprocess.CalledProcessError) as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
     from asyncflow_tpu_torch.engines.torchsim.des_kernel import DesKernel
 
+    print(f"phase seconds: setup {t1 - t0:.1f}, kernel vs twin {t2 - t1:.1f}, "
+          f"paths {t3 - t2:.1f}")
+    headline = check["two_servers_lb"]
     kernels = [
         {
             "name": DesKernel.name,
             "route": DesKernel.route,
             "source": DesKernel.source,
             "replaces": DesKernel.replaces,
-            "launches": main_path["launches"],
+            "launches": sum(p["launches"] for p in paths.values()),
             "max_abs_err": check["max_abs_err"],
-            "ms": check["ms"],
-            "plain_ms": check["plain_ms"],
-            "bound_ms": check["bound_ms"],
-            "bound_by": check["bound_by"],
+            "ms": headline["ms"],
+            "plain_ms": headline["plain_ms"],
+            "bound_ms": headline["bound_ms"],
+            "bound_by": headline["bound_by"],
             "library_ms": None,
-            "main_ms": main_path["main_ms"],
-            "main_bound_ms": main_path["main_bound_ms"],
-            "main_bound_by": main_path["main_bound_by"],
-            "main_events": main_path["main_events"],
+            "paths": {
+                name: {
+                    "launches": p["launches"],
+                    "ms": p["ms"],
+                    "bound_ms": p["bound_ms"],
+                    "bound_by": p["bound_by"],
+                    "events": p["events"],
+                    "capped_check": {
+                        key: check[name][key]
+                        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "events")
+                    },
+                }
+                for name, p in paths.items()
+            },
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -77,6 +77,47 @@ def _lc_mixed() -> dict:
     return data
 
 
+def _event_inj() -> dict:
+    """Two spikes and one outage per server inside the 8 s."""
+    data = _payload(lb="round_robin")
+
+    def window(eid, target, t0, t1, spike=None):
+        start = {"kind": "server_down", "t_start": t0}
+        end = {"kind": "server_up", "t_end": t1}
+        if spike is not None:
+            start = {"kind": "network_spike_start", "t_start": t0, "spike_s": spike}
+            end = {"kind": "network_spike_end", "t_end": t1}
+        return {"event_id": eid, "target_id": target, "start": start, "end": end}
+
+    data["events"] = [
+        window("spike-c-lb", "c-lb", 1.0, 3.0, 0.015),
+        window("s1-down", "s1", 2.0, 4.0),
+        window("spike-lb-s2", "lb-s2", 4.0, 6.0, 0.02),
+        window("s2-down", "s2", 5.0, 7.0),
+    ]
+    return data
+
+
+def _controls_breaker(lb: str) -> dict:
+    """Every overload control and the LB breaker at once."""
+    data = _payload(lb=lb)
+    data["rqs_input"]["avg_active_users"] = {"mean": 60}
+    s1, s2 = data["topology_graph"]["nodes"]["servers"]
+    s1["overload"] = {"max_ready_queue": 2, "max_connections": 6, "queue_timeout_s": 0.02}
+    s2["overload"] = {"rate_limit_rps": 3.0, "rate_limit_burst": 3}
+    data["topology_graph"]["nodes"]["load_balancer"]["circuit_breaker"] = {
+        "failure_threshold": 3, "cooldown_s": 1.0, "half_open_probes": 2,
+    }
+    return data
+
+
+def _events_and_controls() -> dict:
+    """The outages and spikes with every control and the breaker."""
+    data = _controls_breaker("least_connection")
+    data["events"] = _event_inj()["events"]
+    return data
+
+
 @pytest.fixture
 def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
@@ -91,6 +132,10 @@ def cuda_device() -> torch.device:
         ("round_robin", _payload(lb="round_robin"), None),
         ("lc_mixed", _lc_mixed(), None),
         ("ram_overflow", _payload(ram_mb=256, ram=128, io=0.25), 2),
+        ("event_inj", _event_inj(), None),
+        ("controls_breaker_rr", _controls_breaker("round_robin"), None),
+        ("controls_breaker_lc", _controls_breaker("least_connection"), None),
+        ("controls_events", _events_and_controls(), None),
     ],
 )
 def test_kernel_matches_twin_on_cuda(cuda_device, name, data, pool_size) -> None:
@@ -101,12 +146,14 @@ def test_kernel_matches_twin_on_cuda(cuda_device, name, data, pool_size) -> None
     args = eng.prepare(scenario_keys(3, 64, device=cuda_device))
     got = eng.kernel(*args)
     want = des_reference(*args)
-    for field in ("hist", "thr", "momi", "trunc", "n_events"):
+    for field in ("hist", "thr", "momi", "trunc", "n_events", "work"):
         assert torch.equal(getattr(got, field), getattr(want, field)), (name, field)
     torch.testing.assert_close(got.momf, want.momf, rtol=1e-6, atol=0.0)
     assert eng.kernel.launches == 1
     if pool_size:
         assert int(got.momi[:, 3].sum()) > 0
+    if name.startswith("controls"):
+        assert int(got.momi[:, 4].sum()) > 0
 
 
 @pytest.mark.cuda

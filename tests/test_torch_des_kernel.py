@@ -12,7 +12,10 @@ bin edge then moves one bin).  Stated tolerance: integer outputs equal in at
 least S - 1 of S scenarios, pooled counts equal within 1, float moments
 within rtol 1e-4.  Agreement seen when this was written: integer outputs
 equal in every scenario of every case, and the float moments within 2e-7
-relative (``lat_sumsq`` by one ulp, where XLA fuses the multiply-add).
+relative (``lat_sumsq`` by one ulp, where XLA fuses the multiply-add); on
+slice 2's cases (event injection, the four overload controls, the RR and
+LC breakers) integers equal everywhere too, and the moments within 5.5e-7
+relative.
 
 The CUDA kernel itself is held to the twin on the card
 (``tests/test_torch_cuda.py``, and phase 2 of ``chip_smoke.py``).
@@ -21,8 +24,11 @@ The CUDA kernel itself is held to the twin on the card
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
+import pytest
+import yaml
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.engines.jaxsim.engine import scenario_keys as jax_scenario_keys
@@ -35,9 +41,10 @@ from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.schemas import SimulationPayload
 
 S = 8
+DATA = Path(__file__).resolve().parents[1] / "examples" / "yaml_input" / "data"
 MOMENT_RTOL = 1e-4
 INT_FIELDS = ("hist", "thr", "lat_count", "n_generated", "n_dropped", "n_overflow",
-              "truncated")
+              "n_rejected", "truncated")
 FLOAT_FIELDS = ("lat_sum", "lat_sumsq", "lat_min", "lat_max")
 
 
@@ -120,6 +127,75 @@ def _ram_bound() -> dict:
     return _single(ram_mb=256, ram=128, io=0.25)
 
 
+def _event_inj(horizon: float = 8.0) -> dict:
+    """event_inj_lb.yml cut to ``horizon`` seconds, its five windows scaled
+    into the first 7/8 of the cut (three spikes, one outage per server)."""
+    data = yaml.safe_load((DATA / "event_inj_lb.yml").read_text())
+    scale = 0.875 * horizon / data["sim_settings"]["total_simulation_time"]
+    data["sim_settings"]["total_simulation_time"] = horizon
+    for event in data["events"]:
+        event["start"]["t_start"] *= scale
+        event["end"]["t_end"] *= scale
+    return data
+
+
+def _controlled(overload: dict, *, users: int, cpu: float, io: float = 0.010) -> dict:
+    """One server with a CPU then an IO step under an overload policy
+    (the reference's parity fixture ``_controlled``), 6 s."""
+    data = _single(horizon=6)
+    data["rqs_input"]["avg_active_users"] = {"mean": users}
+    srv = data["topology_graph"]["nodes"]["servers"][0]
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": cpu}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": io}},
+    ]
+    srv["overload"] = overload
+    return data
+
+
+CONTROLS = {
+    "queue_cap": lambda: _controlled({"max_ready_queue": 3}, users=40, cpu=0.040),
+    "conn_cap": lambda: _controlled({"max_connections": 4}, users=40, cpu=0.002, io=0.2),
+    "rate_limit": lambda: _controlled(
+        {"rate_limit_rps": 6.0, "rate_limit_burst": 6}, users=30, cpu=0.002,
+    ),
+    "queue_timeout": lambda: _controlled({"queue_timeout_s": 0.120}, users=45, cpu=0.045),
+}
+
+
+def _breaker(algorithm: str) -> dict:
+    """A rate-limited s2 in the rotation trips the LB breaker (the
+    reference's ``test_circuit_breaker_parity`` fixture, 8 s, 60 users)."""
+    data = _lb(algorithm)
+    data["rqs_input"]["avg_active_users"] = {"mean": 60}
+    data["topology_graph"]["edges"][3]["latency"] = {
+        "mean": 0.002, "distribution": "normal", "variance": 0.001,
+    }
+    data["topology_graph"]["nodes"]["servers"][1]["overload"] = {
+        "rate_limit_rps": 4.0, "rate_limit_burst": 4,
+    }
+    data["topology_graph"]["nodes"]["load_balancer"]["circuit_breaker"] = {
+        "failure_threshold": 5, "cooldown_s": 2.0, "half_open_probes": 2,
+    }
+    return data
+
+
+def _lc_breaker_outage() -> dict:
+    """Least connection with the breaker, the rate-limited s2 and one s1
+    outage: the LC branch of the breaker's pick, and a slot removed from
+    an LC rotation."""
+    data = _breaker("least_connection")
+    lb = data["topology_graph"]["nodes"]["load_balancer"]
+    lb["circuit_breaker"] = {"failure_threshold": 3, "cooldown_s": 1.0,
+                             "half_open_probes": 2}
+    data["events"] = [{
+        "event_id": "s1-down", "target_id": "s1",
+        "start": {"kind": "server_down", "t_start": 2.0},
+        "end": {"kind": "server_up", "t_end": 3.5},
+    }]
+    return data
+
+
 def _run_both(data: dict, *, pool_size=None, max_iterations=None):
     jplan = jax_compile(JaxPayload.model_validate(data))
     tplan = compile_payload(SimulationPayload.from_dict(data), pool_size=pool_size)
@@ -184,11 +260,59 @@ def test_truncation_matches_reference() -> None:
 
 
 def test_conservation_and_events() -> None:
-    """generated = completed + dropped + overflow + in flight, with in flight
-    bounded by the pool; every scenario simulated events."""
+    """generated = completed + dropped + overflow + rejected + in flight,
+    with in flight bounded by the pool; every scenario simulated events."""
     plan = compile_payload(SimulationPayload.from_dict(_lb()))
     state = KernelEngine(plan, device="cpu").run_batch(scenario_keys(4, S))
-    slack = state.n_generated - state.lat_count - state.n_dropped - state.n_overflow
+    slack = (state.n_generated - state.lat_count - state.n_dropped
+             - state.n_overflow - state.n_rejected)
     assert (slack >= 0).all()
     assert (slack <= plan.pool_size).all()
     assert (state.n_events > state.n_generated).all()
+
+
+def test_event_injection_matches_reference() -> None:
+    """Three spikes and two outages inside an 8 s cut of event_inj_lb.yml:
+    the timeline pops, the slot removals and re-insertions, and the spike
+    breakpoints on the entry chain, the LB edge and an exit edge."""
+    data = _event_inj()
+    want, got = _run_both(data)
+    _assert_agree(want, got)
+    last = max(e["end"]["t_end"] for e in data["events"])
+    # every scenario completes requests after the last window closed
+    assert (want.thr[:, int(np.ceil(last)):].sum(axis=1) > 0).all()
+    assert want.n_dropped.sum() > 0
+
+
+@pytest.mark.parametrize("name", sorted(CONTROLS))
+def test_overload_control_matches_reference(name: str) -> None:
+    want, got = _run_both(CONTROLS[name]())
+    _assert_agree(want, got)
+    assert want.n_rejected.sum() > 0
+
+
+@pytest.mark.parametrize(
+    "make", [lambda: _breaker("round_robin"), _lc_breaker_outage],
+    ids=["rr_breaker", "lc_breaker_outage"],
+)
+def test_circuit_breaker_matches_reference(make) -> None:
+    want, got = _run_both(make())
+    _assert_agree(want, got)
+    assert want.n_rejected.sum() > 0
+
+
+def test_conservation_with_rejections() -> None:
+    """generated = completed + dropped + overflow + rejected + in flight
+    under every overload control and the breaker at once."""
+    data = _breaker("round_robin")
+    data["topology_graph"]["nodes"]["servers"][0]["overload"] = {
+        "max_ready_queue": 2, "max_connections": 6, "queue_timeout_s": 0.02,
+    }
+    plan = compile_payload(SimulationPayload.from_dict(data))
+    assert plan.has_queue_cap and plan.has_conn_cap and plan.has_queue_timeout
+    state = KernelEngine(plan, device="cpu").run_batch(scenario_keys(4, S))
+    slack = (state.n_generated - state.lat_count - state.n_dropped
+             - state.n_overflow - state.n_rejected)
+    assert state.n_rejected.sum() > 0
+    assert (slack >= 0).all()
+    assert (slack <= plan.pool_size).all()

@@ -1,0 +1,133 @@
+"""The CUDA kernel's source, compiled for the host CPU, against its twin.
+
+``csrc/des_kernel.cu`` is plain C++ apart from CUDA's qualifiers, its thread
+indices and the launch.  Built with g++ through a small shim header that
+defines those away (the launch becomes a loop over blocks and threads), the
+same source runs here and is held to the twin on the CPU, through the
+wrapper's own argument packing (``des_kernel.pack_args``).  This checks the
+kernel's logic and its argument layout, not the CUDA compiler: the card's
+build is held to the twin by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.  Both sides evaluate float32 one operation at a time
+(``-ffp-contract=off``), but glibc's ``logf`` and torch's may round a value
+differently, so the tolerance is slice 1's: integer outputs equal in at
+least S - 1 of S scenarios and pooled within 1, float moments within rtol
+1e-4.  Agreement seen when this was written: every integer output equal in
+every scenario, float moments within 4e-6 absolute.  Skipped where no g++
+is installed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from test_torch_cuda import (
+    _controls_breaker,
+    _event_inj,
+    _events_and_controls,
+    _lc_mixed,
+    _payload,
+)
+
+from asyncflow_tpu_torch.compiler import compile_payload
+from asyncflow_tpu_torch.engines.torchsim import des_kernel
+from asyncflow_tpu_torch.engines.torchsim.des_reference import des_reference
+from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
+from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+from asyncflow_tpu_torch.schemas import SimulationPayload
+
+SOURCE = Path(des_kernel.__file__).resolve().parents[2] / "csrc" / "des_kernel.cu"
+S = 16
+
+#: what CUDA provides that the host lacks
+SHIM = """
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+using std::max;
+using std::min;
+#define __device__
+#define __forceinline__ inline
+#define __global__
+#define __launch_bounds__(n)
+struct HostDim { unsigned x; };
+static HostDim blockIdx, blockDim, threadIdx;
+typedef void* cudaStream_t;
+inline int cudaGetLastError() { return 0; }
+"""
+LAUNCH = re.compile(r"des_kernel<kEvents, kControls><<<blocks, kThreads, 0, stream>>>\(args\);")
+HOST_LAUNCH = (
+    "for (unsigned b = 0; b < (unsigned)blocks; ++b)"
+    " for (unsigned t = 0; t < (unsigned)kThreads; ++t) {"
+    " blockIdx.x = b; blockDim.x = kThreads; threadIdx.x = t;"
+    " des_kernel<kEvents, kControls>(args); }"
+)
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory) -> ctypes.CDLL:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    src = SOURCE.read_text()
+    assert "#include <cuda_runtime.h>" in src
+    assert LAUNCH.search(src), "the launch statement changed: update LAUNCH"
+    src = LAUNCH.sub(HOST_LAUNCH, src.replace("#include <cuda_runtime.h>", '#include "shim.h"'))
+    work = tmp_path_factory.mktemp("host_kernel")
+    (work / "shim.h").write_text(SHIM)
+    (work / "des_kernel.cpp").write_text(src)
+    lib = work / "libdes_kernel_host.so"
+    subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", str(lib), str(work / "des_kernel.cpp")],
+        check=True, capture_output=True, timeout=300,
+    )
+    host = ctypes.CDLL(str(lib))
+    host.des_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    host.des_launch.restype = ctypes.c_int
+    assert host.des_args_size() == ctypes.sizeof(des_kernel._DesArgs)
+    return host
+
+
+CASES = {
+    "round_robin": (_payload(lb="round_robin"), {}),
+    "lc_mixed": (_lc_mixed(), {}),
+    "ram_overflow": (_payload(ram_mb=256, ram=128, io=0.25), {"pool_size": 2}),
+    "truncation": (_payload(lb="round_robin"), {"max_iterations": 40}),
+    "event_inj": (_event_inj(), {}),
+    "controls_breaker_rr": (_controls_breaker("round_robin"), {}),
+    "controls_breaker_lc": (_controls_breaker("least_connection"), {}),
+    "controls_events": (_events_and_controls(), {}),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_host_build_of_the_kernel_matches_the_twin(host_kernel, name: str) -> None:
+    data, kw = CASES[name]
+    plan = compile_payload(SimulationPayload.from_dict(data), pool_size=kw.get("pool_size"))
+    if "max_iterations" in kw:
+        plan = dataclasses.replace(plan, max_iterations=kw["max_iterations"])
+    args = KernelEngine(plan, device="cpu").prepare(scenario_keys(5, S))
+    want = des_reference(*args)
+    packed, got, _keep = des_kernel.pack_args(*args)
+    assert host_kernel.des_launch(ctypes.byref(packed), None) == 0
+    rows_equal = np.ones(S, bool)
+    for field in ("hist", "thr", "momi", "trunc", "n_events", "work"):
+        a = getattr(want, field).reshape(S, -1).numpy()
+        b = getattr(got, field).reshape(S, -1).numpy()
+        rows_equal &= (a == b).all(axis=1)
+        assert abs(int(a.astype(np.int64).sum()) - int(b.astype(np.int64).sum())) <= 1, field
+    assert rows_equal.sum() >= S - 1, rows_equal
+    torch.testing.assert_close(got.momf, want.momf, rtol=1e-4, atol=1e-5)
+    if name.startswith("controls"):
+        assert int(want.momi[:, 4].sum()) > 0
+    if name == "truncation":
+        assert bool(want.trunc.all())

@@ -71,11 +71,62 @@ def _ram_bound() -> dict:
     return data
 
 
+def _smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _controlled(overload: dict, *, users: int, cpu: float, io: float = 0.010) -> dict:
+    """One server, a CPU then an IO step, under an overload policy (the
+    reference's parity fixture ``_controlled``)."""
+    data = _yaml("single_server.yml")
+    data["sim_settings"]["total_simulation_time"] = 10
+    data["rqs_input"]["avg_active_users"] = {"mean": users}
+    srv = data["topology_graph"]["nodes"]["servers"][0]
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": cpu}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": io}},
+    ]
+    srv["overload"] = overload
+    return data
+
+
+def _lowered_controls() -> dict:
+    """Every control configured far above the load, so the compiler lowers
+    each away (the connection cap through its bisection), and a breaker
+    with no failure channel left, which lowers away too."""
+    data = _yaml("two_servers_lb.yml")
+    _server(data)["overload"] = {
+        "max_ready_queue": 200, "max_connections": 5000,
+        "rate_limit_rps": 2000.0, "rate_limit_burst": 400, "queue_timeout_s": 5.0,
+    }
+    for edge in data["topology_graph"]["edges"]:
+        if edge["source"] == "lb-1":
+            edge["dropout_rate"] = 0.0
+    data["topology_graph"]["nodes"]["load_balancer"]["circuit_breaker"] = {
+        "failure_threshold": 3, "cooldown_s": 1.0,
+    }
+    return data
+
+
 PAYLOADS = {
     "two_servers_lb": lambda: _yaml("two_servers_lb.yml"),
     "single_server": lambda: _yaml("single_server.yml"),
     "lc_mixed": _lc_mixed,
     "ram_bound": _ram_bound,
+    "event_inj_lb": lambda: _yaml("event_inj_lb.yml"),
+    "resilience_all": lambda: _smoke().RESILIENCE_ALL,
+    "queue_cap": lambda: _controlled({"max_ready_queue": 3}, users=40, cpu=0.040),
+    "conn_cap": lambda: _controlled({"max_connections": 4}, users=40, cpu=0.002, io=0.2),
+    "rate_limit": lambda: _controlled(
+        {"rate_limit_rps": 6.0, "rate_limit_burst": 6}, users=30, cpu=0.002,
+    ),
+    "queue_timeout": lambda: _controlled({"queue_timeout_s": 0.120}, users=45, cpu=0.045),
+    "lowered_controls": _lowered_controls,
 }
 
 
@@ -96,6 +147,27 @@ def test_compile_payload_matches_reference(name: str) -> None:
     assert got.unsupported == ()
 
 
+def test_controls_are_modelled_or_lowered_as_the_reference_decides() -> None:
+    """The fixtures reach both sides of every non-binding proof."""
+    plans = {name: compile_payload(SimulationPayload.from_dict(PAYLOADS[name]()))
+             for name in ("queue_cap", "conn_cap", "rate_limit", "queue_timeout",
+                          "lowered_controls", "resilience_all", "event_inj_lb")}
+    assert plans["queue_cap"].has_queue_cap
+    assert plans["conn_cap"].has_conn_cap
+    assert plans["rate_limit"].has_rate_limit
+    assert plans["queue_timeout"].has_queue_timeout
+    low = plans["lowered_controls"]
+    assert not (low.has_queue_cap or low.has_conn_cap or low.has_rate_limit
+                or low.has_queue_timeout or low.has_breaker)
+    assert low.breaker_lowered
+    assert 1.0 < low.proof_rate_headroom < np.inf
+    res = plans["resilience_all"]
+    assert res.has_rate_limit and res.has_queue_timeout and res.breaker_threshold == 5
+    ev = plans["event_inj_lb"]
+    assert ev.has_timeline and ev.has_spikes
+    assert ev.timeline_slot.tolist() == [0, 0, 1, 1]
+
+
 def test_plan_from_arrays_round_trips_a_reference_plan() -> None:
     data = _lc_mixed()
     ref = jax_compile(JaxPayload.model_validate(data))
@@ -110,12 +182,7 @@ def test_plan_from_arrays_round_trips_a_reference_plan() -> None:
 
 
 def test_chip_smoke_literal_equals_the_yaml() -> None:
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    assert module.TWO_SERVERS_LB == _yaml("two_servers_lb.yml")
+    assert _smoke().TWO_SERVERS_LB == _yaml("two_servers_lb.yml")
 
 
 def _with(mutate) -> dict:
@@ -132,12 +199,14 @@ def _step(data) -> dict:
     return _server(data)["endpoints"][0]["steps"][2]
 
 
+def _lb_node(data) -> dict:
+    return data["topology_graph"]["nodes"]["load_balancer"]
+
+
 UNSUPPORTED = {
-    "events": lambda d: d.update(events=[{
-        "event_id": "out", "target_id": "srv-1",
-        "start": {"kind": "server_down", "t_start": 1.0},
-        "end": {"kind": "server_up", "t_end": 2.0},
-    }]),
+    "brownout_queue_threshold": lambda d: _server(d).update(overload={
+        "max_ready_queue": 4, "brownout_queue_threshold": 2, "brownout_cpu_factor": 0.5,
+    }),
     "retry_policy": lambda d: d.update(retry_policy={"max_attempts": 2}),
     "fault_timeline": lambda d: d.update(fault_timeline={"events": []}),
     "hedge_policy": lambda d: d.update(hedge_policy={"delay_s": 0.05}),
@@ -146,15 +215,13 @@ UNSUPPORTED = {
         rqs_input=[d["rqs_input"], {**d["rqs_input"], "id": "rqs-2"}],
     ),
     "replay": lambda d: d["rqs_input"].update(replay={"times": [0.1]}),
-    "overload": lambda d: _server(d).update(overload={"max_ready_queue": 4}),
     "serving": lambda d: _server(d).update(serving={"max_batch_tokens": 64}),
     "db_connection_pool": lambda d: _server(d)["server_resources"].update(
         db_connection_pool=2,
     ),
-    "circuit_breaker": lambda d: d["topology_graph"]["nodes"]["load_balancer"].update(
+    "health": lambda d: _lb_node(d).update(health={"alpha": 0.2}),
+    "health_on_breaker_lb": lambda d: _lb_node(d).update(
         circuit_breaker={"failure_threshold": 3, "cooldown_s": 1.0},
-    ),
-    "health": lambda d: d["topology_graph"]["nodes"]["load_balancer"].update(
         health={"alpha": 0.2},
     ),
     "cache_hit_probability": lambda d: _step(d).update(
@@ -168,31 +235,53 @@ UNSUPPORTED = {
 }
 
 
-def _timeline_plan():
-    return jax_compile(JaxPayload.model_validate(_yaml("event_inj_lb.yml")))
-
-
 def _cache_plan():
     data = _yaml("two_servers_lb.yml")
     _step(data).update(kind="io_cache", cache_hit_probability=0.9, cache_miss_time=0.05)
     return jax_compile(JaxPayload.model_validate(data))
 
 
-REFERENCE_PLANS = {"timeline": _timeline_plan, "cache": _cache_plan}
+def _db_plan():
+    """A one-connection DB pool that binds, so its io_db step lowers to a
+    DB segment."""
+    data = _yaml("two_servers_lb.yml")
+    _server(data)["server_resources"]["db_connection_pool"] = 1
+    _step(data)["kind"] = "io_db"
+    return jax_compile(JaxPayload.model_validate(data))
+
+
+def _multi_generator_plan():
+    data = _yaml("two_servers_lb.yml")
+    second = {**data["rqs_input"], "id": "rqs-2"}
+    data["rqs_input"] = [data["rqs_input"], second]
+    data["topology_graph"]["edges"].append({
+        "id": "gen2-client", "source": "rqs-2", "target": "client-1",
+        "latency": {"mean": 0.003, "distribution": "exponential"},
+    })
+    return jax_compile(JaxPayload.model_validate(data))
+
+
+REFERENCE_PLANS = {
+    "cache": _cache_plan,
+    "db_pool": _db_plan,
+    "multi_generator": _multi_generator_plan,
+}
+#: the feature each refusal case names, where the case id is not the name
+FEATURE_OF = {"health_on_breaker_lb": "health"}
 
 
 @pytest.mark.parametrize(
-    ("where", "feature"),
+    ("where", "case"),
     [("payload", f) for f in sorted(UNSUPPORTED)]
     + [("plan", f) for f in sorted(REFERENCE_PLANS)],
 )
-def test_unsupported_feature_is_refused_by_name(where: str, feature: str) -> None:
+def test_unsupported_feature_is_refused_by_name(where: str, case: str) -> None:
     with pytest.raises(UnsupportedFeatureError) as err:
         if where == "payload":
-            SimulationPayload.from_dict(_with(UNSUPPORTED[feature]))
+            SimulationPayload.from_dict(_with(UNSUPPORTED[case]))
         else:
-            KernelEngine(plan_from_arrays(vars(REFERENCE_PLANS[feature]())), device="cpu")
-    assert err.value.feature == feature
+            KernelEngine(plan_from_arrays(vars(REFERENCE_PLANS[case]())), device="cpu")
+    assert err.value.feature == FEATURE_OF.get(case, case)
     assert "ROADMAP.md" in str(err.value)
 
 
@@ -216,3 +305,47 @@ def test_unsupported_feature_is_refused_by_name(where: str, feature: str) -> Non
 def test_invalid_payloads_are_rejected(mutate) -> None:
     with pytest.raises(PayloadError):
         SimulationPayload.from_dict(_with(mutate))
+
+
+def _outage(eid: str, target: str, t0: float, t1: float) -> dict:
+    return {"event_id": eid, "target_id": target,
+            "start": {"kind": "server_down", "t_start": t0},
+            "end": {"kind": "server_up", "t_end": t1}}
+
+
+@pytest.mark.parametrize(
+    ("events", "match"),
+    [
+        ([_outage("a", "srv-1", 10.0, 20.0), _outage("b", "srv-2", 15.0, 25.0)],
+         "all servers are down"),
+        ([_outage("a", "srv-1", 10.0, 20.0), _outage("b", "srv-1", 15.0, 25.0)],
+         "Overlapping events for server 'srv-1'"),
+        ([{"event_id": "a", "target_id": "srv-1",
+           "start": {"kind": "network_spike_start", "t_start": 1.0, "spike_s": 0.01},
+           "end": {"kind": "network_spike_end", "t_end": 2.0}}],
+         "regarding an edge does not have a compatible target id"),
+        ([_outage("a", "srv-1", 10.0, 700.0)], "exceeds simulation horizon"),
+    ],
+    ids=["all_down", "overlap", "spike_on_server", "past_horizon"],
+)
+def test_invalid_events_are_rejected_as_the_reference_does(events, match) -> None:
+    """Each case trips the same validator, with the same message, in both
+    packages."""
+    import pydantic
+
+    data = _with(lambda d: d.update(events=events))
+    with pytest.raises(pydantic.ValidationError, match=match):
+        JaxPayload.model_validate(data)
+    with pytest.raises(PayloadError, match=match):
+        SimulationPayload.from_dict(data)
+
+
+def test_back_to_back_outages_are_legal() -> None:
+    """END before START on ties: one window may end when the next starts."""
+    data = _with(lambda d: d.update(events=[
+        _outage("a", "srv-1", 10.0, 20.0), _outage("b", "srv-2", 20.0, 30.0),
+        _outage("c", "srv-1", 30.0, 40.0),
+    ]))
+    plan = compile_payload(SimulationPayload.from_dict(data))
+    ref = jax_compile(JaxPayload.model_validate(data))
+    assert plan.timeline_down.tolist() == ref.timeline_down.tolist() == [1, 0, 1, 0, 1, 0]

@@ -1,10 +1,13 @@
 """The port's SweepRunner against the JAX reference's, and the port's
 import hygiene.
 
-Run as a script (``python tests/test_torch_sweep.py --reference-p95``) it
-measures the pooled p95 of the JAX reference kernel on two_servers_lb at its
-full 600 s (32 scenarios of seed 0, ``PallasEngine(interpret=True)`` on the
-CPU): the constant ``chip_smoke.py`` holds the port's main path to.
+Run as a script from the repository root (``PYTHONPATH=. python
+tests/test_torch_sweep.py --reference-p95 [PAYLOAD] [--seed N]
+[--scenarios N]``) it measures the pooled percentiles
+and rejected fraction of the JAX reference kernel on one of
+``chip_smoke.py``'s payloads at its full 600 s (``PallasEngine(
+interpret=True)`` on the CPU; 32 scenarios of seed 0 by default): the
+constants ``chip_smoke.py`` holds the port's full-width sweeps to.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from asyncflow_tpu_torch.errors import NoDeviceError
+from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
+from asyncflow_tpu_torch.errors import NoDeviceError, ProofHeadroomError
 from asyncflow_tpu_torch.parallel import SweepRunner
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -109,6 +113,75 @@ def test_pooled_statistics_match_reference(both_sweeps) -> None:
     assert abs(b["latency_p95_s"] / a["latency_p95_s"] - 1.0) < TOL
 
 
+def _smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_path_literals_equal_their_sources() -> None:
+    """EVENT_INJ_LB is the YAML; RESILIENCE_ALL is the resilience example's
+    ``build_payload("all")`` with the YAML's own 600 s horizon."""
+    import copy
+    import importlib.util
+
+    import yaml
+
+    from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
+
+    smoke = _smoke()
+    data = ROOT / "examples" / "yaml_input" / "data" / "event_inj_lb.yml"
+    assert smoke.EVENT_INJ_LB == yaml.safe_load(data.read_text())
+    spec = importlib.util.spec_from_file_location(
+        "resilience_controls", ROOT / "examples" / "sweeps" / "resilience_controls.py",
+    )
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    assert smoke.RESILIENCE_ALL["sim_settings"]["total_simulation_time"] == 600
+    cut = copy.deepcopy(smoke.RESILIENCE_ALL)
+    cut["sim_settings"]["total_simulation_time"] = example.HORIZON_S
+    assert JaxPayload.model_validate(cut) == example.build_payload("all")
+
+
+def _lowered_cap_payload() -> dict:
+    """A ready-queue cap far above the load: lowered away, with a finite
+    rate headroom (about 8.4x)."""
+    data = _payload(5.0)
+    data["topology_graph"]["nodes"]["servers"][0]["overload"] = {"max_ready_queue": 50}
+    return data
+
+
+def test_rate_headroom_guard() -> None:
+    runner = SweepRunner(_lowered_cap_payload(), device="cpu")
+    headroom = runner.plan.proof_rate_headroom
+    assert 2.0 < headroom < 10.0
+    base = base_overrides(runner.plan)
+    inside = base._replace(user_mean=np.full(2, 2.0 * base.user_mean, np.float32))
+    assert runner.run(2, seed=0, overrides=inside).summary()["completed_total"] > 0
+    past = base._replace(user_mean=np.full(2, 10.0 * base.user_mean, np.float32))
+    with pytest.raises(ProofHeadroomError, match="headroom"):
+        runner.run(2, seed=0, overrides=past)
+
+
+def test_conservation_counts_rejections() -> None:
+    """generated = completed + dropped + overflow + rejected + in flight,
+    per scenario, with the rate limit refusing most of the load."""
+    data = _payload(5.0)
+    data["topology_graph"]["nodes"]["servers"][0]["overload"] = {
+        "rate_limit_rps": 3.0, "rate_limit_burst": 3,
+    }
+    runner = SweepRunner(data, device="cpu")
+    res = runner.run(6, seed=1).results
+    in_flight = (res.total_generated - res.completed - res.total_dropped
+                 - res.overflow_dropped - res.total_rejected)
+    assert res.total_rejected.min() > 0
+    assert (in_flight >= 0).all()
+    assert (in_flight <= runner.plan.pool_size).all()
+
+
 def test_no_device_and_no_gpu_raises() -> None:
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
@@ -166,14 +239,16 @@ def test_sweep_path_needs_no_pydantic_or_yaml(import_probe) -> None:
     assert import_probe["sweep_path"] == []
 
 
-def _reference_p95() -> None:
+def _reference_p95(name: str, seed: int, n: int) -> None:
+    """Pooled p50 / p95 / p99 and the rejected fraction of the JAX reference
+    kernel on a ``chip_smoke`` payload at its full horizon."""
+    import importlib.util
     import os
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    import yaml
 
     from asyncflow_tpu.compiler import compile_payload
     from asyncflow_tpu.engines.jaxsim.engine import scenario_keys
@@ -182,20 +257,32 @@ def _reference_p95() -> None:
     from asyncflow_tpu.engines.results import hist_percentile
     from asyncflow_tpu.schemas.payload import SimulationPayload
 
-    data = yaml.safe_load(
-        (ROOT / "examples" / "yaml_input" / "data" / "two_servers_lb.yml").read_text(),
-    )
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    data = smoke.PAYLOADS[name]
     plan = compile_payload(SimulationPayload.model_validate(data))
-    state = PallasEngine(plan, block=32, interpret=True).run_batch(scenario_keys(0, 32))
+    state = PallasEngine(plan, block=n, interpret=True).run_batch(scenario_keys(seed, n))
     pooled = state.hist.sum(axis=0)
+    print(f"{name}: seed {seed}, scenarios 0..{n - 1}, pool {plan.pool_size}")
     for q in (50, 95, 99):
         print(f"p{q} {float(hist_percentile(pooled, hist_edges(1024), q))!r}")
+    rejected = int(state.n_rejected.sum()) / max(int(state.n_generated.sum()), 1)
+    print(f"rejected_fraction {rejected!r}")
     print(f"truncated {int(state.truncated.sum())} overflow {int(state.n_overflow.sum())}")
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--reference-p95"]:
-        sys.path.insert(0, str(ROOT))
-        _reference_p95()
-    else:
-        sys.exit("usage: python tests/test_torch_sweep.py --reference-p95")
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="JAX reference kernel statistics for a chip_smoke payload",
+    )
+    parser.add_argument("--reference-p95", nargs="?", const="two_servers_lb",
+                        metavar="PAYLOAD", required=True,
+                        help="two_servers_lb (default), event_inj_lb or resilience_all")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--scenarios", type=int, default=32)
+    args = parser.parse_args()
+    sys.path.insert(0, str(ROOT))
+    _reference_p95(args.reference_p95, args.seed, args.scenarios)
