@@ -8,15 +8,19 @@ reference's:
 
 - endpoint programs become alternating CPU / IO segments (runs of CPU
   steps merge, as do runs of IO steps), END-terminated; RAM steps add up to
-  an up-front working set (RAM-first admission);
-- the path from the generator to the first LB or server is a static edge
-  chain; each server's single out-edge leads to a server, the LB or the
-  client;
+  an up-front working set (RAM-first admission); an io_cache step with
+  hit/miss dynamics, an io_llm step with call dynamics and, on a server
+  whose DB connection pool may bind, each io_db step get a segment of
+  their own (SEG_CACHE, SEG_LLM, SEG_DB) with their parameters in
+  per-segment tables;
+- the path from each generator to the first LB or server is a static edge
+  chain (one per generator; generator 0's doubles as ``entry_edges``);
+  each server's single out-edge leads to a server, the LB or the client;
 - the request pool and the iteration cap come from the same fluid
   capacity model, so both packages size the kernel identically;
-- each overload control (ready-queue cap, connection cap, token-bucket
-  rate limit, dequeue deadline) is modelled only where the reference's
-  non-binding proof fails; a control the proof shows unreachable is
+- a DB connection pool and each overload control (ready-queue cap,
+  connection cap, token-bucket rate limit, dequeue deadline) are modelled
+  only where the reference's non-binding proof fails; a control the proof shows unreachable is
   lowered away, and ``proof_rate_headroom`` records how far the workload
   may be scaled before that proof breaks;
 - the LB circuit breaker is modelled only where a failure channel exists
@@ -40,6 +44,7 @@ import numpy as np
 
 from asyncflow_tpu_torch.config.constants import (
     Distribution,
+    EndpointStepIO,
     EventDescription,
     LbAlgorithmsName,
 )
@@ -47,21 +52,19 @@ from asyncflow_tpu_torch.errors import PayloadError
 from asyncflow_tpu_torch.schemas.endpoint import Endpoint
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload
 
-# segment kinds (the reference's numbering; the slice models END, CPU, IO)
+# segment kinds (the reference's numbering; the port models all but the
+# serving pair)
 SEG_END = 0
 SEG_CPU = 1
 SEG_IO = 2
-SEG_DB = 3
-SEG_CACHE = 4
-SEG_LLM = 5
+SEG_DB = 3  # an io_db step holding one of the server's K FIFO connections
+SEG_CACHE = 4  # an io_cache sleep: hit latency with probability p, else miss
+SEG_LLM = 5  # an io_llm sleep stretched by Poisson output tokens
 SEG_PREFILL = 6
 SEG_DECODE = 7
 
-#: segment kinds of the reference that this slice refuses, by feature name
+#: segment kinds of the reference that the port refuses, by feature name
 UNSUPPORTED_SEGMENTS = {
-    SEG_DB: "db_pool",
-    SEG_CACHE: "cache",
-    SEG_LLM: "llm",
     SEG_PREFILL: "serving",
     SEG_DECODE: "serving",
 }
@@ -107,6 +110,17 @@ class StaticPlan:
     seg_dur: np.ndarray  # (NS, NEP, NSEG+1) f32
     endpoint_ram: np.ndarray  # (NS, NEP) f32
     endpoint_cum: np.ndarray  # (NS, NEP) f32 cumulative selection weights
+    # SEG_CACHE: hit probability (0 elsewhere) and miss latency; seg_dur
+    # holds the hit latency
+    seg_hit_prob: np.ndarray  # (NS, NEP, NSEG+1) f32
+    seg_miss_dur: np.ndarray  # (NS, NEP, NSEG+1) f32
+    # SEG_LLM: Poisson token mean, seconds and cost units per token
+    seg_llm_tokens: np.ndarray  # (NS, NEP, NSEG+1) f32
+    seg_llm_tpt: np.ndarray  # (NS, NEP, NSEG+1) f32
+    seg_llm_cost: np.ndarray  # (NS, NEP, NSEG+1) f32
+    # modelled DB connection pool per server; -1 = unlimited (no pool, or
+    # one proven non-binding and lowered away)
+    server_db_pool: np.ndarray  # (NS,) i32
     exit_edge: np.ndarray  # (NS,) i32
     exit_kind: np.ndarray  # (NS,) i32 (TARGET_*)
     exit_target: np.ndarray  # (NS,) i32 (server index when TARGET_SERVER)
@@ -122,11 +136,19 @@ class StaticPlan:
     timeline_times: np.ndarray  # (NTL,) f32
     timeline_down: np.ndarray  # (NTL,) i32 (1 = down, 0 = up)
     timeline_slot: np.ndarray  # (NTL,) i32 LB slot affected (-1 none)
-    # ---- workload (one generator) ----
+    # ---- workload: generator 0, then every generator ----
     user_mean: float
     user_var: float  # < 0 => Poisson users, else truncated-Gaussian scale
     user_window: float
     req_per_user_per_sec: float
+    gen_user_mean: np.ndarray  # (G,) f64
+    gen_user_var: np.ndarray  # (G,) f64
+    gen_window: np.ndarray  # (G,) f64
+    gen_rate: np.ndarray  # (G,) f64 requests per user per second
+    gen_entry_edges: np.ndarray  # (G, L) i32 entry chains, -1-padded
+    gen_entry_len: np.ndarray  # (G,) i32
+    gen_entry_target_kind: np.ndarray  # (G,) i32 TARGET_LB or TARGET_SERVER
+    gen_entry_target: np.ndarray  # (G,) i32 server index, or -1
     # ---- run geometry ----
     horizon: float
     pool_size: int
@@ -151,9 +173,30 @@ class StaticPlan:
     unsupported: tuple[str, ...] = ()
 
     @property
+    def n_generators(self) -> int:
+        return int(self.gen_user_mean.shape[0])
+
+    @property
+    def gen_windows(self) -> list[int]:
+        """Columns of each generator's block of the arrival-rate table."""
+        return [int(np.ceil(self.horizon / float(w))) + 1 for w in self.gen_window]
+
+    @property
     def n_windows(self) -> int:
-        """Columns of the per-scenario arrival-rate table."""
-        return int(np.ceil(self.horizon / self.user_window)) + 1
+        """Columns of the per-scenario arrival-rate table (every block)."""
+        return sum(self.gen_windows)
+
+    @property
+    def has_cache(self) -> bool:
+        return bool(np.any(self.seg_kind == SEG_CACHE))
+
+    @property
+    def has_llm(self) -> bool:
+        return bool(np.any(self.seg_kind == SEG_LLM))
+
+    @property
+    def has_db_pool(self) -> bool:
+        return bool(np.any(self.seg_kind == SEG_DB))
 
     @property
     def has_ram(self) -> bool:
@@ -199,33 +242,92 @@ KERNEL_FIELDS = tuple(
 # ---------------------------------------------------------------------------
 
 
-def _compile_endpoint(endpoint: Endpoint) -> tuple[list[tuple[int, float]], float]:
+#: per-segment parameters of a cache mixture (hit probability, miss
+#: latency) and of an LLM call (token mean, seconds and cost per token)
+CacheParams = tuple[float, float]
+LlmParams = tuple[float, float, float]
+
+
+def _compile_endpoint(
+    endpoint: Endpoint, *, db_pooled: bool = False,
+) -> tuple[
+    list[tuple[int, float]], float, list[CacheParams | None], list[LlmParams | None],
+]:
     """Merge step runs into alternating (kind, duration) segments, plus the
-    endpoint's RAM total (the reference's ``_compile_endpoint`` for plain
-    CPU / IO / RAM steps)."""
+    endpoint's RAM total and, aligned with the segments, each one's cache
+    and LLM parameters (None where it has none): the reference's
+    ``_compile_endpoint`` without its serving pair.
+
+    A stochastic io_cache step, an io_llm step with call dynamics and, with
+    ``db_pooled``, an io_db step each lower to a segment of their own that
+    never merges with its neighbours (two queries release and re-acquire
+    their connection); a cache segment's duration is its hit latency.
+    """
     segments: list[tuple[int, float]] = []
+    cache: list[CacheParams | None] = []
+    llm: list[LlmParams | None] = []
     total_ram = 0.0
     for step in endpoint.steps:
         if step.is_ram:
             total_ram += step.quantity
             continue
-        kind = SEG_CPU if step.is_cpu else SEG_IO
-        if segments and segments[-1][0] == kind:
-            segments[-1] = (kind, segments[-1][1] + step.quantity)
+        if step.is_cpu:
+            kind = SEG_CPU
+        elif step.is_stochastic_cache:
+            kind = SEG_CACHE
+        elif step.is_llm:
+            kind = SEG_LLM
+        elif db_pooled and step.kind == EndpointStepIO.DB:
+            kind = SEG_DB
         else:
-            segments.append((kind, step.quantity))
-    return segments, total_ram
+            kind = SEG_IO
+        if segments and segments[-1][0] == kind and kind in (SEG_CPU, SEG_IO):
+            segments[-1] = (kind, segments[-1][1] + step.quantity)
+            continue
+        segments.append((kind, step.quantity))
+        cache.append(
+            (float(step.cache_hit_probability), float(step.cache_miss_time))
+            if kind == SEG_CACHE
+            else None,
+        )
+        llm.append(
+            (
+                float(step.llm_tokens_mean),
+                float(step.llm_time_per_token),
+                float(step.llm_cost_per_token),
+            )
+            if kind == SEG_LLM
+            else None,
+        )
+    return segments, total_ram, cache, llm
 
 
-def _estimate_capacity(payload: SimulationPayload) -> tuple[int, int]:
-    """(max_requests, pool_size): the reference's fluid capacity model.
+def _llm_worst(duration: float, params: LlmParams) -> float:
+    """An LLM segment's duration at a 6-sigma token draw."""
+    mean, per_token, _ = params
+    return duration + (mean + 6.0 * math.sqrt(max(mean, 1.0))) * per_token
 
-    The pool holds every concurrently live request, queue backlog of a
-    saturated resource included; ``max_requests`` is a 6-sigma bound on the
-    arrival count.  Overflow stays possible and is counted, never hidden.
-    """
-    horizon = float(payload.sim_settings.total_simulation_time)
-    workload = payload.rqs_input
+
+def _server_db_hold(server) -> float:
+    """Worst-case time a request holds a DB connection: the largest sum of
+    io_db step durations over the server's endpoints (the reference's
+    ``_server_db_hold``, shared by the pool's proof and the pool estimate)."""
+    return max(
+        (
+            sum(
+                float(step.quantity)
+                for step in ep.steps
+                if step.is_io and step.kind == EndpointStepIO.DB
+            )
+            for ep in server.endpoints
+        ),
+        default=0.0,
+    )
+
+
+def _workload_count_model(workload, horizon: float) -> tuple[float, float, float, float]:
+    """(users, rate, window, count_var) of one generator's arrival count:
+    the Poisson part plus the windowed user-draw part of its variance."""
     users = float(workload.avg_active_users.mean)
     rpu = float(workload.avg_request_per_minute_per_user.mean) / 60.0
     rate = users * rpu
@@ -237,6 +339,28 @@ def _estimate_capacity(payload: SimulationPayload) -> tuple[int, int]:
     )
     n_windows = max(1.0, horizon / window)
     count_var = rate * horizon + n_windows * users_var * (rpu * window) ** 2
+    return users, rate, window, count_var
+
+
+def _estimate_capacity(payload: SimulationPayload) -> tuple[int, int]:
+    """(max_requests, pool_size): the reference's fluid capacity model.
+
+    The pool holds every concurrently live request, queue backlog of a
+    saturated resource included; ``max_requests`` is a 6-sigma bound on the
+    arrival count.  Generators are independent sources: their rates, users
+    and count variances add.  Stochastic segments enter at their worst-case
+    duration (a cache miss, a 6-sigma token draw), and a DB pool caps its
+    server's throughput at K over the hold time.  Overflow stays possible
+    and is counted, never hidden.
+    """
+    horizon = float(payload.sim_settings.total_simulation_time)
+    rate = users = count_var = max_window = 0.0
+    for workload in payload.generators:
+        g_users, g_rate, window, g_count_var = _workload_count_model(workload, horizon)
+        users += g_users
+        rate += g_rate
+        max_window = max(max_window, window)
+        count_var += g_count_var
     max_requests = int(rate * horizon + 6.0 * math.sqrt(max(count_var, 1.0)) + 64)
 
     # ~3-sigma burst of the windowed user draw
@@ -249,9 +373,17 @@ def _estimate_capacity(payload: SimulationPayload) -> tuple[int, int]:
         io_req = 0.0
         ram_req = 0.0
         for endpoint in server.endpoints:
-            segs, ram = _compile_endpoint(endpoint)
-            cpu_req = max(cpu_req, sum(d for k, d in segs if k == SEG_CPU))
-            io_req = max(io_req, sum(d for k, d in segs if k == SEG_IO))
+            segs, ram, cache, llm = _compile_endpoint(endpoint)
+            worst = []
+            for (kind, dur), c, m in zip(segs, cache, llm):
+                if c is not None:
+                    worst.append((SEG_IO, max(dur, c[1])))
+                elif m is not None:
+                    worst.append((SEG_IO, _llm_worst(dur, m)))
+                else:
+                    worst.append((kind, dur))
+            cpu_req = max(cpu_req, sum(d for k, d in worst if k == SEG_CPU))
+            io_req = max(io_req, sum(d for k, d in worst if k == SEG_IO))
             ram_req = max(ram_req, ram)
         residence = cpu_req + io_req
         residence_max = max(residence_max, residence)
@@ -261,9 +393,15 @@ def _estimate_capacity(payload: SimulationPayload) -> tuple[int, int]:
         if ram_req > 0 and residence > 0:
             concurrent = server.server_resources.ram_mb / ram_req
             capacity = min(capacity, concurrent / residence)
+        pool_k = server.server_resources.db_connection_pool
+        if pool_k is not None:
+            db_req = _server_db_hold(server)
+            if db_req > 0:
+                capacity = min(capacity, float(pool_k) / db_req)
         if capacity < math.inf:
             backlog += max(0.0, rate - capacity) * horizon
-            burst_backlog += max(0.0, burst_rate - capacity) * min(window, horizon)
+            # the longest sampling window sustains a burst the longest
+            burst_backlog += max(0.0, burst_rate - capacity) * min(max_window, horizon)
 
     # spikes park in-flight requests on an edge, and their release floods the
     # downstream queue: budget rate x (max concurrent spike) per edge, twice
@@ -281,13 +419,13 @@ def _estimate_capacity(payload: SimulationPayload) -> tuple[int, int]:
 
 def _server_entry_rates(payload: SimulationPayload) -> np.ndarray | None:
     """(NS,) nominal request rate into each server (the reference's
-    ``_server_entry_rates`` for one generator).
+    ``_server_entry_rates``).
 
-    The entry chain is walked to the first LB or server; an LB spreads the
-    rate uniformly over the servers it covers, and server-to-server exits
-    pass their rate downstream in topological order.  None when the server
-    chain has a cycle.  Dropout is ignored: these are upper bounds for the
-    non-binding proofs.
+    Each generator's entry chain is walked to the first LB or server; an LB
+    spreads the rate uniformly over the servers it covers, and
+    server-to-server exits pass their rate downstream in topological order.
+    None when the server chain has a cycle.  Dropout is ignored: these are
+    upper bounds for the non-binding proofs.
     """
     servers = payload.topology_graph.nodes.servers
     server_index = {server.id: s for s, server in enumerate(servers)}
@@ -295,26 +433,26 @@ def _server_entry_rates(payload: SimulationPayload) -> np.ndarray | None:
     out_edge = {e.source: e for e in payload.topology_graph.edges}
 
     srv_rate = np.zeros(len(servers))
-    workload = payload.rqs_input
-    rate = (
-        float(workload.avg_active_users.mean)
-        * float(workload.avg_request_per_minute_per_user.mean)
-        / 60.0
-    )
-    node = workload.id
-    for _ in range(len(payload.topology_graph.edges) + 1):
-        e = out_edge.get(node)
-        if e is None:
-            break
-        if e.target in server_index:
-            srv_rate[server_index[e.target]] += rate
-            break
-        if lb is not None and e.target == lb.id:
-            covered = sorted(lb.server_covered)
-            for sid in covered:
-                srv_rate[server_index[sid]] += rate / len(covered)
-            break
-        node = e.target
+    for workload in payload.generators:
+        rate = (
+            float(workload.avg_active_users.mean)
+            * float(workload.avg_request_per_minute_per_user.mean)
+            / 60.0
+        )
+        node = workload.id
+        for _ in range(len(payload.topology_graph.edges) + 1):
+            e = out_edge.get(node)
+            if e is None:
+                break
+            if e.target in server_index:
+                srv_rate[server_index[e.target]] += rate
+                break
+            if lb is not None and e.target == lb.id:
+                covered = sorted(lb.server_covered)
+                for sid in covered:
+                    srv_rate[server_index[sid]] += rate / len(covered)
+                break
+            node = e.target
 
     child = {}
     indeg = [0] * len(servers)
@@ -349,8 +487,10 @@ def _rho_cap_needed(rho_b: float) -> float:
 
 @dataclass
 class _Controls:
-    """The overload controls as the kernel models them, per server."""
+    """The DB pools and overload controls as the kernel models them, per
+    server."""
 
+    db_model: list[bool]
     queue_cap: np.ndarray
     conn_cap: np.ndarray
     rate_limit: np.ndarray
@@ -359,20 +499,49 @@ class _Controls:
     proof_rate_headroom: float
 
 
-def _lower_overload(payload: SimulationPayload) -> _Controls:
-    """Model each configured overload control, or lower it away when the
-    reference's non-binding proof shows it unreachable (the reference's
-    ``_compile_payload``, ready-queue caps to deadlines).
+def _step_worst(step) -> float:
+    """A step's worst-case duration: a cache step's miss latency, an LLM
+    step's 6-sigma token draw."""
+    if step.is_stochastic_cache:
+        return max(float(step.quantity), float(step.cache_miss_time))
+    if step.is_llm:
+        params = (step.llm_tokens_mean, step.llm_time_per_token, 0.0)
+        return _llm_worst(float(step.quantity), params)
+    return float(step.quantity)
 
-    The slice has no DB, cache, LLM or serving steps, so each step's
-    worst-case duration is its quantity and no DB pool is modelled.
-    """
+
+def _lower_overload(payload: SimulationPayload) -> _Controls:
+    """Model each configured DB pool and overload control, or lower it away
+    when the reference's non-binding proof shows it unreachable (the
+    reference's ``_compile_payload``, DB pools to deadlines)."""
     servers = payload.topology_graph.nodes.servers
     n_servers = len(servers)
     srv_rates_est = _server_entry_rates(payload)
-    users_est = float(payload.rqs_input.avg_active_users.mean)
+    users_est = sum(float(g.avg_active_users.mean) for g in payload.generators)
     burst_factor = 1.0 + 3.0 / math.sqrt(max(users_est, 1.0))
     headroom = math.inf
+
+    # DB pools: K comfortably above the 6-sigma bound on concurrent io_db
+    # holders (Little's law at the burst-inflated entry rate) never binds,
+    # and io_db lowers to plain IO
+    db_model: list[bool] = []
+    for s_i, server in enumerate(servers):
+        pool_k = server.server_resources.db_connection_pool
+        db_dur = _server_db_hold(server)
+        if pool_k is None or db_dur <= 0:
+            db_model.append(False)  # no pool, or one no step holds
+            continue
+        if srv_rates_est is None:
+            db_model.append(True)  # cyclic chain: no rate bound
+            continue
+        m = srv_rates_est[s_i] * burst_factor * db_dur
+        binding = not pool_k >= m + 6.0 * math.sqrt(max(m, 1.0)) + 8.0
+        db_model.append(binding)
+        if not binding and pool_k > 8:
+            # the proof holds up to the rate scale f with
+            # K >= f*m + 6*sqrt(f*m) + 8
+            t = (-6.0 + math.sqrt(36.0 + 4.0 * (pool_k - 8.0))) / 2.0
+            headroom = min(headroom, (t * t) / max(m, 1e-12))
 
     def cpu_time(server) -> float:
         return max(
@@ -410,12 +579,13 @@ def _lower_overload(payload: SimulationPayload) -> _Controls:
         if cap is None:
             continue
         cap = min(cap, 2**31 - 1)
-        if srv_rates_est is None:
+        if srv_rates_est is None or db_model[s_i]:
+            # a modelled DB pool's waits are outside the residence bound
             conn_cap[s_i] = cap
             continue
         endpoints = server.endpoints
         residence = max(
-            (sum(st.quantity for st in ep.steps if not st.is_ram) for ep in endpoints),
+            (sum(_step_worst(st) for st in ep.steps if not st.is_ram) for ep in endpoints),
             default=0.0,
         )
         cpu_dur = cpu_time(server)
@@ -500,7 +670,9 @@ def _lower_overload(payload: SimulationPayload) -> _Controls:
         else:
             queue_timeout[s_i] = deadline
 
-    return _Controls(queue_cap, conn_cap, rate_limit, rate_burst, queue_timeout, headroom)
+    return _Controls(
+        db_model, queue_cap, conn_cap, rate_limit, rate_burst, queue_timeout, headroom,
+    )
 
 
 def _lower_breaker(
@@ -616,32 +788,49 @@ def compile_payload(
         edge.source: edge_index[edge.id] for edge in edges if edge.source != lb_id
     }
 
-    # entry chain: generator -> (client ->)* first LB / server
-    entry_edges: list[int] = []
-    cursor = payload.rqs_input.id
-    for _ in range(n_edges + 1):
-        if cursor not in out_edge_of:
-            msg = f"node {cursor!r} has no outgoing edge on the entry path"
-            raise PayloadError(msg)
-        eidx = out_edge_of[cursor]
-        entry_edges.append(eidx)
-        entry_kind, entry_target = target_of(edges[eidx].target)
-        if entry_kind in (TARGET_LB, TARGET_SERVER):
-            break
-        cursor = edges[eidx].target
-    else:
+    def entry_chain(gen_id: str) -> tuple[list[int], int, int]:
+        """generator -> (client ->)* first LB / server"""
+        chain: list[int] = []
+        cursor = gen_id
+        for _ in range(n_edges + 1):
+            if cursor not in out_edge_of:
+                msg = f"node {cursor!r} has no outgoing edge on the entry path"
+                raise PayloadError(msg)
+            eidx = out_edge_of[cursor]
+            chain.append(eidx)
+            kind, target = target_of(edges[eidx].target)
+            if kind in (TARGET_LB, TARGET_SERVER):
+                return chain, kind, target
+            cursor = edges[eidx].target
         msg = "entry path does not reach a server or load balancer"
         raise PayloadError(msg)
 
-    # ---- servers ----
+    generators = payload.generators
+    gen_chains = [entry_chain(g.id) for g in generators]
+    entry_edges, entry_kind, entry_target = gen_chains[0]
+    chain_width = max(len(c) for c, _, _ in gen_chains)
+    gen_entry_edges = np.full((len(gen_chains), chain_width), -1, dtype=np.int32)
+    for g, (chain, _, _) in enumerate(gen_chains):
+        gen_entry_edges[g, : len(chain)] = chain
+
+    # ---- DB pools and overload controls, then the servers ----
+    ctl = _lower_overload(payload)
     max_endpoints = max(len(server.endpoints) for server in servers)
-    compiled = [[_compile_endpoint(ep) for ep in server.endpoints] for server in servers]
+    compiled = [
+        [_compile_endpoint(ep, db_pooled=ctl.db_model[s]) for ep in server.endpoints]
+        for s, server in enumerate(servers)
+    ]
     max_segments = max(
-        (len(segs) for per_server in compiled for segs, _ in per_server), default=0,
+        (len(segs) for per_server in compiled for segs, *_ in per_server), default=0,
     )
     shape = (n_servers, max_endpoints, max_segments + 1)
     seg_kind = np.zeros(shape, dtype=np.int32)
     seg_dur = np.zeros(shape, dtype=np.float32)
+    seg_hit_prob = np.zeros(shape, dtype=np.float32)
+    seg_miss_dur = np.zeros(shape, dtype=np.float32)
+    seg_llm_tokens = np.zeros(shape, dtype=np.float32)
+    seg_llm_tpt = np.zeros(shape, dtype=np.float32)
+    seg_llm_cost = np.zeros(shape, dtype=np.float32)
     endpoint_ram = np.zeros((n_servers, max_endpoints), dtype=np.float32)
     # padded columns carry 1.0 so an endpoint draw never lands on them
     endpoint_cum = np.ones((n_servers, max_endpoints), dtype=np.float32)
@@ -652,11 +841,25 @@ def compile_payload(
         )
         endpoint_cum[s, : len(w)] = np.cumsum(w / w.sum())
         n_endpoints[s] = len(server.endpoints)
-        for e, (segs, ram) in enumerate(compiled[s]):
+        for e, (segs, ram, cache, llm) in enumerate(compiled[s]):
             endpoint_ram[s, e] = ram
             for k, (kind, dur) in enumerate(segs):
                 seg_kind[s, e, k] = kind
                 seg_dur[s, e, k] = dur
+                if cache[k] is not None:
+                    seg_hit_prob[s, e, k], seg_miss_dur[s, e, k] = cache[k]
+                if llm[k] is not None:
+                    tokens, per_token, cost = llm[k]
+                    seg_llm_tokens[s, e, k] = tokens
+                    seg_llm_tpt[s, e, k] = per_token
+                    seg_llm_cost[s, e, k] = cost
+    server_db_pool = np.array(
+        [
+            server.server_resources.db_connection_pool if ctl.db_model[s] else -1
+            for s, server in enumerate(servers)
+        ],
+        dtype=np.int32,
+    )
 
     server_cores = np.array(
         [server.server_resources.cpu_cores for server in servers], dtype=np.int32,
@@ -688,8 +891,7 @@ def compile_payload(
         else 0
     )
 
-    # ---- overload controls, breaker, events ----
-    ctl = _lower_overload(payload)
+    # ---- breaker, events ----
     breaker = _lower_breaker(lb, ctl, lb_slots, lb_target, edges)
     spike_times, spike_values, tl_times, tl_down, tl_slot = _lower_events(
         payload, edge_index, server_index, lb_target,
@@ -705,8 +907,13 @@ def compile_payload(
     # one iteration per timeline entry
     max_iterations = max_requests * events_per_request + len(tl_times) + 1024
 
-    gen = payload.rqs_input
-    users = gen.avg_active_users
+    def user_var(gen) -> float:
+        users = gen.avg_active_users
+        if users.distribution == Distribution.NORMAL and users.variance is not None:
+            return float(users.variance)
+        return -1.0
+
+    gen = generators[0]
     return StaticPlan(
         n_servers=n_servers,
         n_edges=n_edges,
@@ -727,6 +934,12 @@ def compile_payload(
         seg_dur=seg_dur,
         endpoint_ram=endpoint_ram,
         endpoint_cum=endpoint_cum,
+        seg_hit_prob=seg_hit_prob,
+        seg_miss_dur=seg_miss_dur,
+        seg_llm_tokens=seg_llm_tokens,
+        seg_llm_tpt=seg_llm_tpt,
+        seg_llm_cost=seg_llm_cost,
+        server_db_pool=server_db_pool,
         exit_edge=exit_edge,
         exit_kind=exit_kind,
         exit_target=exit_target,
@@ -738,14 +951,25 @@ def compile_payload(
         timeline_times=tl_times,
         timeline_down=tl_down,
         timeline_slot=tl_slot,
-        user_mean=float(users.mean),
-        user_var=(
-            float(users.variance)
-            if users.distribution == Distribution.NORMAL and users.variance is not None
-            else -1.0
-        ),
+        user_mean=float(gen.avg_active_users.mean),
+        user_var=user_var(gen),
         user_window=float(gen.user_sampling_window),
         req_per_user_per_sec=float(gen.avg_request_per_minute_per_user.mean) / 60.0,
+        gen_user_mean=np.array(
+            [float(g.avg_active_users.mean) for g in generators], np.float64,
+        ),
+        gen_user_var=np.array([user_var(g) for g in generators], np.float64),
+        gen_window=np.array(
+            [float(g.user_sampling_window) for g in generators], np.float64,
+        ),
+        gen_rate=np.array(
+            [float(g.avg_request_per_minute_per_user.mean) / 60.0 for g in generators],
+            np.float64,
+        ),
+        gen_entry_edges=gen_entry_edges,
+        gen_entry_len=np.array([len(c) for c, _, _ in gen_chains], np.int32),
+        gen_entry_target_kind=np.array([k for _, k, _ in gen_chains], np.int32),
+        gen_entry_target=np.array([t for _, _, t in gen_chains], np.int32),
         horizon=float(payload.sim_settings.total_simulation_time),
         pool_size=pool_size or pool_estimate,
         max_iterations=max_iterations,
@@ -776,7 +1000,6 @@ def _any(fields: Mapping, name: str, test) -> bool:
 
 #: (feature name, predicate over a reference plan's fields)
 _FEATURE_TESTS = (
-    ("multi_generator", lambda f: np.asarray(f.get("gen_user_mean", (0.0,))).size > 1),
     (
         "faults",
         lambda f: _any(f, "fault_srv_down", lambda a: a != 0)

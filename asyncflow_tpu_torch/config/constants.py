@@ -122,6 +122,7 @@ class ServerResourcesDefaults:
     MINIMUM_CPU_CORES = 1
     RAM_MB = 1024
     MINIMUM_RAM_MB = 256
+    DB_CONNECTION_POOL = None
 
 
 class NetworkParameters:

@@ -2,8 +2,13 @@
 //
 // Replaces the TPU kernel asyncflow_tpu/engines/jaxsim/pallas_engine.py,
 // PallasEngine._kernel (launched by PallasEngine._get_call through
-// pl.pallas_call), cut to this port's slice: one generator; CPU, IO, RAM and
-// END segments; weighted endpoint pick; round-robin and least-connection LB;
+// pl.pallas_call), every piece of it: one generator or several superposed
+// streams (each with its own arrival sampler, entry chain and block of the
+// arrival-rate table; the earliest next arrival spawns); CPU, IO, RAM and
+// END segments; cache hit/miss mixtures; LLM calls whose sleep and cost
+// grow with Poisson output tokens (the exp-sum counting process); io_db
+// segments holding one of a server's K FIFO DB connections (acquire, wait,
+// hand-off); weighted endpoint pick; round-robin and least-connection LB;
 // all five edge distributions with dropout and network spikes (a
 // breakpoint table per edge, looked up at the send time); the outage
 // timeline (_timeline_branch: an LB slot leaves the rotation with
@@ -19,13 +24,17 @@
 // --use_fast_math).
 //
 // The features are compiled in only where the plan has them, as the
-// reference's static _has_* flags do: the kernel is a template on two
-// flags, kEvents (timeline and spikes) and kControls (the overload controls
-// and the breaker), and des_launch picks the instance from the plan's
-// counts.  Inside an instance each feature is still guarded by its own plan
-// flag (a table count, a has_* flag or the breaker threshold), and its
-// tables and scratch are null when the plan does not model it.  A plan
-// with neither group runs the slice-1 code alone: compiled in but never
+// reference's static _has_* flags do: the kernel is a template on three
+// flags, kEvents (timeline and spikes), kControls (the overload controls
+// and the breaker) and kWorkload (cache, LLM, DB pools and several
+// generators), and des_launch picks the instance from the plan's counts.
+// The source is built twice, with DES_WORKLOAD 0 and 1, into two libraries
+// (one nvcc each, run in parallel), each holding the four instances of its
+// kWorkload; the wrapper loads the library the plan needs.  Inside an
+// instance each feature is still guarded by its own plan flag (a table
+// count, a has_* flag, the breaker threshold or the generator count), and
+// its tables and scratch are null when the plan does not model it.  A plan
+// with none of the groups runs the slice-1 code alone: compiled in but never
 // taken, the new branches slowed the headline's kernel on the card, as a
 // latency-bound thread pays for every instruction and register of its
 // loop.  A timeline entry is an iteration of its own: the loop takes it
@@ -72,12 +81,23 @@ constexpr int EV_SEG_END = 3;
 constexpr int EV_RESUME = 4;
 constexpr int EV_WAIT_CPU = 5;
 constexpr int EV_WAIT_RAM = 6;
+constexpr int EV_WAIT_DB = 7;
 constexpr int EV_ABANDON = 8;
 
 // columns of the work output (engines/torchsim/des_reference.py:WORK_KINDS):
-// the slice-2 work, counted only in the instances that compile it in (a
-// counter on every event slowed the headline's kernel)
-enum Work { W_TIMELINE, W_REFILL, W_BREAKER, W_ABANDON, N_WORK };
+// the work of the optional features, counted only in the instances that
+// compile them in (a counter on every event slowed the headline's kernel)
+enum Work {
+  W_TIMELINE,
+  W_REFILL,
+  W_BREAKER,
+  W_ABANDON,
+  W_LLM_DRAWS,
+  W_CACHE,
+  W_DB_WAIT,
+  W_DB_GRANT,
+  N_WORK
+};
 
 // circuit-breaker states
 constexpr int CB_CLOSED = 0;
@@ -88,6 +108,9 @@ constexpr int CB_HALF_OPEN = 2;
 constexpr int SEG_END = 0;
 constexpr int SEG_CPU = 1;
 constexpr int SEG_IO = 2;
+constexpr int SEG_DB = 3;
+constexpr int SEG_CACHE = 4;
+constexpr int SEG_LLM = 5;
 constexpr int TARGET_SERVER = 1;
 constexpr int TARGET_LB = 2;
 constexpr int TARGET_CLIENT = 3;
@@ -137,6 +160,19 @@ struct DesArgs {
   const float* rate_limit;       // (NS,)
   const float* rate_burst;       // (NS,)
   const float* queue_timeout;    // (NS,)
+  const float* seg_hit_prob;     // (NS*NEP*NSEGP,), cache
+  const float* seg_miss_dur;     // (NS*NEP*NSEGP,), cache
+  const float* seg_llm_tokens;   // (NS*NEP*NSEGP,), LLM
+  const float* seg_llm_tpt;      // (NS*NEP*NSEGP,), LLM
+  const float* seg_llm_cost;     // (NS*NEP*NSEGP,), LLM
+  const int32_t* db_pool;        // (NS,) connections, 2^30 = unlimited
+  const int32_t* gen_entry_edges;   // (G*L,) with G > 1 generators
+  const int32_t* gen_entry_len;     // (G,)
+  const int32_t* gen_entry_ev;      // (G,)
+  const int32_t* gen_entry_target;  // (G,)
+  const float* gen_window;          // (G,)
+  const int32_t* gen_lam_off;       // (G,) first column of the lam block
+  const int32_t* gen_nw;            // (G,) columns of the lam block
   // outputs
   int32_t* hist;   // (S, B)
   int32_t* thr;    // (S, TH)
@@ -175,6 +211,14 @@ struct DesArgs {
   int32_t* cb_consec;     // [lb slot]
   int32_t* cb_probes_out; // [lb slot]
   int32_t* cb_probe_ok;   // [lb slot]
+  float* req_llm;         // [slot], LLM cost accrued
+  int32_t* db_free;       // [server], DB pool
+  int32_t* db_ticket;     // [server]
+  int32_t* db_wait_n;     // [server]
+  float* gen_now;         // [generator], G > 1: arrival sampler clocks
+  float* gen_wend;        // [generator]
+  int32_t* gen_widx;      // [generator]
+  float* gen_next;        // [generator]
   // geometry
   int32_t S, P, NS, NE, NEP, NSEGP, EL, NW, B, TH, K;
   int32_t max_iterations;
@@ -182,6 +226,8 @@ struct DesArgs {
   int32_t NB, NTL;  // spike breakpoints, timeline entries (0 = none)
   int32_t has_shed, has_conn, has_rl, has_timeout;
   int32_t cb_threshold, cb_probes;  // cb_threshold 0 = no breaker
+  int32_t G, L;  // generators, their longest entry chain (L: G > 1 only)
+  int32_t has_cache, has_llm, has_db;
   float horizon, window, hist_lo, hist_scale;
   float cb_cooldown;
 };
@@ -216,16 +262,17 @@ __device__ __forceinline__ float u24(uint32_t bits) {
   return (float)(int32_t)(bits >> 8) * 5.9604644775390625e-08f;
 }
 
-template <bool kEvents, bool kControls>
+template <bool kEvents, bool kControls, bool kWorkload>
 struct Sim {
   const DesArgs& a;
   int sid;
   uint32_t k0, k1;
-  // per-scenario scalars (registers)
+  // per-scenario scalars (registers); with several generators,
+  // next_arrival is the earliest of theirs and gsel its generator
   float smp_now, smp_window_end, next_arrival;
-  int widx;
+  int widx, gsel;
   int lat_count, n_generated, n_dropped, n_overflow, n_rejected, lb_len, tl_ptr;
-  float lat_sum, lat_sumsq, lat_min, lat_max;
+  float lat_sum, lat_sumsq, lat_min, lat_max, llm_sum, llm_sumsq;
   int work[N_WORK];  // indexed by constants only, so it stays in registers
 
   __device__ Sim(const DesArgs& args, int s) : a(args), sid(s) {}
@@ -341,6 +388,58 @@ struct Sim {
     smp_window_end = wend;
     widx = wi;
     next_arrival = status == 2 ? kInf : next_arrival + gap;
+  }
+
+  // ---- _advance_arrival of generator g of several: its state in scratch,
+  // its own block of the rate table, window and draw site 200 + g; then
+  // the earliest next arrival over the generators (lowest index on ties) ----
+  __device__ void advance_arrival_gen(uint32_t it, int g) {
+    const size_t gx = (size_t)g * a.S + sid;
+    const float* lam_row = a.lam + (size_t)sid * a.NW + a.gen_lam_off[g];
+    const int nw = a.gen_nw[g];
+    const float window = a.gen_window[g];
+    float now = a.gen_now[gx], wend = a.gen_wend[gx], gap = 0.0f;
+    int wi = a.gen_widx[gx], status = 0;
+    for (uint32_t dctr = 0; status == 0; ++dctr) {
+      if (now >= a.horizon) {
+        status = 2;
+        break;
+      }
+      if (now >= wend) {
+        wi += 1;
+        wend = now + window;
+      }
+      const int wc = min(wi, nw - 1);
+      const float lam = wc >= 0 ? lam_row[wc] : 0.0f;
+      const bool no_users = lam <= 0.0f;
+      const float u = fmaxf(one(it, 200 + g, dctr), kTiny);
+      const float gp = (-logf(fmaxf(1.0f - u, kTiny))) / fmaxf(lam, kTiny);
+      const float ahead = now + gp;
+      if (no_users) {
+        now = wend;
+      } else if (ahead > a.horizon) {
+        status = 2;
+      } else if (ahead >= wend) {
+        now = wend;
+      } else {
+        now = ahead;
+        gap = gp;
+        status = 1;
+      }
+    }
+    a.gen_now[gx] = now;
+    a.gen_wend[gx] = wend;
+    a.gen_widx[gx] = wi;
+    a.gen_next[gx] = status == 2 ? kInf : a.gen_next[gx] + gap;
+    gsel = 0;
+    next_arrival = a.gen_next[sid];
+    for (int h = 1; h < a.G; ++h) {
+      const float v = a.gen_next[(size_t)h * a.S + sid];
+      if (v < next_arrival) {
+        next_arrival = v;
+        gsel = h;
+      }
+    }
   }
 
   // ---- _complete ----
@@ -513,6 +612,12 @@ struct Sim {
     edge_draw(it, 48, e, now, dropped, delay);
     const float arrive = now + delay;
     const size_t xi = px(i);
+    if (kWorkload && a.has_llm && !dropped && kind == TARGET_CLIENT && arrive < a.horizon) {
+      // the cost moments of a request that reached the client in time
+      const float cost = a.req_llm[xi];
+      llm_sum = llm_sum + cost;
+      llm_sumsq = llm_sumsq + cost * cost;
+    }
     if (dropped) {
       a.req_ev[xi] = EV_IDLE;
       a.req_t[xi] = kInf;
@@ -563,21 +668,83 @@ struct Sim {
     } else if (kind == SEG_IO) {
       a.req_ev[xi] = EV_SEG_END;
       a.req_t[xi] = now + dur;
+    } else if (kWorkload) {
+      seg_start_workload(it, xi, s, sidx, kind, dur, now);
     }
     a.req_seg[xi] = seg;
     if (kind == SEG_END) exit_flow(it, i, s, now);
   }
 
-  // ---- _spawn_branch (one generator) ----
+  // ---- _seg_start for a cache mixture or an LLM call (sleeps), or a DB
+  // query (acquire a connection, or wait FIFO for one) ----
+  __device__ void seg_start_workload(uint32_t it, size_t xi, int s, int sidx, int kind,
+                                     float dur, float now) {
+    const int n = n_seg_tab();
+    if (a.has_cache && kind == SEG_CACHE) {
+      // a miss sleeps the backing store's latency
+      work[W_CACHE] += 1;
+      if (one(it, 24, 0) >= ftab(a.seg_hit_prob, n, sidx)) {
+        dur = ftab(a.seg_miss_dur, n, sidx);
+      }
+    } else if (a.has_llm && kind == SEG_LLM) {
+      // output tokens: the exp-sum counting process on site 25, seq 0, 1, ...
+      const float limit = fmaxf(ftab(a.seg_llm_tokens, n, sidx), 1e-6f);
+      float acc = 0.0f;
+      int tokens = 0;
+      for (uint32_t seq = 0;; ++seq) {
+        work[W_LLM_DRAWS] += 1;
+        acc = acc + (-logf(fmaxf(1.0f - one(it, 25, seq), kTiny)));
+        if (acc > limit) break;
+        ++tokens;
+      }
+      const float tk = (float)tokens;
+      dur = dur + tk * ftab(a.seg_llm_tpt, n, sidx);
+      // a request may make several calls: their costs add up
+      a.req_llm[xi] = a.req_llm[xi] + tk * ftab(a.seg_llm_cost, n, sidx);
+    } else if (a.has_db && kind == SEG_DB) {
+      if (a.db_free[sx(s)] > 0 && !(a.db_wait_n[sx(s)] > 0)) {
+        a.db_free[sx(s)] -= 1;
+      } else {
+        work[W_DB_WAIT] += 1;
+        a.db_ticket[sx(s)] += 1;
+        a.db_wait_n[sx(s)] += 1;
+        a.req_ev[xi] = EV_WAIT_DB;
+        a.req_t[xi] = kInf;
+        a.req_ticket[xi] = a.db_ticket[sx(s)];
+        return;
+      }
+    } else {
+      return;
+    }
+    a.req_ev[xi] = EV_SEG_END;
+    a.req_t[xi] = now + dur;
+  }
+
+  // ---- _spawn_branch: the spawning generator's entry chain of `len`
+  // edges from draw site `site0` (a stride of 4 an edge), its entry event
+  // and target, then its next arrival ----
   __device__ void spawn(uint32_t it, float now) {
+    if (kWorkload && a.G > 1) {
+      const int g = gsel;
+      spawn_chain(it, now, a.gen_entry_edges + g * a.L, a.gen_entry_len[g],
+                  600 + 4 * a.L * g, a.gen_entry_ev[g], a.gen_entry_target[g]);
+      advance_arrival_gen(it, g);
+    } else {
+      spawn_chain(it, now, a.entry_edges, a.K, 64, a.entry_ev, a.entry_target);
+      advance_arrival(it);
+    }
+  }
+
+  __device__ void spawn_chain(uint32_t it, float now, const int32_t* chain, int len,
+                              int site0, int entry_ev, int entry_target) {
     n_generated += 1;
     bool alive = true;
     float t_cur = now;
-    for (int j = 0; j < a.K; ++j) {
+    for (int j = 0; j < len; ++j) {
       bool dropped;
       float delay;
       // a spike applies at the time the request reaches this edge
-      edge_draw(it, 64 + 4 * j, a.entry_edges[j], t_cur, dropped, delay);
+      edge_draw(it, site0 + 4 * j, chain[j], t_cur, dropped, delay);
       if (dropped) {
         n_dropped += 1;
         alive = false;
@@ -595,18 +762,18 @@ struct Sim {
       }
       if (slot >= 0) {
         const size_t x = px(slot);
-        a.req_ev[x] = a.entry_ev;
+        a.req_ev[x] = entry_ev;
         a.req_t[x] = t_cur;
-        a.req_srv[x] = a.entry_target;
+        a.req_srv[x] = entry_target;
         a.req_start[x] = now;
         a.req_lbslot[x] = -1;
         a.req_ram[x] = 0.0f;
         a.req_ticket[x] = kNoTicket;
+        if (kWorkload && a.has_llm) a.req_llm[x] = 0.0f;
       } else {
         n_overflow += 1;
       }
     }
-    advance_arrival(it);
   }
 
   // does LB slot o admit a request (closed, or half-open with a probe free)?
@@ -811,11 +978,35 @@ struct Sim {
     reject(i, s, now, true);
   }
 
-  // ---- _seg_end_branch ----
+  // ---- the DB connection handoff of _seg_end_branch: grant it to the
+  // head FIFO waiter, whose query runs for its own segment's duration, or
+  // release it ----
+  __device__ void db_handoff(int s, float now) {
+    if (a.db_wait_n[sx(s)] > 0) {
+      int j;
+      if (head_waiter(EV_WAIT_DB, s, j) < kNoTicket) {
+        const size_t xj = px(j);
+        const float jdur = ftab(a.seg_dur, n_seg_tab(),
+                                seg_idx(a.req_srv[xj], a.req_ep[xj], a.req_seg[xj]));
+        work[W_DB_GRANT] += 1;
+        a.db_wait_n[sx(s)] -= 1;
+        a.req_ev[xj] = EV_SEG_END;
+        a.req_t[xj] = now + jdur;
+        a.req_ticket[xj] = kNoTicket;
+        return;
+      }
+    }
+    a.db_free[sx(s)] += 1;
+  }
+
+  // ---- _seg_end_branch: the core handoff, the DB handoff, the next
+  // segment ----
   __device__ void seg_end(uint32_t it, int i, float now) {
     const size_t xi = px(i);
     const int s = a.req_srv[xi], ep = a.req_ep[xi], seg = a.req_seg[xi];
-    if (itab(a.seg_kind, n_seg_tab(), seg_idx(s, ep, seg)) == SEG_CPU) cpu_handoff(s, now);
+    const int kind = itab(a.seg_kind, n_seg_tab(), seg_idx(s, ep, seg));
+    if (kind == SEG_CPU) cpu_handoff(s, now);
+    if (kWorkload && a.has_db && kind == SEG_DB) db_handoff(s, now);
     seg_start(it, i, s, ep, seg + 1, now);
   }
 
@@ -851,6 +1042,7 @@ struct Sim {
         a.req_cbslot[x] = -1;
         a.req_probe[x] = 0;
       }
+      if (kWorkload && a.has_llm) a.req_llm[x] = 0.0f;
     }
     for (int s = 0; s < a.NS; ++s) {
       a.cores_free[sx(s)] = a.server_cores[s];
@@ -863,6 +1055,11 @@ struct Sim {
       if (kControls && a.has_rl) {
         a.rl_tokens[sx(s)] = a.rate_burst[s];
         a.rl_last[sx(s)] = 0.0f;
+      }
+      if (kWorkload && a.has_db) {
+        a.db_free[sx(s)] = a.db_pool[s];
+        a.db_ticket[sx(s)] = 0;
+        a.db_wait_n[sx(s)] = 0;
       }
     }
     const int el = lb_width();
@@ -886,12 +1083,25 @@ struct Sim {
     widx = -1;
     next_arrival = 0.0f;
     lat_count = n_generated = n_dropped = n_overflow = n_rejected = 0;
-    lat_sum = lat_sumsq = lat_max = 0.0f;
+    lat_sum = lat_sumsq = lat_max = llm_sum = llm_sumsq = 0.0f;
     lat_min = kInf;
+    gsel = 0;
 #pragma unroll
     for (int k = 0; k < N_WORK; ++k) work[k] = 0;
 
-    advance_arrival(0);
+    if (kWorkload && a.G > 1) {
+      // every generator draws its first arrival, in order
+      for (int g = 0; g < a.G; ++g) {
+        const size_t gx = (size_t)g * a.S + sid;
+        a.gen_now[gx] = 0.0f;
+        a.gen_wend[gx] = 0.0f;
+        a.gen_widx[gx] = -1;
+        a.gen_next[gx] = 0.0f;
+      }
+      for (int g = 0; g < a.G; ++g) advance_arrival_gen(0, g);
+    } else {
+      advance_arrival(0);
+    }
     int nxt_i;
     float nxt_t;
     pool_min(nxt_i, nxt_t);
@@ -948,8 +1158,8 @@ struct Sim {
     mf[1] = lat_sumsq;
     mf[2] = lat_min;
     mf[3] = lat_max;
-    mf[4] = 0.0f;
-    mf[5] = 0.0f;
+    mf[4] = llm_sum;
+    mf[5] = llm_sumsq;
     int32_t* mi = a.momi + (size_t)sid * 5;
     mi[0] = lat_count;
     mi[1] = n_generated;
@@ -964,32 +1174,48 @@ struct Sim {
 
 constexpr int kThreads = 32;
 
-template <bool kEvents, bool kControls>
+template <bool kEvents, bool kControls, bool kWorkload>
 __global__ void __launch_bounds__(kThreads) des_kernel(const DesArgs args) {
   const int sid = blockIdx.x * blockDim.x + threadIdx.x;
   if (sid >= args.S) return;
-  Sim<kEvents, kControls> sim(args, sid);
+  Sim<kEvents, kControls, kWorkload> sim(args, sid);
   sim.run();
 }
 
-template <bool kEvents, bool kControls>
+template <bool kEvents, bool kControls, bool kWorkload>
 int launch(const DesArgs& args, cudaStream_t stream) {
   const int blocks = (args.S + kThreads - 1) / kThreads;
-  des_kernel<kEvents, kControls><<<blocks, kThreads, 0, stream>>>(args);
+  des_kernel<kEvents, kControls, kWorkload><<<blocks, kThreads, 0, stream>>>(args);
   return (int)cudaGetLastError();
 }
+
+#ifndef DES_WORKLOAD
+#define DES_WORKLOAD 0
+#endif
+constexpr bool kLibraryWorkload = DES_WORKLOAD != 0;
 
 }  // namespace
 
 extern "C" int des_args_size() { return (int)sizeof(DesArgs); }
 
+// Does this build hold the instances with the workload group (cache, LLM,
+// DB pools, several generators)?
+extern "C" int des_workload() { return kLibraryWorkload ? 1 : 0; }
+
 // Launch on `stream` (a cudaStream_t as a pointer), on the instance that
-// compiles in the plan's features; returns cudaGetLastError().
+// compiles in the plan's features; returns cudaGetLastError(), or
+// kWrongBuild when the plan needs the other build's instances.
 extern "C" int des_launch(const DesArgs* args, void* stream) {
+  constexpr int kWrongBuild = 1 << 20;
   const bool events = args->NB > 0 || args->NTL > 0;
   const bool controls = args->has_shed || args->has_conn || args->has_rl || args->has_timeout ||
                         args->cb_threshold > 0;
+  const bool workload = args->has_cache || args->has_llm || args->has_db || args->G > 1;
+  if (workload != kLibraryWorkload) return kWrongBuild;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (events) return controls ? launch<true, true>(*args, st) : launch<true, false>(*args, st);
-  return controls ? launch<false, true>(*args, st) : launch<false, false>(*args, st);
+  constexpr bool w = kLibraryWorkload;
+  if (events) {
+    return controls ? launch<true, true, w>(*args, st) : launch<true, false, w>(*args, st);
+  }
+  return controls ? launch<false, true, w>(*args, st) : launch<false, false, w>(*args, st);
 }

@@ -44,6 +44,10 @@ class SweepResults:
     total_rejected: np.ndarray
     #: (S,) events each scenario simulated
     events: np.ndarray
+    #: (S,) LLM cost units of the completed requests, and their squares
+    #: (for confidence intervals); None when the plan has no LLM segment
+    llm_cost_sum: np.ndarray | None = None
+    llm_cost_sumsq: np.ndarray | None = None
 
     def percentile(self, q: float) -> np.ndarray:
         """Per-scenario latency percentile estimated from the histograms."""
@@ -59,12 +63,14 @@ def concat_results(parts: list[SweepResults]) -> SweepResults:
             f.name: np.concatenate([getattr(p, f.name) for p in parts])
             for f in dataclasses.fields(first)
             if f.name not in ("settings", "hist_edges")
+            and getattr(first, f.name) is not None
         },
     )
 
 
-def sweep_results(state, settings=None) -> SweepResults:
-    """Host-side :class:`SweepResults` of a batched kernel state."""
+def sweep_results(state, settings=None, *, has_llm: bool = False) -> SweepResults:
+    """Host-side :class:`SweepResults` of a batched kernel state; the LLM
+    cost moments are kept where the plan has LLM segments."""
     return SweepResults(
         settings=settings,
         completed=np.asarray(state.lat_count),
@@ -81,6 +87,8 @@ def sweep_results(state, settings=None) -> SweepResults:
         truncated=np.asarray(state.truncated).astype(bool),
         total_rejected=np.asarray(state.n_rejected),
         events=np.asarray(state.n_events),
+        llm_cost_sum=np.asarray(state.llm_sum) if has_llm else None,
+        llm_cost_sumsq=np.asarray(state.llm_sumsq) if has_llm else None,
     )
 
 

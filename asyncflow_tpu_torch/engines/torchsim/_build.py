@@ -1,10 +1,11 @@
 """Build the CUDA sources of ``csrc/`` with nvcc and load them with ctypes.
 
-Each source is compiled on first use into a shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), named by a digest
-of its source and flags so that a stale build is never reused.  The build
-directory is ``build/torch_kernels/`` at the root of the checkout.
-:func:`build` starts one nvcc per source, all at once.
+Each library is compiled on first use from one source and its own
+defines into a shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds), named by a digest of its source and
+flags so that a stale build is never reused.  The build directory is
+``build/torch_kernels/`` at the root of the checkout.  :func:`build` starts
+one nvcc per library, all at once.
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ from pathlib import Path
 from asyncflow_tpu_torch.errors import KernelBuildError
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = {"des_kernel": CSRC / "des_kernel.cu"}
+#: library name -> (source, extra nvcc flags): the DES kernel is built twice,
+#: without and with its workload group of instances
+SOURCES = {
+    "des_kernel": (CSRC / "des_kernel.cu", ("-DDES_WORKLOAD=0",)),
+    "des_kernel_workload": (CSRC / "des_kernel.cu", ("-DDES_WORKLOAD=1",)),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -50,8 +56,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src, defines = SOURCES[name]
+    flags = " ".join((*NVCC_FLAGS, *defines))
+    digest = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -67,7 +74,8 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
             if target.exists():
                 continue
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+            src, defines = SOURCES[name]
+            cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)]
             procs[name] = (
                 subprocess.Popen(  # noqa: S603 - fixed argv, no shell
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,

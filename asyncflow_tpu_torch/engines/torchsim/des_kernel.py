@@ -3,6 +3,9 @@
 For CUDA tensors it launches the kernel (built on first use) or raises;
 for CPU tensors it runs the plain twin, :func:`des_reference`.  There is
 no fallback from one to the other.  ``launches`` counts kernel launches.
+The source is built into two libraries: ``des_kernel`` without the
+workload group (cache, LLM, DB pools, several generators) and
+``des_kernel_workload`` with it; a launch loads the one its plan needs.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ _PTR_FIELDS = (
     "lb_edge_index", "lb_target", "entry_edges",
     "spike_times", "spike_vals", "tl_times", "tl_down", "tl_slot",
     "queue_cap", "conn_cap", "rate_limit", "rate_burst", "queue_timeout",
+    "seg_hit_prob", "seg_miss_dur", "seg_llm_tokens", "seg_llm_tpt", "seg_llm_cost",
+    "db_pool", "gen_entry_edges", "gen_entry_len", "gen_entry_ev", "gen_entry_target",
+    "gen_window", "gen_lam_off", "gen_nw",
     "hist", "thr", "momf", "momi", "trunc", "n_events", "work",
     "req_t", "req_ev", "req_srv", "req_ep", "req_seg", "req_ram", "req_ticket",
     "req_start", "req_lbslot",
@@ -34,12 +40,14 @@ _PTR_FIELDS = (
     "lb_order", "lb_conn",
     "req_wait_t", "req_cbslot", "req_probe", "srv_conn", "rl_tokens", "rl_last",
     "cb_state", "cb_open_until", "cb_consec", "cb_probes_out", "cb_probe_ok",
+    "req_llm", "db_free", "db_ticket", "db_wait_n",
+    "gen_now", "gen_wend", "gen_widx", "gen_next",
 )
 _INT_FIELDS = (
     "S", "P", "NS", "NE", "NEP", "NSEGP", "EL", "NW", "B", "TH", "K",
     "max_iterations", "entry_ev", "entry_target", "lb_algo", "has_ram",
     "NB", "NTL", "has_shed", "has_conn", "has_rl", "has_timeout",
-    "cb_threshold", "cb_probes",
+    "cb_threshold", "cb_probes", "G", "L", "has_cache", "has_llm", "has_db",
 )
 _FLOAT_FIELDS = ("horizon", "window", "hist_lo", "hist_scale", "cb_cooldown")
 _TABLE_FIELDS = (
@@ -49,8 +57,12 @@ _TABLE_FIELDS = (
     # optional: None when the plan does not model the feature
     "spike_times", "spike_vals", "tl_times", "tl_down", "tl_slot",
     "queue_cap", "conn_cap", "rate_limit", "rate_burst", "queue_timeout",
+    "seg_hit_prob", "seg_miss_dur", "seg_llm_tokens", "seg_llm_tpt", "seg_llm_cost",
+    "db_pool", "gen_entry_edges", "gen_entry_len", "gen_entry_ev", "gen_entry_target",
+    "gen_window", "gen_lam_off", "gen_nw",
 )
-# scratch fields: (name, dtype, per-scenario rows: "pool" | "servers" | "lb",
+# scratch fields: (name, dtype, per-scenario rows: "pool" | "servers" | "lb" |
+# "generators",
 # the feature that needs it: None for always, "breaker", or the DesTables
 # table that is None when the plan does not model the feature)
 _SCRATCH = (
@@ -82,7 +94,18 @@ _SCRATCH = (
     ("cb_consec", torch.int32, "lb", "breaker"),
     ("cb_probes_out", torch.int32, "lb", "breaker"),
     ("cb_probe_ok", torch.int32, "lb", "breaker"),
+    ("req_llm", torch.float32, "pool", "seg_llm_tokens"),
+    ("db_free", torch.int32, "servers", "db_pool"),
+    ("db_ticket", torch.int32, "servers", "db_pool"),
+    ("db_wait_n", torch.int32, "servers", "db_pool"),
+    ("gen_now", torch.float32, "generators", "gen_window"),
+    ("gen_wend", torch.float32, "generators", "gen_window"),
+    ("gen_widx", torch.int32, "generators", "gen_window"),
+    ("gen_next", torch.float32, "generators", "gen_window"),
 )
+#: library names (engines/torchsim/_build.py) by whether the plan needs the
+#: workload group
+_LIBRARY = {False: "des_kernel", True: "des_kernel_workload"}
 
 
 class _DesArgs(ctypes.Structure):
@@ -95,12 +118,27 @@ class _DesArgs(ctypes.Structure):
     )
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("des_kernel")
+def needs_workload(t: DesTables) -> bool:
+    """Does the plan need the instances with the workload group?"""
+    return (
+        t.seg_hit_prob is not None
+        or t.seg_llm_tokens is not None
+        or t.db_pool is not None
+        or t.n_gen > 1
+    )
+
+
+def _library(workload: bool) -> ctypes.CDLL:
+    lib = _build.load(_LIBRARY[workload])
     lib.des_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.des_launch.restype = ctypes.c_int
     lib.des_args_size.argtypes = []
     lib.des_args_size.restype = ctypes.c_int
+    lib.des_workload.argtypes = []
+    lib.des_workload.restype = ctypes.c_int
+    if lib.des_workload() != int(workload):
+        msg = f"{_LIBRARY[workload]}: the library was built with the other instances"
+        raise KernelBuildError(msg)
     if lib.des_args_size() != ctypes.sizeof(_DesArgs):
         msg = (
             f"DesArgs layout mismatch: the library says {lib.des_args_size()} "
@@ -153,7 +191,7 @@ class DesKernel:
 
     def _launch(self, t: DesTables, k0, k1, lam, em, ev, ed) -> DesOutputs:
         args, out, _keep = pack_args(t, k0, k1, lam, em, ev, ed)
-        lib = _library()
+        lib = _library(needs_workload(t))
         stream = torch.cuda.current_stream(k0.device).cuda_stream
         rc = lib.des_launch(ctypes.byref(args), ctypes.c_void_p(stream))
         if rc != 0:
@@ -200,7 +238,8 @@ def pack_args(t: DesTables, k0, k1, lam, em, ev, ed) -> tuple[_DesArgs, DesOutpu
         n_events=torch.empty((s,), dtype=torch.int32, device=dev),
         work=torch.empty((s, len(WORK_KINDS)), dtype=torch.int32, device=dev),
     )
-    rows = {"pool": t.pool, "servers": t.n_servers, "lb": max(t.n_lb, 1)}
+    rows = {"pool": t.pool, "servers": t.n_servers, "lb": max(t.n_lb, 1),
+            "generators": t.n_gen}
     scratch = {
         name: torch.empty((rows[kind], s), dtype=dtype, device=dev)
         for name, dtype, kind, feature in _SCRATCH
@@ -242,6 +281,11 @@ def pack_args(t: DesTables, k0, k1, lam, em, ev, ed) -> tuple[_DesArgs, DesOutpu
         has_timeout=int(t.queue_timeout is not None),
         cb_threshold=t.breaker_threshold,
         cb_probes=t.breaker_probes,
+        G=t.n_gen,
+        L=t.max_chain,
+        has_cache=int(t.seg_hit_prob is not None),
+        has_llm=int(t.seg_llm_tokens is not None),
+        has_db=int(t.db_pool is not None),
         horizon=t.horizon,
         window=t.window,
         hist_lo=t.hist_lo,

@@ -2,17 +2,19 @@
 
 A batched transcription of the reference's Pallas kernel
 (``asyncflow_tpu/engines/jaxsim/pallas_engine.py``, ``PallasEngine._kernel``
-and its helpers) into torch tensor operations on ``(S, P)`` tiles, cut to
-this slice's features: one generator; CPU, IO, RAM and END segments;
-weighted endpoint pick; round-robin and least-connection LB; all five edge
-distributions with dropout and network spikes; the outage timeline (LB
-slots leave and re-enter the rotation); the per-slot LB circuit breaker;
-the overload controls (ready-queue shed, connection cap, token-bucket rate
-limit, dequeue deadline with its abandon event); RAM admission with the
-strict-FIFO grant cascade; FIFO core handoff; pool overflow and
-truncation at ``max_iterations``.  Each optional feature costs nothing
-when the plan does not model it: its tables are None and its state and
-branches are never built.
+and its helpers) into torch tensor operations on ``(S, P)`` tiles, with
+every feature of that kernel: one generator or several superposed
+streams; CPU, IO, RAM and END segments, cache hit/miss mixtures, LLM calls
+with Poisson output tokens and their cost, and io_db segments holding one
+of a server's FIFO DB connections; weighted endpoint pick; round-robin and
+least-connection LB; all five edge distributions with dropout and network
+spikes; the outage timeline (LB slots leave and re-enter the rotation);
+the per-slot LB circuit breaker; the overload controls (ready-queue shed,
+connection cap, token-bucket rate limit, dequeue deadline with its abandon
+event); RAM admission with the strict-FIFO grant cascade; FIFO core
+handoff; pool overflow and truncation at ``max_iterations``.  Each
+optional feature costs nothing when the plan does not model it: its
+tables are None and its state and branches are never built.
 
 Precedence inside an iteration is the reference's: a timeline entry, then
 the pool, then an arrival, at equal times.  A timeline pop is an iteration
@@ -22,11 +24,14 @@ Every scenario row advances by one event per loop iteration, so the shared
 iteration counter ``it`` is also each row's own event counter: the CUDA
 kernel, which runs one thread per scenario, reproduces it per thread and
 draws the same threefry counters.  Randomness is threefry2x32 addressed by
-``(it, site | seq << 10)``; the draw sites are the reference's (200 for
-arrivals, 64 + 4j on the entry chain, 32 on the LB edge, 48 on the exit
-edge, 4 for the endpoint pick, +1 for Box-Muller, +2 for the Poisson
-loop).  Float arithmetic is float32, one operation at a time, so on the
-card the twin and the kernel (built with ``--fmad=false``) round alike.
+``(it, site | seq << 10)``; the draw sites are the reference's (200 + g
+for generator g's arrivals, 64 + 4j on a single generator's entry chain
+and 600 + 4 g L + 4j on generator g's with several (L the longest chain),
+32 on the LB edge, 48 on the exit edge, 4 for the endpoint pick, 24 for a
+cache segment, 25 at seq 0, 1, ... for an LLM segment's tokens, +1 for
+Box-Muller, +2 for the Poisson loop).  Float arithmetic is float32, one
+operation at a time, so on the card the twin and the kernel (built with
+``--fmad=false``) round alike.
 
 It runs on either device.  The CPU tests use it; on the card it is the
 yardstick the kernel is held to, and never the main path.
@@ -41,9 +46,12 @@ import numpy as np
 import torch
 
 from asyncflow_tpu_torch.compiler.plan import (
+    SEG_CACHE,
     SEG_CPU,
+    SEG_DB,
     SEG_END,
     SEG_IO,
+    SEG_LLM,
     TARGET_CLIENT,
     TARGET_LB,
     TARGET_SERVER,
@@ -62,6 +70,7 @@ from asyncflow_tpu_torch.engines.torchsim.params import (
     EV_RESUME,
     EV_SEG_END,
     EV_WAIT_CPU,
+    EV_WAIT_DB,
     EV_WAIT_RAM,
     INF,
     NO_TICKET,
@@ -114,6 +123,22 @@ class DesTables:
     rate_limit: torch.Tensor | None  # (NS,) f32
     rate_burst: torch.Tensor | None  # (NS,) f32
     queue_timeout: torch.Tensor | None  # (NS,) f32
+    seg_hit_prob: torch.Tensor | None  # (NS*NEP*NSEGP,) f32, cache
+    seg_miss_dur: torch.Tensor | None  # (NS*NEP*NSEGP,) f32, cache
+    seg_llm_tokens: torch.Tensor | None  # (NS*NEP*NSEGP,) f32, LLM
+    seg_llm_tpt: torch.Tensor | None  # (NS*NEP*NSEGP,) f32, LLM
+    seg_llm_cost: torch.Tensor | None  # (NS*NEP*NSEGP,) f32, LLM
+    db_pool: torch.Tensor | None  # (NS,) i32 connections (2**30 = unlimited)
+    # several generators (None with one): per stream, its entry chain
+    # (-1-padded to the longest, L), entry event and target, sampling
+    # window and block of the arrival-rate table
+    gen_entry_edges: torch.Tensor | None  # (G*L,) i32
+    gen_entry_len: torch.Tensor | None  # (G,) i32
+    gen_entry_ev: torch.Tensor | None  # (G,) i32
+    gen_entry_target: torch.Tensor | None  # (G,) i32
+    gen_window: torch.Tensor | None  # (G,) f32
+    gen_lam_off: torch.Tensor | None  # (G,) i32
+    gen_nw: torch.Tensor | None  # (G,) i32
     pool: int
     n_servers: int
     n_edges: int
@@ -136,6 +161,14 @@ class DesTables:
     breaker_threshold: int  # 0 = no breaker
     breaker_cooldown: float  # float32 value
     breaker_probes: int
+    n_gen: int  # generators (G)
+
+    @property
+    def max_chain(self) -> int:
+        """The longest entry chain (L) of a plan with several generators."""
+        if self.gen_entry_edges is None:
+            return 0
+        return int(self.gen_entry_edges.numel()) // self.n_gen
 
     @property
     def n_spikes(self) -> int:
@@ -168,6 +201,13 @@ def make_des_tables(plan: StaticPlan, *, device: torch.device | str) -> DesTable
     el = plan.n_lb_edges
     lo, scale = hist_constants()
     spikes, tl = plan.has_spikes, plan.has_timeline
+    cache, llm, db = plan.has_cache, plan.has_llm, plan.has_db_pool
+    multi = plan.n_generators > 1
+    entry_ev = [
+        EV_ARRIVE_LB if kind == TARGET_LB else EV_ARRIVE_SRV
+        for kind in np.asarray(plan.gen_entry_target_kind).tolist()
+    ]
+    lam_off = np.cumsum([0, *plan.gen_windows[:-1]])
     return DesTables(
         seg_kind=i32(plan.seg_kind),
         seg_dur=fl32(plan.seg_dur),
@@ -193,6 +233,22 @@ def make_des_tables(plan: StaticPlan, *, device: torch.device | str) -> DesTable
         rate_limit=opt(plan.has_rate_limit, fl32, plan.server_rate_limit),
         rate_burst=opt(plan.has_rate_limit, fl32, plan.server_rate_burst),
         queue_timeout=opt(plan.has_queue_timeout, fl32, plan.server_queue_timeout),
+        seg_hit_prob=opt(cache, fl32, plan.seg_hit_prob),
+        seg_miss_dur=opt(cache, fl32, plan.seg_miss_dur),
+        seg_llm_tokens=opt(llm, fl32, plan.seg_llm_tokens),
+        seg_llm_tpt=opt(llm, fl32, plan.seg_llm_tpt),
+        seg_llm_cost=opt(llm, fl32, plan.seg_llm_cost),
+        # -1 (unlimited) becomes a pool so large that acquire never blocks
+        db_pool=opt(
+            db, i32, np.where(plan.server_db_pool >= 0, plan.server_db_pool, 2**30),
+        ),
+        gen_entry_edges=opt(multi, i32, plan.gen_entry_edges),
+        gen_entry_len=opt(multi, i32, plan.gen_entry_len),
+        gen_entry_ev=opt(multi, i32, entry_ev),
+        gen_entry_target=opt(multi, i32, np.maximum(plan.gen_entry_target, 0)),
+        gen_window=opt(multi, fl32, plan.gen_window),
+        gen_lam_off=opt(multi, i32, lam_off),
+        gen_nw=opt(multi, i32, plan.gen_windows),
         pool=int(plan.pool_size),
         n_servers=plan.n_servers,
         n_edges=plan.n_edges,
@@ -215,14 +271,25 @@ def make_des_tables(plan: StaticPlan, *, device: torch.device | str) -> DesTable
         breaker_threshold=int(plan.breaker_threshold),
         breaker_cooldown=f32(plan.breaker_cooldown),
         breaker_probes=int(plan.breaker_probes),
+        n_gen=plan.n_generators,
     )
 
 
-#: columns of the kernel's ``work`` output: the slice-2 work each scenario
-#: did, counted where the kernel does it (the bound in ``chip_smoke.py``
-#: prices them; the slice-1 work it counts from the other outputs)
-WORK_KINDS = ("timeline_pops", "token_refills", "breaker_reports", "abandons")
-W_TIMELINE, W_REFILL, W_BREAKER, W_ABANDON = range(len(WORK_KINDS))
+#: columns of the kernel's ``work`` output: the work of the optional
+#: features each scenario did, counted where the kernel does it (the bound
+#: in ``chip_smoke.py`` prices them; the slice-1 work it counts from the
+#: other outputs): timeline pops, token-bucket refills, breaker reports and
+#: abandons; then threefry draws of LLM token loops, cache draws, requests
+#: that waited for a DB connection and connections handed to a waiter
+WORK_KINDS = (
+    "timeline_pops", "token_refills", "breaker_reports", "abandons",
+    "llm_token_draws", "cache_draws", "db_waits", "db_grants",
+)
+(
+    W_TIMELINE, W_REFILL, W_BREAKER, W_ABANDON, W_LLM_DRAWS, W_CACHE, W_DB_WAIT, W_DB_GRANT,
+) = range(len(WORK_KINDS))
+#: seq values of an LLM token loop drawn in one batched threefry pass
+LLM_DRAW_BLOCK = 64
 
 
 class DesOutputs(NamedTuple):
@@ -230,7 +297,7 @@ class DesOutputs(NamedTuple):
 
     hist: torch.Tensor  # (S, B) i32 latency histogram
     thr: torch.Tensor  # (S, TH) i32 completions per second
-    momf: torch.Tensor  # (S, 6) f32 lat sum, sumsq, min, max, 0, 0
+    momf: torch.Tensor  # (S, 6) f32 lat sum, sumsq, min, max, LLM cost sum, sumsq
     momi: torch.Tensor  # (S, 5) i32 completed, generated, dropped, overflow, rejected
     trunc: torch.Tensor  # (S,) i32 iteration cap fired with work pending
     n_events: torch.Tensor  # (S,) i32 events simulated
@@ -319,11 +386,35 @@ class _Twin:
         self.k0 = k0.to(torch.int64) & MASK32
         self.k1 = k1.to(torch.int64) & MASK32
         self.lam, self.em, self.ev, self.ed = lam, em, ev, ed
-        self.entry = t.entry_edges.tolist()
+        # per generator: entry chain, its first draw site, entry event and
+        # target, sampling window (f32), block of the arrival-rate table
+        g_n = t.n_gen
+        if g_n == 1:
+            self.chains = [t.entry_edges.tolist()]
+            self.chain_site = [64]
+            self.gen_ev, self.gen_target = [t.entry_ev], [t.entry_target]
+            self.gen_window, self.gen_off, self.gen_nw = [t.window], [0], [t.n_windows]
+        else:
+            width = t.max_chain
+            edges = t.gen_entry_edges.tolist()
+            self.chains = [
+                edges[g * width : g * width + n]
+                for g, n in enumerate(t.gen_entry_len.tolist())
+            ]
+            # a stride of 4 per edge (an edge draw uses sites +0..+2) and a
+            # block of the longest chain per stream
+            self.chain_site = [600 + 4 * width * g for g in range(g_n)]
+            self.gen_ev = t.gen_entry_ev.tolist()
+            self.gen_target = t.gen_entry_target.tolist()
+            self.gen_window = t.gen_window.tolist()
+            self.gen_off, self.gen_nw = t.gen_lam_off.tolist(), t.gen_nw.tolist()
         # draw sites read at seq 0, drawn together once per iteration
-        sites = [4, 32, 33, 34, 48, 49, 50, 200]
-        for j in range(len(self.entry)):
-            sites += [64 + 4 * j, 65 + 4 * j, 66 + 4 * j]
+        sites = [4, 32, 33, 34, 48, 49, 50] + [200 + g for g in range(g_n)]
+        if t.seg_hit_prob is not None:
+            sites.append(24)
+        for base, chain in zip(self.chain_site, self.chains):
+            for j in range(len(chain)):
+                sites += [base + 4 * j, base + 1 + 4 * j, base + 2 + 4 * j]
         self.site_col = {site: c for c, site in enumerate(sites)}
         self.site_x1 = torch.tensor(sites, dtype=torch.int64, device=dev)[None, :]
         self.cache_it = -1
@@ -352,10 +443,11 @@ class _Twin:
         self.lb_order = torch.arange(el, dtype=i64, device=dev).repeat(s, 1)
         self.lb_len = full((s,), t.n_lb, i64)
         self.lb_conn = full((s, el), 0, i32)
-        self.smp_now = full((s,), 0.0, f)
-        self.smp_window_end = full((s,), 0.0, f)
-        self.widx = full((s,), -1, i64)
-        self.next_arrival = full((s,), 0.0, f)
+        # arrival sampler state, one column per generator
+        self.smp_now = full((s, g_n), 0.0, f)
+        self.smp_window_end = full((s, g_n), 0.0, f)
+        self.widx = full((s, g_n), -1, i64)
+        self.next_arrival = full((s, g_n), 0.0, f)
         self.hist = full((s, t.n_hist_bins), 0, i32)
         self.thr = full((s, t.n_thr), 0, i32)
         self.lat_count = full((s,), 0, i32)
@@ -367,6 +459,8 @@ class _Twin:
         self.n_dropped = full((s,), 0, i32)
         self.n_overflow = full((s,), 0, i32)
         self.n_rejected = full((s,), 0, i32)
+        self.llm_sum = full((s,), 0.0, f)
+        self.llm_sumsq = full((s,), 0.0, f)
         self.n_events = full((s,), 0, i32)
         self.work = full((s, len(WORK_KINDS)), 0, i32)
         # state of the optional features, built only when the plan has them
@@ -375,6 +469,9 @@ class _Twin:
         self.has_rl = t.rate_limit is not None
         self.has_timeout = t.queue_timeout is not None
         self.has_breaker = t.breaker_threshold > 0
+        self.has_cache = t.seg_hit_prob is not None
+        self.has_llm = t.seg_llm_tokens is not None
+        self.has_db = t.db_pool is not None
         if t.n_timeline:
             self.tl_ptr = full((s,), 0, i64)
             self.tl_slot = t.tl_slot.long()
@@ -393,6 +490,12 @@ class _Twin:
             self.cb_probe_ok = full((s, el), 0, i32)
             self.req_cbslot = full((s, p), -1, i64)
             self.req_probe = full((s, p), 0, i32)
+        if self.has_llm:
+            self.req_llm = full((s, p), 0.0, f)
+        if self.has_db:
+            self.db_free = t.db_pool[None, :].expand(s, ns).clone()
+            self.db_ticket = full((s, ns), 0, i32)
+            self.db_wait_n = full((s, ns), 0, i32)
         # long copies of the index tables
         self.seg_kind = t.seg_kind.long()
         self.exit_edge = t.exit_edge.long()
@@ -406,8 +509,9 @@ class _Twin:
     def seg_idx(self, s, ep, seg):
         return (s * self.t.n_ep + ep) * self.t.n_segp + seg
 
-    def count(self, kind: int, pred: torch.Tensor) -> None:
-        self.work[:, kind] += pred.to(torch.int32)
+    def count(self, kind: int, pred: torch.Tensor, n: torch.Tensor | int = 1) -> None:
+        """Add ``n`` to work column ``kind`` of the rows in ``pred``."""
+        self.work[:, kind] += torch.where(pred, n, 0).to(torch.int32)
 
     # ---- randomness ----
 
@@ -471,13 +575,16 @@ class _Twin:
 
     # ---- kernel pieces ----
 
-    def advance_arrival(self, it: int, pred: torch.Tensor) -> None:
-        """Window-jump exponential-gap sampler (``_advance_arrival``)."""
+    def advance_arrival(self, it: int, pred: torch.Tensor, gen: int = 0) -> None:
+        """Window-jump exponential-gap sampler of generator ``gen``
+        (``_advance_arrival``): its own block of the arrival-rate table,
+        sampling window and draw site."""
         t = self.t
-        horizon, window = t.horizon, t.window
-        smp_now = self.smp_now
-        window_end = self.smp_window_end
-        widx = self.widx
+        horizon, window = t.horizon, self.gen_window[gen]
+        off, nw = self.gen_off[gen], self.gen_nw[gen]
+        smp_now = self.smp_now[:, gen]
+        window_end = self.smp_window_end[:, gen]
+        widx = self.widx[:, gen]
         status = torch.where(pred, 0, 1)
         gap = torch.zeros_like(smp_now)
         dctr = 0
@@ -489,10 +596,10 @@ class _Twin:
             need = active & (smp_now >= window_end)
             widx = torch.where(need, widx + 1, widx)
             # rows with widx -1 are inactive: their clamped read is discarded
-            lam = _col(self.lam, widx.clamp(0, t.n_windows - 1))
+            lam = _col(self.lam, off + widx.clamp(0, nw - 1))
             window_end = torch.where(need, smp_now + window, window_end)
             no_users = lam <= 0.0
-            u = torch.clamp_min(self.pair(it, 200, dctr)[0], _TINY)
+            u = torch.clamp_min(self.pair(it, 200 + gen, dctr)[0], _TINY)
             g = (-torch.log(torch.clamp_min(1.0 - u, _TINY))) / torch.clamp_min(lam, _TINY)
             ahead = smp_now + g
             beyond = ahead > horizon
@@ -509,15 +616,20 @@ class _Twin:
             gap = torch.where(active & (new_status == 1), g, gap)
             status = torch.where(active, new_status, status)
             dctr += 1
-        nxt = torch.where(status == 2, _INF, self.next_arrival + gap)
-        self.smp_now = torch.where(pred, smp_now, self.smp_now)
-        self.smp_window_end = torch.where(pred, window_end, self.smp_window_end)
-        self.widx = torch.where(pred, widx, self.widx)
-        self.next_arrival = torch.where(pred, nxt, self.next_arrival)
+        nxt = torch.where(status == 2, _INF, self.next_arrival[:, gen] + gap)
+        for name, new in (("smp_now", smp_now), ("smp_window_end", window_end),
+                          ("widx", widx), ("next_arrival", nxt)):
+            col = getattr(self, name)[:, gen]
+            col.copy_(torch.where(pred, new, col))
 
-    def complete(self, start, finish, pred) -> None:
-        """Histogram bin, throughput bin and latency moments (``_complete``)."""
+    def complete(self, i, start, finish, pred) -> None:
+        """Histogram bin, throughput bin, latency moments and the LLM cost
+        moments of slot ``i``'s request (``_complete``)."""
         t = self.t
+        if self.has_llm:
+            cost = _col(self.req_llm, i)
+            self.llm_sum = torch.where(pred, self.llm_sum + cost, self.llm_sum)
+            self.llm_sumsq = torch.where(pred, self.llm_sumsq + cost * cost, self.llm_sumsq)
         latency = finish - start
         lbin = latency_bin(latency, t.hist_lo, t.hist_scale, t.n_hist_bins)
         _add(self.hist, lbin.long(), 1, pred)
@@ -632,7 +744,7 @@ class _Twin:
         to_lb = pred & (kind == TARGET_LB) & ~dropped
         to_client = pred & (kind == TARGET_CLIENT) & ~dropped
         drop_here = pred & dropped
-        self.complete(_col(self.req_start, i), arrive, to_client & (arrive < t.horizon))
+        self.complete(i, _col(self.req_start, i), arrive, to_client & (arrive < t.horizon))
         free = drop_here | to_client
         moved = free | to_server | to_lb
         _put(
@@ -646,9 +758,43 @@ class _Twin:
         _put(self.req_lbslot, i, -1, pred)
         self.n_dropped = self.n_dropped + drop_here.to(torch.int32)
 
+    def llm_tokens(self, it: int, limit: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+        """Output tokens of an LLM segment: the exp-sum counting process on
+        site 25, seq 0, 1, ... (``_seg_start``): the number of partial sums
+        of ``-log(max(1 - u, TINY))`` that stay at or below ``limit``.
+
+        The uniforms are drawn LLM_DRAW_BLOCK seqs at a time in one batched
+        threefry pass; the partial sums are then taken one column at a time,
+        in the reference's order, so they round as its sequential loop does.
+        The summands are never negative, so a row's partial sums only grow,
+        and its count is the number of them at or below its limit.
+        """
+        dev = limit.device
+        tokens = torch.zeros_like(limit, dtype=torch.int32)
+        acc = torch.zeros_like(limit)
+        seq0 = 0
+        while bool(live.any()):
+            seqs = torch.arange(seq0, seq0 + LLM_DRAW_BLOCK, dtype=torch.int64, device=dev)
+            x1 = ((25 + (seqs << 10)) & MASK32)[None, :]
+            x0 = torch.full_like(x1, it)
+            b0, _ = threefry2x32(self.k0[:, None], self.k1[:, None], x0, x1)
+            u = uniform_from_bits(b0)
+            gaps = (-torch.log(torch.clamp_min(1.0 - u, _TINY))).T.contiguous()
+            sums = torch.empty_like(gaps)
+            torch.add(acc, gaps[0], out=sums[0])
+            for c in range(1, LLM_DRAW_BLOCK):
+                torch.add(sums[c - 1], gaps[c], out=sums[c])
+            inside = (sums <= limit[None, :]) & live[None, :]
+            tokens = tokens + inside.sum(dim=0, dtype=torch.int32)
+            acc = sums[-1]
+            live = live & ~(acc > limit)
+            seq0 += LLM_DRAW_BLOCK
+        return tokens
+
     def seg_start(self, it, i, s, ep, seg, now, pred) -> None:
-        """Segment dispatch for CPU, IO and END, with the ready-queue shed
-        (``_seg_start``)."""
+        """Segment dispatch (``_seg_start``): CPU with the ready-queue shed,
+        IO, a cache mixture or an LLM call (sleeps), a DB query (acquire a
+        connection or wait FIFO for one), END."""
         if not bool(pred.any()):
             return
         t = self.t
@@ -659,6 +805,27 @@ class _Twin:
         is_cpu = pred & (kind == SEG_CPU)
         is_io = pred & (kind == SEG_IO)
         is_end = pred & (kind == SEG_END)
+        if self.has_cache:
+            # a miss sleeps the backing store's latency
+            is_cache = pred & (kind == SEG_CACHE)
+            self.count(W_CACHE, is_cache)
+            u_cache = self.pair(it, 24)[0]
+            miss = is_cache & (u_cache >= t.seg_hit_prob[sidx])
+            dur = torch.where(miss, t.seg_miss_dur[sidx], dur)
+            is_io = is_io | is_cache
+        if self.has_llm:
+            # the sleep stretches by tokens x seconds per token, and the
+            # request accrues tokens x cost per token
+            is_llm = pred & (kind == SEG_LLM)
+            if bool(is_llm.any()):
+                limit = torch.clamp_min(t.seg_llm_tokens[sidx], f32(1e-6))
+                tokens = self.llm_tokens(it, limit, is_llm)
+                # the loop's draws: one per token and the one past the limit
+                self.count(W_LLM_DRAWS, is_llm, tokens + 1)
+                tokens = tokens.to(torch.float32)
+                dur = torch.where(is_llm, dur + tokens * t.seg_llm_tpt[sidx], dur)
+                _add(self.req_llm, i, tokens * t.seg_llm_cost[sidx], is_llm)
+            is_io = is_io | is_llm
         waiting_n = _col(self.cpu_wait_n, s)
         can_take = (_col(self.cores_free, s) > 0) & ~(waiting_n > 0)
         cpu_run = is_cpu & can_take
@@ -669,13 +836,33 @@ class _Twin:
             shed = cpu_wait & (cap >= 0) & (waiting_n >= cap)
             cpu_wait = cpu_wait & ~shed
         run_now = cpu_run | is_io
+        db_wait = torch.zeros_like(pred)
+        if self.has_db:
+            # acquire a free connection unless others wait for one
+            is_db = pred & (kind == SEG_DB)
+            db_can = (_col(self.db_free, s) > 0) & ~(_col(self.db_wait_n, s) > 0)
+            db_run = is_db & db_can
+            db_wait = is_db & ~db_can
+            run_now = run_now | db_run
+            self.count(W_DB_WAIT, db_wait)
+            _add(self.db_free, s, -1, db_run)
+            _add(self.db_ticket, s, 1, db_wait)
+            _add(self.db_wait_n, s, 1, db_wait)
         _add(self.cores_free, s, -1, cpu_run)
         _add(self.cpu_ticket, s, 1, cpu_wait)
         _add(self.cpu_wait_n, s, 1, cpu_wait)
-        parked = run_now | cpu_wait
-        _put(self.req_ev, i, torch.where(run_now, EV_SEG_END, EV_WAIT_CPU), parked)
+        parked = run_now | cpu_wait | db_wait
+        _put(
+            self.req_ev, i,
+            torch.where(
+                run_now, EV_SEG_END, torch.where(cpu_wait, EV_WAIT_CPU, EV_WAIT_DB),
+            ),
+            parked,
+        )
         _put(self.req_t, i, torch.where(run_now, now + dur, _INF), parked)
         _put(self.req_ticket, i, _col(self.cpu_ticket, s), cpu_wait)
+        if self.has_db:
+            _put(self.req_ticket, i, _col(self.db_ticket, s), db_wait)
         if self.has_timeout:
             _put(self.req_wait_t, i, now, cpu_wait)
         if self.has_shed and bool(shed.any()):
@@ -684,33 +871,54 @@ class _Twin:
         self.exit_flow(it, i, s, now, is_end)
 
     def spawn(self, it, now, pred) -> None:
-        """Entry chain, first free pool slot, next arrival (``_spawn_branch``)."""
+        """The spawning generator's entry chain, first free pool slot, its
+        next arrival (``_spawn_branch``).  The spawning generator is the one
+        with the earliest next arrival, the lowest index on ties."""
         t = self.t
         self.n_generated = self.n_generated + pred.to(torch.int32)
-        alive = pred
-        t_cur = now
-        for j, eidx in enumerate(self.entry):
-            e = torch.full_like(self.lb_len, eidx)
-            # a spike applies at the time the request reaches this edge
-            dropped, delay = self.edge_draw(it, 64 + 4 * j, e, alive, t_cur)
-            self.n_dropped = self.n_dropped + (alive & dropped).to(torch.int32)
-            survives = alive & ~dropped
-            t_cur = torch.where(survives, t_cur + delay, t_cur)
-            alive = survives
+        g_idx, _ = _first_min(self.next_arrival)
+        alive_all = torch.zeros_like(pred)
+        t_all = now
+        ev0 = torch.zeros_like(self.lb_len)
+        target = torch.zeros_like(self.lb_len)
+        for g, chain in enumerate(self.chains):
+            mine = g_idx == g
+            alive = pred & mine
+            if not bool(alive.any()):
+                continue
+            t_cur = now
+            for j, eidx in enumerate(chain):
+                e = torch.full_like(self.lb_len, eidx)
+                # a spike applies at the time the request reaches this edge
+                site = self.chain_site[g] + 4 * j
+                dropped, delay = self.edge_draw(it, site, e, alive, t_cur)
+                self.n_dropped = self.n_dropped + (alive & dropped).to(torch.int32)
+                survives = alive & ~dropped
+                t_cur = torch.where(survives, t_cur + delay, t_cur)
+                alive = survives
+            alive_all = alive_all | alive
+            t_all = torch.where(mine, t_cur, t_all)
+            ev0 = torch.where(mine, self.gen_ev[g], ev0)
+            target = torch.where(mine, self.gen_target[g], target)
         idle = self.req_ev == EV_IDLE
         has_free = idle.any(dim=1)
         lane = torch.arange(t.pool, device=idle.device)
         slot = torch.where(idle, lane, t.pool).min(dim=1).values.clamp_max(t.pool - 1)
-        place = alive & has_free
-        _put(self.req_ev, slot, t.entry_ev, place)
-        _put(self.req_t, slot, t_cur, place)
-        _put(self.req_srv, slot, t.entry_target, place)
+        place = alive_all & has_free
+        _put(self.req_ev, slot, ev0, place)
+        _put(self.req_t, slot, t_all, place)
+        _put(self.req_srv, slot, target, place)
         _put(self.req_start, slot, now, place)
         _put(self.req_lbslot, slot, -1, place)
         _put(self.req_ram, slot, 0.0, place)
         _put(self.req_ticket, slot, NO_TICKET, place)
-        self.n_overflow = self.n_overflow + (alive & ~has_free).to(torch.int32)
-        self.advance_arrival(it, pred)
+        if self.has_llm:
+            _put(self.req_llm, slot, 0.0, place)
+        self.n_overflow = self.n_overflow + (alive_all & ~has_free).to(torch.int32)
+        for g in range(t.n_gen):
+            mine = pred & (g_idx == g)
+            if bool(mine.any()):
+                self.advance_arrival(it, mine, g)
 
     def timeline(self, pred) -> None:
         """Pop one timeline entry: the LB slot leaves the rotation (down) or
@@ -911,23 +1119,49 @@ class _Twin:
         s = _col(self.req_srv, i)
         ep = _col(self.req_ep, i)
         seg = _col(self.req_seg, i)
-        was_cpu = pred & (self.seg_kind[self.seg_idx(s, ep, seg)] == SEG_CPU)
+        kind = self.seg_kind[self.seg_idx(s, ep, seg)]
+        was_cpu = pred & (kind == SEG_CPU)
         if bool(was_cpu.any()):
             self.cpu_handoff(s, now, was_cpu)
+        if self.has_db:
+            was_db = pred & (kind == SEG_DB)
+            if bool(was_db.any()):
+                self.db_handoff(s, now, was_db)
         self.seg_start(it, i, s, ep, seg + 1, now, pred)
+
+    def db_handoff(self, s, now, was_db) -> None:
+        """Release a DB connection of ``s`` or hand it to the head FIFO
+        waiter, whose query then runs for its own segment's duration
+        (``_seg_end_branch``)."""
+        srv_col = torch.where(was_db, s, -1)
+        waiting = (self.req_ev == EV_WAIT_DB) & (self.req_srv == srv_col[:, None])
+        tick = torch.where(waiting, self.req_ticket, NO_TICKET)
+        j, tmin = _first_min(tick)
+        grant = was_db & (tmin < NO_TICKET)
+        release = was_db & ~grant
+        self.count(W_DB_GRANT, grant)
+        jdur = self.t.seg_dur[
+            self.seg_idx(_col(self.req_srv, j), _col(self.req_ep, j), _col(self.req_seg, j))
+        ]
+        _add(self.db_free, s, 1, release)
+        _add(self.db_wait_n, s, -1, grant)
+        _put(self.req_ev, j, EV_SEG_END, grant)
+        _put(self.req_t, j, now + jdur, grant)
+        _put(self.req_ticket, j, NO_TICKET, grant)
 
     def timeline_time(self) -> torch.Tensor:
         """Time of each row's next timeline entry (INF past the last)."""
         t = self.t
         if not t.n_timeline:
-            return torch.full_like(self.next_arrival, _INF)
+            return torch.full_like(self.lat_sum, _INF)
         nxt = t.tl_times[self.tl_ptr.clamp(0, t.n_timeline - 1)]
         return torch.where(self.tl_ptr < t.n_timeline, nxt, _INF)
 
     def run(self) -> DesOutputs:
         t = self.t
         horizon = t.horizon
-        self.advance_arrival(0, torch.ones_like(self.lb_len, dtype=torch.bool))
+        for g in range(t.n_gen):
+            self.advance_arrival(0, torch.ones_like(self.lb_len, dtype=torch.bool), g)
         nxt_i, nxt_t = _first_min(self.req_t)
         branches = [
             (EV_ARRIVE_LB, self.arrive_lb),
@@ -940,7 +1174,8 @@ class _Twin:
         it = 1
         while it < t.max_iterations:
             t_tl = self.timeline_time()
-            now = torch.minimum(torch.minimum(nxt_t, self.next_arrival), t_tl)
+            t_arr = self.next_arrival.min(dim=1).values
+            now = torch.minimum(torch.minimum(nxt_t, t_arr), t_tl)
             live = now < horizon
             if not bool(live.any()):
                 break
@@ -960,14 +1195,16 @@ class _Twin:
                     branch(it, nxt_i, now, pred)
             nxt_i, nxt_t = _first_min(self.req_t)
             it += 1
-        t_min = torch.minimum(torch.minimum(nxt_t, self.next_arrival), self.timeline_time())
+        t_arr = self.next_arrival.min(dim=1).values
+        t_min = torch.minimum(torch.minimum(nxt_t, t_arr), self.timeline_time())
         trunc = ((it >= t.max_iterations) & (t_min < horizon)).to(torch.int32)
-        zf = torch.zeros_like(self.lat_sum)
         return DesOutputs(
             hist=self.hist,
             thr=self.thr,
             momf=torch.stack(
-                [self.lat_sum, self.lat_sumsq, self.lat_min, self.lat_max, zf, zf], dim=1,
+                [self.lat_sum, self.lat_sumsq, self.lat_min, self.lat_max, self.llm_sum,
+                 self.llm_sumsq],
+                dim=1,
             ),
             momi=torch.stack(
                 [self.lat_count, self.n_generated, self.n_dropped, self.n_overflow,

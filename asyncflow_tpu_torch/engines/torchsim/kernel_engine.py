@@ -4,7 +4,8 @@
 
 :class:`KernelEngine` refuses plans outside this slice before any launch,
 builds the plan tables on the device, draws each scenario's arrival-rate
-table, and runs the kernel (or, for a CPU device, its plain twin).
+table (one block per generator), and runs the kernel (or, for a CPU
+device, its plain twin).
 """
 
 from __future__ import annotations
@@ -16,9 +17,12 @@ import numpy as np
 import torch
 
 from asyncflow_tpu_torch.compiler.plan import (
+    SEG_CACHE,
     SEG_CPU,
+    SEG_DB,
     SEG_END,
     SEG_IO,
+    SEG_LLM,
     TARGET_LB,
     TARGET_SERVER,
     UNSUPPORTED_SEGMENTS,
@@ -37,7 +41,8 @@ from asyncflow_tpu_torch.engines.torchsim.params import ScenarioOverrides, base_
 from asyncflow_tpu_torch.engines.torchsim.sampling import TINY, f32
 from asyncflow_tpu_torch.errors import PayloadError, UnsupportedFeatureError
 
-#: fold-in tag of the arrival-rate stream of generator 0 (pallas_engine.py:1594)
+#: fold-in tag of the arrival-rate stream of generator 0; generator g's is
+#: LAM_STREAM + g (pallas_engine.py:1594)
 LAM_STREAM = 0x77AB
 
 
@@ -71,11 +76,12 @@ def check_slice(plan: StaticPlan) -> None:
     for kind in np.unique(np.asarray(plan.seg_kind)).tolist():
         if kind in UNSUPPORTED_SEGMENTS:
             raise UnsupportedFeatureError(UNSUPPORTED_SEGMENTS[kind], "plan segments")
-        if kind not in (SEG_END, SEG_CPU, SEG_IO):
+        if kind not in (SEG_END, SEG_CPU, SEG_IO, SEG_DB, SEG_CACHE, SEG_LLM):
             msg = f"unknown segment kind {kind}"
             raise PayloadError(msg)
-    if plan.entry_target_kind not in (TARGET_LB, TARGET_SERVER):
-        msg = "the entry chain must end at the load balancer or a server"
+    kinds = [plan.entry_target_kind, *np.asarray(plan.gen_entry_target_kind).tolist()]
+    if any(kind not in (TARGET_LB, TARGET_SERVER) for kind in kinds):
+        msg = "every entry chain must end at the load balancer or a server"
         raise PayloadError(msg)
 
 
@@ -113,11 +119,13 @@ def lam_table(
     *,
     n_windows: int,
     user_var: float,
+    stream: int = 0,
 ) -> torch.Tensor:
-    """(S, NW) float32 arrival rates: users per window x requests per user.
+    """(S, NW) float32 arrival rates of generator ``stream``: users per
+    window x requests per user.
 
     The users of window ``w`` are drawn from the threefry stream
-    ``fold_in(key, 0x77AB)`` at counter ``(w, 0)`` (and ``(w, 1)``):
+    ``fold_in(key, 0x77AB + stream)`` at counter ``(w, 0)`` (and ``(w, 1)``):
     Poisson(user_mean) by CDF inversion when ``user_var < 0``, else
     ``max(0, user_mean + user_var * z)`` with a Box-Muller normal ``z``.  A
     scenario's table is a pure function of its key, so chunking a sweep
@@ -126,7 +134,7 @@ def lam_table(
     """
     dev = keys.device
     s = keys.shape[0]
-    kd = fold_in(keys, LAM_STREAM)
+    kd = fold_in(keys, LAM_STREAM + stream)
     k0, k1 = kd[:, 0:1], kd[:, 1:2]
     w = torch.arange(n_windows, dtype=torch.int64, device=dev)[None, :]
     um = _float_tensor(user_mean, dev).expand(s)[:, None]
@@ -175,14 +183,27 @@ class KernelEngine:
         self.kernel = DesKernel()
 
     def lam_table(self, keys, overrides: ScenarioOverrides | None = None) -> torch.Tensor:
-        ov = overrides if overrides is not None else base_overrides(self.plan)
-        return lam_table(
-            _keys_tensor(keys, self.device),
-            ov.user_mean,
-            ov.req_rate,
-            n_windows=self.tables.n_windows,
-            user_var=self.plan.user_var,
-        )
+        """(S, NW) arrival rates: one block of columns per generator, in
+        order (``pallas_engine.py:_lam_table``).  With several generators
+        the workload overrides are (G,) or (S, G)."""
+        plan = self.plan
+        ov = overrides if overrides is not None else base_overrides(plan)
+        kt = _keys_tensor(keys, self.device)
+        if plan.n_generators == 1:
+            return lam_table(
+                kt, ov.user_mean, ov.req_rate,
+                n_windows=plan.n_windows, user_var=plan.user_var,
+            )
+        um = np.asarray(ov.user_mean, np.float32)
+        rr = np.asarray(ov.req_rate, np.float32)
+        blocks = [
+            lam_table(
+                kt, um[..., g], rr[..., g],
+                n_windows=nw, user_var=float(plan.gen_user_var[g]), stream=g,
+            )
+            for g, nw in enumerate(plan.gen_windows)
+        ]
+        return torch.cat(blocks, dim=1).contiguous()
 
     def prepare(
         self,

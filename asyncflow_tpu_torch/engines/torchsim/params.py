@@ -22,6 +22,7 @@ EV_SEG_END = 3
 EV_RESUME = 4  # RAM granted; start the endpoint's segments at time t
 EV_WAIT_CPU = 5
 EV_WAIT_RAM = 6
+EV_WAIT_DB = 7  # waiting FIFO for one of the server's DB connections
 EV_ABANDON = 8  # granted the core past its dequeue deadline: abandon now
 
 
@@ -35,18 +36,25 @@ class ScenarioOverrides(NamedTuple):
     edge_mean: np.ndarray  # (NE,) or (S, NE)
     edge_var: np.ndarray
     edge_dropout: np.ndarray
-    user_mean: np.ndarray  # scalar or (S,)
-    req_rate: np.ndarray  # requests / user / second, scalar or (S,)
+    user_mean: np.ndarray  # scalar or (S,); (G,) or (S, G) with G generators
+    req_rate: np.ndarray  # requests / user / second, shaped as user_mean
 
 
 def base_overrides(plan: StaticPlan) -> ScenarioOverrides:
-    """Overrides equal to the base plan (no sweep variation)."""
+    """Overrides equal to the base plan (no sweep variation).  On a plan
+    with several generators the workload fields are (G,), one per stream."""
+    if plan.n_generators > 1:
+        user_mean = np.asarray(plan.gen_user_mean, np.float32)
+        req_rate = np.asarray(plan.gen_rate, np.float32)
+    else:
+        user_mean = np.float32(plan.user_mean)
+        req_rate = np.float32(plan.req_per_user_per_sec)
     return ScenarioOverrides(
         edge_mean=np.asarray(plan.edge_mean, np.float32),
         edge_var=np.asarray(plan.edge_var, np.float32),
         edge_dropout=np.asarray(plan.edge_dropout, np.float32),
-        user_mean=np.float32(plan.user_mean),
-        req_rate=np.float32(plan.req_per_user_per_sec),
+        user_mean=user_mean,
+        req_rate=req_rate,
     )
 
 

@@ -74,6 +74,14 @@ class SweepReport:
             "truncated_total": int(res.truncated.sum()),
             "goodput_fraction": float(completed / max(generated, 1)),
             "latency_mean_s": float(res.latency_sum.sum() / max(completed, 1)),
+            "llm_cost_total": (
+                float(res.llm_cost_sum.sum()) if res.llm_cost_sum is not None else None
+            ),
+            "llm_cost_mean_per_request": (
+                float(res.llm_cost_sum.sum() / max(completed, 1))
+                if res.llm_cost_sum is not None
+                else None
+            ),
             "latency_p50_s": self.aggregate_percentile(50),
             "latency_p95_s": self.aggregate_percentile(95),
             "latency_p99_s": self.aggregate_percentile(99),
@@ -81,12 +89,15 @@ class SweepReport:
 
 
 def _slice_overrides(
-    ov: ScenarioOverrides | None, start: int, take: int,
+    ov: ScenarioOverrides | None, start: int, take: int, n_generators: int,
 ) -> ScenarioOverrides | None:
-    """Rows ``start .. start+take`` of per-scenario override fields."""
+    """Rows ``start .. start+take`` of per-scenario override fields (the
+    workload fields are (S, G) per scenario with several generators)."""
     if ov is None:
         return None
-    per_scenario_ndim = {"edge_mean": 2, "edge_var": 2, "edge_dropout": 2}
+    workload_ndim = 2 if n_generators > 1 else 1
+    per_scenario_ndim = {"edge_mean": 2, "edge_var": 2, "edge_dropout": 2,
+                         "user_mean": workload_ndim, "req_rate": workload_ndim}
     fields = {}
     for name, value in ov._asdict().items():
         arr = np.asarray(value, np.float32)
@@ -98,8 +109,29 @@ def _slice_overrides(
 
 def _override_rate_scale(plan: StaticPlan, overrides: ScenarioOverrides) -> float:
     """The largest workload-rate scale the overrides apply to the base plan:
-    max users x max requests per user, over the base rate."""
+    max users x max requests per user, over the base rate.
+
+    With several generators the ratio is per stream (the largest over
+    scenarios and streams of users x rate over the stream's base): the
+    proofs are per server, and each stream feeds its own entry chain, so
+    shifting load between streams at a constant total can still push one
+    server past its proof.  A stream that is off in the base plan and on
+    in an override scales without bound."""
     base = base_overrides(plan)
+    if plan.n_generators > 1:
+        base_g = (np.asarray(base.user_mean, np.float64)
+                  * np.asarray(base.req_rate, np.float64))
+        um, rr = np.broadcast_arrays(
+            np.asarray(overrides.user_mean, np.float64),
+            np.asarray(overrides.req_rate, np.float64),
+        )
+        rates = um * rr
+        ratios = np.where(
+            base_g > 0,
+            rates / np.maximum(base_g, 1e-300),
+            np.where(rates > 0, np.inf, 1.0),
+        )
+        return float(np.max(ratios))
     base_rate = float(base.user_mean) * float(base.req_rate)
     if base_rate <= 0:
         return 1.0
@@ -173,8 +205,12 @@ class SweepRunner:
             keys = scenario_keys(
                 seed, take, first=first_scenario + start, device=self.device,
             )
-            state = self.engine.run_batch(keys, _slice_overrides(overrides, start, take))
-            parts.append(sweep_results(state, self.payload.sim_settings))
+            state = self.engine.run_batch(
+                keys, _slice_overrides(overrides, start, take, self.plan.n_generators),
+            )
+            parts.append(
+                sweep_results(state, self.payload.sim_settings, has_llm=self.plan.has_llm),
+            )
         wall = time.perf_counter() - t0
         return SweepReport(
             results=concat_results(parts),

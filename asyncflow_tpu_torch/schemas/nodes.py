@@ -3,9 +3,9 @@
 Same contract as the reference: node ``type`` fields keep their standard
 value, resources are bounded below (>= 1 core, >= 256 MB RAM) and node ids
 are unique.  Servers take the reference's overload policy (ready-queue
-cap, connection cap, token-bucket rate limit, dequeue deadline) and the LB
-its circuit breaker.  Brownout degradation, LB health gates, serving
-policies and DB connection pools are refused by name.
+cap, connection cap, token-bucket rate limit, dequeue deadline) and a DB
+connection pool, and the LB its circuit breaker.  Brownout degradation,
+LB health gates and serving policies are refused by name.
 """
 
 from __future__ import annotations
@@ -61,6 +61,9 @@ class ServerResources:
 
     cpu_cores: int = ServerResourcesDefaults.CPU_CORES
     ram_mb: int = ServerResourcesDefaults.RAM_MB
+    #: size of the server's DB connection pool (None = unlimited): each
+    #: io_db step holds one of these FIFO connections for its duration
+    db_connection_pool: int | None = ServerResourcesDefaults.DB_CONNECTION_POOL
 
     def __post_init__(self) -> None:
         self.cpu_cores = as_int(self.cpu_cores, "cpu_cores")
@@ -69,6 +72,7 @@ class ServerResources:
         )
         self.ram_mb = as_int(self.ram_mb, "ram_mb")
         check_range(self.ram_mb, "ram_mb", ge=ServerResourcesDefaults.MINIMUM_RAM_MB)
+        self.db_connection_pool = _opt_int(self.db_connection_pool, "db_connection_pool")
 
     @classmethod
     def from_dict(cls, data: object) -> ServerResources:
@@ -76,8 +80,7 @@ class ServerResources:
             **read_fields(
                 data,
                 "server_resources",
-                known=("cpu_cores", "ram_mb"),
-                unsupported=("db_connection_pool",),
+                known=("cpu_cores", "ram_mb", "db_connection_pool"),
             ),
         )
 

@@ -4,9 +4,12 @@ Same contract as the reference ``SimulationPayload`` for the fields this
 slice models, event injection included: event ids are unique; each event
 targets a declared server or edge of the right kind; windows sit inside
 the horizon; at no instant are all servers down; outage windows on one
-server never overlap.  The resilience blocks (retry policy, fault
-timeline, hedging, hazard model) and multi-generator workloads are refused
-by name.  PyYAML is imported only by :func:`load_payload`.
+server never overlap.  ``rqs_input`` is one generator (the reference's
+on-disk format) or a non-empty list of generators with unique ids, each
+the source of exactly one entry edge; :attr:`SimulationPayload.generators`
+is always the list.  The resilience blocks (retry policy, fault timeline,
+hedging, hazard model) are refused by name.  PyYAML is imported only by
+:func:`load_payload`.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 from asyncflow_tpu_torch.config.constants import EventDescription
-from asyncflow_tpu_torch.errors import PayloadError, UnsupportedFeatureError
+from asyncflow_tpu_torch.errors import PayloadError
 from asyncflow_tpu_torch.schemas._fields import as_list, read_fields
 from asyncflow_tpu_torch.schemas.events import EventInjection
 from asyncflow_tpu_torch.schemas.graph import TopologyGraph
@@ -44,22 +47,42 @@ def _sweep_marks(
 class SimulationPayload:
     """Everything needed to run one scenario family."""
 
-    rqs_input: RqsGenerator
+    rqs_input: RqsGenerator | list[RqsGenerator]
     topology_graph: TopologyGraph
     sim_settings: SimulationSettings
     events: list[EventInjection] | None = None
 
+    @property
+    def generators(self) -> list[RqsGenerator]:
+        """The workload sources, always as a list."""
+        if isinstance(self.rqs_input, RqsGenerator):
+            return [self.rqs_input]
+        return self.rqs_input
+
     def __post_init__(self) -> None:
+        if isinstance(self.rqs_input, list):
+            # the reference's _generators_nonempty_unique
+            if not self.rqs_input:
+                msg = "rqs_input must contain at least one generator"
+                raise PayloadError(msg)
+            ids = [gen.id for gen in self.rqs_input]
+            if len(set(ids)) != len(ids):
+                dup = sorted({i for i in ids if ids.count(i) > 1})
+                msg = f"duplicate generator ids: {dup}"
+                raise PayloadError(msg)
         graph = self.topology_graph
         node_ids = graph.declared_node_ids()
-        gen = self.rqs_input
-        if gen.id in node_ids:
-            msg = f"generator id {gen.id!r} collides with a node id"
-            raise PayloadError(msg)
-        outs = [e for e in graph.edges if e.source == gen.id]
-        if len(outs) != 1:
-            msg = f"generator {gen.id!r} must source exactly one edge, found {len(outs)}"
-            raise PayloadError(msg)
+        for gen in self.generators:
+            if gen.id in node_ids:
+                msg = f"generator id {gen.id!r} collides with a node id"
+                raise PayloadError(msg)
+            outs = [e for e in graph.edges if e.source == gen.id]
+            if len(outs) != 1:
+                msg = (
+                    f"generator {gen.id!r} must source exactly one edge, "
+                    f"found {len(outs)}"
+                )
+                raise PayloadError(msg)
         if self.events is not None:
             self._check_events()
 
@@ -148,12 +171,12 @@ class SimulationPayload:
             unsupported=_UNSUPPORTED_BLOCKS,
         )
         rqs = f["rqs_input"]
-        if isinstance(rqs, list):
-            if len(rqs) != 1:
-                raise UnsupportedFeatureError("multi_generator", "rqs_input")
-            rqs = rqs[0]
         return cls(
-            rqs_input=RqsGenerator.from_dict(rqs),
+            rqs_input=(
+                [RqsGenerator.from_dict(g) for g in rqs]
+                if isinstance(rqs, list)
+                else RqsGenerator.from_dict(rqs)
+            ),
             topology_graph=TopologyGraph.from_dict(f["topology_graph"]),
             sim_settings=SimulationSettings.from_dict(f["sim_settings"]),
             events=(

@@ -7,24 +7,31 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
 1. the card's name and power limit, the torch and nvcc versions, and the
-   build of every CUDA source of the port (one nvcc per source, in parallel);
+   build of every CUDA library of the port (one nvcc per library, in
+   parallel);
 2. the DES kernel against its plain PyTorch twin on the card, on the same
    keys and arrival-rate tables: on each path's own plan at its 2048
-   scenarios (two_servers_lb, event_inj_lb and resilience_all at 600 s)
-   with only the iteration cap lowered, so that every scenario truncates
-   (event_inj_lb's windows are scaled into the capped time, and every
-   scenario must cross them all); and on 5 s plans: least-connection
-   routing over every edge distribution with dropout, a binding RAM with
-   an overflowing pool, each overload control (queue cap, connection cap,
-   rate limit, deadline) and an LC breaker with an outage, each of which
-   must reject requests.  Integer outputs must be bit-exact, float
-   moments within rtol 1e-6;
-3. the three paths: ``SweepRunner(payload).run(2048, seed=0)`` at the
-   payload's full 600 s, through the kernel (its launch count, set to 0
+   scenarios (two_servers_lb, event_inj_lb, resilience_all and two_gen_lb
+   at 600 s, db_pool_k2 at 120 s, llm_cost at 60 s) with only the
+   iteration cap lowered, so that every scenario truncates (event_inj_lb's
+   windows are scaled into the capped time, and every scenario must cross
+   them all); and on 5 s plans: least-connection routing over every edge
+   distribution with dropout, a binding RAM with an overflowing pool, each
+   overload control (queue cap, connection cap, rate limit, deadline) and
+   an LC breaker with an outage, each of which must reject requests; a
+   cache mixture, a single DB connection, the featured mix (a DB pool of
+   2, a cache, an LLM call and weighted endpoints), two streams with a
+   normal entry edge, and two streams on event_inj_lb's outages and
+   spikes.  Every integer output (``work`` included) and every float
+   moment must be bit-exact;
+3. the six paths: ``SweepRunner(payload).run(2048, seed=0)`` at the
+   payload's full horizon, through the kernel (its launch count, set to 0
    before each path, must move), with no truncation and no overflow,
    request conservation per scenario, the pooled p95 within 2% of the JAX
-   reference kernel's and, for resilience_all, the rejected fraction
-   within 0.02 of it.
+   reference kernel's, for resilience_all the rejected fraction within
+   0.02 of it, for llm_cost the mean LLM cost per completed request within
+   2% of it, and for the three paths of the earlier slices the event
+   counts those slices measured (no draw of theirs may move).
 
 It prints a JSON line of per-kernel measurements, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and
@@ -154,12 +161,138 @@ def _resilience_all() -> dict:
     return data
 
 
+#: examples/yaml_input/data/single_server.yml as a literal
+SINGLE_SERVER = {
+    "rqs_input": {
+        "id": "rqs-1",
+        "avg_active_users": {"mean": 100},
+        "avg_request_per_minute_per_user": {"mean": 20},
+        "user_sampling_window": 60,
+    },
+    "topology_graph": {
+        "nodes": {
+            "client": {"id": "client-1"},
+            "servers": [
+                {
+                    "id": "srv-1",
+                    "server_resources": {"cpu_cores": 1, "ram_mb": 2048},
+                    "endpoints": [
+                        {
+                            "endpoint_name": "ep-1",
+                            "steps": [
+                                {"kind": "initial_parsing",
+                                 "step_operation": {"cpu_time": 0.001}},
+                                {"kind": "ram", "step_operation": {"necessary_ram": 100}},
+                                {"kind": "io_wait",
+                                 "step_operation": {"io_waiting_time": 0.1}},
+                            ],
+                        },
+                    ],
+                },
+            ],
+        },
+        "edges": [
+            {
+                "id": eid,
+                "source": src,
+                "target": dst,
+                "latency": {"mean": 0.003, "distribution": "exponential"},
+            }
+            for eid, src, dst in (
+                ("gen-to-client", "rqs-1", "client-1"),
+                ("client-to-server", "client-1", "srv-1"),
+                ("server-to-client", "srv-1", "client-1"),
+            )
+        ],
+    },
+    "sim_settings": {"total_simulation_time": 500, "sample_period_s": 0.05},
+}
+
+
+def db_pool_payload(pool: int | None) -> dict:
+    """examples/sweeps/db_pool_sizing.py, ``payload_with_pool(pool)``: one
+    server, CPU 2 ms then a 60 ms io_db query holding one of ``pool``
+    connections (None: no pool), 60 users (~20 req/s), 120 s."""
+    data = copy.deepcopy(SINGLE_SERVER)
+    srv = data["topology_graph"]["nodes"]["servers"][0]
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+        {"kind": "io_db", "step_operation": {"io_waiting_time": 0.060}},
+    ]
+    if pool is not None:
+        srv["server_resources"]["db_connection_pool"] = pool
+    data["rqs_input"]["avg_active_users"]["mean"] = 60
+    data["sim_settings"]["total_simulation_time"] = 120
+    return data
+
+
+def llm_cost_payload() -> dict:
+    """examples/sweeps/llm_cost_sweep.py, ``build_payload()`` (its top
+    load): 4 cores, CPU 3 ms then an io_llm call of 80 ms plus Poisson(250)
+    output tokens at 0.8 ms and 2e-5 cost units each, 60 users (~20
+    req/s), 60 s."""
+    data = copy.deepcopy(SINGLE_SERVER)
+    srv = data["topology_graph"]["nodes"]["servers"][0]
+    srv["server_resources"]["cpu_cores"] = 4
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.003}},
+        {
+            "kind": "io_llm",
+            "step_operation": {"io_waiting_time": 0.080},
+            "llm_tokens_mean": 250,
+            "llm_time_per_token": 0.0008,
+            "llm_cost_per_token": 2e-05,
+        },
+    ]
+    data["rqs_input"]["avg_active_users"]["mean"] = 60.0
+    data["sim_settings"]["total_simulation_time"] = 60
+    return data
+
+
+def _two_gen_lb() -> dict:
+    """examples/yaml_input/data/two_servers_lb.yml with the two streams of
+    docs/guides/yaml-scenarios.md (tests/parity/test_multi_generator.py,
+    ``_payload``) over the YAML's 600 s: rqs-1 200 users x 20 req/min,
+    window 60 s; rqs-2 100 users x 40 req/min, window 30 s, entering over
+    an exponential 4 ms edge (~133 req/s in all)."""
+    data = copy.deepcopy(TWO_SERVERS_LB)
+    data["rqs_input"] = [
+        {
+            "id": "rqs-1",
+            "avg_active_users": {"mean": 200},
+            "avg_request_per_minute_per_user": {"mean": 20},
+            "user_sampling_window": 60,
+        },
+        {
+            "id": "rqs-2",
+            "avg_active_users": {"mean": 100},
+            "avg_request_per_minute_per_user": {"mean": 40},
+            "user_sampling_window": 30,
+        },
+    ]
+    data["topology_graph"]["edges"].append(
+        {
+            "id": "gen2-client",
+            "source": "rqs-2",
+            "target": "client-1",
+            "latency": {"mean": 0.004, "distribution": "exponential"},
+        },
+    )
+    return data
+
+
 EVENT_INJ_LB = _event_inj_lb()
 RESILIENCE_ALL = _resilience_all()
+DB_POOL_K2 = db_pool_payload(2)
+LLM_COST = llm_cost_payload()
+TWO_GEN_LB = _two_gen_lb()
 PAYLOADS = {
     "two_servers_lb": TWO_SERVERS_LB,
     "event_inj_lb": EVENT_INJ_LB,
     "resilience_all": RESILIENCE_ALL,
+    "db_pool_k2": DB_POOL_K2,
+    "llm_cost": LLM_COST,
+    "two_gen_lb": TWO_GEN_LB,
 }
 
 MAIN_SCENARIOS = 2048
@@ -167,25 +300,46 @@ MAIN_SCENARIOS = 2048
 #: every scenario truncates after ~10 s of simulated time, which keeps the
 #: twin (one batched step per event) near two minutes on the card
 CHECK_ITERATIONS = 8000
-#: the same for the two other paths' plans (~16 s simulated at ~40 req/s)
+#: the same for event_inj_lb's and resilience_all's plans (~16 s simulated
+#: at ~40 req/s)
 PATH_CHECK_ITERATIONS = 4000
+#: the same for the three workload paths' plans: db_pool_k2 ~40 s
+#: simulated of its 120 s, llm_cost ~25 s of its 60 s (at ~20 req/s),
+#: two_gen_lb ~6 s (at ~133 req/s)
+WORKLOAD_CHECK_ITERATIONS = {"db_pool_k2": 3000, "llm_cost": 2000, "two_gen_lb": 3000}
 #: event_inj_lb's windows, scaled into the capped check's simulated time:
 #: they end by 10.8 s
 EVENT_CHECK_TIME_SCALE = 0.02
-#: the JAX reference kernel on each path's payload at its full 600 s:
-#: pooled p95 (seconds) and pooled rejected fraction of
-#: PallasEngine(interpret=True) on scenarios 0..31 of seed 0, on the CPU
-#: (``python tests/test_torch_sweep.py --reference-p95 PAYLOAD``; seed 1
-#: gave p95 0.043318 s on event_inj_lb and 0.110563 s, rejected 0.1088, on
-#: resilience_all)
+#: the JAX reference kernel on each path's payload at its full horizon:
+#: pooled p95 (seconds), pooled rejected fraction and mean LLM cost per
+#: completed request of PallasEngine(interpret=True) on scenarios 0..31 of
+#: seed 0, on the CPU (``python tests/test_torch_sweep.py --reference-p95
+#: PAYLOAD``; seed 1 gave p95 0.043318 s on event_inj_lb, 0.110563 s and
+#: rejected 0.1088 on resilience_all, 0.315260 s and cost 0.0049974 on
+#: llm_cost, 0.034884 s on two_gen_lb).  db_pool_k2 sits at its pool's
+#: knee with three user windows a scenario, so 32 scenarios leave its p95
+#: noisy (0.154331 s and 0.152133 s for seeds 0 and 1): its reference is
+#: scenarios 0..511 of seed 0 (``--scenarios 512``; seed 1: 0.156076 s)
 REFERENCE = {
     "two_servers_lb": {"p95_s": 0.03367207812033652},
     "event_inj_lb": {"p95_s": 0.0433515210548253},
     "resilience_all": {"p95_s": 0.11077346238864245, "rejected_fraction": 0.10566745651478299},
+    "db_pool_k2": {"p95_s": 0.1565684807965334},
+    "llm_cost": {
+        "p95_s": 0.31500274456957533, "llm_cost_per_request": 0.0049984672740168035,
+    },
+    "two_gen_lb": {"p95_s": 0.03485854068297543},
 }
 P95_RTOL = 0.02
 REJECTED_ATOL = 0.02
-MOMENT_RTOL = 1e-6
+LLM_COST_RTOL = 0.02
+#: events of the earlier slices' paths as slices 1 and 2 measured them
+#: (2048 scenarios of seed 0): their draws must not move
+EARLIER_EVENTS = {
+    "two_servers_lb": 801_523_693,
+    "event_inj_lb": 240_485_118,
+    "resilience_all": 289_381_512,
+}
 #: the headline kernel's time with the slice-1 kernel, measured by this
 #: script on an NVIDIA H100 80GB HBM3 at 700 W
 SLICE1_HEADLINE_KERNEL_MS = 2465.2
@@ -223,6 +377,23 @@ BREAKER_REPORT_OPS = (6, 0)
 REFILL_OPS = (1, 5)
 #: an abandon's own bookkeeping (its core handoff is the handoff's)
 ABANDON_OPS = (4, 0)
+#: a draw of an LLM token loop past its threefry block: 1 - u, the clamp,
+#: the log (one), the negation, the add and the limit test; the seq step
+#: and the loop test
+LLM_DRAW_OPS = (2, 5)
+#: a cache draw past its threefry block: the hit test and the select
+CACHE_DRAW_OPS = (1, 1)
+#: a request joining a DB queue: the free / waiter tests, the ticket and
+#: counter updates and the slot's three writes
+DB_WAIT_OPS = (7, 0)
+#: a DB handoff to a waiter: per pool slot the waiter scan's event, server
+#: and ticket compares (DB_SCAN_SLOT_OPS); then the duration lookup, the
+#: counter and the slot's three writes
+DB_SCAN_SLOT_OPS = (3, 0)
+DB_GRANT_OPS = (6, 1)
+#: per spawn with several generators, per generator: the next-arrival
+#: compare and select
+GEN_MIN_OPS = (1, 1)
 
 
 def operation_count(tables, out) -> tuple[int, int]:
@@ -235,7 +406,10 @@ def operation_count(tables, out) -> tuple[int, int]:
     edge; each of those edge draws also looks up the spike breakpoint where
     the plan has spikes.  Where the LB has a breaker, each completed request
     passed its admission over every LB slot.  Timeline pops, token refills,
-    breaker reports and abandons are the kernel's own counts (``work``).
+    breaker reports, abandons, the draws of LLM token loops, cache draws,
+    DB waits and DB handoffs (each a threefry block or a pool scan where
+    the kernel does one) are the kernel's own counts (``work``); with
+    several generators each spawn finds the earliest next arrival.
     This is a lower count: the draws of requests that were dropped,
     overflowed, rejected or are still in flight past those, window
     crossings of the arrival sampler, second blocks of normal draws and
@@ -250,7 +424,8 @@ def operation_count(tables, out) -> tuple[int, int]:
     work = dict(zip(WORK_KINDS, (int(x) for x in out.work.sum(dim=0).tolist())))
     edges_per_completed = (tables.entry_edges.numel() - 1) + (tables.n_lb > 0) + 1
     edge_draws = generated + edges_per_completed * completed
-    blocks = generated + out.n_events.numel() + edge_draws + completed
+    blocks = (generated + out.n_events.numel() + edge_draws + completed
+              + work["llm_token_draws"] + work["cache_draws"])
     el = max(tables.n_lb, 1)
     breaker_slots = completed * el if tables.breaker_threshold > 0 else 0
     counts = (
@@ -264,6 +439,12 @@ def operation_count(tables, out) -> tuple[int, int]:
         (work["breaker_reports"], BREAKER_REPORT_OPS),
         (work["token_refills"], REFILL_OPS),
         (work["abandons"], ABANDON_OPS),
+        (work["llm_token_draws"], LLM_DRAW_OPS),
+        (work["cache_draws"], CACHE_DRAW_OPS),
+        (work["db_waits"], DB_WAIT_OPS),
+        (work["db_grants"] * tables.pool, DB_SCAN_SLOT_OPS),
+        (work["db_grants"], DB_GRANT_OPS),
+        (generated * tables.n_gen if tables.n_gen > 1 else 0, GEN_MIN_OPS),
     )
     int_ops = sum(n * ops[0] for n, ops in counts)
     fp_ops = sum(n * ops[1] for n, ops in counts)
@@ -395,6 +576,115 @@ def _lc_breaker_outage_payload() -> dict:
     return data
 
 
+def _cache_payload() -> dict:
+    """5 s of the cache-dynamics parity payload's single server (~17 req/s):
+    CPU 2 ms, then a cache that hits in 2 ms with probability 0.8 and misses
+    in 50 ms (tests/parity/test_cache_dynamics.py, ``_payload``)."""
+    steps = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+        {"kind": "io_cache", "step_operation": {"io_waiting_time": 0.002},
+         "cache_hit_probability": 0.8, "cache_miss_time": 0.050},
+    ]
+    return _single_server_payload(
+        50, steps, server_resources={"cpu_cores": 1, "ram_mb": 1024},
+    )
+
+
+def _db_single_payload() -> dict:
+    """5 s at 7.5 req/s through one DB connection held 30 ms
+    (tests/parity/test_pallas_engine.py, ``test_db_pool_conservation``)."""
+    steps = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+        {"kind": "io_db", "step_operation": {"io_waiting_time": 0.030}},
+    ]
+    return _single_server_payload(
+        22.5, steps,
+        server_resources={"cpu_cores": 1, "ram_mb": 1024, "db_connection_pool": 1},
+    )
+
+
+def _featured_payload() -> dict:
+    """5 s of tests/parity/test_pallas_engine.py's featured mix at 7.5
+    req/s: a DB pool of 2, a cache mixture, an LLM call of Poisson(40)
+    tokens and weighted endpoints on one server."""
+    endpoints = [
+        {
+            "endpoint_name": "/mixed",
+            "selection_weight": 3.0,
+            "steps": [
+                {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+                {"kind": "io_cache", "step_operation": {"io_waiting_time": 0.002},
+                 "cache_hit_probability": 0.8, "cache_miss_time": 0.050},
+                {"kind": "io_db", "step_operation": {"io_waiting_time": 0.020}},
+            ],
+        },
+        {
+            "endpoint_name": "/llm",
+            "selection_weight": 1.0,
+            "steps": [
+                {"kind": "io_llm", "step_operation": {"io_waiting_time": 0.004},
+                 "llm_tokens_mean": 40.0, "llm_time_per_token": 0.0005,
+                 "llm_cost_per_token": 0.01},
+            ],
+        },
+    ]
+    return _single_server_payload(
+        22.5, [], endpoints=endpoints,
+        server_resources={"cpu_cores": 1, "ram_mb": 1024, "db_connection_pool": 2},
+    )
+
+
+def _second_stream(data: dict) -> dict:
+    """``data`` with a second stream of 10 users x 60 req/min (window 4 s)
+    entering the client over its own exponential 4 ms edge."""
+    data["rqs_input"] = [data["rqs_input"], {
+        "id": "rqs-2",
+        "avg_active_users": {"mean": 10},
+        "avg_request_per_minute_per_user": {"mean": 60},
+        "user_sampling_window": 4,
+    }]
+    data["topology_graph"]["edges"].append({
+        "id": "gen2-client", "source": "rqs-2", "target": "client-1",
+        "latency": {"mean": 0.004, "distribution": "exponential"},
+    })
+    return data
+
+
+def _two_gen_normal_payload() -> dict:
+    """5 s of the headline topology with two streams (7.5 + 10 req/s), the
+    first entering over a normal edge (tests/parity/test_pallas_engine.py,
+    ``test_multi_generator_normal_edge_parity``)."""
+    data = copy.deepcopy(TWO_SERVERS_LB)
+    data["sim_settings"]["total_simulation_time"] = 5
+    data["rqs_input"]["avg_active_users"] = {"mean": 22.5}
+    data["topology_graph"]["edges"][0]["latency"] = {
+        "mean": 0.004, "distribution": "normal", "variance": 0.002,
+    }
+    return _second_stream(data)
+
+
+def _two_gen_events_payload() -> dict:
+    """event_inj_lb's outages and spikes scaled into 5 s, with a second
+    stream (40 + 10 req/s)."""
+    data = copy.deepcopy(EVENT_INJ_LB)
+    scale = 0.875 * 5 / data["sim_settings"]["total_simulation_time"]
+    data["sim_settings"]["total_simulation_time"] = 5
+    for event in data["events"]:
+        event["start"]["t_start"] *= scale
+        event["end"]["t_end"] *= scale
+    return _second_stream(data)
+
+
+#: the workload group's 5 s plans, each with the work it must show
+WORKLOAD_PAYLOADS = {
+    "cache_mixture": (_cache_payload, ("cache_draws",)),
+    "db_pool_1": (_db_single_payload, ("db_waits", "db_grants")),
+    "featured_mix": (_featured_payload, ("llm_token_draws", "cache_draws")),
+    "two_gen_normal_entry": (_two_gen_normal_payload, ()),
+    "two_gen_event_inj": (_two_gen_events_payload, ("timeline_pops",)),
+}
+
+
 def _time_kernel(torch, fn, repeats: int) -> float:
     """Median milliseconds of ``fn()`` between CUDA events."""
     times = []
@@ -436,9 +726,9 @@ def _bound_text(b: dict) -> str:
 
 
 def _check_case(torch, name: str, eng, args, n: int) -> dict:
-    """The kernel against its twin on the same arguments: integer outputs
-    bit-exact, float moments within MOMENT_RTOL."""
-    from asyncflow_tpu_torch.engines.torchsim.des_reference import des_reference
+    """The kernel against its twin on the same arguments: every output
+    bit-exact."""
+    from asyncflow_tpu_torch.engines.torchsim.des_reference import WORK_KINDS, des_reference
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -454,7 +744,7 @@ def _check_case(torch, name: str, eng, args, n: int) -> dict:
             msg = f"{name}: kernel and twin differ in {field} (scenarios {bad})"
             raise SmokeError(msg)
     err = (got.momf - twin.momf).abs()
-    if not torch.allclose(got.momf, twin.momf, rtol=MOMENT_RTOL, atol=0.0):
+    if not torch.equal(got.momf, twin.momf):
         msg = f"{name}: float moments differ by up to {err.max().item()}"
         raise SmokeError(msg)
     momi = got.momi.sum(dim=0).tolist()
@@ -465,6 +755,7 @@ def _check_case(torch, name: str, eng, args, n: int) -> dict:
         "events": int(got.n_events.sum().item()),
         "truncated": int(got.trunc.sum().item()),
         "momi": momi,
+        "work": dict(zip(WORK_KINDS, got.work.sum(dim=0).tolist())),
     }
     print(
         f"kernel == twin on {name}: {n} scenarios, pool {eng.plan.pool_size}, "
@@ -484,8 +775,9 @@ def phase_kernel_vs_twin(torch) -> dict:
     the capped time), so every tensor has the path's shape and the
     truncation path is checked too; then 5 s plans that reach the other
     branches: LC routing over every edge distribution, a binding RAM with
-    an overflowing pool, each overload control, and an LC breaker with an
-    outage.  Returns the measurements of the path checks by path name."""
+    an overflowing pool, each overload control, an LC breaker with an
+    outage, and the workload group's plans.  Returns the measurements of
+    the path checks by path name."""
     import numpy as np
 
     from asyncflow_tpu_torch.compiler import compile_payload
@@ -511,16 +803,23 @@ def phase_kernel_vs_twin(torch) -> dict:
         "event_inj_lb": event_plan,
         "resilience_all": dataclasses.replace(
             plan_of(RESILIENCE_ALL), max_iterations=PATH_CHECK_ITERATIONS),
+        **{
+            name: dataclasses.replace(plan_of(PAYLOADS[name]), max_iterations=cap)
+            for name, cap in WORKLOAD_CHECK_ITERATIONS.items()
+        },
     }
+    #: the work each workload path's capped check must show
+    path_work = {"db_pool_k2": ("db_waits", "db_grants"), "llm_cost": ("llm_token_draws",)}
     small = {
         "lc_mixed_dists": (plan_of(_lc_mixed_payload()), 256),
         "ram_bound_overflow": (plan_of(_ram_bound_payload(), pool_size=4), 256),
         **{name: (plan_of(make()), 128) for name, make in CONTROL_PAYLOADS.items()},
         "lc_breaker_outage": (plan_of(_lc_breaker_outage_payload()), 128),
+        **{name: (plan_of(make()), 256) for name, (make, _) in WORKLOAD_PAYLOADS.items()},
     }
     measured: dict = {"max_abs_err": 0.0}
     for name, plan in paths.items():
-        case = f"{name}_600s_capped"
+        case = f"{name}_{plan.horizon:.0f}s_capped"
         eng = KernelEngine(plan, device="cuda")
         args = eng.prepare(scenario_keys(0, MAIN_SCENARIOS, device="cuda"))
         res = _check_case(torch, case, eng, args, MAIN_SCENARIOS)
@@ -538,6 +837,9 @@ def phase_kernel_vs_twin(torch) -> dict:
                 raise SmokeError(msg)
         if name == "resilience_all" and res["momi"][4] == 0:
             raise SmokeError(f"{case}: no request was rejected")
+        for kind in path_work.get(name, ()):
+            if res["work"][kind] == 0:
+                raise SmokeError(f"{case}: no {kind}")
         ms = _time_kernel(torch, lambda eng=eng, args=args: eng.kernel(*args), repeats=3)
         bound = _bound_ms(args, out)
         measured["max_abs_err"] = max(measured["max_abs_err"], res["max_abs_err"])
@@ -553,6 +855,9 @@ def phase_kernel_vs_twin(torch) -> dict:
             raise SmokeError("the RAM-bound case did not overflow its pool")
         if (name in CONTROL_PAYLOADS or name == "lc_breaker_outage") and res["momi"][4] == 0:
             raise SmokeError(f"{name}: no request was rejected")
+        for kind in WORKLOAD_PAYLOADS.get(name, (None, ()))[1]:
+            if res["work"][kind] == 0:
+                raise SmokeError(f"{name}: no {kind}")
     return measured
 
 
@@ -608,7 +913,19 @@ def phase_path(torch, name: str) -> dict:
             f"{ref['rejected_fraction']:.4f} by more than {REJECTED_ATOL}"
         )
         raise SmokeError(msg)
+    llm_cost = summary["llm_cost_mean_per_request"]
+    if "llm_cost_per_request" in ref:
+        rel_cost = llm_cost / ref["llm_cost_per_request"] - 1.0
+        if abs(rel_cost) > LLM_COST_RTOL:
+            msg = (
+                f"{name}: mean LLM cost per completed request {llm_cost:.6g} is "
+                f"{rel_cost:+.2%} from the reference's {ref['llm_cost_per_request']:.6g}"
+            )
+            raise SmokeError(msg)
     events = int(res.events.sum())
+    if name in EARLIER_EVENTS and events != EARLIER_EVENTS[name]:
+        msg = f"{name}: {events} events, the earlier slices had {EARLIER_EVENTS[name]}"
+        raise SmokeError(msg)
 
     # the kernel alone on the same inputs, between CUDA events
     args = runner.engine.prepare(scenario_keys(0, MAIN_SCENARIOS, device="cuda"))
@@ -629,7 +946,8 @@ def phase_path(torch, name: str) -> dict:
         f"p99 {summary['latency_p99_s'] * 1e3:.3f} ms, mean "
         f"{summary['latency_mean_s'] * 1e3:.3f} ms; completed {summary['completed_total']}, "
         f"dropped {summary['dropped_total']}, rejected {summary['rejected_total']} "
-        f"(fraction {rejected:.4f})",
+        f"(fraction {rejected:.4f})"
+        + ("" if llm_cost is None else f"; LLM cost per request {llm_cost:.6g}"),
         flush=True,
     )
     if name == "two_servers_lb":
@@ -647,6 +965,7 @@ def phase_path(torch, name: str) -> dict:
         "scen_per_s": summary["scenarios_per_second"],
         "p95_s": p95,
         "rejected_fraction": rejected,
+        "llm_cost_per_request": llm_cost,
     }
 
 

@@ -118,6 +118,89 @@ def _events_and_controls() -> dict:
     return data
 
 
+def _steps(*steps: tuple) -> list:
+    kinds = {"cpu": ("initial_parsing", "cpu_time"), "io": ("io_wait", "io_waiting_time"),
+             "db": ("io_db", "io_waiting_time")}
+    out = []
+    for kind, value, *extra in steps:
+        name, op = kinds.get(kind, (kind, "io_waiting_time"))
+        fields = extra[0] if extra else {}
+        out.append({"kind": name, "step_operation": {op: value}, **fields})
+    return out
+
+
+CACHE_STEP = ("io_cache", 0.002, {"cache_hit_probability": 0.8, "cache_miss_time": 0.05})
+LLM_STEP = ("io_llm", 0.004, {"llm_tokens_mean": 40.0, "llm_time_per_token": 0.0005,
+                              "llm_cost_per_token": 0.01})
+
+
+def _workload(steps: list, *, users=15, pool=None) -> dict:
+    """One server running ``steps``, ``users`` x 30 req/min, 8 s."""
+    data = _payload()
+    srv = data["topology_graph"]["nodes"]["servers"][0]
+    srv["endpoints"][0]["steps"] = steps
+    if pool is not None:
+        srv["server_resources"]["db_connection_pool"] = pool
+    data["rqs_input"]["avg_active_users"] = {"mean": users}
+    return data
+
+
+def _cache() -> dict:
+    return _workload(_steps(("cpu", 0.002), CACHE_STEP), users=30)
+
+
+def _llm() -> dict:
+    return _workload(_steps(("cpu", 0.002), LLM_STEP), users=30)
+
+
+def _db_pool(pool: int) -> dict:
+    """~10 req/s through a 60 ms query on ``pool`` connections."""
+    return _workload(_steps(("cpu", 0.002), ("db", 0.06)), users=20, pool=pool)
+
+
+def _featured() -> dict:
+    """A DB pool of 2, a cache mixture, an LLM call and weighted endpoints."""
+    data = _workload(_steps(("cpu", 0.002), CACHE_STEP, ("db", 0.02)), users=25, pool=2)
+    srv = data["topology_graph"]["nodes"]["servers"][0]
+    srv["endpoints"][0]["selection_weight"] = 3.0
+    srv["endpoints"].append({"endpoint_name": "llm", "steps": _steps(LLM_STEP)})
+    return data
+
+
+def _two_gen(data: dict | None = None, *, normal_entry=False) -> dict:
+    """A second stream (10 users x 60 req/min, window 4 s) on its own
+    exponential entry edge; the first enters over a normal edge when asked."""
+    data = data if data is not None else _payload(lb="round_robin")
+    client = data["topology_graph"]["nodes"]["client"]["id"]
+    data["rqs_input"] = [data["rqs_input"], {
+        "id": "g2",
+        "avg_active_users": {"mean": 10},
+        "avg_request_per_minute_per_user": {"mean": 60},
+        "user_sampling_window": 4,
+    }]
+    data["topology_graph"]["edges"].append(
+        {"id": "g2-c", "source": "g2", "target": client, "latency": _exp(0.004)},
+    )
+    if normal_entry:
+        data["topology_graph"]["edges"][0]["latency"] = {
+            "mean": 0.004, "distribution": "normal", "variance": 0.002,
+        }
+    return data
+
+
+#: the workload group's cases: (name, payload, iteration cap or None)
+WORKLOAD_CASES = {
+    "cache": (_cache, None),
+    "llm": (_llm, None),
+    "db_pool_k2": (lambda: _db_pool(2), None),
+    "db_pool_k1": (lambda: _db_pool(1), None),
+    "featured_truncated": (_featured, 200),
+    "two_gen": (_two_gen, None),
+    "two_gen_normal_entry": (lambda: _two_gen(normal_entry=True), None),
+    "two_gen_events_controls": (lambda: _two_gen(_events_and_controls()), None),
+}
+
+
 @pytest.fixture
 def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
@@ -154,6 +237,30 @@ def test_kernel_matches_twin_on_cuda(cuda_device, name, data, pool_size) -> None
         assert int(got.momi[:, 3].sum()) > 0
     if name.startswith("controls"):
         assert int(got.momi[:, 4].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WORKLOAD_CASES))
+def test_workload_kernel_matches_twin_on_cuda(cuda_device, name) -> None:
+    """The workload group's instances against the twin on the card: every
+    integer output bit-exact, ``work`` included, and the float moments
+    (LLM cost too) equal to the last bit."""
+    import dataclasses
+
+    make, cap = WORKLOAD_CASES[name]
+    plan = compile_payload(SimulationPayload.from_dict(make()))
+    if cap is not None:
+        plan = dataclasses.replace(plan, max_iterations=cap)
+    eng = KernelEngine(plan, device=cuda_device)
+    args = eng.prepare(scenario_keys(3, 64, device=cuda_device))
+    got = eng.kernel(*args)
+    want = des_reference(*args)
+    for field in ("hist", "thr", "momi", "trunc", "n_events", "work"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), (name, field)
+    assert torch.equal(got.momf, want.momf), name
+    assert eng.kernel.launches == 1
+    if cap is not None:
+        assert bool(got.trunc.all())
 
 
 @pytest.mark.cuda

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_cuda import (
+    WORKLOAD_CASES,
     _controls_breaker,
     _event_inj,
     _events_and_controls,
@@ -63,17 +64,22 @@ static HostDim blockIdx, blockDim, threadIdx;
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 """
-LAUNCH = re.compile(r"des_kernel<kEvents, kControls><<<blocks, kThreads, 0, stream>>>\(args\);")
+LAUNCH = re.compile(
+    r"des_kernel<kEvents, kControls, kWorkload><<<blocks, kThreads, 0, stream>>>\(args\);",
+)
 HOST_LAUNCH = (
     "for (unsigned b = 0; b < (unsigned)blocks; ++b)"
     " for (unsigned t = 0; t < (unsigned)kThreads; ++t) {"
     " blockIdx.x = b; blockDim.x = kThreads; threadIdx.x = t;"
-    " des_kernel<kEvents, kControls>(args); }"
+    " des_kernel<kEvents, kControls, kWorkload>(args); }"
 )
 
 
 @pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory) -> ctypes.CDLL:
+def host_kernel(tmp_path_factory) -> dict[bool, ctypes.CDLL]:
+    """The two builds of the source (without and with the workload group),
+    by whether they hold the workload instances; g++ builds them in
+    parallel, as the card's build runs one nvcc for each."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel source for the host")
@@ -84,17 +90,26 @@ def host_kernel(tmp_path_factory) -> ctypes.CDLL:
     work = tmp_path_factory.mktemp("host_kernel")
     (work / "shim.h").write_text(SHIM)
     (work / "des_kernel.cpp").write_text(src)
-    lib = work / "libdes_kernel_host.so"
-    subprocess.run(
-        [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-         "-o", str(lib), str(work / "des_kernel.cpp")],
-        check=True, capture_output=True, timeout=300,
-    )
-    host = ctypes.CDLL(str(lib))
-    host.des_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    host.des_launch.restype = ctypes.c_int
-    assert host.des_args_size() == ctypes.sizeof(des_kernel._DesArgs)
-    return host
+    procs = {}
+    for workload in (False, True):
+        lib = work / f"libdes_kernel_host_{int(workload)}.so"
+        procs[workload] = (lib, subprocess.Popen(  # noqa: S603 - fixed argv
+            [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+             f"-DDES_WORKLOAD={int(workload)}", "-o", str(lib),
+             str(work / "des_kernel.cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    hosts = {}
+    for workload, (lib, proc) in procs.items():
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, log
+        host = ctypes.CDLL(str(lib))
+        host.des_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        host.des_launch.restype = ctypes.c_int
+        assert host.des_args_size() == ctypes.sizeof(des_kernel._DesArgs)
+        assert host.des_workload() == int(workload)
+        hosts[workload] = host
+    return hosts
 
 
 CASES = {
@@ -106,6 +121,10 @@ CASES = {
     "controls_breaker_rr": (_controls_breaker("round_robin"), {}),
     "controls_breaker_lc": (_controls_breaker("least_connection"), {}),
     "controls_events": (_events_and_controls(), {}),
+    **{
+        name: (make(), {} if cap is None else {"max_iterations": cap})
+        for name, (make, cap) in WORKLOAD_CASES.items()
+    },
 }
 
 
@@ -118,7 +137,11 @@ def test_host_build_of_the_kernel_matches_the_twin(host_kernel, name: str) -> No
     args = KernelEngine(plan, device="cpu").prepare(scenario_keys(5, S))
     want = des_reference(*args)
     packed, got, _keep = des_kernel.pack_args(*args)
-    assert host_kernel.des_launch(ctypes.byref(packed), None) == 0
+    workload = des_kernel.needs_workload(args[0])
+    assert workload == (name in WORKLOAD_CASES)
+    # each build refuses the other's plans
+    assert host_kernel[not workload].des_launch(ctypes.byref(packed), None) != 0
+    assert host_kernel[workload].des_launch(ctypes.byref(packed), None) == 0
     rows_equal = np.ones(S, bool)
     for field in ("hist", "thr", "momi", "trunc", "n_events", "work"):
         a = getattr(want, field).reshape(S, -1).numpy()

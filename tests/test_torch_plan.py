@@ -211,60 +211,34 @@ UNSUPPORTED = {
     "fault_timeline": lambda d: d.update(fault_timeline={"events": []}),
     "hedge_policy": lambda d: d.update(hedge_policy={"delay_s": 0.05}),
     "hazard_model": lambda d: d.update(hazard_model={"domains": []}),
-    "multi_generator": lambda d: d.update(
-        rqs_input=[d["rqs_input"], {**d["rqs_input"], "id": "rqs-2"}],
-    ),
     "replay": lambda d: d["rqs_input"].update(replay={"times": [0.1]}),
     "serving": lambda d: _server(d).update(serving={"max_batch_tokens": 64}),
-    "db_connection_pool": lambda d: _server(d)["server_resources"].update(
-        db_connection_pool=2,
-    ),
     "health": lambda d: _lb_node(d).update(health={"alpha": 0.2}),
     "health_on_breaker_lb": lambda d: _lb_node(d).update(
         circuit_breaker={"failure_threshold": 3, "cooldown_s": 1.0},
         health={"alpha": 0.2},
     ),
-    "cache_hit_probability": lambda d: _step(d).update(
-        kind="io_cache", cache_hit_probability=0.9, cache_miss_time=0.05,
-    ),
-    "llm_tokens_mean": lambda d: _step(d).update(
-        kind="io_llm", llm_tokens_mean=20.0, llm_time_per_token=0.01,
-        llm_cost_per_token=1.0,
-    ),
     "llm_serve": lambda d: _step(d).update(kind="llm_serve"),
 }
 
 
-def _cache_plan():
-    data = _yaml("two_servers_lb.yml")
-    _step(data).update(kind="io_cache", cache_hit_probability=0.9, cache_miss_time=0.05)
+def _reference_plan(data: dict):
     return jax_compile(JaxPayload.model_validate(data))
 
 
-def _db_plan():
-    """A one-connection DB pool that binds, so its io_db step lowers to a
-    DB segment."""
-    data = _yaml("two_servers_lb.yml")
-    _server(data)["server_resources"]["db_connection_pool"] = 1
-    _step(data)["kind"] = "io_db"
-    return jax_compile(JaxPayload.model_validate(data))
-
-
-def _multi_generator_plan():
-    data = _yaml("two_servers_lb.yml")
-    second = {**data["rqs_input"], "id": "rqs-2"}
-    data["rqs_input"] = [data["rqs_input"], second]
-    data["topology_graph"]["edges"].append({
-        "id": "gen2-client", "source": "rqs-2", "target": "client-1",
-        "latency": {"mean": 0.003, "distribution": "exponential"},
-    })
-    return jax_compile(JaxPayload.model_validate(data))
-
-
+#: plans of the reference with a feature the port refuses (the kernel's
+#: first refusal is the case's name); cache, LLM, DB pool and
+#: multi-generator plans are accepted (tests/test_torch_plan_workload.py)
 REFERENCE_PLANS = {
-    "cache": _cache_plan,
-    "db_pool": _db_plan,
-    "multi_generator": _multi_generator_plan,
+    "brownout": lambda: _reference_plan(_with(UNSUPPORTED["brownout_queue_threshold"])),
+    "faults": lambda: _reference_plan(_yaml("trace_parity_resilient.yml")),
+    "hazards": lambda: _reference_plan(_yaml("chaos_campaign.yml")),
+    "health": lambda: _reference_plan(_with(
+        lambda d: _lb_node(d).update(health={"ewma_alpha": 0.2}))),
+    "replay": lambda: _reference_plan(_with(UNSUPPORTED["replay"])),
+    "retry": lambda: _reference_plan(_with(
+        lambda d: d.update(retry_policy={"max_attempts": 2, "request_timeout_s": 0.5}))),
+    "serving": lambda: _reference_plan(_yaml("serving_parity.yml")),
 }
 #: the feature each refusal case names, where the case id is not the name
 FEATURE_OF = {"health_on_breaker_lb": "health"}

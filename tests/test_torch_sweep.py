@@ -3,11 +3,12 @@ import hygiene.
 
 Run as a script from the repository root (``PYTHONPATH=. python
 tests/test_torch_sweep.py --reference-p95 [PAYLOAD] [--seed N]
-[--scenarios N]``) it measures the pooled percentiles
-and rejected fraction of the JAX reference kernel on one of
-``chip_smoke.py``'s payloads at its full 600 s (``PallasEngine(
-interpret=True)`` on the CPU; 32 scenarios of seed 0 by default): the
-constants ``chip_smoke.py`` holds the port's full-width sweeps to.
+[--scenarios N]``) it measures the pooled percentiles, the rejected
+fraction and the mean LLM cost per completed request of the JAX reference
+kernel on one of ``chip_smoke.py``'s payloads at its full horizon
+(``PallasEngine(interpret=True)`` on the CPU; 32 scenarios of seed 0 by
+default): the constants ``chip_smoke.py`` holds the port's full-width
+sweeps to.
 """
 
 from __future__ import annotations
@@ -240,7 +241,8 @@ def test_sweep_path_needs_no_pydantic_or_yaml(import_probe) -> None:
 
 
 def _reference_p95(name: str, seed: int, n: int) -> None:
-    """Pooled p50 / p95 / p99 and the rejected fraction of the JAX reference
+    """Pooled p50 / p95 / p99, the rejected fraction and, on a plan with LLM
+    calls, the mean LLM cost per completed request of the JAX reference
     kernel on a ``chip_smoke`` payload at its full horizon."""
     import importlib.util
     import os
@@ -269,6 +271,9 @@ def _reference_p95(name: str, seed: int, n: int) -> None:
         print(f"p{q} {float(hist_percentile(pooled, hist_edges(1024), q))!r}")
     rejected = int(state.n_rejected.sum()) / max(int(state.n_generated.sum()), 1)
     print(f"rejected_fraction {rejected!r}")
+    if plan.has_llm:
+        cost = float(state.llm_sum.sum()) / max(int(state.lat_count.sum()), 1)
+        print(f"llm_cost_mean_per_request {cost!r}")
     print(f"truncated {int(state.truncated.sum())} overflow {int(state.n_overflow.sum())}")
 
 
@@ -280,7 +285,7 @@ if __name__ == "__main__":
     )
     parser.add_argument("--reference-p95", nargs="?", const="two_servers_lb",
                         metavar="PAYLOAD", required=True,
-                        help="two_servers_lb (default), event_inj_lb or resilience_all")
+                        help="a key of chip_smoke.PAYLOADS (default two_servers_lb)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--scenarios", type=int, default=32)
     args = parser.parse_args()
