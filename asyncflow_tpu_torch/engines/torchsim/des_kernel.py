@@ -34,14 +34,7 @@ _PTR_FIELDS = (
     "db_pool", "gen_entry_edges", "gen_entry_len", "gen_entry_ev", "gen_entry_target",
     "gen_window", "gen_lam_off", "gen_nw",
     "hist", "thr", "momf", "momi", "trunc", "n_events", "work",
-    "req_t", "req_ev", "req_srv", "req_ep", "req_seg", "req_ram", "req_ticket",
-    "req_start", "req_lbslot",
-    "cores_free", "ram_free", "cpu_ticket", "ram_ticket", "cpu_wait_n", "ram_wait_n",
-    "lb_order", "lb_conn",
-    "req_wait_t", "req_cbslot", "req_probe", "srv_conn", "rl_tokens", "rl_last",
-    "cb_state", "cb_open_until", "cb_consec", "cb_probes_out", "cb_probe_ok",
-    "req_llm", "db_free", "db_ticket", "db_wait_n",
-    "gen_now", "gen_wend", "gen_widx", "gen_next",
+    "pool_scratch",
 )
 _INT_FIELDS = (
     "S", "P", "NS", "NE", "NEP", "NSEGP", "EL", "NW", "B", "TH", "K",
@@ -60,48 +53,6 @@ _TABLE_FIELDS = (
     "seg_hit_prob", "seg_miss_dur", "seg_llm_tokens", "seg_llm_tpt", "seg_llm_cost",
     "db_pool", "gen_entry_edges", "gen_entry_len", "gen_entry_ev", "gen_entry_target",
     "gen_window", "gen_lam_off", "gen_nw",
-)
-# scratch fields: (name, dtype, per-scenario rows: "pool" | "servers" | "lb" |
-# "generators",
-# the feature that needs it: None for always, "breaker", or the DesTables
-# table that is None when the plan does not model the feature)
-_SCRATCH = (
-    ("req_t", torch.float32, "pool", None),
-    ("req_ev", torch.int32, "pool", None),
-    ("req_srv", torch.int32, "pool", None),
-    ("req_ep", torch.int32, "pool", None),
-    ("req_seg", torch.int32, "pool", None),
-    ("req_ram", torch.float32, "pool", None),
-    ("req_ticket", torch.int32, "pool", None),
-    ("req_start", torch.float32, "pool", None),
-    ("req_lbslot", torch.int32, "pool", None),
-    ("cores_free", torch.int32, "servers", None),
-    ("ram_free", torch.float32, "servers", None),
-    ("cpu_ticket", torch.int32, "servers", None),
-    ("ram_ticket", torch.int32, "servers", None),
-    ("cpu_wait_n", torch.int32, "servers", None),
-    ("ram_wait_n", torch.int32, "servers", None),
-    ("lb_order", torch.int32, "lb", None),
-    ("lb_conn", torch.int32, "lb", None),
-    ("req_wait_t", torch.float32, "pool", "queue_timeout"),
-    ("req_cbslot", torch.int32, "pool", "breaker"),
-    ("req_probe", torch.int32, "pool", "breaker"),
-    ("srv_conn", torch.int32, "servers", "conn_cap"),
-    ("rl_tokens", torch.float32, "servers", "rate_limit"),
-    ("rl_last", torch.float32, "servers", "rate_limit"),
-    ("cb_state", torch.int32, "lb", "breaker"),
-    ("cb_open_until", torch.float32, "lb", "breaker"),
-    ("cb_consec", torch.int32, "lb", "breaker"),
-    ("cb_probes_out", torch.int32, "lb", "breaker"),
-    ("cb_probe_ok", torch.int32, "lb", "breaker"),
-    ("req_llm", torch.float32, "pool", "seg_llm_tokens"),
-    ("db_free", torch.int32, "servers", "db_pool"),
-    ("db_ticket", torch.int32, "servers", "db_pool"),
-    ("db_wait_n", torch.int32, "servers", "db_pool"),
-    ("gen_now", torch.float32, "generators", "gen_window"),
-    ("gen_wend", torch.float32, "generators", "gen_window"),
-    ("gen_widx", torch.int32, "generators", "gen_window"),
-    ("gen_next", torch.float32, "generators", "gen_window"),
 )
 #: library names (engines/torchsim/_build.py) by whether the plan needs the
 #: workload group
@@ -128,14 +79,22 @@ def needs_workload(t: DesTables) -> bool:
     )
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of des_kernel.cu on ``lib``."""
+    for fn, args in (
+        ("des_launch", [ctypes.c_void_p, ctypes.c_void_p]),
+        ("des_layout", [ctypes.c_void_p, ctypes.c_void_p]),
+        ("des_occupancy", [ctypes.c_void_p, ctypes.c_void_p]),
+        ("des_args_size", []),
+        ("des_workload", []),
+    ):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def _library(workload: bool) -> ctypes.CDLL:
-    lib = _build.load(_LIBRARY[workload])
-    lib.des_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.des_launch.restype = ctypes.c_int
-    lib.des_args_size.argtypes = []
-    lib.des_args_size.restype = ctypes.c_int
-    lib.des_workload.argtypes = []
-    lib.des_workload.restype = ctypes.c_int
+    lib = bind(_build.load(_LIBRARY[workload]))
     if lib.des_workload() != int(workload):
         msg = f"{_LIBRARY[workload]}: the library was built with the other instances"
         raise KernelBuildError(msg)
@@ -190,27 +149,110 @@ class DesKernel:
         return self._launch(tables, k0, k1, lam, em, ev, ed)
 
     def _launch(self, t: DesTables, k0, k1, lam, em, ev, ed) -> DesOutputs:
-        args, out, _keep = pack_args(t, k0, k1, lam, em, ev, ed)
         lib = _library(needs_workload(t))
+        args, out, _keep = pack_args(t, k0, k1, lam, em, ev, ed, lib=lib)
         stream = torch.cuda.current_stream(k0.device).cuda_stream
         rc = lib.des_launch(ctypes.byref(args), ctypes.c_void_p(stream))
         if rc != 0:
-            msg = f"des_kernel launch failed: cudaGetLastError() = {rc}"
+            msg = (
+                f"des_kernel launch failed: code {rc} (a cudaError_t, or a refusal "
+                "of des_launch)"
+            )
             raise KernelLaunchError(msg)
         self.launches += 1
         return out
 
 
-def _feature_on(t: DesTables, feature: str | None) -> bool:
-    if feature is None:
-        return True
-    if feature == "breaker":
-        return t.breaker_threshold > 0
-    return getattr(t, feature) is not None
+#: DesLayout.placement by value: where a scenario's request pool lives
+PLACEMENTS = ("scan_shared", "global")
+_LAYOUT_KEYS = (
+    "placement", "warps_per_block", "shared_bytes", "shared_fields", "warp_words",
+    "global_words", "instance",
+)
+#: DesLayout.instance bits: the feature groups the launch's instance compiles in
+_INSTANCE_BITS = {"events": 1, "controls": 2, "workload": 4}
 
 
-def pack_args(t: DesTables, k0, k1, lam, em, ev, ed) -> tuple[_DesArgs, DesOutputs, dict]:
-    """Check the inputs and allocate the outputs and scratch of one launch:
+def query_layout(lib: ctypes.CDLL, args: _DesArgs) -> dict:
+    """The layout a launch of ``args`` takes (des_layout): the pool's
+    placement, scenarios a block, shared bytes a block, pool fields in
+    shared memory, shared words and global scratch words a scenario, and
+    the feature groups of the instance it runs."""
+    out = (ctypes.c_int32 * len(_LAYOUT_KEYS))()
+    rc = lib.des_layout(ctypes.byref(args), out)
+    if rc != 0:
+        msg = f"des_kernel: one scenario's state does not fit a block (code {rc})"
+        raise KernelLaunchError(msg)
+    layout = dict(zip(_LAYOUT_KEYS, out))
+    layout["placement"] = PLACEMENTS[layout["placement"]]
+    layout["instance"] = {k: bool(layout["instance"] & b) for k, b in _INSTANCE_BITS.items()}
+    return layout
+
+
+def launch_layout(t: DesTables) -> dict:
+    """The layout and occupancy of the plan's launches on the card: the
+    keys of :func:`query_layout`, and the blocks and warps an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _library(needs_workload(t))
+    args = _DesArgs(**_geometry(t, 1))
+    layout = query_layout(lib, args)
+    blocks = ctypes.c_int32(0)
+    rc = lib.des_occupancy(ctypes.byref(args), ctypes.byref(blocks))
+    if rc != 0:
+        msg = f"des_kernel occupancy query failed: code {rc}"
+        raise KernelLaunchError(msg)
+    return {
+        **layout,
+        "blocks_per_sm": blocks.value,
+        "warps_per_sm": blocks.value * layout["warps_per_block"],
+    }
+
+
+def _geometry(t: DesTables, s: int) -> dict:
+    """The int and float fields of DesArgs for ``s`` scenarios of plan ``t``."""
+    return {
+        "S": s,
+        "P": t.pool,
+        "NS": t.n_servers,
+        "NE": t.n_edges,
+        "NEP": t.n_ep,
+        "NSEGP": t.n_segp,
+        "EL": t.n_lb,
+        "NW": t.n_windows,
+        "B": t.n_hist_bins,
+        "TH": t.n_thr,
+        "K": int(t.entry_edges.numel()),
+        "max_iterations": t.max_iterations,
+        "entry_ev": t.entry_ev,
+        "entry_target": t.entry_target,
+        "lb_algo": t.lb_algo,
+        "has_ram": t.has_ram,
+        "NB": t.n_spikes,
+        "NTL": t.n_timeline,
+        "has_shed": int(t.queue_cap is not None),
+        "has_conn": int(t.conn_cap is not None),
+        "has_rl": int(t.rate_limit is not None),
+        "has_timeout": int(t.queue_timeout is not None),
+        "cb_threshold": t.breaker_threshold,
+        "cb_probes": t.breaker_probes,
+        "G": t.n_gen,
+        "L": t.max_chain,
+        "has_cache": int(t.seg_hit_prob is not None),
+        "has_llm": int(t.seg_llm_tokens is not None),
+        "has_db": int(t.db_pool is not None),
+        "horizon": t.horizon,
+        "window": t.window,
+        "hist_lo": t.hist_lo,
+        "hist_scale": t.hist_scale,
+        "cb_cooldown": t.breaker_cooldown,
+    }
+
+
+def pack_args(
+    t: DesTables, k0, k1, lam, em, ev, ed, *, lib: ctypes.CDLL,
+) -> tuple[_DesArgs, DesOutputs, dict]:
+    """Check the inputs and allocate the outputs and the global scratch of
+    one launch (as much as ``lib``'s layout leaves out of shared memory):
     ``(args, outputs, tensors)``, where ``args`` points into ``tensors``,
     which must stay alive until the kernel has run."""
     dev = k0.device
@@ -238,58 +280,17 @@ def pack_args(t: DesTables, k0, k1, lam, em, ev, ed) -> tuple[_DesArgs, DesOutpu
         n_events=torch.empty((s,), dtype=torch.int32, device=dev),
         work=torch.empty((s, len(WORK_KINDS)), dtype=torch.int32, device=dev),
     )
-    rows = {"pool": t.pool, "servers": t.n_servers, "lb": max(t.n_lb, 1),
-            "generators": t.n_gen}
-    scratch = {
-        name: torch.empty((rows[kind], s), dtype=dtype, device=dev)
-        for name, dtype, kind, feature in _SCRATCH
-        if _feature_on(t, feature)
-    }
+    args = _DesArgs(**_geometry(t, s))
+    global_words = query_layout(lib, args)["global_words"]
+    scratch = torch.empty((s, global_words), dtype=torch.int32, device=dev)
     tensors = {
         "k0": k0, "k1": k1, "lam": lam, "em": em, "ev": ev, "ed": ed,
         **{name: getattr(t, name) for name in _TABLE_FIELDS},
         **out._asdict(),
-        **scratch,
+        "pool_scratch": scratch,
     }
     # a feature the plan does not model passes null pointers
-    args = _DesArgs(
-        **{
-            name: None if tensors.get(name) is None else tensors[name].data_ptr()
-            for name in _PTR_FIELDS
-        },
-        S=s,
-        P=t.pool,
-        NS=t.n_servers,
-        NE=t.n_edges,
-        NEP=t.n_ep,
-        NSEGP=t.n_segp,
-        EL=t.n_lb,
-        NW=t.n_windows,
-        B=t.n_hist_bins,
-        TH=t.n_thr,
-        K=int(t.entry_edges.numel()),
-        max_iterations=t.max_iterations,
-        entry_ev=t.entry_ev,
-        entry_target=t.entry_target,
-        lb_algo=t.lb_algo,
-        has_ram=t.has_ram,
-        NB=t.n_spikes,
-        NTL=t.n_timeline,
-        has_shed=int(t.queue_cap is not None),
-        has_conn=int(t.conn_cap is not None),
-        has_rl=int(t.rate_limit is not None),
-        has_timeout=int(t.queue_timeout is not None),
-        cb_threshold=t.breaker_threshold,
-        cb_probes=t.breaker_probes,
-        G=t.n_gen,
-        L=t.max_chain,
-        has_cache=int(t.seg_hit_prob is not None),
-        has_llm=int(t.seg_llm_tokens is not None),
-        has_db=int(t.db_pool is not None),
-        horizon=t.horizon,
-        window=t.window,
-        hist_lo=t.hist_lo,
-        hist_scale=t.hist_scale,
-        cb_cooldown=t.breaker_cooldown,
-    )
+    for name in _PTR_FIELDS:
+        if tensors.get(name) is not None:
+            setattr(args, name, tensors[name].data_ptr())
     return args, out, tensors

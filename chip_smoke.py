@@ -6,9 +6,12 @@
 Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
-1. the card's name and power limit, the torch and nvcc versions, and the
+1. the card's name and power limit, the torch and nvcc versions, the
    build of every CUDA library of the port (one nvcc per library, in
-   parallel);
+   parallel) with the registers and spills ``ptxas -v`` reports for each
+   instance of the DES kernel, and for each path the instance it runs, the
+   pool's placement (its scanned fields in shared memory, or none),
+   the block and its shared bytes, and the warps an SM holds;
 2. the DES kernel against its plain PyTorch twin on the card, on the same
    keys and arrival-rate tables: on each path's own plan at its 2048
    scenarios (two_servers_lb, event_inj_lb, resilience_all and two_gen_lb
@@ -22,16 +25,19 @@ no result line):
    cache mixture, a single DB connection, the featured mix (a DB pool of
    2, a cache, an LLM call and weighted endpoints), two streams with a
    normal entry edge, and two streams on event_inj_lb's outages and
-   spikes.  Every integer output (``work`` included) and every float
-   moment must be bit-exact;
+   spikes; a binding RAM on a pool of 37 (no multiple of a warp) and on a
+   pool of 2048 (too large for shared memory: the global placement).  Both
+   placements must be checked.  Every integer output (``work``
+   included) and every float moment must be bit-exact;
 3. the six paths: ``SweepRunner(payload).run(2048, seed=0)`` at the
    payload's full horizon, through the kernel (its launch count, set to 0
    before each path, must move), with no truncation and no overflow,
    request conservation per scenario, the pooled p95 within 2% of the JAX
    reference kernel's, for resilience_all the rejected fraction within
    0.02 of it, for llm_cost the mean LLM cost per completed request within
-   2% of it, and for the three paths of the earlier slices the event
-   counts those slices measured (no draw of theirs may move).
+   2% of it, and every path's event count as the earlier slices measured
+   it (no draw may move); each path's kernel time is printed beside the
+   one-thread-a-scenario kernel's.
 
 It prints a JSON line of per-kernel measurements, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and
@@ -296,6 +302,8 @@ PAYLOADS = {
 }
 
 MAIN_SCENARIOS = 2048
+#: a pool too large for shared memory (des_kernel.cu, layout_of)
+POOL_GLOBAL = 2048
 #: iteration cap of the kernel-against-twin check on the headline's plan:
 #: every scenario truncates after ~10 s of simulated time, which keeps the
 #: twin (one batched step per event) near two minutes on the card
@@ -333,16 +341,26 @@ REFERENCE = {
 P95_RTOL = 0.02
 REJECTED_ATOL = 0.02
 LLM_COST_RTOL = 0.02
-#: events of the earlier slices' paths as slices 1 and 2 measured them
-#: (2048 scenarios of seed 0): their draws must not move
+#: events of every path as the earlier slices measured them (2048 scenarios
+#: of seed 0): their draws must not move
 EARLIER_EVENTS = {
     "two_servers_lb": 801_523_693,
     "event_inj_lb": 240_485_118,
     "resilience_all": 289_381_512,
+    "db_pool_k2": 19_463_015,
+    "llm_cost": 9_792_677,
+    "two_gen_lb": 801_606_937,
 }
-#: the headline kernel's time with the slice-1 kernel, measured by this
-#: script on an NVIDIA H100 80GB HBM3 at 700 W
-SLICE1_HEADLINE_KERNEL_MS = 2465.2
+#: each path's kernel time with the kernel's earlier design, one thread a
+#: scenario, measured by this script on an NVIDIA H100 80GB HBM3 at 700 W
+THREAD_KERNEL_MS = {
+    "two_servers_lb": 2493.6,
+    "event_inj_lb": 901.6,
+    "resilience_all": 15336.9,
+    "db_pool_k2": 117.4,
+    "llm_cost": 327.7,
+    "two_gen_lb": 2882.3,
+}
 
 # NVIDIA H100 SXM peaks: HBM3 bandwidth and fp32 outside the tensor cores
 # from the data sheet; int32 from the SM's 64 int32 lanes a clock (half its
@@ -351,7 +369,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
-# (int32, fp32) operations, counted from csrc/des_kernel.cu
+# (int32, fp32) operations of the simulation's work: per threefry block, per
+# pool slot an event's argmin considers, per event and per unit of each
+# feature's work
 #: threefry2x32: key word 2 (2 xor), 2 input adds, 20 rounds of add, rotate
 #: and xor, 5 key injections of 3 adds; the counter word (shift, add); u24
 #: on both words (2 shifts; 2 converts and 2 multiplies)
@@ -482,9 +502,60 @@ def phase_setup(torch) -> None:
     info["build_s"] = time.perf_counter() - t0
     print(f"built {sorted(paths)} in {info['build_s']:.2f} s")
     for name, report in _build.ptxas_report.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+        for instance, res in ptxas_instances(report).items():
+            print(f"  ptxas[{name}] {instance}: {res}")
+    for name, plan in _path_plans().items():
+        print(f"  {name}: {_layout_text(kernel_layout(plan))}")
+
+
+def ptxas_instances(report: str) -> dict:
+    """Registers and spills of each DES kernel instance in a ``ptxas -v``
+    log, by its feature groups."""
+    import re
+
+    out, current = {}, None
+    for line in report.splitlines():
+        found = re.search(
+            r"Compiling entry function '\S*des_kernelILb([01])ELb([01])ELb([01])E", line,
+        )
+        if found:
+            flags = (int(x) for x in found.groups())
+            current = "des_kernel<events={}, controls={}, workload={}>".format(*flags)
+            out[current] = ""
+        elif current is not None and ("spill" in line or "registers" in line):
+            out[current] += (" " if out[current] else "") + line.split(":", 2)[-1].strip()
+    return out
+
+
+def kernel_layout(plan) -> dict:
+    """The DES kernel's layout and occupancy for ``plan`` on this card."""
+    from asyncflow_tpu_torch.engines.torchsim import des_kernel
+    from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
+
+    return des_kernel.launch_layout(KernelEngine(plan, device="cuda").tables)
+
+
+def _layout_text(lay: dict) -> str:
+    inst = lay["instance"]
+    return (
+        f"instance events={int(inst['events'])} controls={int(inst['controls'])} "
+        f"workload={int(inst['workload'])}; pool placement {lay['placement']} "
+        f"({lay['shared_fields']} fields shared), "
+        f"{lay['warps_per_block']} scenarios a block, "
+        f"{lay['shared_bytes']} shared bytes a block, {lay['global_words'] * 4} global "
+        f"bytes a scenario; {lay['blocks_per_sm']} blocks = "
+        f"{lay['warps_per_sm']} warps an SM"
+    )
+
+
+def _path_plans() -> dict:
+    from asyncflow_tpu_torch.compiler import compile_payload
+    from asyncflow_tpu_torch.schemas import SimulationPayload
+
+    return {
+        name: compile_payload(SimulationPayload.from_dict(data))
+        for name, data in PAYLOADS.items()
+    }
 
 
 def _lc_mixed_payload() -> dict:
@@ -685,8 +756,10 @@ WORKLOAD_PAYLOADS = {
 }
 
 
-def _time_kernel(torch, fn, repeats: int) -> float:
-    """Median milliseconds of ``fn()`` between CUDA events."""
+def time_kernel(torch, fn, repeats: int) -> float:
+    """Median milliseconds of ``fn()`` between CUDA events.  Part of this
+    script's interface, with ``PAYLOADS`` and ``card_line``:
+    ``scripts/torch_des_scaling.py`` times the kernel with it."""
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -813,11 +886,21 @@ def phase_kernel_vs_twin(torch) -> dict:
     small = {
         "lc_mixed_dists": (plan_of(_lc_mixed_payload()), 256),
         "ram_bound_overflow": (plan_of(_ram_bound_payload(), pool_size=4), 256),
+        "ram_bound_pool_37": (plan_of(_ram_bound_payload(), pool_size=37), 256),
+        "ram_bound_pool_2048": (plan_of(_ram_bound_payload(), pool_size=POOL_GLOBAL), 128),
         **{name: (plan_of(make()), 128) for name, make in CONTROL_PAYLOADS.items()},
         "lc_breaker_outage": (plan_of(_lc_breaker_outage_payload()), 128),
         **{name: (plan_of(make()), 256) for name, (make, _) in WORKLOAD_PAYLOADS.items()},
     }
     measured: dict = {"max_abs_err": 0.0}
+    placements = set()
+    for name, plan in [*paths.items(), *((n, p) for n, (p, _) in small.items())]:
+        lay = kernel_layout(plan)
+        placements.add(lay["placement"])
+        if name == "ram_bound_pool_2048" and lay["placement"] != "global":
+            raise SmokeError(f"{name}: placement {lay['placement']}, expected global")
+    if placements != {"scan_shared", "global"}:
+        raise SmokeError(f"phase 2 checks the placements {sorted(placements)} only")
     for name, plan in paths.items():
         case = f"{name}_{plan.horizon:.0f}s_capped"
         eng = KernelEngine(plan, device="cuda")
@@ -840,7 +923,7 @@ def phase_kernel_vs_twin(torch) -> dict:
         for kind in path_work.get(name, ()):
             if res["work"][kind] == 0:
                 raise SmokeError(f"{case}: no {kind}")
-        ms = _time_kernel(torch, lambda eng=eng, args=args: eng.kernel(*args), repeats=3)
+        ms = time_kernel(torch, lambda eng=eng, args=args: eng.kernel(*args), repeats=3)
         bound = _bound_ms(args, out)
         measured["max_abs_err"] = max(measured["max_abs_err"], res["max_abs_err"])
         measured[name] = {"ms": ms, "plain_ms": res["plain_ms"], "events": res["events"],
@@ -923,15 +1006,16 @@ def phase_path(torch, name: str) -> dict:
             )
             raise SmokeError(msg)
     events = int(res.events.sum())
-    if name in EARLIER_EVENTS and events != EARLIER_EVENTS[name]:
+    if events != EARLIER_EVENTS[name]:
         msg = f"{name}: {events} events, the earlier slices had {EARLIER_EVENTS[name]}"
         raise SmokeError(msg)
 
     # the kernel alone on the same inputs, between CUDA events
     args = runner.engine.prepare(scenario_keys(0, MAIN_SCENARIOS, device="cuda"))
     out = []
-    kernel_ms = _time_kernel(torch, lambda: out.append(kernel(*args)), repeats=1)
+    kernel_ms = time_kernel(torch, lambda: out.append(kernel(*args)), repeats=1)
     bound = _bound_ms(args, out[0])
+    lay = kernel_layout(runner.plan)
     print(
         f"path {name}: {MAIN_SCENARIOS} scenarios x {runner.plan.horizon:.0f} s, pool "
         f"{runner.plan.pool_size}, {launches} launch(es), {report.wall_seconds:.2f} s wall, "
@@ -950,11 +1034,11 @@ def phase_path(torch, name: str) -> dict:
         + ("" if llm_cost is None else f"; LLM cost per request {llm_cost:.6g}"),
         flush=True,
     )
-    if name == "two_servers_lb":
-        print(
-            f"  headline kernel {kernel_ms:.1f} ms against the slice-1 kernel's "
-            f"{SLICE1_HEADLINE_KERNEL_MS} ms ({kernel_ms / SLICE1_HEADLINE_KERNEL_MS - 1.0:+.2%})",
-        )
+    print(
+        f"  {_layout_text(lay)}; kernel {kernel_ms:.1f} ms against the one-thread "
+        f"kernel's {THREAD_KERNEL_MS[name]} ms (x{kernel_ms / THREAD_KERNEL_MS[name]:.4f})",
+        flush=True,
+    )
     return {
         "launches": launches,
         "ms": kernel_ms,

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from asyncflow_tpu_torch.compiler import compile_payload
+from asyncflow_tpu_torch.engines.torchsim import des_kernel
 from asyncflow_tpu_torch.engines.torchsim.des_reference import des_reference
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
@@ -201,6 +202,18 @@ WORKLOAD_CASES = {
 }
 
 
+#: plans forced to a pool size, with the placement the kernel takes for it:
+#: a binding RAM whose grant cascades tie, on a pool that is no multiple of
+#: 32 and on one of 16 slots a lane; and a pool too large for its scanned
+#: fields to fit a scenario's share of shared memory
+POOL_CASES = {
+    "pool_not_multiple_of_32": (lambda: _payload(ram_mb=256, ram=128, io=0.25), 37,
+                                "scan_shared"),
+    "pool_scan_shared": (lambda: _payload(ram_mb=256, ram=128, io=0.25), 512, "scan_shared"),
+    "pool_global": (lambda: _payload(lb="least_connection"), 2048, "global"),
+}
+
+
 @pytest.fixture
 def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
@@ -219,6 +232,7 @@ def cuda_device() -> torch.device:
         ("controls_breaker_rr", _controls_breaker("round_robin"), None),
         ("controls_breaker_lc", _controls_breaker("least_connection"), None),
         ("controls_events", _events_and_controls(), None),
+        *((name, make(), pool) for name, (make, pool, _) in POOL_CASES.items()),
     ],
 )
 def test_kernel_matches_twin_on_cuda(cuda_device, name, data, pool_size) -> None:
@@ -233,8 +247,10 @@ def test_kernel_matches_twin_on_cuda(cuda_device, name, data, pool_size) -> None
         assert torch.equal(getattr(got, field), getattr(want, field)), (name, field)
     torch.testing.assert_close(got.momf, want.momf, rtol=1e-6, atol=0.0)
     assert eng.kernel.launches == 1
-    if pool_size:
+    if name == "ram_overflow":
         assert int(got.momi[:, 3].sum()) > 0
+    if name in POOL_CASES:
+        assert des_kernel.launch_layout(args[0])["placement"] == POOL_CASES[name][2]
     if name.startswith("controls"):
         assert int(got.momi[:, 4].sum()) > 0
 
