@@ -10,12 +10,22 @@ where the Pallas DES kernel of the reference is a hand-written CUDA kernel
 (``engines/torchsim/des_reference.py``); slice 2 added event injection,
 the server overload controls and the LB circuit breaker, and slice 3 cache
 mixtures, LLM call dynamics, DB connection pools and several generators,
-which completes the kernel.  Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``; with no device given and no GPU present
-they raise :class:`~asyncflow_tpu_torch.errors.NoDeviceError`.
+which completes the kernel.  Slice 5 added the reference's scan fast path
+for single-generator round-robin plans:
+
+    payload -> compile_payload -> FastEngine.run_batch -> SweepResults
+
+with the per-lane draws (``csrc/edge_draws.cu``) and the FIFO station
+recursions (``csrc/station_scan.cu``) as hand-written CUDA kernels;
+``SweepRunner(engine="auto")`` takes it where the reference would and the
+slice allows.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; with no device given and no GPU present they raise
+:class:`~asyncflow_tpu_torch.errors.NoDeviceError`.
 """
 
 from asyncflow_tpu_torch.errors import (
+    FastPathIneligibleError,
+    FastPathOverrideError,
     KernelBuildError,
     KernelLaunchError,
     NoDeviceError,
@@ -25,6 +35,8 @@ from asyncflow_tpu_torch.errors import (
 )
 
 __all__ = [
+    "FastPathIneligibleError",
+    "FastPathOverrideError",
     "KernelBuildError",
     "KernelLaunchError",
     "NoDeviceError",

@@ -168,6 +168,31 @@ class StaticPlan:
     #: the largest workload-rate scale under which every lowered-away
     #: non-binding proof still holds (inf when none was lowered away)
     proof_rate_headroom: float
+    # ---- core-queue visit view of the endpoint programs (scan fast path):
+    # burst k is enqueued burst_pre_io[..., k] seconds after burst k-1 ends
+    max_bursts: int  # KB: most CPU bursts of any endpoint
+    n_bursts: np.ndarray  # (NS, NEP) i32
+    burst_dur: np.ndarray  # (NS, NEP, max(KB, 1)) f32
+    burst_pre_io: np.ndarray  # (NS, NEP, max(KB, 1)) f32
+    endpoint_post_io: np.ndarray  # (NS, NEP) f32
+    # ---- gauge sampling and the arrival-count bound ----
+    sample_period: float
+    n_samples: int
+    #: 6-sigma bound on a scenario's arrival count (the fast path's lanes)
+    max_requests: int
+    # ---- fast-path eligibility (the reference's _fastpath_analysis) ----
+    fastpath_ok: bool
+    fastpath_reason: str
+    #: servers in topological order of the exit-chain DAG
+    server_topo_order: list[int]
+    #: per-server RAM admission on the fast path: -1 = proven non-binding
+    #: (not modelled), 0 = no RAM steps, k > 0 = a FIFO admission queue of
+    #: k slots (one uniform need, ram_mb // need)
+    ram_slots: np.ndarray
+    #: least-connections ring capacity per LB slot (0 = round robin / no LB)
+    lc_ring: int
+    #: highest nominal core utilisation of a multi-burst server (0 if none)
+    relax_rho: float
     #: features outside this slice that the plan carries (only plans
     #: carried across with :func:`plan_from_arrays` can have any)
     unsupported: tuple[str, ...] = ()
@@ -230,8 +255,26 @@ class StaticPlan:
     def has_breaker(self) -> bool:
         return self.breaker_threshold > 0
 
+    @property
+    def n_gauges(self) -> int:
+        """Gauge layout: [edge connections | ready | io | ram] per component."""
+        return self.n_edges + 3 * self.n_servers
 
-#: the StaticPlan fields the DES kernel reads, in declaration order
+    def gauge_edge(self, edge_idx: int) -> int:
+        return edge_idx
+
+    def gauge_ready(self, server_idx: int) -> int:
+        return self.n_edges + server_idx
+
+    def gauge_io(self, server_idx: int) -> int:
+        return self.n_edges + self.n_servers + server_idx
+
+    def gauge_ram(self, server_idx: int) -> int:
+        return self.n_edges + 2 * self.n_servers + server_idx
+
+
+#: the StaticPlan fields carried across from a reference plan and held
+#: equal to it, in declaration order
 KERNEL_FIELDS = tuple(
     name for name in StaticPlan.__dataclass_fields__ if name != "unsupported"
 )
@@ -747,6 +790,358 @@ def _lower_events(
     )
 
 
+# ---------------------------------------------------------------------------
+# scan fast path: the visit view and the eligibility decision
+# ---------------------------------------------------------------------------
+
+#: nominal per-server core utilisation above which the multi-burst
+#: relaxation is biased against the exact engines (the reference's measured
+#: envelope, compiler/plan.py RELAX_RHO_MAX)
+RELAX_RHO_MAX = 0.70
+
+# fast-path placements of a stochastic cache segment's miss extra (values
+# < 0; a value >= 0 is the index of the CPU burst whose pre-IO holds it)
+CACHE_PRE_DB = -2
+CACHE_POST_DB = -3
+CACHE_UNUSED = -1
+
+
+def _fastpath_lowering(
+    segs: list[tuple[int, float]], cache: list[CacheParams | None],
+) -> tuple[tuple[float, float, float], list[tuple[int, float, float]], str]:
+    """One endpoint's fast-path tables: ``((db_pre, db_dur, db_post),
+    cache_places, reason)``, the trailing IO split around its single DB
+    segment, one ``(slot, miss_prob, miss_extra)`` per cache segment, and a
+    non-empty ``reason`` for a shape outside the fast path's model (the
+    reference's ``_fastpath_lowering``)."""
+    n_cpu = sum(1 for k, _ in segs if k == SEG_CPU)
+    db_seen = 0
+    burst_idx = 0
+    db_pre = db_dur = db_post = 0.0
+    places: list[tuple[int, float, float]] = []
+    for i, (kind, dur) in enumerate(segs):
+        if kind == SEG_CPU:
+            burst_idx += 1
+            continue
+        trailing = burst_idx >= n_cpu
+        if kind == SEG_DB:
+            if db_seen:
+                return (0.0, 0.0, 0.0), [], "multiple DB queries per endpoint"
+            if not trailing:
+                return (
+                    (0.0, 0.0, 0.0),
+                    [],
+                    "DB query before a CPU burst (pool wait feeds back "
+                    "into the core queue)",
+                )
+            db_seen = 1
+            db_dur = dur
+            continue
+        if kind == SEG_CACHE:
+            hit_prob, miss = cache[i]
+            slot = burst_idx if not trailing else (CACHE_POST_DB if db_seen else CACHE_PRE_DB)
+            places.append((slot, 1.0 - hit_prob, miss - dur))
+        if trailing:
+            if db_seen:
+                db_post += dur
+            else:
+                db_pre += dur
+    return (db_pre, db_dur, db_post), places, ""
+
+
+def _burst_decomposition(
+    segs: list[tuple[int, float]],
+) -> tuple[list[float], list[float], float]:
+    """An alternating segment program as core-queue visits: ``(burst_dur,
+    burst_pre_io, post_io)``.  Burst k holds a core ``burst_dur[k]`` seconds
+    and is enqueued ``burst_pre_io[k]`` seconds after burst k-1 ends (IO
+    holds no core); ``post_io`` runs after the last burst."""
+    burst_dur: list[float] = []
+    burst_pre: list[float] = []
+    io_acc = 0.0
+    for kind, dur in segs:
+        if kind == SEG_CPU:
+            burst_pre.append(io_acc)
+            burst_dur.append(dur)
+            io_acc = 0.0
+        else:  # every other segment holds no core
+            io_acc += dur
+    return burst_dur, burst_pre, io_acc
+
+
+def _socket_cap_scan_reason(
+    compiled_s: list, cap: int, fp_lowered_s: list, db_binding: bool,
+) -> str:
+    """Why a modelled connection cap cannot ride the reference's socket
+    scan ("" when it can)."""
+    visits = max(
+        (sum(1 for k, _ in segs if k == SEG_CPU) for segs, *_ in compiled_s), default=0,
+    )
+    if visits > 1:
+        return "on a multi-burst endpoint"
+    if cap > 128:
+        return f"{cap} exceeds the scan ring bound (128)"
+    if db_binding:
+        return "with a binding DB connection pool"
+    pre_offsets = set()
+    for segs, *_ in compiled_s:
+        _dur, pre, _post = _burst_decomposition(segs)
+        if pre:
+            pre_offsets.add(round(pre[0], 12))
+    if len(pre_offsets) > 1:
+        return "with heterogeneous pre-burst IO offsets"
+    if any(slot >= 0 for _split, places, _reason in fp_lowered_s for slot, _p, _x in places):
+        return "with stochastic pre-burst cache extras"
+    return ""
+
+
+@dataclass
+class _FastDecision:
+    ok: bool
+    reason: str = ""
+    topo: list[int] | None = None
+    ram_slots: np.ndarray | None = None
+    lc_ring: int = 0
+    relax_rho: float = 0.0
+
+
+def _fastpath_analysis(
+    payload: SimulationPayload,
+    compiled: list,
+    fp_lowered: list,
+    ctl: _Controls,
+    server_db_pool: np.ndarray,
+    exit_kind: np.ndarray,
+    exit_target: np.ndarray,
+    lb_algo: int,
+    n_outage_marks: int,
+    lb_edge_means: list[float],
+    max_spike: float,
+    breaker_threshold: int,
+    gen_targets: list[tuple[int, int]],
+) -> _FastDecision:
+    """May the reference's scan fast path run this plan, and with what
+    per-server treatment: the reference's ``_fastpath_analysis``, decision
+    for decision and reason for reason.  Its refusals of serving steps,
+    trace replay, retries with several streams, hedging, LB health gates
+    and brownout are not repeated: the port's schemas refuse those
+    features before a plan exists."""
+    servers = payload.topology_graph.nodes.servers
+    n_servers = len(servers)
+
+    def refuse(reason: str) -> _FastDecision:
+        return _FastDecision(False, reason, [], np.empty(0, np.int32), 0, 0.0)
+
+    lb = payload.topology_graph.nodes.load_balancer
+    if n_outage_marks > 0 and lb is None:
+        return refuse("outage events without a load balancer")
+    for edge in payload.topology_graph.edges:
+        if edge.latency.distribution == Distribution.POISSON:
+            return refuse(f"edge {edge.id}: poisson latency unsupported")
+    if len(payload.generators) > 1 and len(set(gen_targets)) > 1:
+        return refuse(
+            "multiple generators with distinct entry targets (modeled on the event engines)",
+        )
+    rate = 0.0
+    rate_var = 0.0
+    for g in payload.generators:
+        users_g = float(g.avg_active_users.mean)
+        rpu_g = float(g.avg_request_per_minute_per_user.mean) / 60.0
+        rate += users_g * rpu_g
+        rate_var += users_g * rpu_g * rpu_g if users_g >= 1.0 else (users_g * rpu_g) ** 2
+    burst_rate = rate + 3.0 * math.sqrt(rate_var)
+
+    lc_ring = 0
+    if lb is not None and lb_algo != 0:
+        # a 6-sigma bound on one LB edge's in-flight count
+        worst_delay = max(lb_edge_means or [0.0]) + max_spike
+        m = burst_rate * worst_delay
+        ring = int(math.ceil(m + 6.0 * math.sqrt(max(m, 1.0)) + 16.0))
+        if ring > 128:
+            return refuse(f"least-connections in-flight bound too large ({ring} slots)")
+        lc_ring = ring
+
+    def visits_of(segs) -> int:
+        return sum(1 for k, _ in segs if k == SEG_CPU)
+
+    max_visits = max(
+        (visits_of(segs) for per_server in compiled for segs, *_ in per_server), default=0,
+    )
+    if max_visits > 8:
+        return refuse(f"endpoint with {max_visits} CPU bursts")
+    if breaker_threshold > 0:
+        return refuse(
+            "load balancer: circuit breaker with a live failure channel "
+            "(modeled on the event engines)",
+        )
+
+    ram_slots = np.zeros(n_servers, dtype=np.int32)
+    for s, server in enumerate(servers):
+        if ctl.conn_cap[s] >= 0:
+            reason = _socket_cap_scan_reason(
+                compiled[s], int(ctl.conn_cap[s]), fp_lowered[s], bool(server_db_pool[s] > 0),
+            )
+            if reason:
+                return refuse(
+                    f"server {server.id}: reachable connection capacity {reason} "
+                    "(socket refusal modeled on the event engines)",
+                )
+        cap_reachable = ctl.queue_cap[s] >= 0
+        if cap_reachable or ctl.queue_timeout[s] >= 0:
+            visits_s = max((visits_of(segs) for segs, *_ in compiled[s]), default=0)
+            max_ram_s = max((ram for _, ram, *_ in compiled[s]), default=0.0)
+            name = "ready-queue cap" if cap_reachable else "dequeue deadline"
+            if visits_s > 1:
+                return refuse(
+                    f"server {server.id}: reachable {name} on a multi-burst "
+                    "endpoint (modeled on the event engines)",
+                )
+            if max_ram_s > 0:
+                return refuse(
+                    f"server {server.id}: reachable {name} with a RAM "
+                    "admission tier (modeled on the event engines)",
+                )
+            if cap_reachable and ctl.queue_cap[s] > 128:
+                return refuse(
+                    f"server {server.id}: ready-queue cap {ctl.queue_cap[s]} "
+                    "exceeds the scan ring bound (128)",
+                )
+        if any(k == SEG_LLM for segs, *_ in compiled[s] for k, _ in segs):
+            return refuse(
+                f"server {server.id}: LLM call dynamics (token draws and "
+                "cost accounting modeled on the event engines)",
+            )
+        for e, (_, _, reason) in enumerate(fp_lowered[s]):
+            if reason:
+                return refuse(
+                    f"server {server.id} endpoint {server.endpoints[e].endpoint_name}: "
+                    f"{reason} (modeled on the event engines)",
+                )
+        if exit_kind[s] == TARGET_LB:
+            return refuse(f"server {server.id}: exit to LB creates a cycle")
+        max_ram = 0.0
+        residence = 0.0
+        cpu_dur = 0.0
+        db_dur_max = 0.0
+        visits = 1
+        needs: set[float] = set()
+        for segs, ram, cache, *_ in compiled[s]:
+            max_ram = max(max_ram, ram)
+            if ram > 0:
+                needs.add(ram)
+            # worst-case residence: a cache segment may sleep its miss latency
+            residence = max(
+                residence,
+                sum(
+                    max(d, cache[i][1]) if cache[i] is not None else d
+                    for i, (_, d) in enumerate(segs)
+                ),
+            )
+            cpu_dur = max(cpu_dur, sum(d for k, d in segs if k == SEG_CPU))
+            db_dur_max = max(db_dur_max, sum(d for k, d in segs if k == SEG_DB))
+            visits = max(visits, visits_of(segs))
+        has_db_station = bool(server_db_pool[s] >= 0 and db_dur_max > 0)
+        if max_ram <= 0:
+            continue
+        # tier 1: RAM provably non-binding, queue waits included
+        cores = server.server_resources.cpu_cores
+        rho = burst_rate * cpu_dur / cores
+        capacity_mb = float(server.server_resources.ram_mb)
+        if rho < 0.95:
+            wait_est = visits * rho / (1.0 - rho) * cpu_dur / cores
+            if has_db_station:
+                pool_k = int(server_db_pool[s])
+                rho_db = burst_rate * db_dur_max / pool_k
+                if rho_db >= 0.95:
+                    return refuse(
+                        f"server {server.id}: binding RAM with a saturated DB pool "
+                        "(no wait bound; modeled on the event engines)",
+                    )
+                wait_est += rho_db / (1.0 - rho_db) * db_dur_max / pool_k
+            if capacity_mb / max_ram >= 4.0 * burst_rate * (residence + wait_est) + 4.0:
+                ram_slots[s] = -1
+                continue
+        # tier 2: one uniform need is a FIFO admission queue of cap // need
+        # slots, settled with the core queue in one arrival-order pass
+        if has_db_station:
+            return refuse(f"server {server.id}: binding RAM with a binding DB pool")
+        if any(slot >= 0 for _, places, _ in fp_lowered[s] for slot, _, _ in places):
+            return refuse(
+                f"server {server.id}: stochastic cache before a CPU burst with binding RAM",
+            )
+        if len(needs) == 1 and min(ram for _, ram, *_ in compiled[s]) > 0:
+            if visits > 1:
+                return refuse(f"server {server.id}: multi-burst endpoints with binding RAM")
+            pre_ios = {
+                _burst_decomposition(segs)[1][0]
+                for segs, *_ in compiled[s]
+                if any(k == SEG_CPU for k, _ in segs)
+            }
+            if len(pre_ios) > 1:
+                return refuse(f"server {server.id}: varying pre-burst IO with binding RAM")
+            slots = int(capacity_mb // next(iter(needs)))
+            if 1 <= slots <= 1024:
+                ram_slots[s] = slots
+                continue
+            if slots < 1:
+                return refuse(f"server {server.id}: endpoint RAM exceeds server RAM")
+            return refuse(f"server {server.id}: RAM admission needs {slots} slots")
+        return refuse(f"server {server.id}: heterogeneous RAM needs can bind")
+
+    for s, server in enumerate(servers):
+        if ctl.conn_cap[s] >= 0 and ram_slots[s] > 0:
+            return refuse(
+                f"server {server.id}: reachable connection capacity with a "
+                "binding RAM admission tier (socket refusal modeled on the "
+                "event engines)",
+            )
+
+    # topological order of the server exit DAG
+    indeg = [0] * n_servers
+    for s in range(n_servers):
+        if exit_kind[s] == TARGET_SERVER:
+            indeg[int(exit_target[s])] += 1
+    frontier = [s for s in range(n_servers) if indeg[s] == 0]
+    topo: list[int] = []
+    while frontier:
+        s = frontier.pop()
+        topo.append(s)
+        if exit_kind[s] == TARGET_SERVER:
+            t = int(exit_target[s])
+            indeg[t] -= 1
+            if indeg[t] == 0:
+                frontier.append(t)
+    if len(topo) != n_servers:
+        return refuse("server exit chain has a cycle")
+
+    # the multi-burst relaxation's validity envelope
+    max_visits_per_server = [
+        max((visits_of(segs) for segs, *_ in compiled[s]), default=0)
+        for s in range(n_servers)
+    ]
+    relax_rho = 0.0
+    if any(v > 1 for v in max_visits_per_server):
+        srv_rate = _server_entry_rates(payload)
+        for s in range(n_servers):
+            if max_visits_per_server[s] <= 1:
+                continue
+            cpu_dur = max(
+                (sum(d for k, d in segs if k == SEG_CPU) for segs, *_ in compiled[s]),
+                default=0.0,
+            )
+            cores = servers[s].server_resources.cpu_cores
+            rho = 1.0 * srv_rate[s] * cpu_dur / max(cores, 1)
+            relax_rho = max(relax_rho, rho)
+            if rho > RELAX_RHO_MAX:
+                return refuse(
+                    f"server {servers[s].id}: multi-burst endpoints at "
+                    f"utilization {rho:.2f} > {RELAX_RHO_MAX} — outside "
+                    "the relaxation's measured validity envelope "
+                    "(docs/internals/fastpath.md §5)",
+                )
+    return _FastDecision(True, "", topo, ram_slots, lc_ring, relax_rho)
+
+
 
 def compile_payload(
     payload: SimulationPayload,
@@ -860,6 +1255,23 @@ def compile_payload(
         ],
         dtype=np.int32,
     )
+    # ---- the fast path's visit view and stochastic lowering ----
+    bursts = [[_burst_decomposition(segs) for segs, *_ in per] for per in compiled]
+    max_bursts = max((len(dur) for per in bursts for dur, _, _ in per), default=0)
+    kb = max(max_bursts, 1)
+    n_bursts = np.zeros((n_servers, max_endpoints), dtype=np.int32)
+    burst_dur = np.zeros((n_servers, max_endpoints, kb), dtype=np.float32)
+    burst_pre_io = np.zeros((n_servers, max_endpoints, kb), dtype=np.float32)
+    endpoint_post_io = np.zeros((n_servers, max_endpoints), dtype=np.float32)
+    for s, per in enumerate(bursts):
+        for e, (dur_list, pre_list, post) in enumerate(per):
+            n_bursts[s, e] = len(dur_list)
+            burst_dur[s, e, : len(dur_list)] = dur_list
+            burst_pre_io[s, e, : len(pre_list)] = pre_list
+            endpoint_post_io[s, e] = post
+    fp_lowered = [
+        [_fastpath_lowering(segs, cache) for segs, _, cache, _ in per] for per in compiled
+    ]
 
     server_cores = np.array(
         [server.server_resources.cpu_cores for server in servers], dtype=np.int32,
@@ -906,6 +1318,24 @@ def compile_payload(
     )
     # one iteration per timeline entry
     max_iterations = max_requests * events_per_request + len(tl_times) + 1024
+
+    horizon = float(payload.sim_settings.total_simulation_time)
+    sample_period = float(payload.sim_settings.sample_period_s)
+    fast = _fastpath_analysis(
+        payload,
+        compiled,
+        fp_lowered,
+        ctl,
+        server_db_pool,
+        exit_kind,
+        exit_target,
+        lb_algo,
+        len(tl_times),
+        lb_edge_means=[float(edge_mean[e]) for e in lb_slots],
+        max_spike=float(spike_values.max()) if spike_values.size else 0.0,
+        breaker_threshold=breaker[0],
+        gen_targets=[(int(k), int(t)) for _, k, t in gen_chains],
+    )
 
     def user_var(gen) -> float:
         users = gen.avg_active_users
@@ -970,7 +1400,7 @@ def compile_payload(
         gen_entry_len=np.array([len(c) for c, _, _ in gen_chains], np.int32),
         gen_entry_target_kind=np.array([k for _, k, _ in gen_chains], np.int32),
         gen_entry_target=np.array([t for _, _, t in gen_chains], np.int32),
-        horizon=float(payload.sim_settings.total_simulation_time),
+        horizon=horizon,
         pool_size=pool_size or pool_estimate,
         max_iterations=max_iterations,
         server_queue_cap=ctl.queue_cap,
@@ -983,6 +1413,20 @@ def compile_payload(
         breaker_probes=breaker[2],
         breaker_lowered=breaker[3],
         proof_rate_headroom=ctl.proof_rate_headroom,
+        max_bursts=max_bursts,
+        n_bursts=n_bursts,
+        burst_dur=burst_dur,
+        burst_pre_io=burst_pre_io,
+        endpoint_post_io=endpoint_post_io,
+        sample_period=sample_period,
+        n_samples=max(0, math.ceil(round(horizon / sample_period, 9)) - 1),
+        max_requests=max_requests,
+        fastpath_ok=fast.ok,
+        fastpath_reason=fast.reason,
+        server_topo_order=fast.topo,
+        ram_slots=fast.ram_slots,
+        lc_ring=fast.lc_ring,
+        relax_rho=fast.relax_rho,
     )
 
 
@@ -1033,6 +1477,10 @@ def plan_from_arrays(fields: Mapping[str, object]) -> StaticPlan:
         value = fields[name]
         if spec.type == "np.ndarray":
             kw[name] = np.array(value, copy=True)
+        elif spec.type == "list[int]":
+            kw[name] = [int(x) for x in value]
+        elif spec.type == "str":
+            kw[name] = str(value)
         elif spec.type == "int":
             kw[name] = int(value)
         elif spec.type == "bool":

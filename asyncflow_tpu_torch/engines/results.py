@@ -36,14 +36,19 @@ class SweepResults:
     total_generated: np.ndarray
     total_dropped: np.ndarray
     overflow_dropped: np.ndarray
-    #: (S,) bool: the iteration cap fired with work pending
-    truncated: np.ndarray
     #: (S,) requests rejected: refused by a rate limit or connection cap, shed
     #: from a full ready queue, abandoned past a dequeue deadline, or refused
     #: by an LB whose breakers all stay open
     total_rejected: np.ndarray
-    #: (S,) events each scenario simulated
-    events: np.ndarray
+    #: (S,) bool: the DES kernel's iteration cap fired with work pending
+    #: (None on the fast path, which has no cap)
+    truncated: np.ndarray | None = None
+    #: (S,) events each scenario simulated (DES kernel only; None on the
+    #: fast path)
+    events: np.ndarray | None = None
+    #: (S, n_gauges) exact per-scenario time-averages of every gauge (fast
+    #: path only; None otherwise).  Layout: [edges | ready | io | ram]
+    gauge_means: np.ndarray | None = None
     #: (S,) LLM cost units of the completed requests, and their squares
     #: (for confidence intervals); None when the plan has no LLM segment
     llm_cost_sum: np.ndarray | None = None
@@ -68,14 +73,19 @@ def concat_results(parts: list[SweepResults]) -> SweepResults:
     )
 
 
+def _optional(state, name: str, dtype=None) -> np.ndarray | None:
+    value = getattr(state, name, None)
+    return None if value is None else np.asarray(value, dtype)
+
+
 def sweep_results(state, settings=None, *, has_llm: bool = False) -> SweepResults:
-    """Host-side :class:`SweepResults` of a batched kernel state; the LLM
-    cost moments are kept where the plan has LLM segments."""
+    """Host-side :class:`SweepResults` of a batched DES-kernel or fast-path
+    state; the LLM cost moments are kept where the plan has LLM segments."""
     return SweepResults(
         settings=settings,
         completed=np.asarray(state.lat_count),
         latency_hist=np.asarray(state.hist),
-        hist_edges=hist_edges(),
+        hist_edges=hist_edges(np.asarray(state.hist).shape[-1]),
         latency_sum=np.asarray(state.lat_sum),
         latency_sumsq=np.asarray(state.lat_sumsq),
         latency_min=np.asarray(state.lat_min),
@@ -84,9 +94,10 @@ def sweep_results(state, settings=None, *, has_llm: bool = False) -> SweepResult
         total_generated=np.asarray(state.n_generated),
         total_dropped=np.asarray(state.n_dropped),
         overflow_dropped=np.asarray(state.n_overflow),
-        truncated=np.asarray(state.truncated).astype(bool),
+        truncated=_optional(state, "truncated", bool),
         total_rejected=np.asarray(state.n_rejected),
-        events=np.asarray(state.n_events),
+        events=_optional(state, "n_events"),
+        gauge_means=_optional(state, "gauge_means"),
         llm_cost_sum=np.asarray(state.llm_sum) if has_llm else None,
         llm_cost_sumsq=np.asarray(state.llm_sumsq) if has_llm else None,
     )

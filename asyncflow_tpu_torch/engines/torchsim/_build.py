@@ -21,10 +21,13 @@ from asyncflow_tpu_torch.errors import KernelBuildError
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 #: library name -> (source, extra nvcc flags): the DES kernel is built twice,
-#: without and with its workload group of instances
+#: without and with its workload group of instances; the fast path's two
+#: kernels once each
 SOURCES = {
     "des_kernel": (CSRC / "des_kernel.cu", ("-DDES_WORKLOAD=0",)),
     "des_kernel_workload": (CSRC / "des_kernel.cu", ("-DDES_WORKLOAD=1",)),
+    "edge_draws": (CSRC / "edge_draws.cu", ()),
+    "station_scan": (CSRC / "station_scan.cu", ()),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

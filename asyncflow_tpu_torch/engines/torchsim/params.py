@@ -68,6 +68,6 @@ def overrides_from_arrays(fields: Mapping[str, object]) -> ScenarioOverrides:
     )
 
 
-def hist_edges() -> np.ndarray:
+def hist_edges(n_bins: int = N_HIST_BINS) -> np.ndarray:
     """Log-spaced latency histogram bin edges (seconds), as in the reference."""
-    return np.logspace(-4, 3, N_HIST_BINS + 1)
+    return np.logspace(-4, 3, n_bins + 1)

@@ -16,10 +16,10 @@ HIST_HI_S = 1e3
 N_HIST_BINS = 1024
 
 
-def hist_constants() -> tuple[float, float]:
-    """(log-lo, bins-per-log) of the shared latency histogram."""
+def hist_constants(n_bins: int = N_HIST_BINS) -> tuple[float, float]:
+    """(log-lo, bins-per-log) of a latency histogram of ``n_bins`` bins."""
     lo = float(np.log(HIST_LO_S))
-    scale = float(N_HIST_BINS / (np.log(HIST_HI_S) - np.log(HIST_LO_S)))
+    scale = float(n_bins / (np.log(HIST_HI_S) - np.log(HIST_LO_S)))
     return lo, scale
 
 

@@ -22,6 +22,17 @@ class UnsupportedFeatureError(PayloadError):
         )
 
 
+class FastPathIneligibleError(PayloadError):
+    """The plan is outside the scan fast path's model, by the compiler's own
+    analysis (``plan.fastpath_reason`` says why); the DES kernel runs it."""
+
+
+class FastPathOverrideError(ValueError):
+    """Sweep overrides move the workload outside what the fast path's
+    compile-time proofs cover (a non-binding RAM tier, the multi-burst
+    relaxation envelope, a breaker lowered away at zero LB dropout)."""
+
+
 class ProofHeadroomError(ValueError):
     """Sweep overrides scale the workload past ``plan.proof_rate_headroom``:
     an overload control that the compiler proved unreachable at the base

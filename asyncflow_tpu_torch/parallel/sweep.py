@@ -2,17 +2,21 @@
 the reference's ``parallel/sweep.py`` (``SweepRunner``, ``SweepReport``).
 
 ``engine="kernel"`` is the counterpart of the reference's ``"pallas"``: the
-DES kernel.  ``engine="auto"`` picks the kernel for every plan inside this
-slice; the reference's fast path and event engine are not ported yet, so a
-plan outside the slice raises :class:`UnsupportedFeatureError` instead of
-being routed elsewhere.  Scenario ``i`` always gets key
+DES kernel.  ``engine="fast"`` is the scan fast path (``FastEngine``), which
+refuses by name a plan outside its slice.  ``engine="auto"`` takes the fast
+path, as the reference does, where the compiler proved the plan eligible
+(``plan.fastpath_ok``) and the port's fast engine models it, and the DES
+kernel otherwise; ``engine_kind`` says which.  The reference's event
+engine is not ported yet.  Scenario ``i`` always gets key
 ``fold_in(PRNGKey(seed), i)``, so any chunking gives the same results.
 
 Overrides that raise the workload rate past ``plan.proof_rate_headroom``
 are refused with :class:`ProofHeadroomError` (the reference's
 ``_guard_db_headroom``): the compiler lowered away an overload control
 that it proved unreachable at the base rate, and the proof does not cover
-the overridden one.
+the overridden one.  On the fast path, overrides that leave its own
+compile-time proofs are refused with :class:`FastPathOverrideError` (the
+reference's ``_guard_overrides_against_plan``).
 """
 
 from __future__ import annotations
@@ -25,17 +29,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from asyncflow_tpu_torch.compiler.plan import StaticPlan, compile_payload
+from asyncflow_tpu_torch.compiler.plan import RELAX_RHO_MAX, StaticPlan, compile_payload
 from asyncflow_tpu_torch.engines.results import (
     SweepResults,
     concat_results,
     hist_percentile,
     sweep_results,
 )
+from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine, fast_refusal
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.engines.torchsim.params import ScenarioOverrides, base_overrides
-from asyncflow_tpu_torch.errors import ProofHeadroomError
+from asyncflow_tpu_torch.errors import FastPathOverrideError, ProofHeadroomError
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload
 
 
@@ -71,7 +76,7 @@ class SweepReport:
             "dropped_total": int(res.total_dropped.sum()),
             "overflow_total": int(res.overflow_dropped.sum()),
             "rejected_total": int(res.total_rejected.sum()),
-            "truncated_total": int(res.truncated.sum()),
+            "truncated_total": int(res.truncated.sum()) if res.truncated is not None else 0,
             "goodput_fraction": float(completed / max(generated, 1)),
             "latency_mean_s": float(res.latency_sum.sum() / max(completed, 1)),
             "llm_cost_total": (
@@ -155,6 +160,45 @@ def _guard_rate_headroom(plan: StaticPlan, overrides: ScenarioOverrides | None) 
         raise ProofHeadroomError(msg)
 
 
+def _guard_fast_overrides(plan: StaticPlan, overrides: ScenarioOverrides | None) -> None:
+    """Refuse overrides that leave the fast path's compile-time proofs: a
+    rate raise over a proven non-binding RAM tier, a rate that takes a
+    multi-burst server past the relaxation's envelope, or dropout raised on
+    an LB edge whose breaker was lowered away at the base dropout."""
+    if overrides is None:
+        return
+    if plan.breaker_lowered:
+        ov_drop = np.asarray(overrides.edge_dropout)
+        for e in plan.lb_edge_index.tolist():
+            col = ov_drop[..., e] if ov_drop.ndim else ov_drop
+            if float(np.max(col)) > float(plan.edge_dropout[e]) + 1e-12:
+                msg = (
+                    "overrides raise dropout on a load-balancer edge, but the "
+                    "configured circuit breaker was lowered away as trip-proof at the "
+                    "base dropout; use engine='kernel' or set the base dropout to the "
+                    "swept maximum"
+                )
+                raise FastPathOverrideError(msg)
+    tier1 = bool(np.any(plan.ram_slots == -1))
+    if not tier1 and plan.relax_rho == 0.0:
+        return
+    scale = _override_rate_scale(plan, overrides)
+    if plan.relax_rho > 0.0 and plan.relax_rho * scale > RELAX_RHO_MAX:
+        msg = (
+            f"overrides scale the workload to utilization {plan.relax_rho * scale:.2f} "
+            f"on a multi-burst server, outside the relaxation's validity envelope "
+            f"({RELAX_RHO_MAX}); use engine='kernel' for these scenarios"
+        )
+        raise FastPathOverrideError(msg)
+    if tier1 and scale > 1.001:
+        msg = (
+            "overrides raise the workload above the base plan, which invalidates the "
+            "fast path's RAM non-binding proof; use engine='kernel' or raise the base "
+            "workload"
+        )
+        raise FastPathOverrideError(msg)
+
+
 class SweepRunner:
     """Chunked Monte-Carlo sweep over one scenario family on one device."""
 
@@ -165,17 +209,20 @@ class SweepRunner:
         engine: str = "auto",
         device: torch.device | str | None = None,
     ) -> None:
-        if engine not in ("auto", "kernel"):
-            msg = f"engine must be 'auto' or 'kernel', got {engine!r}"
+        if engine not in ("auto", "fast", "kernel"):
+            msg = f"engine must be 'auto', 'fast' or 'kernel', got {engine!r}"
             raise ValueError(msg)
         if isinstance(payload, Mapping):
             payload = SimulationPayload.from_dict(payload)
         self.payload = payload
         self.plan = compile_payload(payload)
-        # both choices land on the kernel: it is the only ported engine, and
-        # KernelEngine refuses what it does not model before any launch
-        self.engine = KernelEngine(self.plan, device=device)
-        self.engine_kind = "kernel"
+        # each engine refuses what it does not model before any launch
+        if engine == "fast" or (engine == "auto" and fast_refusal(self.plan) is None):
+            self.engine = FastEngine(self.plan, device=device)
+            self.engine_kind = "fast"
+        else:
+            self.engine = KernelEngine(self.plan, device=device)
+            self.engine_kind = "kernel"
 
     @property
     def device(self) -> torch.device:
@@ -197,6 +244,8 @@ class SweepRunner:
             msg = "n_scenarios must be at least 1"
             raise ValueError(msg)
         _guard_rate_headroom(self.plan, overrides)
+        if self.engine_kind == "fast":
+            _guard_fast_overrides(self.plan, overrides)
         chunk = chunk_size or n_scenarios
         parts = []
         t0 = time.perf_counter()

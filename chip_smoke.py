@@ -29,15 +29,34 @@ no result line):
    pool of 2048 (too large for shared memory: the global placement).  Both
    placements must be checked.  Every integer output (``work``
    included) and every float moment must be bit-exact;
-3. the six paths: ``SweepRunner(payload).run(2048, seed=0)`` at the
-   payload's full horizon, through the kernel (its launch count, set to 0
-   before each path, must move), with no truncation and no overflow,
+3. the six paths: ``SweepRunner(payload, engine="kernel").run(2048,
+   seed=0)`` at the payload's full horizon, through the DES kernel (its
+   launch count, set to 0 before each path, must move), with no truncation
+   and no overflow,
    request conservation per scenario, the pooled p95 within 2% of the JAX
    reference kernel's, for resilience_all the rejected fraction within
    0.02 of it, for llm_cost the mean LLM cost per completed request within
    2% of it, and every path's event count as the earlier slices measured
    it (no draw may move); each path's kernel time is printed beside the
-   one-thread-a-scenario kernel's.
+   one-thread-a-scenario kernel's;
+4. the scan fast path's two kernels (``edge_draws``, ``station_scan``)
+   against their plain PyTorch versions on the card, on two_servers_lb
+   and single_server cut to 60 s at 64 scenarios: every kernel call of
+   the engine's run repeated through the plain version, bit-exact, and
+   the whole engine through each, with identical integer outputs and
+   per-request clocks;
+5. the two fast paths: ``SweepRunner(payload).run(2048, seed=0)`` through
+   ``engine="auto"``, which must take the fast path and launch both
+   kernels (counts set to 0 before the run), on two_servers_lb (600 s)
+   and single_server (500 s, a binding RAM of 20 slots): request
+   conservation, the pooled p95 within 2% of the JAX fast path's and of
+   the DES kernel's on the same payload; then the first call of each
+   kind (uniform, static hop, LB hop, wait scan, RAM-core scan) of the
+   path's own run at full width, repeated through the kernel and through
+   its plain version on the same arguments, bit-exact; each kernel's
+   timed call between CUDA events beside its bound, its plain version's
+   time and the library's (the closed form ``cumsum`` / ``cummax`` for
+   the one-core scan), and the stable rank's time.
 
 It prints a JSON line of per-kernel measurements, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and
@@ -301,6 +320,13 @@ PAYLOADS = {
     "two_gen_lb": TWO_GEN_LB,
 }
 
+#: the scan fast path's two full-width paths: the headline, and
+#: examples/yaml_input/data/single_server.yml (a binding RAM of 20 slots)
+FAST_PAYLOADS = {
+    "two_servers_lb": TWO_SERVERS_LB,
+    "single_server": SINGLE_SERVER,
+}
+
 MAIN_SCENARIOS = 2048
 #: a pool too large for shared memory (des_kernel.cu, layout_of)
 POOL_GLOBAL = 2048
@@ -338,6 +364,18 @@ REFERENCE = {
     },
     "two_gen_lb": {"p95_s": 0.03485854068297543},
 }
+#: the JAX scan fast path on each fast payload at its full horizon: pooled
+#: p95 (seconds) of FastEngine on scenarios 0..31 of seed 0, on the CPU
+#: (``python tests/test_torch_sweep.py --reference-p95 PAYLOAD --engine
+#: fast``; seed 1 gave 0.033682255 s and 0.119988049 s)
+REFERENCE_FAST = {
+    "two_servers_lb": {"p95_s": 0.03368371799103881},
+    "single_server": {"p95_s": 0.12000647249175632},
+}
+#: horizon of the fast kernels' check against their plain versions, and
+#: its scenarios
+FAST_CHECK_HORIZON = 60
+FAST_CHECK_SCENARIOS = 64
 P95_RTOL = 0.02
 REJECTED_ATOL = 0.02
 LLM_COST_RTOL = 0.02
@@ -504,6 +542,10 @@ def phase_setup(torch) -> None:
     for name, report in _build.ptxas_report.items():
         for instance, res in ptxas_instances(report).items():
             print(f"  ptxas[{name}] {instance}: {res}")
+        if name in ("edge_draws", "station_scan"):
+            res = " ".join(line.split(":", 2)[-1].strip() for line in report.splitlines()
+                           if "spill" in line or "registers" in line)
+            print(f"  ptxas[{name}]: {res}")
     for name, plan in _path_plans().items():
         print(f"  {name}: {_layout_text(kernel_layout(plan))}")
 
@@ -956,7 +998,7 @@ def phase_path(torch, name: str) -> dict:
     from asyncflow_tpu_torch.parallel import SweepRunner
 
     ref = REFERENCE[name]
-    runner = SweepRunner(PAYLOADS[name], device="cuda")
+    runner = SweepRunner(PAYLOADS[name], engine="kernel", device="cuda")
     kernel = runner.engine.kernel
     kernel.launches = 0
     report = runner.run(MAIN_SCENARIOS, seed=0)
@@ -1053,6 +1095,341 @@ def phase_path(torch, name: str) -> dict:
     }
 
 
+# (int32, fp32) operations a lane of the fast path's kernels: a jax-style
+# threefry block (THREEFRY_OPS' 20 rounds and key injections, the XOR of
+# the two words, the mantissa shift and or; the subtract of 1.0); the hop's
+# dropout test and rescale (compare, two subtracts, the max, the divide);
+# each delay law (exponential: 1 - u, the max, the log, the multiply;
+# normal and lognormal: a second block for z, erfinv's log1p, square root
+# and 9-term polynomial, the affine map and the max or exp)
+UNIFORM_LANE_OPS = (86, 1)
+HOP_LANE_OPS = (0, 5)
+LAW_LANE_OPS = {0: (0, 0), 2: (0, 4), 3: (86, 26), 4: (86, 26)}
+#: station_scan, an element: Lindley's two selects, add, max, two
+#: subtracts and max; a Kiefer-Wolfowitz or RAM-slot step adds a compare a
+#: carry entry it moves past (not counted: the data decides)
+SCAN_ELEMENT_OPS = {"waits": (3, 5), "ram_core": (4, 8)}
+
+
+def _draws_bound(args: tuple, kw: dict, n: int) -> dict:
+    """The least time of one edge_draws hop launch: bytes (the per-lane
+    inputs read once, dropped and delay written once) against operations
+    (a uniform block and the hop a lane, plus each lane's law)."""
+    keys, _zkey, dist, mean, *_ = args
+    s = mean.shape[0]
+    lanes = s * n
+    moved = lanes * (1 + 4)
+    for name in ("u", "eidx"):
+        if kw.get(name) is not None:
+            moved += kw[name].numel() * kw[name].element_size()
+    if kw.get("eidx") is not None:
+        import torch
+
+        per_law = torch.bincount(torch.as_tensor(dist, device=kw["eidx"].device)[
+            kw["eidx"].long()].reshape(-1), minlength=5).tolist()
+    else:
+        per_law = [0] * 5
+        per_law[int(dist[kw["edge"]])] = lanes
+    int_ops = lanes * (UNIFORM_LANE_OPS[0] if kw.get("u") is None else 0)
+    fp_ops = lanes * (HOP_LANE_OPS[1] + (UNIFORM_LANE_OPS[1] if kw.get("u") is None else 0))
+    for law, count in enumerate(per_law):
+        if count:
+            int_ops += count * LAW_LANE_OPS[law][0]
+            fp_ops += count * LAW_LANE_OPS[law][1]
+    return _bound_of(moved, int_ops, fp_ops)
+
+
+def _scan_bound(kind: str, args: tuple) -> dict:
+    """The least time of one station_scan launch: each input read once and
+    each output written once, against its element operations."""
+    tensors = [x for x in args if hasattr(x, "numel")]
+    elems = tensors[0].numel()
+    outputs = 1 if kind == "waits" else 3
+    moved = sum(x.numel() * x.element_size() for x in tensors) + outputs * 4 * elems
+    ops = SCAN_ELEMENT_OPS[kind]
+    return _bound_of(moved, elems * ops[0], elems * ops[1])
+
+
+def _bound_of(moved: int, int_ops: int, fp_ops: int) -> dict:
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / PEAK_INT32_OPS_PER_S, fp_ops / PEAK_FP32_OPS_PER_S) * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_ms": t_bytes,
+        "operations_ms": t_ops,
+    }
+
+
+#: the kinds of fast-kernel call: (wrapper name, wrapper method)
+CALL_KINDS = {
+    "uniform": ("edge_draws", "uniform"),
+    "hop": ("edge_draws", "hop"),
+    "hop_lb": ("edge_draws", "hop"),
+    "waits": ("station_scan", "waits"),
+    "ram_core": ("station_scan", "ram_core"),
+}
+
+
+def _record_kernel_calls(eng, every: bool) -> list:
+    """Put recorders in place of the fast engine's two kernel wrappers; each
+    passes the call on and keeps ``(kind, args, kwargs)`` of every call
+    (``every``) or of the first call of each kind (the LB hop, a static
+    hop, a uniform, a wait scan, a RAM-core scan)."""
+    calls: list = []
+    draws, scan = eng.draws, eng.scan
+
+    def keep(kind: str, args: tuple, kw: dict) -> None:
+        if every or all(k != kind for k, _, _ in calls):
+            calls.append((kind, args, kw))
+
+    class Draws:
+        def uniform(self, keys, n):
+            keep("uniform", (keys, n), {})
+            return draws.uniform(keys, n)
+
+        def hop(self, *args, **kw):
+            keep("hop_lb" if kw.get("eidx") is not None else "hop", args, kw)
+            return draws.hop(*args, **kw)
+
+    class Scan:
+        def waits(self, *args):
+            keep("waits", args, {})
+            return scan.waits(*args)
+
+        def ram_core(self, *args):
+            keep("ram_core", args, {})
+            return scan.ram_core(*args)
+
+    eng.draws, eng.scan = Draws(), Scan()
+    return calls
+
+
+def _call(wrapper, kind: str, args: tuple, kw: dict):
+    """One recorded call through ``wrapper`` (a kernel or a plain version),
+    its outputs as a tuple."""
+    out = getattr(wrapper, CALL_KINDS[kind][1])(*args, **kw)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _compare(torch, label: str, got: tuple, want: tuple) -> float:
+    """The largest absolute difference between a kernel's outputs and its
+    plain version's; raises unless every output is bit-identical."""
+    err = 0.0
+    for x, y in zip(got, want, strict=True):
+        err = max(err, (x.float() - y.float()).abs().max().item())
+        if not torch.equal(x, y):
+            raise SmokeError(f"{label}: the kernel differs from its plain version by {err}")
+    return err
+
+
+def _fast_engine(torch, data: dict, horizon: float | None = None, **kw):
+    from asyncflow_tpu_torch.compiler import compile_payload
+    from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine
+    from asyncflow_tpu_torch.schemas import SimulationPayload
+
+    data = copy.deepcopy(data)
+    if horizon is not None:
+        data["sim_settings"]["total_simulation_time"] = horizon
+    return FastEngine(compile_payload(SimulationPayload.from_dict(data)), device="cuda", **kw)
+
+
+def phase_fast_check(torch) -> dict:
+    """Phase 4: the fast path's kernels against their plain versions on the
+    card, on each fast payload cut to FAST_CHECK_HORIZON seconds at
+    FAST_CHECK_SCENARIOS scenarios: every kernel call of the engine's run
+    (all are recorded) repeated through the kernel and through the plain
+    version on the same arguments, bit-exact;
+    then the whole engine once through the kernels and once through the
+    plain versions: every integer output and every completed request's
+    (arrival, finish) clock identical."""
+    from asyncflow_tpu_torch.engines.torchsim import draws, station_scan
+    from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+
+    plain_draws, plain_scan = draws.PlainEdgeDraws(), station_scan.PlainStationScan()
+    measured = {"edge_draws": 0.0, "station_scan": 0.0}
+    for name, data in FAST_PAYLOADS.items():
+        eng = _fast_engine(torch, data, FAST_CHECK_HORIZON, collect_clocks=True)
+        keys = scenario_keys(0, FAST_CHECK_SCENARIOS, device="cuda")
+        kernel_draws, kernel_scan = eng.draws, eng.scan
+        calls = _record_kernel_calls(eng, every=True)
+        got = eng.run_tensors(keys)
+        eng.draws, eng.scan = kernel_draws, kernel_scan
+        if kernel_draws.launches == 0 or kernel_scan.launches == 0:
+            raise SmokeError(f"fast check {name}: a kernel was not launched")
+        pairs = {"edge_draws": (kernel_draws, plain_draws),
+                 "station_scan": (kernel_scan, plain_scan)}
+        for i, (kind, args, kw) in enumerate(calls):
+            kernel = CALL_KINDS[kind][0]
+            wrapper, plain = pairs[kernel]
+            err = _compare(torch, f"fast check {name}: call {i} ({kind})",
+                           _call(wrapper, kind, args, kw), _call(plain, kind, args, kw))
+            measured[kernel] = max(measured[kernel], err)
+        want_eng = copy.copy(eng)
+        want_eng.draws, want_eng.scan = plain_draws, plain_scan
+        want = want_eng.run_tensors(keys)
+        for field in ("hist", "thr", "lat_count", "n_generated", "n_dropped", "n_overflow",
+                      "clock"):
+            if not torch.equal(got[field], want[field]):
+                raise SmokeError(f"fast check {name}: {field} differs between the runs")
+        err = (got["gauge_means"] - want["gauge_means"]).abs().max().item()
+        print(
+            f"fast kernels == plain on {name} ({FAST_CHECK_SCENARIOS} x "
+            f"{FAST_CHECK_HORIZON} s, {eng.n} lanes): {len(calls)} calls of kinds "
+            f"{sorted({kind for kind, _, _ in calls})}; completed "
+            f"{int(got['lat_count'].sum())}, generated {int(got['n_generated'].sum())}, "
+            f"clocks identical; gauge means differ by {err}",
+            flush=True,
+        )
+    return measured
+
+
+def _time_plain(torch, fn) -> tuple:
+    """Milliseconds of one ``fn()`` on the host's clock (a plain version is
+    thousands of launches), and what it returned."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _lindley_closed_form(torch, a, d, v):
+    """The c = 1 waits as library calls: completions are the running
+    maximum of (arrival + service - cumulative service), plus it."""
+    svc = torch.where(v, d, 0.0)
+    arr = torch.where(v, a, 0.0)
+    b = torch.where(v, arr + svc, -1e30)
+    cum = torch.cumsum(svc, dim=1)
+    c = cum + torch.cummax(b - cum, dim=1).values
+    return torch.clamp_min(c - svc - arr, 0.0)
+
+
+def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
+    """Phase 5, one path: ``SweepRunner(payload).run(2048, seed=0)`` at the
+    payload's full horizon through ``engine="auto"``, which must take the
+    fast path and launch both of its kernels; request conservation; the
+    pooled p95 within 2% of the JAX fast path's and of the port's DES
+    kernel's on the same payload (``des_p95``, or a kernel sweep here);
+    then the first call of each kind of the path's own run, at full width,
+    through the kernel and through its plain version on the same
+    arguments, bit-exact; each kernel's timed call (the LB hop or else a
+    static hop; the RAM-core scan or else a wait scan) between CUDA
+    events, beside its bound, its plain version's time and the library's;
+    and the stable rank's time."""
+    import numpy as np
+
+    from asyncflow_tpu_torch.engines.torchsim import draws, station_scan
+    from asyncflow_tpu_torch.engines.torchsim.keys import fold_in, scenario_keys
+    from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
+    from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank
+    from asyncflow_tpu_torch.parallel import SweepRunner
+
+    data = FAST_PAYLOADS[name]
+    runner = SweepRunner(data, device="cuda")
+    if runner.engine_kind != "fast":
+        raise SmokeError(f"fast {name}: auto took the {runner.engine_kind} engine")
+    eng = runner.engine
+    runner.run(MAIN_SCENARIOS, seed=0)  # warm the allocator and the libraries
+    eng.draws.launches = 0
+    eng.scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    report = runner.run(MAIN_SCENARIOS, seed=0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"edge_draws": eng.draws.launches, "station_scan": eng.scan.launches}
+    if min(launches.values()) < 1:
+        raise SmokeError(f"fast {name}: the sweep launched {launches}")
+    summary = report.summary()
+    res = report.results
+    in_flight = (res.total_generated - res.completed - res.total_dropped
+                 - res.overflow_dropped - res.total_rejected)
+    if np.any(in_flight < 0) or summary["overflow_total"] != 0:
+        msg = (f"fast {name}: in flight [{in_flight.min()}, {in_flight.max()}], "
+               f"overflow {summary['overflow_total']}")
+        raise SmokeError(msg)
+    for key in ("latency_p50_s", "latency_p95_s", "latency_p99_s", "latency_mean_s"):
+        if not np.isfinite(summary[key]):
+            raise SmokeError(f"fast {name}: {key} is not finite")
+    p95 = summary["latency_p95_s"]
+    des_scen_per_s = None
+    if des_p95 is None:
+        des = SweepRunner(data, engine="kernel", device="cuda").run(MAIN_SCENARIOS, seed=0)
+        des_p95 = des.summary()["latency_p95_s"]
+        des_scen_per_s = des.scenarios_per_second
+    ref = REFERENCE_FAST[name]["p95_s"]
+    rel_ref, rel_des = p95 / ref - 1.0, p95 / des_p95 - 1.0
+    if abs(rel_ref) > P95_RTOL or abs(rel_des) > P95_RTOL:
+        msg = (f"fast {name}: pooled p95 {p95:.6f} s is {rel_ref:+.2%} from the JAX fast "
+               f"path's {ref} and {rel_des:+.2%} from the DES kernel's {des_p95:.6f}")
+        raise SmokeError(msg)
+
+    # each kind of call of this path's own run, at full width: the kernel
+    # against its plain version, and the timed ones between CUDA events
+    keys = scenario_keys(0, MAIN_SCENARIOS, device="cuda")
+    wrappers = {"edge_draws": eng.draws, "station_scan": eng.scan}
+    plains = {"edge_draws": draws.PlainEdgeDraws(),
+              "station_scan": station_scan.PlainStationScan()}
+    calls = _record_kernel_calls(eng, every=False)
+    eng.run_tensors(keys)
+    eng.draws, eng.scan = wrappers["edge_draws"], wrappers["station_scan"]
+    kinds = {kind for kind, _, _ in calls}
+    timed_kind = {"edge_draws": "hop_lb" if "hop_lb" in kinds else "hop",
+                  "station_scan": "ram_core" if "ram_core" in kinds else "waits"}
+    max_err = {"edge_draws": 0.0, "station_scan": 0.0}
+    timed = {}
+    for kind, args, kw in calls:
+        kernel = CALL_KINDS[kind][0]
+        plain_ms, want = _time_plain(torch, lambda: _call(plains[kernel], kind, args, kw))
+        got = _call(wrappers[kernel], kind, args, kw)
+        err = _compare(torch, f"fast {name}: {kind} at full width", got, want)
+        max_err[kernel] = max(max_err[kernel], err)
+        del got, want
+        if kind != timed_kind[kernel]:
+            continue
+        ms = time_kernel(torch, lambda: _call(wrappers[kernel], kind, args, kw), repeats=5)
+        library_ms = None
+        if kind == "waits" and args[3] == 1:
+            library_ms = time_kernel(torch, lambda: _lindley_closed_form(torch, *args[:3]),
+                                     repeats=3)
+        bound = _draws_bound(args, kw, eng.n) if kernel == "edge_draws" else _scan_bound(
+            kind, args)
+        timed[kernel] = {"call": kind, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, **bound}
+    ov = eng._overrides(base_overrides(eng.plan), MAIN_SCENARIOS)
+    _lam, counts = eng.window_draws(keys, ov["um"], ov["rr"])
+    t, valid, _ = eng._arrivals(fold_in(keys, 0), counts)
+    rank_ms = time_kernel(torch, lambda: time_rank(t, valid), repeats=3)
+    print(
+        f"fast path {name}: {MAIN_SCENARIOS} scenarios x {eng.plan.horizon:.0f} s, "
+        f"{eng.n} lanes, launches {launches}, {report.wall_seconds:.3f} s wall, "
+        f"{summary['scenarios_per_second']:.1f} scen/s"
+        + ("" if des_scen_per_s is None else f" (DES kernel sweep {des_scen_per_s:.1f} scen/s)")
+        + f", peak device memory {peak_gb:.2f} GB; p50 "
+        f"{summary['latency_p50_s'] * 1e3:.3f} ms, p95 {p95 * 1e3:.4f} ms ({rel_ref:+.3%} vs "
+        f"the JAX fast path {ref * 1e3:.4f} ms, {rel_des:+.3%} vs the DES kernel "
+        f"{des_p95 * 1e3:.4f} ms), p99 {summary['latency_p99_s'] * 1e3:.3f} ms; completed "
+        f"{summary['completed_total']}, dropped {summary['dropped_total']}",
+        flush=True,
+    )
+    for kernel, m in timed.items():
+        lib = "null" if m["library_ms"] is None else f"{m['library_ms']:.3f} ms"
+        print(f"  {kernel} ({m['call']}): {m['ms']:.3f} ms, plain {m['plain_ms']:.1f} ms, "
+              f"library {lib}, {_bound_text(m)}", flush=True)
+    print(f"  stable row rank (torch.sort) of the arrivals: {rank_ms:.3f} ms; calls "
+          f"{sorted(kinds)} at full width bit-exact with their plain versions", flush=True)
+    return {
+        "launches": launches,
+        "wall_s": report.wall_seconds,
+        "scen_per_s": summary["scenarios_per_second"],
+        "p95_s": p95,
+        "des_p95_s": des_p95,
+        "peak_gb": peak_gb,
+        "rank_ms": rank_ms,
+        "timed": timed,
+        "max_abs_err": max_err,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1074,13 +1451,22 @@ def main() -> int:
         t2 = time.perf_counter()
         paths = {name: phase_path(torch, name) for name in PAYLOADS}
         t3 = time.perf_counter()
+        fast_check = phase_fast_check(torch)
+        t4 = time.perf_counter()
+        fast = {
+            name: phase_fast_path(torch, name, paths[name]["p95_s"] if name in paths else None)
+            for name in FAST_PAYLOADS
+        }
+        t5 = time.perf_counter()
     except (SmokeError, subprocess.CalledProcessError) as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
     from asyncflow_tpu_torch.engines.torchsim.des_kernel import DesKernel
+    from asyncflow_tpu_torch.engines.torchsim.draws import EdgeDraws
+    from asyncflow_tpu_torch.engines.torchsim.station_scan import StationScan
 
     print(f"phase seconds: setup {t1 - t0:.1f}, kernel vs twin {t2 - t1:.1f}, "
-          f"paths {t3 - t2:.1f}")
+          f"paths {t3 - t2:.1f}, fast kernels vs plain {t4 - t3:.1f}, fast paths {t5 - t4:.1f}")
     headline = check["two_servers_lb"]
     kernels = [
         {
@@ -1111,6 +1497,29 @@ def main() -> int:
             },
         },
     ]
+    headline_fast = fast["two_servers_lb"]["timed"]
+    for wrapper in (EdgeDraws, StationScan):
+        m = headline_fast[wrapper.name]
+        kernels.append({
+            "name": wrapper.name,
+            "route": wrapper.route,
+            "source": wrapper.source,
+            "replaces": wrapper.replaces,
+            "launches": sum(f["launches"][wrapper.name] for f in fast.values()),
+            "max_abs_err": max(fast_check[wrapper.name],
+                               *(f["max_abs_err"][wrapper.name] for f in fast.values())),
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+            "paths": {
+                name: {"launches": f["launches"][wrapper.name],
+                       **{k: f["timed"][wrapper.name][k] for k in (
+                           "call", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                for name, f in fast.items()
+            },
+        })
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(

@@ -281,7 +281,7 @@ def test_workload_kernel_matches_twin_on_cuda(cuda_device, name) -> None:
 
 @pytest.mark.cuda
 def test_sweep_defaults_to_cuda_and_launches_the_kernel(cuda_device) -> None:
-    runner = SweepRunner(_payload(lb="round_robin"))
+    runner = SweepRunner(_payload(lb="round_robin"), engine="kernel")
     assert runner.device.type == "cuda"
     report = runner.run(96, seed=1, chunk_size=64)
     assert runner.engine.kernel.launches == 2

@@ -3,12 +3,14 @@ import hygiene.
 
 Run as a script from the repository root (``PYTHONPATH=. python
 tests/test_torch_sweep.py --reference-p95 [PAYLOAD] [--seed N]
-[--scenarios N]``) it measures the pooled percentiles, the rejected
-fraction and the mean LLM cost per completed request of the JAX reference
-kernel on one of ``chip_smoke.py``'s payloads at its full horizon
-(``PallasEngine(interpret=True)`` on the CPU; 32 scenarios of seed 0 by
-default): the constants ``chip_smoke.py`` holds the port's full-width
-sweeps to.
+[--scenarios N] [--engine kernel|fast]``) it measures the pooled
+percentiles, the rejected fraction and the mean LLM cost per completed
+request of the JAX reference kernel on one of ``chip_smoke.py``'s
+payloads at its full horizon (``PallasEngine(interpret=True)`` on the CPU;
+32 scenarios of seed 0 by default), or with ``--engine fast`` the pooled
+percentiles of the JAX scan fast path (``FastEngine``) on one of
+``chip_smoke.FAST_PAYLOADS``: the constants ``chip_smoke.py`` holds the
+port's full-width sweeps to.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def _payload(horizon: float = 10.0) -> dict:
 
 
 def test_chunked_equals_unchunked() -> None:
-    runner = SweepRunner(_payload(5.0), device="cpu")
+    runner = SweepRunner(_payload(5.0), engine="kernel", device="cpu")
     whole = runner.run(7, seed=3).results
     chunked = runner.run(7, seed=3, chunk_size=3).results
     tail = runner.run(4, seed=3, first_scenario=3).results
@@ -156,7 +158,7 @@ def _lowered_cap_payload() -> dict:
 
 
 def test_rate_headroom_guard() -> None:
-    runner = SweepRunner(_lowered_cap_payload(), device="cpu")
+    runner = SweepRunner(_lowered_cap_payload(), engine="kernel", device="cpu")
     headroom = runner.plan.proof_rate_headroom
     assert 2.0 < headroom < 10.0
     base = base_overrides(runner.plan)
@@ -192,7 +194,7 @@ def test_no_device_and_no_gpu_raises() -> None:
 
 def test_unknown_engine_is_refused() -> None:
     with pytest.raises(ValueError, match="engine"):
-        SweepRunner(_payload(), engine="fast", device="cpu")
+        SweepRunner(_payload(), engine="event", device="cpu")
 
 
 _PROBE = textwrap.dedent(
@@ -231,7 +233,8 @@ def import_probe() -> dict:
 
 
 def test_port_imports_no_jax(import_probe) -> None:
-    assert "asyncflow_tpu_torch.engines.torchsim.des_kernel" in import_probe["modules"]
+    for module in ("des_kernel", "fastpath", "draws", "station_scan", "sortutil"):
+        assert f"asyncflow_tpu_torch.engines.torchsim.{module}" in import_probe["modules"]
     assert len(import_probe["modules"]) >= 20
     assert import_probe["banned"] == []
 
@@ -277,6 +280,37 @@ def _reference_p95(name: str, seed: int, n: int) -> None:
     print(f"truncated {int(state.truncated.sum())} overflow {int(state.n_overflow.sum())}")
 
 
+def _reference_fast_p95(name: str, seed: int, n: int) -> None:
+    """Pooled p50 / p95 / p99 of the JAX scan fast path on a
+    ``chip_smoke.FAST_PAYLOADS`` payload at its full horizon."""
+    import importlib.util
+    import os
+
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+
+    from asyncflow_tpu.compiler import compile_payload
+    from asyncflow_tpu.engines.jaxsim.engine import scenario_keys
+    from asyncflow_tpu.engines.jaxsim.fastpath import FastEngine
+    from asyncflow_tpu.engines.jaxsim.params import hist_edges
+    from asyncflow_tpu.engines.results import hist_percentile
+    from asyncflow_tpu.schemas.payload import SimulationPayload
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    plan = compile_payload(SimulationPayload.model_validate(smoke.FAST_PAYLOADS[name]))
+    state = FastEngine(plan).run_batch(scenario_keys(seed, n))
+    pooled = np.asarray(state.hist).sum(axis=0)
+    print(f"{name}: fast path, seed {seed}, scenarios 0..{n - 1}, lanes {plan.max_requests}")
+    for q in (50, 95, 99):
+        print(f"p{q} {float(hist_percentile(pooled, hist_edges(1024), q))!r}")
+    print(f"completed {int(np.sum(state.lat_count))} generated "
+          f"{int(np.sum(state.n_generated))} overflow {int(np.sum(state.n_overflow))}")
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -285,9 +319,15 @@ if __name__ == "__main__":
     )
     parser.add_argument("--reference-p95", nargs="?", const="two_servers_lb",
                         metavar="PAYLOAD", required=True,
-                        help="a key of chip_smoke.PAYLOADS (default two_servers_lb)")
+                        help="a key of chip_smoke.PAYLOADS, or of chip_smoke.FAST_PAYLOADS "
+                             "with --engine fast (default two_servers_lb)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--scenarios", type=int, default=32)
+    parser.add_argument("--engine", choices=("kernel", "fast"), default="kernel",
+                        help="the JAX Pallas kernel (default) or the JAX scan fast path")
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT))
-    _reference_p95(args.reference_p95, args.seed, args.scenarios)
+    if args.engine == "fast":
+        _reference_fast_p95(args.reference_p95, args.seed, args.scenarios)
+    else:
+        _reference_p95(args.reference_p95, args.seed, args.scenarios)
