@@ -1,51 +1,106 @@
-// The scan fast path's per-lane draws on Hopper (sm_90a).
+// The scan fast path's per-lane draws on Hopper (sm_90a): the fused edge
+// hop, the arrival gaps with the first level of their prefix sum, and
+// plain uniforms.
 //
-// Replaces the XLA draws of the reference's fast path
-// (asyncflow_tpu/engines/jaxsim/fastpath.py): jax.random.uniform /
-// jax.random.normal over (n,) lanes and the fused dropout + delay hop of
-// _edge_hop (:818) and _edge_hop_dyn (:855).  XLA materialises every
-// threefry round of such a draw; here one thread computes one lane of one
-// scenario end to end and writes only the result.
+// Replaces the XLA work of the reference's fast path
+// (asyncflow_tpu/engines/jaxsim/fastpath.py): the edge hop with its lane
+// epilogue (_edge_hop :818, _edge_hop_dyn :855, _add_spike :793 and the
+// gauge and drop sums of _journey), the arrival gaps and their cumsum
+// (_arrivals_stream), and the raw draw_uniform streams.  XLA materialises
+// every threefry round of a draw and every pass of the epilogue; here one
+// thread takes 16 consecutive lanes of one scenario end to end and writes
+// only what the journey reads next.
 //
-// Lane i of a scenario's stream is threefry2x32 of the counter (0, i)
-// under the stream's key, its 32 bits the two output words XORed; the
-// uniform is bitcast((bits >> 9) | 0x3f800000) - 1.  A hop drops the lane
-// where u < p and draws its delay from (u - p) / max(1 - p, TINY); a
-// normal or lognormal law reads z = sqrt(2) erfinv(u') from the z stream,
-// u' uniform on [nextafter(-1, 0), 1), with XLA's float32 erfinv
-// polynomial.  Built with --fmad=false so that every float operation
-// rounds as the plain PyTorch version's does.
+// Lane i of a stream is threefry2x32 of the counter (0, i) under the
+// stream's key, its 32 bits the two output words XORed; the uniform is
+// bitcast((bits >> 9) | 0x3f800000) - 1.  A hop drops the lane where
+// u < p, draws its delay from (u - p) / max(1 - p, TINY) (a normal or
+// lognormal law reads z = sqrt(2) erfinv(u') from the z stream, with XLA's
+// float32 erfinv polynomial), then adds the network spike active at the
+// send time.  A gap is -log1p(-u) with XLA's CPU log1p, so the arrivals
+// take the reference's values; XLA's CPU cumsum is a recursive scan of
+// 16-lane blocks, and this kernel computes its first level (and, fed the
+// block totals, every further level).  Built with --fmad=false: every float
+// operation rounds on its own, as the plain PyTorch version's does; the
+// multiply-adds XLA fuses in its log1p are fmaf here, and float64 steps
+// rounded once in the plain version (equal on every uniform).
+//
+// Modes:
+//   0 uniform: out (S, n) = u, or the gap -log1p(-u) with `gap` (of the
+//      given uniforms x_in (S, n) where given: the check of log1p_xla);
+//   1 hop: in t_send, alive (S, n); gate = alive & t_send < horizon;
+//      out t_next = ok ? t_send + delay : t_send and ok = gate & !dropped
+//      (S, n), with the rank the LB slot rank % K of a gated lane (else
+//      slot 0) and its target server (S, n); per scenario the drop
+//      count (gate & dropped) and each edge slot's gauge span, the sum over
+//      ok lanes of max(min(t_send + delay, h) - min(t_send, h), 0), in
+//      float64 in a fixed order (a thread's lanes, the block's threads, the
+//      row's blocks) and rounded once;
+//   2 gaps: 16-lane block inclusive sums (S, ld_out) and block totals
+//      (S, ld_tot) of the drawn gaps or of x_in.
+//
+// Grid (lane blocks, scenarios), 128 threads a block, 16 lanes a thread:
+// 32-bit lane indices and no division.  Rows whose start is 16-byte
+// aligned move float4 / uint4; others move scalars.
 //
 // Bound: operations.  A lane costs one threefry block (two with a normal
-// law) of about 85 integer operations and a few float ones, against 4-9
-// bytes written: at the card's int32 rate (132 SMs x 64 lanes a clock) a
-// block is ~5x its bytes' time at 3.35 TB/s.  The design keeps every
-// intermediate in registers; lanes of a scenario are consecutive threads,
-// so stores coalesce.
+// law) of about 86 integer operations, against 9 bytes moved by a hop
+// lane (13 on the LB hop): at the card's int32 rate a block is ~3x its
+// bytes' time at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 struct EdgeDrawArgs {
-  const int32_t* ukey;   // (S, 2) key words of the uniform stream, or null (u_in)
-  const int32_t* zkey;   // (S, 2) key words of the normal stream, or null
-  const float* u_in;     // (S, n) given uniforms, or null
-  const int32_t* eidx;   // (S, n) each lane's edge, or null (static edge)
-  const float* mean;     // (S, NE)
-  const float* var;      // (S, NE)
-  const float* drop;     // (S, NE)
-  const int32_t* dist;   // (NE,) delay law of each edge
-  float* u_out;          // (S, n) uniforms (mode 0)
-  uint8_t* dropped;      // (S, n) (mode 1)
-  float* delay;          // (S, n) (mode 1)
+  const int32_t* ukey;       // (S, 2) key words of the uniform stream
+  const int32_t* zkey;       // (S, 2) key words of the normal stream, or null
+  const float* x_in;         // gaps: (S, ld_in) values to scan, or null (draw)
+  const float* t_send;       // hop: (S, n) send times
+  const uint8_t* alive;      // hop: (S, n)
+  const int64_t* rank;       // hop: (S, n) arrival rank (LB slot rank % K), or null
+  const int32_t* lb_edge;    // (K,) edge of each LB slot
+  const int32_t* lb_target;  // (K,) server of each LB slot
+  const float* mean;         // (S, NE)
+  const float* var;          // (S, NE)
+  const float* drop;         // (S, NE)
+  const int32_t* dist;       // (NE,) delay law of each edge
+  const float* spike_t;      // (NB,) spike breakpoints (first 0), or null
+  const float* spike_v;      // (NB, NE) active spike of each edge
+  float* out;                // uniform: (S, n); hop: t_next (S, n); gaps: (S, ld_out)
+  uint8_t* ok;               // hop: (S, n)
+  int32_t* target;           // hop with rank: (S, n)
+  float* tot;                // gaps: (S, ld_tot)
+  double* partial;           // hop: (S, lane blocks, K + 1)
+  float* span;               // hop: (S, K)
+  int64_t* dropped;          // hop: (S,)
   int64_t S;
-  int64_t n;
+  int64_t n;  // lanes a row (gaps: valid values a row)
+  int64_t ld_in;
+  int64_t ld_out;
+  int64_t ld_tot;
+  float horizon;
   int32_t NE;
-  int32_t edge;  // the static edge, or -1 with eidx
-  int32_t mode;  // 0: uniforms; 1: edge hop
+  int32_t NB;
+  int32_t K;     // hop: edge slots (1 for a static edge)
+  int32_t edge;  // hop: the static edge, or -1 with rank
+  int32_t mode;
+  int32_t gap;   // uniform: write the gap -log1p(-u)
 };
 
+// per-thread gauge accumulators of the hop, (K, threads) doubles, and the
+// drop counters, (threads,) ints after them
+extern __shared__ double edge_smem[];
+
 namespace {
+
+constexpr int kUniformMode = 0;
+constexpr int kHopMode = 1;
+constexpr int kGapsMode = 2;
+constexpr int kThreads = 128;
+constexpr int kLanes = 16;  // lanes a thread: one block of XLA's cumsum
+constexpr int kLaneBlock = kThreads * kLanes;
+constexpr int kMaxRows = 65535;  // scenarios a launch (gridDim.y)
+constexpr int kMaxSlots = 32;    // LB slots (shared memory)
 
 constexpr int kUniform = 0;
 constexpr int kExponential = 2;
@@ -76,10 +131,78 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint
   return x0 ^ x1;
 }
 
-__device__ __forceinline__ float uniform_of(const int32_t* key, int64_t s, int64_t i) {
-  const uint32_t bits = threefry_bits((uint32_t)key[2 * s], (uint32_t)key[2 * s + 1], 0u,
-                                      (uint32_t)i);
+__device__ __forceinline__ float uniform_of(uint32_t k0, uint32_t k1, uint32_t i) {
+  const uint32_t bits = threefry_bits(k0, k1, 0u, i);
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// a multiply-add that XLA's CPU code fuses, rounded once.  The plain
+// version computes it as float64 a * b + c rounded to float32 (the product
+// is exact in float64); the two agree on all 2**23 uniforms' gaps
+// (chip_smoke.py checks it), and fmaf is the cheaper of the two here.
+__device__ __forceinline__ float fma_xla(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
+// XLA's CPU float32 log (Eigen's plog, Cephes' polynomial), with the
+// multiply-adds its compiler fuses
+__device__ float log_xla(float v) {
+  const uint32_t b = __float_as_uint(fmaxf(v, 1.17549435e-38f));  // the smallest normal
+  float x = __uint_as_float((b & 0x807FFFFFu) | 0x3F000000u);      // mantissa in [0.5, 1)
+  float e = 1.0f + (float)((int32_t)(b >> 23) - 0x7F);
+  const bool below = x < 0.707106781186547524f;
+  const float keep = below ? x : 0.0f;
+  x = x - 1.0f;
+  e = e - (below ? 1.0f : 0.0f);
+  x = x + keep;
+  const float x2 = x * x;
+  const float x3 = x2 * x;
+  float y = fma_xla(x, 7.0376836292E-2f, -1.1514610310E-1f);
+  float y1 = fma_xla(x, -1.2420140846E-1f, 1.4249322787E-1f);
+  float y2 = fma_xla(x, 2.0000714765E-1f, -2.4999993993E-1f);
+  y = fma_xla(y, x, 1.1676998740E-1f);
+  y1 = fma_xla(y1, x, -1.6668057665E-1f);
+  y2 = fma_xla(y2, x, 3.3333331174E-1f);
+  y = fma_xla(y, x3, y1);
+  y = fma_xla(y, x3, y2);
+  y = fma_xla(y, x3, -2.12194440e-4f * e);
+  x = x - 0.5f * x2;
+  x = x + y;
+  x = x + 0.693359375f * e;
+  const float inf = __uint_as_float(0x7F800000u);
+  if (v == 0.0f) return -inf;
+  if (v == inf) return inf;
+  if (!(v > 0.0f)) return __uint_as_float(0x7FFFFFFFu);
+  return x;
+}
+
+// XLA's CPU float32 log1p: Cephes' rational form below sqrt(2) - 1, with
+// its Horner steps fused, else log(1 + x)
+__device__ float log1p_xla(float x) {
+  const float p[7] = {4.5270000862445199635215E-5f, 4.9854102823193375972212E-1f,
+                      6.5787325942061044846969E0f,  2.9911919328553073277375E1f,
+                      6.0949667980987787057556E1f,  5.7112963590585538103336E1f,
+                      2.0039553499201281259648E1f};
+  const float q[7] = {1.0f,
+                      1.5062909083469192043167E1f,
+                      8.3047565967967209469434E1f,
+                      2.2176239823732856465394E2f,
+                      3.0909872225312059774938E2f,
+                      2.1642788614495947685003E2f,
+                      6.0118660497603843919306E1f};
+  if (!(fabsf(x) < 0.41421356237309504880f)) return log_xla(x + 1.0f);
+  const float x2 = x * x;
+  float num = 0.0f;
+  float den = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    num = fma_xla(num, x, p[i]);
+    den = fma_xla(den, x, q[i]);
+  }
+  float r = num / den;
+  r = (x * x2) * r;
+  r = -0.5f * x2 + r;
+  return x + r;
 }
 
 // XLA's float32 erf_inv (Giles' polynomial), one operation at a time
@@ -99,40 +222,287 @@ __device__ __forceinline__ float erfinv_xla(float x) {
   return fabsf(x) == 1.0f ? x * 3.40282347e+38f : p * x;
 }
 
-__device__ __forceinline__ float normal_of(const int32_t* key, int64_t s, int64_t i) {
+__device__ __forceinline__ float normal_of(uint32_t k0, uint32_t k1, uint32_t i) {
   const float lo = -0.99999994f;  // nextafter(-1, 0)
-  const float u = fmaxf(uniform_of(key, s, i) * 2.0f + lo, lo);
+  const float u = fmaxf(uniform_of(k0, k1, i) * 2.0f + lo, lo);
   return 1.41421354f * erfinv_xla(u);
 }
 
-__global__ void edge_draws_kernel(EdgeDrawArgs a) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= a.S * a.n) return;
-  const int64_t s = idx / a.n;
-  const int64_t i = idx - s * a.n;
-  const float u = a.u_in != nullptr ? a.u_in[idx] : uniform_of(a.ukey, s, i);
-  if (a.mode == 0) {
-    a.u_out[idx] = u;
+// 4 floats of a chunk from p (cnt of them valid; the rest read as 0): one
+// float4 where p is 16-byte aligned and all 4 are valid, else scalars
+__device__ __forceinline__ void load4(const float* p, int cnt, float v[4]) {
+  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
     return;
   }
-  const int e = a.eidx != nullptr ? a.eidx[idx] : a.edge;
-  const int64_t pe = s * a.NE + e;
-  const float p = a.drop[pe];
-  const float m = a.mean[pe];
-  const int law = a.dist[e];
-  const float u_lat = (u - p) / fmaxf(1.0f - p, kTiny);
-  float d;
-  if (law == kUniform) {
-    d = u_lat;
-  } else if (law == kExponential) {
-    d = -m * logf(fmaxf(1.0f - u_lat, kTiny));
-  } else {
-    const float z = normal_of(a.zkey, s, i);
-    const float x = m + a.var[pe] * z;
-    d = law == kNormal ? fmaxf(x, 0.0f) : expf(x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = i < cnt ? p[i] : 0.0f;
+}
+
+__device__ __forceinline__ void store4(float* p, int cnt, const float v[4]) {
+  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
+    float4 f;
+    f.x = v[0];
+    f.y = v[1];
+    f.z = v[2];
+    f.w = v[3];
+    *reinterpret_cast<float4*>(p) = f;
+    return;
   }
-  a.dropped[idx] = u < p ? 1 : 0;
-  a.delay[idx] = d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < cnt) p[i] = v[i];
+}
+
+__device__ __forceinline__ void store4i(int32_t* p, int cnt, const int32_t v[4]) {
+  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
+    int4 f;
+    f.x = v[0];
+    f.y = v[1];
+    f.z = v[2];
+    f.w = v[3];
+    *reinterpret_cast<int4*>(p) = f;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < cnt) p[i] = v[i];
+}
+
+// 4 ranks of a chunk as 32-bit slots' numerators: two 16-byte loads where
+// aligned
+__device__ __forceinline__ void load4_rank(const int64_t* p, int cnt, uint32_t v[4]) {
+  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
+    const longlong2 a = reinterpret_cast<const longlong2*>(p)[0];
+    const longlong2 b = reinterpret_cast<const longlong2*>(p)[1];
+    v[0] = (uint32_t)a.x;
+    v[1] = (uint32_t)a.y;
+    v[2] = (uint32_t)b.x;
+    v[3] = (uint32_t)b.y;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = i < cnt ? (uint32_t)p[i] : 0u;
+}
+
+// a thread's 16 mask bytes as 16 bits (bit i: byte i nonzero): one uint4
+// where aligned
+__device__ __forceinline__ uint32_t load_mask16(const uint8_t* p, int cnt) {
+  uint32_t bits = 0;
+  if (cnt == kLanes && ((uintptr_t)p & 15u) == 0) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < kLanes; ++i)
+      bits |= (((words[i / 4] >> (8 * (i % 4))) & 0xFFu) != 0u ? 1u : 0u) << i;
+    return bits;
+  }
+  for (int i = 0; i < cnt; ++i)
+    if (p[i] != 0) bits |= 1u << i;
+  return bits;
+}
+
+__device__ __forceinline__ void store_mask16(uint8_t* p, int cnt, uint32_t bits) {
+  if (cnt == kLanes && ((uintptr_t)p & 15u) == 0) {
+    uint32_t words[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int i = 0; i < kLanes; ++i) words[i / 4] |= ((bits >> i) & 1u) << (8 * (i % 4));
+    uint4 w;
+    w.x = words[0];
+    w.y = words[1];
+    w.z = words[2];
+    w.w = words[3];
+    *reinterpret_cast<uint4*>(p) = w;
+    return;
+  }
+  for (int i = 0; i < cnt; ++i) p[i] = (uint8_t)((bits >> i) & 1u);
+}
+
+// the thread's row, its first lane and how many of its 16 lanes the row
+// holds; false past the row's end
+__device__ __forceinline__ bool thread_lanes(int64_t n, uint32_t& row, uint32_t& lane0,
+                                             int& cnt) {
+  row = blockIdx.y;
+  lane0 = (blockIdx.x * blockDim.x + threadIdx.x) * (uint32_t)kLanes;
+  if ((int64_t)lane0 >= n) return false;
+  const int64_t left = n - (int64_t)lane0;
+  cnt = left < kLanes ? (int)left : kLanes;
+  return true;
+}
+
+__global__ void uniform_kernel(EdgeDrawArgs a) {
+  uint32_t row, lane0;
+  int cnt;
+  if (!thread_lanes(a.n, row, lane0, cnt)) return;
+  const uint32_t k0 = a.ukey != nullptr ? (uint32_t)a.ukey[2 * row] : 0u;
+  const uint32_t k1 = a.ukey != nullptr ? (uint32_t)a.ukey[2 * row + 1] : 0u;
+  const size_t base = (size_t)row * (size_t)a.n + lane0;
+#pragma unroll 1
+  for (int c = 0; c < kLanes; c += 4) {
+    float v[4];
+    if (a.x_in != nullptr) load4(a.x_in + base + c, cnt - c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float u =
+          a.x_in != nullptr ? v[i] : uniform_of(k0, k1, lane0 + (uint32_t)(c + i));
+      v[i] = a.gap ? -log1p_xla(-u) : u;
+    }
+    store4(a.out + base + c, cnt - c, v);
+  }
+}
+
+__global__ void gaps_kernel(EdgeDrawArgs a) {
+  uint32_t row, lane0;
+  int cnt;
+  if (!thread_lanes(a.n, row, lane0, cnt)) return;
+  const uint32_t k0 = a.ukey != nullptr ? (uint32_t)a.ukey[2 * row] : 0u;
+  const uint32_t k1 = a.ukey != nullptr ? (uint32_t)a.ukey[2 * row + 1] : 0u;
+  const float* in = a.x_in != nullptr ? a.x_in + (size_t)row * (size_t)a.ld_in + lane0 : nullptr;
+  float* out = a.out + (size_t)row * (size_t)a.ld_out + lane0;
+  // XLA's block of 16: padded with zeros, summed in order in float32
+  float acc = 0.0f;
+#pragma unroll 1
+  for (int c = 0; c < kLanes; c += 4) {
+    float v[4];
+    if (in != nullptr) {
+      load4(in + c, cnt - c, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = c + i < cnt ? -log1p_xla(-uniform_of(k0, k1, lane0 + (uint32_t)(c + i)))
+                           : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc = acc + v[i];
+      v[i] = acc;
+    }
+    store4(out + c, 4, v);
+  }
+  a.tot[(size_t)row * (size_t)a.ld_tot + lane0 / kLanes] = acc;
+}
+
+__global__ void hop_kernel(EdgeDrawArgs a) {
+  const int K = a.K;
+  const unsigned nt = blockDim.x, tid = threadIdx.x;
+  double* acc = edge_smem;                                       // (K, threads)
+  int* drops = reinterpret_cast<int*>(edge_smem + (size_t)K * nt);  // (threads,)
+  for (int k = 0; k < K; ++k) acc[k * nt + tid] = 0.0;
+  int my_drops = 0;
+  uint32_t row, lane0;
+  int cnt;
+  if (thread_lanes(a.n, row, lane0, cnt)) {
+    const size_t base = (size_t)row * (size_t)a.n + lane0;
+    const uint32_t k0 = (uint32_t)a.ukey[2 * row], k1 = (uint32_t)a.ukey[2 * row + 1];
+    const uint32_t z0 = a.zkey != nullptr ? (uint32_t)a.zkey[2 * row] : 0u;
+    const uint32_t z1 = a.zkey != nullptr ? (uint32_t)a.zkey[2 * row + 1] : 0u;
+    const float h = a.horizon;
+    const float* mean = a.mean + (size_t)row * a.NE;
+    const float* var = a.var + (size_t)row * a.NE;
+    const float* drop = a.drop + (size_t)row * a.NE;
+    const uint32_t alive = load_mask16(a.alive + base, cnt);
+    uint32_t okbits = 0;
+#pragma unroll 1
+    for (int c = 0; c < kLanes; c += 4) {
+      float t[4];
+      int32_t tgt[4] = {0, 0, 0, 0};
+      uint32_t rk[4] = {0u, 0u, 0u, 0u};
+      load4(a.t_send + base + c, cnt - c, t);
+      if (a.rank != nullptr) load4_rank(a.rank + base + c, cnt - c, rk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int lane = c + i;
+        if (lane >= cnt) continue;
+        const float ts = t[i];
+        const bool gate = ((alive >> lane) & 1u) && ts < h;
+        int slot = 0;
+        int e = a.edge;
+        if (a.rank != nullptr) {
+          if (gate) slot = (int)(rk[i] % (uint32_t)K);
+          e = a.lb_edge[slot];
+          tgt[i] = a.lb_target[slot];
+        }
+        const float u = uniform_of(k0, k1, lane0 + (uint32_t)lane);
+        const float p = drop[e];
+        const float m = mean[e];
+        const int law = a.dist[e];
+        const float u_lat = (u - p) / fmaxf(1.0f - p, kTiny);
+        float d;
+        if (law == kUniform) {
+          d = u_lat;
+        } else if (law == kExponential) {
+          d = -m * logf(fmaxf(1.0f - u_lat, kTiny));
+        } else {
+          const float z = normal_of(z0, z1, lane0 + (uint32_t)lane);
+          const float x = m + var[e] * z;
+          d = law == kNormal ? fmaxf(x, 0.0f) : expf(x);
+        }
+        if (a.spike_t != nullptr) {
+          // searchsorted(spike_t, ts, right) - 1, -1 wrapping to the last row
+          int idx = -1;
+          for (int j = 0; j < a.NB; ++j) idx += a.spike_t[j] <= ts ? 1 : 0;
+          if (idx < 0) idx = a.NB - 1;
+          d = d + a.spike_v[(size_t)idx * a.NE + e];
+        }
+        const bool dropped = u < p;
+        const bool ok = gate && !dropped;
+        const float t_end = ts + d;
+        if (ok) {
+          okbits |= 1u << lane;
+          acc[slot * nt + tid] += (double)fmaxf(fminf(t_end, h) - fminf(ts, h), 0.0f);
+        }
+        my_drops += (gate && dropped) ? 1 : 0;
+        t[i] = ok ? t_end : ts;
+      }
+      store4(a.out + base + c, cnt - c, t);
+      if (a.rank != nullptr) store4i(a.target + base + c, cnt - c, tgt);
+    }
+    store_mask16(a.ok + base, cnt, okbits);
+  }
+  drops[tid] = my_drops;
+  // the block's sums: each column by one thread, over the block's threads
+  // in order (the host build runs threads one after another: the last sums)
+#ifdef __CUDACC__
+  __syncthreads();
+  if ((int)tid > K) return;
+  const int k_first = (int)tid, k_last = (int)tid;
+#else
+  if (tid != nt - 1) return;
+  const int k_first = 0, k_last = K;
+#endif
+  double* part = a.partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (size_t)(K + 1);
+  for (int k = k_first; k <= k_last; ++k) {
+    double sum = 0.0;
+    if (k < K) {
+      for (unsigned j = 0; j < nt; ++j) sum += acc[k * nt + j];
+    } else {
+      int64_t count = 0;
+      for (unsigned j = 0; j < nt; ++j) count += drops[j];
+      sum = (double)count;
+    }
+    part[k] = sum;
+  }
+}
+
+// the hop's per-scenario sums: each row's lane blocks in order
+__global__ void hop_reduce_kernel(EdgeDrawArgs a) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= a.S) return;
+  const int K = a.K;
+  const int64_t nblk = (a.n + kLaneBlock - 1) / kLaneBlock;
+  const double* part = a.partial + (size_t)row * nblk * (K + 1);
+  for (int k = 0; k <= K; ++k) {
+    double s = 0.0;
+    for (int64_t b = 0; b < nblk; ++b) s += part[b * (K + 1) + k];
+    if (k < K)
+      a.span[row * K + k] = (float)s;
+    else
+      a.dropped[row] = (int64_t)s;
+  }
 }
 
 }  // namespace
@@ -141,25 +511,87 @@ extern "C" {
 
 int edge_draws_args_size() { return (int)sizeof(EdgeDrawArgs); }
 
-// Launch on ``stream``; returns the launch's cudaError_t (0 on success),
-// or -1 for arguments the kernel does not take.
+int edge_draws_lane_block() { return kLaneBlock; }
+
+// Launch on ``stream``; returns the first launch's cudaError_t that is not
+// 0, or -1 for arguments the kernel does not take.
 int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
-  const EdgeDrawArgs a = *args;
-  if (a.S <= 0 || a.n <= 0 || a.n > 0xFFFFFFFFll) return -1;
-  if (a.mode == 0 && (a.u_out == nullptr || a.ukey == nullptr)) return -1;
-  if (a.mode == 1) {
-    if (a.dropped == nullptr || a.delay == nullptr || a.mean == nullptr ||
-        a.var == nullptr || a.drop == nullptr || a.dist == nullptr)
+  EdgeDrawArgs a = *args;
+  if (a.S <= 0 || a.n <= 0 || a.n > 0xFFFF0000ll) return -1;
+  size_t smem = 0;
+  if (a.mode == kUniformMode) {
+    if (a.out == nullptr || (a.ukey == nullptr) == (a.x_in == nullptr)) return -1;
+  } else if (a.mode == kHopMode) {
+    if (a.out == nullptr || a.ok == nullptr || a.t_send == nullptr || a.alive == nullptr ||
+        a.ukey == nullptr || a.mean == nullptr || a.var == nullptr || a.drop == nullptr ||
+        a.dist == nullptr || a.partial == nullptr || a.span == nullptr ||
+        a.dropped == nullptr)
       return -1;
-    if ((a.ukey == nullptr) == (a.u_in == nullptr)) return -1;
-    if ((a.eidx == nullptr) == (a.edge < 0)) return -1;
+    if (a.rank != nullptr) {
+      if (a.edge >= 0 || a.K < 1 || a.K > kMaxSlots || a.lb_edge == nullptr ||
+          a.lb_target == nullptr || a.target == nullptr)
+        return -1;
+    } else if (a.edge < 0 || a.edge >= a.NE || a.K != 1) {
+      return -1;
+    }
+    if (a.spike_t != nullptr && (a.spike_v == nullptr || a.NB < 1)) return -1;
+    smem = (size_t)a.K * kThreads * sizeof(double) + kThreads * sizeof(int);
+  } else if (a.mode == kGapsMode) {
+    if (a.out == nullptr || a.tot == nullptr || (a.x_in == nullptr && a.ukey == nullptr))
+      return -1;
+    if (a.ld_out < (a.n + kLanes - 1) / kLanes * kLanes) return -1;
+  } else {
+    return -1;
   }
-  if (a.mode != 0 && a.mode != 1) return -1;
-  const int threads = 256;
-  const int64_t blocks = (a.S * a.n + threads - 1) / threads;
+  const int64_t blocks = (a.n + kLaneBlock - 1) / kLaneBlock;
   if (blocks > 0x7FFFFFFFll) return -1;
-  edge_draws_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const int64_t total_rows = a.S;
+  const EdgeDrawArgs whole = a;
+  for (int64_t r0 = 0; r0 < total_rows; r0 += kMaxRows) {
+    const int64_t rows = total_rows - r0 < kMaxRows ? total_rows - r0 : kMaxRows;
+    // the chunk's rows as rows 0.. of its own arguments
+    a = whole;
+    a.S = rows;
+    a.ukey = whole.ukey != nullptr ? whole.ukey + 2 * r0 : nullptr;
+    a.zkey = whole.zkey != nullptr ? whole.zkey + 2 * r0 : nullptr;
+    if (whole.x_in != nullptr)
+      a.x_in = whole.x_in + r0 * (whole.mode == kGapsMode ? whole.ld_in : whole.n);
+    if (whole.mode == kGapsMode) {
+      a.out = whole.out + r0 * whole.ld_out;
+      a.tot = whole.tot + r0 * whole.ld_tot;
+    } else {
+      a.out = whole.out + r0 * whole.n;
+    }
+    if (whole.mode == kHopMode) {
+      a.t_send = whole.t_send + r0 * whole.n;
+      a.alive = whole.alive + r0 * whole.n;
+      a.ok = whole.ok + r0 * whole.n;
+      if (whole.rank != nullptr) {
+        a.rank = whole.rank + r0 * whole.n;
+        a.target = whole.target + r0 * whole.n;
+      }
+      a.mean = whole.mean + r0 * whole.NE;
+      a.var = whole.var + r0 * whole.NE;
+      a.drop = whole.drop + r0 * whole.NE;
+      a.partial = whole.partial + r0 * blocks * (whole.K + 1);
+      a.span = whole.span + r0 * whole.K;
+      a.dropped = whole.dropped + r0;
+    }
+    const dim3 grid((unsigned)blocks, (unsigned)rows);
+    const dim3 block(kThreads);
+    if (a.mode == kUniformMode) {
+      uniform_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+    } else if (a.mode == kGapsMode) {
+      gaps_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+    } else {
+      hop_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(a);
+      const dim3 rgrid((unsigned)((rows + kThreads - 1) / kThreads));
+      hop_reduce_kernel<<<rgrid, block, 0, (cudaStream_t)stream>>>(a);
+    }
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 }  // extern "C"

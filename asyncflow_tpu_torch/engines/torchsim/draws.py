@@ -1,13 +1,13 @@
 """The scan fast path's per-lane draws: ``jax.random``'s threefry uniforms
-and normals in jax's own layout, the edge delay laws, and the fused
-dropout / delay hop, with the CUDA kernel that computes them
-(``csrc/edge_draws.cu``).
+and normals in jax's own layout, the edge delay laws, the fused edge hop
+with its lane epilogue, and the arrival gaps with XLA's prefix sum, with
+the CUDA kernel that computes them (``csrc/edge_draws.cu``).
 
 The plain versions here reproduce, bit for bit where the arithmetic is
-exact, what the reference's fast path draws (``asyncflow_tpu/engines/
+exact, what the reference's fast path computes (``asyncflow_tpu/engines/
 jaxsim/fastpath.py``: ``_edge_hop`` ``:818``, ``_edge_hop_dyn`` ``:855``,
-the fused drop rescale ``:786`` and the raw ``draw_uniform`` streams of
-``_arrivals_stream`` and ``_journey``):
+``_add_spike`` ``:793``, the fused drop rescale ``:786``, the gaps and
+cumsum of ``_arrivals_stream`` and the raw ``draw_uniform`` streams):
 
 - a stream is a key; lane ``i`` of an ``(n,)`` draw is threefry2x32 of the
   counter ``(0, i)`` under it, and its 32 bits are the two output words
@@ -19,7 +19,18 @@ the fused drop rescale ``:786`` and the raw ``draw_uniform`` streams of
   ``[nextafter(-1, 0), 1)`` and XLA's float32 ``erfinv`` polynomial;
 - an edge hop drops a lane where ``u < p`` and otherwise rescales the same
   uniform to ``(u - p) / max(1 - p, TINY)`` for the delay law; normal and
-  lognormal laws draw ``z`` from the hop key's second stream.
+  lognormal laws draw ``z`` from the hop key's second stream; the network
+  spike active at the send time is added after the law;
+- an arrival gap is ``-log1p(-u)`` with XLA's CPU ``log1p`` (Cephes'
+  rational form below sqrt(2) - 1 with fused Horner steps, else XLA's CPU
+  ``log``, Eigen's ``plog``), and the gaps' prefix sum is XLA's CPU
+  ``cumsum``: a recursive scan of 16-lane blocks (:func:`prefix_sum_xla`).
+  Both were matched exhaustively against jax on the CPU, so the arrivals
+  take the reference's values on every device.
+
+A fused multiply-add of XLA's is computed here as a float64 ``a * b + c``
+rounded once to float32 (the product is exact in float64), and as
+``fmaf`` in the kernel: the two agree on every uniform a gap draws.
 
 :class:`EdgeDraws` is the wrapper: on CUDA tensors it launches the kernel
 (built on first use) or raises, on CPU tensors it runs the plain version.
@@ -30,9 +41,11 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from asyncflow_tpu_torch.engines.torchsim import _build
 from asyncflow_tpu_torch.engines.torchsim.keys import MASK32, fold_in, threefry2x32
@@ -138,6 +151,122 @@ def hop_laws(dist: np.ndarray, edge: int | None) -> list[int]:
     return sorted({int(d) for d in np.asarray(dist).tolist()})
 
 
+#: Cephes' log1p numerator and denominator, highest degree first, as XLA's
+#: CPU ``log1p`` evaluates them (Horner's rule with fused steps)
+LOG1P_P = (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+    2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1,
+)
+LOG1P_Q = (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
+    3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1,
+)
+#: below this |x| XLA's log1p takes the rational form (sqrt(2) - 1)
+LOG1P_SMALL = f32(0.41421356237309504880)
+#: Eigen's plog polynomial (Cephes' logf) and its split ln 2
+LOG_P = (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+    -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1,
+)
+LOG_Q1, LOG_Q2 = f32(-2.12194440e-4), f32(0.693359375)
+#: lanes a block of XLA's CPU cumsum
+SCAN_BLOCK = 16
+
+
+def fma_xla(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32 (a fused multiply-add): in
+    float64, where the product of two float32 values is exact."""
+    dbl = [torch.as_tensor(x, dtype=torch.float64) if not isinstance(x, torch.Tensor)
+           else x.double() for x in (a, b, c)]
+    return (dbl[0] * dbl[1] + dbl[2]).float()
+
+
+def log_xla(v: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``log``: Eigen's ``plog`` (frexp, a shift to
+    [sqrt(1/2), sqrt(2)), Cephes' degree-8 polynomial in three chains),
+    with the multiply-adds XLA's compiler fuses."""
+    # the mantissa in [0.5, 1) and the exponent: XLA's bit operations
+    x, ex = torch.frexp(torch.clamp_min(v, f32(np.finfo(np.float32).tiny)))
+    e = ex.float()
+    below = x < f32(0.707106781186547524)
+    keep = torch.where(below, x, 0.0)
+    x = x - 1.0
+    e = e - below.float()
+    x = x + keep
+    x2 = x * x
+    x3 = x2 * x
+    p = [f32(c) for c in LOG_P]
+    y = fma_xla(x, p[0], p[1])
+    y1 = fma_xla(x, p[3], p[4])
+    y2 = fma_xla(x, p[6], p[7])
+    y = fma_xla(y, x, p[2])
+    y1 = fma_xla(y1, x, p[5])
+    y2 = fma_xla(y2, x, p[8])
+    y = fma_xla(y, x3, y1)
+    y = fma_xla(y, x3, y2)
+    y = fma_xla(y, x3, LOG_Q1 * e)
+    x = x - 0.5 * x2
+    x = x + y
+    x = x + LOG_Q2 * e
+    x = torch.where(v == 0.0, -math.inf, x)
+    x = torch.where(v == math.inf, math.inf, x)
+    return torch.where(v >= 0.0, x, math.nan)
+
+
+def log1p_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``log1p`` (``ElementalIrEmitter::EmitLog1p``):
+    ``x + (-0.5 x^2 + x^3 P(x) / Q(x))`` for ``|x| < sqrt(2) - 1``, else
+    :func:`log_xla` of ``1 + x``."""
+    x2 = x * x
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    for cp, cq in zip(LOG1P_P, LOG1P_Q):
+        num = fma_xla(num, x, f32(cp))
+        den = fma_xla(den, x, f32(cq))
+    small = x + (-0.5 * x2 + (x * x2) * (num / den))
+    return torch.where(x.abs() < LOG1P_SMALL, small, log_xla(x + 1.0))
+
+
+def gaps(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(S, n) exponential gaps ``-log1p(-u)`` of each scenario's stream."""
+    return -log1p_xla(-uniform(keys, n))
+
+
+def _block_scan(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first level of :func:`prefix_sum_xla`: each row cut into
+    16-lane blocks, padded with zeros, summed in order in float32.  Returns
+    (S, blocks * 16) inclusive block sums and (S, blocks) block totals."""
+    s, m = x.shape
+    nb = -(-m // SCAN_BLOCK)
+    xb = F.pad(x, (0, nb * SCAN_BLOCK - m)).view(s, nb, SCAN_BLOCK)
+    loc = torch.empty_like(xb)
+    acc = torch.zeros((s, nb), dtype=x.dtype, device=x.device)
+    for i in range(SCAN_BLOCK):
+        acc = acc + xb[:, :, i]
+        loc[:, :, i] = acc
+    return loc.view(s, nb * SCAN_BLOCK), acc
+
+
+def _scan_down(loc: torch.Tensor, inc: torch.Tensor, m: int) -> torch.Tensor:
+    """Each block's sums plus the inclusive sum of the blocks before it."""
+    s, nb = inc.shape
+    exc = F.pad(inc[:, :-1], (1, 0))
+    return (loc.view(s, nb, SCAN_BLOCK) + exc[:, :, None]).view(s, nb * SCAN_BLOCK)[:, :m]
+
+
+def prefix_sum_xla(x: torch.Tensor) -> torch.Tensor:
+    """The inclusive prefix sum of each row of ``x`` (S, m) in XLA's CPU
+    ``cumsum`` order: 16-lane blocks summed in order, the block totals
+    scanned the same way, recursively, and each block's sums plus the
+    inclusive sum of the blocks before it."""
+    m = x.shape[1]
+    loc, tot = _block_scan(x)
+    if tot.shape[1] == 1:
+        return loc[:, :m]
+    return _scan_down(loc, prefix_sum_xla(tot), m)
+
+
 def drop_rescale(u: torch.Tensor, p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(dropped, survivor uniform): ``u < p`` drops, ``(u - p) / max(1 - p,
     TINY)`` is uniform on [0, 1) for the survivors (``_fused_drop_rescale``)."""
@@ -177,12 +306,147 @@ def edge_hop_plain(
     return dropped, delay
 
 
+def spike_add(
+    delay: torch.Tensor,
+    t_send: torch.Tensor,
+    spike_t: torch.Tensor,
+    spike_v: torch.Tensor,
+    *,
+    edge: int | None = None,
+    eidx: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``delay`` plus the spike active on each lane's edge at its send time
+    (``_add_spike``): row ``searchsorted(spike_t, t_send, right) - 1`` of
+    ``spike_v`` (NB, NE), -1 wrapping to the last row as jax indexes."""
+    idx = torch.bucketize(t_send, spike_t, right=True) - 1
+    idx = torch.where(idx < 0, spike_t.shape[0] - 1, idx)
+    if eidx is None:
+        return delay + spike_v[:, edge][idx]
+    return delay + spike_v[idx, eidx.long()]
+
+
+#: the kernel's threads a block and lanes a thread (``kThreads``, ``kLanes``)
+BLOCK_THREADS, THREAD_LANES = 128, 16
+
+
+def lane_blocks(n: int) -> int:
+    """Lane blocks of a row in the kernel's grid (128 threads x 16 lanes)."""
+    return -(-n // (BLOCK_THREADS * THREAD_LANES))
+
+
+def lane_block_sum(x: torch.Tensor) -> torch.Tensor:
+    """(S,) float64 row sums of ``x`` (S, n) float64 in the kernel's order:
+    each thread's 16 lanes in order, then a block's 128 threads in order,
+    then the row's blocks in order (zeros past the row add nothing)."""
+    s, n = x.shape
+    nblk = lane_blocks(n)
+    xb = F.pad(x, (0, nblk * BLOCK_THREADS * THREAD_LANES - n)).view(
+        s, nblk, BLOCK_THREADS, THREAD_LANES)
+    per_thread = torch.zeros((s, nblk, BLOCK_THREADS), dtype=x.dtype, device=x.device)
+    for i in range(THREAD_LANES):
+        per_thread = per_thread + xb[..., i]
+    per_block = torch.zeros((s, nblk), dtype=x.dtype, device=x.device)
+    for j in range(BLOCK_THREADS):
+        per_block = per_block + per_thread[..., j]
+    total = torch.zeros(s, dtype=x.dtype, device=x.device)
+    for b in range(nblk):
+        total = total + per_block[:, b]
+    return total
+
+
+class EdgeTables(NamedTuple):
+    """What a hop reads besides its lanes: the plan's (NE,) law table, the
+    run's (S, NE) edge parameters, the horizon, the LB's slot tables
+    ((K,) int32 edge and server of each slot, or None) and the plan's spike
+    tables ((NB,) breakpoints, (NB, NE) values, or None without spikes)."""
+
+    dist: np.ndarray
+    mean: torch.Tensor
+    var: torch.Tensor
+    drop: torch.Tensor
+    horizon: float
+    lb_edge: torch.Tensor | None = None
+    lb_target: torch.Tensor | None = None
+    spike_t: torch.Tensor | None = None
+    spike_v: torch.Tensor | None = None
+
+
+class HopOut(NamedTuple):
+    """A hop's outputs: (S, n) ``t_next`` (the arrival time where ``ok``, else
+    the send time) and ``ok`` (sent and not dropped); the LB hop's (S, n)
+    int32 ``target`` server (None on a static edge); (S, K) float32 ``span``,
+    each edge slot's gauge span, and (S,) int64 ``dropped``."""
+
+    t_next: torch.Tensor
+    ok: torch.Tensor
+    target: torch.Tensor | None
+    span: torch.Tensor
+    dropped: torch.Tensor
+
+
+def hop_plain(
+    tables: EdgeTables,
+    t_send: torch.Tensor,
+    alive: torch.Tensor,
+    ukey: torch.Tensor,
+    zkey: torch.Tensor | None,
+    *,
+    edge: int | None = None,
+    rank: torch.Tensor | None = None,
+) -> HopOut:
+    """The fused hop, op by op: lanes where ``alive`` and ``t_send <
+    horizon`` send over the static ``edge`` or, with the arrival ``rank``,
+    over LB slot ``rank % K`` (slot 0 on the other lanes); the uniform of stream
+    ``ukey`` settles the drop and the delay, the spike at ``t_send`` is
+    added, and each gauge span is a float64 sum in the kernel's order
+    (:func:`lane_block_sum`) rounded once."""
+    s, n = t_send.shape
+    h = f32(tables.horizon)
+    gate = alive & (t_send < h)
+    if rank is None:
+        slot, k_slots, eidx, target = None, 1, None, None
+    else:
+        k_slots = tables.lb_edge.shape[0]
+        slot = torch.where(gate, rank % k_slots, 0)
+        eidx = tables.lb_edge.long()[slot]
+        target = tables.lb_target[slot]
+    needs_z = bool(set(hop_laws(tables.dist, edge)) & set(NORMAL_LAWS))
+    dropped, delay = edge_hop_plain(
+        uniform(ukey, n), zkey if needs_z else None, tables.dist, tables.mean, tables.var,
+        tables.drop, edge=edge, eidx=eidx,
+    )
+    if tables.spike_t is not None:
+        delay = spike_add(delay, t_send, tables.spike_t, tables.spike_v, edge=edge, eidx=eidx)
+    ok = gate & ~dropped
+    t_end = t_send + delay
+    lane_span = torch.where(
+        ok, torch.clamp_min(torch.clamp_max(t_end, h) - torch.clamp_max(t_send, h), 0.0), 0.0,
+    ).double()
+    if slot is None:
+        span = lane_block_sum(lane_span)[:, None]
+    else:
+        span = torch.stack(
+            [lane_block_sum(torch.where(slot == k, lane_span, 0.0)) for k in range(k_slots)],
+            dim=1,
+        )
+    return HopOut(
+        t_next=torch.where(ok, t_end, t_send),
+        ok=ok,
+        target=target,
+        span=span.float(),
+        dropped=(gate & dropped).sum(dim=1),
+    )
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
 
 MODE_UNIFORM = 0
 MODE_HOP = 1
+MODE_GAPS = 2
+#: LB slots the hop takes (its per-thread gauge accumulators in shared memory)
+MAX_LB_SLOTS = 32
 
 
 class _EdgeDrawArgs(ctypes.Structure):
@@ -190,11 +454,13 @@ class _EdgeDrawArgs(ctypes.Structure):
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "ukey", "zkey", "u_in", "eidx", "mean", "var", "drop", "dist",
-            "u_out", "dropped", "delay",
+            "ukey", "zkey", "x_in", "t_send", "alive", "rank", "lb_edge", "lb_target",
+            "mean", "var", "drop", "dist", "spike_t", "spike_v", "out", "ok", "target",
+            "tot", "partial", "span", "dropped",
         )]
-        + [(name, ctypes.c_int64) for name in ("S", "n")]
-        + [(name, ctypes.c_int32) for name in ("NE", "edge", "mode")]
+        + [(name, ctypes.c_int64) for name in ("S", "n", "ld_in", "ld_out", "ld_tot")]
+        + [("horizon", ctypes.c_float)]
+        + [(name, ctypes.c_int32) for name in ("NE", "NB", "K", "edge", "mode", "gap")]
     )
 
 
@@ -204,8 +470,13 @@ def _library() -> ctypes.CDLL:
     lib.edge_draws_launch.restype = ctypes.c_int
     lib.edge_draws_args_size.argtypes = []
     lib.edge_draws_args_size.restype = ctypes.c_int
+    lib.edge_draws_lane_block.argtypes = []
+    lib.edge_draws_lane_block.restype = ctypes.c_int
     if lib.edge_draws_args_size() != ctypes.sizeof(_EdgeDrawArgs):
         msg = "EdgeDrawArgs layout mismatch between edge_draws.cu and its ctypes mirror"
+        raise KernelBuildError(msg)
+    if lib.edge_draws_lane_block() != BLOCK_THREADS * THREAD_LANES:
+        msg = "edge_draws.cu's lanes a block differ from lane_block_sum's"
         raise KernelBuildError(msg)
     return lib
 
@@ -230,14 +501,17 @@ class PlainEdgeDraws:
     device: what a check on the card holds the kernel to.  The engine's
     own path never takes it."""
 
-    def uniform(self, keys: torch.Tensor, n: int) -> torch.Tensor:
-        return uniform(keys, n)
+    def uniform(self, keys: torch.Tensor, n: int, *, gap: bool = False) -> torch.Tensor:
+        return gaps(keys, n) if gap else uniform(keys, n)
 
-    def hop(self, keys, zkey, dist, mean, var, drop, n, *, u=None, edge=None, eidx=None):
-        needs_z = bool(set(hop_laws(dist, edge)) & set(NORMAL_LAWS))
-        uu = uniform(keys, n) if u is None else u
-        return edge_hop_plain(uu, zkey if needs_z else None, dist, mean, var, drop,
-                              edge=edge, eidx=eidx)
+    def gap_cumsum(self, keys: torch.Tensor, n: int) -> torch.Tensor:
+        return prefix_sum_xla(gaps(keys, n))
+
+    def gap_of(self, u: torch.Tensor) -> torch.Tensor:
+        return -log1p_xla(-u)
+
+    def hop(self, tables, t_send, alive, ukey, zkey, *, edge=None, rank=None) -> HopOut:
+        return hop_plain(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank)
 
 
 class EdgeDraws:
@@ -248,79 +522,144 @@ class EdgeDraws:
     source = "asyncflow_tpu_torch/csrc/edge_draws.cu"
     replaces = (
         "asyncflow_tpu/engines/jaxsim/fastpath.py:818 (_edge_hop), :855 (_edge_hop_dyn), "
-        ":980 and :986 (draw_uniform)"
+        ":793 (_add_spike), :980-981 (the arrival gaps and their cumsum), :986 (the "
+        "windows' extra gaps), :1388 and :1393 (draw_uniform)"
     )
 
     def __init__(self) -> None:
         self.launches = 0
 
-    def uniform(self, keys: torch.Tensor, n: int) -> torch.Tensor:
-        """(S, n) uniforms of each scenario's stream ``keys`` (S, 2)."""
+    def uniform(self, keys: torch.Tensor, n: int, *, gap: bool = False) -> torch.Tensor:
+        """(S, n) uniforms of each scenario's stream ``keys`` (S, 2), or
+        with ``gap`` the exponential gaps ``-log1p(-u)``."""
         if keys.device.type == "cpu":
-            return uniform(keys, n)
+            return PlainEdgeDraws().uniform(keys, n, gap=gap)
         s = keys.shape[0]
         out = torch.empty((s, n), dtype=torch.float32, device=keys.device)
-        self._launch(MODE_UNIFORM, s, n, ukey=key_words(keys), u_out=out)
+        self._launch(MODE_UNIFORM, s, n, ukey=key_words(keys), out=out, gap=int(gap))
         return out
+
+    def gap_of(self, u: torch.Tensor) -> torch.Tensor:
+        """(S, n) gaps ``-log1p(-u)`` of the given float32 uniforms: the
+        uniform mode on given inputs, the check of :func:`log1p_xla`."""
+        if u.device.type == "cpu":
+            return PlainEdgeDraws().gap_of(u)
+        s, n = u.shape
+        _need(u, torch.float32, (s, n), u.device, "u")
+        out = torch.empty_like(u)
+        self._launch(MODE_UNIFORM, s, n, x_in=u, out=out, gap=1)
+        return out
+
+    def gap_cumsum(self, keys: torch.Tensor, n: int) -> torch.Tensor:
+        """(S, n) prefix sums of the exponential gaps of stream ``keys`` in
+        XLA's order (:func:`prefix_sum_xla`): the kernel draws the gaps and
+        sums their 16-lane blocks, then sums each level of block totals."""
+        if keys.device.type == "cpu":
+            return PlainEdgeDraws().gap_cumsum(keys, n)
+        return self._scan(n, ukey=key_words(keys))
+
+    def _scan(self, m: int, *, ukey=None, x_in=None) -> torch.Tensor:
+        dev = (ukey if ukey is not None else x_in).device
+        s = (ukey if ukey is not None else x_in).shape[0]
+        nb = -(-m // SCAN_BLOCK)
+        ld_tot = -(-nb // SCAN_BLOCK) * SCAN_BLOCK
+        loc = torch.empty((s, nb * SCAN_BLOCK), dtype=torch.float32, device=dev)
+        tot = torch.empty((s, ld_tot), dtype=torch.float32, device=dev)
+        self._launch(
+            MODE_GAPS, s, m, ukey=ukey, x_in=x_in, out=loc, tot=tot,
+            ld_in=0 if x_in is None else x_in.stride(0), ld_out=nb * SCAN_BLOCK, ld_tot=ld_tot,
+        )
+        if nb == 1:
+            return loc[:, :m]
+        return _scan_down(loc, self._scan(nb, x_in=tot), m)
 
     def hop(
         self,
-        keys: torch.Tensor | None,
+        tables: EdgeTables,
+        t_send: torch.Tensor,
+        alive: torch.Tensor,
+        ukey: torch.Tensor,
         zkey: torch.Tensor | None,
-        dist: np.ndarray,
-        mean: torch.Tensor,
-        var: torch.Tensor,
-        drop: torch.Tensor,
-        n: int,
         *,
-        u: torch.Tensor | None = None,
         edge: int | None = None,
-        eidx: torch.Tensor | None = None,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(dropped, delay) of ``n`` lanes a scenario over one static
-        ``edge`` or the lanes' own edges ``eidx``; the uniform is the stream
-        ``keys`` (S, 2) or the given ``u`` (S, n)."""
-        dev = mean.device
-        if (edge is None) == (eidx is None):
-            msg = "edge_draws.hop takes exactly one of edge and eidx"
+        rank: torch.Tensor | None = None,
+    ) -> HopOut:
+        """The fused hop (:func:`hop_plain`) of the lanes ``t_send`` (S, n)
+        float32 and ``alive`` (S, n) bool, over the static ``edge`` or the
+        LB slots of the int64 arrival ``rank``; ``ukey`` (S, 2) keys the
+        uniform stream, ``zkey`` the normal one where a law reads it."""
+        if (edge is None) == (rank is None):
+            msg = "edge_draws.hop takes exactly one of edge and rank"
             raise ValueError(msg)
-        needs_z = bool(set(hop_laws(dist, edge)) & set(NORMAL_LAWS))
+        needs_z = bool(set(hop_laws(tables.dist, edge)) & set(NORMAL_LAWS))
         if needs_z and zkey is None:
             msg = "edge_draws.hop: a normal or lognormal edge needs its z stream key"
             raise ValueError(msg)
+        dev = t_send.device
         if dev.type == "cpu":
-            return PlainEdgeDraws().hop(keys, zkey, dist, mean, var, drop, n, u=u,
-                                        edge=edge, eidx=eidx)
-        s, ne = mean.shape
-        for name, x in (("mean", mean), ("var", var), ("drop", drop)):
-            _need(x, torch.float32, (s, ne), dev, name)
-        if u is not None:
-            _need(u, torch.float32, (s, n), dev, "u")
-        if eidx is not None:
-            _need(eidx, torch.int32, (s, n), dev, "eidx")
-        dropped = torch.empty((s, n), dtype=torch.bool, device=dev)
-        delay = torch.empty((s, n), dtype=torch.float32, device=dev)
+            return PlainEdgeDraws().hop(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank)
+        s, n = t_send.shape
+        ne = tables.mean.shape[1]
+        _need(t_send, torch.float32, (s, n), dev, "t_send")
+        _need(alive, torch.bool, (s, n), dev, "alive")
+        for name in ("mean", "var", "drop"):
+            _need(getattr(tables, name), torch.float32, (s, ne), dev, name)
+        k_slots = 1
+        target = None
+        if rank is not None:
+            _need(rank, torch.int64, (s, n), dev, "rank")
+            k_slots = int(tables.lb_edge.shape[0])
+            if k_slots > MAX_LB_SLOTS:
+                msg = f"edge_draws.hop takes at most {MAX_LB_SLOTS} LB edges, got {k_slots}"
+                raise ValueError(msg)
+            for name in ("lb_edge", "lb_target"):
+                _need(getattr(tables, name), torch.int32, (k_slots,), dev, name)
+            target = torch.empty((s, n), dtype=torch.int32, device=dev)
+        nb = 0
+        if tables.spike_t is not None:
+            nb = int(tables.spike_t.shape[0])
+            _need(tables.spike_t, torch.float32, (nb,), dev, "spike_t")
+            _need(tables.spike_v, torch.float32, (nb, ne), dev, "spike_v")
+        out = HopOut(
+            t_next=torch.empty((s, n), dtype=torch.float32, device=dev),
+            ok=torch.empty((s, n), dtype=torch.bool, device=dev),
+            target=target,
+            span=torch.empty((s, k_slots), dtype=torch.float32, device=dev),
+            dropped=torch.empty(s, dtype=torch.int64, device=dev),
+        )
+        partial = torch.empty((s, lane_blocks(n), k_slots + 1), dtype=torch.float64,
+                              device=dev)
         self._launch(
             MODE_HOP, s, n,
-            ukey=None if u is not None else key_words(keys),
-            zkey=key_words(zkey) if needs_z else None,
-            u_in=u, eidx=eidx, mean=mean, var=var, drop=drop,
-            dist=torch.as_tensor(np.asarray(dist, np.int32), device=dev),
-            dropped=dropped, delay=delay,
-            NE=ne, edge=-1 if edge is None else int(edge),
+            ukey=key_words(ukey), zkey=key_words(zkey) if needs_z else None,
+            t_send=t_send, alive=alive, rank=rank,
+            lb_edge=tables.lb_edge if rank is not None else None,
+            lb_target=tables.lb_target if rank is not None else None,
+            mean=tables.mean, var=tables.var, drop=tables.drop,
+            dist=torch.as_tensor(np.asarray(tables.dist, np.int32), device=dev),
+            spike_t=tables.spike_t, spike_v=tables.spike_v,
+            out=out.t_next, ok=out.ok, target=target, partial=partial, span=out.span,
+            dropped=out.dropped,
+            horizon=f32(tables.horizon), NE=ne, NB=nb, K=k_slots,
+            edge=-1 if edge is None else int(edge),
         )
-        return dropped, delay
+        return out
 
-    def _launch(self, mode: int, s: int, n: int, **tensors) -> None:
+    _SCALARS = ("ld_in", "ld_out", "ld_tot", "horizon", "NE", "NB", "K", "edge", "gap")
+
+    def _launch(self, mode: int, s: int, n: int, **fields) -> None:
         if s == 0 or n == 0:
             return
+        tensors = {k: v for k, v in fields.items() if k not in self._SCALARS}
         dev = next(t.device for t in tensors.values() if isinstance(t, torch.Tensor))
         if dev.type != "cuda":
             msg = f"edge_draws runs on cuda or cpu tensors, got {dev}"
             raise ValueError(msg)
         lib = _library()
-        args = _EdgeDrawArgs(S=s, n=n, NE=tensors.pop("NE", 0),
-                             edge=tensors.pop("edge", -1), mode=mode)
+        args = _EdgeDrawArgs(S=s, n=n, mode=mode, edge=-1, K=1)
+        for name in self._SCALARS:
+            if name in fields:
+                setattr(args, name, fields[name])
         for name, t in tensors.items():
             if t is not None:
                 setattr(args, name, t.data_ptr())

@@ -8,7 +8,9 @@ lanes, here batched over scenarios as (S, n) tensors:
 1. arrivals: per user-sampling window a Poisson count of requests placed as
    normalised partial sums of exponential gaps, less each window's dropped
    residual (``_arrivals_stream``);
-2. edges: one uniform a lane settles dropout and delay (``_edge_hop``);
+2. edges: one uniform a lane settles dropout and delay, and one fused hop
+   also writes the lanes' next times and each scenario's drops and edge
+   gauge spans (``_edge_hop``, ``_add_spike`` and their epilogue);
 3. round robin with fixed membership: the LB slot is the lane's arrival
    rank modulo the slots;
 4. each server is a FIFO G/G/c core queue visited once a CPU burst; its
@@ -21,7 +23,8 @@ lanes, here batched over scenarios as (S, n) tensors:
 The slice: one generator; round robin with fixed membership, or no LB; any
 servers and cores, chained or not; alternating CPU / IO endpoints with one
 or several bursts, weighted and IO-only endpoints; non-binding or binding
-RAM; uniform, exponential, normal and lognormal edges with dropout.
+RAM; uniform, exponential, normal and lognormal edges with dropout;
+network spikes (added to an edge's delay at its send time).
 Everything else is refused by name before any work (:func:`fast_refusal`).
 
 Every draw site folds the reference's constants into the scenario key
@@ -33,9 +36,11 @@ sampler (users from the DES kernel's arrival-rate stream, counts from
 ``fold_in(key, COUNT_STREAM)``); tests inject the reference's through
 ``run_batch(window_draws=...)``.
 
-On a CUDA device the draws run in the ``edge_draws`` kernel and the
-station recursions in the ``station_scan`` kernel; on the CPU both run
-their plain versions.
+The arrival times are the reference's bit for bit: the gaps go through
+XLA's CPU ``log1p`` and their prefix sum keeps XLA's CPU ``cumsum`` order
+(``draws.log1p_xla``, ``draws.prefix_sum_xla``).  On a CUDA device the
+draws and hops run in the ``edge_draws`` kernel and the station recursions
+in the ``station_scan`` kernel; on the CPU both run their plain versions.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from asyncflow_tpu_torch.compiler.plan import (
     SEG_CACHE,
@@ -53,7 +59,13 @@ from asyncflow_tpu_torch.compiler.plan import (
     StaticPlan,
 )
 from asyncflow_tpu_torch.device import resolve_device
-from asyncflow_tpu_torch.engines.torchsim.draws import EdgeDraws, hop_keys
+from asyncflow_tpu_torch.engines.torchsim.draws import (
+    EdgeDraws,
+    EdgeTables,
+    HopOut,
+    hop_keys,
+    prefix_sum_xla,
+)
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import (
     _edge_table,
     _float_tensor,
@@ -124,7 +136,6 @@ def fast_refusal(plan: StaticPlan) -> tuple[str, str] | None:
         (plan.n_lb_edges > 0 and plan.lb_algo != 0, "least-connections routing",
          "load balancer"),
         (plan.has_timeline, "outage timeline", "events"),
-        (plan.has_spikes, "network spikes", "events"),
         (plan.has_rate_limit, "rate limit", "server overload"),
         (plan.has_queue_cap, "ready-queue cap", "server overload"),
         (plan.has_queue_timeout, "dequeue deadline", "server overload"),
@@ -213,8 +224,20 @@ class FastEngine:
         self._tables = {
             name: torch.as_tensor(np.asarray(getattr(plan, name)), device=dev)
             for name in ("endpoint_cum", "endpoint_ram", "endpoint_post_io", "n_bursts",
-                         "burst_dur", "burst_pre_io", "lb_edge_index", "lb_target")
+                         "burst_dur", "burst_pre_io")
         }
+
+        def table(x, dtype) -> torch.Tensor:
+            return torch.as_tensor(np.asarray(x), device=dev).to(dtype).contiguous()
+
+        # what every hop reads of the plan: the LB's slots and the spikes
+        self._hop_static = {}
+        if plan.n_lb_edges > 0:
+            self._hop_static.update(lb_edge=table(plan.lb_edge_index, torch.int32),
+                                    lb_target=table(plan.lb_target, torch.int32))
+        if plan.has_spikes:
+            self._hop_static.update(spike_t=table(plan.spike_times, torch.float32),
+                                    spike_v=table(plan.spike_values, torch.float32))
 
     # ------------------------------------------------------------------
     # helpers
@@ -283,15 +306,15 @@ class FastEngine:
         slot = torch.arange(n, device=dev)
         valid = slot[None, :] < total[:, None]
         win = searchsorted_small(offsets, slot.expand(s, n), "right").clamp_(0, nw - 1)
-        gaps = -torch.log1p(-self.draws.uniform(fold_in(k_arr, 3), n))
-        cum = torch.cumsum(gaps, dim=1)
-        del gaps
+        # the gaps' prefix sum in XLA's association order, so that the
+        # arrivals take the reference's values
+        cum = self.draws.gap_cumsum(fold_in(k_arr, 3), n)
         prefix = torch.cat([cum.new_zeros((s, 1)), cum], dim=1)
         begin = torch.cat([offsets.new_zeros((s, 1)), offsets[:, :-1]], dim=1)
         base = prefix.gather(1, begin.clamp(0, n))
         wsum = prefix.gather(1, offsets.clamp(0, n)) - base
         del prefix
-        extra = -torch.log1p(-self.draws.uniform(fold_in(k_arr, 4), nw))
+        extra = self.draws.uniform(fold_in(k_arr, 4), nw, gap=True)
         denom = torch.clamp_min(wsum + extra, f32(TINY))
         u = torch.clamp((cum - base.gather(1, win)) / denom.gather(1, win), 0.0, 1.0)
         del cum
@@ -306,9 +329,7 @@ class FastEngine:
         )
         last = torch.maximum(last, starts)
         residual = torch.where(lens > 0, ends - last, 0.0)
-        cum_res = torch.cat(
-            [residual.new_zeros((s, 1)), torch.cumsum(residual, dim=1)], dim=1,
-        )[:, :-1]
+        cum_res = F.pad(prefix_sum_xla(residual), (1, 0))[:, :-1]
         t = torch.where(valid, sampler_t - cum_res.gather(1, win), INF)
         return t, valid, (offsets[:, -1] - total).to(torch.int32)
 
@@ -316,12 +337,19 @@ class FastEngine:
     # the journey
     # ------------------------------------------------------------------
 
-    def _hop(self, keys, site: int, ov: dict, *, edge=None, eidx=None, u=None):
-        uk, zk = hop_keys(keys, site)
-        return self.draws.hop(
-            None if u is not None else uk, zk, self._dist, ov["em"], ov["ev"], ov["ed"],
-            self.n, u=u, edge=edge, eidx=eidx,
+    def _edge_tables(self, ov: dict) -> EdgeTables:
+        return EdgeTables(
+            dist=self._dist, mean=ov["em"], var=ov["ev"], drop=ov["ed"],
+            horizon=self.plan.horizon, **self._hop_static,
         )
+
+    def _hop(self, tables: EdgeTables, keys, site: int, t, alive, *, edge=None, rank=None,
+             ukey=None) -> HopOut:
+        """The fused hop keyed ``fold_in(key, site)`` (its uniform stream, or
+        the shared ``ukey``) of the lanes ``alive`` sending at ``t``."""
+        uk, zk = hop_keys(keys, site)
+        return self.draws.hop(tables, t, alive, uk if ukey is None else ukey, zk, edge=edge,
+                              rank=rank)
 
     def _journey(self, keys, ov: dict, t: torch.Tensor, alive: torch.Tensor):
         """Entry chain, routing, the servers in topological order and the
@@ -333,37 +361,26 @@ class FastEngine:
         gm = torch.zeros((s_rows, plan.n_gauges), dtype=torch.float32, device=dev)
         n_dropped = torch.zeros(s_rows, dtype=torch.int64, device=dev)
         tab = self._tables
+        tables = self._edge_tables(ov)
 
         # ---- entry chain ----
+        # each hop sends only while the clock runs (alive & t < horizon)
         for j, eidx in enumerate(plan.entry_edges.tolist()):
-            alive = alive & (t < horizon)
-            dropped, delay = self._hop(keys, 16 + j, ov, edge=eidx)
-            ok = alive & ~dropped
-            gm[:, eidx] += _span(t, t + delay, ok, horizon)
-            n_dropped += (alive & dropped).sum(dim=1)
-            t = torch.where(ok, t + delay, t)
-            alive = ok
+            hop = self._hop(tables, keys, 16 + j, t, alive, edge=eidx)
+            gm[:, eidx] += hop.span[:, 0]
+            n_dropped += hop.dropped
+            t, alive = hop.t_next, hop.ok
 
         # ---- routing: round robin by arrival rank ----
         alive = alive & (t < horizon)
-        srv = torch.full_like(t, max(plan.entry_target, 0), dtype=torch.int64)
+        srv = torch.full_like(t, max(plan.entry_target, 0), dtype=torch.int32)
         if plan.n_lb_edges > 0:
-            rank = time_rank(t, alive)
-            slot = torch.where(alive, rank % plan.n_lb_edges, 0)
-            del rank
-            eidx_arr = tab["lb_edge_index"][slot].to(torch.int32)
-            dropped, delay = self._hop(keys, 32, ov, eidx=eidx_arr)
-            del eidx_arr
-            srv = tab["lb_target"][slot].to(torch.int64)
-            ok = alive & ~dropped
-            lo = torch.clamp_max(t, horizon)
-            hi = torch.clamp_max(t + delay, horizon)
-            span = torch.where(ok, torch.clamp_min(hi - lo, 0.0), 0.0)
+            hop = self._hop(tables, keys, 32, t, alive, rank=time_rank(t, alive))
+            srv = hop.target
             for k, e in enumerate(plan.lb_edge_index.tolist()):
-                gm[:, e] += torch.where(slot == k, span, 0.0).sum(dim=1)
-            n_dropped += (alive & dropped).sum(dim=1)
-            t = torch.where(ok, t + delay, t)
-            alive = ok
+                gm[:, e] += hop.span[:, k]
+            n_dropped += hop.dropped
+            t, alive = hop.t_next, hop.ok
 
         # ---- servers in topological order ----
         finish = torch.full_like(t, INF)
@@ -373,8 +390,10 @@ class FastEngine:
             time_rank(t, alive) if any(self.shares_entry_sort(s) for s in topo) else None
         )
         chained = any(int(k) == TARGET_SERVER for k in plan.exit_kind)
+        # unchained servers serve disjoint lanes: one endpoint-pick stream and
+        # one exit-edge stream for all of them
         u_ep_shared = None if chained else self.draws.uniform(fold_in(keys, 6), n)
-        u_exit_shared = None if chained else self.draws.uniform(fold_in(keys, 7), n)
+        exit_key = None if chained else fold_in(keys, 7)
         for s in topo:
             mine = alive & (srv == s) & (t < horizon)
             nep = int(plan.n_endpoints[s])
@@ -432,20 +451,18 @@ class FastEngine:
             gm[:, plan.gauge_ram(s)] += _span(t + w_ram, dep, mine, horizon, amount=ram)
 
             # exit edge: the send happens only while the clock runs
-            sendable = mine & (dep < horizon)
             eidx = int(plan.exit_edge[s])
-            dropped, delay = self._hop(keys, 128 + s, ov, edge=eidx, u=u_exit_shared)
-            ok = sendable & ~dropped
-            gm[:, eidx] += _span(dep, dep + delay, ok, horizon)
-            n_dropped += (sendable & dropped).sum(dim=1)
+            hop = self._hop(tables, keys, 128 + s, dep, mine, edge=eidx, ukey=exit_key)
+            gm[:, eidx] += hop.span[:, 0]
+            n_dropped += hop.dropped
+            ok = hop.ok
             if int(plan.exit_kind[s]) == TARGET_SERVER:
-                t = torch.where(ok, dep + delay, t)
+                t = torch.where(ok, hop.t_next, t)
                 srv = torch.where(ok, int(plan.exit_target[s]), srv)
                 alive = torch.where(mine, ok, alive)
             else:
-                fin = dep + delay
-                done = ok & (fin < horizon)
-                finish = torch.where(done, fin, finish)
+                done = ok & (hop.t_next < horizon)
+                finish = torch.where(done, hop.t_next, finish)
                 completed = completed | done
                 alive = torch.where(mine, False, alive)
         return finish, completed, gm, n_dropped

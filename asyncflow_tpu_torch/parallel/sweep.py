@@ -9,6 +9,8 @@ path, as the reference does, where the compiler proved the plan eligible
 kernel otherwise; ``engine_kind`` says which.  The reference's event
 engine is not ported yet.  Scenario ``i`` always gets key
 ``fold_in(PRNGKey(seed), i)``, so any chunking gives the same results.
+A sweep runs in chunks sized per engine for one H100 (:data:`FAST_CHUNK_LANES`,
+:data:`KERNEL_CHUNK`) unless ``chunk_size`` says otherwise.
 
 Overrides that raise the workload rate past ``plan.proof_rate_headroom``
 are refused with :class:`ProofHeadroomError` (the reference's
@@ -42,6 +44,15 @@ from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.engines.torchsim.params import ScenarioOverrides, base_overrides
 from asyncflow_tpu_torch.errors import FastPathOverrideError, ProofHeadroomError
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload
+
+#: the fast path's lanes a chunk (scenarios x lanes a scenario): the
+#: headline's 2048 x 87,840, whose sweep peaked at 27.17 GB of the card's
+#: 80 GB; its device memory grows with the lanes
+FAST_CHUNK_LANES = 2048 * 87_840
+#: the DES kernel's scenarios a chunk: its time a scenario is flat from
+#: about 528 scenarios up (the card is full and issue-bound), and every DES
+#: path was measured at 2048; its state is a few kB a scenario
+KERNEL_CHUNK = 2048
 
 
 @dataclass
@@ -228,6 +239,13 @@ class SweepRunner:
     def device(self) -> torch.device:
         return self.engine.device
 
+    @property
+    def default_chunk(self) -> int:
+        """Scenarios a chunk when ``run`` is given no ``chunk_size``."""
+        if self.engine_kind == "fast":
+            return max(1, FAST_CHUNK_LANES // self.engine.n)
+        return KERNEL_CHUNK
+
     def run(
         self,
         n_scenarios: int,
@@ -239,14 +257,14 @@ class SweepRunner:
     ) -> SweepReport:
         """Run scenarios ``first_scenario .. first_scenario + n_scenarios``
         of the deterministic grid of ``seed``, ``chunk_size`` per launch
-        (all in one launch by default).  ``overrides`` rows are local."""
+        (:attr:`default_chunk` by default).  ``overrides`` rows are local."""
         if n_scenarios < 1:
             msg = "n_scenarios must be at least 1"
             raise ValueError(msg)
         _guard_rate_headroom(self.plan, overrides)
         if self.engine_kind == "fast":
             _guard_fast_overrides(self.plan, overrides)
-        chunk = chunk_size or n_scenarios
+        chunk = chunk_size or self.default_chunk
         parts = []
         t0 = time.perf_counter()
         for start in range(0, n_scenarios, chunk):

@@ -40,23 +40,29 @@ no result line):
    it (no draw may move); each path's kernel time is printed beside the
    one-thread-a-scenario kernel's;
 4. the scan fast path's two kernels (``edge_draws``, ``station_scan``)
-   against their plain PyTorch versions on the card, on two_servers_lb
-   and single_server cut to 60 s at 64 scenarios: every kernel call of
-   the engine's run repeated through the plain version, bit-exact, and
-   the whole engine through each, with identical integer outputs and
-   per-request clocks;
-5. the two fast paths: ``SweepRunner(payload).run(2048, seed=0)`` through
-   ``engine="auto"``, which must take the fast path and launch both
-   kernels (counts set to 0 before the run), on two_servers_lb (600 s)
-   and single_server (500 s, a binding RAM of 20 slots): request
-   conservation, the pooled p95 within 2% of the JAX fast path's and of
-   the DES kernel's on the same payload; then the first call of each
-   kind (uniform, static hop, LB hop, wait scan, RAM-core scan) of the
-   path's own run at full width, repeated through the kernel and through
-   its plain version on the same arguments, bit-exact; each kernel's
-   timed call between CUDA events beside its bound, its plain version's
-   time and the library's (the closed form ``cumsum`` / ``cummax`` for
-   the one-core scan), and the stable rank's time.
+   against their plain PyTorch versions on the card, on two_servers_lb,
+   single_server and heavy_inj_single_server cut to 60 s (the spike
+   scaled into it) at 64 scenarios: every kernel call of the engine's run
+   (uniforms, arrival gaps and their prefix sum, static, LB and spiked
+   hops, scans) repeated through the plain version, bit-exact, and the
+   whole engine through each, with identical integer outputs, per-request
+   clocks and gauge means; and XLA's ``log1p`` in the kernel against its
+   plain version on each of the 2**23 uniforms;
+5. the three fast paths: ``SweepRunner(payload).run(2048, seed=0)``
+   through ``engine="auto"``, which must take the fast path and launch
+   both kernels (counts set to 0 before the run), on two_servers_lb
+   (600 s), single_server (500 s, a binding RAM of 20 slots) and
+   heavy_inj_single_server (600 s, a 3 s spike from 180 s to 300 s, in
+   default chunks of 1,797 scenarios): request conservation, the pooled
+   p95 within 2% of the JAX fast path's and of the DES kernel's on the
+   same payload (its sweep untruncated); then the first call of each kind
+   (uniform, gap, gap prefix sum, static, LB or spiked hop, wait scan,
+   RAM-core scan) of the path's own run at full width, repeated through
+   the kernel and through its plain version on the same arguments,
+   bit-exact; each edge_draws kind's and one station_scan kind's call
+   timed between CUDA events beside its bound, its plain version's time
+   and the library's (the closed form ``cumsum`` / ``cummax`` for the
+   one-core scan), and the stable rank's time.
 
 It prints a JSON line of per-kernel measurements, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and
@@ -234,6 +240,63 @@ SINGLE_SERVER = {
 }
 
 
+#: examples/yaml_input/data/heavy_inj_single_server.yml as a literal: a
+#: 3 s spike on the client-to-server edge from 180 s to 300 s at ~150 req/s
+HEAVY_INJ_SINGLE_SERVER = {
+    "rqs_input": {
+        "id": "rqs-1",
+        "avg_active_users": {"mean": 300},
+        "avg_request_per_minute_per_user": {"mean": 30},
+        "user_sampling_window": 60,
+    },
+    "topology_graph": {
+        "nodes": {
+            "client": {"id": "client-1"},
+            "servers": [
+                {
+                    "id": "srv-1",
+                    "server_resources": {"cpu_cores": 1, "ram_mb": 8000},
+                    "endpoints": [
+                        {
+                            "endpoint_name": "ep-1",
+                            "steps": [
+                                {"kind": "initial_parsing",
+                                 "step_operation": {"cpu_time": 0.005}},
+                                {"kind": "ram", "step_operation": {"necessary_ram": 200}},
+                                {"kind": "io_wait",
+                                 "step_operation": {"io_waiting_time": 0.2}},
+                            ],
+                        },
+                    ],
+                },
+            ],
+        },
+        "edges": [
+            {
+                "id": eid,
+                "source": src,
+                "target": dst,
+                "latency": {"mean": 0.003, "distribution": "exponential"},
+            }
+            for eid, src, dst in (
+                ("gen-to-client", "rqs-1", "client-1"),
+                ("client-to-server", "client-1", "srv-1"),
+                ("server-to-client", "srv-1", "client-1"),
+            )
+        ],
+    },
+    "sim_settings": {"total_simulation_time": 600, "sample_period_s": 0.05},
+    "events": [
+        {
+            "event_id": "ev-spike-heavy",
+            "target_id": "client-to-server",
+            "start": {"kind": "network_spike_start", "t_start": 180.0, "spike_s": 3.0},
+            "end": {"kind": "network_spike_end", "t_end": 300.0},
+        },
+    ],
+}
+
+
 def db_pool_payload(pool: int | None) -> dict:
     """examples/sweeps/db_pool_sizing.py, ``payload_with_pool(pool)``: one
     server, CPU 2 ms then a 60 ms io_db query holding one of ``pool``
@@ -320,11 +383,13 @@ PAYLOADS = {
     "two_gen_lb": TWO_GEN_LB,
 }
 
-#: the scan fast path's two full-width paths: the headline, and
+#: the scan fast path's full-width paths: the headline,
 #: examples/yaml_input/data/single_server.yml (a binding RAM of 20 slots)
+#: and heavy_inj_single_server.yml (a network spike, 100,085 lanes)
 FAST_PAYLOADS = {
     "two_servers_lb": TWO_SERVERS_LB,
     "single_server": SINGLE_SERVER,
+    "heavy_inj_single_server": HEAVY_INJ_SINGLE_SERVER,
 }
 
 MAIN_SCENARIOS = 2048
@@ -367,10 +432,11 @@ REFERENCE = {
 #: the JAX scan fast path on each fast payload at its full horizon: pooled
 #: p95 (seconds) of FastEngine on scenarios 0..31 of seed 0, on the CPU
 #: (``python tests/test_torch_sweep.py --reference-p95 PAYLOAD --engine
-#: fast``; seed 1 gave 0.033682255 s and 0.119988049 s)
+#: fast``; seed 1 gave 0.033682255 s, 0.119988049 s and 3.238123915 s)
 REFERENCE_FAST = {
     "two_servers_lb": {"p95_s": 0.03368371799103881},
     "single_server": {"p95_s": 0.12000647249175632},
+    "heavy_inj_single_server": {"p95_s": 3.2386658959732046},
 }
 #: horizon of the fast kernels' check against their plain versions, and
 #: its scenarios
@@ -401,11 +467,17 @@ THREAD_KERNEL_MS = {
 }
 
 # NVIDIA H100 SXM peaks: HBM3 bandwidth and fp32 outside the tensor cores
-# from the data sheet; int32 from the SM's 64 int32 lanes a clock (half its
-# fp32 lanes) on 132 SMs at the 1.98 GHz boost clock
+# from the data sheet; int32 at the SM's issue rate, 128 lanes a clock (four
+# schedulers, a warp instruction each: the 64 int32 lanes and the integer
+# adds the compiler issues to the fp32 lanes as IMAD) on 132 SMs at the
+# 1.98 GHz boost clock.  The 64-lane rate is no bound: edge_draws' uniform
+# mode ran 0.687 ms against the 0.925 ms it gives (NVIDIA H100 80GB HBM3,
+# 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
-PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+PEAK_INT32_OPS_PER_S = 132 * 128 * 1.98e9
+#: float64 outside the tensor cores, from the same data sheet
+PEAK_FP64_OPS_PER_S = 34e12
 
 # (int32, fp32) operations of the simulation's work: per threefry block, per
 # pool slot an event's argmin considers, per event and per unit of each
@@ -1095,48 +1167,90 @@ def phase_path(torch, name: str) -> dict:
     }
 
 
-# (int32, fp32) operations a lane of the fast path's kernels: a jax-style
+# (int32, fp32, fp64) operations of an edge_draws lane: a uniform is one
 # threefry block (THREEFRY_OPS' 20 rounds and key injections, the XOR of
-# the two words, the mantissa shift and or; the subtract of 1.0); the hop's
-# dropout test and rescale (compare, two subtracts, the max, the divide);
-# each delay law (exponential: 1 - u, the max, the log, the multiply;
-# normal and lognormal: a second block for z, erfinv's log1p, square root
-# and 9-term polynomial, the affine map and the max or exp)
-UNIFORM_LANE_OPS = (86, 1)
-HOP_LANE_OPS = (0, 5)
-LAW_LANE_OPS = {0: (0, 0), 2: (0, 4), 3: (86, 26), 4: (86, 26)}
+# the two words, the mantissa shift and or; the subtract of 1.0); XLA's
+# log1p (gaps) in its two branches: Cephes' rational form (the square, the
+# divide, four multiplies and adds; 14 Horner steps, each a fused
+# multiply-add of two operations) or log(1 + x) (the add, frexp's bit
+# operations, 12 float32 operations, 9 fused multiply-adds), the negations;
+# the hop's dropout test and rescale (compare, two subtracts, the max, the
+# divide), the send gate, the time add, the span (two minima, subtract,
+# max) and its float64 add; each delay law (exponential: 1 - u, the max,
+# the log, the multiply; normal and lognormal: a second block for z,
+# erfinv's log1p, square root and 9-term polynomial, the affine map and
+# the max or exp); a spike: a compare a breakpoint and the add; the LB
+# slot's modulo; a scan: one add a lane a level and the down-add
+UNIFORM_LANE_OPS = (86, 1, 0)
+LOG1P_RATIONAL_OPS = (0, 37, 0)
+LOG1P_LOG_OPS = (4, 33, 0)
+HOP_LANE_OPS = (0, 11, 1)
+LAW_LANE_OPS = {0: (0, 0, 0), 2: (0, 4, 0), 3: (86, 26, 0), 4: (86, 26, 0)}
+LB_SLOT_OPS = (1, 0, 0)
+SCAN_LANE_OPS = (0, 2, 0)
 #: station_scan, an element: Lindley's two selects, add, max, two
 #: subtracts and max; a Kiefer-Wolfowitz or RAM-slot step adds a compare a
 #: carry entry it moves past (not counted: the data decides)
 SCAN_ELEMENT_OPS = {"waits": (3, 5), "ram_core": (4, 8)}
 
 
-def _draws_bound(args: tuple, kw: dict, n: int) -> dict:
-    """The least time of one edge_draws hop launch: bytes (the per-lane
-    inputs read once, dropped and delay written once) against operations
-    (a uniform block and the hop a lane, plus each lane's law)."""
-    keys, _zkey, dist, mean, *_ = args
-    s = mean.shape[0]
-    lanes = s * n
-    moved = lanes * (1 + 4)
-    for name in ("u", "eidx"):
-        if kw.get(name) is not None:
-            moved += kw[name].numel() * kw[name].element_size()
-    if kw.get("eidx") is not None:
-        import torch
+def _ops(lanes, per_lane) -> list:
+    return [lanes * x for x in per_lane]
 
-        per_law = torch.bincount(torch.as_tensor(dist, device=kw["eidx"].device)[
-            kw["eidx"].long()].reshape(-1), minlength=5).tolist()
+
+def _log1p_ops(torch, u) -> list:
+    """The operations of XLA's log1p on the gaps of uniforms ``u``: each
+    lane in its own branch, as this run's uniforms fall."""
+    from asyncflow_tpu_torch.engines.torchsim.draws import LOG1P_SMALL
+
+    rational = int((u < LOG1P_SMALL).sum())
+    log = u.numel() - rational
+    return [a + b for a, b in zip(_ops(rational, LOG1P_RATIONAL_OPS), _ops(log, LOG1P_LOG_OPS))]
+
+
+def _draws_bound(torch, kind: str, args: tuple, kw: dict) -> dict:
+    """The least time of one edge_draws call: bytes (each input read once,
+    each output written once) against operations (each lane's threefry
+    blocks, float32 and float64 operations, as this call's data takes
+    them)."""
+    from asyncflow_tpu_torch.engines.torchsim import draws
+
+    if kind in ("uniform", "gap", "gap_cumsum"):
+        keys, n = args
+        lanes = keys.shape[0] * n
+        ops = _ops(lanes, UNIFORM_LANE_OPS)
+        if kind != "uniform":
+            extra = _log1p_ops(torch, draws.uniform(keys, n))
+            if kind == "gap_cumsum":
+                extra = [a + b for a, b in zip(extra, _ops(lanes, SCAN_LANE_OPS))]
+            ops = [a + b for a, b in zip(ops, extra)]
+        return _bound_of(lanes * 4, *ops)
+    if kind == "gap_of":
+        (u,) = args
+        return _bound_of(u.numel() * 8, *_log1p_ops(torch, u))
+    tables, t_send, alive, _ukey, _zkey = args
+    s, n = t_send.shape
+    lanes = s * n
+    rank = kw.get("rank")
+    k_slots = 1 if rank is None else int(tables.lb_edge.shape[0])
+    moved = lanes * (4 + 1 + 4 + 1) + s * (4 * k_slots + 8)
+    ops = [a + b for a, b in zip(_ops(lanes, UNIFORM_LANE_OPS), _ops(lanes, HOP_LANE_OPS))]
+    if rank is None:
+        per_law = {int(tables.dist[kw["edge"]]): lanes}
     else:
-        per_law = [0] * 5
-        per_law[int(dist[kw["edge"]])] = lanes
-    int_ops = lanes * (UNIFORM_LANE_OPS[0] if kw.get("u") is None else 0)
-    fp_ops = lanes * (HOP_LANE_OPS[1] + (UNIFORM_LANE_OPS[1] if kw.get("u") is None else 0))
-    for law, count in enumerate(per_law):
+        moved += lanes * (8 + 4)
+        ops = [a + b for a, b in zip(ops, _ops(lanes, LB_SLOT_OPS))]
+        gate = alive & (t_send < float(tables.horizon))
+        slot = torch.where(gate, rank % k_slots, 0)
+        law = torch.as_tensor(tables.dist, device=slot.device).long()[tables.lb_edge.long()[slot]]
+        per_law = dict(enumerate(torch.bincount(law.reshape(-1), minlength=5).tolist()))
+    for law, count in per_law.items():
         if count:
-            int_ops += count * LAW_LANE_OPS[law][0]
-            fp_ops += count * LAW_LANE_OPS[law][1]
-    return _bound_of(moved, int_ops, fp_ops)
+            ops = [a + b for a, b in zip(ops, _ops(count, LAW_LANE_OPS[law]))]
+    if tables.spike_t is not None:
+        nb = int(tables.spike_t.shape[0])
+        ops[1] += lanes * (nb + 1)
+    return _bound_of(moved, *ops)
 
 
 def _scan_bound(kind: str, args: tuple) -> dict:
@@ -1150,9 +1264,10 @@ def _scan_bound(kind: str, args: tuple) -> dict:
     return _bound_of(moved, elems * ops[0], elems * ops[1])
 
 
-def _bound_of(moved: int, int_ops: int, fp_ops: int) -> dict:
+def _bound_of(moved: int, int_ops: int, fp_ops: int, fp64_ops: int = 0) -> dict:
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(int_ops / PEAK_INT32_OPS_PER_S, fp_ops / PEAK_FP32_OPS_PER_S) * 1e3
+    t_ops = max(int_ops / PEAK_INT32_OPS_PER_S, fp_ops / PEAK_FP32_OPS_PER_S,
+                fp64_ops / PEAK_FP64_OPS_PER_S) * 1e3
     return {
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1161,21 +1276,32 @@ def _bound_of(moved: int, int_ops: int, fp_ops: int) -> dict:
     }
 
 
-#: the kinds of fast-kernel call: (wrapper name, wrapper method)
+#: the kinds of fast-kernel call: (wrapper name, wrapper method); a hop's
+#: kind says whether it takes the LB slots and the spikes
 CALL_KINDS = {
     "uniform": ("edge_draws", "uniform"),
+    "gap": ("edge_draws", "uniform"),
+    "gap_cumsum": ("edge_draws", "gap_cumsum"),
+    "gap_of": ("edge_draws", "gap_of"),
     "hop": ("edge_draws", "hop"),
     "hop_lb": ("edge_draws", "hop"),
+    "hop_spike": ("edge_draws", "hop"),
+    "hop_lb_spike": ("edge_draws", "hop"),
     "waits": ("station_scan", "waits"),
     "ram_core": ("station_scan", "ram_core"),
 }
 
 
+def _hop_kind(tables, kw: dict) -> str:
+    return ("hop_lb" if kw.get("rank") is not None else "hop") + (
+        "_spike" if tables.spike_t is not None else "")
+
+
 def _record_kernel_calls(eng, every: bool) -> list:
     """Put recorders in place of the fast engine's two kernel wrappers; each
     passes the call on and keeps ``(kind, args, kwargs)`` of every call
-    (``every``) or of the first call of each kind (the LB hop, a static
-    hop, a uniform, a wait scan, a RAM-core scan)."""
+    (``every``) or of the first call of each kind (a uniform, a gap draw,
+    a gap prefix sum, each kind of hop, a wait scan, a RAM-core scan)."""
     calls: list = []
     draws, scan = eng.draws, eng.scan
 
@@ -1184,13 +1310,17 @@ def _record_kernel_calls(eng, every: bool) -> list:
             calls.append((kind, args, kw))
 
     class Draws:
-        def uniform(self, keys, n):
-            keep("uniform", (keys, n), {})
-            return draws.uniform(keys, n)
+        def uniform(self, keys, n, *, gap=False):
+            keep("gap" if gap else "uniform", (keys, n), {})
+            return draws.uniform(keys, n, gap=gap)
 
-        def hop(self, *args, **kw):
-            keep("hop_lb" if kw.get("eidx") is not None else "hop", args, kw)
-            return draws.hop(*args, **kw)
+        def gap_cumsum(self, keys, n):
+            keep("gap_cumsum", (keys, n), {})
+            return draws.gap_cumsum(keys, n)
+
+        def hop(self, tables, *args, **kw):
+            keep(_hop_kind(tables, kw), (tables, *args), kw)
+            return draws.hop(tables, *args, **kw)
 
     class Scan:
         def waits(self, *args):
@@ -1208,6 +1338,8 @@ def _record_kernel_calls(eng, every: bool) -> list:
 def _call(wrapper, kind: str, args: tuple, kw: dict):
     """One recorded call through ``wrapper`` (a kernel or a plain version),
     its outputs as a tuple."""
+    if kind == "gap":
+        kw = {**kw, "gap": True}
     out = getattr(wrapper, CALL_KINDS[kind][1])(*args, **kw)
     return out if isinstance(out, tuple) else (out,)
 
@@ -1217,10 +1349,26 @@ def _compare(torch, label: str, got: tuple, want: tuple) -> float:
     plain version's; raises unless every output is bit-identical."""
     err = 0.0
     for x, y in zip(got, want, strict=True):
+        if x is None and y is None:
+            continue
+        if x is None or y is None:
+            raise SmokeError(f"{label}: the kernel and its plain version return different outputs")
         err = max(err, (x.float() - y.float()).abs().max().item())
         if not torch.equal(x, y):
             raise SmokeError(f"{label}: the kernel differs from its plain version by {err}")
     return err
+
+
+def _fast_check_payload(data: dict) -> dict:
+    """``data`` cut to FAST_CHECK_HORIZON seconds, its events' times scaled
+    with it (heavy_inj_single_server's spike then runs from 18 s to 30 s)."""
+    data = copy.deepcopy(data)
+    scale = FAST_CHECK_HORIZON / data["sim_settings"]["total_simulation_time"]
+    data["sim_settings"]["total_simulation_time"] = FAST_CHECK_HORIZON
+    for event in data.get("events", []):
+        event["start"]["t_start"] *= scale
+        event["end"]["t_end"] *= scale
+    return data
 
 
 def _fast_engine(torch, data: dict, horizon: float | None = None, **kw):
@@ -1236,20 +1384,23 @@ def _fast_engine(torch, data: dict, horizon: float | None = None, **kw):
 
 def phase_fast_check(torch) -> dict:
     """Phase 4: the fast path's kernels against their plain versions on the
-    card, on each fast payload cut to FAST_CHECK_HORIZON seconds at
-    FAST_CHECK_SCENARIOS scenarios: every kernel call of the engine's run
-    (all are recorded) repeated through the kernel and through the plain
-    version on the same arguments, bit-exact;
-    then the whole engine once through the kernels and once through the
-    plain versions: every integer output and every completed request's
-    (arrival, finish) clock identical."""
+    card, on each fast payload cut to FAST_CHECK_HORIZON seconds (events
+    scaled in) at FAST_CHECK_SCENARIOS scenarios: every kernel call of the
+    engine's run (all are recorded: uniforms, gap draws and prefix sums,
+    static, LB and spiked hops, scans) repeated through the kernel and
+    through the plain version on the same arguments, bit-exact; then the
+    whole engine once through the kernels and once through the plain
+    versions: every integer output, every completed request's (arrival,
+    finish) clock and every gauge mean identical.  Last, XLA's log1p in
+    the kernel against its plain version on each of the 2**23 uniforms."""
     from asyncflow_tpu_torch.engines.torchsim import draws, station_scan
     from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 
     plain_draws, plain_scan = draws.PlainEdgeDraws(), station_scan.PlainStationScan()
     measured = {"edge_draws": 0.0, "station_scan": 0.0}
+    kinds_seen: set = set()
     for name, data in FAST_PAYLOADS.items():
-        eng = _fast_engine(torch, data, FAST_CHECK_HORIZON, collect_clocks=True)
+        eng = _fast_engine(torch, _fast_check_payload(data), collect_clocks=True)
         keys = scenario_keys(0, FAST_CHECK_SCENARIOS, device="cuda")
         kernel_draws, kernel_scan = eng.draws, eng.scan
         calls = _record_kernel_calls(eng, every=True)
@@ -1265,22 +1416,31 @@ def phase_fast_check(torch) -> dict:
             err = _compare(torch, f"fast check {name}: call {i} ({kind})",
                            _call(wrapper, kind, args, kw), _call(plain, kind, args, kw))
             measured[kernel] = max(measured[kernel], err)
+        kinds_seen |= {kind for kind, _, _ in calls}
         want_eng = copy.copy(eng)
         want_eng.draws, want_eng.scan = plain_draws, plain_scan
         want = want_eng.run_tensors(keys)
         for field in ("hist", "thr", "lat_count", "n_generated", "n_dropped", "n_overflow",
-                      "clock"):
+                      "clock", "gauge_means"):
             if not torch.equal(got[field], want[field]):
                 raise SmokeError(f"fast check {name}: {field} differs between the runs")
-        err = (got["gauge_means"] - want["gauge_means"]).abs().max().item()
         print(
             f"fast kernels == plain on {name} ({FAST_CHECK_SCENARIOS} x "
             f"{FAST_CHECK_HORIZON} s, {eng.n} lanes): {len(calls)} calls of kinds "
             f"{sorted({kind for kind, _, _ in calls})}; completed "
             f"{int(got['lat_count'].sum())}, generated {int(got['n_generated'].sum())}, "
-            f"clocks identical; gauge means differ by {err}",
+            f"dropped {int(got['n_dropped'].sum())}; clocks and gauge means identical",
             flush=True,
         )
+    wanted = {"uniform", "gap", "gap_cumsum", "hop", "hop_lb", "hop_spike", "waits",
+              "ram_core"}
+    if not wanted <= kinds_seen:
+        raise SmokeError(f"fast check: no call of kinds {sorted(wanted - kinds_seen)}")
+    u = torch.arange(2**23, dtype=torch.float64, device="cuda").div(2**23).float().view(8, -1)
+    measured["edge_draws"] = max(measured["edge_draws"], _compare(
+        torch, "fast check: log1p_xla on every uniform", _call(kernel_draws, "gap_of", (u,), {}),
+        _call(plain_draws, "gap_of", (u,), {})))
+    print("fast check: XLA's log1p in the kernel == plain on all 2**23 uniforms", flush=True)
     return measured
 
 
@@ -1311,12 +1471,13 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
     fast path and launch both of its kernels; request conservation; the
     pooled p95 within 2% of the JAX fast path's and of the port's DES
     kernel's on the same payload (``des_p95``, or a kernel sweep here);
-    then the first call of each kind of the path's own run, at full width,
-    through the kernel and through its plain version on the same
-    arguments, bit-exact; each kernel's timed call (the LB hop or else a
-    static hop; the RAM-core scan or else a wait scan) between CUDA
-    events, beside its bound, its plain version's time and the library's;
-    and the stable rank's time."""
+    the DES kernel's sweep, where it runs here, with no truncated and no
+    overflowed scenario; then the first call of each kind of the path's
+    own run, at full width, through the kernel and through its plain
+    version on the same arguments, bit-exact; each edge_draws kind and one
+    station_scan kind (the RAM-core scan or else a wait scan) timed
+    between CUDA events, beside its bound, its plain version's time and
+    the library's; and the stable rank's time."""
     import numpy as np
 
     from asyncflow_tpu_torch.engines.torchsim import draws, station_scan
@@ -1354,7 +1515,13 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
     des_scen_per_s = None
     if des_p95 is None:
         des = SweepRunner(data, engine="kernel", device="cuda").run(MAIN_SCENARIOS, seed=0)
-        des_p95 = des.summary()["latency_p95_s"]
+        des_summary = des.summary()
+        if des_summary["truncated_total"] != 0 or des_summary["overflow_total"] != 0:
+            msg = (f"fast {name}: the DES kernel's sweep truncated "
+                   f"{des_summary['truncated_total']} and overflowed "
+                   f"{des_summary['overflow_total']} scenarios")
+            raise SmokeError(msg)
+        des_p95 = des_summary["latency_p95_s"]
         des_scen_per_s = des.scenarios_per_second
     ref = REFERENCE_FAST[name]["p95_s"]
     rel_ref, rel_des = p95 / ref - 1.0, p95 / des_p95 - 1.0
@@ -1364,7 +1531,8 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
         raise SmokeError(msg)
 
     # each kind of call of this path's own run, at full width: the kernel
-    # against its plain version, and the timed ones between CUDA events
+    # against its plain version, each edge_draws kind and one station_scan
+    # kind timed between CUDA events
     keys = scenario_keys(0, MAIN_SCENARIOS, device="cuda")
     wrappers = {"edge_draws": eng.draws, "station_scan": eng.scan}
     plains = {"edge_draws": draws.PlainEdgeDraws(),
@@ -1373,10 +1541,9 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
     eng.run_tensors(keys)
     eng.draws, eng.scan = wrappers["edge_draws"], wrappers["station_scan"]
     kinds = {kind for kind, _, _ in calls}
-    timed_kind = {"edge_draws": "hop_lb" if "hop_lb" in kinds else "hop",
-                  "station_scan": "ram_core" if "ram_core" in kinds else "waits"}
+    scan_kind = "ram_core" if "ram_core" in kinds else "waits"
     max_err = {"edge_draws": 0.0, "station_scan": 0.0}
-    timed = {}
+    timed: dict = {"edge_draws": {}, "station_scan": {}}
     for kind, args, kw in calls:
         kernel = CALL_KINDS[kind][0]
         plain_ms, want = _time_plain(torch, lambda: _call(plains[kernel], kind, args, kw))
@@ -1384,25 +1551,26 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
         err = _compare(torch, f"fast {name}: {kind} at full width", got, want)
         max_err[kernel] = max(max_err[kernel], err)
         del got, want
-        if kind != timed_kind[kernel]:
+        if kernel == "station_scan" and kind != scan_kind:
             continue
         ms = time_kernel(torch, lambda: _call(wrappers[kernel], kind, args, kw), repeats=5)
         library_ms = None
         if kind == "waits" and args[3] == 1:
             library_ms = time_kernel(torch, lambda: _lindley_closed_form(torch, *args[:3]),
                                      repeats=3)
-        bound = _draws_bound(args, kw, eng.n) if kernel == "edge_draws" else _scan_bound(
-            kind, args)
-        timed[kernel] = {"call": kind, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, **bound}
+        bound = (_draws_bound(torch, kind, args, kw) if kernel == "edge_draws"
+                 else _scan_bound(kind, args))
+        timed[kernel][kind] = {"call": kind, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": library_ms, **bound}
     ov = eng._overrides(base_overrides(eng.plan), MAIN_SCENARIOS)
     _lam, counts = eng.window_draws(keys, ov["um"], ov["rr"])
     t, valid, _ = eng._arrivals(fold_in(keys, 0), counts)
     rank_ms = time_kernel(torch, lambda: time_rank(t, valid), repeats=3)
+    del t, valid, calls
     print(
         f"fast path {name}: {MAIN_SCENARIOS} scenarios x {eng.plan.horizon:.0f} s, "
-        f"{eng.n} lanes, launches {launches}, {report.wall_seconds:.3f} s wall, "
-        f"{summary['scenarios_per_second']:.1f} scen/s"
+        f"{eng.n} lanes, chunks of {runner.default_chunk}, launches {launches}, "
+        f"{report.wall_seconds:.3f} s wall, {summary['scenarios_per_second']:.1f} scen/s"
         + ("" if des_scen_per_s is None else f" (DES kernel sweep {des_scen_per_s:.1f} scen/s)")
         + f", peak device memory {peak_gb:.2f} GB; p50 "
         f"{summary['latency_p50_s'] * 1e3:.3f} ms, p95 {p95 * 1e3:.4f} ms ({rel_ref:+.3%} vs "
@@ -1411,12 +1579,15 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
         f"{summary['completed_total']}, dropped {summary['dropped_total']}",
         flush=True,
     )
-    for kernel, m in timed.items():
-        lib = "null" if m["library_ms"] is None else f"{m['library_ms']:.3f} ms"
-        print(f"  {kernel} ({m['call']}): {m['ms']:.3f} ms, plain {m['plain_ms']:.1f} ms, "
-              f"library {lib}, {_bound_text(m)}", flush=True)
+    for kernel, modes in timed.items():
+        for kind, m in modes.items():
+            lib = "null" if m["library_ms"] is None else f"{m['library_ms']:.3f} ms"
+            print(f"  {kernel} ({kind}): {m['ms']:.3f} ms, plain {m['plain_ms']:.1f} ms, "
+                  f"library {lib}, {_bound_text(m)}", flush=True)
     print(f"  stable row rank (torch.sort) of the arrivals: {rank_ms:.3f} ms; calls "
           f"{sorted(kinds)} at full width bit-exact with their plain versions", flush=True)
+    headline_kind = {"edge_draws": "hop_lb" if "hop_lb" in kinds else (
+        "hop_spike" if "hop_spike" in kinds else "hop"), "station_scan": scan_kind}
     return {
         "launches": launches,
         "wall_s": report.wall_seconds,
@@ -1425,7 +1596,7 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
         "des_p95_s": des_p95,
         "peak_gb": peak_gb,
         "rank_ms": rank_ms,
-        "timed": timed,
+        "timed": {k: {"main": headline_kind[k], "modes": v} for k, v in timed.items()},
         "max_abs_err": max_err,
     }
 
@@ -1499,7 +1670,8 @@ def main() -> int:
     ]
     headline_fast = fast["two_servers_lb"]["timed"]
     for wrapper in (EdgeDraws, StationScan):
-        m = headline_fast[wrapper.name]
+        main_kind = headline_fast[wrapper.name]["main"]
+        m = headline_fast[wrapper.name]["modes"][main_kind]
         kernels.append({
             "name": wrapper.name,
             "route": wrapper.route,
@@ -1513,10 +1685,16 @@ def main() -> int:
             "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"],
             "library_ms": m["library_ms"],
+            "call": main_kind,
             "paths": {
-                name: {"launches": f["launches"][wrapper.name],
-                       **{k: f["timed"][wrapper.name][k] for k in (
-                           "call", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                name: {
+                    "launches": f["launches"][wrapper.name],
+                    "modes": {
+                        kind: {k: t[k] for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                        for kind, t in f["timed"][wrapper.name]["modes"].items()
+                    },
+                }
                 for name, f in fast.items()
             },
         })

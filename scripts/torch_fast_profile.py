@@ -7,9 +7,12 @@ For each path (a key of ``chip_smoke.FAST_PAYLOADS``; all by default) it
 runs ``SweepRunner(payload).run(N, seed=0)`` once to warm up, then once
 under ``torch.profiler`` with CPU and CUDA activities, and prints the
 sweep's wall time, the device time summed over kernels, the device's idle
-share of the wall (1 - device time / wall), and the device time by
-kernel name (the 20 largest), with the card's name and power limit.  It
-needs a CUDA card and imports neither JAX nor the JAX package.
+share of the wall (1 - device time / wall), the peak device memory of an
+unprofiled run, the device time by kind of kernel (the port's two
+kernels, float adds, clamps, selects, the other elementwise kernels,
+sorts, gathers and scatters, copies) and by kernel name (the 20 largest),
+with the card's name and power limit.  It needs a CUDA card and imports
+neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +25,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+#: kinds of kernel, by a piece of the kernel's name (the first that matches)
+KINDS = (
+    ("edge_draws", ("uniform_kernel", "gaps_kernel", "hop_kernel", "hop_reduce_kernel",
+                    "edge_draws_kernel")),
+    ("station_scan", ("station_scan",)),
+    ("float adds", ("CUDAFunctor_add", "AddFunctor")),
+    ("clamps", ("clamp",)),
+    ("selects (where)", ("where",)),
+    ("sorts", ("radix", "sort", "Sort")),
+    ("gathers, scatters, indexing", ("gather", "scatter", "index", "Index")),
+    ("copies", ("copy", "Memcpy", "Memset", "fill")),
+    ("other elementwise", ("elementwise", "reduce_kernel")),
+)
+
+
+def kind_of(kernel: str) -> str:
+    for kind, pieces in KINDS:
+        if any(p in kernel for p in pieces):
+            return kind
+    return "other"
+
 
 def profile_path(torch, name: str, scenarios: int) -> None:
     from torch.profiler import ProfilerActivity, profile
@@ -32,6 +56,9 @@ def profile_path(torch, name: str, scenarios: int) -> None:
     runner = SweepRunner(chip_smoke.FAST_PAYLOADS[name], device="cuda")
     runner.run(scenarios, seed=0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runner.run(scenarios, seed=0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         runner.run(scenarios, seed=0)
@@ -48,8 +75,15 @@ def profile_path(torch, name: str, scenarios: int) -> None:
     print(
         f"{name}: {scenarios} scenarios, engine {runner.engine_kind}, wall {wall_ms:.1f} ms, "
         f"device {device_ms:.1f} ms over {sum(calls.values())} kernels, idle share "
-        f"{1.0 - device_ms / wall_ms:.3f}",
+        f"{1.0 - device_ms / wall_ms:.3f}, peak device memory {peak_gb:.2f} GB",
     )
+    by_kind: dict[str, float] = defaultdict(float)
+    kind_calls: dict[str, int] = defaultdict(int)
+    for kernel, ms in by_kernel.items():
+        by_kind[kind_of(kernel)] += ms
+        kind_calls[kind_of(kernel)] += calls[kernel]
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"  kind {kind}: {ms:.3f} ms ({ms / device_ms:.1%}), {kind_calls[kind]} launches")
     for kernel, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]:
         print(f"  {ms:9.3f} ms  {ms / device_ms:6.1%}  x{calls[kernel]:<4d} {kernel[:110]}")
 

@@ -5,7 +5,8 @@ the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_fast_cuda.py
 
 Every comparison is exact: kernel and plain version run on the same card,
-one float operation at a time (the kernels are built with --fmad=false).
+one float operation at a time (the kernels are built with --fmad=false),
+and sum in the same order.
 """
 
 from __future__ import annotations
@@ -51,21 +52,42 @@ def _edge_params(dev):
 
 @pytest.mark.cuda
 def test_edge_draws_match_plain_on_cuda(cuda_device) -> None:
+    """Every mode on rows of 20,011 lanes (most rows start unaligned):
+    uniforms and gaps, the gaps' prefix sum, the gap of each of the 2**23
+    uniforms, the hop over each static edge and over three LB slots, with
+    and without spikes."""
     kernel, plain = draws.EdgeDraws(), draws.PlainEdgeDraws()
     keys = scenario_keys(21, S, device=cuda_device)
     assert torch.equal(kernel.uniform(keys, N), plain.uniform(keys, N))
+    assert torch.equal(kernel.uniform(keys, N, gap=True), plain.uniform(keys, N, gap=True))
+    assert torch.equal(kernel.gap_cumsum(keys, N), plain.gap_cumsum(keys, N))
+    u = torch.arange(2**23, dtype=torch.float64, device=cuda_device).div(2**23).float()
+    assert torch.equal(kernel.gap_of(u.view(8, -1)), plain.gap_of(u.view(8, -1)))
+    launches = kernel.launches
     uk, zk = draws.hop_keys(keys, 32)
     mean, var, drop = _edge_params(cuda_device)
-    eidx = torch.tensor(np.random.default_rng(1).integers(0, 4, (S, N)), dtype=torch.int32,
-                        device=cuda_device)
-    shared = plain.uniform(scenario_keys(22, S, device=cuda_device), N)
-    cases = [{"edge": e} for e in range(4)] + [{"eidx": eidx}, {"eidx": eidx, "u": shared}]
-    for kw in cases:
-        got = kernel.hop(uk, zk, DIST, mean, var, drop, N, **kw)
-        want = plain.hop(uk, zk, DIST, mean, var, drop, N, **kw)
-        assert torch.equal(got[0], want[0]), kw.keys()
-        assert torch.equal(got[1], want[1]), kw.keys()
-    assert kernel.launches == 1 + len(cases)
+    g = np.random.default_rng(1)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32, device=cuda_device)
+    alive = torch.tensor(g.random((S, N)) > 0.1, device=cuda_device)
+    rank = torch.tensor(g.permuted(np.tile(np.arange(N), (S, 1)), axis=1), device=cuda_device)
+    spike_t = torch.tensor([0.0, 0.5, 1.5], device=cuda_device)
+    spike_v = torch.zeros((3, 4), device=cuda_device)
+    spike_v[1, 1], spike_v[1, 3], spike_v[2, 3] = 0.25, 0.125, 0.5
+    hops = 0
+    for spikes in (False, True):
+        tables = draws.EdgeTables(
+            dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+            lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32, device=cuda_device),
+            lb_target=torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda_device),
+            spike_t=spike_t if spikes else None, spike_v=spike_v if spikes else None,
+        )
+        for kw in [{"edge": e} for e in range(4)] + [{"rank": rank}]:
+            got = kernel.hop(tables, t_send, alive, uk, zk, **kw)
+            want = plain.hop(tables, t_send, alive, uk, zk, **kw)
+            for x, y in zip(got, want, strict=True):
+                assert (x is None and y is None) or torch.equal(x, y), (spikes, kw.keys())
+            hops += 1
+    assert kernel.launches == launches + hops
 
 
 #: rows of the scan tests: a warp of 32 rows a block, the last one part-full

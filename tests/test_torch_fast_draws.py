@@ -1,8 +1,8 @@
 """The fast path's draws, ranks and searches against the JAX reference on
 the CPU: ``jax.random.uniform`` bit for bit, ``jax.random.normal`` and the
-edge delays within 4 ulps (XLA's CPU ``log``, ``log1p`` and ``exp`` may
-round a value differently from torch's), dropout exactly; the stable time
-rank exactly, with ties, dead lanes and ``-0.0``."""
+edge delays of the fused hop within 4 ulps (XLA's CPU ``log`` and ``exp``
+may round a value differently from torch's), dropout exactly; the stable
+time rank exactly, with ties, dead lanes and ``-0.0``."""
 
 from __future__ import annotations
 
@@ -79,6 +79,28 @@ def _edge_tables(plan):
     return ov["em"], ov["ev"], ov["ed"]
 
 
+def _tables(plan, **spikes) -> draws.EdgeTables:
+    em, ev, ed = _edge_tables(plan)
+    return draws.EdgeTables(
+        dist=plan.edge_dist, mean=em, var=ev, drop=ed, horizon=plan.horizon,
+        lb_edge=torch.as_tensor(plan.lb_edge_index.astype(np.int32)),
+        lb_target=torch.as_tensor(plan.lb_target.astype(np.int32)), **spikes,
+    )
+
+
+def _assert_hop_is(got: draws.HopOut, want, t_send, scale: float) -> None:
+    """The fused hop against the reference's (dropped, delay) of lanes all
+    alive and sending before the horizon: ok is not dropped, and an ok
+    lane's time moves by the reference's delay (within 4 ulps)."""
+    dropped, delay = (np.asarray(x) for x in want)
+    assert np.array_equal(got.ok.numpy(), ~dropped)
+    t0 = np.asarray(t_send, np.float32)
+    t1 = got.t_next.numpy()
+    assert np.array_equal(t1[dropped], np.broadcast_to(t0, t1.shape)[dropped])
+    assert _within_4_ulps((t1 - t0)[~dropped], delay[~dropped], scale)
+    assert np.array_equal(got.dropped.numpy(), dropped.sum(axis=1))
+
+
 @pytest.mark.parametrize("edge", range(6))
 def test_static_edge_hop_matches_reference(edge: int) -> None:
     plan, ref = _plans()
@@ -88,15 +110,15 @@ def test_static_edge_hop_matches_reference(edge: int) -> None:
     want = jax.vmap(lambda k: eng._edge_hop(jax.random.fold_in(k, 16), edge, t, jov))(
         jax_keys(9, S))
     uk, zk = draws.hop_keys(scenario_keys(9, S), 16)
-    em, ev, ed = _edge_tables(plan)
-    got = draws.EdgeDraws().hop(uk, zk, plan.edge_dist, em, ev, ed, N, edge=edge)
-    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
-    assert _within_4_ulps(got[1].numpy(), want[1], float(plan.edge_mean[edge]))
+    t_send = torch.zeros((S, N))
+    got = draws.EdgeDraws().hop(_tables(plan), t_send, torch.ones((S, N), dtype=torch.bool),
+                                uk, zk, edge=edge)
+    _assert_hop_is(got, want, t_send, float(plan.edge_mean[edge]))
 
 
 def test_lb_edge_hop_matches_reference() -> None:
-    """The per-lane edge index of the routed LB hop, over LB edges of two
-    laws (lognormal and uniform) with dropout on both."""
+    """The routed LB hop (slot = rank % 2) over LB edges of two laws
+    (lognormal and uniform) with dropout on both, and its targets."""
     plan, ref = _plans()
     eng = JaxFastEngine(ref)
     jov = jax_base(ref)
@@ -107,16 +129,17 @@ def test_lb_edge_hop_matches_reference() -> None:
         lambda k, e: eng._edge_hop_dyn(jax.random.fold_in(k, 32), e, t, jov),
     )(jax_keys(10, S), jnp.asarray(eidx))
     uk, zk = draws.hop_keys(scenario_keys(10, S), 32)
-    em, ev, ed = _edge_tables(plan)
-    got = draws.EdgeDraws().hop(uk, zk, plan.edge_dist, em, ev, ed, N,
-                                eidx=torch.as_tensor(eidx))
-    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
-    assert got[0].any()
-    assert _within_4_ulps(got[1].numpy(), want[1], float(plan.edge_mean[plan.lb_edge_index].min()))
+    t_send = torch.zeros((S, N))
+    got = draws.EdgeDraws().hop(_tables(plan), t_send, torch.ones((S, N), dtype=torch.bool),
+                                uk, zk, rank=torch.as_tensor(lanes + 2 * np.arange(N)))
+    _assert_hop_is(got, want, t_send, float(plan.edge_mean[plan.lb_edge_index].min()))
+    assert not got.ok.all()
+    assert np.array_equal(got.target.numpy(), plan.lb_target[lanes])
 
 
 def test_shared_uniform_hop_matches_reference() -> None:
-    """An exit hop on the shared exit stream: u given, z from the hop key."""
+    """An exit hop on the shared exit stream: u from fold_in(key, 7), z
+    from the hop key."""
     plan, ref = _plans()
     eng = JaxFastEngine(ref)
     jov = jax_base(ref)
@@ -129,11 +152,10 @@ def test_shared_uniform_hop_matches_reference() -> None:
     want = jax.vmap(one)(jax_keys(11, S))
     keys = scenario_keys(11, S)
     _, zk = draws.hop_keys(keys, 129)
-    em, ev, ed = _edge_tables(plan)
-    u = draws.uniform(fold_in(keys, 7), N)
-    got = draws.EdgeDraws().hop(None, zk, plan.edge_dist, em, ev, ed, N, u=u, edge=5)
-    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
-    assert _within_4_ulps(got[1].numpy(), want[1], float(plan.edge_mean[5]))
+    t_send = torch.zeros((S, N))
+    got = draws.EdgeDraws().hop(_tables(plan), t_send, torch.ones((S, N), dtype=torch.bool),
+                                fold_in(keys, 7), zk, edge=5)
+    _assert_hop_is(got, want, t_send, float(plan.edge_mean[5]))
 
 
 def _rank_inputs():

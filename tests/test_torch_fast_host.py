@@ -2,17 +2,21 @@
 plain PyTorch versions.
 
 ``csrc/edge_draws.cu`` and ``csrc/station_scan.cu`` are plain C++ apart
-from CUDA's qualifiers, thread indices and launches.  Built with g++
-through a shim header that defines those away (a launch becomes a loop
-over blocks and threads), each runs here through its wrapper's own
-argument struct and is held to its plain version on the CPU.  This checks
-the kernels' logic and argument layout, not the CUDA compiler: the card's
-builds are held to the plain versions by ``tests/test_torch_fast_cuda.py``
-and ``chip_smoke.py``.  Both sides round every float operation on its own
-(``-ffp-contract=off``); the uniforms, drops and station recursions
-(adds, subtracts and maxima) are compared exactly, the delays within 4
-ulps (glibc's ``logf``, ``log1pf`` and ``expf`` may round a value
-differently from torch's).  Skipped where no g++ is installed.
+from CUDA's qualifiers, thread indices, shared memory and launches.  Built
+with g++ through a shim header that defines those away (a launch becomes
+a loop over the grid's rows and blocks and the block's threads, one thread
+after another; the dynamic shared memory a static buffer), each runs here
+through its wrapper's own argument struct and is held to its plain version
+on the CPU.  This checks the kernels' logic and argument layout, not the
+CUDA compiler: the card's builds are held to the plain versions by
+``tests/test_torch_fast_cuda.py`` and ``chip_smoke.py``.  Both sides round
+every float operation on its own (``-ffp-contract=off``); the uniforms,
+gaps, block sums, drops, masks, LB targets and station recursions (adds,
+subtracts and maxima) are compared exactly, the delays and hop times
+within 4 ulps (glibc's ``logf``, ``log1pf`` and ``expf`` may round a
+value differently from torch's), and the gauge spans, float64 sums in one
+fixed order, exactly where the hop times agree, else within 1 ulp.
+Skipped where no g++ is installed.
 """
 
 from __future__ import annotations
@@ -45,15 +49,26 @@ SHIM = """
 #include <algorithm>
 #define __device__
 #define __global__
+#define __shared__
 #define __forceinline__ inline
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(16) longlong2 { long long x, y; };
 struct alignas(4) uchar4 { unsigned char x, y, z, w; };
-struct HostDim { unsigned x; };
-static HostDim blockIdx, blockDim, threadIdx;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+struct HostDim { unsigned x, y; };
+static HostDim blockIdx, blockDim, threadIdx, gridDim;
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 inline float __uint_as_float(unsigned x) { float f; std::memcpy(&f, &x, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned x; std::memcpy(&x, &f, 4); return x; }
 """
+#: a one-dimensional launch (station_scan.cu) and a launch on dim3 grids
+#: (edge_draws.cu), each made a loop that runs the threads one after another
 LAUNCH = re.compile(
     r"(\w+)<<<\(unsigned\)blocks, threads, 0, \(cudaStream_t\)stream>>>\(a\);",
 )
@@ -62,13 +77,27 @@ HOST_LAUNCH = (
     r" for (unsigned t = 0; t < (unsigned)threads; ++t) {"
     r" blockIdx.x = b; blockDim.x = threads; threadIdx.x = t; \1(a); }"
 )
+LAUNCH_2D = re.compile(r"(\w+)<<<(\w+), (\w+), \w+, \(cudaStream_t\)stream>>>\(a\);")
+HOST_LAUNCH_2D = (
+    r"for (unsigned gy = 0; gy < \2.y; ++gy) for (unsigned gx = 0; gx < \2.x; ++gx)"
+    r" for (unsigned t = 0; t < \3.x; ++t) {"
+    r" gridDim.x = \2.x; gridDim.y = \2.y; blockIdx.x = gx; blockIdx.y = gy;"
+    r" blockDim.x = \3.x; threadIdx.x = t; \1(a); }"
+)
+#: the dynamic shared memory of edge_draws.cu's hop, as a static buffer
+HOST_SMEM = "double edge_smem[1 << 13];\n"
 
 
 def _build(tmp: Path, name: str) -> ctypes.CDLL:
     src = (CSRC / f"{name}.cu").read_text()
     assert "#include <cuda_runtime.h>" in src
-    assert LAUNCH.search(src), "the launch statement changed: update LAUNCH"
-    src = LAUNCH.sub(HOST_LAUNCH, src.replace("#include <cuda_runtime.h>", '#include "shim.h"'))
+    src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
+    if name == "edge_draws":
+        assert len(LAUNCH_2D.findall(src)) == 4, "the launch statements changed: update LAUNCH_2D"
+        src = LAUNCH_2D.sub(HOST_LAUNCH_2D, src) + HOST_SMEM
+    else:
+        assert LAUNCH.search(src), "the launch statement changed: update LAUNCH"
+        src = LAUNCH.sub(HOST_LAUNCH, src)
     (tmp / "shim.h").write_text(SHIM)
     (tmp / f"{name}.cpp").write_text(src)
     lib = tmp / f"lib{name}_host.so"
@@ -92,9 +121,22 @@ def host_libs(tmp_path_factory) -> dict[str, ctypes.CDLL]:
         getattr(lib, f"{name}_launch").restype = ctypes.c_int
         getattr(lib, f"{name}_args_size").restype = ctypes.c_int
     assert libs["edge_draws"].edge_draws_args_size() == ctypes.sizeof(draws._EdgeDrawArgs)
+    libs["edge_draws"].edge_draws_lane_block.restype = ctypes.c_int
+    assert libs["edge_draws"].edge_draws_lane_block() == draws.BLOCK_THREADS * draws.THREAD_LANES
     assert libs["station_scan"].station_scan_args_size() == ctypes.sizeof(
         station_scan._StationArgs)
     return libs
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Torch on one thread while these checks run: on the CPU, after the
+    host build's launches, torch's multithreaded passes have returned a
+    few wrong lanes in some runs (a run on one thread never has)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _launch(lib, fn: str, args) -> None:
@@ -120,43 +162,124 @@ def _edge_params():
     return mean, var, drop
 
 
-def test_uniform_matches_plain(host_libs) -> None:
+@pytest.mark.parametrize("gap", [False, True])
+def test_uniform_matches_plain(host_libs, gap: bool) -> None:
     keys = scenario_keys(11, S)
     out = torch.empty((S, N), dtype=torch.float32)
     kw = draws.key_words(keys)
-    args = draws._EdgeDrawArgs(ukey=kw.data_ptr(), u_out=out.data_ptr(), S=S, n=N,
-                               mode=draws.MODE_UNIFORM, edge=-1)
+    args = draws._EdgeDrawArgs(ukey=kw.data_ptr(), out=out.data_ptr(), S=S, n=N,
+                               mode=draws.MODE_UNIFORM, edge=-1, K=1, gap=int(gap))
     _launch(host_libs["edge_draws"], "edge_draws_launch", args)
-    assert torch.equal(out, draws.uniform(keys, N))
+    assert torch.equal(out, draws.PlainEdgeDraws().uniform(keys, N, gap=gap))
 
 
-@pytest.mark.parametrize("per_lane", [False, True])
-@pytest.mark.parametrize("shared_u", [False, True])
-def test_hop_matches_plain(host_libs, per_lane: bool, shared_u: bool) -> None:
+def test_gap_of_every_uniform_matches_plain(host_libs) -> None:
+    """log1p_xla on each of the 2**23 uniforms, through the uniform mode's
+    given inputs (rows of 2**20)."""
+    u = torch.arange(2**23, dtype=torch.float64).div(2**23).float().view(8, 2**20)
+    out = torch.empty_like(u)
+    args = draws._EdgeDrawArgs(x_in=u.data_ptr(), out=out.data_ptr(), S=8, n=2**20,
+                               mode=draws.MODE_UNIFORM, edge=-1, K=1, gap=1)
+    _launch(host_libs["edge_draws"], "edge_draws_launch", args)
+    assert torch.equal(out, draws.PlainEdgeDraws().gap_of(u))
+
+
+def _host_scan(lib, m: int, *, ukey=None, x_in=None) -> torch.Tensor:
+    """EdgeDraws._scan on the host build: one gaps-mode launch a level."""
+    s = (ukey if ukey is not None else x_in).shape[0]
+    nb = -(-m // 16)
+    ld_tot = -(-nb // 16) * 16
+    loc = torch.empty((s, nb * 16), dtype=torch.float32)
+    tot = torch.empty((s, ld_tot), dtype=torch.float32)
+    args = draws._EdgeDrawArgs(
+        ukey=0 if ukey is None else ukey.data_ptr(), x_in=0 if x_in is None else x_in.data_ptr(),
+        out=loc.data_ptr(), tot=tot.data_ptr(), S=s, n=m,
+        ld_in=0 if x_in is None else x_in.stride(0), ld_out=nb * 16, ld_tot=ld_tot,
+        mode=draws.MODE_GAPS, edge=-1, K=1,
+    )
+    _launch(lib, "edge_draws_launch", args)
+    if nb == 1:
+        return loc[:, :m]
+    return draws._scan_down(loc, _host_scan(lib, nb, x_in=tot), m)
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 4099, 40_000])
+def test_gap_cumsum_matches_plain(host_libs, n: int) -> None:
+    """The gaps mode and its levels: XLA's base-16 scan, bit for bit."""
+    keys = scenario_keys(14, S)
+    got = _host_scan(host_libs["edge_draws"], n, ukey=draws.key_words(keys))
+    assert torch.equal(got, draws.PlainEdgeDraws().gap_cumsum(keys, n))
+
+
+def _spike_tables():
+    """Breakpoints 0, 0.5, 1.5 with spikes on edges 1 and 3."""
+    spike_t = torch.tensor([0.0, 0.5, 1.5], dtype=torch.float32)
+    spike_v = torch.zeros((3, 4), dtype=torch.float32)
+    spike_v[1, 1], spike_v[1, 3], spike_v[2, 3] = 0.25, 0.125, 0.5
+    return spike_t, spike_v
+
+
+@pytest.mark.parametrize("lb", [False, True])
+@pytest.mark.parametrize("spikes", [False, True])
+def test_hop_matches_plain(host_libs, lb: bool, spikes: bool) -> None:
+    """The fused hop over every static edge, or over three LB slots (edges
+    3, 1, 2; slot = rank % 3), with and without spikes: per-lane outputs
+    exact but for the delays' libm rounding, drop counts exact, spans
+    within 1 ulp.  Rows of 4099 lanes: most rows start unaligned."""
     keys = scenario_keys(12, S)
     uk, zk = draws.hop_keys(keys, 32)
     mean, var, drop = _edge_params()
-    u = draws.uniform(scenario_keys(13, S), N) if shared_u else draws.uniform(uk, N)
-    eidx = torch.tensor(np.random.default_rng(1).integers(0, 4, (S, N)), dtype=torch.int32)
-    edges = [None] if per_lane else list(range(4))
+    g = np.random.default_rng(1)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32)
+    alive = torch.tensor(g.random((S, N)) > 0.1)
+    rank = torch.tensor(g.permuted(np.tile(np.arange(N), (S, 1)), axis=1), dtype=torch.int64)
+    spike_t, spike_v = _spike_tables() if spikes else (None, None)
+    tables = draws.EdgeTables(
+        dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+        lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32) if lb else None,
+        lb_target=torch.tensor([0, 1, 2], dtype=torch.int32) if lb else None,
+        spike_t=spike_t, spike_v=spike_v,
+    )
+    edges = [None] if lb else list(range(4))
+    dist = torch.tensor(DIST)
     for edge in edges:
-        kw = {"eidx": eidx} if per_lane else {"edge": edge}
-        want_drop, want_delay = draws.edge_hop_plain(u, zk, DIST, mean, var, drop, **kw)
-        dropped = torch.empty((S, N), dtype=torch.bool)
-        delay = torch.empty((S, N), dtype=torch.float32)
-        dist = torch.tensor(DIST)
+        kw = {"rank": rank} if lb else {"edge": edge}
+        want = draws.hop_plain(tables, t_send, alive, uk, zk, **kw)
+        k_slots = 3 if lb else 1
+        out = draws.HopOut(
+            t_next=torch.empty((S, N), dtype=torch.float32),
+            ok=torch.empty((S, N), dtype=torch.bool),
+            target=torch.empty((S, N), dtype=torch.int32) if lb else None,
+            span=torch.empty((S, k_slots), dtype=torch.float32),
+            dropped=torch.empty(S, dtype=torch.int64),
+        )
+        partial = torch.empty((S, draws.lane_blocks(N), k_slots + 1), dtype=torch.float64)
         ukw, zkw = draws.key_words(uk), draws.key_words(zk)
+        ptr = lambda x: 0 if x is None else x.data_ptr()  # noqa: E731
         args = draws._EdgeDrawArgs(
-            ukey=0 if shared_u else ukw.data_ptr(), zkey=zkw.data_ptr(),
-            u_in=u.data_ptr() if shared_u else 0,
-            eidx=eidx.data_ptr() if per_lane else 0,
+            ukey=ukw.data_ptr(), zkey=zkw.data_ptr(), t_send=t_send.data_ptr(),
+            alive=alive.data_ptr(), rank=ptr(rank if lb else None),
+            lb_edge=ptr(tables.lb_edge), lb_target=ptr(tables.lb_target),
             mean=mean.data_ptr(), var=var.data_ptr(), drop=drop.data_ptr(),
-            dist=dist.data_ptr(), dropped=dropped.data_ptr(), delay=delay.data_ptr(),
-            S=S, n=N, NE=4, edge=-1 if per_lane else edge, mode=draws.MODE_HOP,
+            dist=dist.data_ptr(), spike_t=ptr(spike_t), spike_v=ptr(spike_v),
+            out=out.t_next.data_ptr(), ok=out.ok.data_ptr(), target=ptr(out.target),
+            partial=partial.data_ptr(), span=out.span.data_ptr(),
+            dropped=out.dropped.data_ptr(), S=S, n=N, horizon=2.0, NE=4,
+            NB=0 if spike_t is None else 3, K=k_slots, edge=-1 if lb else edge,
+            mode=draws.MODE_HOP,
         )
         _launch(host_libs["edge_draws"], "edge_draws_launch", args)
-        assert torch.equal(dropped, want_drop), edge
-        assert _ulps(delay, want_delay) <= 4, edge
+        assert torch.equal(out.ok, want.ok), edge
+        assert torch.equal(out.dropped, want.dropped), edge
+        assert want.dropped.sum() > 0 or edge in (0, 2), edge
+        if lb:
+            assert torch.equal(out.target, want.target)
+        assert _ulps(out.t_next, want.t_next) <= 4, edge
+        if torch.equal(out.t_next, want.t_next):
+            # the same lanes: the float64 sums in one order are the same
+            assert torch.equal(out.span, want.span), edge
+        assert _ulps(out.span, want.span) <= 1, edge
+        assert bool((want.span > 0).all()), edge
 
 
 def _stream(seed: int, m: int, rate: float, svc: float):

@@ -1,7 +1,7 @@
-"""The port's fast-path journey (routing, servers, exits) on the JAX
-reference's own arrival times: the arrivals' prefix sums are the one
-place the packages round differently by construction, so with them
-injected the rest of the pipeline is held close to the reference."""
+"""The port's fast-path arrivals and journey against the JAX reference's
+on the CPU: the arrival times bit for bit (XLA's CPU ``log1p`` and
+``cumsum`` order, given the reference's window counts), and the journey
+(routing, servers, exits) on the reference's own arrival times."""
 
 from __future__ import annotations
 
@@ -52,3 +52,41 @@ def test_journey_on_the_reference_arrivals(name: str) -> None:
     assert np.array_equal(got_done.numpy(), done)
     diff = np.abs(got_finish.numpy() - finish)[done]
     assert diff.max() <= 4 * np.spacing(np.float32(30.0))
+
+
+@pytest.mark.parametrize(("name", "horizon"), [
+    ("two_servers_lb", 120), ("single_server", 300), ("heavy_inj_single_server", 300),
+])
+def test_arrivals_are_the_reference_arrivals(name: str, horizon: float) -> None:
+    """Given the reference's per-window counts, ``FastEngine._arrivals``
+    returns the reference's ``_arrivals`` times bit for bit: the gaps
+    through XLA's ``log1p``, their prefix sum in XLA's order."""
+    import jax
+    import numpy as np
+    import torch
+
+    from asyncflow_tpu.compiler import compile_payload as jax_compile
+    from asyncflow_tpu.engines.jaxsim.engine import scenario_keys as jax_keys
+    from asyncflow_tpu.engines.jaxsim.fastpath import FastEngine as JaxFastEngine
+    from asyncflow_tpu.engines.jaxsim.params import base_overrides as jax_base
+    from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
+    from asyncflow_tpu_torch.compiler import compile_payload
+    from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine
+    from asyncflow_tpu_torch.engines.torchsim.keys import fold_in
+    from asyncflow_tpu_torch.schemas import SimulationPayload
+    from torch_fast_cases import reference_window_draws
+
+    data = example(name, horizon=horizon)
+    ref_plan = jax_compile(JaxPayload.model_validate(data))
+    ref_eng, jov = JaxFastEngine(ref_plan), jax_base(ref_plan)
+    keys = jax_keys(6, 6)
+    want, valid, overflow = (np.asarray(x) for x in jax.vmap(
+        lambda k: ref_eng._arrivals(jax.random.fold_in(k, 0), jov))(keys))
+    eng = FastEngine(compile_payload(SimulationPayload.from_dict(data)), device="cpu")
+    _, counts = reference_window_draws(ref_plan, keys, eng.n_windows)
+    t, got_valid, got_overflow = eng._arrivals(
+        fold_in(torch.as_tensor(np.asarray(keys).astype(np.int64)), 0), torch.as_tensor(counts))
+    assert np.array_equal(got_valid.numpy(), valid)
+    assert np.array_equal(got_overflow.numpy(), overflow)
+    assert valid.sum() > 1000
+    assert np.array_equal(t.numpy().view(np.int32), want.view(np.int32))

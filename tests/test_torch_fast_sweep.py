@@ -2,7 +2,7 @@
 where the reference's analysis and this slice's engine allow it and the
 DES kernel otherwise; ``engine="fast"`` refuses an out-of-slice plan by
 name; rate-raising overrides past the fast path's proofs are refused;
-chunked sweeps equal unchunked ones."""
+chunked sweeps, by the default chunk or a given one, equal unchunked ones."""
 
 from __future__ import annotations
 
@@ -33,6 +33,8 @@ def _rate_limited() -> dict:
         (lambda: example("two_servers_lb", horizon=5), "fast"),
         (lambda: example("single_server", horizon=5), "fast"),
         (lambda: mutated("two_core_multi_burst", horizon=5), "fast"),
+        (lambda: example("event_inj_single_server"), "fast"),
+        (lambda: example("heavy_inj_single_server"), "fast"),
         (lambda: mutated("outage", horizon=20), "kernel"),
         (lambda: mutated("least_connections", horizon=5), "kernel"),
         (lambda: mutated("heterogeneous_ram", horizon=5), "kernel"),
@@ -73,16 +75,38 @@ def test_fast_sweep_results() -> None:
     assert (in_flight >= 0).all()
 
 
-def test_fast_chunked_equals_unchunked() -> None:
+def test_fast_chunked_equals_unchunked(monkeypatch) -> None:
+    """One chunk, chunks of 2, and the default chunk forced down to two
+    scenarios' lanes (so that a sweep of 5 runs in three chunks)."""
+    from asyncflow_tpu_torch.parallel import sweep
+
     runner = SweepRunner(example("two_servers_lb", horizon=8), device="cpu")
-    whole = runner.run(5, seed=3).results
+    assert runner.default_chunk == sweep.FAST_CHUNK_LANES // runner.engine.n >= 2048
+    whole = runner.run(5, seed=3, chunk_size=5).results
     chunked = runner.run(5, seed=3, chunk_size=2).results
     tail = runner.run(3, seed=3, first_scenario=2).results
+    monkeypatch.setattr(sweep, "FAST_CHUNK_LANES", 2 * runner.engine.n + 1)
+    assert runner.default_chunk == 2
+    by_default = runner.run(5, seed=3).results
     for field in ("completed", "latency_hist", "latency_sum", "latency_sumsq",
                   "latency_min", "latency_max", "throughput", "total_generated",
                   "total_dropped", "overflow_dropped", "gauge_means"):
         np.testing.assert_array_equal(getattr(whole, field), getattr(chunked, field))
+        np.testing.assert_array_equal(getattr(whole, field), getattr(by_default, field))
         np.testing.assert_array_equal(getattr(whole, field)[2:], getattr(tail, field))
+
+
+def test_default_chunks_per_engine() -> None:
+    """The fast path's default chunk is its lane budget over the plan's
+    lanes (heavy_inj_single_server's 100,085: 1,797 scenarios); the DES
+    kernel's is KERNEL_CHUNK scenarios."""
+    from asyncflow_tpu_torch.parallel import sweep
+
+    heavy = SweepRunner(example("heavy_inj_single_server"), device="cpu")
+    assert heavy.engine.n == 100_085
+    assert heavy.default_chunk == 1797
+    kernel = SweepRunner(example("heavy_inj_single_server"), engine="kernel", device="cpu")
+    assert kernel.default_chunk == sweep.KERNEL_CHUNK == 2048
 
 
 def test_fast_override_guard() -> None:
