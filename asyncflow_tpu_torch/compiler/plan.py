@@ -149,6 +149,9 @@ class StaticPlan:
     gen_entry_len: np.ndarray  # (G,) i32
     gen_entry_target_kind: np.ndarray  # (G,) i32 TARGET_LB or TARGET_SERVER
     gen_entry_target: np.ndarray  # (G,) i32 server index, or -1
+    #: (G,) i64 6-sigma arrival-count bound of each stream: its lanes on the
+    #: fast path
+    gen_slots: np.ndarray
     # ---- run geometry ----
     horizon: float
     pool_size: int
@@ -175,6 +178,16 @@ class StaticPlan:
     burst_dur: np.ndarray  # (NS, NEP, max(KB, 1)) f32
     burst_pre_io: np.ndarray  # (NS, NEP, max(KB, 1)) f32
     endpoint_post_io: np.ndarray  # (NS, NEP) f32
+    # the fast path's stochastic tables: each endpoint's trailing IO split
+    # around its single DB query (zeros where it has none), and each cache
+    # segment's placement (a burst index, CACHE_PRE_DB, CACHE_POST_DB or
+    # CACHE_UNUSED), miss probability and miss-minus-hit extra
+    fp_db_pre: np.ndarray  # (NS, NEP) f32
+    fp_db_dur: np.ndarray  # (NS, NEP) f32
+    fp_db_post: np.ndarray  # (NS, NEP) f32
+    fp_cache_slot: np.ndarray  # (NS, NEP, CMAX) i32
+    fp_cache_miss_prob: np.ndarray  # (NS, NEP, CMAX) f32
+    fp_cache_extra: np.ndarray  # (NS, NEP, CMAX) f32
     # ---- gauge sampling and the arrival-count bound ----
     sample_period: float
     n_samples: int
@@ -383,6 +396,17 @@ def _workload_count_model(workload, horizon: float) -> tuple[float, float, float
     n_windows = max(1.0, horizon / window)
     count_var = rate * horizon + n_windows * users_var * (rpu * window) ** 2
     return users, rate, window, count_var
+
+
+def _gen_slot_bounds(payload: SimulationPayload) -> np.ndarray:
+    """(G,) per-generator 6-sigma arrival-count bounds: each stream's own
+    slice of the fast path's lanes."""
+    horizon = float(payload.sim_settings.total_simulation_time)
+    out = []
+    for workload in payload.generators:
+        _, rate, _, count_var = _workload_count_model(workload, horizon)
+        out.append(int(rate * horizon + 6.0 * math.sqrt(max(count_var, 1.0)) + 64))
+    return np.array(out, np.int64)
 
 
 def _estimate_capacity(payload: SimulationPayload) -> tuple[int, int]:
@@ -1272,6 +1296,20 @@ def compile_payload(
     fp_lowered = [
         [_fastpath_lowering(segs, cache) for segs, _, cache, _ in per] for per in compiled
     ]
+    cmax = max((len(places) for per in fp_lowered for _, places, _ in per), default=0)
+    fp_db = np.zeros((3, n_servers, max_endpoints), dtype=np.float32)
+    fp_cache_slot = np.full((n_servers, max_endpoints, cmax), CACHE_UNUSED, dtype=np.int32)
+    fp_cache_miss_prob = np.zeros((n_servers, max_endpoints, cmax), dtype=np.float32)
+    fp_cache_extra = np.zeros((n_servers, max_endpoints, cmax), dtype=np.float32)
+    for s, per in enumerate(fp_lowered):
+        for e, (db_split, places, reason) in enumerate(per):
+            if reason:
+                continue  # the analysis declines the plan; the tables stay zero
+            fp_db[:, s, e] = db_split
+            for j, (slot, miss_prob, extra) in enumerate(places):
+                fp_cache_slot[s, e, j] = slot
+                fp_cache_miss_prob[s, e, j] = miss_prob
+                fp_cache_extra[s, e, j] = extra
 
     server_cores = np.array(
         [server.server_resources.cpu_cores for server in servers], dtype=np.int32,
@@ -1400,6 +1438,7 @@ def compile_payload(
         gen_entry_len=np.array([len(c) for c, _, _ in gen_chains], np.int32),
         gen_entry_target_kind=np.array([k for _, k, _ in gen_chains], np.int32),
         gen_entry_target=np.array([t for _, _, t in gen_chains], np.int32),
+        gen_slots=_gen_slot_bounds(payload),
         horizon=horizon,
         pool_size=pool_size or pool_estimate,
         max_iterations=max_iterations,
@@ -1418,6 +1457,12 @@ def compile_payload(
         burst_dur=burst_dur,
         burst_pre_io=burst_pre_io,
         endpoint_post_io=endpoint_post_io,
+        fp_db_pre=fp_db[0],
+        fp_db_dur=fp_db[1],
+        fp_db_post=fp_db[2],
+        fp_cache_slot=fp_cache_slot,
+        fp_cache_miss_prob=fp_cache_miss_prob,
+        fp_cache_extra=fp_cache_extra,
         sample_period=sample_period,
         n_samples=max(0, math.ceil(round(horizon / sample_period, 9)) - 1),
         max_requests=max_requests,

@@ -31,8 +31,11 @@
 //   1 hop: in t_send, alive (S, n); gate = alive & t_send < horizon;
 //      out t_next = ok ? t_send + delay : t_send and ok = gate & !dropped
 //      (S, n), with the rank the LB slot rank % K of a gated lane (else
-//      slot 0) and its target server (S, n); per scenario the drop
-//      count (gate & dropped) and each edge slot's gauge span, the sum over
+//      slot 0), or with the slot (S, n) int32 that LB slot itself (a gated
+//      lane of slot -1 has no healthy target: dropped at the LB, it sends
+//      nothing), and the slot's target server (S, n); per scenario the drop
+//      count (gate & dropped, and the LB's drops) and each edge slot's
+//      gauge span, the sum over
 //      ok lanes of max(min(t_send + delay, h) - min(t_send, h), 0), in
 //      float64 in a fixed order (a thread's lanes, the block's threads, the
 //      row's blocks) and rounded once;
@@ -44,9 +47,9 @@
 // aligned move float4 / uint4; others move scalars.
 //
 // Bound: operations.  A lane costs one threefry block (two with a normal
-// law) of about 86 integer operations, against 9 bytes moved by a hop
-// lane (13 on the LB hop): at the card's int32 rate a block is ~3x its
-// bytes' time at 3.35 TB/s.
+// law) of about 86 integer operations, against 10 bytes moved by a hop
+// lane (22 on the LB hop by rank, 18 by slot): at the card's int32 rate a
+// block is ~3x the static hop's bytes' time at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,6 +61,7 @@ struct EdgeDrawArgs {
   const float* t_send;       // hop: (S, n) send times
   const uint8_t* alive;      // hop: (S, n)
   const int64_t* rank;       // hop: (S, n) arrival rank (LB slot rank % K), or null
+  const int32_t* slot;       // hop: (S, n) LB slot, -1 for none healthy, or null
   const int32_t* lb_edge;    // (K,) edge of each LB slot
   const int32_t* lb_target;  // (K,) server of each LB slot
   const float* mean;         // (S, NE)
@@ -273,6 +277,19 @@ __device__ __forceinline__ void store4i(int32_t* p, int cnt, const int32_t v[4])
     if (i < cnt) p[i] = v[i];
 }
 
+__device__ __forceinline__ void load4i(const int32_t* p, int cnt, int32_t v[4]) {
+  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
+    const int4 f = *reinterpret_cast<const int4*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = i < cnt ? p[i] : 0;
+}
+
 // 4 ranks of a chunk as 32-bit slots' numerators: two 16-byte loads where
 // aligned
 __device__ __forceinline__ void load4_rank(const int64_t* p, int cnt, uint32_t v[4]) {
@@ -405,24 +422,32 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
     const float* var = a.var + (size_t)row * a.NE;
     const float* drop = a.drop + (size_t)row * a.NE;
     const uint32_t alive = load_mask16(a.alive + base, cnt);
+    const bool lb = a.rank != nullptr || a.slot != nullptr;
     uint32_t okbits = 0;
 #pragma unroll 1
     for (int c = 0; c < kLanes; c += 4) {
       float t[4];
       int32_t tgt[4] = {0, 0, 0, 0};
       uint32_t rk[4] = {0u, 0u, 0u, 0u};
+      int32_t sl[4] = {0, 0, 0, 0};
       load4(a.t_send + base + c, cnt - c, t);
       if (a.rank != nullptr) load4_rank(a.rank + base + c, cnt - c, rk);
+      if (a.slot != nullptr) load4i(a.slot + base + c, cnt - c, sl);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int lane = c + i;
         if (lane >= cnt) continue;
         const float ts = t[i];
-        const bool gate = ((alive >> lane) & 1u) && ts < h;
+        bool gate = ((alive >> lane) & 1u) && ts < h;
         int slot = 0;
         int e = a.edge;
-        if (a.rank != nullptr) {
-          if (gate) slot = (int)(rk[i] % (uint32_t)K);
+        if (lb) {
+          if (a.slot != nullptr && gate && sl[i] < 0) {
+            // no healthy target: dropped at the LB
+            my_drops += 1;
+            gate = false;
+          }
+          if (gate) slot = a.slot != nullptr ? sl[i] : (int)(rk[i] % (uint32_t)K);
           e = a.lb_edge[slot];
           tgt[i] = a.lb_target[slot];
         }
@@ -459,7 +484,7 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
         t[i] = ok ? t_end : ts;
       }
       store4(a.out + base + c, cnt - c, t);
-      if (a.rank != nullptr) store4i(a.target + base + c, cnt - c, tgt);
+      if (lb) store4i(a.target + base + c, cnt - c, tgt);
     }
     store_mask16(a.ok + base, cnt, okbits);
   }
@@ -527,7 +552,8 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
         a.dist == nullptr || a.partial == nullptr || a.span == nullptr ||
         a.dropped == nullptr)
       return -1;
-    if (a.rank != nullptr) {
+    if (a.rank != nullptr && a.slot != nullptr) return -1;
+    if (a.rank != nullptr || a.slot != nullptr) {
       if (a.edge >= 0 || a.K < 1 || a.K > kMaxSlots || a.lb_edge == nullptr ||
           a.lb_target == nullptr || a.target == nullptr)
         return -1;
@@ -566,10 +592,9 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
       a.t_send = whole.t_send + r0 * whole.n;
       a.alive = whole.alive + r0 * whole.n;
       a.ok = whole.ok + r0 * whole.n;
-      if (whole.rank != nullptr) {
-        a.rank = whole.rank + r0 * whole.n;
-        a.target = whole.target + r0 * whole.n;
-      }
+      if (whole.rank != nullptr) a.rank = whole.rank + r0 * whole.n;
+      if (whole.slot != nullptr) a.slot = whole.slot + r0 * whole.n;
+      if (whole.target != nullptr) a.target = whole.target + r0 * whole.n;
       a.mean = whole.mean + r0 * whole.NE;
       a.var = whole.var + r0 * whole.NE;
       a.drop = whole.drop + r0 * whole.NE;

@@ -393,23 +393,33 @@ def hop_plain(
     *,
     edge: int | None = None,
     rank: torch.Tensor | None = None,
+    slot: torch.Tensor | None = None,
 ) -> HopOut:
     """The fused hop, op by op: lanes where ``alive`` and ``t_send <
-    horizon`` send over the static ``edge`` or, with the arrival ``rank``,
-    over LB slot ``rank % K`` (slot 0 on the other lanes); the uniform of stream
-    ``ukey`` settles the drop and the delay, the spike at ``t_send`` is
-    added, and each gauge span is a float64 sum in the kernel's order
-    (:func:`lane_block_sum`) rounded once."""
+    horizon`` send over the static ``edge``; with the arrival ``rank``,
+    over LB slot ``rank % K``; with ``slot`` (S, n) int32, over that LB
+    slot, a gated lane of slot -1 (no healthy target) counting as dropped
+    at the LB and sending nothing (slot 0 on the lanes that do not send);
+    the uniform of stream ``ukey`` settles the drop and the delay, the
+    spike at ``t_send`` is added, and each gauge span is a float64 sum in
+    the kernel's order (:func:`lane_block_sum`) rounded once."""
     s, n = t_send.shape
     h = f32(tables.horizon)
     gate = alive & (t_send < h)
-    if rank is None:
-        slot, k_slots, eidx, target = None, 1, None, None
+    lb_dropped = torch.zeros(s, dtype=torch.int64, device=t_send.device)
+    if rank is None and slot is None:
+        pick, k_slots, eidx, target = None, 1, None, None
     else:
         k_slots = tables.lb_edge.shape[0]
-        slot = torch.where(gate, rank % k_slots, 0)
-        eidx = tables.lb_edge.long()[slot]
-        target = tables.lb_target[slot]
+        if slot is None:
+            pick = torch.where(gate, rank % k_slots, 0)
+        else:
+            unrouted = gate & (slot < 0)
+            lb_dropped = unrouted.sum(dim=1)
+            gate = gate & ~unrouted
+            pick = torch.where(gate, slot.long(), 0)
+        eidx = tables.lb_edge.long()[pick]
+        target = tables.lb_target[pick]
     needs_z = bool(set(hop_laws(tables.dist, edge)) & set(NORMAL_LAWS))
     dropped, delay = edge_hop_plain(
         uniform(ukey, n), zkey if needs_z else None, tables.dist, tables.mean, tables.var,
@@ -422,11 +432,11 @@ def hop_plain(
     lane_span = torch.where(
         ok, torch.clamp_min(torch.clamp_max(t_end, h) - torch.clamp_max(t_send, h), 0.0), 0.0,
     ).double()
-    if slot is None:
+    if pick is None:
         span = lane_block_sum(lane_span)[:, None]
     else:
         span = torch.stack(
-            [lane_block_sum(torch.where(slot == k, lane_span, 0.0)) for k in range(k_slots)],
+            [lane_block_sum(torch.where(pick == k, lane_span, 0.0)) for k in range(k_slots)],
             dim=1,
         )
     return HopOut(
@@ -434,7 +444,7 @@ def hop_plain(
         ok=ok,
         target=target,
         span=span.float(),
-        dropped=(gate & dropped).sum(dim=1),
+        dropped=(gate & dropped).sum(dim=1) + lb_dropped,
     )
 
 
@@ -454,7 +464,7 @@ class _EdgeDrawArgs(ctypes.Structure):
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "ukey", "zkey", "x_in", "t_send", "alive", "rank", "lb_edge", "lb_target",
+            "ukey", "zkey", "x_in", "t_send", "alive", "rank", "slot", "lb_edge", "lb_target",
             "mean", "var", "drop", "dist", "spike_t", "spike_v", "out", "ok", "target",
             "tot", "partial", "span", "dropped",
         )]
@@ -510,8 +520,9 @@ class PlainEdgeDraws:
     def gap_of(self, u: torch.Tensor) -> torch.Tensor:
         return -log1p_xla(-u)
 
-    def hop(self, tables, t_send, alive, ukey, zkey, *, edge=None, rank=None) -> HopOut:
-        return hop_plain(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank)
+    def hop(self, tables, t_send, alive, ukey, zkey, *, edge=None, rank=None,
+            slot=None) -> HopOut:
+        return hop_plain(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank, slot=slot)
 
 
 class EdgeDraws:
@@ -583,13 +594,15 @@ class EdgeDraws:
         *,
         edge: int | None = None,
         rank: torch.Tensor | None = None,
+        slot: torch.Tensor | None = None,
     ) -> HopOut:
         """The fused hop (:func:`hop_plain`) of the lanes ``t_send`` (S, n)
-        float32 and ``alive`` (S, n) bool, over the static ``edge`` or the
-        LB slots of the int64 arrival ``rank``; ``ukey`` (S, 2) keys the
+        float32 and ``alive`` (S, n) bool, over the static ``edge``, the LB
+        slots of the int64 arrival ``rank``, or the int32 LB ``slot`` of
+        each lane (-1: no healthy target); ``ukey`` (S, 2) keys the
         uniform stream, ``zkey`` the normal one where a law reads it."""
-        if (edge is None) == (rank is None):
-            msg = "edge_draws.hop takes exactly one of edge and rank"
+        if sum(x is not None for x in (edge, rank, slot)) != 1:
+            msg = "edge_draws.hop takes exactly one of edge, rank and slot"
             raise ValueError(msg)
         needs_z = bool(set(hop_laws(tables.dist, edge)) & set(NORMAL_LAWS))
         if needs_z and zkey is None:
@@ -597,7 +610,8 @@ class EdgeDraws:
             raise ValueError(msg)
         dev = t_send.device
         if dev.type == "cpu":
-            return PlainEdgeDraws().hop(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank)
+            return PlainEdgeDraws().hop(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank,
+                                        slot=slot)
         s, n = t_send.shape
         ne = tables.mean.shape[1]
         _need(t_send, torch.float32, (s, n), dev, "t_send")
@@ -606,8 +620,11 @@ class EdgeDraws:
             _need(getattr(tables, name), torch.float32, (s, ne), dev, name)
         k_slots = 1
         target = None
-        if rank is not None:
-            _need(rank, torch.int64, (s, n), dev, "rank")
+        if edge is None:
+            if rank is not None:
+                _need(rank, torch.int64, (s, n), dev, "rank")
+            else:
+                _need(slot, torch.int32, (s, n), dev, "slot")
             k_slots = int(tables.lb_edge.shape[0])
             if k_slots > MAX_LB_SLOTS:
                 msg = f"edge_draws.hop takes at most {MAX_LB_SLOTS} LB edges, got {k_slots}"
@@ -632,9 +649,9 @@ class EdgeDraws:
         self._launch(
             MODE_HOP, s, n,
             ukey=key_words(ukey), zkey=key_words(zkey) if needs_z else None,
-            t_send=t_send, alive=alive, rank=rank,
-            lb_edge=tables.lb_edge if rank is not None else None,
-            lb_target=tables.lb_target if rank is not None else None,
+            t_send=t_send, alive=alive, rank=rank, slot=slot,
+            lb_edge=tables.lb_edge if edge is None else None,
+            lb_target=tables.lb_target if edge is None else None,
             mean=tables.mean, var=tables.var, drop=tables.drop,
             dist=torch.as_tensor(np.asarray(tables.dist, np.int32), device=dev),
             spike_t=tables.spike_t, spike_v=tables.spike_v,

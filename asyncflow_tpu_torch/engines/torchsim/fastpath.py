@@ -7,40 +7,50 @@ lanes, here batched over scenarios as (S, n) tensors:
 
 1. arrivals: per user-sampling window a Poisson count of requests placed as
    normalised partial sums of exponential gaps, less each window's dropped
-   residual (``_arrivals_stream``);
+   residual (``_arrivals_stream``); with several generators each stream
+   builds its own on its own contiguous lanes (``gen_slots``), and walks
+   its own entry chain before the streams' lanes are put side by side;
 2. edges: one uniform a lane settles dropout and delay, and one fused hop
    also writes the lanes' next times and each scenario's drops and edge
    gauge spans (``_edge_hop``, ``_add_spike`` and their epilogue);
-3. round robin with fixed membership: the LB slot is the lane's arrival
-   rank modulo the slots;
+3. round robin: with fixed membership the LB slot is the lane's arrival
+   rank modulo the slots; under an outage timeline the ``lb_route`` kernel
+   gives each lane its slot from the rotation's segments between marks
+   (``_routed_slots``), -1 (dropped at the LB) where every server is down;
 4. each server is a FIFO G/G/c core queue visited once a CPU burst; its
    merged visit stream is sorted by enqueue time and walked by the station
    scan (Lindley for one core, Kiefer-Wolfowitz for several); multi-burst
    endpoints relax to the fixed point; a binding RAM tier runs the joint
-   RAM and core scan;
+   RAM and core scan; a cache segment's miss adds its extra to the pre-IO
+   or trailing IO it sits in; a modelled DB pool is one more FIFO station
+   of K connections after the last burst, whose wait delays the departure;
 5. chained servers run in the exit DAG's topological order.
 
-The slice: one generator; round robin with fixed membership, or no LB; any
-servers and cores, chained or not; alternating CPU / IO endpoints with one
-or several bursts, weighted and IO-only endpoints; non-binding or binding
-RAM; uniform, exponential, normal and lognormal edges with dropout;
-network spikes (added to an edge's delay at its send time).
+The slice: any number of generators; round robin with fixed membership or
+under an outage timeline, or no LB; any servers and cores, chained or not;
+alternating CPU / IO endpoints with one or several bursts, weighted and
+IO-only endpoints; non-binding or binding RAM; stochastic cache segments;
+DB connection pools; uniform, exponential, normal and lognormal edges with
+dropout; network spikes (added to an edge's delay at its send time).
 Everything else is refused by name before any work (:func:`fast_refusal`).
 
 Every draw site folds the reference's constants into the scenario key
-(arrivals ``fold_in(key, 0)`` then 3 and 4; entry hop j ``16 + j``; the LB
-hop 32; the shared endpoint pick 6 and exit 7; per server ``64 + s`` and
-``128 + s``), so the per-lane uniforms and normals are the reference's.
-The per-window user and count draws come from the port's own keyed
-sampler (users from the DES kernel's arrival-rate stream, counts from
-``fold_in(key, COUNT_STREAM)``); tests inject the reference's through
-``run_batch(window_draws=...)``.
+(arrivals ``fold_in(key, 0)`` then, per stream g of several, ``101 + g``,
+then 3 and 4; entry hop j ``16 + j``, or ``1024 + stride g + j`` per
+stream; the LB hop 32; the shared endpoint pick 6 and exit 7; per server
+``64 + s``, ``128 + s`` and the cache draws ``160 + s``), so the per-lane
+uniforms and normals are the reference's.  The per-window user and count
+draws come from the port's own keyed sampler (users from the DES kernel's
+arrival-rate stream of each generator, counts from ``fold_in(key,
+COUNT_STREAM)`` at counter (window, stream)); tests inject the reference's
+through ``run_batch(window_draws=...)``.
 
 The arrival times are the reference's bit for bit: the gaps go through
 XLA's CPU ``log1p`` and their prefix sum keeps XLA's CPU ``cumsum`` order
 (``draws.log1p_xla``, ``draws.prefix_sum_xla``).  On a CUDA device the
-draws and hops run in the ``edge_draws`` kernel and the station recursions
-in the ``station_scan`` kernel; on the CPU both run their plain versions.
+draws and hops run in the ``edge_draws`` kernel, the station recursions in
+the ``station_scan`` kernel and the timeline's routing in the ``lb_route``
+kernels; on the CPU each runs its plain version.
 """
 
 from __future__ import annotations
@@ -53,8 +63,9 @@ import torch
 import torch.nn.functional as F
 
 from asyncflow_tpu_torch.compiler.plan import (
-    SEG_CACHE,
-    SEG_DB,
+    CACHE_POST_DB,
+    CACHE_PRE_DB,
+    CACHE_UNUSED,
     TARGET_SERVER,
     StaticPlan,
 )
@@ -80,6 +91,7 @@ from asyncflow_tpu_torch.engines.torchsim.params import (
     ScenarioOverrides,
     base_overrides,
 )
+from asyncflow_tpu_torch.engines.torchsim.routing import LbRoute, Timeline, route_lanes
 from asyncflow_tpu_torch.engines.torchsim.sampling import (
     N_HIST_BINS,
     TINY,
@@ -132,16 +144,12 @@ def fast_refusal(plan: StaticPlan) -> tuple[str, str] | None:
     if not plan.fastpath_ok:
         return "fastpath", plan.fastpath_reason
     checks = (
-        (plan.n_generators > 1, "several generators", "workload"),
         (plan.n_lb_edges > 0 and plan.lb_algo != 0, "least-connections routing",
          "load balancer"),
-        (plan.has_timeline, "outage timeline", "events"),
         (plan.has_rate_limit, "rate limit", "server overload"),
         (plan.has_queue_cap, "ready-queue cap", "server overload"),
         (plan.has_queue_timeout, "dequeue deadline", "server overload"),
         (plan.has_conn_cap, "connection cap", "server overload"),
-        (bool(np.any(plan.seg_kind == SEG_DB)), "DB connection pool", "server"),
-        (bool(np.any(plan.seg_kind == SEG_CACHE)), "cache mixture", "endpoint step"),
     )
     for hit, feature, where in checks:
         if hit:
@@ -179,6 +187,39 @@ def _cumsum_last(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def stream_slots(plan: StaticPlan, max_requests: int | None = None) -> list[int]:
+    """Each generator stream's lanes: its own 6-sigma count bound
+    (``plan.gen_slots``), or with one stream ``plan.max_requests``.  An
+    explicit ``max_requests`` is the total: several streams' bounds are
+    rescaled to it, every stream keeping at least one lane, the rounding
+    settled largest remainder first (the reference's ``FastEngine``)."""
+    if plan.n_generators == 1:
+        return [int(max_requests or plan.max_requests)]
+    base = [int(x) for x in plan.gen_slots]
+    if not max_requests:
+        return base
+    if max_requests < len(base):
+        msg = (f"max_requests={max_requests} cannot cover {len(base)} generator streams "
+               "(every stream needs at least one slot)")
+        raise ValueError(msg)
+    total = sum(base)
+    shares = [b * max_requests / total for b in base]
+    scaled = [max(1, int(x)) for x in shares]
+    by_frac = sorted(range(len(base)), key=lambda g: shares[g] - int(shares[g]), reverse=True)
+    residual = max_requests - sum(scaled)
+    i = 0
+    while residual != 0:
+        g = by_frac[i % len(base)]
+        if residual > 0:
+            scaled[g] += 1
+            residual -= 1
+        elif scaled[g] > 1:
+            scaled[g] -= 1
+            residual += 1
+        i += 1
+    return scaled
+
+
 class FastEngine:
     """Batched scan engine for one eligible :class:`StaticPlan`."""
 
@@ -210,21 +251,34 @@ class FastEngine:
             raise ValueError(msg)
         self.plan = plan
         self.device = resolve_device(device)
-        self.n = int(max_requests or plan.max_requests)
+        #: each stream's lanes, a contiguous slice each, in generator order
+        self.gen_n = stream_slots(plan, max_requests)
+        self.n = sum(self.gen_n)
         self.n_hist_bins = n_hist_bins
         self.hist_lo, self.hist_scale = hist_constants(n_hist_bins)
         self.collect_clocks = collect_clocks
         self.relax_sweeps = relax_sweeps
-        self.n_windows = int(np.ceil(plan.horizon / plan.user_window))
+        if plan.n_generators > 1:
+            self._streams = [
+                (float(plan.gen_window[g]), float(plan.gen_user_var[g]))
+                for g in range(plan.n_generators)
+            ]
+        else:
+            self._streams = [(float(plan.user_window), float(plan.user_var))]
+        #: user windows of each stream
+        self.stream_windows = [int(np.ceil(plan.horizon / w)) for w, _ in self._streams]
+        self.n_windows = self.stream_windows[0]
         self.n_thr = int(np.ceil(plan.horizon)) or 1
         self.draws = EdgeDraws()
         self.scan = StationScan()
+        self.route = LbRoute()
         dev = self.device
         self._dist = np.asarray(plan.edge_dist, np.int32)
         self._tables = {
             name: torch.as_tensor(np.asarray(getattr(plan, name)), device=dev)
             for name in ("endpoint_cum", "endpoint_ram", "endpoint_post_io", "n_bursts",
-                         "burst_dur", "burst_pre_io")
+                         "burst_dur", "burst_pre_io", "fp_db_pre", "fp_db_dur",
+                         "fp_cache_slot", "fp_cache_miss_prob", "fp_cache_extra")
         }
 
         def table(x, dtype) -> torch.Tensor:
@@ -238,14 +292,26 @@ class FastEngine:
         if plan.has_spikes:
             self._hop_static.update(spike_t=table(plan.spike_times, torch.float32),
                                     spike_v=table(plan.spike_values, torch.float32))
+        #: the LB's outage timeline, where round robin runs under one
+        self.timeline = (
+            Timeline(plan.timeline_times, plan.timeline_down, plan.timeline_slot,
+                     plan.n_lb_edges, dev)
+            if plan.n_lb_edges > 0 and plan.has_timeline else None
+        )
 
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
 
+    def has_cache(self, s: int) -> bool:
+        """Does server ``s`` draw stochastic cache extras."""
+        slots = self.plan.fp_cache_slot
+        return bool(slots.size) and bool(np.any(slots[s] != CACHE_UNUSED))
+
     def shares_entry_sort(self, s: int) -> bool:
         """May server ``s`` reuse the shared arrival rank (``_shares_entry_sort``):
-        entry tier, one burst with one enqueue offset, no modelled RAM."""
+        entry tier, one burst with one enqueue offset, no modelled RAM and no
+        cache extra before its burst."""
         plan = self.plan
         if s in {int(x) for x, k in zip(plan.exit_target, plan.exit_kind)
                  if k == TARGET_SERVER}:
@@ -259,33 +325,37 @@ class FastEngine:
             pre0 = plan.burst_pre_io[s, :nep, 0]
             if not (np.all(nb == nb[0]) and np.all(pre0 == pre0[0])):
                 return False
-        return True
+        return not (plan.fp_cache_slot.size and np.any(plan.fp_cache_slot[s] >= 0))
 
-    def window_draws(self, keys: torch.Tensor, user_mean, req_rate) -> tuple:
-        """(lam, counts), (S, NW) each: the arrival rate of every window
-        (users from the DES kernel's rate stream ``fold_in(key, 0x77AB)`` x
-        requests per user) and its Poisson count of arrivals, by CDF
-        inversion of the uniform at counter (w, 0) of ``fold_in(key,
-        COUNT_STREAM)``."""
-        plan = self.plan
-        lam = lam_table(keys, user_mean, req_rate, n_windows=self.n_windows,
-                        user_var=plan.user_var)
-        return lam, self._counts(keys, lam)
+    def window_draws(self, keys: torch.Tensor, user_mean, req_rate) -> tuple[list, list]:
+        """(lam, counts): a list of (S, NW_g) tensors each, one a stream.
+        Stream g's arrival rates are its users (from the DES kernel's rate
+        stream ``fold_in(key, 0x77AB + g)``) x requests per user, and its
+        Poisson counts invert the uniform at counter (w, g) of ``fold_in(key,
+        COUNT_STREAM)``.  ``user_mean`` and ``req_rate`` are lists of each
+        stream's scalar or (S,) values."""
+        lams, counts = [], []
+        for g, (_window, user_var) in enumerate(self._streams):
+            lam = lam_table(keys, user_mean[g], req_rate[g], n_windows=self.stream_windows[g],
+                            user_var=user_var, stream=g)
+            lams.append(lam)
+            counts.append(self._counts(keys, lam, g))
+        return lams, counts
 
-    def _window_lens(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(starts, ends, lengths) of the user windows, float32."""
-        plan = self.plan
-        starts = torch.arange(self.n_windows, dtype=torch.float32, device=self.device)
-        starts = starts * f32(plan.user_window)
-        ends = torch.clamp_max(starts + f32(plan.user_window), f32(plan.horizon))
+    def _window_lens(self, g: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(starts, ends, lengths) of stream ``g``'s user windows, float32."""
+        window = f32(self._streams[g][0])
+        starts = torch.arange(self.stream_windows[g], dtype=torch.float32, device=self.device)
+        starts = starts * window
+        ends = torch.clamp_max(starts + window, f32(self.plan.horizon))
         return starts, ends, ends - starts
 
-    def _counts(self, keys: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
-        _, _, lens = self._window_lens()
+    def _counts(self, keys: torch.Tensor, lam: torch.Tensor, g: int = 0) -> torch.Tensor:
+        _, _, lens = self._window_lens(g)
         mean = torch.clamp_min(lam * lens, f32(TINY))
-        w = torch.arange(self.n_windows, dtype=torch.int64, device=keys.device)[None, :]
+        w = torch.arange(lam.shape[1], dtype=torch.int64, device=keys.device)[None, :]
         kc = fold_in(keys, COUNT_STREAM)
-        b0, b1 = threefry2x32(kc[:, 0:1], kc[:, 1:2], w, torch.zeros_like(w))
+        b0, b1 = threefry2x32(kc[:, 0:1], kc[:, 1:2], w, torch.full_like(w, g))
         top = float(mean.max()) if mean.numel() else 0.0
         kmax = math.ceil(top + 12.0 * math.sqrt(max(top, 1.0)) + 20.0)
         counts = _poisson_inverse(mean.to(torch.float64), _uniform53(b0, b1), kmax)
@@ -295,12 +365,13 @@ class FastEngine:
     # arrivals
     # ------------------------------------------------------------------
 
-    def _arrivals(self, k_arr: torch.Tensor, counts: torch.Tensor):
-        """(t, valid, overflow): simulation-clock arrival times (S, n), INF
-        on unused lanes (``_arrivals_stream``)."""
-        n, nw, dev = self.n, self.n_windows, self.device
+    def _arrivals(self, k_arr: torch.Tensor, counts: torch.Tensor, g: int = 0):
+        """(t, valid, overflow) of stream ``g`` keyed ``k_arr``: simulation-
+        clock arrival times (S, n_g), INF on unused lanes
+        (``_arrivals_stream``)."""
+        n, nw, dev = self.gen_n[g], self.stream_windows[g], self.device
         s = counts.shape[0]
-        starts, ends, lens = self._window_lens()
+        starts, ends, lens = self._window_lens(g)
         offsets = torch.cumsum(counts.to(torch.int64), dim=1)
         total = torch.clamp_max(offsets[:, -1], n)
         slot = torch.arange(n, device=dev)
@@ -333,6 +404,19 @@ class FastEngine:
         t = torch.where(valid, sampler_t - cum_res.gather(1, win), INF)
         return t, valid, (offsets[:, -1] - total).to(torch.int32)
 
+    def _stream_arrivals(self, k_arr: torch.Tensor, counts: list) -> tuple:
+        """Every stream's (t, valid) on its own (S, n_g) lanes, and the
+        scenarios' overflow: one stream keyed ``k_arr``, or stream g keyed
+        ``fold_in(k_arr, 101 + g)`` (``_arrivals``)."""
+        ts, valids, overflow = [], [], None
+        for g in range(len(self.gen_n)):
+            key = k_arr if len(self.gen_n) == 1 else fold_in(k_arr, 101 + g)
+            t, valid, over = self._arrivals(key, counts[g], g)
+            ts.append(t)
+            valids.append(valid)
+            overflow = over if overflow is None else overflow + over
+        return ts, valids, overflow
+
     # ------------------------------------------------------------------
     # the journey
     # ------------------------------------------------------------------
@@ -343,39 +427,78 @@ class FastEngine:
             horizon=self.plan.horizon, **self._hop_static,
         )
 
-    def _hop(self, tables: EdgeTables, keys, site: int, t, alive, *, edge=None, rank=None,
-             ukey=None) -> HopOut:
+    def _hop(self, tables: EdgeTables, keys, site: int, t, alive, *, ukey=None,
+             **lanes) -> HopOut:
         """The fused hop keyed ``fold_in(key, site)`` (its uniform stream, or
-        the shared ``ukey``) of the lanes ``alive`` sending at ``t``."""
+        the shared ``ukey``) of the lanes ``alive`` sending at ``t`` over
+        ``edge=``, or the LB's ``rank=`` or ``slot=``."""
         uk, zk = hop_keys(keys, site)
-        return self.draws.hop(tables, t, alive, uk if ukey is None else ukey, zk, edge=edge,
-                              rank=rank)
+        return self.draws.hop(tables, t, alive, uk if ukey is None else ukey, zk, **lanes)
 
-    def _journey(self, keys, ov: dict, t: torch.Tensor, alive: torch.Tensor):
-        """Entry chain, routing, the servers in topological order and the
+    def _entry_chains(self, keys, tables, ts: list, valids: list, gm, n_dropped):
+        """Each stream's entry chain on its own lanes, then the streams'
+        lanes side by side: (t, alive), (S, n).  One stream folds hop j in
+        at site 16 + j; stream g of several at 1024 + stride g + j."""
+        plan = self.plan
+        if len(ts) == 1:
+            chains = [plan.entry_edges.tolist()]
+            site = lambda _g, j: 16 + j  # noqa: E731
+        else:
+            chains = [plan.gen_entry_edges[g, : plan.gen_entry_len[g]].tolist()
+                      for g in range(len(ts))]
+            stride = max(len(c) for c in chains)
+            site = lambda g, j: 1024 + stride * g + j  # noqa: E731
+        out_t, out_alive = [], []
+        for g, chain in enumerate(chains):
+            t, alive = ts[g], valids[g]
+            # each hop sends only while the clock runs (alive & t < horizon)
+            for j, eidx in enumerate(chain):
+                hop = self._hop(tables, keys, site(g, j), t, alive, edge=eidx)
+                gm[:, eidx] += hop.span[:, 0]
+                n_dropped += hop.dropped
+                t, alive = hop.t_next, hop.ok
+            out_t.append(t)
+            out_alive.append(alive)
+        if len(out_t) == 1:
+            return out_t[0], out_alive[0]
+        return torch.cat(out_t, dim=1), torch.cat(out_alive, dim=1)
+
+    def _cache_extras(self, keys, s: int, ep: torch.Tensor):
+        """Server ``s``'s stochastic cache draws: the (S, n, CMAX) placement
+        of each lane's segments and their extras (miss minus hit where the
+        uniform of ``fold_in(key, 160 + s)``, counted over n x CMAX in row
+        order, misses)."""
+        tab = self._tables
+        s_rows, n = ep.shape
+        cmax = int(tab["fp_cache_slot"].shape[2])
+        u = self.draws.uniform(fold_in(keys, 160 + s), n * cmax).view(s_rows, n, cmax)
+        place = tab["fp_cache_slot"][s][ep]
+        missed = u < tab["fp_cache_miss_prob"][s][ep]
+        return place, torch.where(missed, tab["fp_cache_extra"][s][ep], 0.0)
+
+    def _journey(self, keys, ov: dict, ts: list, valids: list):
+        """Entry chains, routing, the servers in topological order and the
         exits (``_journey`` without retries): (finish, completed,
         gauge_means, n_dropped)."""
         plan, dev, n = self.plan, self.device, self.n
-        s_rows = t.shape[0]
+        s_rows = ts[0].shape[0]
         horizon = f32(plan.horizon)
         gm = torch.zeros((s_rows, plan.n_gauges), dtype=torch.float32, device=dev)
         n_dropped = torch.zeros(s_rows, dtype=torch.int64, device=dev)
         tab = self._tables
         tables = self._edge_tables(ov)
+        t, alive = self._entry_chains(keys, tables, ts, valids, gm, n_dropped)
 
-        # ---- entry chain ----
-        # each hop sends only while the clock runs (alive & t < horizon)
-        for j, eidx in enumerate(plan.entry_edges.tolist()):
-            hop = self._hop(tables, keys, 16 + j, t, alive, edge=eidx)
-            gm[:, eidx] += hop.span[:, 0]
-            n_dropped += hop.dropped
-            t, alive = hop.t_next, hop.ok
-
-        # ---- routing: round robin by arrival rank ----
+        # ---- routing: round robin by arrival rank, or under the timeline ----
         alive = alive & (t < horizon)
         srv = torch.full_like(t, max(plan.entry_target, 0), dtype=torch.int32)
         if plan.n_lb_edges > 0:
-            hop = self._hop(tables, keys, 32, t, alive, rank=time_rank(t, alive))
+            if self.timeline is None:
+                lanes = {"rank": time_rank(t, alive)}
+            else:
+                lanes = {"slot": route_lanes(self.route, self.timeline, t, alive)}
+            hop = self._hop(tables, keys, 32, t, alive, **lanes)
+            del lanes
             srv = hop.target
             for k, e in enumerate(plan.lb_edge_index.tolist()):
                 gm[:, e] += hop.span[:, k]
@@ -403,6 +526,20 @@ class FastEngine:
                                  nep - 1)
             ram = tab["endpoint_ram"][s][ep]
             post = tab["endpoint_post_io"][s][ep]
+            # stochastic cache segments: each miss adds its extra to the
+            # burst pre-IO or the trailing IO the segment occupies
+            place = extra = trail_extra = None
+            if self.has_cache(s):
+                place, extra = self._cache_extras(keys, s, ep)
+                pre_db = torch.zeros_like(t)
+                post_db = torch.zeros_like(t)
+                for c in range(place.shape[2]):
+                    pre_db = pre_db + torch.where(place[..., c] == CACHE_PRE_DB,
+                                                  extra[..., c], 0.0)
+                    post_db = post_db + torch.where(place[..., c] == CACHE_POST_DB,
+                                                    extra[..., c], 0.0)
+                trail_extra = pre_db
+                post = post + pre_db + post_db
             cores = int(plan.server_cores[s])
             kb = int(plan.n_bursts[s, :nep].max()) if nep else 0
             ram_k = int(plan.ram_slots[s]) if len(plan.ram_slots) else 0
@@ -436,7 +573,7 @@ class FastEngine:
                 visits = min(kb, 1)
             else:
                 enq, wait, pre, validb, dep = self._core_queue(
-                    s, kb, cores, t, mine, ep, post, shared_rank,
+                    s, kb, cores, t, mine, ep, post, shared_rank, place, extra,
                 )
                 visits = kb
             for k in range(visits):
@@ -446,6 +583,8 @@ class FastEngine:
                 gm[:, plan.gauge_io(s)] += _span(enq[..., k] - pre[..., k], enq[..., k], vb,
                                                 horizon)
             trail_start = dep - post
+            dep = self._db_station(s, ep, mine, trail_start, trail_extra, dep)
+            # the trailing IO sleep holds the DB pool's wait too
             gm[:, plan.gauge_io(s)] += _span(trail_start, dep, mine & (dep > trail_start),
                                             horizon)
             gm[:, plan.gauge_ram(s)] += _span(t + w_ram, dep, mine, horizon, amount=ram)
@@ -467,11 +606,37 @@ class FastEngine:
                 alive = torch.where(mine, False, alive)
         return finish, completed, gm, n_dropped
 
-    def _core_queue(self, s, kb, cores, t, mine, ep, post, shared_rank):
+    def _db_station(self, s, ep, mine, trail_start, trail_extra, dep) -> torch.Tensor:
+        """The departures of server ``s`` after its modelled DB pool: one
+        FIFO station of K connections, entered ``db_pre`` (and any cache
+        extra before the query) after the trailing IO starts, its merged
+        stream ordered by that time; Lindley for K = 1, Kiefer-Wolfowitz
+        for more.  The wait only delays the departure."""
+        plan, tab = self.plan, self._tables
+        pool_k = int(plan.server_db_pool[s])
+        if pool_k <= 0 or not bool(np.any(plan.fp_db_dur[s] > 0)):
+            return dep
+        dur = torch.where(mine, tab["fp_db_dur"][s][ep], 0.0)
+        use = mine & (dur > 0)
+        pre = tab["fp_db_pre"][s][ep]
+        if trail_extra is not None:
+            pre = pre + trail_extra
+        enq = torch.where(use, trail_start + pre, INF)
+        rank = time_rank(enq, use)
+        w_s = self.scan.waits(
+            to_sorted(enq, rank, INF), to_sorted(dur, rank, 0.0), to_sorted(use, rank, False),
+            pool_k,
+        )
+        return dep + torch.where(use, w_s.gather(1, rank), 0.0)
+
+    def _core_queue(self, s, kb, cores, t, mine, ep, post, shared_rank, place=None,
+                    extra=None):
         """The FIFO core queue of server ``s`` visited once a burst:
         (enqueue, wait, pre-IO, valid), (S, n, kb) each, and the departure
-        (S, n).  One sweep is exact for single-burst endpoints; several
-        bursts relax to the fixed point (2 kb + 2 sweeps)."""
+        (S, n).  A cache miss placed before burst k (``place``, ``extra``)
+        lengthens its pre-IO.  One sweep is exact for single-burst
+        endpoints; several bursts relax to the fixed point (2 kb + 2
+        sweeps)."""
         tab = self._tables
         s_rows, n = t.shape
         nb = tab["n_bursts"][s][ep]
@@ -479,6 +644,12 @@ class FastEngine:
         validb = mine[..., None] & (ks < nb[..., None])
         dur = torch.where(validb, tab["burst_dur"][s][ep][..., :kb], 0.0)
         pre = torch.where(validb, tab["burst_pre_io"][s][ep][..., :kb], 0.0)
+        if place is not None:
+            pre_extra = torch.zeros_like(pre)
+            for c in range(place.shape[2]):
+                pre_extra = pre_extra + torch.where(place[..., c, None] == ks,
+                                                    extra[..., c, None], 0.0)
+            pre = pre + torch.where(validb, pre_extra, 0.0)
         pre_cum = _cumsum_last(pre)
         use_shared = shared_rank is not None and self.shares_entry_sort(s)
 
@@ -515,18 +686,27 @@ class FastEngine:
     # ------------------------------------------------------------------
 
     def _overrides(self, ov: ScenarioOverrides, s: int) -> dict:
+        """The run's edge tables (S, NE) and each stream's users and rate:
+        with several generators the workload fields are (G,) or (S, G)."""
         dev, ne = self.device, self.plan.n_edges
 
         def per_scenario(x):
             arr = _float_tensor(x, dev)
             return arr.expand(s).contiguous() if arr.ndim == 0 else arr
 
+        um = np.asarray(ov.user_mean, np.float32)
+        rr = np.asarray(ov.req_rate, np.float32)
+        if len(self.gen_n) > 1:
+            ums = [um[..., g] for g in range(len(self.gen_n))]
+            rrs = [per_scenario(rr[..., g]) for g in range(len(self.gen_n))]
+        else:
+            ums, rrs = [um], [per_scenario(rr)]
         return {
             "em": _edge_table(ov.edge_mean, s, ne, dev),
             "ev": _edge_table(ov.edge_var, s, ne, dev),
             "ed": _edge_table(ov.edge_dropout, s, ne, dev),
-            "um": np.asarray(ov.user_mean, np.float32),
-            "rr": per_scenario(ov.req_rate),
+            "um": ums,
+            "rr": rrs,
         }
 
     def run_tensors(self, keys, overrides: ScenarioOverrides | None = None, *,
@@ -537,13 +717,22 @@ class FastEngine:
         s = kt.shape[0]
         ov = self._overrides(overrides if overrides is not None else base_overrides(plan), s)
         if window_draws is None:
-            lam, counts = self.window_draws(kt, ov["um"], ov["rr"])
+            _lam, counts = self.window_draws(kt, ov["um"], ov["rr"])
         else:
-            users, counts = (torch.as_tensor(np.array(x), device=dev) for x in window_draws)
-            lam = users.to(torch.float32) * ov["rr"][:, None]
-            counts = torch.where(lam > 0, counts.to(torch.int32), 0)
-        t0, valid, overflow = self._arrivals(fold_in(kt, 0), counts)
-        finish, success, gm, n_dropped = self._journey(kt, ov, t0, valid)
+            users, counts_in = window_draws
+            if len(self.gen_n) == 1:
+                users, counts_in = [users], [counts_in]
+            counts = []
+            for g, (u_g, c_g) in enumerate(zip(users, counts_in)):
+                lam = torch.as_tensor(np.array(u_g), device=dev).to(torch.float32)
+                lam = lam * ov["rr"][g][:, None]
+                c_g = torch.as_tensor(np.array(c_g), device=dev).to(torch.int32)
+                counts.append(torch.where(lam > 0, c_g, 0))
+        ts, valids, overflow = self._stream_arrivals(fold_in(kt, 0), counts)
+        finish, success, gm, n_dropped = self._journey(kt, ov, ts, valids)
+        t0 = ts[0] if len(ts) == 1 else torch.cat(ts, dim=1)
+        valid = valids[0] if len(valids) == 1 else torch.cat(valids, dim=1)
+        del ts, valids
 
         latency = torch.where(success, finish - t0, 0.0)
         bins = self.n_hist_bins
@@ -587,7 +776,8 @@ class FastEngine:
         reference's uint32 key data; ``overrides`` fields are base-shaped or
         carry a leading scenario axis; ``window_draws`` = (users, counts),
         (S, NW) each, injects every window's user and arrival-count draws
-        instead of drawing them."""
+        instead of drawing them (with several generators, two lists of
+        each stream's (S, NW_g) draws)."""
         if antithetic:
             raise UnsupportedFeatureError("antithetic draws", "fast path option")
         out = self.run_tensors(keys, overrides, window_draws=window_draws)

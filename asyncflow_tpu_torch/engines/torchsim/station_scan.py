@@ -37,6 +37,8 @@ from asyncflow_tpu_torch.errors import KernelBuildError, KernelLaunchError
 MODE_LINDLEY = 0
 MODE_KW = 1
 MODE_RAM_CORE = 2
+#: each mode's name, as ``StationScan.mode_launches`` counts it
+MODE_NAMES = {MODE_LINDLEY: "lindley", MODE_KW: "kw", MODE_RAM_CORE: "ram_core"}
 #: core-free and RAM-slot vectors of up to these many floats live in
 #: registers; a wider carry in global scratch (station_scan.cu, kRegCores,
 #: kRegSlots; the library's station_scan_scratch_floats decides)
@@ -159,8 +161,9 @@ class PlainStationScan:
 
 
 class StationScan:
-    """The station recursions with their launch count.  A carry of up to
-    :data:`REG_CORES` cores and :data:`REG_SLOTS` RAM slots lives in
+    """The station recursions with their launch count, in all and by mode
+    (``mode_launches``: Lindley, Kiefer-Wolfowitz, RAM-core).  A carry of up
+    to :data:`REG_CORES` cores and :data:`REG_SLOTS` RAM slots lives in
     registers, a wider one in global scratch that the launch allocates."""
 
     name = "station_scan"
@@ -173,6 +176,7 @@ class StationScan:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.mode_launches = dict.fromkeys(MODE_NAMES.values(), 0)
 
     def waits(self, a: torch.Tensor, d: torch.Tensor, v: torch.Tensor, cores: int):
         """(S, m) FIFO waits of a ``cores``-server station."""
@@ -227,3 +231,4 @@ class StationScan:
             msg = f"station_scan launch failed: code {rc}"
             raise KernelLaunchError(msg)
         self.launches += 1
+        self.mode_launches[MODE_NAMES[mode]] += 1

@@ -3,7 +3,8 @@ the reference's ``parallel/sweep.py`` (``SweepRunner``, ``SweepReport``).
 
 ``engine="kernel"`` is the counterpart of the reference's ``"pallas"``: the
 DES kernel.  ``engine="fast"`` is the scan fast path (``FastEngine``), which
-refuses by name a plan outside its slice.  ``engine="auto"`` takes the fast
+refuses by name a plan outside its slice (least connections and the
+overload controls).  ``engine="auto"`` takes the fast
 path, as the reference does, where the compiler proved the plan eligible
 (``plan.fastpath_ok``) and the port's fast engine models it, and the DES
 kernel otherwise; ``engine_kind`` says which.  The reference's event
@@ -45,9 +46,10 @@ from asyncflow_tpu_torch.engines.torchsim.params import ScenarioOverrides, base_
 from asyncflow_tpu_torch.errors import FastPathOverrideError, ProofHeadroomError
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload
 
-#: the fast path's lanes a chunk (scenarios x lanes a scenario): the
-#: headline's 2048 x 87,840, whose sweep peaked at 27.17 GB of the card's
-#: 80 GB; its device memory grows with the lanes
+#: the fast path's lanes a chunk (scenarios x lanes a scenario, a
+#: scenario's lanes summed over its generator streams): the headline's
+#: 2048 x 87,840, whose sweep peaked at 27.17 GB of the card's 80 GB; its
+#: device memory grows with the lanes
 FAST_CHUNK_LANES = 2048 * 87_840
 #: the DES kernel's scenarios a chunk: its time a scenario is flat from
 #: about 528 scenarios up (the card is full and issue-bound), and every DES

@@ -39,30 +39,39 @@ no result line):
    2% of it, and every path's event count as the earlier slices measured
    it (no draw may move); each path's kernel time is printed beside the
    one-thread-a-scenario kernel's;
-4. the scan fast path's two kernels (``edge_draws``, ``station_scan``)
-   against their plain PyTorch versions on the card, on two_servers_lb,
-   single_server and heavy_inj_single_server cut to 60 s (the spike
-   scaled into it) at 64 scenarios: every kernel call of the engine's run
-   (uniforms, arrival gaps and their prefix sum, static, LB and spiked
-   hops, scans) repeated through the plain version, bit-exact, and the
-   whole engine through each, with identical integer outputs, per-request
-   clocks and gauge means; and XLA's ``log1p`` in the kernel against its
-   plain version on each of the 2**23 uniforms;
-5. the three fast paths: ``SweepRunner(payload).run(2048, seed=0)``
+4. the scan fast path's three kernels (``edge_draws``, ``station_scan``,
+   ``lb_route``) against their plain PyTorch versions on the card, on each
+   fast path's payload (two_servers_lb, single_server,
+   heavy_inj_single_server, event_inj_lb, two_gen_lb, db_pool_k2) cut to
+   60 s (its events scaled into it) at 64 scenarios: every kernel call of
+   the engine's run (uniforms, arrival gaps and their prefix sum, static,
+   LB, slot and spiked hops, the outage timeline's table and lanes, Lindley
+   and Kiefer-Wolfowitz scans, RAM-core scans) repeated through the plain
+   version, bit-exact, and the whole engine through each, with identical
+   integer outputs, per-request clocks and gauge means; a synthetic
+   timeline with an all-down interval and same-time marks through
+   ``lb_route`` at full width; and XLA's ``log1p`` in the kernel against
+   its plain version on each of the 2**23 uniforms;
+5. the six fast paths: ``SweepRunner(payload).run(2048, seed=0)``
    through ``engine="auto"``, which must take the fast path and launch
-   both kernels (counts set to 0 before the run), on two_servers_lb
-   (600 s), single_server (500 s, a binding RAM of 20 slots) and
+   its kernels (counts set to 0 before the run: ``edge_draws`` and
+   ``station_scan`` on every path, ``lb_route`` on event_inj_lb and the
+   Kiefer-Wolfowitz mode on db_pool_k2), on two_servers_lb (600 s),
+   single_server (500 s, a binding RAM of 20 slots),
    heavy_inj_single_server (600 s, a 3 s spike from 180 s to 300 s, in
-   default chunks of 1,797 scenarios): request conservation, the pooled
-   p95 within 2% of the JAX fast path's and of the DES kernel's on the
-   same payload (its sweep untruncated); then the first call of each kind
-   (uniform, gap, gap prefix sum, static, LB or spiked hop, wait scan,
-   RAM-core scan) of the path's own run at full width, repeated through
-   the kernel and through its plain version on the same arguments,
-   bit-exact; each edge_draws kind's and one station_scan kind's call
-   timed between CUDA events beside its bound, its plain version's time
-   and the library's (the closed form ``cumsum`` / ``cummax`` for the
-   one-core scan), and the stable rank's time.
+   default chunks of 1,797 scenarios), event_inj_lb (600 s: outages and
+   spikes), two_gen_lb (600 s: two streams) and db_pool_k2 (120 s: a DB
+   pool of 2): request conservation, the pooled p95 within 2% of the JAX
+   fast path's and of the DES kernel's on the same payload (its sweep
+   untruncated); then the first call of each kind (uniform, gap, gap
+   prefix sum, static, LB, slot or spiked hop, timeline table and lanes,
+   wait scan of one server or of several, RAM-core scan) of the path's own
+   run at full width, repeated through the kernel and through its plain
+   version on the same arguments, bit-exact; each edge_draws and lb_route
+   kind's call and the path's station_scan kinds timed between CUDA events
+   beside its bound, its plain version's time and the library's (the
+   closed form ``cumsum`` / ``cummax`` for the one-core scan), and the
+   stable rank's time.
 
 It prints a JSON line of per-kernel measurements, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and
@@ -384,12 +393,18 @@ PAYLOADS = {
 }
 
 #: the scan fast path's full-width paths: the headline,
-#: examples/yaml_input/data/single_server.yml (a binding RAM of 20 slots)
-#: and heavy_inj_single_server.yml (a network spike, 100,085 lanes)
+#: examples/yaml_input/data/single_server.yml (a binding RAM of 20 slots),
+#: heavy_inj_single_server.yml (a network spike, 100,085 lanes), and the
+#: three the reference's ``auto`` also sends there: event_inj_lb (round
+#: robin under outages), two_gen_lb (two streams) and db_pool_k2 (a DB pool
+#: of 2)
 FAST_PAYLOADS = {
     "two_servers_lb": TWO_SERVERS_LB,
     "single_server": SINGLE_SERVER,
     "heavy_inj_single_server": HEAVY_INJ_SINGLE_SERVER,
+    "event_inj_lb": EVENT_INJ_LB,
+    "two_gen_lb": TWO_GEN_LB,
+    "db_pool_k2": DB_POOL_K2,
 }
 
 MAIN_SCENARIOS = 2048
@@ -432,11 +447,17 @@ REFERENCE = {
 #: the JAX scan fast path on each fast payload at its full horizon: pooled
 #: p95 (seconds) of FastEngine on scenarios 0..31 of seed 0, on the CPU
 #: (``python tests/test_torch_sweep.py --reference-p95 PAYLOAD --engine
-#: fast``; seed 1 gave 0.033682255 s, 0.119988049 s and 3.238123915 s)
+#: fast``; seed 1 gave 0.033682255 s, 0.119988049 s, 3.238123915 s,
+#: 0.043351474 s and 0.034868085 s); db_pool_k2 at its pool's knee on
+#: scenarios 0..2047 (``--scenarios 2048``: 512 gave 0.155738 s and
+#: 0.158149 s for seeds 0 and 1; 2048 of seed 1 gave 0.156589189 s)
 REFERENCE_FAST = {
     "two_servers_lb": {"p95_s": 0.03368371799103881},
     "single_server": {"p95_s": 0.12000647249175632},
     "heavy_inj_single_server": {"p95_s": 3.2386658959732046},
+    "event_inj_lb": {"p95_s": 0.04334861363138333},
+    "two_gen_lb": {"p95_s": 0.034871473184246715},
+    "db_pool_k2": {"p95_s": 0.1565345446763432},
 }
 #: horizon of the fast kernels' check against their plain versions, and
 #: its scenarios
@@ -614,7 +635,7 @@ def phase_setup(torch) -> None:
     for name, report in _build.ptxas_report.items():
         for instance, res in ptxas_instances(report).items():
             print(f"  ptxas[{name}] {instance}: {res}")
-        if name in ("edge_draws", "station_scan"):
+        if name in ("edge_draws", "station_scan", "lb_route"):
             res = " ".join(line.split(":", 2)[-1].strip() for line in report.splitlines()
                            if "spill" in line or "registers" in line)
             print(f"  ptxas[{name}]: {res}")
@@ -1192,6 +1213,8 @@ SCAN_LANE_OPS = (0, 2, 0)
 #: subtracts and max; a Kiefer-Wolfowitz or RAM-slot step adds a compare a
 #: carry entry it moves past (not counted: the data decides)
 SCAN_ELEMENT_OPS = {"waits": (3, 5), "ram_core": (4, 8)}
+#: a Kiefer-Wolfowitz element, per core: the insertion's compare and select
+KW_CORE_OPS = (1, 1)
 
 
 def _ops(lanes, per_lane) -> list:
@@ -1231,17 +1254,21 @@ def _draws_bound(torch, kind: str, args: tuple, kw: dict) -> dict:
     tables, t_send, alive, _ukey, _zkey = args
     s, n = t_send.shape
     lanes = s * n
-    rank = kw.get("rank")
-    k_slots = 1 if rank is None else int(tables.lb_edge.shape[0])
+    rank, given = kw.get("rank"), kw.get("slot")
+    k_slots = 1 if kw.get("edge") is not None else int(tables.lb_edge.shape[0])
     moved = lanes * (4 + 1 + 4 + 1) + s * (4 * k_slots + 8)
     ops = [a + b for a, b in zip(_ops(lanes, UNIFORM_LANE_OPS), _ops(lanes, HOP_LANE_OPS))]
-    if rank is None:
+    if kw.get("edge") is not None:
         per_law = {int(tables.dist[kw["edge"]]): lanes}
     else:
-        moved += lanes * (8 + 4)
+        # the rank (8 B) or the slot (4 B) in, the target out
+        moved += lanes * ((8 if rank is not None else 4) + 4)
         ops = [a + b for a, b in zip(ops, _ops(lanes, LB_SLOT_OPS))]
         gate = alive & (t_send < float(tables.horizon))
-        slot = torch.where(gate, rank % k_slots, 0)
+        if rank is not None:
+            slot = torch.where(gate, rank % k_slots, 0)
+        else:
+            slot = torch.where(gate & (given >= 0), given.long(), 0)
         law = torch.as_tensor(tables.dist, device=slot.device).long()[tables.lb_edge.long()[slot]]
         per_law = dict(enumerate(torch.bincount(law.reshape(-1), minlength=5).tolist()))
     for law, count in per_law.items():
@@ -1253,6 +1280,37 @@ def _draws_bound(torch, kind: str, args: tuple, kw: dict) -> dict:
     return _bound_of(moved, *ops)
 
 
+#: lb_route: the table pass's mark test, a lane and a mark (the compare,
+#: the add) and its alive test; the lanes pass's alive test, its search's
+#: steps (a load, a compare, a select each), the offset, the modulo (about
+#: 20 integer operations) and the rotation's load
+ROUTE_MARK_OPS = (1, 1)
+ROUTE_ALIVE_OPS = (1, 0)
+ROUTE_SEARCH_STEP_OPS = (3, 0)
+ROUTE_PICK_OPS = (24, 0)
+
+
+def _route_bound(kind: str, args: tuple) -> dict:
+    """The least time of one lb_route launch: the table pass reads t and
+    alive (5 B a lane) and writes the table; the lanes pass reads the rank,
+    alive and the table and writes the slot (13 B a lane); against the
+    operations this run's alive lanes need."""
+    if kind == "route_table":
+        tl, t, alive = args
+        lanes, n_alive = t.numel(), int(alive.sum())
+        table = t.shape[0] * (tl.n_marks + 1) * (2 + tl.el) * 4
+        ops = [lanes * ROUTE_ALIVE_OPS[0] + n_alive * tl.n_marks * ROUTE_MARK_OPS[0],
+               n_alive * tl.n_marks * ROUTE_MARK_OPS[1]]
+        return _bound_of(lanes * 5 + table + tl.n_marks * 12, *ops)
+    table, rank, alive = args
+    lanes, n_alive = rank.numel(), int(alive.sum())
+    steps = max(1, (table.shape[1] - 1).bit_length())
+    int_ops = (lanes * ROUTE_ALIVE_OPS[0]
+               + n_alive * (steps * ROUTE_SEARCH_STEP_OPS[0] + ROUTE_PICK_OPS[0]))
+    moved = lanes * 13 + table.numel() * table.element_size()
+    return _bound_of(moved, int_ops, 0)
+
+
 def _scan_bound(kind: str, args: tuple) -> dict:
     """The least time of one station_scan launch: each input read once and
     each output written once, against its element operations."""
@@ -1260,8 +1318,14 @@ def _scan_bound(kind: str, args: tuple) -> dict:
     elems = tensors[0].numel()
     outputs = 1 if kind == "waits" else 3
     moved = sum(x.numel() * x.element_size() for x in tensors) + outputs * 4 * elems
-    ops = SCAN_ELEMENT_OPS[kind]
-    return _bound_of(moved, elems * ops[0], elems * ops[1])
+    ops = SCAN_ELEMENT_OPS["waits" if kind == "waits_kw" else kind]
+    int_ops, fp_ops = elems * ops[0], elems * ops[1]
+    if kind == "waits_kw":
+        # the sorted insertion into the K core-free times, by selects
+        cores = args[3]
+        int_ops += elems * cores * KW_CORE_OPS[0]
+        fp_ops += elems * cores * KW_CORE_OPS[1]
+    return _bound_of(moved, int_ops, fp_ops)
 
 
 def _bound_of(moved: int, int_ops: int, fp_ops: int, fp64_ops: int = 0) -> dict:
@@ -1277,7 +1341,8 @@ def _bound_of(moved: int, int_ops: int, fp_ops: int, fp64_ops: int = 0) -> dict:
 
 
 #: the kinds of fast-kernel call: (wrapper name, wrapper method); a hop's
-#: kind says whether it takes the LB slots and the spikes
+#: kind says whether it takes the LB slots by rank or by slot and the
+#: spikes, a wait scan's whether it has one server or several
 CALL_KINDS = {
     "uniform": ("edge_draws", "uniform"),
     "gap": ("edge_draws", "uniform"),
@@ -1285,25 +1350,34 @@ CALL_KINDS = {
     "gap_of": ("edge_draws", "gap_of"),
     "hop": ("edge_draws", "hop"),
     "hop_lb": ("edge_draws", "hop"),
+    "hop_slot": ("edge_draws", "hop"),
     "hop_spike": ("edge_draws", "hop"),
     "hop_lb_spike": ("edge_draws", "hop"),
+    "hop_slot_spike": ("edge_draws", "hop"),
     "waits": ("station_scan", "waits"),
+    "waits_kw": ("station_scan", "waits"),
     "ram_core": ("station_scan", "ram_core"),
+    "route_table": ("lb_route", "table"),
+    "route_slots": ("lb_route", "slots"),
 }
+#: the fast path's kernel wrappers, by name
+FAST_KERNELS = ("edge_draws", "station_scan", "lb_route")
 
 
 def _hop_kind(tables, kw: dict) -> str:
-    return ("hop_lb" if kw.get("rank") is not None else "hop") + (
-        "_spike" if tables.spike_t is not None else "")
+    lanes = ("hop_lb" if kw.get("rank") is not None
+             else "hop_slot" if kw.get("slot") is not None else "hop")
+    return lanes + ("_spike" if tables.spike_t is not None else "")
 
 
 def _record_kernel_calls(eng, every: bool) -> list:
-    """Put recorders in place of the fast engine's two kernel wrappers; each
-    passes the call on and keeps ``(kind, args, kwargs)`` of every call
-    (``every``) or of the first call of each kind (a uniform, a gap draw,
-    a gap prefix sum, each kind of hop, a wait scan, a RAM-core scan)."""
+    """Put recorders in place of the fast engine's three kernel wrappers;
+    each passes the call on and keeps ``(kind, args, kwargs)`` of every
+    call (``every``) or of the first call of each kind (a uniform, a gap
+    draw, a gap prefix sum, each kind of hop, a timeline table and its
+    lanes, each kind of wait scan, a RAM-core scan)."""
     calls: list = []
-    draws, scan = eng.draws, eng.scan
+    draws, scan, route = eng.draws, eng.scan, eng.route
 
     def keep(kind: str, args: tuple, kw: dict) -> None:
         if every or all(k != kind for k, _, _ in calls):
@@ -1324,15 +1398,40 @@ def _record_kernel_calls(eng, every: bool) -> list:
 
     class Scan:
         def waits(self, *args):
-            keep("waits", args, {})
+            keep("waits" if args[3] == 1 else "waits_kw", args, {})
             return scan.waits(*args)
 
         def ram_core(self, *args):
             keep("ram_core", args, {})
             return scan.ram_core(*args)
 
-    eng.draws, eng.scan = Draws(), Scan()
+    class Route:
+        def table(self, *args):
+            keep("route_table", args, {})
+            return route.table(*args)
+
+        def slots(self, *args):
+            keep("route_slots", args, {})
+            return route.slots(*args)
+
+    eng.draws, eng.scan, eng.route = Draws(), Scan(), Route()
     return calls
+
+
+def _wrappers(eng) -> dict:
+    return {"edge_draws": eng.draws, "station_scan": eng.scan, "lb_route": eng.route}
+
+
+def _set_wrappers(eng, wrappers: dict) -> None:
+    eng.draws, eng.scan, eng.route = (wrappers[k] for k in FAST_KERNELS)
+
+
+def _plain_wrappers() -> dict:
+    from asyncflow_tpu_torch.engines.torchsim import draws, routing, station_scan
+
+    return {"edge_draws": draws.PlainEdgeDraws(),
+            "station_scan": station_scan.PlainStationScan(),
+            "lb_route": routing.PlainLbRoute()}
 
 
 def _call(wrapper, kind: str, args: tuple, kw: dict):
@@ -1387,38 +1486,43 @@ def phase_fast_check(torch) -> dict:
     card, on each fast payload cut to FAST_CHECK_HORIZON seconds (events
     scaled in) at FAST_CHECK_SCENARIOS scenarios: every kernel call of the
     engine's run (all are recorded: uniforms, gap draws and prefix sums,
-    static, LB and spiked hops, scans) repeated through the kernel and
-    through the plain version on the same arguments, bit-exact; then the
-    whole engine once through the kernels and once through the plain
-    versions: every integer output, every completed request's (arrival,
-    finish) clock and every gauge mean identical.  Last, XLA's log1p in
-    the kernel against its plain version on each of the 2**23 uniforms."""
-    from asyncflow_tpu_torch.engines.torchsim import draws, station_scan
-    from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+    static, LB, slot and spiked hops, timeline tables and lanes, scans)
+    repeated through the kernel and through the plain version on the same
+    arguments, bit-exact; then the whole engine once through the kernels
+    and once through the plain versions: every integer output, every
+    completed request's (arrival, finish) clock and every gauge mean
+    identical.  Then a synthetic timeline (an all-down interval, marks at
+    one time, an up mark for a slot present, a down mark for one absent)
+    through lb_route on event_inj_lb's full-width lanes; last, XLA's log1p
+    in the kernel against its plain version on each of the 2**23
+    uniforms."""
+    from asyncflow_tpu_torch.engines.torchsim import routing
+    from asyncflow_tpu_torch.engines.torchsim.keys import fold_in, scenario_keys
+    from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
+    from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank
 
-    plain_draws, plain_scan = draws.PlainEdgeDraws(), station_scan.PlainStationScan()
-    measured = {"edge_draws": 0.0, "station_scan": 0.0}
+    plains = _plain_wrappers()
+    measured = dict.fromkeys(FAST_KERNELS, 0.0)
     kinds_seen: set = set()
     for name, data in FAST_PAYLOADS.items():
         eng = _fast_engine(torch, _fast_check_payload(data), collect_clocks=True)
         keys = scenario_keys(0, FAST_CHECK_SCENARIOS, device="cuda")
-        kernel_draws, kernel_scan = eng.draws, eng.scan
+        kernels = _wrappers(eng)
         calls = _record_kernel_calls(eng, every=True)
         got = eng.run_tensors(keys)
-        eng.draws, eng.scan = kernel_draws, kernel_scan
-        if kernel_draws.launches == 0 or kernel_scan.launches == 0:
+        _set_wrappers(eng, kernels)
+        need = ["edge_draws", "station_scan"] + (["lb_route"] if eng.timeline else [])
+        if any(kernels[k].launches == 0 for k in need):
             raise SmokeError(f"fast check {name}: a kernel was not launched")
-        pairs = {"edge_draws": (kernel_draws, plain_draws),
-                 "station_scan": (kernel_scan, plain_scan)}
         for i, (kind, args, kw) in enumerate(calls):
             kernel = CALL_KINDS[kind][0]
-            wrapper, plain = pairs[kernel]
             err = _compare(torch, f"fast check {name}: call {i} ({kind})",
-                           _call(wrapper, kind, args, kw), _call(plain, kind, args, kw))
+                           _call(kernels[kernel], kind, args, kw),
+                           _call(plains[kernel], kind, args, kw))
             measured[kernel] = max(measured[kernel], err)
         kinds_seen |= {kind for kind, _, _ in calls}
         want_eng = copy.copy(eng)
-        want_eng.draws, want_eng.scan = plain_draws, plain_scan
+        _set_wrappers(want_eng, plains)
         want = want_eng.run_tensors(keys)
         for field in ("hist", "thr", "lat_count", "n_generated", "n_dropped", "n_overflow",
                       "clock", "gauge_means"):
@@ -1432,14 +1536,43 @@ def phase_fast_check(torch) -> dict:
             f"dropped {int(got['n_dropped'].sum())}; clocks and gauge means identical",
             flush=True,
         )
-    wanted = {"uniform", "gap", "gap_cumsum", "hop", "hop_lb", "hop_spike", "waits",
-              "ram_core"}
+    wanted = {"uniform", "gap", "gap_cumsum", "hop", "hop_lb", "hop_spike", "hop_slot_spike",
+              "waits", "waits_kw", "ram_core", "route_table", "route_slots"}
     if not wanted <= kinds_seen:
         raise SmokeError(f"fast check: no call of kinds {sorted(wanted - kinds_seen)}")
+    # the synthetic timeline on event_inj_lb's full-width arrivals: srv-1
+    # down at 50 s, srv-2 too at 100 s (every server down), three marks at
+    # 150 s (srv-2 up, up again while present, srv-1 down while absent),
+    # srv-1 down while absent at 300 s and up at 320 s
+    eng = _fast_engine(torch, EVENT_INJ_LB)
+    keys = scenario_keys(0, MAIN_SCENARIOS, device="cuda")
+    ov = eng._overrides(base_overrides(eng.plan), MAIN_SCENARIOS)
+    _lam, counts = eng.window_draws(keys, ov["um"], ov["rr"])
+    ts, valids, _ = eng._stream_arrivals(fold_in(keys, 0), counts)
+    tl = routing.Timeline([50.0, 100.0, 150.0, 150.0, 150.0, 300.0, 320.0],
+                          [1, 1, 0, 0, 1, 1, 0], [0, 1, 1, 1, 0, 0, 0], 2, "cuda")
+    args = (tl, ts[0], valids[0])
+    want = _call(plains["lb_route"], "route_table", args, {})
+    measured["lb_route"] = max(measured["lb_route"], _compare(
+        torch, "fast check: synthetic timeline table",
+        _call(eng.route, "route_table", args, {}), want))
+    args = (want[0], time_rank(ts[0], valids[0]), valids[0])
+    slots = _call(eng.route, "route_slots", args, {})
+    measured["lb_route"] = max(measured["lb_route"], _compare(
+        torch, "fast check: synthetic timeline lanes", slots,
+        _call(plains["lb_route"], "route_slots", args, {})))
+    empty = int(want[0][:, 2, 1].max())
+    unrouted = int((valids[0] & (slots[0] < 0)).sum())
+    if empty != 0 or unrouted == 0:
+        raise SmokeError(f"fast check: the all-down interval has rotations of length "
+                         f"{empty} and {unrouted} unrouted lanes")
+    print(f"fast check: a synthetic timeline through lb_route == plain on {MAIN_SCENARIOS} x "
+          f"{eng.n} lanes ({unrouted} lanes found every server down)", flush=True)
+    del ts, valids, args, slots, want
     u = torch.arange(2**23, dtype=torch.float64, device="cuda").div(2**23).float().view(8, -1)
     measured["edge_draws"] = max(measured["edge_draws"], _compare(
-        torch, "fast check: log1p_xla on every uniform", _call(kernel_draws, "gap_of", (u,), {}),
-        _call(plain_draws, "gap_of", (u,), {})))
+        torch, "fast check: log1p_xla on every uniform", _call(eng.draws, "gap_of", (u,), {}),
+        _call(plains["edge_draws"], "gap_of", (u,), {})))
     print("fast check: XLA's log1p in the kernel == plain on all 2**23 uniforms", flush=True)
     return measured
 
@@ -1465,22 +1598,24 @@ def _lindley_closed_form(torch, a, d, v):
     return torch.clamp_min(c - svc - arr, 0.0)
 
 
-def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
+def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     """Phase 5, one path: ``SweepRunner(payload).run(2048, seed=0)`` at the
     payload's full horizon through ``engine="auto"``, which must take the
-    fast path and launch both of its kernels; request conservation; the
-    pooled p95 within 2% of the JAX fast path's and of the port's DES
-    kernel's on the same payload (``des_p95``, or a kernel sweep here);
-    the DES kernel's sweep, where it runs here, with no truncated and no
+    fast path and launch its kernels (``lb_route`` where the LB has a
+    timeline, the Kiefer-Wolfowitz scan where a DB pool has several
+    connections); request conservation; the pooled p95 within 2% of the
+    JAX fast path's and of the port's DES kernel's on the same payload
+    (``des``, phase 3's sweep of it, or a kernel sweep here); the DES
+    kernel's sweep, where it runs here, with no truncated and no
     overflowed scenario; then the first call of each kind of the path's
     own run, at full width, through the kernel and through its plain
-    version on the same arguments, bit-exact; each edge_draws kind and one
-    station_scan kind (the RAM-core scan or else a wait scan) timed
-    between CUDA events, beside its bound, its plain version's time and
-    the library's; and the stable rank's time."""
+    version on the same arguments, bit-exact; each edge_draws and lb_route
+    kind, the path's main station_scan kind (the RAM-core scan or else a
+    one-server wait scan) and its Kiefer-Wolfowitz scan timed between CUDA
+    events, beside its bound, its plain version's time and the library's;
+    and the stable rank's time."""
     import numpy as np
 
-    from asyncflow_tpu_torch.engines.torchsim import draws, station_scan
     from asyncflow_tpu_torch.engines.torchsim.keys import fold_in, scenario_keys
     from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
     from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank
@@ -1491,15 +1626,21 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
     if runner.engine_kind != "fast":
         raise SmokeError(f"fast {name}: auto took the {runner.engine_kind} engine")
     eng = runner.engine
+    plan = eng.plan
     runner.run(MAIN_SCENARIOS, seed=0)  # warm the allocator and the libraries
-    eng.draws.launches = 0
-    eng.scan.launches = 0
+    for wrapper in _wrappers(eng).values():
+        wrapper.launches = 0
+    eng.scan.mode_launches = dict.fromkeys(eng.scan.mode_launches, 0)
     torch.cuda.reset_peak_memory_stats()
     report = runner.run(MAIN_SCENARIOS, seed=0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {"edge_draws": eng.draws.launches, "station_scan": eng.scan.launches}
-    if min(launches.values()) < 1:
-        raise SmokeError(f"fast {name}: the sweep launched {launches}")
+    launches = {k: w.launches for k, w in _wrappers(eng).items()}
+    mode_launches = dict(eng.scan.mode_launches)
+    need = ["edge_draws", "station_scan"] + (["lb_route"] if eng.timeline else [])
+    kw_pool = bool(np.any(plan.server_db_pool > 1))
+    if min(launches[k] for k in need) < 1 or (kw_pool and mode_launches["kw"] < 1):
+        raise SmokeError(f"fast {name}: the sweep launched {launches}, station_scan by mode "
+                         f"{mode_launches}")
     summary = report.summary()
     res = report.results
     in_flight = (res.total_generated - res.completed - res.total_dropped
@@ -1512,17 +1653,16 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
         if not np.isfinite(summary[key]):
             raise SmokeError(f"fast {name}: {key} is not finite")
     p95 = summary["latency_p95_s"]
-    des_scen_per_s = None
-    if des_p95 is None:
-        des = SweepRunner(data, engine="kernel", device="cuda").run(MAIN_SCENARIOS, seed=0)
-        des_summary = des.summary()
+    if des is None:
+        sweep = SweepRunner(data, engine="kernel", device="cuda").run(MAIN_SCENARIOS, seed=0)
+        des_summary = sweep.summary()
         if des_summary["truncated_total"] != 0 or des_summary["overflow_total"] != 0:
             msg = (f"fast {name}: the DES kernel's sweep truncated "
                    f"{des_summary['truncated_total']} and overflowed "
                    f"{des_summary['overflow_total']} scenarios")
             raise SmokeError(msg)
-        des_p95 = des_summary["latency_p95_s"]
-        des_scen_per_s = des.scenarios_per_second
+        des = {"p95_s": des_summary["latency_p95_s"], "scen_per_s": sweep.scenarios_per_second}
+    des_p95 = des["p95_s"]
     ref = REFERENCE_FAST[name]["p95_s"]
     rel_ref, rel_des = p95 / ref - 1.0, p95 / des_p95 - 1.0
     if abs(rel_ref) > P95_RTOL or abs(rel_des) > P95_RTOL:
@@ -1531,19 +1671,17 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
         raise SmokeError(msg)
 
     # each kind of call of this path's own run, at full width: the kernel
-    # against its plain version, each edge_draws kind and one station_scan
-    # kind timed between CUDA events
+    # against its plain version; each edge_draws and lb_route kind and the
+    # path's station_scan kinds timed between CUDA events
     keys = scenario_keys(0, MAIN_SCENARIOS, device="cuda")
-    wrappers = {"edge_draws": eng.draws, "station_scan": eng.scan}
-    plains = {"edge_draws": draws.PlainEdgeDraws(),
-              "station_scan": station_scan.PlainStationScan()}
+    wrappers, plains = _wrappers(eng), _plain_wrappers()
     calls = _record_kernel_calls(eng, every=False)
     eng.run_tensors(keys)
-    eng.draws, eng.scan = wrappers["edge_draws"], wrappers["station_scan"]
+    _set_wrappers(eng, wrappers)
     kinds = {kind for kind, _, _ in calls}
-    scan_kind = "ram_core" if "ram_core" in kinds else "waits"
-    max_err = {"edge_draws": 0.0, "station_scan": 0.0}
-    timed: dict = {"edge_draws": {}, "station_scan": {}}
+    scan_kinds = {"ram_core" if "ram_core" in kinds else "waits", "waits_kw"}
+    max_err = dict.fromkeys(FAST_KERNELS, 0.0)
+    timed: dict = {k: {} for k in FAST_KERNELS}
     for kind, args, kw in calls:
         kernel = CALL_KINDS[kind][0]
         plain_ms, want = _time_plain(torch, lambda: _call(plains[kernel], kind, args, kw))
@@ -1551,7 +1689,7 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
         err = _compare(torch, f"fast {name}: {kind} at full width", got, want)
         max_err[kernel] = max(max_err[kernel], err)
         del got, want
-        if kernel == "station_scan" and kind != scan_kind:
+        if kernel == "station_scan" and kind not in scan_kinds:
             continue
         ms = time_kernel(torch, lambda: _call(wrappers[kernel], kind, args, kw), repeats=5)
         library_ms = None
@@ -1559,19 +1697,24 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
             library_ms = time_kernel(torch, lambda: _lindley_closed_form(torch, *args[:3]),
                                      repeats=3)
         bound = (_draws_bound(torch, kind, args, kw) if kernel == "edge_draws"
+                 else _route_bound(kind, args) if kernel == "lb_route"
                  else _scan_bound(kind, args))
         timed[kernel][kind] = {"call": kind, "ms": ms, "plain_ms": plain_ms,
                                "library_ms": library_ms, **bound}
-    ov = eng._overrides(base_overrides(eng.plan), MAIN_SCENARIOS)
+    ov = eng._overrides(base_overrides(plan), MAIN_SCENARIOS)
     _lam, counts = eng.window_draws(keys, ov["um"], ov["rr"])
-    t, valid, _ = eng._arrivals(fold_in(keys, 0), counts)
+    ts, valids, _ = eng._stream_arrivals(fold_in(keys, 0), counts)
+    t, valid = torch.cat(ts, dim=1), torch.cat(valids, dim=1)
+    del ts, valids
     rank_ms = time_kernel(torch, lambda: time_rank(t, valid), repeats=3)
     del t, valid, calls
     print(
-        f"fast path {name}: {MAIN_SCENARIOS} scenarios x {eng.plan.horizon:.0f} s, "
-        f"{eng.n} lanes, chunks of {runner.default_chunk}, launches {launches}, "
+        f"fast path {name}: {MAIN_SCENARIOS} scenarios x {plan.horizon:.0f} s, "
+        f"{eng.n} lanes ({eng.gen_n} a stream), chunks of {runner.default_chunk}, launches "
+        f"{launches} (station_scan by mode {mode_launches}), "
         f"{report.wall_seconds:.3f} s wall, {summary['scenarios_per_second']:.1f} scen/s"
-        + ("" if des_scen_per_s is None else f" (DES kernel sweep {des_scen_per_s:.1f} scen/s)")
+        + ("" if des.get("scen_per_s") is None
+           else f" (DES kernel sweep {des['scen_per_s']:.1f} scen/s)")
         + f", peak device memory {peak_gb:.2f} GB; p50 "
         f"{summary['latency_p50_s'] * 1e3:.3f} ms, p95 {p95 * 1e3:.4f} ms ({rel_ref:+.3%} vs "
         f"the JAX fast path {ref * 1e3:.4f} ms, {rel_des:+.3%} vs the DES kernel "
@@ -1586,12 +1729,17 @@ def phase_fast_path(torch, name: str, des_p95: float | None) -> dict:
                   f"library {lib}, {_bound_text(m)}", flush=True)
     print(f"  stable row rank (torch.sort) of the arrivals: {rank_ms:.3f} ms; calls "
           f"{sorted(kinds)} at full width bit-exact with their plain versions", flush=True)
-    headline_kind = {"edge_draws": "hop_lb" if "hop_lb" in kinds else (
-        "hop_spike" if "hop_spike" in kinds else "hop"), "station_scan": scan_kind}
+    hop_kind = next((k for k in ("hop_lb", "hop_slot_spike", "hop_spike", "hop")
+                     if k in kinds), "hop")
+    headline_kind = {"edge_draws": hop_kind,
+                     "station_scan": "ram_core" if "ram_core" in kinds else "waits",
+                     "lb_route": "route_table"}
     return {
         "launches": launches,
+        "mode_launches": mode_launches,
         "wall_s": report.wall_seconds,
         "scen_per_s": summary["scenarios_per_second"],
+        "des_scen_per_s": des.get("scen_per_s"),
         "p95_s": p95,
         "des_p95_s": des_p95,
         "peak_gb": peak_gb,
@@ -1624,16 +1772,14 @@ def main() -> int:
         t3 = time.perf_counter()
         fast_check = phase_fast_check(torch)
         t4 = time.perf_counter()
-        fast = {
-            name: phase_fast_path(torch, name, paths[name]["p95_s"] if name in paths else None)
-            for name in FAST_PAYLOADS
-        }
+        fast = {name: phase_fast_path(torch, name, paths.get(name)) for name in FAST_PAYLOADS}
         t5 = time.perf_counter()
     except (SmokeError, subprocess.CalledProcessError) as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
     from asyncflow_tpu_torch.engines.torchsim.des_kernel import DesKernel
     from asyncflow_tpu_torch.engines.torchsim.draws import EdgeDraws
+    from asyncflow_tpu_torch.engines.torchsim.routing import LbRoute
     from asyncflow_tpu_torch.engines.torchsim.station_scan import StationScan
 
     print(f"phase seconds: setup {t1 - t0:.1f}, kernel vs twin {t2 - t1:.1f}, "
@@ -1668,10 +1814,16 @@ def main() -> int:
             },
         },
     ]
-    headline_fast = fast["two_servers_lb"]["timed"]
-    for wrapper in (EdgeDraws, StationScan):
-        main_kind = headline_fast[wrapper.name]["main"]
-        m = headline_fast[wrapper.name]["modes"][main_kind]
+    # each fast kernel's numbers at its headline call: the headline's LB
+    # hop and Lindley scan, event_inj_lb's timeline (its table and lanes
+    # launches, timed each, summed)
+    for wrapper, path in ((EdgeDraws, "two_servers_lb"), (StationScan, "two_servers_lb"),
+                          (LbRoute, "event_inj_lb")):
+        modes = fast[path]["timed"][wrapper.name]["modes"]
+        parts = ([modes["route_table"], modes["route_slots"]] if wrapper is LbRoute
+                 else [modes[fast[path]["timed"][wrapper.name]["main"]]])
+        bound = {"bytes": sum(m["bytes_ms"] for m in parts),
+                 "operations": sum(m["operations_ms"] for m in parts)}
         kernels.append({
             "name": wrapper.name,
             "route": wrapper.route,
@@ -1680,12 +1832,13 @@ def main() -> int:
             "launches": sum(f["launches"][wrapper.name] for f in fast.values()),
             "max_abs_err": max(fast_check[wrapper.name],
                                *(f["max_abs_err"][wrapper.name] for f in fast.values())),
-            "ms": m["ms"],
-            "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"],
-            "call": main_kind,
+            "ms": sum(m["ms"] for m in parts),
+            "plain_ms": sum(m["plain_ms"] for m in parts),
+            "bound_ms": max(bound.values()),
+            "bound_by": max(bound, key=bound.get),
+            "library_ms": parts[0]["library_ms"] if len(parts) == 1 else None,
+            "call": "+".join(m["call"] for m in parts),
+            "path": path,
             "paths": {
                 name: {
                     "launches": f["launches"][wrapper.name],
@@ -1694,6 +1847,8 @@ def main() -> int:
                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                         for kind, t in f["timed"][wrapper.name]["modes"].items()
                     },
+                    **({"mode_launches": f["mode_launches"]} if wrapper is StationScan
+                       else {}),
                 }
                 for name, f in fast.items()
             },

@@ -8,7 +8,7 @@ runs ``SweepRunner(payload).run(N, seed=0)`` once to warm up, then once
 under ``torch.profiler`` with CPU and CUDA activities, and prints the
 sweep's wall time, the device time summed over kernels, the device's idle
 share of the wall (1 - device time / wall), the peak device memory of an
-unprofiled run, the device time by kind of kernel (the port's two
+unprofiled run, the device time by kind of kernel (the port's three
 kernels, float adds, clamps, selects, the other elementwise kernels,
 sorts, gathers and scatters, copies) and by kernel name (the 20 largest),
 with the card's name and power limit.  It needs a CUDA card and imports
@@ -30,6 +30,7 @@ KINDS = (
     ("edge_draws", ("uniform_kernel", "gaps_kernel", "hop_kernel", "hop_reduce_kernel",
                     "edge_draws_kernel")),
     ("station_scan", ("station_scan",)),
+    ("lb_route", ("table_kernel", "lanes_kernel")),
     ("float adds", ("CUDAFunctor_add", "AddFunctor")),
     ("clamps", ("clamp",)),
     ("selects (where)", ("where",)),

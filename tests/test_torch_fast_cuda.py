@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from asyncflow_tpu_torch.compiler import compile_payload
-from asyncflow_tpu_torch.engines.torchsim import draws, station_scan
+from asyncflow_tpu_torch.engines.torchsim import draws, routing, station_scan
 from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.engines.torchsim.sampling import (
@@ -70,6 +70,8 @@ def test_edge_draws_match_plain_on_cuda(cuda_device) -> None:
     t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32, device=cuda_device)
     alive = torch.tensor(g.random((S, N)) > 0.1, device=cuda_device)
     rank = torch.tensor(g.permuted(np.tile(np.arange(N), (S, 1)), axis=1), device=cuda_device)
+    slot = torch.tensor(np.where(g.random((S, N)) < 0.1, -1, g.integers(0, 3, (S, N))),
+                        dtype=torch.int32, device=cuda_device)
     spike_t = torch.tensor([0.0, 0.5, 1.5], device=cuda_device)
     spike_v = torch.zeros((3, 4), device=cuda_device)
     spike_v[1, 1], spike_v[1, 3], spike_v[2, 3] = 0.25, 0.125, 0.5
@@ -81,13 +83,42 @@ def test_edge_draws_match_plain_on_cuda(cuda_device) -> None:
             lb_target=torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda_device),
             spike_t=spike_t if spikes else None, spike_v=spike_v if spikes else None,
         )
-        for kw in [{"edge": e} for e in range(4)] + [{"rank": rank}]:
+        for kw in [{"edge": e} for e in range(4)] + [{"rank": rank}, {"slot": slot}]:
             got = kernel.hop(tables, t_send, alive, uk, zk, **kw)
             want = plain.hop(tables, t_send, alive, uk, zk, **kw)
             for x, y in zip(got, want, strict=True):
                 assert (x is None and y is None) or torch.equal(x, y), (spikes, kw.keys())
             hops += 1
     assert kernel.launches == launches + hops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("marks", [
+    ([], [], []),
+    ([0.4, 0.9, 1.2, 1.6], [1, 0, 1, 0], [0, 0, 2, 2]),
+    ([0.3, 0.5, 0.5, 0.8, 0.8, 1.4, 1.4], [1, 1, 1, 0, 0, 0, 1], [1, 0, 2, 0, 2, 1, 0]),
+    ([-1.0, 0.2, 0.2, 0.6, 1.0, 5.0], [1, 0, 1, 1, 0, 1], [2, 1, 2, -1, 0, 1]),
+])
+def test_lb_route_matches_plain_on_cuda(cuda_device, marks) -> None:
+    """Both lb_route kernels on rows of 20,011 lanes (a tenth dead, ties
+    with the marks) against the segment form: every mark case, an
+    all-down interval and same-time marks among them."""
+    from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank
+
+    g = np.random.default_rng(6)
+    t = torch.tensor(np.round(g.uniform(0.0, 2.0, (S, N)), 3), dtype=torch.float32,
+                     device=cuda_device)
+    t[:, :7] = 0.5
+    alive = torch.tensor(g.random((S, N)) > 0.1, device=cuda_device)
+    tl = routing.Timeline(*marks, 3, cuda_device)
+    kernel, plain = routing.LbRoute(), routing.PlainLbRoute()
+    table = kernel.table(tl, t, alive)
+    assert torch.equal(table, plain.table(tl, t, alive))
+    rank = time_rank(t, alive)
+    got = kernel.slots(table, rank, alive)
+    assert torch.equal(got, plain.slots(table, rank, alive))
+    assert kernel.launches == 2
+    assert bool((got[alive] >= 0).any())
 
 
 #: rows of the scan tests: a warp of 32 rows a block, the last one part-full
@@ -175,8 +206,59 @@ def _two_core_multi_burst() -> dict:
     return data
 
 
+def _db_and_cache() -> dict:
+    """A DB pool of 2 held 60 ms and a cache before it (~20 req/s)."""
+    data = _single_server()
+    data["rqs_input"]["avg_active_users"]["mean"] = 60
+    srv = data["topology_graph"]["nodes"]["servers"][0]
+    srv["server_resources"]["db_connection_pool"] = 2
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+        {"kind": "io_cache", "step_operation": {"io_waiting_time": 0.002},
+         "cache_hit_probability": 0.8, "cache_miss_time": 0.030},
+        {"kind": "io_db", "step_operation": {"io_waiting_time": 0.060}},
+    ]
+    return data
+
+
+def _two_streams_outage() -> dict:
+    """Two servers behind round robin, srv-1 down from 10 s to 20 s, and a
+    second stream entering over its own edge."""
+    exp = {"mean": 0.002, "distribution": "exponential"}
+    servers = [{
+        "id": sid, "server_resources": {"cpu_cores": 1, "ram_mb": 2048},
+        "endpoints": [{"endpoint_name": "ep", "steps": [
+            {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+            {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.012}},
+        ]}],
+    } for sid in ("srv-1", "srv-2")]
+    edges = [("g-c", "g", "c"), ("g2-c", "g2", "c"), ("c-lb", "c", "lb"),
+             ("lb-1", "lb", "srv-1"), ("lb-2", "lb", "srv-2"), ("s1-c", "srv-1", "c"),
+             ("s2-c", "srv-2", "c")]
+    return {
+        "rqs_input": [
+            {"id": "g", "avg_active_users": {"mean": 100},
+             "avg_request_per_minute_per_user": {"mean": 20}, "user_sampling_window": 10},
+            {"id": "g2", "avg_active_users": {"mean": 50},
+             "avg_request_per_minute_per_user": {"mean": 40}, "user_sampling_window": 5},
+        ],
+        "topology_graph": {
+            "nodes": {"client": {"id": "c"}, "servers": servers,
+                      "load_balancer": {"id": "lb", "algorithms": "round_robin",
+                                        "server_covered": ["srv-1", "srv-2"]}},
+            "edges": [{"id": e, "source": a, "target": b, "latency": exp}
+                      for e, a, b in edges],
+        },
+        "sim_settings": {"total_simulation_time": 30, "sample_period_s": 0.05},
+        "events": [{"event_id": "o1", "target_id": "srv-1",
+                    "start": {"kind": "server_down", "t_start": 10.0},
+                    "end": {"kind": "server_up", "t_end": 20.0}}],
+    }
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("make", [_single_server, _two_core_multi_burst])
+@pytest.mark.parametrize("make", [_single_server, _two_core_multi_burst, _db_and_cache,
+                                  _two_streams_outage])
 def test_fast_engine_kernels_match_plain_on_cuda(cuda_device, make) -> None:
     """The whole engine on the card, once through the kernels and once
     through their plain versions on the same inputs: every integer output
@@ -186,8 +268,10 @@ def test_fast_engine_kernels_match_plain_on_cuda(cuda_device, make) -> None:
     keys = scenario_keys(5, 16, device=cuda_device)
     got = eng.run_tensors(keys)
     assert eng.draws.launches > 0 and eng.scan.launches > 0
+    assert eng.route.launches == (2 if plan.has_timeline else 0)
     plain = copy.copy(eng)
     plain.draws, plain.scan = draws.PlainEdgeDraws(), station_scan.PlainStationScan()
+    plain.route = routing.PlainLbRoute()
     want = plain.run_tensors(keys)
     for field in ("hist", "thr", "lat_count", "n_generated", "n_dropped", "n_overflow",
                   "clock", "lat_sum", "gauge_means"):

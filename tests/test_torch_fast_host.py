@@ -1,7 +1,8 @@
 """The fast path's CUDA sources, compiled for the host CPU, against their
 plain PyTorch versions.
 
-``csrc/edge_draws.cu`` and ``csrc/station_scan.cu`` are plain C++ apart
+``csrc/edge_draws.cu``, ``csrc/station_scan.cu`` and ``csrc/lb_route.cu``
+are plain C++ apart
 from CUDA's qualifiers, thread indices, shared memory and launches.  Built
 with g++ through a shim header that defines those away (a launch becomes
 a loop over the grid's rows and blocks and the block's threads, one thread
@@ -31,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from asyncflow_tpu_torch.engines.torchsim import draws, station_scan
+from asyncflow_tpu_torch.engines.torchsim import draws, routing, station_scan
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.engines.torchsim.sampling import (
     D_EXPONENTIAL,
@@ -66,6 +67,7 @@ typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 inline float __uint_as_float(unsigned x) { float f; std::memcpy(&f, &x, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned x; std::memcpy(&x, &f, 4); return x; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned old = *p; *p += v; return old; }
 """
 #: a one-dimensional launch (station_scan.cu) and a launch on dim3 grids
 #: (edge_draws.cu), each made a loop that runs the threads one after another
@@ -84,17 +86,22 @@ HOST_LAUNCH_2D = (
     r" gridDim.x = \2.x; gridDim.y = \2.y; blockIdx.x = gx; blockIdx.y = gy;"
     r" blockDim.x = \3.x; threadIdx.x = t; \1(a); }"
 )
-#: the dynamic shared memory of edge_draws.cu's hop, as a static buffer
-HOST_SMEM = "double edge_smem[1 << 13];\n"
+#: the dynamic shared memory of edge_draws.cu's hop and of lb_route.cu's
+#: table, as static buffers
+HOST_SMEM = {"edge_draws": "double edge_smem[1 << 13];\n",
+             "lb_route": "uint32_t route_smem[1 << 14];\n"}
+#: the launch statements on dim3 grids each source has
+LAUNCHES_2D = {"edge_draws": 4, "lb_route": 2}
 
 
 def _build(tmp: Path, name: str) -> ctypes.CDLL:
     src = (CSRC / f"{name}.cu").read_text()
     assert "#include <cuda_runtime.h>" in src
     src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
-    if name == "edge_draws":
-        assert len(LAUNCH_2D.findall(src)) == 4, "the launch statements changed: update LAUNCH_2D"
-        src = LAUNCH_2D.sub(HOST_LAUNCH_2D, src) + HOST_SMEM
+    if name in LAUNCHES_2D:
+        assert len(LAUNCH_2D.findall(src)) == LAUNCHES_2D[name], \
+            "the launch statements changed: update LAUNCH_2D"
+        src = LAUNCH_2D.sub(HOST_LAUNCH_2D, src) + HOST_SMEM[name]
     else:
         assert LAUNCH.search(src), "the launch statement changed: update LAUNCH"
         src = LAUNCH.sub(HOST_LAUNCH, src)
@@ -115,7 +122,7 @@ def host_libs(tmp_path_factory) -> dict[str, ctypes.CDLL]:
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel sources for the host")
     tmp = tmp_path_factory.mktemp("fast_host")
-    libs = {name: _build(tmp, name) for name in ("edge_draws", "station_scan")}
+    libs = {name: _build(tmp, name) for name in ("edge_draws", "station_scan", "lb_route")}
     for name, lib in libs.items():
         getattr(lib, f"{name}_launch").argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         getattr(lib, f"{name}_launch").restype = ctypes.c_int
@@ -125,6 +132,7 @@ def host_libs(tmp_path_factory) -> dict[str, ctypes.CDLL]:
     assert libs["edge_draws"].edge_draws_lane_block() == draws.BLOCK_THREADS * draws.THREAD_LANES
     assert libs["station_scan"].station_scan_args_size() == ctypes.sizeof(
         station_scan._StationArgs)
+    assert libs["lb_route"].lb_route_args_size() == ctypes.sizeof(routing._LbRouteArgs)
     return libs
 
 
@@ -280,6 +288,110 @@ def test_hop_matches_plain(host_libs, lb: bool, spikes: bool) -> None:
             assert torch.equal(out.span, want.span), edge
         assert _ulps(out.span, want.span) <= 1, edge
         assert bool((want.span > 0).all()), edge
+
+
+@pytest.mark.parametrize("spikes", [False, True])
+def test_hop_slot_matches_plain(host_libs, spikes: bool) -> None:
+    """The LB hop over a given slot a lane (three slots, a tenth of the
+    lanes -1: no healthy target, dropped at the LB): the same checks as
+    the rank form's."""
+    keys = scenario_keys(13, S)
+    uk, zk = draws.hop_keys(keys, 32)
+    mean, var, drop = _edge_params()
+    g = np.random.default_rng(2)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32)
+    alive = torch.tensor(g.random((S, N)) > 0.1)
+    slot = torch.tensor(np.where(g.random((S, N)) < 0.1, -1, g.integers(0, 3, (S, N))),
+                        dtype=torch.int32)
+    spike_t, spike_v = _spike_tables() if spikes else (None, None)
+    tables = draws.EdgeTables(
+        dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+        lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32),
+        lb_target=torch.tensor([0, 1, 2], dtype=torch.int32),
+        spike_t=spike_t, spike_v=spike_v,
+    )
+    want = draws.hop_plain(tables, t_send, alive, uk, zk, slot=slot)
+    out = draws.HopOut(
+        t_next=torch.empty((S, N), dtype=torch.float32),
+        ok=torch.empty((S, N), dtype=torch.bool),
+        target=torch.empty((S, N), dtype=torch.int32),
+        span=torch.empty((S, 3), dtype=torch.float32),
+        dropped=torch.empty(S, dtype=torch.int64),
+    )
+    partial = torch.empty((S, draws.lane_blocks(N), 4), dtype=torch.float64)
+    ukw, zkw, dist = draws.key_words(uk), draws.key_words(zk), torch.tensor(DIST)
+    ptr = lambda x: 0 if x is None else x.data_ptr()  # noqa: E731
+    args = draws._EdgeDrawArgs(
+        ukey=ukw.data_ptr(), zkey=zkw.data_ptr(), t_send=t_send.data_ptr(),
+        alive=alive.data_ptr(), slot=slot.data_ptr(),
+        lb_edge=ptr(tables.lb_edge), lb_target=ptr(tables.lb_target),
+        mean=mean.data_ptr(), var=var.data_ptr(), drop=drop.data_ptr(),
+        dist=dist.data_ptr(), spike_t=ptr(spike_t), spike_v=ptr(spike_v),
+        out=out.t_next.data_ptr(), ok=out.ok.data_ptr(), target=out.target.data_ptr(),
+        partial=partial.data_ptr(), span=out.span.data_ptr(),
+        dropped=out.dropped.data_ptr(), S=S, n=N, horizon=2.0, NE=4,
+        NB=0 if spike_t is None else 3, K=3, edge=-1, mode=draws.MODE_HOP,
+    )
+    _launch(host_libs["edge_draws"], "edge_draws_launch", args)
+    gate = alive & (t_send < 2.0)
+    assert int((gate & (slot < 0)).sum()) > 0
+    assert torch.equal(out.ok, want.ok)
+    assert torch.equal(out.dropped, want.dropped)
+    assert torch.equal(out.target, want.target)
+    assert not bool((want.ok & (slot < 0)).any())
+    assert _ulps(out.t_next, want.t_next) <= 4
+    if torch.equal(out.t_next, want.t_next):
+        assert torch.equal(out.span, want.span)
+    assert _ulps(out.span, want.span) <= 1
+
+
+#: outage timelines over three LB slots: (times, down, slot), in table order
+TIMELINES = {
+    "no_marks": ([], [], []),
+    "two_outages": ([0.4, 0.9, 1.2, 1.6], [1, 0, 1, 0], [0, 0, 2, 2]),
+    "all_down_same_time": ([0.3, 0.5, 0.5, 0.8, 0.8, 1.4, 1.4],
+                           [1, 1, 1, 0, 0, 0, 1], [1, 0, 2, 0, 2, 1, 0]),
+    "present_absent_unknown": ([0.2, 0.2, 0.6, 1.0], [0, 1, 1, 0], [1, 2, -1, 0]),
+    "before_and_after": ([-1.0, 0.0, 5.0, 6.0], [1, 0, 1, 0], [2, 2, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TIMELINES))
+def test_lb_route_matches_plain(host_libs, name: str) -> None:
+    """Both lb_route kernels on rows of 4099 lanes (a tenth dead) against
+    the segment form, exactly, and the slots against the arrival-by-arrival
+    replay of the reference's scan."""
+    from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank
+
+    g = np.random.default_rng(4)
+    t = torch.tensor(np.round(g.uniform(0.0, 2.0, (S, N)), 3), dtype=torch.float32)
+    alive = torch.tensor(g.random((S, N)) > 0.1)
+    times, down, slots = TIMELINES[name]
+    tl = routing.Timeline(times, down, slots, 3, "cpu")
+    if tl.n_marks:
+        t[0, :5] = tl.times[-1]  # arrivals at exactly a mark's time
+    lib = host_libs["lb_route"]
+    table = torch.empty((S, tl.n_marks + 1, 5), dtype=torch.int32)
+    args = routing._LbRouteArgs(
+        t=t.data_ptr(), alive=alive.data_ptr(), table=table.data_ptr(),
+        tl_time=tl.times.data_ptr() if tl.n_marks else 0,
+        tl_down=tl.down.data_ptr() if tl.n_marks else 0,
+        tl_slot=tl.slot.data_ptr() if tl.n_marks else 0,
+        S=S, n=N, NTL=tl.n_marks, EL=3, mode=routing.MODE_TABLE,
+    )
+    _launch(lib, "lb_route_launch", args)
+    want_table = routing.PlainLbRoute().table(tl, t, alive)
+    assert torch.equal(table, want_table)
+    rank = time_rank(t, alive)
+    slot = torch.empty((S, N), dtype=torch.int32)
+    args = routing._LbRouteArgs(
+        rank=rank.data_ptr(), alive=alive.data_ptr(), table=table.data_ptr(),
+        slot=slot.data_ptr(), S=S, n=N, NTL=tl.n_marks, EL=3, mode=routing.MODE_LANES,
+    )
+    _launch(lib, "lb_route_launch", args)
+    assert torch.equal(slot, routing.PlainLbRoute().slots(want_table, rank, alive))
+    scan, _ = routing.routed_slots_scan(t, alive, tl.times, tl.down, tl.slot, 3)
+    assert torch.equal(slot, scan)
 
 
 def _stream(seed: int, m: int, rate: float, svc: float):

@@ -47,7 +47,7 @@ def test_journey_on_the_reference_arrivals(name: str) -> None:
     got_finish, got_done, _, _ = eng._journey(
         torch.as_tensor(np.asarray(keys).astype(np.int64)),
         eng._overrides(base_overrides(eng.plan), 4),
-        torch.as_tensor(t), torch.as_tensor(alive),
+        [torch.as_tensor(t)], [torch.as_tensor(alive)],
     )
     assert np.array_equal(got_done.numpy(), done)
     diff = np.abs(got_finish.numpy() - finish)[done]

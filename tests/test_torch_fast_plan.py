@@ -1,15 +1,17 @@
 """The port's fast-path lowering and decision against the JAX reference:
-the visit tables, ``fastpath_ok`` and its reason, ``ram_slots``,
-``server_topo_order``, ``lc_ring``, ``relax_rho``, ``max_requests`` and the
-gauge layout equal the reference plan's on every example YAML the port
-can compile and on the reference parity suite's mutations; and the fast
-engine refuses by name what this slice does not model."""
+the visit tables, the DB split and cache placements (``fp_*``), each
+stream's lanes (``gen_slots``), ``fastpath_ok`` and its reason,
+``ram_slots``, ``server_topo_order``, ``lc_ring``, ``relax_rho``,
+``max_requests`` and the gauge layout equal the reference plan's on every
+example YAML the port can compile, on ``chip_smoke.py``'s payloads and on
+the reference parity suite's mutations; and the fast engine refuses by
+name what it does not model yet."""
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
-from torch_fast_cases import EXAMPLES, MUTATIONS, example, mutated
+from torch_fast_cases import EXAMPLES, MUTATIONS, example, mutated, port_examples
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
@@ -25,6 +27,8 @@ FAST_FIELDS = (
     "max_bursts", "n_bursts", "burst_dur", "burst_pre_io", "endpoint_post_io",
     "sample_period", "n_samples", "max_requests", "fastpath_ok", "fastpath_reason",
     "server_topo_order", "ram_slots", "lc_ring", "relax_rho", "n_gauges",
+    "fp_db_pre", "fp_db_dur", "fp_db_post", "fp_cache_slot", "fp_cache_miss_prob",
+    "fp_cache_extra", "gen_slots",
 )
 
 
@@ -40,19 +44,7 @@ def _both(data: dict):
             jax_compile(JaxPayload.model_validate(data)))
 
 
-def _port_examples() -> list[str]:
-    """Every example YAML whose features the port's schemas accept."""
-    names = []
-    for path in sorted(EXAMPLES.glob("*.yml")):
-        try:
-            compile_payload(SimulationPayload.from_dict(example(path.stem)))
-        except UnsupportedFeatureError:
-            continue
-        names.append(path.stem)
-    return names
-
-
-EXAMPLE_NAMES = _port_examples()
+EXAMPLE_NAMES = port_examples()
 
 
 def test_the_examples_cover_the_fast_paths() -> None:
@@ -67,6 +59,31 @@ def test_fast_fields_match_reference_on_examples(name: str) -> None:
     for s in range(got.n_servers):
         assert (got.gauge_ready(s), got.gauge_io(s), got.gauge_ram(s)) == (
             ref.gauge_ready(s), ref.gauge_io(s), ref.gauge_ram(s))
+
+
+def _smoke_payloads() -> dict:
+    """chip_smoke.py's payloads by name: its DES paths, its fast paths and
+    its 5 s workload plans."""
+    import importlib.util
+
+    path = EXAMPLES.parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return {
+        **smoke.PAYLOADS, **smoke.FAST_PAYLOADS,
+        **{name: make() for name, (make, _) in smoke.WORKLOAD_PAYLOADS.items()},
+    }
+
+
+SMOKE_PAYLOADS = _smoke_payloads()
+
+
+@pytest.mark.parametrize("name", sorted(SMOKE_PAYLOADS))
+def test_fast_fields_match_reference_on_smoke_payloads(name: str) -> None:
+    got, ref = _both(SMOKE_PAYLOADS[name])
+    diff = [f for f in FAST_FIELDS if not _equal(getattr(got, f), getattr(ref, f))]
+    assert diff == []
 
 
 @pytest.mark.parametrize("name", sorted(MUTATIONS))
@@ -103,7 +120,8 @@ def test_decisions_reach_both_sides() -> None:
     ("name", "feature"),
     [
         ("least_connections", "least-connections routing"),
-        ("outage", "outage timeline"),
+        ("queue_cap", "ready-queue cap"),
+        ("conn_cap", "connection cap"),
     ],
 )
 def test_out_of_slice_features_are_refused_by_name(name: str, feature: str) -> None:
@@ -114,11 +132,14 @@ def test_out_of_slice_features_are_refused_by_name(name: str, feature: str) -> N
         FastEngine(plan, device="cpu")
 
 
-def test_event_inj_lb_is_refused_for_its_outages() -> None:
+def test_event_inj_lb_runs_on_the_fast_path() -> None:
+    """Its outages route under the timeline (``lb_route``), its spikes ride
+    the hops."""
     plan = compile_payload(SimulationPayload.from_dict(example("event_inj_lb")))
-    assert plan.fastpath_ok
-    with pytest.raises(UnsupportedFeatureError, match="outage timeline"):
-        FastEngine(plan, device="cpu")
+    assert plan.fastpath_ok and plan.has_timeline and plan.has_spikes
+    assert fast_refusal(plan) is None
+    eng = FastEngine(plan, device="cpu")
+    assert eng.timeline is not None and eng.timeline.n_marks == 4
 
 
 def test_ineligible_plan_is_refused_with_the_reason() -> None:

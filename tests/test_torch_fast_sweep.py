@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
-from torch_fast_cases import example, mutated
+from torch_fast_cases import example, mutated, port_examples
 
 from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
 from asyncflow_tpu_torch.errors import (
@@ -35,7 +35,11 @@ def _rate_limited() -> dict:
         (lambda: mutated("two_core_multi_burst", horizon=5), "fast"),
         (lambda: example("event_inj_single_server"), "fast"),
         (lambda: example("heavy_inj_single_server"), "fast"),
-        (lambda: mutated("outage", horizon=20), "kernel"),
+        (lambda: mutated("outage", horizon=20), "fast"),
+        (lambda: example("event_inj_lb"), "fast"),
+        (lambda: mutated("two_gen_lb", horizon=5), "fast"),
+        (lambda: mutated("db_pool_k2", horizon=5), "fast"),
+        (lambda: mutated("queue_cap", horizon=5), "kernel"),
         (lambda: mutated("least_connections", horizon=5), "kernel"),
         (lambda: mutated("heterogeneous_ram", horizon=5), "kernel"),
         (_rate_limited, "kernel"),
@@ -47,12 +51,47 @@ def test_auto_picks_fast_where_it_may(make, kind: str) -> None:
     assert type(runner.engine).__name__ == ("FastEngine" if kind == "fast" else "KernelEngine")
 
 
+@pytest.mark.parametrize("name", port_examples())
+def test_auto_takes_the_reference_engine_on_every_example(name: str) -> None:
+    """The reference's ``auto`` takes its fast path where its plan's
+    ``fastpath_ok`` holds; the port's takes its own there, and the DES
+    kernel elsewhere."""
+    from asyncflow_tpu.compiler import compile_payload as jax_compile
+    from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
+
+    data = example(name)
+    want = "fast" if jax_compile(JaxPayload.model_validate(data)).fastpath_ok else "kernel"
+    assert SweepRunner(data, device="cpu").engine_kind == want
+
+
+def test_per_stream_overrides_on_the_fast_path() -> None:
+    """Two streams: (G,) and (S, G) workload overrides run, chunked as
+    unchunked; raising one stream past the base is refused (the headline
+    topology's RAM was proven non-binding at the base rate)."""
+    runner = SweepRunner(mutated("two_gen_lb", horizon=5), device="cpu")
+    assert runner.engine_kind == "fast" and runner.plan.n_generators == 2
+    base = base_overrides(runner.plan)
+    assert base.user_mean.shape == (2,)
+    per_scenario = base._replace(
+        user_mean=np.array([[0.5, 0.25], [0.25, 0.5], [1.0, 1.0]], np.float32)
+        * base.user_mean)
+    whole = runner.run(3, seed=4, overrides=per_scenario).results
+    chunked = runner.run(3, seed=4, overrides=per_scenario, chunk_size=2).results
+    np.testing.assert_array_equal(whole.latency_hist, chunked.latency_hist)
+    assert whole.total_generated[0] < whole.total_generated[2]
+    assert runner.run(2, seed=4, overrides=base._replace(
+        user_mean=0.5 * base.user_mean)).summary()["completed_total"] > 0
+    one_up = base._replace(user_mean=base.user_mean * np.array([1.0, 1.5], np.float32))
+    with pytest.raises(FastPathOverrideError, match="RAM non-binding"):
+        runner.run(2, seed=4, overrides=one_up)
+
+
 @pytest.mark.parametrize(
     ("make", "error", "match"),
     [
         (lambda: mutated("least_connections", horizon=5), UnsupportedFeatureError,
          "least-connections"),
-        (lambda: mutated("outage", horizon=20), UnsupportedFeatureError, "outage timeline"),
+        (lambda: mutated("conn_cap", horizon=5), UnsupportedFeatureError, "connection cap"),
         (_rate_limited, UnsupportedFeatureError, "rate limit"),
         (lambda: mutated("heterogeneous_ram", horizon=5), FastPathIneligibleError,
          "heterogeneous RAM"),

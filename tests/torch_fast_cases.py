@@ -200,6 +200,90 @@ def normal_edges(data: dict) -> None:
                                        "variance": 0.001}
 
 
+def cache_mixture(data: dict) -> None:
+    """CPU 2 ms, then a cache that hits in 2 ms with probability 0.8 and
+    misses in 50 ms (the reference's tests/parity/test_cache_dynamics.py):
+    the miss extra lands in the trailing IO."""
+    _server(data)["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+        {"kind": "io_cache", "step_operation": {"io_waiting_time": 0.002},
+         "cache_hit_probability": 0.8, "cache_miss_time": 0.050},
+    ]
+    data["rqs_input"]["avg_active_users"]["mean"] = 50
+
+
+def cache_around_db(data: dict) -> None:
+    """Caches before the CPU burst, before a DB query and after it, on one
+    connection: every placement of a miss extra, and the DB station."""
+    def cache(hit: float, miss: float) -> dict:
+        return {"kind": "io_cache", "step_operation": {"io_waiting_time": hit},
+                "cache_hit_probability": 0.7, "cache_miss_time": miss}
+
+    srv = _server(data)
+    srv["server_resources"]["db_connection_pool"] = 1
+    srv["endpoints"][0]["steps"] = [
+        cache(0.001, 0.010),
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.003}},
+        cache(0.002, 0.020),
+        {"kind": "io_db", "step_operation": {"io_waiting_time": 0.015}},
+        cache(0.001, 0.030),
+    ]
+    data["rqs_input"]["avg_active_users"]["mean"] = 60
+
+
+def second_stream(data: dict) -> None:
+    """The LB topology with the second stream of docs/guides/yaml-scenarios.md
+    (the reference's tests/parity/test_multi_generator.py): rqs-1 200 users
+    x 20 req/min, window 60 s; rqs-2 100 users x 40 req/min, window 30 s,
+    entering over an exponential 4 ms edge."""
+    data["rqs_input"]["avg_active_users"]["mean"] = 200
+    data["rqs_input"] = [data["rqs_input"], {
+        "id": "rqs-2",
+        "avg_active_users": {"mean": 100},
+        "avg_request_per_minute_per_user": {"mean": 40},
+        "user_sampling_window": 30,
+    }]
+    data["topology_graph"]["edges"].append({
+        "id": "gen2-client", "source": "rqs-2", "target": "client-1",
+        "latency": {"mean": 0.004, "distribution": "exponential"},
+    })
+
+
+def db_pool_k2(data: dict) -> None:
+    """examples/sweeps/db_pool_sizing.py's server at a pool of 2: CPU 2 ms,
+    then a 60 ms query holding one of 2 connections, 60 users (~20 req/s)."""
+    srv = _server(data)
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+        {"kind": "io_db", "step_operation": {"io_waiting_time": 0.060}},
+    ]
+    srv["server_resources"]["db_connection_pool"] = 2
+    data["rqs_input"]["avg_active_users"]["mean"] = 60
+
+
+def queue_cap(data: dict) -> None:
+    """A ready-queue cap of 3 on one server at a load where it binds (the
+    reference's tests/parity/test_pallas_engine.py)."""
+    srv = _server(data)
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.040}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.010}},
+    ]
+    srv["overload"] = {"max_ready_queue": 3}
+    data["rqs_input"]["avg_active_users"]["mean"] = 60
+
+
+def conn_cap(data: dict) -> None:
+    """A connection cap of 4 on one server at a load where it binds."""
+    srv = _server(data)
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.200}},
+    ]
+    srv["overload"] = {"max_connections": 4}
+    data["rqs_input"]["avg_active_users"]["mean"] = 60
+
+
 #: (base, mutation) of every plan the plan test compares
 MUTATIONS = {
     "cpu_queueing": (BASE, cpu_queueing),
@@ -218,6 +302,12 @@ MUTATIONS = {
     "huge_inflight": (LB, huge_inflight),
     "outage": (LB, outage),
     "normal_edges": (LB, normal_edges),
+    "cache_mixture": (BASE, cache_mixture),
+    "cache_around_db": (BASE, cache_around_db),
+    "two_gen_lb": (EXAMPLES / "two_servers_lb.yml", second_stream),
+    "db_pool_k2": (EXAMPLES / "single_server.yml", db_pool_k2),
+    "queue_cap": (BASE, queue_cap),
+    "conn_cap": (BASE, conn_cap),
 }
 
 
@@ -230,43 +320,77 @@ def example(name: str, *, horizon: float | None = None) -> dict:
     return load(EXAMPLES / f"{name}.yml", horizon=horizon)
 
 
-def reference_window_draws(jax_plan, keys, n_windows: int):
+def port_examples() -> list[str]:
+    """Every example YAML whose features the port's schemas accept."""
+    from asyncflow_tpu_torch.compiler import compile_payload
+    from asyncflow_tpu_torch.errors import UnsupportedFeatureError
+    from asyncflow_tpu_torch.schemas import SimulationPayload
+
+    names = []
+    for path in sorted(EXAMPLES.glob("*.yml")):
+        try:
+            compile_payload(SimulationPayload.from_dict(example(path.stem)))
+        except UnsupportedFeatureError:
+            continue
+        names.append(path.stem)
+    return names
+
+
+def reference_window_draws(jax_plan, keys, n_windows: int | None = None):
     """(users, counts), (S, NW) each, as the reference's ``_arrivals_stream``
     draws them for each key (``jax.random.poisson`` users at
-    ``fold_in(fold_in(key, 0), 1)``, counts at ``... 2``)."""
+    ``fold_in(fold_in(key, 0), 1)``, counts at ``... 2``).  With several
+    generators, a list of each stream's (S, NW_g) users and one of its
+    counts, stream g keyed ``fold_in(fold_in(key, 0), 101 + g)``."""
     import jax
     import jax.numpy as jnp
 
     from asyncflow_tpu.engines.jaxsim.sampling import TINY, as_threefry, draw_normal
 
-    window = jnp.float32(jax_plan.user_window)
-    starts = jnp.arange(n_windows, dtype=jnp.float32) * window
-    lens = jnp.minimum(starts + window, jax_plan.horizon) - starts
+    horizon = jax_plan.horizon
 
-    def one(key):
-        k0 = jax.random.fold_in(key, 0)
-        if jax_plan.user_var < 0:
+    def stream(k_g, user_mean, user_var, window_s, rate):
+        nw = int(np.ceil(horizon / float(window_s)))
+        window = jnp.float32(window_s)
+        starts = jnp.arange(nw, dtype=jnp.float32) * window
+        lens = jnp.minimum(starts + window, horizon) - starts
+        if user_var < 0:
             users = jax.random.poisson(
-                as_threefry(jax.random.fold_in(k0, 1)),
-                jnp.maximum(jnp.float32(jax_plan.user_mean), TINY), (n_windows,),
+                as_threefry(jax.random.fold_in(k_g, 1)),
+                jnp.maximum(jnp.float32(user_mean), TINY), (nw,),
             ).astype(jnp.float32)
         else:
-            z = draw_normal(jax.random.fold_in(k0, 1), (n_windows,))
-            users = jnp.maximum(0.0, jax_plan.user_mean + jax_plan.user_var * z)
-        lam = users * jnp.float32(jax_plan.req_per_user_per_sec)
+            z = draw_normal(jax.random.fold_in(k_g, 1), (nw,))
+            users = jnp.maximum(0.0, jnp.float32(user_mean) + jnp.float32(user_var) * z)
+        lam = users * jnp.float32(rate)
         counts = jax.random.poisson(
-            as_threefry(jax.random.fold_in(k0, 2)), jnp.maximum(lam * lens, TINY),
+            as_threefry(jax.random.fold_in(k_g, 2)), jnp.maximum(lam * lens, TINY),
         ).astype(jnp.int32)
         return users, jnp.where(lam > 0, counts, 0)
 
-    users, counts = jax.vmap(one)(keys)
-    return np.array(users), np.array(counts)
+    if jax_plan.n_generators == 1:
+        users, counts = jax.vmap(lambda key: stream(
+            jax.random.fold_in(key, 0), jax_plan.user_mean, jax_plan.user_var,
+            jax_plan.user_window, jax_plan.req_per_user_per_sec))(keys)
+        if n_windows is not None:
+            assert users.shape[1] == n_windows
+        return np.array(users), np.array(counts)
+    users, counts = [], []
+    for g in range(jax_plan.n_generators):
+        u_g, c_g = jax.vmap(lambda key, g=g: stream(
+            jax.random.fold_in(jax.random.fold_in(key, 0), 101 + g),
+            float(jax_plan.gen_user_mean[g]), float(jax_plan.gen_user_var[g]),
+            float(jax_plan.gen_window[g]), float(jax_plan.gen_rate[g])))(keys)
+        users.append(np.array(u_g))
+        counts.append(np.array(c_g))
+    return users, counts
 
 
-def run_both(data: dict, n: int, seed: int):
+def run_both(data: dict, n: int, seed: int, transform=None):
     """(reference state, port state, port plan) of ``n`` scenarios of
     ``seed``: the JAX ``FastEngine`` and the port's on the CPU, the port fed
-    the reference's per-window user and count draws."""
+    the reference's per-window user and count draws.  ``transform``, where
+    given, maps each package's compiled plan to the plan that runs."""
     import jax
 
     from asyncflow_tpu.compiler import compile_payload as jax_compile
@@ -279,10 +403,12 @@ def run_both(data: dict, n: int, seed: int):
 
     ref_plan = jax_compile(JaxPayload.model_validate(data))
     plan = compile_payload(SimulationPayload.from_dict(data))
+    if transform is not None:
+        ref_plan, plan = transform(ref_plan), transform(plan)
     keys = jax_keys(seed, n)
     ref = jax.tree_util.tree_map(np.asarray, JaxFastEngine(ref_plan).run_batch(keys))
     eng = FastEngine(plan, device="cpu")
-    windows = reference_window_draws(ref_plan, keys, eng.n_windows)
+    windows = reference_window_draws(ref_plan, keys)
     got = eng.run_batch(np.asarray(keys), window_draws=windows)
     return ref, got, plan
 
@@ -325,3 +451,34 @@ def assert_matches_reference(ref, got, plan, name: str) -> None:
     wait_tol = 4 * np.spacing(horizon) * ref.n_generated / horizon
     assert np.all(np.abs(got.gauge_means - ref.gauge_means)[:, ready]
                   <= wait_tol[:, None]), name
+
+
+#: the chi-square test's threshold: a fixed seed, so a pass is reproducible
+CHI2_P_MIN = 1e-3
+
+
+def assert_poisson(counts: np.ndarray, mu: float) -> None:
+    """``counts`` drawn at window mean ``mu``: their mean within 4 standard
+    errors, and, binned so that every bin expects at least 20 draws (the
+    tails merged), a chi-square goodness-of-fit test against Poisson(mu)
+    at p >= 1e-3."""
+    from scipy import stats
+
+    se = np.sqrt(mu / counts.size)
+    assert abs(counts.mean() - mu) <= 4.0 * se, (counts.mean(), mu)
+    # bins [lo, hi) over the support, each expecting >= 20 draws
+    ks = np.arange(int(mu + 12 * np.sqrt(mu) + 20) + 1)
+    pmf = stats.poisson.pmf(ks, mu)
+    edges, acc = [0], 0.0
+    for k, p in zip(ks, pmf):
+        acc += p * counts.size
+        if acc >= 20.0:
+            edges.append(k + 1)
+            acc = 0.0
+    edges[-1] = np.inf
+    obs = np.histogram(counts, bins=np.asarray(edges, float))[0]
+    cdf = stats.poisson.cdf(np.asarray(edges[1:-1]) - 1, mu)
+    expected = np.diff(np.r_[0.0, cdf, 1.0]) * counts.size
+    assert len(obs) >= 3
+    p = stats.chisquare(obs, expected).pvalue
+    assert p >= CHI2_P_MIN, (mu, p)
