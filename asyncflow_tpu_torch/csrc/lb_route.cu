@@ -17,26 +17,40 @@
 // pick and does not turn; an up mark appends its slot at the tail unless
 // present, a down mark removes it if present (rotation.py's discipline).
 //
-// Two kernels:
-//   table: one block a scenario.  Its threads count, for every mark, the
-//      alive lanes with t < tl_time (eight marks a pass over the row, in
-//      registers, then one shared atomic add a mark a thread); then one
-//      thread walks the marks in shared memory, turning the rotation by
-//      each segment's size (mod its length) and applying the mark, and
-//      writes table (S, NTL + 1, 2 + EL) int32: each segment's start rank,
-//      its rotation's length and the rotation (-1 past the length);
+// Three kernels:
+//   route_count: a (row blocks, scenarios) grid of 256 threads; a block counts,
+//      over its stretch of the row, the alive lanes with t < tl_time of
+//      every mark.  It reads t as float4 and alive as uchar4 (16 and 4 bytes
+//      a lane, coalesced) after a scalar head up to the row's first 16-byte
+//      boundary of t, four vectors a thread at once, and counts kMarksAPass
+//      marks in registers a pass (one pass for the fast paths' timelines;
+//      more re-read the block's stretch, from L1 or L2); each warp reduces a
+//      mark's count with one __reduce_add_sync and adds it to the block's in
+//      shared memory with one atomic; the block writes its counts to
+//      partial (S, row blocks, NTL) uint32, every mark's, no atomic;
+//   route_marks: one thread a scenario sums its row blocks' counts and walks the
+//      marks, turning the rotation by each segment's size (mod its length)
+//      and applying the mark, the rotation kept in the table it writes:
+//      table (S, NTL + 1, 2 + EL) int32, each segment's start rank, its
+//      rotation's length and the rotation (-1 past the length);
 //   lanes: one thread a lane on a (lane blocks, scenarios) grid: the lane's
 //      segment is the last whose start is at most its int64 arrival rank
 //      (a binary search of the row's table), and its slot is
 //      rot[(rank - start) % length], or -1 where the length is 0 or the
 //      lane is dead (dead lanes rank after every alive one).
+// A table launch runs route_count (none without marks) and route_marks; a
+// lanes launch runs lanes.
 //
 // Bound: bytes.  The table pass reads t and alive (5 B a lane), the lanes
 // pass the rank and alive and writes the slot (13 B a lane); the marks'
-// compares and the search are a few operations a lane.  This is the
-// simple form: the row is read once a group of eight marks.
+// compares and the search are a few operations a lane.  The count spreads
+// a row over kUnitsABlock four-lane units a block, so the 2048 x 28,323
+// lanes of event_inj_lb's chunk run as 8,192 blocks that stream the row at
+// the card's bandwidth.  The host build (tests/test_torch_fast_host.py)
+// runs a block's threads one after another, one lane a warp (kLanes = 1).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 struct LbRouteArgs {
@@ -46,6 +60,7 @@ struct LbRouteArgs {
   const float* tl_time;     // (NTL,) mark times, in table order
   const int32_t* tl_down;   // (NTL,) 1 = down, 0 = up
   const int32_t* tl_slot;   // (NTL,) LB slot of the mark, or -1 (none)
+  uint32_t* partial;        // table: (S, row blocks, NTL) counts of the row's blocks
   int32_t* table;           // (S, NTL + 1, 2 + EL)
   int32_t* slot;            // lanes: (S, n) out
   int64_t S;
@@ -55,8 +70,7 @@ struct LbRouteArgs {
   int32_t mode;
 };
 
-// the table kernel's counts (NTL unsigned), mark times (NTL floats) and
-// rotation with its scratch copy (2 EL ints)
+// the count kernel's counts of the block (NTL unsigned)
 extern __shared__ uint32_t route_smem[];
 
 namespace {
@@ -64,93 +78,181 @@ namespace {
 constexpr int kTableMode = 0;
 constexpr int kLanesMode = 1;
 constexpr int kThreads = 256;
-constexpr int kMarksAPass = 8;
-constexpr int kMaxRows = 65535;   // scenarios a lanes launch (gridDim.y)
+constexpr int kMarksAPass = 16;   // marks counted in registers a pass
+constexpr int kUnroll = 4;        // four-lane units a thread loads at once
+constexpr int kUnitsABlock = kThreads * kUnroll * 2;  // units of a row a count block
+constexpr int kMaxRows = 65535;   // scenarios a launch on a (.., scenarios) grid (gridDim.y)
 constexpr int kMaxMarks = 4096;   // marks (shared memory)
-constexpr int kMaxSlots = 1024;   // LB slots (shared memory)
+constexpr int kMaxSlots = 1024;   // LB slots
+constexpr unsigned kAll = 0xffffffffu;
 
-__global__ void table_kernel(LbRouteArgs a) {
-  const int ntl = a.NTL, el = a.EL;
-  const unsigned nt = blockDim.x, tid = threadIdx.x;
-  const int64_t row = blockIdx.x;
-  uint32_t* counts = route_smem;
-  float* times = reinterpret_cast<float*>(route_smem + ntl);
-  int32_t* rot = reinterpret_cast<int32_t*>(route_smem + 2 * ntl);
-  int32_t* tmp = rot + el;
+// lanes a warp reduces over: a warp on the card, one in the host build
 #ifdef __CUDACC__
-  for (int j = (int)tid; j < ntl; j += (int)nt) {
-    counts[j] = 0u;
-    times[j] = a.tl_time[j];
-  }
+constexpr int kLanes = 32;
+#else
+constexpr int kLanes = 1;
+#endif
+
+// a row's four-lane units from its first 16-byte boundary of t (head
+// lanes before it; the tail after the last unit); alive is 4-byte aligned
+// there too, as the launch checks
+struct RowUnits {
+  int64_t head;
+  int64_t units;
+};
+
+__device__ __forceinline__ RowUnits row_units(const float* t, int64_t n) {
+  const int64_t lead = (4 - (int64_t)((reinterpret_cast<uintptr_t>(t) >> 2) & 3)) & 3;
+  const int64_t head = lead < n ? lead : n;
+  return {head, (n - head) / 4};
+}
+
+// count blocks a row takes: enough for the most units any row has
+__host__ __device__ __forceinline__ int64_t row_blocks(int64_t n) {
+  const int64_t units = n / 4 + 1;
+  return (units + kUnitsABlock - 1) / kUnitsABlock;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ bool lane_of(const uchar4& v, int i) {
+  return (i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w) != 0;
+}
+
+// One block's counts of the alive lanes of its stretch of the row with
+// t < tl_time, kM marks a pass (kM a power of two up to kMarksAPass).
+template <int kM>
+__global__ void __launch_bounds__(kThreads) route_count_kernel(LbRouteArgs a) {
+  const int ntl = a.NTL;
+  const int tid = (int)threadIdx.x;
+  const int nt = (int)blockDim.x;
+  const int64_t row = blockIdx.y;
+  const int64_t b = blockIdx.x;
+  uint32_t* counts = route_smem;
+#ifdef __CUDACC__
+  for (int j = tid; j < ntl; j += nt) counts[j] = 0u;
   __syncthreads();
 #else
   // the host build runs the threads one after another: the first sets up
-  if (tid == 0) {
-    for (int j = 0; j < ntl; ++j) {
-      counts[j] = 0u;
-      times[j] = a.tl_time[j];
-    }
-  }
+  if (tid == 0)
+    for (int j = 0; j < ntl; ++j) counts[j] = 0u;
 #endif
   const float* t = a.t + row * a.n;
   const uint8_t* alive = a.alive + row * a.n;
-  for (int j0 = 0; j0 < ntl; j0 += kMarksAPass) {
-    uint32_t c[kMarksAPass];
+  const RowUnits ru = row_units(t, a.n);
+  const int64_t u0 = b * kUnitsABlock;
+  const int64_t u1 = u0 + kUnitsABlock < ru.units ? u0 + kUnitsABlock : ru.units;
+  // the scalar lanes: the head and the tail, on the first block
+  const int64_t tail0 = ru.head + 4 * ru.units;
+  int64_t lone = -1;
+  if (b == 0) {
+    if (tid < ru.head) lone = tid;
+    else if (tid >= 4 && tail0 + (tid - 4) < a.n) lone = tail0 + (tid - 4);
+  }
+  for (int j0 = 0; j0 < ntl; j0 += kM) {
+    float tm[kM];
+    uint32_t c[kM];
 #pragma unroll
-    for (int q = 0; q < kMarksAPass; ++q) c[q] = 0u;
-    for (int64_t i = tid; i < a.n; i += nt) {
-      if (alive[i] == 0) continue;
-      const float ti = t[i];
-#pragma unroll
-      for (int q = 0; q < kMarksAPass; ++q)
-        c[q] += (j0 + q < ntl && ti < times[j0 + q]) ? 1u : 0u;
+    for (int q = 0; q < kM; ++q) {
+      // a mark past the table counts nothing
+      tm[q] = j0 + q < ntl ? a.tl_time[j0 + q] : -INFINITY;
+      c[q] = 0u;
     }
+    for (int64_t u = u0 + tid; u < u1; u += (int64_t)kUnroll * nt) {
+      float4 tv[kUnroll];
+      uchar4 av[kUnroll];
 #pragma unroll
-    for (int q = 0; q < kMarksAPass; ++q)
-      if (j0 + q < ntl && c[q] != 0u) atomicAdd(&counts[j0 + q], c[q]);
+      for (int r = 0; r < kUnroll; ++r) {
+        const int64_t ur = u + (int64_t)r * nt;
+        if (ur < u1) {
+          const int64_t i = ru.head + 4 * ur;
+          tv[r] = *reinterpret_cast<const float4*>(t + i);
+          av[r] = *reinterpret_cast<const uchar4*>(alive + i);
+        } else {
+          tv[r] = float4{};
+          av[r] = uchar4{};
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kUnroll; ++r) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool al = lane_of(av[r], i);
+          const float ti = lane_of(tv[r], i);
+#pragma unroll
+          for (int q = 0; q < kM; ++q) c[q] += (al && ti < tm[q]) ? 1u : 0u;
+        }
+      }
+    }
+    if (lone >= 0 && alive[lone] != 0) {
+      const float ti = t[lone];
+#pragma unroll
+      for (int q = 0; q < kM; ++q) c[q] += ti < tm[q] ? 1u : 0u;
+    }
+    const bool lead = tid % kLanes == 0;
+#pragma unroll
+    for (int q = 0; q < kM; ++q) {
+      const uint32_t sum = __reduce_add_sync(kAll, c[q]);
+      if (lead && j0 + q < ntl && sum != 0u) atomicAdd(&counts[j0 + q], sum);
+    }
   }
 #ifdef __CUDACC__
   __syncthreads();
-  if (tid != 0) return;
+  const int first = tid, step = nt;
 #else
   if (tid != nt - 1) return;
+  const int first = 0, step = 1;
 #endif
-  // the walk: segment j starts where mark j - 1 has applied
+  uint32_t* out = a.partial + (row * gridDim.x + b) * ntl;
+  for (int j = first; j < ntl; j += step) out[j] = counts[j];
+}
+
+// One thread a scenario: the marks' walk over its row blocks' counts.
+// Segment j + 1 starts at the running maximum of the counts (the row's
+// alive lanes before mark i, i <= j); its rotation is segment j's turned
+// by the segment's picks, then mark j applied.
+__global__ void route_marks_kernel(LbRouteArgs a) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= a.S) return;
+  const int ntl = a.NTL, el = a.EL;
   const int w = 2 + el;
+  const int64_t nb = row_blocks(a.n);
+  const uint32_t* part = a.partial + row * nb * ntl;
   int32_t* out = a.table + row * (int64_t)(ntl + 1) * w;
-  int len = el;
-  for (int i = 0; i < el; ++i) rot[i] = i;
+  out[0] = 0;
+  out[1] = el;
+  for (int i = 0; i < el; ++i) out[2 + i] = i;
   uint32_t start = 0u;
-  for (int j = 0; j <= ntl; ++j) {
-    int32_t* seg = out + (int64_t)j * w;
-    seg[0] = (int32_t)start;
-    seg[1] = len;
-    for (int i = 0; i < el; ++i) seg[2 + i] = i < len ? rot[i] : -1;
-    if (j == ntl) break;
-    const uint32_t next = counts[j] > start ? counts[j] : start;
+  int len = el;
+  for (int j = 0; j < ntl; ++j) {
+    const int32_t* cur = out + (int64_t)j * w;
+    int32_t* nx = out + (int64_t)(j + 1) * w;
+    uint32_t count = 0u;
+    for (int64_t bb = 0; bb < nb; ++bb) count += part[bb * ntl + j];
+    const uint32_t next = count > start ? count : start;
     // the segment's picks turn the rotation, one place each
-    if (len > 0) {
-      const int k = (int)((next - start) % (uint32_t)len);
-      if (k != 0) {
-        for (int i = 0; i < len; ++i) tmp[i] = rot[(i + k) % len];
-        for (int i = 0; i < len; ++i) rot[i] = tmp[i];
-      }
-    }
+    const int k = len > 0 ? (int)((next - start) % (uint32_t)len) : 0;
+    for (int i = 0; i < len; ++i) nx[2 + i] = cur[2 + (i + k) % len];
     start = next;
     const int s = a.tl_slot[j];
-    if (s < 0) continue;
-    int at = -1;
-    for (int i = 0; i < len; ++i)
-      if (rot[i] == s) at = i;
-    if (a.tl_down[j] == 1) {
-      if (at >= 0) {
-        for (int i = at; i + 1 < len; ++i) rot[i] = rot[i + 1];
-        --len;
+    if (s >= 0) {
+      int at = -1;
+      for (int i = 0; i < len; ++i)
+        if (nx[2 + i] == s) at = i;
+      if (a.tl_down[j] == 1) {
+        if (at >= 0) {
+          for (int i = at; i + 1 < len; ++i) nx[2 + i] = nx[3 + i];
+          --len;
+        }
+      } else if (at < 0 && len < el) {
+        nx[2 + len] = s;
+        ++len;
       }
-    } else if (at < 0 && len < el) {
-      rot[len] = s;
-      ++len;
     }
+    nx[0] = (int32_t)start;
+    nx[1] = len;
+    for (int i = len; i < el; ++i) nx[2 + i] = -1;
   }
 }
 
@@ -179,11 +281,25 @@ __global__ void lanes_kernel(LbRouteArgs a) {
   a.slot[i] = out;
 }
 
+// the count kernel's instance for kM marks a pass
+template <int kM>
+int launch_count(const LbRouteArgs& a, void* stream) {
+  const dim3 grid((unsigned)row_blocks(a.n), (unsigned)a.S);
+  const dim3 block(kThreads);
+  const size_t smem = (size_t)a.NTL * sizeof(uint32_t);
+  route_count_kernel<kM><<<grid, block, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int lb_route_args_size() { return (int)sizeof(LbRouteArgs); }
+
+// Count blocks a row of n lanes takes: the partial counts a table launch
+// needs are (S, lb_route_row_blocks(n), NTL) uint32.
+int64_t lb_route_row_blocks(int64_t n) { return row_blocks(n); }
 
 // Launch on ``stream``; returns the launch's cudaError_t if it is not 0, or
 // -1 for arguments the kernel does not take.
@@ -191,19 +307,39 @@ int lb_route_launch(const LbRouteArgs* args, void* stream) {
   LbRouteArgs a = *args;
   if (a.S <= 0 || a.n <= 0 || a.n > 0x7FFFFFFFll || a.table == nullptr) return -1;
   if (a.NTL < 0 || a.NTL > kMaxMarks || a.EL < 1 || a.EL > kMaxSlots) return -1;
+  const LbRouteArgs whole = a;
   if (a.mode == kTableMode) {
     if (a.t == nullptr || a.alive == nullptr ||
-        (a.NTL > 0 && (a.tl_time == nullptr || a.tl_down == nullptr || a.tl_slot == nullptr)))
+        (a.NTL > 0 && (a.tl_time == nullptr || a.tl_down == nullptr || a.tl_slot == nullptr ||
+                       a.partial == nullptr)))
       return -1;
-    const size_t smem = (size_t)2 * a.NTL * sizeof(uint32_t) + (size_t)2 * a.EL * sizeof(int32_t);
-    const dim3 grid((unsigned)a.S);
-    const dim3 block(kThreads);
-    table_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(a);
+    // t's 16-byte boundaries are alive's 4-byte ones
+    const uintptr_t t_at = reinterpret_cast<uintptr_t>(a.t);
+    if ((t_at & 3) != 0 || ((t_at >> 2) & 3) != (reinterpret_cast<uintptr_t>(a.alive) & 3))
+      return -1;
+    const int64_t nb = row_blocks(a.n);
+    for (int64_t r0 = 0; a.NTL > 0 && r0 < whole.S; r0 += kMaxRows) {
+      a = whole;
+      a.S = whole.S - r0 < kMaxRows ? whole.S - r0 : kMaxRows;
+      a.t = whole.t + r0 * whole.n;
+      a.alive = whole.alive + r0 * whole.n;
+      a.partial = whole.partial + r0 * nb * whole.NTL;
+      const int marks = a.NTL < kMarksAPass ? a.NTL : kMarksAPass;
+      const int rc = marks <= 1   ? launch_count<1>(a, stream)
+                     : marks <= 2 ? launch_count<2>(a, stream)
+                     : marks <= 4 ? launch_count<4>(a, stream)
+                     : marks <= 8 ? launch_count<8>(a, stream)
+                                  : launch_count<kMarksAPass>(a, stream);
+      if (rc != 0) return rc;
+    }
+    a = whole;
+    const dim3 grid((unsigned)((a.S + 127) / 128));
+    const dim3 block(128);
+    route_marks_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   }
   if (a.mode != kLanesMode || a.rank == nullptr || a.alive == nullptr || a.slot == nullptr)
     return -1;
-  const LbRouteArgs whole = a;
   const int64_t lane_blocks = (a.n + kThreads - 1) / kThreads;
   for (int64_t r0 = 0; r0 < whole.S; r0 += kMaxRows) {
     const int64_t rows = whole.S - r0 < kMaxRows ? whole.S - r0 : kMaxRows;

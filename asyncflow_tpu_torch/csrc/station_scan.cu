@@ -5,8 +5,8 @@
 // scan of _lindley_waits (:278), the Kiefer-Wolfowitz lax.scan of
 // _kw_waits (:198) and the joint RAM-slot and core lax.scan of
 // _ram_core_scan (:233).  Each row of the (S, m) inputs is one station's
-// time-sorted stream of one scenario; one thread walks its row in order,
-// carrying the station's state:
+// time-sorted stream of one scenario, walked in order with the station's
+// state:
 //
 //   mode 0 (c = 1)  C_k = max(A_k + S_k, C_{k-1} + S_k),
 //                   wait_k = max(0, (C_k - S_k) - A_k);
@@ -23,26 +23,55 @@
 //
 // Bound: bytes.  An element is read once (arrival, service, validity;
 // pre-IO and post-IO in mode 2) and its outputs written once, for a few
-// float operations.  Each row is one thread's sequential walk, so a launch
-// of S rows runs S threads: the 2048 rows of a full sweep cannot hide
-// latency by occupancy, and the lanes of a warp read different rows, so a
-// warp instruction touches one L1 line a lane (one L1 wavefront each).
-// The walk therefore moves 16 bytes a lane an instruction: it takes the
-// elements before the row's first 16-byte boundary one at a time, then
-// kVec elements at a time as float4 / uchar4 vectors (their loads issued
-// together, a quarter of the wavefronts of scalar ones), then the tail.
-// A block holds kRows = 16 rows, half a warp, so the 2048 rows span 128
-// SMs and each SM's L1 serves 16 lanes: the wavefronts, not the lanes,
-// are the cost (full 32-row blocks put twice the lanes on half the SMs and
-// run slower).  Each lane prefetches into L1 the lines of its row kAhead
-// elements on.  scripts/torch_scan_variants.py times other block sizes
-// and prefetch distances (-DSTATION_ROWS, -DSTATION_AHEAD).
+// float operations.  A row is sequential, and a K-server FIFO has no cheap
+// associative form (a K x K max-plus product a combine), so the
+// parallelism is across rows and across the carry vector.  Two walks:
 //
-// Carries: the core-free vector (up to kRegCores floats) and the RAM-slot
-// vector (up to kRegSlots) live in registers, padded with +inf and kept
-// sorted by selects alone (no dynamic index, so the array never leaves
-// registers); a wider carry lives in global scratch the wrapper allocates
-// (station_scan_scratch_floats says when), with the shifting insertion.
+// The thread walk (mode 0; modes 1 and 2 past kWarpWidthMax entries): one
+// thread a row, 16 rows a block (half a warp: the lanes of a warp read
+// different rows, one L1 wavefront each, so the wavefronts, not the lanes,
+// are the cost, and 16-row blocks spread the 2048 rows over 128 SMs).  It
+// moves 16 bytes a lane an instruction: the elements before the row's first
+// 16-byte boundary one at a time, then kVec elements at a time as float4 /
+// uchar4 vectors (their loads issued together), then the tail; each lane
+// prefetches into L1 the lines of its row kAhead elements on.  Mode 0
+// carries one float; a carry past kWarpWidthMax entries (a core count the
+// schema does not bound) lives in global scratch the wrapper allocates,
+// with the shifting insertion (MemVec).  scripts/torch_scan_variants.py
+// times other block sizes and prefetch distances (-DSTATION_ROWS,
+// -DSTATION_AHEAD).
+//
+// The warp walk (modes 1 and 2 up to kWarpWidthMax entries): one warp a
+// row, kWarps rows a block.  A carry vector wider than kWholeMax entries
+// is spread over the lanes: lane l holds entries [l E, (l + 1) E), E the
+// smallest power of two that covers the vector over the lanes; a narrower
+// one (one core, a pool of two) is held whole on every lane, as RegVec
+// held it (a template pair (E, span) a vector, padded with +inf).  The
+// insertion is RegVec's selects, unchanged: entry j becomes f[j+1] where
+// that is below x, else x where f[j] is (or j is 0), else stays; a spread
+// vector's last entry on a lane takes lane l + 1's first with one
+// __shfl_down_sync of the vector before x is known.  Every lane computes
+// the element's chain (grant, start, release) itself, from a replica of
+// the vector's first entry, which it updates as lane 0 does from the
+// vector's second entry (broadcast from its owner before x is known).
+// Both shuffles read the vector as the element before left it, so they run
+// beside the element's chain of about eight dependent float operations,
+// not after it.  An invalid element inserts the vector's first entry,
+// which leaves it as it was bit for bit, so the walk takes no branch an
+// element.  The row's elements come in coalesced, a 128-byte line a load
+// instruction (a lane an element, in groups of kGroup on the rows' line
+// boundaries; the elements of a row's first and last group outside it
+// load as invalid), staged through shared memory (one group walked while
+// the next one's loads are in flight in registers) and read back as float4
+// broadcasts, four elements a load; a lane keeps the outputs of its own
+// element of the group by a select and stores them coalesced.  At 2048
+// rows the walk is bound by the SM's shuffle and shared-load pipe (two
+// shuffles an element a spread vector), not by the chain.
+//
+// The host build (tests/test_torch_fast_host.py) compiles this source with
+// g++ at one lane a row (kLanes = 1: one lane holds the whole vector, the
+// shuffles are identities), so the host tests hold the same code to the
+// plain versions.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,7 +86,7 @@ struct StationArgs {
   float* out0;           // waits; admission waits in mode 2
   float* out1;           // core waits (mode 2)
   float* out2;           // departures (mode 2)
-  float* scratch;        // (S, width) carries, or null for registers
+  float* scratch;        // (S, ram_k + cores) carries of the global walk, else unused
   int64_t S;
   int64_t m;
   int32_t mode;
@@ -73,12 +102,30 @@ namespace {
 #ifndef STATION_AHEAD
 #define STATION_AHEAD 256
 #endif
-constexpr int kRows = STATION_ROWS;    // rows (threads) a block
+constexpr int kRows = STATION_ROWS;    // rows (threads) a block of the thread walk
 constexpr int kVec = 16;               // elements a vector step: 4 float4
 constexpr int kAhead = STATION_AHEAD;  // elements prefetched ahead (0: none)
-constexpr int kRegCores = 8;           // core-free vectors in registers up to this
-constexpr int kRegSlots = 32;          // RAM-slot vectors in registers up to this
 constexpr float kInf = 1e30f;
+constexpr unsigned kAll = 0xffffffffu;
+
+// lanes a row of the warp walk runs on: a warp on the card, one in the host
+// build
+#ifdef __CUDACC__
+constexpr int kLanes = 32;
+#else
+constexpr int kLanes = 1;
+#endif
+constexpr int kWarpWidthMax = 1024;                  // carry entries the warp walk holds
+constexpr int kMaxEntries = kWarpWidthMax / kLanes;  // a lane's, at most
+constexpr int kWholeMax = 4;                         // vectors whole on every lane up to this
+constexpr int kWarps = 4;                            // rows (warps) a block of the warp walk
+constexpr int kGroup = 32;                           // elements a group: a 128-byte line
+constexpr int kPerLane = kGroup / kLanes;            // of them, a lane's
+
+// which walk a launch takes (station_scan_walk)
+constexpr int kWalkThread = 0;
+constexpr int kWalkWarp = 1;
+constexpr int kWalkGlobal = 2;
 
 __device__ __forceinline__ void prefetch_l1(const void* p) {
 #ifdef __CUDA_ARCH__
@@ -86,32 +133,13 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 #endif
 }
 
-// An ascending vector of N floats in registers, +inf past its live
-// entries.  insert_first(x) replaces f[0] by x (never below it) and sorts
-// again: entry j takes f[j + 1] where that is below x, else x where f[j]
-// is (or j is 0), else keeps f[j].  Ties leave x first, as the shifting
-// insertion does.
-template <int N>
-struct RegVec {
-  float f[N];
+// ---------------------------------------------------------------------------
+// the thread walk
+// ---------------------------------------------------------------------------
 
-  __device__ __forceinline__ void init(int live) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) f[j] = j < live ? 0.0f : INFINITY;
-  }
-  __device__ __forceinline__ float first() const { return f[0]; }
-  __device__ __forceinline__ void insert_first(float x) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float next = j + 1 < N ? f[j + 1] : INFINITY;
-      const float here = (j == 0 || f[j] < x) ? x : f[j];
-      f[j] = next < x ? next : here;
-    }
-  }
-};
-
-// The same vector of c floats in global scratch, with the shifting
-// insertion.
+// An ascending vector of c floats in global scratch, with the shifting
+// insertion: replace f[0] by x (never below it) and sort again, x first
+// among ties.
 struct MemVec {
   float* f;
   int c;
@@ -132,10 +160,10 @@ struct MemVec {
 
 // A row's state in mode kMode and the step of one element: its outputs
 // from (arrival, service, validity, pre-IO, post-IO).
-template <int kMode, class Cores, class Slots>
+template <int kMode>
 struct Station {
-  Cores& wc;
-  Slots& wr;
+  MemVec& wc;
+  MemVec& wr;
   float c;  // mode 0: the last completion
 
   __device__ __forceinline__ void step(float ak, float dk, bool ok, float pk, float qk,
@@ -183,10 +211,10 @@ __device__ __forceinline__ void set_lane(float4& v, int i, float x) {
   else v.w = x;
 }
 
-// One row's walk in mode kMode; wc and wr are its core and RAM-slot
-// vectors (unused in mode 0).
-template <int kMode, class Cores, class Slots>
-__device__ __forceinline__ void walk(const StationArgs& a, int64_t row, Cores& wc, Slots& wr) {
+// One row's walk in mode kMode by one thread; wc and wr are its core and
+// RAM-slot vectors (unused in mode 0).
+template <int kMode>
+__device__ __forceinline__ void walk(const StationArgs& a, int64_t row, MemVec& wc, MemVec& wr) {
   const int64_t base = row * a.m;
   const float* __restrict__ A = a.a + base;
   const float* __restrict__ D = a.d + base;
@@ -196,7 +224,7 @@ __device__ __forceinline__ void walk(const StationArgs& a, int64_t row, Cores& w
   float* __restrict__ W0 = a.out0 + base;
   float* __restrict__ W1 = kMode == 2 ? a.out1 + base : nullptr;
   float* __restrict__ W2 = kMode == 2 ? a.out2 + base : nullptr;
-  Station<kMode, Cores, Slots> st{wc, wr, -kInf};
+  Station<kMode> st{wc, wr, -kInf};
 
   const auto one = [&](int64_t k) {
     float o0, o1, o2;
@@ -267,20 +295,8 @@ __global__ void station_scan_kernel(StationArgs a) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= a.S) return;
   if (a.mode == 0) {
-    RegVec<1> none;
+    MemVec none{nullptr, 0};
     walk<0>(a, row, none, none);
-    return;
-  }
-  if (a.scratch == nullptr) {
-    RegVec<kRegCores> wc;
-    wc.init(a.cores);
-    if (a.mode == 1) {
-      walk<1>(a, row, wc, wc);
-      return;
-    }
-    RegVec<kRegSlots> wr;
-    wr.init(a.ram_k);
-    walk<2>(a, row, wc, wr);
     return;
   }
   const int slots = a.mode == 2 ? a.ram_k : 0;
@@ -296,18 +312,259 @@ __global__ void station_scan_kernel(StationArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the warp walk
+// ---------------------------------------------------------------------------
+
+// A carry vector of the warp walk, ascending, +inf past its live entries:
+// over kSpan = kLanes lanes, entries [lane E, (lane + 1) E) on lane
+// ``lane``; over kSpan = 1, the whole vector of E entries on every lane
+// (RegVec's layout: its insertion takes no shuffle).  Every lane also holds
+// a replica of the vector's first entry.
+template <int E, int kSpan>
+struct LaneVec {
+  float f[E];
+  float first;
+
+  __device__ __forceinline__ void init(int live, int lane) {
+    const int at = kSpan == 1 ? 0 : lane * E;
+#pragma unroll
+    for (int e = 0; e < E; ++e) f[e] = at + e < live ? 0.0f : INFINITY;
+    first = live > 0 ? 0.0f : INFINITY;
+  }
+  // the vector's second entry, from its owner lane; +inf where the vector
+  // is one entry wide
+  __device__ __forceinline__ float second() const {
+    if (kSpan * E == 1) return INFINITY;
+    if (kSpan == 1) return f[E >= 2 ? 1 : 0];
+    return E >= 2 ? __shfl_sync(kAll, f[E >= 2 ? 1 : 0], 0) : __shfl_sync(kAll, f[0], 1);
+  }
+  // lane + 1's first entry (not read on the last lane, nor over one lane)
+  __device__ __forceinline__ float next_lane() const {
+    return kSpan == 1 ? INFINITY : __shfl_down_sync(kAll, f[0], 1);
+  }
+  // RegVec's insertion of x (never below the first entry) over the whole
+  // vector, from ``second`` and ``next`` (second() and next_lane() before
+  // it).  Inserting the first entry itself leaves the vector as it is, bit
+  // for bit: no entry lies below it.
+  __device__ __forceinline__ void insert_first(float x, float second, float next, int lane) {
+    const bool head = kSpan == 1 || lane == 0;
+    const bool last = kSpan == 1 || lane == kLanes - 1;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const bool shift = e + 1 < E ? f[e + 1 < E ? e + 1 : e] < x : (!last && next < x);
+      const float nx = e + 1 < E ? f[e + 1 < E ? e + 1 : e] : next;
+      const float here = ((e == 0 && head) || f[e] < x) ? x : f[e];
+      f[e] = shift ? nx : here;
+    }
+    first = second < x ? second : x;
+  }
+};
+
+// How a vector of ``width`` entries lies in the warp walk: up to
+// kWholeMax entries whole on every lane, E the smallest power of two that
+// covers it (one lane in the host build: always whole); wider, over the
+// warp's lanes, E the smallest power of two with kLanes E >= width.
+struct Form {
+  int entries;
+  int span;
+};
+
+int pow2_at_least(int width) {
+  int e = 1;
+  while (e < width) e *= 2;
+  return e;
+}
+
+Form form_of(int width) {
+  if (width <= kWholeMax || kLanes == 1) return {pow2_at_least(width), 1};
+  return {pow2_at_least((width + kLanes - 1) / kLanes), kLanes};
+}
+
+// The output slot of element p of a group on its owner lane p % kLanes.
+__device__ __forceinline__ int own_slot(int p) { return kPerLane == 1 ? 0 : p / kLanes; }
+
+// One row a warp in mode kMode (1 or 2): the RAM-slot vector of ER entries
+// a lane over SR lanes (mode 2), the core vector of EC over SC.  Every
+// group of kGroup elements is walked whole: its elements outside the row
+// load as invalid, which leave the carry as it is, and their outputs are
+// not stored.  An invalid element (or, for the cores, an empty burst)
+// inserts the vector's first entry, so the walk has no branch an element.
+template <int kMode, int ER, int SR, int EC, int SC>
+__global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(StationArgs a) {
+  // a warp's group: arrival, service, pre-IO and post-IO as four rows of
+  // kGroup floats, and the validity bytes
+  __shared__ float4 stage_f[kWarps][4][kGroup / 4];
+  __shared__ uchar4 stage_v[kWarps][kGroup / 4];
+  const int lane = (int)(threadIdx.x % kLanes);
+  const int w = (int)(threadIdx.x / kLanes);
+  const int64_t row = (int64_t)blockIdx.x * kWarps + w;
+  if (row >= a.S) return;  // the whole warp
+  const int64_t m = a.m;
+  const int64_t base = row * m;
+  const float* __restrict__ A = a.a + base;
+  const float* __restrict__ D = a.d + base;
+  const uint8_t* __restrict__ V = a.v + base;
+  const float* __restrict__ P = kMode == 2 ? a.pre + base : nullptr;
+  const float* __restrict__ Q = kMode == 2 ? a.post + base : nullptr;
+  float* __restrict__ W0 = a.out0 + base;
+  float* __restrict__ W1 = kMode == 2 ? a.out1 + base : nullptr;
+  float* __restrict__ W2 = kMode == 2 ? a.out2 + base : nullptr;
+  float* sf = reinterpret_cast<float*>(stage_f[w]);
+  uint8_t* sv = reinterpret_cast<uint8_t*>(stage_v[w]);
+
+  LaneVec<EC, SC> wc;
+  LaneVec<ER, SR> wr;
+  wc.init(a.cores, lane);
+  wr.init(kMode == 2 ? a.ram_k : 0, lane);
+
+  // groups start on the rows' 128-byte lines: the first one holds
+  // (base % kGroup) elements before the row
+  const int64_t lead = base % kGroup;
+  float xa[kPerLane], xd[kPerLane], xp[kPerLane], xq[kPerLane];
+  uint8_t xv[kPerLane];
+  const auto load = [&](int64_t k0) {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int64_t k = k0 + lane + i * kLanes;
+      const bool in = k >= 0 && k < m;
+      xa[i] = in ? A[k] : 0.0f;
+      xd[i] = in ? D[k] : 0.0f;
+      xv[i] = in ? V[k] : 0;
+      if constexpr (kMode == 2) {
+        xp[i] = in ? P[k] : 0.0f;
+        xq[i] = in ? Q[k] : 0.0f;
+      }
+    }
+  };
+  float o0[kPerLane], o1[kPerLane], o2[kPerLane];
+  load(-lead);
+  for (int64_t k0 = -lead; k0 < m; k0 += kGroup) {
+    // stage this group, then set the next group's loads in flight
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int p = lane + i * kLanes;
+      sf[p] = xa[i];
+      sf[kGroup + p] = xd[i];
+      if constexpr (kMode == 2) {
+        sf[2 * kGroup + p] = xp[i];
+        sf[3 * kGroup + p] = xq[i];
+      }
+      sv[p] = xv[i];
+    }
+    __syncwarp();
+    if (k0 + kGroup < m) load(k0 + kGroup);
+#pragma unroll
+    for (int q = 0; q < kGroup / 4; ++q) {
+      const float4 a4 = stage_f[w][0][q];
+      const float4 d4 = stage_f[w][1][q];
+      const uchar4 v4 = stage_v[w][q];
+      float4 p4{}, q4{};
+      if constexpr (kMode == 2) {
+        p4 = stage_f[w][2][q];
+        q4 = stage_f[w][3][q];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = 4 * q + i;
+        const float ak = lane_of(a4, i);
+        const float dk = lane_of(d4, i);
+        const bool ok = lane_of(v4, i);
+        // off the carry chain: the vectors' second entries and each lane's
+        // neighbour entry, before the insertion's value is known
+        const float c2 = wc.second();
+        const float cn = wc.next_lane();
+        float e0, e1 = 0.0f, e2 = 0.0f;
+        if constexpr (kMode == 1) {
+          const float f0 = wc.first;
+          e0 = ok ? fmaxf(f0 - ak, 0.0f) : 0.0f;
+          wc.insert_first(ok ? fmaxf(f0, ak) + dk : f0, c2, cn, lane);
+        } else {
+          const float r2 = wr.second();
+          const float rn = wr.next_lane();
+          const float g = fmaxf(ak, wr.first);
+          const float enq = g + lane_of(p4, i);
+          const float start = dk > 0.0f ? fmaxf(enq, wc.first) : enq;
+          const float rel = (start + dk) + lane_of(q4, i);
+          wc.insert_first(ok && dk > 0.0f ? start + dk : wc.first, c2, cn, lane);
+          wr.insert_first(ok ? rel : wr.first, r2, rn, lane);
+          e0 = g - ak;
+          e1 = start - enq;
+          e2 = rel;
+        }
+        // the element's outputs, kept by its owner lane
+        if (p % kLanes == lane) {
+          o0[own_slot(p)] = e0;
+          if constexpr (kMode == 2) {
+            o1[own_slot(p)] = e1;
+            o2[own_slot(p)] = e2;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int64_t k = k0 + lane + i * kLanes;
+      if (k >= 0 && k < m) {
+        W0[k] = o0[i];
+        if constexpr (kMode == 2) {
+          W1[k] = o1[i];
+          W2[k] = o2[i];
+        }
+      }
+    }
+    __syncwarp();  // the stage is rewritten next group
+  }
+}
+
+// Launch the warp walk's instance for the RAM-slot form r and the core
+// form c.
+template <int kMode, int ER, int SR, int EC, int SC>
+int launch_warp_walk(const StationArgs& a, Form r, Form c, void* stream) {
+  if constexpr (kMode == 2 && SR == 1 && kLanes > 1) {
+    if (r.span != 1) return launch_warp_walk<kMode, ER, kLanes, EC, SC>(a, r, c, stream);
+  }
+  if constexpr (kMode == 2 && ER < (SR == kLanes ? kMaxEntries : kWholeMax)) {
+    if (r.entries > ER) return launch_warp_walk<kMode, 2 * ER, SR, EC, SC>(a, r, c, stream);
+  }
+  if constexpr (SC == 1 && kLanes > 1) {
+    if (c.span != 1) return launch_warp_walk<kMode, ER, SR, EC, kLanes>(a, r, c, stream);
+  }
+  if constexpr (EC < (SC == kLanes ? kMaxEntries : kWholeMax)) {
+    if (c.entries > EC) return launch_warp_walk<kMode, ER, SR, 2 * EC, SC>(a, r, c, stream);
+  }
+  const int threads = kWarps * kLanes;
+  const int64_t blocks = (a.S + kWarps - 1) / kWarps;
+  const auto kernel = station_scan_warp_kernel<kMode, ER, SR, EC, SC>;
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int station_scan_args_size() { return (int)sizeof(StationArgs); }
 
-// Floats of global scratch a row needs: 0 where the carry fits registers.
-int station_scan_scratch_floats(int mode, int cores, int ram_k) {
-  if (mode == 0) return 0;
-  if (mode == 1) return cores <= kRegCores ? 0 : cores;
-  return cores <= kRegCores && ram_k <= kRegSlots ? 0 : cores + ram_k;
+// Lanes a row of the warp walk runs on (1 in the host build) and the widest
+// carry vector it holds.
+int station_scan_lanes() { return kLanes; }
+int station_scan_warp_width_max() { return kWarpWidthMax; }
+
+// The walk a launch takes: 0 one thread a row (mode 0), 1 one warp a row
+// (modes 1 and 2 with both vectors up to kWarpWidthMax entries), 2 one
+// thread a row with the carry in global scratch of ram_k + cores floats a
+// row (wider).
+int station_scan_walk(int mode, int cores, int ram_k) {
+  if (mode == 0) return kWalkThread;
+  const int width = mode == 2 && ram_k > cores ? ram_k : cores;
+  return width <= kWarpWidthMax ? kWalkWarp : kWalkGlobal;
 }
+
+// How the warp walk holds a vector of ``width`` floats: the entries a lane
+// holds, and the lanes the vector spans (1: whole on every lane).
+int station_scan_lane_entries(int width) { return form_of(width).entries; }
+int station_scan_lane_span(int width) { return form_of(width).span; }
 
 // Launch on ``stream``; returns the launch's cudaError_t (0 on success),
 // or -1 for arguments the kernel does not take.
@@ -320,8 +577,13 @@ int station_scan_launch(const StationArgs* args, void* stream) {
   if (a.mode == 2 && (a.ram_k < 1 || a.pre == nullptr || a.post == nullptr ||
                       a.out1 == nullptr || a.out2 == nullptr))
     return -1;
-  if (a.scratch == nullptr && station_scan_scratch_floats(a.mode, a.cores, a.ram_k) > 0)
-    return -1;
+  const int walk = station_scan_walk(a.mode, a.cores, a.ram_k);
+  if (walk == kWalkWarp) {
+    const Form c = form_of(a.cores);
+    if (a.mode == 1) return launch_warp_walk<1, 1, 1, 1, 1>(a, Form{1, 1}, c, stream);
+    return launch_warp_walk<2, 1, 1, 1, 1>(a, form_of(a.ram_k), c, stream);
+  }
+  if (walk == kWalkGlobal && a.scratch == nullptr) return -1;
   const int threads = kRows;
   const int64_t blocks = (a.S + threads - 1) / threads;
   station_scan_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);

@@ -194,7 +194,8 @@ class _LbRouteArgs(ctypes.Structure):
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "t", "alive", "rank", "tl_time", "tl_down", "tl_slot", "table", "slot",
+            "t", "alive", "rank", "tl_time", "tl_down", "tl_slot", "partial", "table",
+            "slot",
         )]
         + [(name, ctypes.c_int64) for name in ("S", "n")]
         + [(name, ctypes.c_int32) for name in ("NTL", "EL", "mode")]
@@ -207,6 +208,8 @@ def _library() -> ctypes.CDLL:
     lib.lb_route_launch.restype = ctypes.c_int
     lib.lb_route_args_size.argtypes = []
     lib.lb_route_args_size.restype = ctypes.c_int
+    lib.lb_route_row_blocks.argtypes = [ctypes.c_int64]
+    lib.lb_route_row_blocks.restype = ctypes.c_int64
     if lib.lb_route_args_size() != ctypes.sizeof(_LbRouteArgs):
         msg = "LbRouteArgs layout mismatch between lb_route.cu and its ctypes mirror"
         raise KernelBuildError(msg)
@@ -274,8 +277,11 @@ class LbRoute:
                 raise ValueError(msg)
         table = torch.empty((s, tl.n_marks + 1, 2 + tl.el), dtype=torch.int32,
                             device=t.device)
+        # each count block's counts of the marks, summed by the marks' walk
+        blocks = _library().lb_route_row_blocks(n) if s and n else 0
+        partial = torch.empty((s, blocks, tl.n_marks), dtype=torch.int32, device=t.device)
         self._launch(MODE_TABLE, s, n, tl.n_marks, tl.el, t=t, alive=alive, table=table,
-                     tl_time=tl.times, tl_down=tl.down, tl_slot=tl.slot)
+                     partial=partial, tl_time=tl.times, tl_down=tl.down, tl_slot=tl.slot)
         return table
 
     def slots(self, table: torch.Tensor, rank: torch.Tensor, alive: torch.Tensor):

@@ -21,7 +21,13 @@ computes, operation for operation:
 Invalid entries leave the carry as it is (their outputs are computed and
 ignored), so a stream may interleave other stations' lanes.
 :class:`StationScan` is the wrapper: CUDA tensors launch the kernel (built
-on first use) or raise, CPU tensors run the plain version.
+on first use) or raise, CPU tensors run the plain version.  The kernel
+walks a row with one thread in Lindley's mode, and with one warp in the
+two carry modes, each carry vector spread over the warp's lanes, or whole
+on every lane where it is narrow (:func:`carry_form`); a vector wider
+than :data:`WARP_WIDTH_MAX` entries (a core count the schema does not
+bound) goes back to one thread a row with the carry in global scratch
+(:func:`walk_of`).
 """
 
 from __future__ import annotations
@@ -39,11 +45,39 @@ MODE_KW = 1
 MODE_RAM_CORE = 2
 #: each mode's name, as ``StationScan.mode_launches`` counts it
 MODE_NAMES = {MODE_LINDLEY: "lindley", MODE_KW: "kw", MODE_RAM_CORE: "ram_core"}
-#: core-free and RAM-slot vectors of up to these many floats live in
-#: registers; a wider carry in global scratch (station_scan.cu, kRegCores,
-#: kRegSlots; the library's station_scan_scratch_floats decides)
-REG_CORES = 8
-REG_SLOTS = 32
+#: the kernel's walks (station_scan.cu, ``station_scan_walk``): one thread
+#: a row (Lindley), one warp a row with the carry over its lanes (the carry
+#: modes up to WARP_WIDTH_MAX entries a vector), one thread a row with the
+#: carry in global scratch (wider)
+WALK_THREAD = 0
+WALK_WARP = 1
+WALK_GLOBAL = 2
+WALK_NAMES = {WALK_THREAD: "thread", WALK_WARP: "warp", WALK_GLOBAL: "global"}
+#: lanes of the warp walk, the widest carry vector it holds, and the widest
+#: it holds whole on every lane (kLanes, kWarpWidthMax, kWholeMax)
+WARP_LANES = 32
+WARP_WIDTH_MAX = 1024
+WHOLE_MAX = 4
+
+
+def walk_of(mode: int, cores: int, ram_k: int) -> int:
+    """The walk the kernel takes for a launch (``station_scan_walk``)."""
+    if mode == MODE_LINDLEY:
+        return WALK_THREAD
+    width = max(cores, ram_k) if mode == MODE_RAM_CORE else cores
+    return WALK_WARP if width <= WARP_WIDTH_MAX else WALK_GLOBAL
+
+
+def carry_form(width: int, lanes: int = WARP_LANES) -> tuple[int, int]:
+    """How the warp walk holds a vector of ``width`` floats: (entries a
+    lane, lanes it spans) (``station_scan_lane_entries``,
+    ``station_scan_lane_span``).  Up to :data:`WHOLE_MAX` entries (and
+    always with one lane, the host build's) the whole vector on every lane,
+    padded to a power of two; wider, spread over the lanes, each the
+    smallest power of two E with ``lanes * E >= width``."""
+    if width <= WHOLE_MAX or lanes == 1:
+        return 1 << (width - 1).bit_length(), 1
+    return 1 << (-(-width // lanes) - 1).bit_length(), lanes
 
 
 # ---------------------------------------------------------------------------
@@ -140,8 +174,8 @@ def _library() -> ctypes.CDLL:
     lib.station_scan_launch.restype = ctypes.c_int
     lib.station_scan_args_size.argtypes = []
     lib.station_scan_args_size.restype = ctypes.c_int
-    lib.station_scan_scratch_floats.argtypes = [ctypes.c_int] * 3
-    lib.station_scan_scratch_floats.restype = ctypes.c_int
+    lib.station_scan_walk.argtypes = [ctypes.c_int] * 3
+    lib.station_scan_walk.restype = ctypes.c_int
     if lib.station_scan_args_size() != ctypes.sizeof(_StationArgs):
         msg = "StationArgs layout mismatch between station_scan.cu and its ctypes mirror"
         raise KernelBuildError(msg)
@@ -161,10 +195,12 @@ class PlainStationScan:
 
 
 class StationScan:
-    """The station recursions with their launch count, in all and by mode
-    (``mode_launches``: Lindley, Kiefer-Wolfowitz, RAM-core).  A carry of up
-    to :data:`REG_CORES` cores and :data:`REG_SLOTS` RAM slots lives in
-    registers, a wider one in global scratch that the launch allocates."""
+    """The station recursions with their launch count, in all, by mode
+    (``mode_launches``: Lindley, Kiefer-Wolfowitz, RAM-core) and by walk
+    (``walk_launches``: a thread a row, a warp a row, the global-scratch
+    walk).  A carry vector of up to :data:`WARP_WIDTH_MAX` entries is held
+    by a warp's lanes (:func:`carry_form`); a wider one lives in global
+    scratch that the launch allocates."""
 
     name = "station_scan"
     route = "cuda"
@@ -177,6 +213,7 @@ class StationScan:
     def __init__(self) -> None:
         self.launches = 0
         self.mode_launches = dict.fromkeys(MODE_NAMES.values(), 0)
+        self.walk_launches = dict.fromkeys(WALK_NAMES.values(), 0)
 
     def waits(self, a: torch.Tensor, d: torch.Tensor, v: torch.Tensor, cores: int):
         """(S, m) FIFO waits of a ``cores``-server station."""
@@ -219,8 +256,9 @@ class StationScan:
         if s == 0 or m == 0:
             return
         lib = _library()
-        width = lib.station_scan_scratch_floats(mode, cores, ram_k)
-        if width > 0:
+        walk = lib.station_scan_walk(mode, cores, ram_k)
+        if walk == WALK_GLOBAL:
+            width = cores + (ram_k if mode == MODE_RAM_CORE else 0)
             tensors["scratch"] = torch.empty((s, width), dtype=torch.float32, device=dev)
         args = _StationArgs(S=s, m=m, mode=mode, cores=cores, ram_k=ram_k)
         for name, t in tensors.items():
@@ -232,3 +270,4 @@ class StationScan:
             raise KernelLaunchError(msg)
         self.launches += 1
         self.mode_launches[MODE_NAMES[mode]] += 1
+        self.walk_launches[WALK_NAMES[walk]] += 1

@@ -9,7 +9,7 @@ no result line):
 1. the card's name and power limit, the torch and nvcc versions, the
    build of every CUDA library of the port (one nvcc per library, in
    parallel) with the registers and spills ``ptxas -v`` reports for each
-   instance of the DES kernel, and for each path the instance it runs, the
+   instance of every kernel, and for each DES path the instance it runs, the
    pool's placement (its scanned fields in shared memory, or none),
    the block and its shared bytes, and the warps an SM holds;
 2. the DES kernel against its plain PyTorch twin on the card, on the same
@@ -49,9 +49,12 @@ no result line):
    and Kiefer-Wolfowitz scans, RAM-core scans) repeated through the plain
    version, bit-exact, and the whole engine through each, with identical
    integer outputs, per-request clocks and gauge means; a synthetic
-   timeline with an all-down interval and same-time marks through
-   ``lb_route`` at full width; and XLA's ``log1p`` in the kernel against
-   its plain version on each of the 2**23 uniforms;
+   timeline with an all-down interval and same-time marks, and one of 23
+   marks (two counting passes), through ``lb_route`` at full width;
+   ``station_scan`` at every carry width of ``SCAN_WIDTH_CASES`` (the warp
+   walk's width classes up to 1024 entries, and past them the
+   global-scratch walk) on 2048 synthetic rows; and XLA's ``log1p`` in the
+   kernel against its plain version on each of the 2**23 uniforms;
 5. the six fast paths: ``SweepRunner(payload).run(2048, seed=0)``
    through ``engine="auto"``, which must take the fast path and launch
    its kernels (counts set to 0 before the run: ``edge_draws`` and
@@ -463,6 +466,19 @@ REFERENCE_FAST = {
 #: its scenarios
 FAST_CHECK_HORIZON = 60
 FAST_CHECK_SCENARIOS = 64
+#: station_scan's carry widths phase 4 holds to the plain versions on
+#: synthetic streams: (mode, RAM slots, cores) at the edges of the warp
+#: walk's width classes for either vector (whole on every lane up to 4,
+#: then spread over the lanes) up to the widest it holds (1024), and one
+#: core vector past it (the global-scratch walk); rows of the check, and
+#: their elements (no multiple of 4: most rows start unaligned)
+SCAN_WIDTH_CASES = (
+    [("kw", 0, cores) for cores in (2, 4, 5, 8, 9, 33, 1025)]
+    + [("ram_core", slots, 1) for slots in (1, 4, 5, 31, 32, 33, 64, 65, 1024)]
+    + [("ram_core", 5, 5), ("ram_core", 20, 33), ("ram_core", 8, 1025)]
+)
+SCAN_CHECK_ROWS = 2048
+SCAN_CHECK_ELEMENTS = 4099
 P95_RTOL = 0.02
 REJECTED_ATOL = 0.02
 LLM_COST_RTOL = 0.02
@@ -636,9 +652,8 @@ def phase_setup(torch) -> None:
         for instance, res in ptxas_instances(report).items():
             print(f"  ptxas[{name}] {instance}: {res}")
         if name in ("edge_draws", "station_scan", "lb_route"):
-            res = " ".join(line.split(":", 2)[-1].strip() for line in report.splitlines()
-                           if "spill" in line or "registers" in line)
-            print(f"  ptxas[{name}]: {res}")
+            for entry, res in ptxas_entries(report).items():
+                print(f"  ptxas[{name}] {entry}: {res}")
     for name, plan in _path_plans().items():
         print(f"  {name}: {_layout_text(kernel_layout(plan))}")
 
@@ -656,6 +671,49 @@ def ptxas_instances(report: str) -> dict:
         if found:
             flags = (int(x) for x in found.groups())
             current = "des_kernel<events={}, controls={}, workload={}>".format(*flags)
+            out[current] = ""
+        elif current is not None and ("spill" in line or "registers" in line):
+            out[current] += (" " if out[current] else "") + line.split(":", 2)[-1].strip()
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name in a mangled entry name: the length-prefixed name
+    that ends in ``_kernel``, with an instance's integer template arguments
+    (``station_scan_warp_kernel<2, 2, 32, 1, 1>``)."""
+    import re
+
+    i, name = 0, mangled
+    while i < len(mangled):
+        digits = re.match(r"\d+", mangled[i:])
+        if not digits:
+            i += 1
+            continue
+        start = i + len(digits.group())
+        part = mangled[start:start + int(digits.group())]
+        if part.endswith("_kernel"):
+            name = part
+            break
+        i = start + len(part)
+    if name == mangled:
+        found = re.search(r"[a-z]+(?:_[a-z]+)*_kernel", mangled)
+        name = found.group() if found else mangled
+    args = re.findall(r"Li(\d+)E", mangled)
+    return name + ("<" + ", ".join(args) + ">" if args else "")
+
+
+def ptxas_entries(report: str) -> dict:
+    """Registers and spills of each entry function in a ``ptxas -v`` log,
+    by kernel and instance (station_scan's warp walk: mode, then the
+    RAM-slot and the core vector's entries a lane and lanes spanned;
+    lb_route's count: its marks a pass)."""
+    import re
+
+    out, current = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            current = _kernel_name(entry.group(1))
             out[current] = ""
         elif current is not None and ("spill" in line or "registers" in line):
             out[current] += (" " if out[current] else "") + line.split(":", 2)[-1].strip()
@@ -1481,6 +1539,54 @@ def _fast_engine(torch, data: dict, horizon: float | None = None, **kw):
     return FastEngine(compile_payload(SimulationPayload.from_dict(data)), device="cuda", **kw)
 
 
+def _scan_width_check(torch, kernel, plain) -> float:
+    """station_scan at each of SCAN_WIDTH_CASES against its plain version on
+    SCAN_CHECK_ROWS synthetic sorted streams of SCAN_CHECK_ELEMENTS made on
+    the card from a seed (half the lanes valid, exponential services and
+    post-IO, the station loaded past its cores or slots so that it
+    queues); bit-exact, and the walk each case takes counted.  Returns the
+    largest difference (0.0)."""
+    from asyncflow_tpu_torch.engines.torchsim import station_scan
+
+    err = 0.0
+    s, m = SCAN_CHECK_ROWS, SCAN_CHECK_ELEMENTS
+    walks = dict.fromkeys(kernel.walk_launches, 0)
+    for seed, (mode, slots, cores) in enumerate(SCAN_WIDTH_CASES):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        rate = 60.0 * (cores if mode == "kw" else 1)
+        a = torch.cumsum(torch.empty((s, m), device="cuda").exponential_(rate, generator=g),
+                         dim=1)
+        svc = 0.05 if mode == "kw" else 0.01
+        d = torch.empty((s, m), device="cuda").exponential_(1.0 / svc, generator=g)
+        v = torch.rand((s, m), device="cuda", generator=g) < 0.5
+        before = dict(kernel.walk_launches)
+        if mode == "kw":
+            got = (kernel.waits(a, d, v, cores),)
+            want = (plain.waits(a, d, v, cores),)
+            waits = want[0]
+        else:
+            pre = torch.full_like(a, 0.001)
+            # residence 1.5 times what the slots hold at the valid lanes' rate
+            post = torch.empty((s, m), device="cuda").exponential_(
+                30.0 / (1.5 * slots), generator=g)
+            d = torch.where(torch.rand((s, m), device="cuda", generator=g) < 0.1, 0.0, d)
+            got = kernel.ram_core(a, pre, d, post, v, slots, cores)
+            want = plain.ram_core(a, pre, d, post, v, slots, cores)
+            waits = want[0]
+        label = f"fast check: station_scan {mode} with {slots} RAM slots and {cores} cores"
+        err = max(err, _compare(torch, label, got, want))
+        if float(waits[v].max()) <= 0.0:
+            raise SmokeError(f"{label}: the synthetic station never queues")
+        walk = next(k for k, n in kernel.walk_launches.items() if n > before[k])
+        walks[walk] += 1
+        del a, d, v, got, want, waits
+    if walks["warp"] != len(SCAN_WIDTH_CASES) - 2 or walks["global"] != 2:
+        raise SmokeError(f"fast check: the width cases took the walks {walks}")
+    print(f"fast check: station_scan == plain at {len(SCAN_WIDTH_CASES)} carry widths "
+          f"({s} x {m} synthetic streams; walks {walks})", flush=True)
+    return err
+
+
 def phase_fast_check(torch) -> dict:
     """Phase 4: the fast path's kernels against their plain versions on the
     card, on each fast payload cut to FAST_CHECK_HORIZON seconds (events
@@ -1493,9 +1599,10 @@ def phase_fast_check(torch) -> dict:
     completed request's (arrival, finish) clock and every gauge mean
     identical.  Then a synthetic timeline (an all-down interval, marks at
     one time, an up mark for a slot present, a down mark for one absent)
-    through lb_route on event_inj_lb's full-width lanes; last, XLA's log1p
-    in the kernel against its plain version on each of the 2**23
-    uniforms."""
+    through lb_route on event_inj_lb's full-width lanes, and one of more
+    marks than the table pass counts in a pass; station_scan at every carry
+    width of SCAN_WIDTH_CASES on synthetic streams; last, XLA's log1p in the
+    kernel against its plain version on each of the 2**23 uniforms."""
     from asyncflow_tpu_torch.engines.torchsim import routing
     from asyncflow_tpu_torch.engines.torchsim.keys import fold_in, scenario_keys
     from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
@@ -1568,7 +1675,25 @@ def phase_fast_check(torch) -> dict:
                          f"{empty} and {unrouted} unrouted lanes")
     print(f"fast check: a synthetic timeline through lb_route == plain on {MAIN_SCENARIOS} x "
           f"{eng.n} lanes ({unrouted} lanes found every server down)", flush=True)
+    # 23 marks, some at one time: two of the table pass's counting passes
+    times = [15.0 * k + (0.0 if k % 5 else 7.5) for k in range(21)] + [307.5, 307.5]
+    tl = routing.Timeline(times, [1, 0] * 11 + [1], [k % 2 for k in range(21)] + [0, 1], 2,
+                          "cuda")
+    args = (tl, ts[0], valids[0])
+    want = _call(plains["lb_route"], "route_table", args, {})
+    measured["lb_route"] = max(measured["lb_route"], _compare(
+        torch, "fast check: a timeline of 23 marks",
+        _call(eng.route, "route_table", args, {}), want))
+    args = (want[0], time_rank(ts[0], valids[0]), valids[0])
+    measured["lb_route"] = max(measured["lb_route"], _compare(
+        torch, "fast check: a timeline of 23 marks, lanes",
+        _call(eng.route, "route_slots", args, {}),
+        _call(plains["lb_route"], "route_slots", args, {})))
+    print(f"fast check: a timeline of {tl.n_marks} marks through lb_route == plain on "
+          f"{MAIN_SCENARIOS} x {eng.n} lanes", flush=True)
     del ts, valids, args, slots, want
+    width_err = _scan_width_check(torch, eng.scan, plains["station_scan"])
+    measured["station_scan"] = max(measured["station_scan"], width_err)
     u = torch.arange(2**23, dtype=torch.float64, device="cuda").div(2**23).float().view(8, -1)
     measured["edge_draws"] = max(measured["edge_draws"], _compare(
         torch, "fast check: log1p_xla on every uniform", _call(eng.draws, "gap_of", (u,), {}),
@@ -1603,7 +1728,8 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     payload's full horizon through ``engine="auto"``, which must take the
     fast path and launch its kernels (``lb_route`` where the LB has a
     timeline, the Kiefer-Wolfowitz scan where a DB pool has several
-    connections); request conservation; the pooled p95 within 2% of the
+    connections, every carry scan through the warp walk); request
+    conservation; the pooled p95 within 2% of the
     JAX fast path's and of the port's DES kernel's on the same payload
     (``des``, phase 3's sweep of it, or a kernel sweep here); the DES
     kernel's sweep, where it runs here, with no truncated and no
@@ -1631,16 +1757,20 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     for wrapper in _wrappers(eng).values():
         wrapper.launches = 0
     eng.scan.mode_launches = dict.fromkeys(eng.scan.mode_launches, 0)
+    eng.scan.walk_launches = dict.fromkeys(eng.scan.walk_launches, 0)
     torch.cuda.reset_peak_memory_stats()
     report = runner.run(MAIN_SCENARIOS, seed=0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: w.launches for k, w in _wrappers(eng).items()}
     mode_launches = dict(eng.scan.mode_launches)
+    walk_launches = dict(eng.scan.walk_launches)
     need = ["edge_draws", "station_scan"] + (["lb_route"] if eng.timeline else [])
     kw_pool = bool(np.any(plan.server_db_pool > 1))
-    if min(launches[k] for k in need) < 1 or (kw_pool and mode_launches["kw"] < 1):
+    carries = mode_launches["kw"] + mode_launches["ram_core"]
+    if (min(launches[k] for k in need) < 1 or (kw_pool and mode_launches["kw"] < 1)
+            or walk_launches["warp"] != carries):
         raise SmokeError(f"fast {name}: the sweep launched {launches}, station_scan by mode "
-                         f"{mode_launches}")
+                         f"{mode_launches} and by walk {walk_launches}")
     summary = report.summary()
     res = report.results
     in_flight = (res.total_generated - res.completed - res.total_dropped
@@ -1711,7 +1841,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     print(
         f"fast path {name}: {MAIN_SCENARIOS} scenarios x {plan.horizon:.0f} s, "
         f"{eng.n} lanes ({eng.gen_n} a stream), chunks of {runner.default_chunk}, launches "
-        f"{launches} (station_scan by mode {mode_launches}), "
+        f"{launches} (station_scan by mode {mode_launches}, by walk {walk_launches}), "
         f"{report.wall_seconds:.3f} s wall, {summary['scenarios_per_second']:.1f} scen/s"
         + ("" if des.get("scen_per_s") is None
            else f" (DES kernel sweep {des['scen_per_s']:.1f} scen/s)")
@@ -1737,6 +1867,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     return {
         "launches": launches,
         "mode_launches": mode_launches,
+        "walk_launches": walk_launches,
         "wall_s": report.wall_seconds,
         "scen_per_s": summary["scenarios_per_second"],
         "des_scen_per_s": des.get("scen_per_s"),
@@ -1847,7 +1978,8 @@ def main() -> int:
                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                         for kind, t in f["timed"][wrapper.name]["modes"].items()
                     },
-                    **({"mode_launches": f["mode_launches"]} if wrapper is StationScan
+                    **({"mode_launches": f["mode_launches"],
+                        "walk_launches": f["walk_launches"]} if wrapper is StationScan
                        else {}),
                 }
                 for name, f in fast.items()

@@ -30,7 +30,7 @@ KINDS = (
     ("edge_draws", ("uniform_kernel", "gaps_kernel", "hop_kernel", "hop_reduce_kernel",
                     "edge_draws_kernel")),
     ("station_scan", ("station_scan",)),
-    ("lb_route", ("table_kernel", "lanes_kernel")),
+    ("lb_route", ("route_count_kernel", "route_marks_kernel", "lanes_kernel")),
     ("float adds", ("CUDAFunctor_add", "AddFunctor")),
     ("clamps", ("clamp",)),
     ("selects (where)", ("where",)),

@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""Time build variants of the port's station_scan kernel on one CUDA card.
+"""Time builds of the port's station_scan kernel on one CUDA card.
 
-    python3 scripts/torch_scan_variants.py [--rows 16,32] [--ahead 0,256]
+    python3 scripts/torch_scan_variants.py [--rows 16] [--ahead 256] [--against SOURCE]
+                                           [--row-counts 132,2048]
 
-Builds ``csrc/station_scan.cu`` once for each pair of rows a block
-(``-DSTATION_ROWS``) and prefetch distance in elements
-(``-DSTATION_AHEAD``, 0 for none), one nvcc each, all at once; then times
-each build between CUDA events (``chip_smoke.time_kernel``, median of 5
-launches after a warm-up) in the two modes the fast paths launch, at their
-full-width shapes: the c = 1 wait scan over (2048, 87,840) and the RAM-core
-scan with 20 slots and one core over (2048, 20,280), on synthetic sorted
-streams made on the card from a seed.  Every build's outputs must equal
-the first build's bit for bit.  Prints the card's name and power limit and
-one line a build and mode.  Needs a CUDA card.
+Builds ``csrc/station_scan.cu`` once for each pair of rows a block of the
+thread walk (``-DSTATION_ROWS``) and prefetch distance in elements
+(``-DSTATION_AHEAD``, 0 for none), and, with ``--against``, another
+``station_scan.cu`` (say an earlier commit's, unpacked with ``git
+archive``) as it is, one nvcc each, all at once.  Then it times each build
+between CUDA events (``chip_smoke.time_kernel``, median of 5 launches after
+a warm-up) at the fast paths' full-width shapes, on synthetic sorted
+streams made on the card from a seed: the c = 1 wait scan over (2048,
+87,840) (two_servers_lb), the RAM-core scan with 20 slots and one core over
+(2048, 20,280) (single_server) and with 40 slots over (1797, 100,085)
+(heavy_inj_single_server's chunk), and the Kiefer-Wolfowitz scan at K = 2
+over (2048, 3,810) (db_pool_k2).  The builds take their turns in the order
+given and then the reverse (A, B, B, A), each case on the same inputs, and
+every build's outputs must equal the first build's bit for bit.  With
+``--row-counts``, each case is timed again on this source's last build
+at those row counts (its rows' length kept): 132 rows is one warp an SM of the
+warp walk, so the time an element a row there is the walk's chain, and at
+more rows what the SM's pipes allow.  Prints the card's name and power
+limit and one line a build and case.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -37,6 +47,21 @@ def streams(torch, s: int, m: int, rate: float, svc: float, seed: int) -> dict:
     return {"a": a, "d": d, "v": v, "pre": torch.zeros_like(a), "post": post}
 
 
+def scratch_floats(lib, mode: int, cores: int, ram_k: int) -> int:
+    """Floats of global scratch a row of ``lib``'s kernel needs: the
+    global walk's carry (``station_scan_walk``), or an earlier build's
+    ``station_scan_scratch_floats``."""
+    from asyncflow_tpu_torch.engines.torchsim import station_scan
+
+    if hasattr(lib, "station_scan_walk"):
+        lib.station_scan_walk.argtypes = [ctypes.c_int] * 3
+        if lib.station_scan_walk(mode, cores, ram_k) != station_scan.WALK_GLOBAL:
+            return 0
+        return cores + (ram_k if mode == station_scan.MODE_RAM_CORE else 0)
+    lib.station_scan_scratch_floats.argtypes = [ctypes.c_int] * 3
+    return lib.station_scan_scratch_floats(mode, cores, ram_k)
+
+
 def launcher(torch, lib, mode: int, cores: int, ram_k: int, inputs: dict):
     """A function that launches ``lib``'s kernel on ``inputs`` and returns
     its outputs."""
@@ -44,7 +69,7 @@ def launcher(torch, lib, mode: int, cores: int, ram_k: int, inputs: dict):
 
     a = inputs["a"]
     outs = [torch.empty_like(a) for _ in range(3 if mode == station_scan.MODE_RAM_CORE else 1)]
-    width = lib.station_scan_scratch_floats(mode, cores, ram_k)
+    width = scratch_floats(lib, mode, cores, ram_k)
     scratch = torch.empty((a.shape[0], max(width, 1)), device="cuda")
     args = station_scan._StationArgs(
         a=a.data_ptr(), d=inputs["d"].data_ptr(), v=inputs["v"].data_ptr(),
@@ -67,8 +92,12 @@ def launcher(torch, lib, mode: int, cores: int, ram_k: int, inputs: dict):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--rows", default="16,32")
-    parser.add_argument("--ahead", default="0,256")
+    parser.add_argument("--rows", default="16")
+    parser.add_argument("--ahead", default="256")
+    parser.add_argument("--against", default=None,
+                        help="another station_scan.cu to build and time beside this one")
+    parser.add_argument("--row-counts", default="",
+                        help="row counts to time each case at on this source's build")
     opts = parser.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -82,6 +111,9 @@ def main() -> int:
     print(chip_smoke.card_line())
     src = _build.SOURCES["station_scan"][0]
     names = []
+    if opts.against:
+        _build.SOURCES["station_scan_against"] = (Path(opts.against).resolve(), ())
+        names.append("station_scan_against")
     for rows in (int(r) for r in opts.rows.split(",")):
         for ahead in (int(x) for x in opts.ahead.split(",")):
             name = f"station_scan_rows{rows}_ahead{ahead}"
@@ -90,28 +122,45 @@ def main() -> int:
     _build.build(names)
     libs = {}
     for name in names:
+        for line in _build.ptxas_report.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas[{name}] {line.split(':', 2)[-1].strip()}")
         lib = _build.load(name)
         lib.station_scan_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.station_scan_scratch_floats.argtypes = [ctypes.c_int] * 3
         libs[name] = lib
     cases = {
         "waits c=1 (2048 x 87840)": (station_scan.MODE_LINDLEY, 1, 0,
-                                     streams(torch, 2048, 87_840, 133.0, 0.002, 0)),
+                                     (2048, 87_840, 133.0, 0.002, 0)),
         "ram_core k=20 c=1 (2048 x 20280)": (station_scan.MODE_RAM_CORE, 1, 20,
-                                             streams(torch, 2048, 20_280, 40.0, 0.001, 1)),
+                                             (2048, 20_280, 40.0, 0.001, 1)),
+        "ram_core k=40 c=1 (1797 x 100085)": (station_scan.MODE_RAM_CORE, 1, 40,
+                                              (1797, 100_085, 150.0, 0.001, 2)),
+        "kw K=2 (2048 x 3810)": (station_scan.MODE_KW, 2, 0, (2048, 3_810, 40.0, 0.06, 3)),
     }
-    for case, (mode, cores, ram_k, inputs) in cases.items():
+    order = names + names[::-1]
+    for case, (mode, cores, ram_k, shape) in cases.items():
+        inputs = streams(torch, *shape)
         first = None
-        for name, lib in libs.items():
-            run = launcher(torch, lib, mode, cores, ram_k, inputs)
+        for name in order:
+            run = launcher(torch, libs[name], mode, cores, ram_k, inputs)
             out = [x.clone() for x in run()]
             if first is None:
                 first = out
             elif not all(torch.equal(x, y) for x, y in zip(out, first, strict=True)):
-                print(f"{case}: {name} differs from {names[0]}", file=sys.stderr)
+                print(f"{case}: {name} differs from {order[0]}", file=sys.stderr)
                 return 1
             ms = chip_smoke.time_kernel(torch, run, repeats=5)
             print(f"{case}: {name} {ms:.3f} ms", flush=True)
+            del out
+        del inputs, first
+        for rows in (int(r) for r in opts.row_counts.split(",") if r):
+            inputs = streams(torch, rows, *shape[1:])
+            run = launcher(torch, libs[names[-1]], mode, cores, ram_k, inputs)
+            run()
+            ms = chip_smoke.time_kernel(torch, run, repeats=5)
+            print(f"{case} at {rows} rows: {names[-1]} {ms:.3f} ms, "
+                  f"{ms * 1e6 / shape[1]:.1f} ns an element a row", flush=True)
+            del inputs
     return 0
 
 

@@ -12,6 +12,7 @@ and sum in the same order.
 from __future__ import annotations
 
 import copy
+import ctypes
 
 import numpy as np
 import pytest
@@ -98,11 +99,15 @@ def test_edge_draws_match_plain_on_cuda(cuda_device) -> None:
     ([0.4, 0.9, 1.2, 1.6], [1, 0, 1, 0], [0, 0, 2, 2]),
     ([0.3, 0.5, 0.5, 0.8, 0.8, 1.4, 1.4], [1, 1, 1, 0, 0, 0, 1], [1, 0, 2, 0, 2, 1, 0]),
     ([-1.0, 0.2, 0.2, 0.6, 1.0, 5.0], [1, 0, 1, 1, 0, 1], [2, 1, 2, -1, 0, 1]),
+    # more marks than the count kernel holds in one pass, two at one time
+    ([0.05 * k + (0.0 if k % 5 else 0.025) for k in range(21)] + [1.025, 1.025],
+     [1, 0] * 11 + [1], [k % 3 for k in range(21)] + [1, 2]),
 ])
 def test_lb_route_matches_plain_on_cuda(cuda_device, marks) -> None:
-    """Both lb_route kernels on rows of 20,011 lanes (a tenth dead, ties
-    with the marks) against the segment form: every mark case, an
-    all-down interval and same-time marks among them."""
+    """Both lb_route kernels on rows of 20,011 lanes (three count blocks a
+    row; a tenth dead, ties with the marks) against the segment form: every
+    mark case, an all-down interval, same-time marks and more marks than
+    one counting pass holds among them."""
     from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank
 
     g = np.random.default_rng(6)
@@ -121,7 +126,8 @@ def test_lb_route_matches_plain_on_cuda(cuda_device, marks) -> None:
     assert bool((got[alive] >= 0).any())
 
 
-#: rows of the scan tests: a warp of 32 rows a block, the last one part-full
+#: rows of the scan tests: blocks of 4 rows (warp walk) and 16 (thread
+#: walk), the last one part-full
 ROWS = 45
 
 
@@ -135,31 +141,61 @@ def _stream(dev, seed: int, m: int, rate: float, svc: float):
     return (torch.tensor(x, device=dev) for x in (a, d, v))
 
 
+def _walk(mode: int, cores: int, ram_k: int) -> str:
+    return station_scan.WALK_NAMES[station_scan.walk_of(mode, cores, ram_k)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cores", [1, 4, station_scan.REG_CORES, station_scan.REG_CORES + 1])
+def test_station_walks_on_cuda(cuda_device) -> None:
+    """The card's library runs the warp walk over 32 lanes and holds each
+    carry vector as ``carry_form`` says: whole on every lane up to
+    WHOLE_MAX entries, else spread over the lanes."""
+    lib = station_scan._library()
+    for fn in ("station_scan_lanes", "station_scan_lane_entries", "station_scan_lane_span",
+               "station_scan_warp_width_max"):
+        getattr(lib, fn).restype = ctypes.c_int
+    assert lib.station_scan_lanes() == station_scan.WARP_LANES
+    assert lib.station_scan_warp_width_max() == station_scan.WARP_WIDTH_MAX
+    for width in (1, 2, 3, 4, 5, 31, 32, 33, 64, 65, 1024):
+        form = (lib.station_scan_lane_entries(width), lib.station_scan_lane_span(width))
+        assert form == station_scan.carry_form(width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cores", [1, 2, 4, 5, 8, 9, 33, station_scan.WARP_WIDTH_MAX + 1])
 def test_station_waits_match_plain_on_cuda(cuda_device, cores: int) -> None:
-    """c = 1, core vectors in registers, and one past them (global
-    scratch)."""
-    # rows of 2001: each row starts at another offset from a 16-byte boundary
-    a, d, v = _stream(cuda_device, 3, 2001, rate=40.0 * cores, svc=0.02)
+    """c = 1 (a thread a row), the warp walk at the edges of its width
+    classes (whole on every lane up to 4 cores, then spread over the lanes
+    one, two, ... entries a lane), and one core past it (global scratch)."""
+    # rows of 2001: each row starts at another offset from a 16-byte boundary;
+    # the widest station is loaded past its cores, so that it queues at all
+    rate = (40.0 if cores <= station_scan.WARP_WIDTH_MAX else 200.0) * cores
+    a, d, v = _stream(cuda_device, 3, 2001, rate=rate, svc=0.02)
     kernel = station_scan.StationScan()
     got = kernel.waits(a, d, v, cores)
-    assert torch.equal(got, station_scan.PlainStationScan().waits(a, d, v, cores))
+    want = station_scan.PlainStationScan().waits(a, d, v, cores)
+    assert torch.equal(got, want)
+    assert float(want[v].max()) > 0.0
     assert kernel.launches == 1
+    mode = station_scan.MODE_LINDLEY if cores == 1 else station_scan.MODE_KW
+    assert kernel.walk_launches[_walk(mode, cores, 0)] == 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(("ram_k", "cores"), [
-    (20, 1), (6, 2), (station_scan.REG_SLOTS, station_scan.REG_CORES),
-    (station_scan.REG_SLOTS + 1, 2), (20, station_scan.REG_CORES + 1), (100, 1),
+    (1, 1), (4, 4), (5, 5), (20, 1), (6, 2), (31, 1), (32, 8), (33, 2), (64, 1), (65, 9),
+    (100, 1), (station_scan.WARP_WIDTH_MAX, 1), (20, 33),
+    (8, station_scan.WARP_WIDTH_MAX + 1),
 ])
 def test_ram_core_matches_plain_on_cuda(cuda_device, ram_k: int, cores: int) -> None:
-    """Carries in registers (the first three, the third at both limits) and
-    in global scratch (one past either limit, and a wide one)."""
-    a, d, v = _stream(cuda_device, 4, 1501, rate=60.0, svc=0.01)
+    """The warp walk at the edges of its width classes for either vector,
+    up to its widest, and a core vector past it (global scratch)."""
+    # rows of 4001: 1024 slots fill within a row's ~2,670 valid lanes
+    a, d, v = _stream(cuda_device, 4, 4001, rate=60.0, svc=0.01)
     pre = torch.full_like(a, 0.001)
+    # residence about 1.5x what the slots hold at the valid lanes' rate
     post = torch.tensor(
-        np.random.default_rng(9).exponential(1.5 * ram_k / 60.0, tuple(a.shape)),
+        np.random.default_rng(9).exponential(1.5 * ram_k / 40.0, tuple(a.shape)),
         dtype=torch.float32, device=cuda_device,
     )
     kernel = station_scan.StationScan()
@@ -168,6 +204,7 @@ def test_ram_core_matches_plain_on_cuda(cuda_device, ram_k: int, cores: int) -> 
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     assert float(want[0][v].max()) > 0.0
+    assert kernel.walk_launches[_walk(station_scan.MODE_RAM_CORE, cores, ram_k)] == 1
 
 
 def _single_server() -> dict:

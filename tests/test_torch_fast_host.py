@@ -68,18 +68,28 @@ inline int cudaGetLastError() { return 0; }
 inline float __uint_as_float(unsigned x) { float f; std::memcpy(&f, &x, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned x; std::memcpy(&x, &f, 4); return x; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned old = *p; *p += v; return old; }
+#define __launch_bounds__(...)
+#define __host__
+inline void __syncwarp(unsigned = 0xffffffffu) {}
+template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
+template <class T> inline T __shfl_down_sync(unsigned, T v, unsigned) { return v; }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
 """
 #: a one-dimensional launch (station_scan.cu) and a launch on dim3 grids
-#: (edge_draws.cu), each made a loop that runs the threads one after another
+#: (edge_draws.cu, lb_route.cu), each made a loop that runs the threads one
+#: after another; a kernel may be a template's instance
 LAUNCH = re.compile(
-    r"(\w+)<<<\(unsigned\)blocks, threads, 0, \(cudaStream_t\)stream>>>\(a\);",
+    r"(\w+(?:<[^<>;]*>)?)<<<\(unsigned\)blocks, threads, 0, "
+    r"\(cudaStream_t\)stream>>>\(a\);",
 )
 HOST_LAUNCH = (
     r"for (unsigned b = 0; b < (unsigned)blocks; ++b)"
     r" for (unsigned t = 0; t < (unsigned)threads; ++t) {"
     r" blockIdx.x = b; blockDim.x = threads; threadIdx.x = t; \1(a); }"
 )
-LAUNCH_2D = re.compile(r"(\w+)<<<(\w+), (\w+), \w+, \(cudaStream_t\)stream>>>\(a\);")
+LAUNCH_2D = re.compile(
+    r"(\w+(?:<[^<>;]*>)?)<<<(\w+), (\w+), \w+, \(cudaStream_t\)stream>>>\(a\);",
+)
 HOST_LAUNCH_2D = (
     r"for (unsigned gy = 0; gy < \2.y; ++gy) for (unsigned gx = 0; gx < \2.x; ++gx)"
     r" for (unsigned t = 0; t < \3.x; ++t) {"
@@ -91,7 +101,7 @@ HOST_LAUNCH_2D = (
 HOST_SMEM = {"edge_draws": "double edge_smem[1 << 13];\n",
              "lb_route": "uint32_t route_smem[1 << 14];\n"}
 #: the launch statements on dim3 grids each source has
-LAUNCHES_2D = {"edge_draws": 4, "lb_route": 2}
+LAUNCHES_2D = {"edge_draws": 4, "lb_route": 3}
 
 
 def _build(tmp: Path, name: str) -> ctypes.CDLL:
@@ -103,7 +113,7 @@ def _build(tmp: Path, name: str) -> ctypes.CDLL:
             "the launch statements changed: update LAUNCH_2D"
         src = LAUNCH_2D.sub(HOST_LAUNCH_2D, src) + HOST_SMEM[name]
     else:
-        assert LAUNCH.search(src), "the launch statement changed: update LAUNCH"
+        assert len(LAUNCH.findall(src)) == 2, "the launch statements changed: update LAUNCH"
         src = LAUNCH.sub(HOST_LAUNCH, src)
     (tmp / "shim.h").write_text(SHIM)
     (tmp / f"{name}.cpp").write_text(src)
@@ -353,40 +363,55 @@ TIMELINES = {
                            [1, 1, 1, 0, 0, 0, 1], [1, 0, 2, 0, 2, 1, 0]),
     "present_absent_unknown": ([0.2, 0.2, 0.6, 1.0], [0, 1, 1, 0], [1, 2, -1, 0]),
     "before_and_after": ([-1.0, 0.0, 5.0, 6.0], [1, 0, 1, 0], [2, 2, 1, 1]),
+    # more marks than the count kernel holds in one pass (kMarksAPass = 16),
+    # some at one time, over a row of several count blocks
+    "many_marks": ([0.05 * k + (0.0 if k % 5 else 0.025) for k in range(21)]
+                   + [1.025, 1.025], [1, 0] * 11 + [1],
+                   [k % 3 for k in range(21)] + [1, 2]),
 }
+#: lanes a row of each timeline's case: 4099 (most rows start unaligned),
+#: and past one count block (8192 lanes) where the marks take two passes
+ROUTE_LANES = {"many_marks": 9001}
 
 
 @pytest.mark.parametrize("name", sorted(TIMELINES))
 def test_lb_route_matches_plain(host_libs, name: str) -> None:
-    """Both lb_route kernels on rows of 4099 lanes (a tenth dead) against
-    the segment form, exactly, and the slots against the arrival-by-arrival
-    replay of the reference's scan."""
+    """Both lb_route kernels on rows of 4099 lanes, or 9001 (a tenth dead),
+    against the segment form, exactly, and the slots against the
+    arrival-by-arrival replay of the reference's scan."""
     from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank
 
+    n = ROUTE_LANES.get(name, N)
     g = np.random.default_rng(4)
-    t = torch.tensor(np.round(g.uniform(0.0, 2.0, (S, N)), 3), dtype=torch.float32)
-    alive = torch.tensor(g.random((S, N)) > 0.1)
+    t = torch.tensor(np.round(g.uniform(0.0, 2.0, (S, n)), 3), dtype=torch.float32)
+    alive = torch.tensor(g.random((S, n)) > 0.1)
     times, down, slots = TIMELINES[name]
     tl = routing.Timeline(times, down, slots, 3, "cpu")
     if tl.n_marks:
         t[0, :5] = tl.times[-1]  # arrivals at exactly a mark's time
     lib = host_libs["lb_route"]
     table = torch.empty((S, tl.n_marks + 1, 5), dtype=torch.int32)
+    lib.lb_route_row_blocks.argtypes = [ctypes.c_int64]
+    lib.lb_route_row_blocks.restype = ctypes.c_int64
+    blocks = lib.lb_route_row_blocks(n)
+    assert blocks == (2 if n > 8192 else 1)
+    partial = torch.empty((S, blocks, tl.n_marks), dtype=torch.int32)
     args = routing._LbRouteArgs(
         t=t.data_ptr(), alive=alive.data_ptr(), table=table.data_ptr(),
+        partial=partial.data_ptr() if tl.n_marks else 0,
         tl_time=tl.times.data_ptr() if tl.n_marks else 0,
         tl_down=tl.down.data_ptr() if tl.n_marks else 0,
         tl_slot=tl.slot.data_ptr() if tl.n_marks else 0,
-        S=S, n=N, NTL=tl.n_marks, EL=3, mode=routing.MODE_TABLE,
+        S=S, n=n, NTL=tl.n_marks, EL=3, mode=routing.MODE_TABLE,
     )
     _launch(lib, "lb_route_launch", args)
     want_table = routing.PlainLbRoute().table(tl, t, alive)
     assert torch.equal(table, want_table)
     rank = time_rank(t, alive)
-    slot = torch.empty((S, N), dtype=torch.int32)
+    slot = torch.empty((S, n), dtype=torch.int32)
     args = routing._LbRouteArgs(
         rank=rank.data_ptr(), alive=alive.data_ptr(), table=table.data_ptr(),
-        slot=slot.data_ptr(), S=S, n=N, NTL=tl.n_marks, EL=3, mode=routing.MODE_LANES,
+        slot=slot.data_ptr(), S=S, n=n, NTL=tl.n_marks, EL=3, mode=routing.MODE_LANES,
     )
     _launch(lib, "lb_route_launch", args)
     assert torch.equal(slot, routing.PlainLbRoute().slots(want_table, rank, alive))
@@ -394,30 +419,50 @@ def test_lb_route_matches_plain(host_libs, name: str) -> None:
     assert torch.equal(slot, scan)
 
 
+#: rows of the scan tests: two blocks of the warp walk's four rows, the
+#: second part-full; each row starts at another offset from a line
+SCAN_ROWS = 5
+
+
 def _stream(seed: int, m: int, rate: float, svc: float):
     """Sorted arrivals at ``rate`` with exponential services, a third of the
     lanes invalid (another station's), and each row's tail padded INF."""
     g = np.random.default_rng(seed)
-    a = np.cumsum(g.exponential(1.0 / rate, (S, m)), axis=1).astype(np.float32)
-    d = g.exponential(svc, (S, m)).astype(np.float32)
-    v = g.random((S, m)) > 0.33
+    a = np.cumsum(g.exponential(1.0 / rate, (SCAN_ROWS, m)), axis=1).astype(np.float32)
+    d = g.exponential(svc, (SCAN_ROWS, m)).astype(np.float32)
+    v = g.random((SCAN_ROWS, m)) > 0.33
     v[:, -50:] = False
     a[:, -50:] = 1e30
     return torch.tensor(a), torch.tensor(d), torch.tensor(v)
 
 
-@pytest.mark.parametrize(("cores", "placement"),
-                         [(1, None), (3, None), (8, None), (3, "global"), (9, "global")])
-def test_station_waits_match_plain(host_libs, cores: int, placement) -> None:
-    # rows of 3001: each row starts at another offset from a 16-byte boundary
-    a, d, v = _stream(3, 3001, rate=40.0 * cores, svc=0.02)
+def _scratch(mode: int, cores: int, ram_k: int) -> torch.Tensor | None:
+    """The global walk's scratch where the kernel takes that walk."""
+    if station_scan.walk_of(mode, cores, ram_k) != station_scan.WALK_GLOBAL:
+        return None
+    return torch.empty((SCAN_ROWS, cores + ram_k), dtype=torch.float32)
+
+
+#: one server (Lindley's thread walk); the warp walk at the edges of its
+#: width classes on the card (whole on every lane up to 4, then one, two
+#: entries a lane), a carry of three; one core past the warp walk's widest
+#: vector (the global walk)
+WAIT_CORES = [1, 2, 3, 4, 5, 8, 9, 33, station_scan.WARP_WIDTH_MAX + 1]
+
+
+@pytest.mark.parametrize("cores", WAIT_CORES)
+def test_station_waits_match_plain(host_libs, cores: int) -> None:
+    # rows of 3001: each row starts at another offset from a 16-byte boundary;
+    # the widest station is loaded past its cores, so that it queues at all
+    rate = (40.0 if cores <= station_scan.WARP_WIDTH_MAX else 200.0) * cores
+    a, d, v = _stream(3, 3001, rate=rate, svc=0.02)
     out = torch.empty_like(a)
-    scratch = torch.empty((S, cores), dtype=torch.float32)
     mode = station_scan.MODE_LINDLEY if cores == 1 else station_scan.MODE_KW
+    scratch = _scratch(mode, cores, 0)
     args = station_scan._StationArgs(
         a=a.data_ptr(), d=d.data_ptr(), v=v.data_ptr(), out0=out.data_ptr(),
-        scratch=scratch.data_ptr() if placement == "global" else 0,
-        S=S, m=a.shape[1], mode=mode, cores=cores, ram_k=0,
+        scratch=0 if scratch is None else scratch.data_ptr(),
+        S=SCAN_ROWS, m=a.shape[1], mode=mode, cores=cores, ram_k=0,
     )
     _launch(host_libs["station_scan"], "station_scan_launch", args)
     want = (station_scan.lindley_plain(a, d, v) if cores == 1
@@ -426,23 +471,33 @@ def test_station_waits_match_plain(host_libs, cores: int, placement) -> None:
     assert float(want[v].max()) > 0.0
 
 
-@pytest.mark.parametrize(("ram_k", "cores", "placement"),
-                         [(3, 1, None), (5, 2, None), (32, 8, None), (20, 2, "global"),
-                          (70, 1, "global")])
-def test_ram_core_matches_plain(host_libs, ram_k: int, cores: int, placement) -> None:
+#: (RAM slots, cores): the slots at the edges of the warp walk's width
+#: classes up to its widest vector, the earlier register and scratch cases
+#: (3, 1), (5, 2), (32, 8), (20, 2), (70, 1), a core vector wider than the
+#: slots, and one core vector past the warp walk (the global walk)
+RAM_CASES = [(1, 1), (3, 1), (4, 4), (5, 2), (5, 5), (20, 2), (31, 1), (32, 8), (33, 2),
+             (64, 1), (65, 9), (70, 1), (station_scan.WARP_WIDTH_MAX, 1), (20, 33),
+             (8, station_scan.WARP_WIDTH_MAX + 1)]
+
+
+@pytest.mark.parametrize(("ram_k", "cores"), RAM_CASES)
+def test_ram_core_matches_plain(host_libs, ram_k: int, cores: int) -> None:
     a, d, v = _stream(4, 2501, rate=60.0, svc=0.01)
     g = np.random.default_rng(9)
-    pre = torch.tensor(np.full((S, a.shape[1]), 0.001, np.float32))
-    # residence about 1.5x what the slots hold at the arrival rate: admission binds
-    post = torch.tensor(g.exponential(1.5 * ram_k / 60.0, (S, a.shape[1])).astype(np.float32))
-    d = torch.where(torch.tensor(g.random((S, a.shape[1])) < 0.1), 0.0, d)  # IO-only lanes
+    m = a.shape[1]
+    pre = torch.tensor(np.full((SCAN_ROWS, m), 0.001, np.float32))
+    # residence about 1.5x what the slots hold at the valid lanes' rate (two
+    # thirds of 60 a second): admission binds
+    post = torch.tensor(
+        g.exponential(1.5 * ram_k / 40.0, (SCAN_ROWS, m)).astype(np.float32))
+    d = torch.where(torch.tensor(g.random((SCAN_ROWS, m)) < 0.1), 0.0, d)  # IO-only lanes
     outs = [torch.empty_like(a) for _ in range(3)]
-    scratch = torch.empty((S, ram_k + cores), dtype=torch.float32)
+    scratch = _scratch(station_scan.MODE_RAM_CORE, cores, ram_k)
     args = station_scan._StationArgs(
         a=a.data_ptr(), d=d.data_ptr(), v=v.data_ptr(), pre=pre.data_ptr(),
         post=post.data_ptr(), out0=outs[0].data_ptr(), out1=outs[1].data_ptr(),
-        out2=outs[2].data_ptr(), scratch=scratch.data_ptr() if placement else 0,
-        S=S, m=a.shape[1], mode=station_scan.MODE_RAM_CORE, cores=cores, ram_k=ram_k,
+        out2=outs[2].data_ptr(), scratch=0 if scratch is None else scratch.data_ptr(),
+        S=SCAN_ROWS, m=m, mode=station_scan.MODE_RAM_CORE, cores=cores, ram_k=ram_k,
     )
     _launch(host_libs["station_scan"], "station_scan_launch", args)
     want = station_scan.ram_core_plain(a, pre, d, post, v, ram_k, cores)
@@ -452,22 +507,41 @@ def test_ram_core_matches_plain(host_libs, ram_k: int, cores: int, placement) ->
 
 
 def test_wide_carry_needs_scratch(host_libs) -> None:
-    """A carry past the registers needs global scratch, and is refused
-    without it; the wrapper's constants are the source's."""
+    """The library's width limits are the wrapper's: the warp walk holds
+    carry vectors of up to WARP_WIDTH_MAX entries, each whole on every lane
+    (one lane a row here), padded to a power of two; a wider vector takes
+    the global walk, which is refused without its scratch."""
     lib = host_libs["station_scan"]
-    floats = lib.station_scan_scratch_floats
-    cores, slots = station_scan.REG_CORES, station_scan.REG_SLOTS
-    assert floats(station_scan.MODE_LINDLEY, 1, 0) == 0
-    assert floats(station_scan.MODE_KW, cores, 0) == 0
-    assert floats(station_scan.MODE_KW, cores + 1, 0) == cores + 1
-    assert floats(station_scan.MODE_RAM_CORE, cores, slots) == 0
-    assert floats(station_scan.MODE_RAM_CORE, cores + 1, 1) == cores + 2
-    assert floats(station_scan.MODE_RAM_CORE, 1, slots + 1) == slots + 2
+    for fn in ("station_scan_walk", "station_scan_lane_entries", "station_scan_lane_span",
+               "station_scan_lanes", "station_scan_warp_width_max"):
+        getattr(lib, fn).restype = ctypes.c_int
+    top = station_scan.WARP_WIDTH_MAX
+    assert lib.station_scan_warp_width_max() == top
+    kw, ram = station_scan.MODE_KW, station_scan.MODE_RAM_CORE
+    thread, warp, wide = (station_scan.WALK_THREAD, station_scan.WALK_WARP,
+                          station_scan.WALK_GLOBAL)
+    cases = [(station_scan.MODE_LINDLEY, 1, 0, thread), (kw, 2, 0, warp),
+             (kw, top, 0, warp), (kw, top + 1, 0, wide), (ram, 1, 1, warp),
+             (ram, top, top, warp), (ram, 1, top + 1, wide), (ram, top + 1, 1, wide)]
+    for mode, cores, ram_k, walk in cases:
+        assert station_scan.walk_of(mode, cores, ram_k) == walk
+        assert lib.station_scan_walk(mode, cores, ram_k) == walk
+    lanes = lib.station_scan_lanes()
+    assert lanes == 1
+    for width in (1, 2, 3, 4, 5, 31, 32, 33, 64, 65, top):
+        form = (lib.station_scan_lane_entries(width), lib.station_scan_lane_span(width))
+        whole = (1 << (width - 1).bit_length(), 1)
+        assert form == station_scan.carry_form(width, lanes) == whole
+    # on the card's 32 lanes: whole up to WHOLE_MAX, then spread
+    widths = (1, 3, 4, 5, 32, 33, 64, 65, 129, top)
+    assert [station_scan.carry_form(w) for w in widths] == [
+        (1, 1), (4, 1), (4, 1), (1, 32), (1, 32), (2, 32), (2, 32), (4, 32), (8, 32),
+        (32, 32)]
     a, d, v = _stream(5, 64, rate=10.0, svc=0.01)
     out = torch.empty_like(a)
     args = station_scan._StationArgs(
         a=a.data_ptr(), d=d.data_ptr(), v=v.data_ptr(), pre=a.data_ptr(), post=a.data_ptr(),
         out0=out.data_ptr(), out1=out.data_ptr(), out2=out.data_ptr(), scratch=0,
-        S=S, m=a.shape[1], mode=station_scan.MODE_RAM_CORE, cores=1, ram_k=slots + 1,
+        S=SCAN_ROWS, m=a.shape[1], mode=ram, cores=1, ram_k=top + 1,
     )
     assert lib.station_scan_launch(ctypes.byref(args), None) == -1
