@@ -24,9 +24,15 @@ reference's:
   lowered away, and ``proof_rate_headroom`` records how far the workload
   may be scaled before that proof breaks;
 - the LB circuit breaker is modelled only where a failure channel exists
-  (a modelled control on a covered server, or dropout on an LB edge);
+  (a modelled control or a server-outage fault window on a covered server,
+  or dropout, or a dropout-boosting edge fault, on an LB edge);
 - event injection becomes a cumulative spike table per edge and a sorted
-  outage timeline of LB slots (END before START on ties).
+  outage timeline of LB slots (END before START on ties);
+- a fault timeline becomes piecewise breakpoint tables (``fault_*``,
+  ``compiler/faults.py``), a retry policy plan scalars (``retry_*``) that
+  amplify the capacity bound by the attempt cap, and a hazard model dense
+  per-domain arrays (``hz_*``, ``compiler/hazards.py``) whose windows are
+  sampled per scenario at sweep time.
 
 :func:`plan_from_arrays` carries a plan's fields, as numpy arrays, across
 from the reference package; features outside the slice that such a plan
@@ -38,7 +44,7 @@ from __future__ import annotations
 
 import math
 from collections.abc import Mapping
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -48,6 +54,8 @@ from asyncflow_tpu_torch.config.constants import (
     EventDescription,
     LbAlgorithmsName,
 )
+from asyncflow_tpu_torch.compiler.faults import lower_faults, lower_retry
+from asyncflow_tpu_torch.compiler.hazards import lower_hazards
 from asyncflow_tpu_torch.errors import PayloadError
 from asyncflow_tpu_torch.schemas.endpoint import Endpoint
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload
@@ -206,9 +214,51 @@ class StaticPlan:
     lc_ring: int
     #: highest nominal core utilisation of a multi-burst server (0 if none)
     relax_rho: float
+    # ---- resilience (compiler/faults.py, compiler/hazards.py) ----
+    #: fault tables: breakpoints with a leading identity row at t = 0; (K,)
+    #: change times and (K, NS) outage flags, (M,) change times and (M, NE)
+    #: latency factors and dropout boosts
+    fault_srv_times: np.ndarray = field(default_factory=lambda: np.zeros(1, np.float32))
+    fault_srv_down: np.ndarray = field(default_factory=lambda: np.empty((1, 0), np.int32))
+    fault_edge_times: np.ndarray = field(default_factory=lambda: np.zeros(1, np.float32))
+    fault_edge_lat: np.ndarray = field(default_factory=lambda: np.empty((1, 0), np.float32))
+    fault_edge_drop: np.ndarray = field(default_factory=lambda: np.empty((1, 0), np.float32))
+    #: the client retry policy (retry_timeout < 0: none; budget < 0: none)
+    retry_timeout: float = -1.0
+    retry_max_attempts: int = 1
+    retry_backoff_base: float = 0.0
+    retry_backoff_mult: float = 1.0
+    retry_backoff_cap: float = 0.0
+    retry_jitter: float = 0.0
+    retry_budget_tokens: float = -1.0
+    retry_budget_refill: float = 0.0
+    #: the hazard model: (D,) per-domain MTBF / MTTR laws (_DIST_IDS codes),
+    #: means and scales, edge degrade magnitudes, (D, NS) / (D, NE) target
+    #: masks, and F window slots per (scenario, domain); size 0 = none
+    hz_mtbf_dist: np.ndarray = field(default_factory=lambda: np.empty(0, np.int32))
+    hz_mtbf_mean: np.ndarray = field(default_factory=lambda: np.empty(0, np.float64))
+    hz_mtbf_var: np.ndarray = field(default_factory=lambda: np.empty(0, np.float64))
+    hz_mttr_dist: np.ndarray = field(default_factory=lambda: np.empty(0, np.int32))
+    hz_mttr_mean: np.ndarray = field(default_factory=lambda: np.empty(0, np.float64))
+    hz_mttr_var: np.ndarray = field(default_factory=lambda: np.empty(0, np.float64))
+    hz_lat_factor: np.ndarray = field(default_factory=lambda: np.empty(0, np.float64))
+    hz_drop_boost: np.ndarray = field(default_factory=lambda: np.empty(0, np.float64))
+    hz_srv_targets: np.ndarray = field(default_factory=lambda: np.empty((0, 0), np.int8))
+    hz_edge_targets: np.ndarray = field(default_factory=lambda: np.empty((0, 0), np.int8))
+    hz_max_faults: int = 0
     #: features outside this slice that the plan carries (only plans
     #: carried across with :func:`plan_from_arrays` can have any)
     unsupported: tuple[str, ...] = ()
+
+    def __post_init__(self) -> None:
+        # hand-built plans: identity fault tables at the plan's own widths
+        if self.fault_srv_down.shape[1] != self.n_servers:
+            self.fault_srv_times = np.zeros(1, np.float32)
+            self.fault_srv_down = np.zeros((1, self.n_servers), np.int32)
+        if self.fault_edge_lat.shape[1] != self.n_edges:
+            self.fault_edge_times = np.zeros(1, np.float32)
+            self.fault_edge_lat = np.ones((1, self.n_edges), np.float32)
+            self.fault_edge_drop = np.zeros((1, self.n_edges), np.float32)
 
     @property
     def n_generators(self) -> int:
@@ -267,6 +317,39 @@ class StaticPlan:
     @property
     def has_breaker(self) -> bool:
         return self.breaker_threshold > 0
+
+    @property
+    def has_faults(self) -> bool:
+        """Does a fault window change some server or edge."""
+        return bool(
+            np.any(self.fault_srv_down != 0)
+            or np.any(self.fault_edge_lat != 1.0)
+            or np.any(self.fault_edge_drop != 0.0),
+        )
+
+    @property
+    def has_hazards(self) -> bool:
+        """Is a chaos campaign lowered: fault windows sampled per scenario."""
+        return bool(self.hz_mtbf_mean.size) and self.hz_max_faults > 0
+
+    @property
+    def hz_srv_mask(self) -> np.ndarray:
+        """(NS,) bool: the server is a target of some failure domain."""
+        if not self.hz_srv_targets.size:
+            return np.zeros(self.n_servers, bool)
+        return np.asarray(self.hz_srv_targets).any(axis=0)
+
+    @property
+    def hz_edge_mask(self) -> np.ndarray:
+        """(NE,) bool: the edge is a target of some failure domain."""
+        if not self.hz_edge_targets.size:
+            return np.zeros(self.n_edges, bool)
+        return np.asarray(self.hz_edge_targets).any(axis=0)
+
+    @property
+    def has_retry(self) -> bool:
+        """Is a client retry / timeout policy modelled."""
+        return self.retry_timeout > 0
 
     @property
     def n_gauges(self) -> int:
@@ -428,6 +511,12 @@ def _estimate_capacity(payload: SimulationPayload) -> tuple[int, int]:
         rate += g_rate
         max_window = max(max_window, window)
         count_var += g_count_var
+    # retries amplify the offered load: a logical request may issue up to
+    # max_attempts attempts, and a timed-out one keeps its server busy
+    if payload.retry_policy is not None:
+        amp = float(payload.retry_policy.max_attempts)
+        rate *= amp
+        count_var *= amp * amp
     max_requests = int(rate * horizon + 6.0 * math.sqrt(max(count_var, 1.0)) + 64)
 
     # ~3-sigma burst of the windowed user draw
@@ -743,14 +832,14 @@ def _lower_overload(payload: SimulationPayload) -> _Controls:
 
 
 def _lower_breaker(
-    lb, ctl: _Controls, lb_slots: list[int], lb_target: np.ndarray, edges,
+    lb, ctl: _Controls, lb_slots: list[int], lb_target: np.ndarray, edges, faults,
 ) -> tuple[int, float, int, bool]:
     """(threshold, cooldown, probes, lowered) of the LB's circuit breaker.
 
-    Modelled only where a failure channel exists: a modelled control on a
-    covered server, or dropout on an LB out-edge (fault windows, the
-    reference's other channel, are outside the slice).  Otherwise the
-    breaker can never trip and lowers away.
+    Modelled only where a failure channel exists: a modelled control or a
+    server-outage fault window on a covered server, or dropout or a
+    dropout-boosting fault window on an LB out-edge.  Otherwise the breaker
+    can never trip and lowers away.
     """
     breaker = lb.circuit_breaker if lb is not None else None
     if breaker is None or not lb_slots:
@@ -761,8 +850,12 @@ def _lower_breaker(
         or ctl.conn_cap[s] >= 0
         or ctl.rate_limit[s] >= 0
         or ctl.queue_timeout[s] >= 0
+        or bool(np.any(faults.srv_down[:, s] != 0))
         for s in covered
-    ) or any(float(edges[e].dropout_rate) > 0 for e in lb_slots)
+    ) or any(
+        float(edges[e].dropout_rate) > 0 or bool(np.any(faults.edge_drop[:, e] > 0))
+        for e in lb_slots
+    )
     if not has_channel:
         return 0, 0.0, 0, True
     return (
@@ -1146,6 +1239,12 @@ def _fastpath_analysis(
     relax_rho = 0.0
     if any(v > 1 for v in max_visits_per_server):
         srv_rate = _server_entry_rates(payload)
+        # retries amplify the offered load up to the attempt cap: the
+        # envelope must hold at the amplified rate
+        retry_amp = (
+            float(payload.retry_policy.max_attempts) if payload.retry_policy is not None
+            else 1.0
+        )
         for s in range(n_servers):
             if max_visits_per_server[s] <= 1:
                 continue
@@ -1154,7 +1253,7 @@ def _fastpath_analysis(
                 default=0.0,
             )
             cores = servers[s].server_resources.cpu_cores
-            rho = 1.0 * srv_rate[s] * cpu_dur / max(cores, 1)
+            rho = retry_amp * srv_rate[s] * cpu_dur / max(cores, 1)
             relax_rho = max(relax_rho, rho)
             if rho > RELAX_RHO_MAX:
                 return refuse(
@@ -1342,7 +1441,11 @@ def compile_payload(
     )
 
     # ---- breaker, events ----
-    breaker = _lower_breaker(lb, ctl, lb_slots, lb_target, edges)
+    # ---- resilience: fault windows, the retry policy, the hazard model ----
+    faults = lower_faults(payload)
+    retry = lower_retry(payload.retry_policy)
+    hazards = lower_hazards(payload)
+    breaker = _lower_breaker(lb, ctl, lb_slots, lb_target, edges, faults)
     spike_times, spike_values, tl_times, tl_down, tl_slot = _lower_events(
         payload, edge_index, server_index, lb_target,
     )
@@ -1472,6 +1575,36 @@ def compile_payload(
         ram_slots=fast.ram_slots,
         lc_ring=fast.lc_ring,
         relax_rho=fast.relax_rho,
+        fault_srv_times=faults.srv_times,
+        fault_srv_down=faults.srv_down,
+        fault_edge_times=faults.edge_times,
+        fault_edge_lat=faults.edge_lat,
+        fault_edge_drop=faults.edge_drop,
+        retry_timeout=retry.timeout,
+        retry_max_attempts=retry.max_attempts,
+        retry_backoff_base=retry.backoff_base,
+        retry_backoff_mult=retry.backoff_mult,
+        retry_backoff_cap=retry.backoff_cap,
+        retry_jitter=retry.jitter,
+        retry_budget_tokens=retry.budget_tokens,
+        retry_budget_refill=retry.budget_refill,
+        **(
+            {
+                "hz_mtbf_dist": hazards.mtbf_dist,
+                "hz_mtbf_mean": hazards.mtbf_mean,
+                "hz_mtbf_var": hazards.mtbf_var,
+                "hz_mttr_dist": hazards.mttr_dist,
+                "hz_mttr_mean": hazards.mttr_mean,
+                "hz_mttr_var": hazards.mttr_var,
+                "hz_lat_factor": hazards.lat_factor,
+                "hz_drop_boost": hazards.drop_boost,
+                "hz_srv_targets": hazards.srv_targets,
+                "hz_edge_targets": hazards.edge_targets,
+                "hz_max_faults": hazards.max_faults,
+            }
+            if hazards is not None
+            else {}
+        ),
     )
 
 
@@ -1489,14 +1622,6 @@ def _any(fields: Mapping, name: str, test) -> bool:
 
 #: (feature name, predicate over a reference plan's fields)
 _FEATURE_TESTS = (
-    (
-        "faults",
-        lambda f: _any(f, "fault_srv_down", lambda a: a != 0)
-        or _any(f, "fault_edge_lat", lambda a: a != 1.0)
-        or _any(f, "fault_edge_drop", lambda a: a != 0.0),
-    ),
-    ("hazards", lambda f: int(f.get("hz_max_faults", 0)) > 0),
-    ("retry", lambda f: float(f.get("retry_timeout", 0.0)) > 0),
     ("hedge", lambda f: float(f.get("hedge_delay", 0.0)) > 0),
     ("health", lambda f: float(f.get("health_alpha", 0.0)) > 0),
     ("brownout", lambda f: _any(f, "server_brownout_q", lambda a: a >= 0)),

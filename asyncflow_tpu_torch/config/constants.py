@@ -81,6 +81,27 @@ class EventDescription(StrEnum):
     NETWORK_SPIKE_END = "network_spike_end"
 
 
+class FaultKind(StrEnum):
+    """Fault-window kinds of the resilience schemas: ``server_outage``
+    hard-refuses arrivals at the server (the LB learns of it only through
+    its breaker), ``edge_degrade`` multiplies an edge's latency and/or
+    boosts its dropout inside the window, ``edge_partition`` drops every
+    send on the edge."""
+
+    SERVER_OUTAGE = "server_outage"
+    EDGE_DEGRADE = "edge_degrade"
+    EDGE_PARTITION = "edge_partition"
+
+
+class RetryDefaults:
+    """Defaults and bounds of the client retry policy."""
+
+    MAX_ATTEMPTS = 3
+    #: attempts a logical request may use at most: bounds the attempts
+    #: histogram and the retry amplification of the capacity estimate
+    MAX_ATTEMPTS_CAP = 16
+
+
 class SampledMetricName(StrEnum):
     """Fixed-cadence time-series metrics (accepted, not collected by sweeps)."""
 

@@ -33,7 +33,13 @@
 //      (S, n), with the rank the LB slot rank % K of a gated lane (else
 //      slot 0), or with the slot (S, n) int32 that LB slot itself (a gated
 //      lane of slot -1 has no healthy target: dropped at the LB, it sends
-//      nothing), and the slot's target server (S, n); per scenario the drop
+//      nothing), and the slot's target server (S, n); under edge fault
+//      windows the row of the fault table active at the send time
+//      (max(searchsorted(fault_t, t_send, right) - 1, 0), on the
+//      scenario's own row of (S, NF) or on the shared (NF,)) boosts the
+//      drop probability, p = clip(drop + boost, 0, 1), and multiplies the
+//      law's delay by its factor before the spike is added (two roundings,
+//      as XLA's _edge_hop); per scenario the drop
 //      count (gate & dropped, and the LB's drops) and each edge slot's
 //      gauge span, the sum over
 //      ok lanes of max(min(t_send + delay, h) - min(t_send, h), 0), in
@@ -70,6 +76,9 @@ struct EdgeDrawArgs {
   const int32_t* dist;       // (NE,) delay law of each edge
   const float* spike_t;      // (NB,) spike breakpoints (first 0), or null
   const float* spike_v;      // (NB, NE) active spike of each edge
+  const float* fault_t;      // (NF,) or (S, NF) fault breakpoints (first 0), or null
+  const float* fault_lat;    // (NF, NE) or (S, NF, NE) latency factor of each edge
+  const float* fault_drop;   // (NF, NE) or (S, NF, NE) dropout boost of each edge
   float* out;                // uniform: (S, n); hop: t_next (S, n); gaps: (S, ld_out)
   uint8_t* ok;               // hop: (S, n)
   int32_t* target;           // hop with rank: (S, n)
@@ -89,6 +98,8 @@ struct EdgeDrawArgs {
   int32_t edge;  // hop: the static edge, or -1 with rank
   int32_t mode;
   int32_t gap;   // uniform: write the gap -log1p(-u)
+  int32_t NF;    // hop: fault breakpoints (0 without edge faults)
+  int32_t fault_per_row;  // hop: the fault tables have a row a scenario
 };
 
 // per-thread gauge accumulators of the hop, (K, threads) doubles, and the
@@ -403,6 +414,9 @@ __global__ void gaps_kernel(EdgeDrawArgs a) {
   a.tot[(size_t)row * (size_t)a.ld_tot + lane0 / kLanes] = acc;
 }
 
+// kFault: the hop reads fault tables (a separate instance, so that a hop
+// without them runs the code it ran before they existed)
+template <bool kFault>
 __global__ void hop_kernel(EdgeDrawArgs a) {
   const int K = a.K;
   const unsigned nt = blockDim.x, tid = threadIdx.x;
@@ -421,6 +435,11 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
     const float* mean = a.mean + (size_t)row * a.NE;
     const float* var = a.var + (size_t)row * a.NE;
     const float* drop = a.drop + (size_t)row * a.NE;
+    // the scenario's fault tables (or the shared ones)
+    const size_t frow = a.fault_per_row ? (size_t)row : 0;
+    const float* ft = kFault ? a.fault_t + frow * a.NF : nullptr;
+    const float* flat = kFault ? a.fault_lat + frow * a.NF * a.NE : nullptr;
+    const float* fdrop = kFault ? a.fault_drop + frow * a.NF * a.NE : nullptr;
     const uint32_t alive = load_mask16(a.alive + base, cnt);
     const bool lb = a.rank != nullptr || a.slot != nullptr;
     uint32_t okbits = 0;
@@ -452,7 +471,16 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
           tgt[i] = a.lb_target[slot];
         }
         const float u = uniform_of(k0, k1, lane0 + (uint32_t)lane);
-        const float p = drop[e];
+        float p = drop[e];
+        float factor = 1.0f;
+        if (kFault) {
+          // the fault row at the send time: the last breakpoint <= ts, -1 as 0
+          int fi = -1;
+          for (int j = 0; j < a.NF; ++j) fi += ft[j] <= ts ? 1 : 0;
+          if (fi < 0) fi = 0;
+          factor = flat[(size_t)fi * a.NE + e];
+          p = fminf(fmaxf(p + fdrop[(size_t)fi * a.NE + e], 0.0f), 1.0f);
+        }
         const float m = mean[e];
         const int law = a.dist[e];
         const float u_lat = (u - p) / fmaxf(1.0f - p, kTiny);
@@ -466,6 +494,7 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
           const float x = m + var[e] * z;
           d = law == kNormal ? fmaxf(x, 0.0f) : expf(x);
         }
+        if (kFault) d = d * factor;
         if (a.spike_t != nullptr) {
           // searchsorted(spike_t, ts, right) - 1, -1 wrapping to the last row
           int idx = -1;
@@ -561,6 +590,8 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
       return -1;
     }
     if (a.spike_t != nullptr && (a.spike_v == nullptr || a.NB < 1)) return -1;
+    if (a.fault_t != nullptr && (a.fault_lat == nullptr || a.fault_drop == nullptr || a.NF < 1))
+      return -1;
     smem = (size_t)a.K * kThreads * sizeof(double) + kThreads * sizeof(int);
   } else if (a.mode == kGapsMode) {
     if (a.out == nullptr || a.tot == nullptr || (a.x_in == nullptr && a.ukey == nullptr))
@@ -599,6 +630,11 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
       a.var = whole.var + r0 * whole.NE;
       a.drop = whole.drop + r0 * whole.NE;
       a.partial = whole.partial + r0 * blocks * (whole.K + 1);
+      if (whole.fault_t != nullptr && whole.fault_per_row) {
+        a.fault_t = whole.fault_t + r0 * whole.NF;
+        a.fault_lat = whole.fault_lat + r0 * whole.NF * whole.NE;
+        a.fault_drop = whole.fault_drop + r0 * whole.NF * whole.NE;
+      }
       a.span = whole.span + r0 * whole.K;
       a.dropped = whole.dropped + r0;
     }
@@ -609,7 +645,8 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
     } else if (a.mode == kGapsMode) {
       gaps_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
     } else {
-      hop_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(a);
+      const auto hop = a.fault_t != nullptr ? hop_kernel<true> : hop_kernel<false>;
+      hop<<<grid, block, smem, (cudaStream_t)stream>>>(a);
       const dim3 rgrid((unsigned)((rows + kThreads - 1) / kThreads));
       hop_reduce_kernel<<<rgrid, block, 0, (cudaStream_t)stream>>>(a);
     }

@@ -3,10 +3,11 @@
 // Replaces the XLA scans of the reference's fast path
 // (asyncflow_tpu/engines/jaxsim/fastpath.py): the max-plus associative
 // scan of _lindley_waits (:278), the Kiefer-Wolfowitz lax.scan of
-// _kw_waits (:198) and the joint RAM-slot and core lax.scan of
-// _ram_core_scan (:233).  Each row of the (S, m) inputs is one station's
-// time-sorted stream of one scenario, walked in order with the station's
-// state:
+// _kw_waits (:198), the joint RAM-slot and core lax.scan of
+// _ram_core_scan (:233) and the arrival token bucket's lax.scan,
+// _token_bucket_scan (:302).  Each row of the (S, m) inputs is one
+// station's time-sorted stream of one scenario, walked in order with the
+// station's state:
 //
 //   mode 0 (c = 1)  C_k = max(A_k + S_k, C_{k-1} + S_k),
 //                   wait_k = max(0, (C_k - S_k) - A_k);
@@ -15,7 +16,14 @@
 //   mode 2          the ram_k admission-slot and c core-free vectors:
 //                   grant g = max(A, r_0), start s = max(g + pre, w_0)
 //                   (g + pre for an empty burst), release s + S + post;
-//                   outputs (g - A, s - (g + pre), release).
+//                   outputs (g - A, s - (g + pre), release);
+//   mode 3          the token bucket of ``burst`` tokens refilled at
+//                   ``rate`` a second, full at time 0: tok = min(burst,
+//                   tokens + (A_k - last) * rate) (three roundings);
+//                   accept where valid and tok >= 1, spending one; the
+//                   tokens and the clock ``last`` advance on every valid
+//                   element, refused ones included; output the accepted
+//                   flag (a byte).
 //
 // Invalid elements leave the carry unchanged, so a row may interleave
 // other stations' lanes.  Built with --fmad=false: each float operation
@@ -27,7 +35,7 @@
 // associative form (a K x K max-plus product a combine), so the
 // parallelism is across rows and across the carry vector.  Two walks:
 //
-// The thread walk (mode 0; modes 1 and 2 past kWarpWidthMax entries): one
+// The thread walk (modes 0 and 3; modes 1 and 2 past kWarpWidthMax entries): one
 // thread a row, 16 rows a block (half a warp: the lanes of a warp read
 // different rows, one L1 wavefront each, so the wavefronts, not the lanes,
 // are the cost, and 16-row blocks spread the 2048 rows over 128 SMs).  It
@@ -87,11 +95,14 @@ struct StationArgs {
   float* out1;           // core waits (mode 2)
   float* out2;           // departures (mode 2)
   float* scratch;        // (S, ram_k + cores) carries of the global walk, else unused
+  uint8_t* flag;         // (S, m) accepted flags (mode 3)
   int64_t S;
   int64_t m;
   int32_t mode;
   int32_t cores;
   int32_t ram_k;
+  float rate;   // mode 3: tokens refilled a second
+  float burst;  // mode 3: the bucket's size (and its tokens at time 0)
 };
 
 namespace {
@@ -291,9 +302,69 @@ __device__ __forceinline__ void walk(const StationArgs& a, int64_t row, MemVec& 
   for (int64_t k = body; k < a.m; ++k) one(k);
 }
 
+// The token bucket of one row (mode 3) by one thread: the thread walk's
+// head, 16-byte body and tail, a float4 of times and a uchar4 of valid
+// flags in, a uchar4 of accepted flags out.
+struct Bucket {
+  float rate;
+  float burst;
+  float tokens;
+  float last;
+
+  __device__ __forceinline__ bool step(float t, bool v) {
+    float tok = fminf(burst, tokens + (t - last) * rate);
+    const bool acc = v && tok >= 1.0f;
+    tok = tok - (acc ? 1.0f : 0.0f);
+    if (v) {
+      tokens = tok;
+      last = t;
+    }
+    return acc;
+  }
+};
+
+__device__ __forceinline__ void bucket_walk(const StationArgs& a, int64_t row) {
+  const int64_t base = row * a.m;
+  const float* __restrict__ T = a.a + base;
+  const uint8_t* __restrict__ V = a.v + base;
+  uint8_t* __restrict__ F = a.flag + base;
+  Bucket b{a.rate, a.burst, a.burst, 0.0f};
+  const int64_t lead = (4 - (base & 3)) & 3;
+  const int64_t head = lead < a.m ? lead : a.m;
+  const int64_t body = head + (a.m - head) / kVec * kVec;
+  for (int64_t k = 0; k < head; ++k) F[k] = b.step(T[k], V[k] != 0) ? 1 : 0;
+  for (int64_t k0 = head; k0 < body; k0 += kVec) {
+    if (kAhead > 0 && k0 + kAhead < a.m) {
+      prefetch_l1(T + k0 + kAhead);
+      prefetch_l1(V + k0 + kAhead);
+    }
+    float4 tv[kVec / 4];
+    uchar4 vv[kVec / 4];
+#pragma unroll
+    for (int q = 0; q < kVec / 4; ++q) {
+      tv[q] = *reinterpret_cast<const float4*>(T + k0 + 4 * q);
+      vv[q] = *reinterpret_cast<const uchar4*>(V + k0 + 4 * q);
+    }
+#pragma unroll
+    for (int q = 0; q < kVec / 4; ++q) {
+      uchar4 f;
+      f.x = b.step(tv[q].x, vv[q].x != 0) ? 1 : 0;
+      f.y = b.step(tv[q].y, vv[q].y != 0) ? 1 : 0;
+      f.z = b.step(tv[q].z, vv[q].z != 0) ? 1 : 0;
+      f.w = b.step(tv[q].w, vv[q].w != 0) ? 1 : 0;
+      *reinterpret_cast<uchar4*>(F + k0 + 4 * q) = f;
+    }
+  }
+  for (int64_t k = body; k < a.m; ++k) F[k] = b.step(T[k], V[k] != 0) ? 1 : 0;
+}
+
 __global__ void station_scan_kernel(StationArgs a) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= a.S) return;
+  if (a.mode == 3) {
+    bucket_walk(a, row);
+    return;
+  }
   if (a.mode == 0) {
     MemVec none{nullptr, 0};
     walk<0>(a, row, none, none);
@@ -551,12 +622,12 @@ int station_scan_args_size() { return (int)sizeof(StationArgs); }
 int station_scan_lanes() { return kLanes; }
 int station_scan_warp_width_max() { return kWarpWidthMax; }
 
-// The walk a launch takes: 0 one thread a row (mode 0), 1 one warp a row
+// The walk a launch takes: 0 one thread a row (modes 0 and 3), 1 one warp a row
 // (modes 1 and 2 with both vectors up to kWarpWidthMax entries), 2 one
 // thread a row with the carry in global scratch of ram_k + cores floats a
 // row (wider).
 int station_scan_walk(int mode, int cores, int ram_k) {
-  if (mode == 0) return kWalkThread;
+  if (mode == 0 || mode == 3) return kWalkThread;
   const int width = mode == 2 && ram_k > cores ? ram_k : cores;
   return width <= kWarpWidthMax ? kWalkWarp : kWalkGlobal;
 }
@@ -570,10 +641,9 @@ int station_scan_lane_span(int width) { return form_of(width).span; }
 // or -1 for arguments the kernel does not take.
 int station_scan_launch(const StationArgs* args, void* stream) {
   const StationArgs a = *args;
-  if (a.S <= 0 || a.m <= 0 || a.a == nullptr || a.d == nullptr || a.v == nullptr ||
-      a.out0 == nullptr)
-    return -1;
-  if (a.mode < 0 || a.mode > 2 || a.cores < 1) return -1;
+  if (a.S <= 0 || a.m <= 0 || a.a == nullptr || a.v == nullptr) return -1;
+  if (a.mode == 3 ? a.flag == nullptr : (a.d == nullptr || a.out0 == nullptr)) return -1;
+  if (a.mode < 0 || a.mode > 3 || a.cores < 1) return -1;
   if (a.mode == 2 && (a.ram_k < 1 || a.pre == nullptr || a.post == nullptr ||
                       a.out1 == nullptr || a.out2 == nullptr))
     return -1;

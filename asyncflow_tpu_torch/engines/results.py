@@ -53,6 +53,25 @@ class SweepResults:
     #: (for confidence intervals); None when the plan has no LLM segment
     llm_cost_sum: np.ndarray | None = None
     llm_cost_sumsq: np.ndarray | None = None
+    #: (S,) client deadlines fired, re-issues granted, retry wants the
+    #: budget denied, and (S, max_attempts) attempts used by each ended
+    #: logical request; None without a retry policy
+    total_timed_out: np.ndarray | None = None
+    total_retries: np.ndarray | None = None
+    retry_budget_exhausted: np.ndarray | None = None
+    attempts_hist: np.ndarray | None = None
+    #: the resilience scorecard, None on plans without faults or hazards:
+    #: (S,) arrivals lost to dark windows; from a chaos campaign's sampled
+    #: tables (host-side): (S, NS) dark seconds of each server inside the
+    #: horizon, (S,) completions in 1-second windows that overlap a fault,
+    #: (S,) in-horizon windows past the slot budget, and (S,) seconds from
+    #: the last window's end until the ready queues drain (NaN: not
+    #: measured, as without a streamed ready-queue series)
+    dark_lost: np.ndarray | None = None
+    unavailable_s: np.ndarray | None = None
+    degraded_goodput: np.ndarray | None = None
+    hazard_truncated: np.ndarray | None = None
+    time_to_drain: np.ndarray | None = None
 
     def percentile(self, q: float) -> np.ndarray:
         """Per-scenario latency percentile estimated from the histograms."""
@@ -78,9 +97,16 @@ def _optional(state, name: str, dtype=None) -> np.ndarray | None:
     return None if value is None else np.asarray(value, dtype)
 
 
-def sweep_results(state, settings=None, *, has_llm: bool = False) -> SweepResults:
+def sweep_results(state, settings=None, *, has_llm: bool = False, has_retry: bool = False,
+                  has_faults: bool = False) -> SweepResults:
     """Host-side :class:`SweepResults` of a batched DES-kernel or fast-path
-    state; the LLM cost moments are kept where the plan has LLM segments."""
+    state; the LLM cost moments are kept where the plan has LLM segments,
+    the retry counters where it has a retry policy and the dark-lost count
+    where it has faults or hazards."""
+
+    def when(on: bool, name: str):
+        return _optional(state, name) if on else None
+
     return SweepResults(
         settings=settings,
         completed=np.asarray(state.lat_count),
@@ -100,6 +126,11 @@ def sweep_results(state, settings=None, *, has_llm: bool = False) -> SweepResult
         gauge_means=_optional(state, "gauge_means"),
         llm_cost_sum=np.asarray(state.llm_sum) if has_llm else None,
         llm_cost_sumsq=np.asarray(state.llm_sumsq) if has_llm else None,
+        total_timed_out=when(has_retry, "n_timed_out"),
+        total_retries=when(has_retry, "n_retries"),
+        retry_budget_exhausted=when(has_retry, "n_budget_exhausted"),
+        attempts_hist=when(has_retry, "att_hist"),
+        dark_lost=when(has_faults, "n_dark_lost"),
     )
 
 

@@ -6,7 +6,8 @@ the CUDA kernel that computes them (``csrc/edge_draws.cu``).
 The plain versions here reproduce, bit for bit where the arithmetic is
 exact, what the reference's fast path computes (``asyncflow_tpu/engines/
 jaxsim/fastpath.py``: ``_edge_hop`` ``:818``, ``_edge_hop_dyn`` ``:855``,
-``_add_spike`` ``:793``, the fused drop rescale ``:786``, the gaps and
+``_add_spike`` ``:793``, ``_edge_fault`` ``:799``, the fused drop
+rescale ``:786``, the gaps and
 cumsum of ``_arrivals_stream`` and the raw ``draw_uniform`` streams):
 
 - a stream is a key; lane ``i`` of an ``(n,)`` draw is threefry2x32 of the
@@ -19,8 +20,11 @@ cumsum of ``_arrivals_stream`` and the raw ``draw_uniform`` streams):
   ``[nextafter(-1, 0), 1)`` and XLA's float32 ``erfinv`` polynomial;
 - an edge hop drops a lane where ``u < p`` and otherwise rescales the same
   uniform to ``(u - p) / max(1 - p, TINY)`` for the delay law; normal and
-  lognormal laws draw ``z`` from the hop key's second stream; the network
-  spike active at the send time is added after the law;
+  lognormal laws draw ``z`` from the hop key's second stream; under fault
+  windows (``_edge_fault``) the row of the edge's fault table active at
+  the send time boosts ``p`` (``clip(p + boost, 0, 1)``) and multiplies
+  the delay by its factor; the network spike active at the send time is
+  added last (two roundings: the product, then the sum);
 - an arrival gap is ``-log1p(-u)`` with XLA's CPU ``log1p`` (Cephes'
   rational form below sqrt(2) - 1 with fused Horner steps, else XLA's CPU
   ``log``, Eigen's ``plog``), and the gaps' prefix sum is XLA's CPU
@@ -283,27 +287,70 @@ def edge_hop_plain(
     *,
     edge: int | None = None,
     eidx: torch.Tensor | None = None,
+    fault: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dropped, delay) of S x n lanes crossing one static ``edge`` or, with
     ``eidx`` (S, n), each lane's own edge.  ``u`` is the lanes' uniform;
     ``mean``, ``var`` and ``drop`` are (S, NE); ``dist`` is the plan's
     (NE,) law table; ``zkey`` keys the normal stream (needed where a law
-    reads one)."""
+    reads one); ``fault``, where given, is each lane's (latency factor,
+    dropout boost), (S, n) each (:func:`fault_lookup`)."""
     s, n = u.shape
     laws = hop_laws(dist, edge)
     if eidx is None:
         m, v, p = (x[:, edge : edge + 1] for x in (mean, var, drop))
     else:
         m, v, p = (torch.gather(x, 1, eidx.long()) for x in (mean, var, drop))
+    if fault is not None:
+        p = torch.clamp(p + fault[1], 0.0, 1.0)
     dropped, u_lat = drop_rescale(u, p)
     z = normal(zkey, n) if set(laws) & set(NORMAL_LAWS) else None
     if len(laws) == 1:
-        return dropped, delay_law(laws[0], m, v, u_lat, z)
-    law = torch.as_tensor(np.asarray(dist, np.int64), device=u.device)[eidx.long()]
-    delay = torch.zeros_like(u)
-    for d in laws:
-        delay = torch.where(law == d, delay_law(d, m, v, u_lat, z), delay)
+        delay = delay_law(laws[0], m, v, u_lat, z)
+    else:
+        law = torch.as_tensor(np.asarray(dist, np.int64), device=u.device)[eidx.long()]
+        delay = torch.zeros_like(u)
+        for d in laws:
+            delay = torch.where(law == d, delay_law(d, m, v, u_lat, z), delay)
+    if fault is not None:
+        delay = delay * fault[0]
     return dropped, delay
+
+
+def fault_rows(times: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(S, n) int64 row of a fault table active at each lane's time ``t``:
+    ``max(searchsorted(times, t, right) - 1, 0)``, on the table ``times``
+    (M,) or on each scenario's row of (S, M); -1 clamps to row 0, and at a
+    duplicate time the last row (the superposed state) is read."""
+    if times.ndim == 1:
+        idx = torch.bucketize(t, times, right=True)
+    else:
+        idx = torch.searchsorted(times.contiguous(), t.contiguous(), right=True)
+    return torch.clamp_min(idx - 1, 0)
+
+
+def fault_lookup(
+    tables: EdgeTables,
+    t_send: torch.Tensor,
+    *,
+    edge: int | None = None,
+    eidx: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(latency factor, dropout boost), (S, n) each, of every lane's edge at
+    its send time (``_edge_fault``): the static ``edge`` or each lane's
+    ``eidx``, from the tables' (M, NE) or (S, M, NE) values."""
+    idx = fault_rows(tables.fault_t, t_send)
+    out = []
+    for vals in (tables.fault_lat, tables.fault_drop):
+        if vals.ndim == 2:
+            out.append(vals[idx, edge] if eidx is None else vals[idx, eidx.long()])
+            continue
+        s, m, ne = vals.shape
+        if eidx is None:
+            out.append(vals[:, :, edge].gather(1, idx))
+        else:
+            out.append(vals.reshape(s, m * ne).gather(1, idx * ne + eidx.long()))
+    return out[0], out[1]
 
 
 def spike_add(
@@ -357,8 +404,11 @@ def lane_block_sum(x: torch.Tensor) -> torch.Tensor:
 class EdgeTables(NamedTuple):
     """What a hop reads besides its lanes: the plan's (NE,) law table, the
     run's (S, NE) edge parameters, the horizon, the LB's slot tables
-    ((K,) int32 edge and server of each slot, or None) and the plan's spike
-    tables ((NB,) breakpoints, (NB, NE) values, or None without spikes)."""
+    ((K,) int32 edge and server of each slot, or None), the plan's spike
+    tables ((NB,) breakpoints, (NB, NE) values, or None without spikes) and
+    the run's edge fault tables (float32 breakpoints (M,) or (S, M), their
+    first 0, and (M, NE) or (S, M, NE) latency factors and dropout boosts,
+    or None without edge faults)."""
 
     dist: np.ndarray
     mean: torch.Tensor
@@ -369,6 +419,9 @@ class EdgeTables(NamedTuple):
     lb_target: torch.Tensor | None = None
     spike_t: torch.Tensor | None = None
     spike_v: torch.Tensor | None = None
+    fault_t: torch.Tensor | None = None
+    fault_lat: torch.Tensor | None = None
+    fault_drop: torch.Tensor | None = None
 
 
 class HopOut(NamedTuple):
@@ -400,9 +453,10 @@ def hop_plain(
     over LB slot ``rank % K``; with ``slot`` (S, n) int32, over that LB
     slot, a gated lane of slot -1 (no healthy target) counting as dropped
     at the LB and sending nothing (slot 0 on the lanes that do not send);
-    the uniform of stream ``ukey`` settles the drop and the delay, the
-    spike at ``t_send`` is added, and each gauge span is a float64 sum in
-    the kernel's order (:func:`lane_block_sum`) rounded once."""
+    the uniform of stream ``ukey`` settles the drop and the delay (under the
+    fault row active at ``t_send``, where the tables have fault windows),
+    the spike at ``t_send`` is added, and each gauge span is a float64 sum
+    in the kernel's order (:func:`lane_block_sum`) rounded once."""
     s, n = t_send.shape
     h = f32(tables.horizon)
     gate = alive & (t_send < h)
@@ -421,9 +475,11 @@ def hop_plain(
         eidx = tables.lb_edge.long()[pick]
         target = tables.lb_target[pick]
     needs_z = bool(set(hop_laws(tables.dist, edge)) & set(NORMAL_LAWS))
+    fault = (None if tables.fault_t is None
+             else fault_lookup(tables, t_send, edge=edge, eidx=eidx))
     dropped, delay = edge_hop_plain(
         uniform(ukey, n), zkey if needs_z else None, tables.dist, tables.mean, tables.var,
-        tables.drop, edge=edge, eidx=eidx,
+        tables.drop, edge=edge, eidx=eidx, fault=fault,
     )
     if tables.spike_t is not None:
         delay = spike_add(delay, t_send, tables.spike_t, tables.spike_v, edge=edge, eidx=eidx)
@@ -465,12 +521,14 @@ class _EdgeDrawArgs(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "ukey", "zkey", "x_in", "t_send", "alive", "rank", "slot", "lb_edge", "lb_target",
-            "mean", "var", "drop", "dist", "spike_t", "spike_v", "out", "ok", "target",
+            "mean", "var", "drop", "dist", "spike_t", "spike_v", "fault_t", "fault_lat",
+            "fault_drop", "out", "ok", "target",
             "tot", "partial", "span", "dropped",
         )]
         + [(name, ctypes.c_int64) for name in ("S", "n", "ld_in", "ld_out", "ld_tot")]
         + [("horizon", ctypes.c_float)]
-        + [(name, ctypes.c_int32) for name in ("NE", "NB", "K", "edge", "mode", "gap")]
+        + [(name, ctypes.c_int32) for name in (
+            "NE", "NB", "K", "edge", "mode", "gap", "NF", "fault_per_row")]
     )
 
 
@@ -526,19 +584,21 @@ class PlainEdgeDraws:
 
 
 class EdgeDraws:
-    """The per-lane draws of the fast path with their launch count."""
+    """The per-lane draws of the fast path with their launch count, in all
+    (``launches``) and of hops under fault tables (``fault_launches``)."""
 
     name = "edge_draws"
     route = "cuda"
     source = "asyncflow_tpu_torch/csrc/edge_draws.cu"
     replaces = (
         "asyncflow_tpu/engines/jaxsim/fastpath.py:818 (_edge_hop), :855 (_edge_hop_dyn), "
-        ":793 (_add_spike), :980-981 (the arrival gaps and their cumsum), :986 (the "
-        "windows' extra gaps), :1388 and :1393 (draw_uniform)"
+        ":793 (_add_spike), :799 (_edge_fault), :980-981 (the arrival gaps and their "
+        "cumsum), :986 (the windows' extra gaps), :1388 and :1393 (draw_uniform)"
     )
 
     def __init__(self) -> None:
         self.launches = 0
+        self.fault_launches = 0
 
     def uniform(self, keys: torch.Tensor, n: int, *, gap: bool = False) -> torch.Tensor:
         """(S, n) uniforms of each scenario's stream ``keys`` (S, 2), or
@@ -600,7 +660,9 @@ class EdgeDraws:
         float32 and ``alive`` (S, n) bool, over the static ``edge``, the LB
         slots of the int64 arrival ``rank``, or the int32 LB ``slot`` of
         each lane (-1: no healthy target); ``ukey`` (S, 2) keys the
-        uniform stream, ``zkey`` the normal one where a law reads it."""
+        uniform stream, ``zkey`` the normal one where a law reads it; the
+        fault tables of ``tables``, where given, are read in the kernel at
+        each lane's send time."""
         if sum(x is not None for x in (edge, rank, slot)) != 1:
             msg = "edge_draws.hop takes exactly one of edge, rank and slot"
             raise ValueError(msg)
@@ -637,6 +699,14 @@ class EdgeDraws:
             nb = int(tables.spike_t.shape[0])
             _need(tables.spike_t, torch.float32, (nb,), dev, "spike_t")
             _need(tables.spike_v, torch.float32, (nb, ne), dev, "spike_v")
+        nf, per_row = 0, 0
+        if tables.fault_t is not None:
+            per_row = int(tables.fault_t.ndim == 2)
+            nf = int(tables.fault_t.shape[-1])
+            rows = (s,) if per_row else ()
+            _need(tables.fault_t, torch.float32, (*rows, nf), dev, "fault_t")
+            for name in ("fault_lat", "fault_drop"):
+                _need(getattr(tables, name), torch.float32, (*rows, nf, ne), dev, name)
         out = HopOut(
             t_next=torch.empty((s, n), dtype=torch.float32, device=dev),
             ok=torch.empty((s, n), dtype=torch.bool, device=dev),
@@ -655,14 +725,16 @@ class EdgeDraws:
             mean=tables.mean, var=tables.var, drop=tables.drop,
             dist=torch.as_tensor(np.asarray(tables.dist, np.int32), device=dev),
             spike_t=tables.spike_t, spike_v=tables.spike_v,
+            fault_t=tables.fault_t, fault_lat=tables.fault_lat, fault_drop=tables.fault_drop,
             out=out.t_next, ok=out.ok, target=target, partial=partial, span=out.span,
             dropped=out.dropped,
             horizon=f32(tables.horizon), NE=ne, NB=nb, K=k_slots,
-            edge=-1 if edge is None else int(edge),
+            edge=-1 if edge is None else int(edge), NF=nf, fault_per_row=per_row,
         )
         return out
 
-    _SCALARS = ("ld_in", "ld_out", "ld_tot", "horizon", "NE", "NB", "K", "edge", "gap")
+    _SCALARS = ("ld_in", "ld_out", "ld_tot", "horizon", "NE", "NB", "K", "edge", "gap", "NF",
+                "fault_per_row")
 
     def _launch(self, mode: int, s: int, n: int, **fields) -> None:
         if s == 0 or n == 0:
@@ -686,6 +758,8 @@ class EdgeDraws:
             msg = f"edge_draws launch failed: code {rc}"
             raise KernelLaunchError(msg)
         self.launches += 1
+        if fields.get("fault_t") is not None:
+            self.fault_launches += 1
 
 
 def hop_keys(keys: torch.Tensor, site: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -24,14 +24,24 @@ lanes, here batched over scenarios as (S, n) tensors:
    RAM and core scan; a cache segment's miss adds its extra to the pre-IO
    or trailing IO it sits in; a modelled DB pool is one more FIFO station
    of K connections after the last burst, whose wait delays the departure;
-5. chained servers run in the exit DAG's topological order.
+5. chained servers run in the exit DAG's topological order;
+6. resilience: an edge's fault windows (a hand-authored timeline, or a
+   chaos campaign's per-scenario tables) boost its dropout and multiply
+   its delay at the send time, inside the hop; a server inside a dark
+   window refuses an arrival before anything else there; with a client
+   retry policy the lanes are blocks of attempts (block a holds attempt
+   a + 1 of each logical request), the journey runs once per attempt, and
+   between passes the deadlines, failures, backoffs and the retry budget
+   (a token bucket over the retry wants in time order) decide which
+   attempts re-issue (``_run_one``'s retry branch).
 
 The slice: any number of generators; round robin with fixed membership or
 under an outage timeline, or no LB; any servers and cores, chained or not;
 alternating CPU / IO endpoints with one or several bursts, weighted and
 IO-only endpoints; non-binding or binding RAM; stochastic cache segments;
 DB connection pools; uniform, exponential, normal and lognormal edges with
-dropout; network spikes (added to an edge's delay at its send time).
+dropout; network spikes (added to an edge's delay at its send time); fault
+timelines, chaos-campaign hazard tables and client retries.
 Everything else is refused by name before any work (:func:`fast_refusal`).
 
 Every draw site folds the reference's constants into the scenario key
@@ -74,6 +84,7 @@ from asyncflow_tpu_torch.engines.torchsim.draws import (
     EdgeDraws,
     EdgeTables,
     HopOut,
+    fault_rows,
     hop_keys,
     prefix_sum_xla,
 )
@@ -90,6 +101,7 @@ from asyncflow_tpu_torch.engines.torchsim.params import (
     INF,
     ScenarioOverrides,
     base_overrides,
+    fill_overrides,
 )
 from asyncflow_tpu_torch.engines.torchsim.routing import LbRoute, Timeline, route_lanes
 from asyncflow_tpu_torch.engines.torchsim.sampling import (
@@ -131,7 +143,20 @@ class FastState(NamedTuple):
     n_overflow: np.ndarray
     #: (S, n_gauges) exact time-average of every gauge over the horizon
     gauge_means: np.ndarray
+    #: arrivals refused by a dark fault window (the fast path models no
+    #: other refusal)
     n_rejected: np.ndarray
+    #: the dark-window subset of n_rejected: the availability numerator
+    n_dark_lost: np.ndarray
+    #: client deadlines that fired while their attempt was in flight
+    n_timed_out: np.ndarray
+    #: granted re-issues
+    n_retries: np.ndarray
+    #: retry wants the budget denied
+    n_budget_exhausted: np.ndarray
+    #: (S, max_attempts) attempts used by each ended logical request
+    #: (completed or given up); (S, 1) zeros without a retry policy
+    att_hist: np.ndarray
 
 
 def fast_refusal(plan: StaticPlan) -> tuple[str, str] | None:
@@ -251,9 +276,27 @@ class FastEngine:
             raise ValueError(msg)
         self.plan = plan
         self.device = resolve_device(device)
-        #: each stream's lanes, a contiguous slice each, in generator order
+        #: each stream's arrival lanes, a contiguous slice each, in generator
+        #: order
         self.gen_n = stream_slots(plan, max_requests)
         self.n = sum(self.gen_n)
+        #: attempts a logical request may use: with a retry policy the n
+        #: lanes are A blocks of n // A, block a holding attempt a + 1 of
+        #: the logical request of its lane's offset (arrivals in block 0)
+        self.attempts = max(int(plan.retry_max_attempts), 1) if plan.has_retry else 1
+        if self.attempts > 1:
+            n1 = max(self.n // self.attempts, 1)
+            self.gen_n = [n1]
+            self.n = n1 * self.attempts
+        #: are the lanes' failure times needed (by the retry driver only)
+        self.track_fail = plan.has_retry
+        #: do fault windows reach some server, or some edge (a timeline's
+        #: or a chaos campaign's)
+        self.srv_faulted = (np.any(plan.fault_srv_down != 0, axis=0)
+                            | np.asarray(plan.hz_srv_mask, bool))
+        self.has_edge_faults = bool(
+            np.any(plan.fault_edge_lat != 1.0) or np.any(plan.fault_edge_drop != 0.0)
+            or np.any(plan.hz_edge_mask))
         self.n_hist_bins = n_hist_bins
         self.hist_lo, self.hist_scale = hist_constants(n_hist_bins)
         self.collect_clocks = collect_clocks
@@ -422,9 +465,13 @@ class FastEngine:
     # ------------------------------------------------------------------
 
     def _edge_tables(self, ov: dict) -> EdgeTables:
+        faults = {}
+        if self.has_edge_faults:
+            faults = {"fault_t": ov["fe_t"], "fault_lat": ov["fe_lat"],
+                      "fault_drop": ov["fe_drop"]}
         return EdgeTables(
             dist=self._dist, mean=ov["em"], var=ov["ev"], drop=ov["ed"],
-            horizon=self.plan.horizon, **self._hop_static,
+            horizon=self.plan.horizon, **self._hop_static, **faults,
         )
 
     def _hop(self, tables: EdgeTables, keys, site: int, t, alive, *, ukey=None,
@@ -435,10 +482,12 @@ class FastEngine:
         uk, zk = hop_keys(keys, site)
         return self.draws.hop(tables, t, alive, uk if ukey is None else ukey, zk, **lanes)
 
-    def _entry_chains(self, keys, tables, ts: list, valids: list, gm, n_dropped):
+    def _entry_chains(self, keys, tables, ts: list, valids: list, gm, n_dropped, record=True):
         """Each stream's entry chain on its own lanes, then the streams'
-        lanes side by side: (t, alive), (S, n).  One stream folds hop j in
-        at site 16 + j; stream g of several at 1024 + stride g + j."""
+        lanes side by side: (t, alive, fail_t), (S, n), ``fail_t`` the issue
+        time of a lane dropped on the chain (INF elsewhere; None where the
+        engine tracks no failure times).  One stream folds hop j in at site
+        16 + j; stream g of several at 1024 + stride g + j."""
         plan = self.plan
         if len(ts) == 1:
             chains = [plan.entry_edges.tolist()]
@@ -448,20 +497,28 @@ class FastEngine:
                       for g in range(len(ts))]
             stride = max(len(c) for c in chains)
             site = lambda g, j: 1024 + stride * g + j  # noqa: E731
-        out_t, out_alive = [], []
+        horizon = f32(plan.horizon)
+        out_t, out_alive, out_fail = [], [], []
         for g, chain in enumerate(chains):
             t, alive = ts[g], valids[g]
+            t0 = t
+            fail = torch.full_like(t, INF) if self.track_fail else None
             # each hop sends only while the clock runs (alive & t < horizon)
             for j, eidx in enumerate(chain):
                 hop = self._hop(tables, keys, site(g, j), t, alive, edge=eidx)
-                gm[:, eidx] += hop.span[:, 0]
-                n_dropped += hop.dropped
+                if record:
+                    gm[:, eidx] += hop.span[:, 0]
+                    n_dropped += hop.dropped
+                if fail is not None:
+                    fail = torch.where(alive & (t < horizon) & ~hop.ok, t0, fail)
                 t, alive = hop.t_next, hop.ok
             out_t.append(t)
             out_alive.append(alive)
+            out_fail.append(fail)
         if len(out_t) == 1:
-            return out_t[0], out_alive[0]
-        return torch.cat(out_t, dim=1), torch.cat(out_alive, dim=1)
+            return out_t[0], out_alive[0], out_fail[0]
+        fail = torch.cat(out_fail, dim=1) if self.track_fail else None
+        return torch.cat(out_t, dim=1), torch.cat(out_alive, dim=1), fail
 
     def _cache_extras(self, keys, s: int, ep: torch.Tensor):
         """Server ``s``'s stochastic cache draws: the (S, n, CMAX) placement
@@ -476,18 +533,27 @@ class FastEngine:
         missed = u < tab["fp_cache_miss_prob"][s][ep]
         return place, torch.where(missed, tab["fp_cache_extra"][s][ep], 0.0)
 
-    def _journey(self, keys, ov: dict, ts: list, valids: list):
-        """Entry chains, routing, the servers in topological order and the
-        exits (``_journey`` without retries): (finish, completed,
-        gauge_means, n_dropped)."""
+    def _journey(self, keys, ov: dict, ts: list, valids: list, *, record: bool = True):
+        """One pass of entry chains, routing, the servers in topological
+        order and the exits (``_journey``): (finish, completed, fail_t,
+        gauge_means, n_dropped, n_dark_lost); dark refusals are the fast
+        path's only rejections.  ``fail_t`` (None but for the retry driver,
+        ``track_fail``) is a lane's failure time as its client sees it (INF
+        where it completed or was in flight at the horizon): a drop on the
+        entry chain at the attempt's issue, a drop at the LB or on its edge
+        at the send there, a dark refusal at the arrival, a drop on the exit
+        edge at the departure.  ``record=False`` skips every gauge and
+        counter (the retry driver's relaxation passes need only the outcome
+        times)."""
         plan, dev, n = self.plan, self.device, self.n
         s_rows = ts[0].shape[0]
         horizon = f32(plan.horizon)
         gm = torch.zeros((s_rows, plan.n_gauges), dtype=torch.float32, device=dev)
         n_dropped = torch.zeros(s_rows, dtype=torch.int64, device=dev)
+        n_dark = torch.zeros(s_rows, dtype=torch.int64, device=dev)
         tab = self._tables
         tables = self._edge_tables(ov)
-        t, alive = self._entry_chains(keys, tables, ts, valids, gm, n_dropped)
+        t, alive, fail_t = self._entry_chains(keys, tables, ts, valids, gm, n_dropped, record)
 
         # ---- routing: round robin by arrival rank, or under the timeline ----
         alive = alive & (t < horizon)
@@ -500,9 +566,13 @@ class FastEngine:
             hop = self._hop(tables, keys, 32, t, alive, **lanes)
             del lanes
             srv = hop.target
-            for k, e in enumerate(plan.lb_edge_index.tolist()):
-                gm[:, e] += hop.span[:, k]
-            n_dropped += hop.dropped
+            if record:
+                for k, e in enumerate(plan.lb_edge_index.tolist()):
+                    gm[:, e] += hop.span[:, k]
+                n_dropped += hop.dropped
+            if fail_t is not None:
+                # no healthy target, or dropped on the LB's edge: at the send
+                fail_t = torch.where(alive & ~hop.ok, t, fail_t)
             t, alive = hop.t_next, hop.ok
 
         # ---- servers in topological order ----
@@ -519,6 +589,15 @@ class FastEngine:
         exit_key = None if chained else fold_in(keys, 7)
         for s in topo:
             mine = alive & (srv == s) & (t < horizon)
+            if self.srv_faulted[s]:
+                # a dark window refuses the arrival before anything else here
+                dark = mine & self._server_down(ov, s, t)
+                if record:
+                    n_dark += dark.sum(dim=1)
+                if fail_t is not None:
+                    fail_t = torch.where(dark, t, fail_t)
+                alive = alive & ~dark
+                mine = mine & ~dark
             nep = int(plan.n_endpoints[s])
             u = u_ep_shared if u_ep_shared is not None else self.draws.uniform(
                 fold_in(keys, 64 + s), n)
@@ -576,7 +655,7 @@ class FastEngine:
                     s, kb, cores, t, mine, ep, post, shared_rank, place, extra,
                 )
                 visits = kb
-            for k in range(visits):
+            for k in range(visits if record else 0):
                 vb = validb[..., k]
                 gm[:, plan.gauge_ready(s)] += _span(enq[..., k], enq[..., k] + wait[..., k],
                                                    vb, horizon)
@@ -584,16 +663,20 @@ class FastEngine:
                                                 horizon)
             trail_start = dep - post
             dep = self._db_station(s, ep, mine, trail_start, trail_extra, dep)
-            # the trailing IO sleep holds the DB pool's wait too
-            gm[:, plan.gauge_io(s)] += _span(trail_start, dep, mine & (dep > trail_start),
-                                            horizon)
-            gm[:, plan.gauge_ram(s)] += _span(t + w_ram, dep, mine, horizon, amount=ram)
+            if record:
+                # the trailing IO sleep holds the DB pool's wait too
+                gm[:, plan.gauge_io(s)] += _span(trail_start, dep, mine & (dep > trail_start),
+                                                horizon)
+                gm[:, plan.gauge_ram(s)] += _span(t + w_ram, dep, mine, horizon, amount=ram)
 
             # exit edge: the send happens only while the clock runs
             eidx = int(plan.exit_edge[s])
             hop = self._hop(tables, keys, 128 + s, dep, mine, edge=eidx, ukey=exit_key)
-            gm[:, eidx] += hop.span[:, 0]
-            n_dropped += hop.dropped
+            if record:
+                gm[:, eidx] += hop.span[:, 0]
+                n_dropped += hop.dropped
+            if fail_t is not None:
+                fail_t = torch.where(mine & (dep < horizon) & ~hop.ok, dep, fail_t)
             ok = hop.ok
             if int(plan.exit_kind[s]) == TARGET_SERVER:
                 t = torch.where(ok, hop.t_next, t)
@@ -604,7 +687,16 @@ class FastEngine:
                 finish = torch.where(done, hop.t_next, finish)
                 completed = completed | done
                 alive = torch.where(mine, False, alive)
-        return finish, completed, gm, n_dropped
+        return finish, completed, fail_t, gm, n_dropped, n_dark
+
+    def _server_down(self, ov: dict, s: int, t: torch.Tensor) -> torch.Tensor:
+        """(S, n) bool: server ``s`` sits in a dark window at each lane's
+        time ``t`` (the row ``max(searchsorted(times, t, right) - 1, 0)``
+        of the scenario's outage table)."""
+        idx = fault_rows(ov["fs_t"], t)
+        down = ov["fs_down"]
+        col = down[:, s][idx] if down.ndim == 2 else down[:, :, s].gather(1, idx)
+        return col == 1
 
     def _db_station(self, s, ep, mine, trail_start, trail_extra, dep) -> torch.Tensor:
         """The departures of server ``s`` after its modelled DB pool: one
@@ -686,9 +778,13 @@ class FastEngine:
     # ------------------------------------------------------------------
 
     def _overrides(self, ov: ScenarioOverrides, s: int) -> dict:
-        """The run's edge tables (S, NE) and each stream's users and rate:
-        with several generators the workload fields are (G,) or (S, G)."""
+        """The run's edge tables (S, NE), each stream's users and rate (with
+        several generators the workload fields are (G,) or (S, G)), the
+        fault tables where faults reach a server or an edge (shared or a
+        row a scenario; the edge tables' times and values alike, as the hop
+        kernel takes them) and the client timeout (S,)."""
         dev, ne = self.device, self.plan.n_edges
+        ov = fill_overrides(ov, base_overrides(self.plan))
 
         def per_scenario(x):
             arr = _float_tensor(x, dev)
@@ -701,13 +797,99 @@ class FastEngine:
             rrs = [per_scenario(rr[..., g]) for g in range(len(self.gen_n))]
         else:
             ums, rrs = [um], [per_scenario(rr)]
-        return {
+        out = {
             "em": _edge_table(ov.edge_mean, s, ne, dev),
             "ev": _edge_table(ov.edge_var, s, ne, dev),
             "ed": _edge_table(ov.edge_dropout, s, ne, dev),
             "um": ums,
             "rr": rrs,
+            "rt": per_scenario(ov.retry_timeout),
         }
+        if self.srv_faulted.any():
+            out["fs_t"] = _float_tensor(ov.fault_srv_times, dev)
+            out["fs_down"] = torch.as_tensor(np.asarray(ov.fault_srv_down, np.int32),
+                                             device=dev)
+        if self.has_edge_faults:
+            fe_t = _float_tensor(ov.fault_edge_times, dev)
+            fe_lat = _float_tensor(ov.fault_edge_lat, dev)
+            fe_drop = _float_tensor(ov.fault_edge_drop, dev)
+            if fe_t.ndim == 2 or fe_lat.ndim == 3:
+                m = fe_t.shape[-1]
+                fe_t = fe_t.expand(s, m).contiguous()
+                fe_lat = fe_lat.expand(s, m, ne).contiguous()
+                fe_drop = fe_drop.expand(s, m, ne).contiguous()
+            out.update(fe_t=fe_t, fe_lat=fe_lat, fe_drop=fe_drop)
+        return out
+
+    def _backoffs(self, keys: torch.Tensor) -> torch.Tensor | None:
+        """(S, n - n1) backoff of each re-issue lane (blocks 1 .. A-1):
+        ``min(cap, base * mult**(a-1))`` for block a, times ``1 + jitter (2 u
+        - 1)`` with u the block's uniform at ``fold_in(key, 2048 + a)``."""
+        plan, n1 = self.plan, self.gen_n[0]
+        parts = []
+        for a in range(1, self.attempts):
+            d = f32(min(float(plan.retry_backoff_cap),
+                        float(plan.retry_backoff_base) * float(plan.retry_backoff_mult)
+                        ** float(a - 1)))
+            if plan.retry_jitter > 0:
+                u = self.draws.uniform(fold_in(keys, 2048 + a), n1)
+                parts.append(d * (1.0 + f32(plan.retry_jitter) * (2.0 * u - 1.0)))
+            else:
+                parts.append(torch.full((keys.shape[0], n1), d, dtype=torch.float32,
+                                        device=keys.device))
+        return torch.cat(parts, dim=1) if parts else None
+
+    def _attempts(self, keys, ov: dict, t1: torch.Tensor, v1: torch.Tensor):
+        """The retry branch of ``_run_one``: the journey run once per attempt
+        over the A lane blocks (only the last pass records), each pass
+        re-issuing into block a + 1 the granted retries of block a at their
+        want time plus the backoff.  A deadline ``D = T + timeout`` fires
+        where it comes no later than the completion and the failure and
+        before the horizon; a failed or timed-out attempt wants a retry
+        (within the attempt cap), and the budget, one token bucket over the
+        wants in time order, grants it (a grant whose re-issue would land
+        past the horizon spends its token all the same).  Returns the last
+        pass's journey outputs, the lanes' issue times T, the successes and
+        the (timed out, retries, denied, ended) masks."""
+        plan, n, n1 = self.plan, self.n, self.gen_n[0]
+        s_rows = t1.shape[0]
+        horizon = f32(plan.horizon)
+        big_t = torch.full((s_rows, n), INF, dtype=torch.float32, device=t1.device)
+        big_t[:, :n1] = torch.where(v1, t1, INF)
+        boff = self._backoffs(keys)
+        rt = ov["rt"][:, None]
+        can_retry = (torch.arange(n, device=t1.device) // n1) < (self.attempts - 1)
+        budget = float(plan.retry_budget_tokens)
+        for p in range(self.attempts):
+            last = p == self.attempts - 1
+            issued = big_t < INF
+            out = self._journey(keys, ov, [big_t], [issued], record=last)
+            finish, completed, fail_t = out[:3]
+            c_time = torch.where(completed, finish, INF)
+            deadline = big_t + rt
+            timed = issued & (deadline <= torch.minimum(c_time, fail_t)) & (deadline < horizon)
+            failed = issued & ~timed & (fail_t < INF)
+            want_t = torch.where(timed, deadline, fail_t)
+            want = (timed | failed) & can_retry
+            if budget >= 0:
+                wt = torch.where(want, want_t, INF)
+                rank = time_rank(wt, want)
+                acc = self.scan.bucket(to_sorted(wt, rank, INF), to_sorted(want, rank, False),
+                                       float(plan.retry_budget_refill), budget)
+                grant = want & acc.gather(1, rank)
+                del wt, rank, acc
+            else:
+                grant = want
+            if not last:
+                tn = want_t[:, : n - n1] + boff
+                big_t = torch.cat(
+                    [big_t[:, :n1], torch.where(grant[:, : n - n1] & (tn < horizon), tn, INF)],
+                    dim=1,
+                )
+        success = issued & ~timed & completed
+        denied = want & ~grant
+        ended = success | denied | ((timed | failed) & ~can_retry)
+        return out, big_t, success, (timed, grant, denied, ended)
 
     def run_tensors(self, keys, overrides: ScenarioOverrides | None = None, *,
                     window_draws=None) -> dict:
@@ -729,10 +911,26 @@ class FastEngine:
                 c_g = torch.as_tensor(np.array(c_g), device=dev).to(torch.int32)
                 counts.append(torch.where(lam > 0, c_g, 0))
         ts, valids, overflow = self._stream_arrivals(fold_in(kt, 0), counts)
-        finish, success, gm, n_dropped = self._journey(kt, ov, ts, valids)
         t0 = ts[0] if len(ts) == 1 else torch.cat(ts, dim=1)
         valid = valids[0] if len(valids) == 1 else torch.cat(valids, dim=1)
-        del ts, valids
+        zero = torch.zeros(s, dtype=torch.int64, device=dev)
+        if not plan.has_retry:
+            out = self._journey(kt, ov, ts, valids)
+            finish, success = out[0], out[1]
+            timed_out = retries = denied = zero
+            att_hist = torch.zeros((s, 1), dtype=torch.int32, device=dev)
+        else:
+            out, t0, success, (timed, grant, deny, ended) = self._attempts(kt, ov, t0, valid)
+            finish = out[0]
+            timed_out, retries, denied = (m.sum(dim=1) for m in (timed, grant, deny))
+            blk = torch.arange(n, device=dev) // self.gen_n[0]
+            att_hist = torch.zeros((s, self.attempts + 1), dtype=torch.int64, device=dev)
+            att_hist = att_hist.scatter_add_(
+                1, torch.where(ended, blk, self.attempts), ended.to(torch.int64),
+            )[:, : self.attempts].to(torch.int32)
+            del timed, grant, deny, ended
+        gm, n_dropped, n_dark = out[3:]
+        del ts, valids, out
 
         latency = torch.where(success, finish - t0, 0.0)
         bins = self.n_hist_bins
@@ -767,7 +965,12 @@ class FastEngine:
             "n_dropped": n_dropped.to(torch.int32),
             "n_overflow": overflow,
             "gauge_means": gm / f32(plan.horizon),
-            "n_rejected": torch.zeros(s, dtype=torch.int32, device=dev),
+            "n_rejected": n_dark.to(torch.int32),
+            "n_dark_lost": n_dark.to(torch.int32),
+            "n_timed_out": timed_out.to(torch.int32),
+            "n_retries": retries.to(torch.int32),
+            "n_budget_exhausted": denied.to(torch.int32),
+            "att_hist": att_hist,
         }
 
     def run_batch(self, keys, overrides: ScenarioOverrides | None = None, *,

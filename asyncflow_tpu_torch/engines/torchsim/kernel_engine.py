@@ -69,10 +69,24 @@ class KernelState(NamedTuple):
     n_events: np.ndarray
 
 
+#: the resilience features the DES kernel does not model, as the
+#: reference's Pallas kernel does not (its fences ``resilience.pallas`` and
+#: ``hazard.pallas``): fault windows, sampled hazards and client retries
+#: run on the scan fast path only
+KERNEL_REFUSES = (
+    ("faults", lambda plan: plan.has_faults),
+    ("hazards", lambda plan: plan.has_hazards),
+    ("retry", lambda plan: plan.has_retry),
+)
+
+
 def check_slice(plan: StaticPlan) -> None:
     """Raise :class:`UnsupportedFeatureError` for a plan this slice cannot run."""
     if plan.unsupported:
         raise UnsupportedFeatureError(plan.unsupported[0], "plan")
+    for feature, test in KERNEL_REFUSES:
+        if test(plan):
+            raise UnsupportedFeatureError(feature, "DES kernel; the scan fast path runs it")
     for kind in np.unique(np.asarray(plan.seg_kind)).tolist():
         if kind in UNSUPPORTED_SEGMENTS:
             raise UnsupportedFeatureError(UNSUPPORTED_SEGMENTS[kind], "plan segments")

@@ -30,7 +30,8 @@ class ScenarioOverrides(NamedTuple):
     """Per-scenario parameter overrides for Monte-Carlo sweeps.
 
     Each field matches the base plan's shape (broadcast to every scenario)
-    or carries a leading scenario axis.
+    or carries a leading scenario axis.  A resilience field left ``None``
+    is the base plan's value (:func:`fill_overrides`).
     """
 
     edge_mean: np.ndarray  # (NE,) or (S, NE)
@@ -38,6 +39,30 @@ class ScenarioOverrides(NamedTuple):
     edge_dropout: np.ndarray
     user_mean: np.ndarray  # scalar or (S,); (G,) or (S, G) with G generators
     req_rate: np.ndarray  # requests / user / second, shaped as user_mean
+    # fault-window timings and the client's timeout
+    fault_srv_times: np.ndarray | None = None  # (K,) or (S, K)
+    fault_edge_times: np.ndarray | None = None  # (M,) or (S, M)
+    retry_timeout: np.ndarray | None = None  # scalar or (S,)
+    # the fault tables' values (a chaos campaign samples them per scenario)
+    fault_srv_down: np.ndarray | None = None  # (K, NS) or (S, K, NS) i32
+    fault_edge_lat: np.ndarray | None = None  # (M, NE) or (S, M, NE)
+    fault_edge_drop: np.ndarray | None = None  # (M, NE) or (S, M, NE)
+    # a chaos campaign's intensity: divides MTBF / multiplies MTTR
+    hazard_scale: np.ndarray | None = None  # scalar or (S,)
+    mttr_scale: np.ndarray | None = None  # scalar or (S,)
+
+
+#: the overrides' resilience fields, each with its numpy dtype
+RESILIENCE_FIELDS = {
+    "fault_srv_times": np.float32,
+    "fault_edge_times": np.float32,
+    "retry_timeout": np.float32,
+    "fault_srv_down": np.int32,
+    "fault_edge_lat": np.float32,
+    "fault_edge_drop": np.float32,
+    "hazard_scale": np.float32,
+    "mttr_scale": np.float32,
+}
 
 
 def base_overrides(plan: StaticPlan) -> ScenarioOverrides:
@@ -55,16 +80,36 @@ def base_overrides(plan: StaticPlan) -> ScenarioOverrides:
         edge_dropout=np.asarray(plan.edge_dropout, np.float32),
         user_mean=user_mean,
         req_rate=req_rate,
+        fault_srv_times=np.asarray(plan.fault_srv_times, np.float32),
+        fault_edge_times=np.asarray(plan.fault_edge_times, np.float32),
+        retry_timeout=np.float32(plan.retry_timeout),
+        fault_srv_down=np.asarray(plan.fault_srv_down, np.int32),
+        fault_edge_lat=np.asarray(plan.fault_edge_lat, np.float32),
+        fault_edge_drop=np.asarray(plan.fault_edge_drop, np.float32),
+        hazard_scale=np.float32(1.0),
+        mttr_scale=np.float32(1.0),
     )
+
+
+def fill_overrides(ov: ScenarioOverrides, base: ScenarioOverrides) -> ScenarioOverrides:
+    """``ov`` with each ``None`` field replaced by the base plan's value."""
+    return ScenarioOverrides(*[b if o is None else o for o, b in zip(ov, base)])
 
 
 def overrides_from_arrays(fields: Mapping[str, object]) -> ScenarioOverrides:
     """Overrides from a mapping of numpy arrays (for example the reference's
-    ``ScenarioOverrides._asdict()``).  Only this slice's five fields are
-    read: the reference's other override axes scale features (faults,
-    hedging, serving) that a plan of this slice cannot carry."""
+    ``ScenarioOverrides._asdict()``): the five edge and workload fields and
+    the resilience fields, where given and not ``None``.  The reference's
+    other axes (hedging, brownout, LB health, serving) scale features the
+    port does not model."""
+    resilience = {
+        name: np.asarray(fields[name], dtype)
+        for name, dtype in RESILIENCE_FIELDS.items()
+        if fields.get(name) is not None
+    }
     return ScenarioOverrides(
-        *[np.asarray(fields[name], np.float32) for name in ScenarioOverrides._fields],
+        *[np.asarray(fields[name], np.float32) for name in ScenarioOverrides._fields[:5]],
+        **resilience,
     )
 
 

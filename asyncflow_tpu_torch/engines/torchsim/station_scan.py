@@ -16,14 +16,18 @@ computes, operation for operation:
   times (``_kw_waits``, ``:198``);
 - :func:`ram_core_plain`: the joint FIFO of RAM admission slots and cores
   (``_ram_core_scan``, ``:233``), returning (admission wait, core wait,
-  departure).
+  departure);
+- :func:`token_bucket_plain`: the arrival-order token bucket
+  (``_token_bucket_scan``, ``:302``), returning the accepted flags: the
+  client retry budget's pass over the retry wants, and the shape of a
+  server's rate limit.
 
 Invalid entries leave the carry as it is (their outputs are computed and
 ignored), so a stream may interleave other stations' lanes.
 :class:`StationScan` is the wrapper: CUDA tensors launch the kernel (built
 on first use) or raise, CPU tensors run the plain version.  The kernel
-walks a row with one thread in Lindley's mode, and with one warp in the
-two carry modes, each carry vector spread over the warp's lanes, or whole
+walks a row with one thread in Lindley's and the bucket's modes, and with
+one warp in the two carry modes, each carry vector spread over the warp's lanes, or whole
 on every lane where it is narrow (:func:`carry_form`); a vector wider
 than :data:`WARP_WIDTH_MAX` entries (a core count the schema does not
 bound) goes back to one thread a row with the carry in global scratch
@@ -43,8 +47,10 @@ from asyncflow_tpu_torch.errors import KernelBuildError, KernelLaunchError
 MODE_LINDLEY = 0
 MODE_KW = 1
 MODE_RAM_CORE = 2
+MODE_BUCKET = 3
 #: each mode's name, as ``StationScan.mode_launches`` counts it
-MODE_NAMES = {MODE_LINDLEY: "lindley", MODE_KW: "kw", MODE_RAM_CORE: "ram_core"}
+MODE_NAMES = {MODE_LINDLEY: "lindley", MODE_KW: "kw", MODE_RAM_CORE: "ram_core",
+              MODE_BUCKET: "bucket"}
 #: the kernel's walks (station_scan.cu, ``station_scan_walk``): one thread
 #: a row (Lindley), one warp a row with the carry over its lanes (the carry
 #: modes up to WARP_WIDTH_MAX entries a vector), one thread a row with the
@@ -62,7 +68,7 @@ WHOLE_MAX = 4
 
 def walk_of(mode: int, cores: int, ram_k: int) -> int:
     """The walk the kernel takes for a launch (``station_scan_walk``)."""
-    if mode == MODE_LINDLEY:
+    if mode in (MODE_LINDLEY, MODE_BUCKET):
         return WALK_THREAD
     width = max(cores, ram_k) if mode == MODE_RAM_CORE else cores
     return WALK_WARP if width <= WARP_WIDTH_MAX else WALK_GLOBAL
@@ -151,6 +157,30 @@ def ram_core_plain(
     return w_ram, w_cpu, dep
 
 
+def token_bucket_plain(t: torch.Tensor, v: torch.Tensor, rate: float,
+                       burst: float) -> torch.Tensor:
+    """(S, m) bool accepted flags of the token bucket over sorted times
+    ``t`` and validity ``v``: full (``burst`` tokens) at time 0, refilled
+    ``rate`` a second up to ``burst``, accepting a valid element holding a
+    whole token and spending it; its tokens and clock advance on every
+    valid element, refused ones included (``_token_bucket_scan``).  Float32
+    throughout, each operation rounded on its own."""
+    rate32 = torch.tensor(rate, dtype=torch.float32, device=t.device)
+    burst32 = torch.tensor(burst, dtype=torch.float32, device=t.device)
+    tokens = burst32.expand(t.shape[0]).clone()
+    last = torch.zeros_like(tokens)
+    out = torch.empty_like(v)
+    for k in range(t.shape[1]):
+        tk, vk = t[:, k], v[:, k]
+        tok = torch.minimum(burst32, tokens + (tk - last) * rate32)
+        acc = vk & (tok >= 1.0)
+        tok = tok - torch.where(acc, 1.0, 0.0)
+        tokens = torch.where(vk, tok, tokens)
+        last = torch.where(vk, tk, last)
+        out[:, k] = acc
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -161,10 +191,11 @@ class _StationArgs(ctypes.Structure):
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "a", "d", "v", "pre", "post", "out0", "out1", "out2", "scratch",
+            "a", "d", "v", "pre", "post", "out0", "out1", "out2", "scratch", "flag",
         )]
         + [(name, ctypes.c_int64) for name in ("S", "m")]
         + [(name, ctypes.c_int32) for name in ("mode", "cores", "ram_k")]
+        + [(name, ctypes.c_float) for name in ("rate", "burst")]
     )
 
 
@@ -193,10 +224,14 @@ class PlainStationScan:
     def ram_core(self, a, pre, svc, post, v, ram_k: int, cores: int):
         return ram_core_plain(a, pre, svc, post, v, ram_k, cores)
 
+    def bucket(self, t, v, rate: float, burst: float):
+        return token_bucket_plain(t, v, rate, burst)
+
 
 class StationScan:
     """The station recursions with their launch count, in all, by mode
-    (``mode_launches``: Lindley, Kiefer-Wolfowitz, RAM-core) and by walk
+    (``mode_launches``: Lindley, Kiefer-Wolfowitz, RAM-core, the token
+    bucket) and by walk
     (``walk_launches``: a thread a row, a warp a row, the global-scratch
     walk).  A carry vector of up to :data:`WARP_WIDTH_MAX` entries is held
     by a warp's lanes (:func:`carry_form`); a wider one lives in global
@@ -207,7 +242,7 @@ class StationScan:
     source = "asyncflow_tpu_torch/csrc/station_scan.cu"
     replaces = (
         "asyncflow_tpu/engines/jaxsim/fastpath.py:278 (_lindley_waits), :198 (_kw_waits), "
-        ":233 (_ram_core_scan)"
+        ":233 (_ram_core_scan), :302 (_token_bucket_scan)"
     )
 
     def __init__(self) -> None:
@@ -234,7 +269,18 @@ class StationScan:
                      out0=outs[0], out1=outs[1], out2=outs[2])
         return tuple(outs)
 
-    def _launch(self, mode: int, cores: int, ram_k: int, **tensors) -> None:
+    def bucket(self, t: torch.Tensor, v: torch.Tensor, rate: float, burst: float):
+        """(S, m) bool accepted flags of the token bucket over each row's
+        sorted times ``t`` and validity ``v`` (:func:`token_bucket_plain`)."""
+        if t.device.type == "cpu":
+            return PlainStationScan().bucket(t, v, rate, burst)
+        flag = torch.empty_like(v)
+        self._launch(MODE_BUCKET, 1, 0, rate=float(rate), burst=float(burst), a=t, v=v,
+                     flag=flag)
+        return flag
+
+    def _launch(self, mode: int, cores: int, ram_k: int, *, rate: float = 0.0,
+                burst: float = 0.0, **tensors) -> None:
         a = tensors["a"]
         dev = a.device
         if dev.type != "cuda":
@@ -245,7 +291,7 @@ class StationScan:
             raise ValueError(msg)
         s, m = a.shape
         for name, t in tensors.items():
-            dtype = torch.bool if name == "v" else torch.float32
+            dtype = torch.bool if name in ("v", "flag") else torch.float32
             if t.dtype != dtype or tuple(t.shape) != (s, m) or not t.is_contiguous() \
                     or t.device != dev:
                 msg = (
@@ -260,7 +306,8 @@ class StationScan:
         if walk == WALK_GLOBAL:
             width = cores + (ram_k if mode == MODE_RAM_CORE else 0)
             tensors["scratch"] = torch.empty((s, width), dtype=torch.float32, device=dev)
-        args = _StationArgs(S=s, m=m, mode=mode, cores=cores, ram_k=ram_k)
+        args = _StationArgs(S=s, m=m, mode=mode, cores=cores, ram_k=ram_k, rate=rate,
+                            burst=burst)
         for name, t in tensors.items():
             setattr(args, name, t.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream

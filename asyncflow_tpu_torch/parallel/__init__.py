@@ -1,5 +1,5 @@
 """Monte-Carlo sweeps."""
 
-from asyncflow_tpu_torch.parallel.sweep import SweepReport, SweepRunner
+from asyncflow_tpu_torch.parallel.sweep import SweepReport, SweepRunner, make_overrides
 
-__all__ = ["SweepReport", "SweepRunner"]
+__all__ = ["SweepReport", "SweepRunner", "make_overrides"]

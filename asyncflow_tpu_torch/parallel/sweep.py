@@ -2,9 +2,11 @@
 the reference's ``parallel/sweep.py`` (``SweepRunner``, ``SweepReport``).
 
 ``engine="kernel"`` is the counterpart of the reference's ``"pallas"``: the
-DES kernel.  ``engine="fast"`` is the scan fast path (``FastEngine``), which
-refuses by name a plan outside its slice (least connections and the
-overload controls).  ``engine="auto"`` takes the fast
+DES kernel, which models no fault window, hazard or retry policy (as the
+reference's Pallas kernel does not) and refuses such plans by name.
+``engine="fast"`` is the scan fast path (``FastEngine``), which refuses by
+name a plan outside its slice (least connections and the overload
+controls).  ``engine="auto"`` takes the fast
 path, as the reference does, where the compiler proved the plan eligible
 (``plan.fastpath_ok``) and the port's fast engine models it, and the DES
 kernel otherwise; ``engine_kind`` says which.  The reference's event
@@ -19,7 +21,15 @@ are refused with :class:`ProofHeadroomError` (the reference's
 that it proved unreachable at the base rate, and the proof does not cover
 the overridden one.  On the fast path, overrides that leave its own
 compile-time proofs are refused with :class:`FastPathOverrideError` (the
-reference's ``_guard_overrides_against_plan``).
+reference's ``_guard_overrides_against_plan``), as are resilience overrides
+the plan cannot honour (``_guard_resilience_overrides``).
+
+A chaos campaign's fault tables are sampled once a run, for the whole
+block of scenarios, before it is cut into chunks (each chunk slices them),
+so no chunk size changes a window; the run's results then carry the
+resilience scorecard (``SweepResults.unavailable_s``, ``degraded_goodput``,
+``hazard_truncated``, ``time_to_drain``), reduced on the host from those
+tables.  :func:`make_overrides` builds the resilience sweep axes.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from asyncflow_tpu_torch.compiler import hazards
 from asyncflow_tpu_torch.compiler.plan import RELAX_RHO_MAX, StaticPlan, compile_payload
 from asyncflow_tpu_torch.engines.results import (
     SweepResults,
@@ -42,7 +53,11 @@ from asyncflow_tpu_torch.engines.results import (
 from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine, fast_refusal
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
-from asyncflow_tpu_torch.engines.torchsim.params import ScenarioOverrides, base_overrides
+from asyncflow_tpu_torch.engines.torchsim.params import (
+    ScenarioOverrides,
+    base_overrides,
+    fill_overrides,
+)
 from asyncflow_tpu_torch.errors import FastPathOverrideError, ProofHeadroomError
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload
 
@@ -82,6 +97,10 @@ class SweepReport:
         res = self.results
         completed = res.completed.sum()
         generated = int(res.total_generated.sum())
+
+        def total(x) -> int:
+            return int(x.sum()) if x is not None else 0
+
         return {
             "n_scenarios": self.n_scenarios,
             "scenarios_per_second": self.scenarios_per_second,
@@ -90,7 +109,13 @@ class SweepReport:
             "overflow_total": int(res.overflow_dropped.sum()),
             "rejected_total": int(res.total_rejected.sum()),
             "truncated_total": int(res.truncated.sum()) if res.truncated is not None else 0,
-            "goodput_fraction": float(completed / max(generated, 1)),
+            "timed_out_total": total(res.total_timed_out),
+            "retries_total": total(res.total_retries),
+            "retry_budget_exhausted_total": total(res.retry_budget_exhausted),
+            # completions over offered issues: spawns and re-issues
+            "goodput_fraction": float(
+                completed / max(generated + total(res.total_retries), 1),
+            ),
             "latency_mean_s": float(res.latency_sum.sum() / max(completed, 1)),
             "llm_cost_total": (
                 float(res.llm_cost_sum.sum()) if res.llm_cost_sum is not None else None
@@ -103,26 +128,156 @@ class SweepReport:
             "latency_p50_s": self.aggregate_percentile(50),
             "latency_p95_s": self.aggregate_percentile(95),
             "latency_p99_s": self.aggregate_percentile(99),
+            # the resilience scorecard, on plans with faults or hazards only
+            **self._scorecard_fields(res),
         }
+
+    @staticmethod
+    def _scorecard_fields(res: SweepResults) -> dict:
+        """The resilience scorecard's summary keys; none on plain sweeps."""
+        if res.dark_lost is None:
+            return {}
+        completed = int(res.completed.sum())
+        dark = int(res.dark_lost.sum())
+        out: dict = {
+            "dark_lost_total": dark,
+            # completions over completions and arrivals lost to dark windows
+            "availability_fraction": float(completed / max(completed + dark, 1)),
+        }
+        if res.unavailable_s is not None:
+            out["unavailable_s_total"] = float(res.unavailable_s.sum())
+        if res.degraded_goodput is not None:
+            out["degraded_goodput_total"] = float(res.degraded_goodput.sum())
+        if res.hazard_truncated is not None:
+            out["hazard_truncated_total"] = int(res.hazard_truncated.sum())
+        if res.time_to_drain is not None:
+            ttd = np.asarray(res.time_to_drain, np.float64)
+            finite = ttd[np.isfinite(ttd)]
+            out["time_to_drain_mean_s"] = float(finite.mean()) if finite.size else None
+        return out
 
 
 def _slice_overrides(
-    ov: ScenarioOverrides | None, start: int, take: int, n_generators: int,
+    ov: ScenarioOverrides | None, base: ScenarioOverrides, start: int, take: int,
 ) -> ScenarioOverrides | None:
-    """Rows ``start .. start+take`` of per-scenario override fields (the
-    workload fields are (S, G) per scenario with several generators)."""
+    """Rows ``start .. start+take`` of the override fields that carry a
+    scenario axis (more dimensions than the base plan's value); the others
+    pass through."""
     if ov is None:
         return None
-    workload_ndim = 2 if n_generators > 1 else 1
-    per_scenario_ndim = {"edge_mean": 2, "edge_var": 2, "edge_dropout": 2,
-                         "user_mean": workload_ndim, "req_rate": workload_ndim}
-    fields = {}
-    for name, value in ov._asdict().items():
-        arr = np.asarray(value, np.float32)
-        if arr.ndim == per_scenario_ndim.get(name, 1):
-            arr = arr[start : start + take]
-        fields[name] = arr
-    return ScenarioOverrides(**fields)
+    fields = []
+    for value, b in zip(ov, base):
+        arr = np.asarray(value)
+        fields.append(arr[start : start + take] if arr.ndim > np.ndim(b) else value)
+    return ScenarioOverrides(*fields)
+
+
+def make_overrides(
+    plan: StaticPlan,
+    n_scenarios: int,
+    *,
+    fault_shift: np.ndarray | None = None,
+    retry_timeout: np.ndarray | None = None,
+    hazard_scale: np.ndarray | None = None,
+    mttr_scale: np.ndarray | None = None,
+) -> ScenarioOverrides:
+    """Per-scenario resilience overrides (the reference's ``make_overrides``
+    axes of this slice), each (S,):
+
+    - ``fault_shift``: seconds added to every fault-window breakpoint (the
+      windows' timing; their shapes stay the plan's); shifted times clip
+      at 0 and the leading identity row stays at t = 0;
+    - ``retry_timeout``: the client's request timeout;
+    - ``hazard_scale``: divides every failure domain's MTBF mean (more
+      chaos); ``mttr_scale``: multiplies its MTTR mean (slower repair).
+      Both reuse the campaign's uniforms, so scale sweeps are paired.
+
+    Each needs the base plan to model what it moves (a fault timeline, a
+    retry policy, a hazard model)."""
+    base = base_overrides(plan)
+    for name, arr in (("hazard_scale", hazard_scale), ("mttr_scale", mttr_scale)):
+        if arr is not None and not plan.has_hazards:
+            msg = (f"{name} overrides need a hazard_model in the payload: the sampled "
+                   "fault campaign they rescale must exist")
+            raise ValueError(msg)
+    if fault_shift is not None and not plan.has_faults:
+        msg = ("fault_shift overrides need a fault_timeline in the payload: the compiler "
+               "lowers the window shapes; overrides only move their timings")
+        raise ValueError(msg)
+    if retry_timeout is not None and not plan.has_retry:
+        msg = ("retry_timeout overrides need a retry_policy in the payload: the retry "
+               "machinery runs only where the base plan models it")
+        raise ValueError(msg)
+
+    def axis(arr, name: str) -> np.ndarray:
+        out = np.asarray(arr, np.float32)
+        if out.shape != (n_scenarios,):
+            msg = f"{name} must have shape ({n_scenarios},), got {out.shape}"
+            raise ValueError(msg)
+        return out
+
+    def shifted(times: np.ndarray) -> np.ndarray:
+        shift = axis(fault_shift, "fault_shift")
+        out = np.maximum(times[None, :] + shift[:, None], np.float32(0.0))
+        # the leading row is the state before any window: it stays at t = 0
+        out[:, 0] = 0.0
+        return out
+
+    return base._replace(
+        fault_srv_times=(base.fault_srv_times if fault_shift is None
+                         else shifted(base.fault_srv_times)),
+        fault_edge_times=(base.fault_edge_times if fault_shift is None
+                          else shifted(base.fault_edge_times)),
+        retry_timeout=(base.retry_timeout if retry_timeout is None
+                       else axis(retry_timeout, "retry_timeout")),
+        hazard_scale=(base.hazard_scale if hazard_scale is None
+                      else axis(hazard_scale, "hazard_scale")),
+        mttr_scale=base.mttr_scale if mttr_scale is None else axis(mttr_scale, "mttr_scale"),
+    )
+
+
+_FAULT_TABLES = ("fault_srv_times", "fault_edge_times", "fault_srv_down", "fault_edge_lat",
+                 "fault_edge_drop")
+
+
+def _differs(value, base) -> bool:
+    arr = np.asarray(value)
+    return arr.shape != np.shape(base) or not np.allclose(arr, base)
+
+
+def _guard_resilience_overrides(plan: StaticPlan, overrides: ScenarioOverrides | None) -> None:
+    """Refuse resilience overrides the plan cannot honour: the engines run
+    the fault and retry machinery only where the base plan models it, and
+    a chaos campaign's tables are sampled, so an override of them would be
+    overwritten (the reference's ``_guard_resilience_overrides``)."""
+    if overrides is None:
+        return
+    if not plan.has_retry and overrides.retry_timeout is not None:
+        rt = np.asarray(overrides.retry_timeout)
+        if rt.ndim > 0 or not np.isclose(float(rt), float(plan.retry_timeout)):
+            msg = ("retry_timeout overrides need a retry_policy in the payload: the retry "
+                   "machinery runs only where the base plan models it")
+            raise FastPathOverrideError(msg)
+    for name in _FAULT_TABLES:
+        value = getattr(overrides, name)
+        if value is None or not _differs(value, getattr(plan, name)):
+            continue
+        if plan.has_hazards:
+            msg = (f"{name} overrides conflict with the payload's hazard_model: the chaos "
+                   "campaign samples these tables per scenario and would overwrite the "
+                   "override; use the hazard_scale / mttr_scale axes to reshape it")
+            raise FastPathOverrideError(msg)
+        if not plan.has_faults:
+            msg = (f"{name} overrides need a fault_timeline or a hazard_model in the "
+                   "payload: the window machinery runs only where the base plan models it")
+            raise FastPathOverrideError(msg)
+    if not plan.has_hazards:
+        for name in ("hazard_scale", "mttr_scale"):
+            value = getattr(overrides, name)
+            if value is not None and not np.allclose(np.asarray(value), 1.0):
+                msg = (f"{name} overrides need a hazard_model in the payload: the sampled "
+                       "fault campaign they rescale must exist")
+                raise FastPathOverrideError(msg)
 
 
 def _override_rate_scale(plan: StaticPlan, overrides: ScenarioOverrides) -> float:
@@ -263,27 +418,68 @@ class SweepRunner:
         if n_scenarios < 1:
             msg = "n_scenarios must be at least 1"
             raise ValueError(msg)
-        _guard_rate_headroom(self.plan, overrides)
+        plan = self.plan
+        base = base_overrides(plan)
+        if overrides is not None:
+            overrides = fill_overrides(overrides, base)
+        _guard_rate_headroom(plan, overrides)
         if self.engine_kind == "fast":
-            _guard_fast_overrides(self.plan, overrides)
+            _guard_fast_overrides(plan, overrides)
+        _guard_resilience_overrides(plan, overrides)
         chunk = chunk_size or self.default_chunk
         parts = []
         t0 = time.perf_counter()
+        tables = None
+        if plan.has_hazards:
+            # the campaign's windows for the whole block, before chunking
+            overrides = overrides if overrides is not None else base
+            tables = hazards.hazard_fault_tables(
+                plan, seed, first_scenario, n_scenarios,
+                hazard_scale=_hazard_axis(overrides.hazard_scale),
+                mttr_scale=_hazard_axis(overrides.mttr_scale),
+            )
+            overrides = overrides._replace(
+                fault_srv_times=tables.srv_times, fault_srv_down=tables.srv_down,
+                fault_edge_times=tables.edge_times, fault_edge_lat=tables.edge_lat,
+                fault_edge_drop=tables.edge_drop,
+            )
         for start in range(0, n_scenarios, chunk):
             take = min(chunk, n_scenarios - start)
             keys = scenario_keys(
                 seed, take, first=first_scenario + start, device=self.device,
             )
-            state = self.engine.run_batch(
-                keys, _slice_overrides(overrides, start, take, self.plan.n_generators),
-            )
+            state = self.engine.run_batch(keys, _slice_overrides(overrides, base, start, take))
             parts.append(
-                sweep_results(state, self.payload.sim_settings, has_llm=self.plan.has_llm),
+                sweep_results(state, self.payload.sim_settings, has_llm=plan.has_llm,
+                              has_retry=plan.has_retry,
+                              has_faults=plan.has_faults or plan.has_hazards),
             )
+        merged = concat_results(parts)
+        if tables is not None:
+            _attach_scorecard(merged, tables, plan.horizon)
         wall = time.perf_counter() - t0
         return SweepReport(
-            results=concat_results(parts),
+            results=merged,
             n_scenarios=n_scenarios,
             wall_seconds=wall,
-            plan=self.plan,
+            plan=plan,
         )
+
+
+def _hazard_axis(x):
+    arr = np.asarray(x, np.float64)
+    return arr if arr.ndim else float(arr)
+
+
+def _attach_scorecard(merged: SweepResults, tables, horizon: float) -> None:
+    """The resilience scorecard of a chaos campaign, reduced on the host
+    from its sampled tables (the reference's ``_attach_scorecard``).  The
+    time to drain needs a streamed ready-queue series, which the port does
+    not collect yet: NaN, "not measured"."""
+    merged.hazard_truncated = np.asarray(tables.truncated, np.int64)
+    merged.unavailable_s = hazards.unavailable_seconds(tables.srv_times, tables.srv_down,
+                                                       float(horizon))
+    thr = np.asarray(merged.throughput, np.float64)
+    mask = hazards.degraded_seconds_mask(tables, float(horizon), thr.shape[1])
+    merged.degraded_goodput = (thr * mask).sum(axis=1)
+    merged.time_to_drain = np.full(thr.shape[0], np.nan)

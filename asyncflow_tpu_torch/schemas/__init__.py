@@ -15,6 +15,13 @@ from asyncflow_tpu_torch.schemas.nodes import (
 )
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload, load_payload
 from asyncflow_tpu_torch.schemas.random_variables import RVConfig
+from asyncflow_tpu_torch.schemas.resilience import (
+    FailureDomain,
+    FaultEvent,
+    FaultTimeline,
+    HazardModel,
+    RetryPolicy,
+)
 from asyncflow_tpu_torch.schemas.settings import SimulationSettings
 from asyncflow_tpu_torch.schemas.workload import RqsGenerator
 
@@ -25,9 +32,14 @@ __all__ = [
     "End",
     "Endpoint",
     "EventInjection",
+    "FailureDomain",
+    "FaultEvent",
+    "FaultTimeline",
+    "HazardModel",
     "LoadBalancer",
     "OverloadPolicy",
     "RVConfig",
+    "RetryPolicy",
     "RqsGenerator",
     "Server",
     "ServerResources",

@@ -7,9 +7,13 @@ the horizon; at no instant are all servers down; outage windows on one
 server never overlap.  ``rqs_input`` is one generator (the reference's
 on-disk format) or a non-empty list of generators with unique ids, each
 the source of exactly one entry edge; :attr:`SimulationPayload.generators`
-is always the list.  The resilience blocks (retry policy, fault timeline,
-hedging, hazard model) are refused by name.  PyYAML is imported only by
-:func:`load_payload`.
+is always the list.  The resilience blocks follow the reference's
+cross-checks: a retry policy takes one generator; a fault's target is a
+declared server (``server_outage``) or edge (the edge kinds) and its window
+sits inside the horizon (overlapping fault windows are legal, and may
+darken every server at once); a failure domain's targets are declared
+servers or edges, and edge targets need degrade semantics.  Hedging is
+refused by name.  PyYAML is imported only by :func:`load_payload`.
 """
 
 from __future__ import annotations
@@ -17,20 +21,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from pathlib import Path
 
-from asyncflow_tpu_torch.config.constants import EventDescription
+from asyncflow_tpu_torch.config.constants import EventDescription, FaultKind
 from asyncflow_tpu_torch.errors import PayloadError
 from asyncflow_tpu_torch.schemas._fields import as_list, read_fields
 from asyncflow_tpu_torch.schemas.events import EventInjection
 from asyncflow_tpu_torch.schemas.graph import TopologyGraph
+from asyncflow_tpu_torch.schemas.resilience import FaultTimeline, HazardModel, RetryPolicy
 from asyncflow_tpu_torch.schemas.settings import SimulationSettings
 from asyncflow_tpu_torch.schemas.workload import RqsGenerator
 
-_UNSUPPORTED_BLOCKS = (
-    "retry_policy",
-    "fault_timeline",
-    "hedge_policy",
-    "hazard_model",
-)
+_UNSUPPORTED_BLOCKS = ("hedge_policy",)
 
 
 def _sweep_marks(
@@ -51,6 +51,12 @@ class SimulationPayload:
     topology_graph: TopologyGraph
     sim_settings: SimulationSettings
     events: list[EventInjection] | None = None
+    #: the client's timeout / retry / backoff / budget discipline
+    retry_policy: RetryPolicy | None = None
+    #: scheduled fault windows (server outages, edge degradation or partition)
+    fault_timeline: FaultTimeline | None = None
+    #: a chaos campaign, sampled into per-scenario fault tables
+    hazard_model: HazardModel | None = None
 
     @property
     def generators(self) -> list[RqsGenerator]:
@@ -83,8 +89,47 @@ class SimulationPayload:
                     f"found {len(outs)}"
                 )
                 raise PayloadError(msg)
+        self._check_resilience()
         if self.events is not None:
             self._check_events()
+
+    def _check_resilience(self) -> None:
+        """The reference's retry, fault and hazard cross-checks."""
+        if self.retry_policy is not None and len(self.generators) > 1:
+            msg = (
+                "retry_policy with multiple generators is not supported yet: re-issues "
+                "would need per-request entry-chain state; model the superposition as one "
+                "generator or drop the retry policy"
+            )
+            raise PayloadError(msg)
+        server_ids = {server.id for server in self.topology_graph.nodes.servers}
+        edge_ids = {edge.id for edge in self.topology_graph.edges}
+        horizon = float(self.sim_settings.total_simulation_time)
+        for fault in self.fault_timeline.events if self.fault_timeline else []:
+            if fault.kind == FaultKind.SERVER_OUTAGE:
+                if fault.target_id not in server_ids:
+                    msg = (f"fault {fault.fault_id!r}: server_outage target "
+                           f"{fault.target_id!r} is not a declared server")
+                    raise PayloadError(msg)
+            elif fault.target_id not in edge_ids:
+                msg = (f"fault {fault.fault_id!r}: {fault.kind} target {fault.target_id!r} "
+                       "is not a declared edge")
+                raise PayloadError(msg)
+            if fault.t_start > horizon or fault.t_end > horizon:
+                msg = (f"fault {fault.fault_id!r}: window [{fault.t_start}, {fault.t_end}] "
+                       f"exceeds the simulation horizon T={horizon}")
+                raise PayloadError(msg)
+        for domain in self.hazard_model.domains if self.hazard_model else []:
+            for target in domain.targets:
+                if target not in server_ids and target not in edge_ids:
+                    msg = (f"failure domain {domain.domain_id!r}: target {target!r} is not "
+                           "a declared server or edge")
+                    raise PayloadError(msg)
+            edge_targets = [t for t in domain.targets if t in edge_ids]
+            if edge_targets and domain.latency_factor == 1.0 and domain.dropout_boost == 0.0:
+                msg = (f"failure domain {domain.domain_id!r}: edge targets {edge_targets} "
+                       "need latency_factor > 1 and/or dropout_boost > 0")
+                raise PayloadError(msg)
 
     def _check_events(self) -> None:
         """The reference's event validators, in its order."""
@@ -166,7 +211,8 @@ class SimulationPayload:
         f = read_fields(
             data,
             "payload",
-            known=("rqs_input", "topology_graph", "sim_settings", "events"),
+            known=("rqs_input", "topology_graph", "sim_settings", "events", "retry_policy",
+                   "fault_timeline", "hazard_model"),
             required=("rqs_input", "topology_graph", "sim_settings"),
             unsupported=_UNSUPPORTED_BLOCKS,
         )
@@ -184,6 +230,12 @@ class SimulationPayload:
                 if f.get("events") is None
                 else [EventInjection.from_dict(e) for e in as_list(f["events"], "events")]
             ),
+            **{
+                name: None if f.get(name) is None else block.from_dict(f[name])
+                for name, block in (("retry_policy", RetryPolicy),
+                                    ("fault_timeline", FaultTimeline),
+                                    ("hazard_model", HazardModel))
+            },
         )
 
 

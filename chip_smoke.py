@@ -42,39 +42,55 @@ no result line):
 4. the scan fast path's three kernels (``edge_draws``, ``station_scan``,
    ``lb_route``) against their plain PyTorch versions on the card, on each
    fast path's payload (two_servers_lb, single_server,
-   heavy_inj_single_server, event_inj_lb, two_gen_lb, db_pool_k2) cut to
-   60 s (its events scaled into it) at 64 scenarios: every kernel call of
-   the engine's run (uniforms, arrival gaps and their prefix sum, static,
-   LB, slot and spiked hops, the outage timeline's table and lanes, Lindley
-   and Kiefer-Wolfowitz scans, RAM-core scans) repeated through the plain
-   version, bit-exact, and the whole engine through each, with identical
-   integer outputs, per-request clocks and gauge means; a synthetic
-   timeline with an all-down interval and same-time marks, and one of 23
-   marks (two counting passes), through ``lb_route`` at full width;
-   ``station_scan`` at every carry width of ``SCAN_WIDTH_CASES`` (the warp
-   walk's width classes up to 1024 entries, and past them the
-   global-scratch walk) on 2048 synthetic rows; and XLA's ``log1p`` in the
-   kernel against its plain version on each of the 2**23 uniforms;
-5. the six fast paths: ``SweepRunner(payload).run(2048, seed=0)``
-   through ``engine="auto"``, which must take the fast path and launch
-   its kernels (counts set to 0 before the run: ``edge_draws`` and
-   ``station_scan`` on every path, ``lb_route`` on event_inj_lb and the
-   Kiefer-Wolfowitz mode on db_pool_k2), on two_servers_lb (600 s),
-   single_server (500 s, a binding RAM of 20 slots),
-   heavy_inj_single_server (600 s, a 3 s spike from 180 s to 300 s, in
-   default chunks of 1,797 scenarios), event_inj_lb (600 s: outages and
-   spikes), two_gen_lb (600 s: two streams) and db_pool_k2 (120 s: a DB
-   pool of 2): request conservation, the pooled p95 within 2% of the JAX
+   heavy_inj_single_server, event_inj_lb, two_gen_lb, db_pool_k2,
+   chaos_campaign, outage_retry, trace_parity_resilient) cut to 60 s (its
+   events and fault windows scaled into it; chaos_campaign's tables sampled
+   with its MTBF divided by ten) at 64 scenarios: every kernel call of the
+   engine's run (uniforms, arrival gaps and their prefix sum, static, LB,
+   slot, spiked and fault-table hops, the outage timeline's table and
+   lanes, Lindley and Kiefer-Wolfowitz scans, RAM-core scans, the retry
+   budget's token bucket) repeated through the plain version, bit-exact,
+   and the whole engine through each, with identical integer outputs
+   (the resilience counters included), per-request clocks and gauge
+   means; a synthetic timeline with an all-down interval and same-time
+   marks, and one of 23 marks (two counting passes), through ``lb_route``
+   at full width; ``station_scan`` at every carry width of
+   ``SCAN_WIDTH_CASES`` (the warp walk's width classes up to 1024
+   entries, and past them the global-scratch walk) on 2048 synthetic rows;
+   the hop under synthetic per-scenario fault tables (a partition,
+   overlapping degrades) at the headline's width, static and by rank; the
+   token bucket on 2048 synthetic rows of 9,750 at five (rate, burst)
+   pairs; and XLA's ``log1p`` in the kernel against its plain version on
+   each of the 2**23 uniforms;
+5. the nine fast paths: ``SweepRunner(payload).run(2048, seed=0)``
+   through ``engine="auto"`` (with the path's sweep axes), which must take
+   the fast path and launch its kernels (counts set to 0 before the run:
+   ``edge_draws`` and ``station_scan`` on every path, ``lb_route`` on
+   event_inj_lb, the Kiefer-Wolfowitz mode on db_pool_k2, the fault-table
+   hop on chaos_campaign, the token bucket on outage_retry), on
+   two_servers_lb (600 s), single_server (500 s, a binding RAM of 20
+   slots), heavy_inj_single_server (600 s, a 3 s spike from 180 s to 300 s,
+   in default chunks of 1,797 scenarios), event_inj_lb (600 s: outages and
+   spikes), two_gen_lb (600 s: two streams), db_pool_k2 (120 s: a DB pool
+   of 2), chaos_campaign (600 s: a sampled chaos campaign),
+   outage_retry (the resilience guide's outage sweep, 120 s: the outage
+   slid over 90 s, the retry driver and its budget) and
+   trace_parity_resilient (90 s: every attempt refused, retried,
+   abandoned): for the six earlier paths request conservation and the
+   completions and drops of the earlier slice's final run; for the three
+   resilience paths their invariants (dark refusals, the scorecard of the
+   sampled tables equal to the reference's, the attempts' accounting) and
+   the DES kernel's refusal by name; the pooled p95 within 2% of the JAX
    fast path's and of the DES kernel's on the same payload (its sweep
-   untruncated); then the first call of each kind (uniform, gap, gap
-   prefix sum, static, LB, slot or spiked hop, timeline table and lanes,
-   wait scan of one server or of several, RAM-core scan) of the path's own
-   run at full width, repeated through the kernel and through its plain
-   version on the same arguments, bit-exact; each edge_draws and lb_route
-   kind's call and the path's station_scan kinds timed between CUDA events
-   beside its bound, its plain version's time and the library's (the
-   closed form ``cumsum`` / ``cummax`` for the one-core scan), and the
-   stable rank's time.
+   untruncated), where each has one; then the first call of each kind
+   (uniform, gap, gap prefix sum, static, LB, slot, spiked or fault-table
+   hop, timeline table and lanes, wait scan of one server or of several,
+   RAM-core scan, token bucket) of the path's own run at full width,
+   repeated through the kernel and through its plain version on the same
+   arguments, bit-exact; each edge_draws and lb_route kind's call and the
+   path's station_scan kinds timed between CUDA events beside its bound,
+   its plain version's time and the library's (the closed form ``cumsum``
+   / ``cummax`` for the one-core scan), and the stable rank's time.
 
 It prints a JSON line of per-kernel measurements, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and
@@ -381,6 +397,165 @@ def _two_gen_lb() -> dict:
     return data
 
 
+def _chaos_nodes() -> dict:
+    """The chaos campaign's LB over two 1-core servers of one /api endpoint."""
+    steps = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+        {"kind": "ram", "step_operation": {"necessary_ram": 128}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.012}},
+    ]
+    return {
+        "client": {"id": "client-1"},
+        "load_balancer": {"id": "lb-1", "algorithms": "round_robin",
+                          "server_covered": ["srv-1", "srv-2"]},
+        "servers": [
+            {"id": sid, "server_resources": {"cpu_cores": 1, "ram_mb": 2048},
+             "endpoints": [{"endpoint_name": "/api", "steps": copy.deepcopy(steps)}]}
+            for sid in ("srv-1", "srv-2")
+        ],
+    }
+
+
+#: examples/yaml_input/data/chaos_campaign.yml as a literal: the headline's
+#: shape (400 users, two 1-core servers behind round robin) under a sampled
+#: chaos campaign: rack-a darkens srv-1 (MTBF 300 s, lognormal repair of
+#: 20 s), wan degrades lb-srv2 (4x latency, +5% dropout)
+CHAOS_CAMPAIGN = {
+    "rqs_input": {
+        "id": "rqs-1",
+        "avg_active_users": {"mean": 400},
+        "avg_request_per_minute_per_user": {"mean": 20},
+        "user_sampling_window": 60,
+    },
+    "topology_graph": {
+        "nodes": _chaos_nodes(),
+        "edges": [
+            {"id": eid, "source": src, "target": dst,
+             "latency": {"mean": mean, "distribution": "exponential"}}
+            for eid, src, dst, mean in (
+                ("gen-client", "rqs-1", "client-1", 0.003),
+                ("client-lb", "client-1", "lb-1", 0.002),
+                ("lb-srv1", "lb-1", "srv-1", 0.002),
+                ("lb-srv2", "lb-1", "srv-2", 0.002),
+                ("srv1-client", "srv-1", "client-1", 0.003),
+                ("srv2-client", "srv-2", "client-1", 0.003),
+            )
+        ],
+    },
+    "hazard_model": {
+        "max_faults_per_component": 4,
+        "domains": [
+            {"domain_id": "rack-a", "targets": ["srv-1"],
+             "mtbf": {"mean": 300.0, "distribution": "exponential"},
+             "mttr": {"mean": 20.0, "variance": 0.3, "distribution": "log_normal"}},
+            {"domain_id": "wan", "targets": ["lb-srv2"],
+             "mtbf": {"mean": 400.0, "distribution": "exponential"},
+             "mttr": {"mean": 15.0, "distribution": "exponential"},
+             "latency_factor": 4.0, "dropout_boost": 0.05},
+        ],
+    },
+    "sim_settings": {"total_simulation_time": 600, "sample_period_s": 0.05},
+}
+
+
+def _single_server_edges(means: tuple, ids: tuple, **extra) -> list:
+    return [
+        {"id": eid, "source": src, "target": dst,
+         "latency": {"mean": mean, **extra.get("latency", {"distribution": "exponential"})},
+         **extra.get("edge", {})}
+        for eid, (src, dst), mean in zip(
+            ids, (("rqs-1", "client-1"), ("client-1", "srv-1"), ("srv-1", "client-1")), means)
+    ]
+
+
+def _outage_retry() -> dict:
+    """The resilience guide's runnable outage sweep (docs/guides/
+    resilience.md, "A runnable outage sweep"): tests/integration/data/
+    single_server.yml at 120 s, its retry policy (0.5 s deadline, three
+    attempts, backoff 0.1 s doubling to 1 s, a budget of 50 tokens refilled
+    at 5 a second) and an outage of srv-1 from 10 s to 25 s, slid per
+    scenario by :func:`outage_retry_axes`."""
+    return {
+        "rqs_input": {
+            "id": "rqs-1",
+            "avg_active_users": {"mean": 50},
+            "avg_request_per_minute_per_user": {"mean": 20},
+            "user_sampling_window": 60,
+        },
+        "topology_graph": {
+            "nodes": {
+                "client": {"id": "client-1"},
+                "servers": [{
+                    "id": "srv-1",
+                    "server_resources": {"cpu_cores": 1, "ram_mb": 1024},
+                    "endpoints": [{"endpoint_name": "ep-1", "steps": [
+                        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.001}},
+                        {"kind": "ram", "step_operation": {"necessary_ram": 64}},
+                        {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.01}},
+                    ]}],
+                }],
+            },
+            "edges": _single_server_edges((0.003, 0.002, 0.003),
+                                          ("gen-client", "client-srv", "srv-client")),
+        },
+        "retry_policy": {
+            "request_timeout_s": 0.5, "max_attempts": 3, "backoff_base_s": 0.1,
+            "backoff_multiplier": 2.0, "backoff_cap_s": 1.0, "budget_tokens": 50,
+            "budget_refill_per_s": 5.0,
+        },
+        "fault_timeline": {"events": [{
+            "fault_id": "crash", "kind": "server_outage", "target_id": "srv-1",
+            "t_start": 10.0, "t_end": 25.0,
+        }]},
+        "sim_settings": {"total_simulation_time": 120, "sample_period_s": 0.01},
+    }
+
+
+#: examples/yaml_input/data/trace_parity_resilient.yml as a literal: one
+#: user at 6 requests a minute, degenerate latencies, a retry policy of
+#: three jitter-free attempts and an outage of srv-1 over the whole horizon
+TRACE_PARITY_RESILIENT = {
+    "rqs_input": {
+        "id": "rqs-1",
+        "avg_active_users": {"mean": 1, "distribution": "normal", "variance": 0},
+        "avg_request_per_minute_per_user": {"mean": 6},
+        "user_sampling_window": 60,
+    },
+    "topology_graph": {
+        "nodes": {
+            "client": {"id": "client-1"},
+            "servers": [{
+                "id": "srv-1",
+                "server_resources": {"cpu_cores": 1, "ram_mb": 1024},
+                "endpoints": [{"endpoint_name": "ep-1", "steps": [
+                    {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.004}},
+                    {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.012}},
+                ]}],
+            }],
+        },
+        "edges": _single_server_edges(
+            (0.003, 0.002, 0.005), ("gen-client", "client-srv", "srv-client"),
+            latency={"distribution": "normal", "variance": 0}, edge={"dropout_rate": 0}),
+    },
+    "retry_policy": {"request_timeout_s": 0.05, "max_attempts": 3, "backoff_base_s": 0.1,
+                     "jitter": 0.0},
+    "fault_timeline": {"events": [{
+        "fault_id": "dark-horizon", "kind": "server_outage", "target_id": "srv-1",
+        "t_start": 0.0, "t_end": 90.0,
+    }]},
+    "sim_settings": {"total_simulation_time": 90, "sample_period_s": 0.1},
+}
+
+
+def outage_retry_axes(n: int) -> dict:
+    """The guide's sweep axes for ``n`` scenarios: the outage slid over
+    [0, 90] s, the client timeout 0.5 s (``make_overrides``' arguments)."""
+    import numpy as np
+
+    return {"fault_shift": np.linspace(0.0, 90.0, n), "retry_timeout": np.full(n, 0.5)}
+
+
+OUTAGE_RETRY = _outage_retry()
 EVENT_INJ_LB = _event_inj_lb()
 RESILIENCE_ALL = _resilience_all()
 DB_POOL_K2 = db_pool_payload(2)
@@ -397,10 +572,13 @@ PAYLOADS = {
 
 #: the scan fast path's full-width paths: the headline,
 #: examples/yaml_input/data/single_server.yml (a binding RAM of 20 slots),
-#: heavy_inj_single_server.yml (a network spike, 100,085 lanes), and the
-#: three the reference's ``auto`` also sends there: event_inj_lb (round
-#: robin under outages), two_gen_lb (two streams) and db_pool_k2 (a DB pool
-#: of 2)
+#: heavy_inj_single_server.yml (a network spike, 100,085 lanes), the three
+#: the reference's ``auto`` also sends there: event_inj_lb (round robin
+#: under outages), two_gen_lb (two streams) and db_pool_k2 (a DB pool of
+#: 2), and the three resilience paths: chaos_campaign (sampled fault
+#: tables in the hop and the dark windows), outage_retry (the retry driver
+#: and its budget's token bucket) and trace_parity_resilient (every
+#: attempt refused, retried, abandoned)
 FAST_PAYLOADS = {
     "two_servers_lb": TWO_SERVERS_LB,
     "single_server": SINGLE_SERVER,
@@ -408,22 +586,33 @@ FAST_PAYLOADS = {
     "event_inj_lb": EVENT_INJ_LB,
     "two_gen_lb": TWO_GEN_LB,
     "db_pool_k2": DB_POOL_K2,
+    "chaos_campaign": CHAOS_CAMPAIGN,
+    "outage_retry": OUTAGE_RETRY,
+    "trace_parity_resilient": TRACE_PARITY_RESILIENT,
 }
+#: each fast path's sweep axes for n scenarios (``make_overrides``'
+#: arguments), where its sweep has any
+FAST_SWEEP_AXES = {"outage_retry": outage_retry_axes}
+#: the resilience paths, which the DES kernel refuses by the feature named
+RESILIENCE_PATHS = {"chaos_campaign": "hazards", "outage_retry": "faults",
+                    "trace_parity_resilient": "faults"}
 
 MAIN_SCENARIOS = 2048
 #: a pool too large for shared memory (des_kernel.cu, layout_of)
 POOL_GLOBAL = 2048
 #: iteration cap of the kernel-against-twin check on the headline's plan:
-#: every scenario truncates after ~10 s of simulated time, which keeps the
-#: twin (one batched step per event) near two minutes on the card
-CHECK_ITERATIONS = 8000
+#: every scenario truncates after ~6 s of simulated time, which keeps the
+#: twin (one batched step per event) near a minute on the card (8,000
+#: iterations took 88.7–107.9 s, varying with the card's host: the smoke's
+#: whole run must stay well inside its time limit)
+CHECK_ITERATIONS = 5000
 #: the same for event_inj_lb's and resilience_all's plans (~16 s simulated
 #: at ~40 req/s)
 PATH_CHECK_ITERATIONS = 4000
-#: the same for the three workload paths' plans: db_pool_k2 ~40 s
+#: the same for the three workload paths' plans: db_pool_k2 ~27 s
 #: simulated of its 120 s, llm_cost ~25 s of its 60 s (at ~20 req/s),
-#: two_gen_lb ~6 s (at ~133 req/s)
-WORKLOAD_CHECK_ITERATIONS = {"db_pool_k2": 3000, "llm_cost": 2000, "two_gen_lb": 3000}
+#: two_gen_lb ~4 s (at ~133 req/s)
+WORKLOAD_CHECK_ITERATIONS = {"db_pool_k2": 2000, "llm_cost": 2000, "two_gen_lb": 2000}
 #: event_inj_lb's windows, scaled into the capped check's simulated time:
 #: they end by 10.8 s
 EVENT_CHECK_TIME_SCALE = 0.02
@@ -455,6 +644,15 @@ REFERENCE = {
 #: scenarios 0..2047 (``--scenarios 2048``: 512 gave 0.155738 s and
 #: 0.158149 s for seeds 0 and 1; 2048 of seed 1 gave 0.156589189 s)
 REFERENCE_FAST = {
+    # the resilience paths through the reference's SweepRunner(engine="fast")
+    # (its campaign sampling, its make_overrides of FAST_SWEEP_AXES) on
+    # scenarios 0..2047 of seed 0, with chaos_campaign's scorecard of the
+    # sampled tables, which the port must equal exactly (the same tables);
+    # trace_parity_resilient completes nothing (its own invariants hold it)
+    "chaos_campaign": {"p95_s": 0.03407380965208954,
+                       "unavailable_s_total": 690886.5336279869,
+                       "hazard_truncated_total": 33},
+    "outage_retry": {"p95_s": 0.027960222587827138},
     "two_servers_lb": {"p95_s": 0.03368371799103881},
     "single_server": {"p95_s": 0.12000647249175632},
     "heavy_inj_single_server": {"p95_s": 3.2386658959732046},
@@ -679,8 +877,9 @@ def ptxas_instances(report: str) -> dict:
 
 def _kernel_name(mangled: str) -> str:
     """A kernel's name in a mangled entry name: the length-prefixed name
-    that ends in ``_kernel``, with an instance's integer template arguments
-    (``station_scan_warp_kernel<2, 2, 32, 1, 1>``)."""
+    that ends in ``_kernel``, with an instance's integer and bool template
+    arguments (``station_scan_warp_kernel<2, 2, 32, 1, 1>``,
+    ``hop_kernel<true>``)."""
     import re
 
     i, name = 0, mangled
@@ -698,7 +897,9 @@ def _kernel_name(mangled: str) -> str:
     if name == mangled:
         found = re.search(r"[a-z]+(?:_[a-z]+)*_kernel", mangled)
         name = found.group() if found else mangled
-    args = re.findall(r"Li(\d+)E", mangled)
+    # integer and bool template arguments (hop_kernel<true>)
+    args = [v if kind == "i" else ("true" if v == "1" else "false")
+            for kind, v in re.findall(r"L([ib])(\d+)E", mangled)]
     return name + ("<" + ", ".join(args) + ">" if args else "")
 
 
@@ -1077,7 +1278,7 @@ def phase_kernel_vs_twin(torch) -> dict:
     #: the work each workload path's capped check must show
     path_work = {"db_pool_k2": ("db_waits", "db_grants"), "llm_cost": ("llm_token_draws",)}
     small = {
-        "lc_mixed_dists": (plan_of(_lc_mixed_payload()), 256),
+        "lc_mixed_dists": (plan_of(_lc_mixed_payload()), 128),
         "ram_bound_overflow": (plan_of(_ram_bound_payload(), pool_size=4), 256),
         "ram_bound_pool_37": (plan_of(_ram_bound_payload(), pool_size=37), 256),
         "ram_bound_pool_2048": (plan_of(_ram_bound_payload(), pool_size=POOL_GLOBAL), 128),
@@ -1269,8 +1470,15 @@ LB_SLOT_OPS = (1, 0, 0)
 SCAN_LANE_OPS = (0, 2, 0)
 #: station_scan, an element: Lindley's two selects, add, max, two
 #: subtracts and max; a Kiefer-Wolfowitz or RAM-slot step adds a compare a
-#: carry entry it moves past (not counted: the data decides)
-SCAN_ELEMENT_OPS = {"waits": (3, 5), "ram_core": (4, 8)}
+#: carry entry it moves past (not counted: the data decides); the token
+#: bucket's valid test, accept test and three selects, and its subtract,
+#: multiply, add, min and spend
+SCAN_ELEMENT_OPS = {"waits": (3, 5), "ram_core": (4, 8), "bucket": (5, 5)}
+#: a hop lane under fault tables: per breakpoint the compare and the add of
+#: the row search; then the boost's add and clip (max, min) and the factor's
+#: multiply
+FAULT_BREAKPOINT_OPS = (1, 1)
+FAULT_LANE_OPS = (0, 4)
 #: a Kiefer-Wolfowitz element, per core: the insertion's compare and select
 KW_CORE_OPS = (1, 1)
 
@@ -1335,6 +1543,14 @@ def _draws_bound(torch, kind: str, args: tuple, kw: dict) -> dict:
     if tables.spike_t is not None:
         nb = int(tables.spike_t.shape[0])
         ops[1] += lanes * (nb + 1)
+    if tables.fault_t is not None:
+        # each scenario's (or the shared) breakpoints, factors and boosts
+        # read once; the row search and the fault's arithmetic a lane
+        moved += sum(x.numel() * 4 for x in (tables.fault_t, tables.fault_lat,
+                                             tables.fault_drop))
+        nf = int(tables.fault_t.shape[-1])
+        ops[0] += lanes * (nf * FAULT_BREAKPOINT_OPS[0] + FAULT_LANE_OPS[0])
+        ops[1] += lanes * (nf * FAULT_BREAKPOINT_OPS[1] + FAULT_LANE_OPS[1])
     return _bound_of(moved, *ops)
 
 
@@ -1374,8 +1590,9 @@ def _scan_bound(kind: str, args: tuple) -> dict:
     each output written once, against its element operations."""
     tensors = [x for x in args if hasattr(x, "numel")]
     elems = tensors[0].numel()
-    outputs = 1 if kind == "waits" else 3
-    moved = sum(x.numel() * x.element_size() for x in tensors) + outputs * 4 * elems
+    # the waits (float), the RAM-core scan's three outputs, the bucket's flags
+    out_bytes = {"waits": 4, "waits_kw": 4, "ram_core": 12, "bucket": 1}[kind]
+    moved = sum(x.numel() * x.element_size() for x in tensors) + out_bytes * elems
     ops = SCAN_ELEMENT_OPS["waits" if kind == "waits_kw" else kind]
     int_ops, fp_ops = elems * ops[0], elems * ops[1]
     if kind == "waits_kw":
@@ -1399,8 +1616,8 @@ def _bound_of(moved: int, int_ops: int, fp_ops: int, fp64_ops: int = 0) -> dict:
 
 
 #: the kinds of fast-kernel call: (wrapper name, wrapper method); a hop's
-#: kind says whether it takes the LB slots by rank or by slot and the
-#: spikes, a wait scan's whether it has one server or several
+#: kind says whether it takes the LB slots by rank or by slot, the spikes
+#: and fault tables, a wait scan's whether it has one server or several
 CALL_KINDS = {
     "uniform": ("edge_draws", "uniform"),
     "gap": ("edge_draws", "uniform"),
@@ -1412,9 +1629,16 @@ CALL_KINDS = {
     "hop_spike": ("edge_draws", "hop"),
     "hop_lb_spike": ("edge_draws", "hop"),
     "hop_slot_spike": ("edge_draws", "hop"),
+    "hop_fault": ("edge_draws", "hop"),
+    "hop_lb_fault": ("edge_draws", "hop"),
+    "hop_slot_fault": ("edge_draws", "hop"),
+    "hop_spike_fault": ("edge_draws", "hop"),
+    "hop_lb_spike_fault": ("edge_draws", "hop"),
+    "hop_slot_spike_fault": ("edge_draws", "hop"),
     "waits": ("station_scan", "waits"),
     "waits_kw": ("station_scan", "waits"),
     "ram_core": ("station_scan", "ram_core"),
+    "bucket": ("station_scan", "bucket"),
     "route_table": ("lb_route", "table"),
     "route_slots": ("lb_route", "slots"),
 }
@@ -1425,7 +1649,8 @@ FAST_KERNELS = ("edge_draws", "station_scan", "lb_route")
 def _hop_kind(tables, kw: dict) -> str:
     lanes = ("hop_lb" if kw.get("rank") is not None
              else "hop_slot" if kw.get("slot") is not None else "hop")
-    return lanes + ("_spike" if tables.spike_t is not None else "")
+    return (lanes + ("_spike" if tables.spike_t is not None else "")
+            + ("_fault" if tables.fault_t is not None else ""))
 
 
 def _record_kernel_calls(eng, every: bool) -> list:
@@ -1433,7 +1658,7 @@ def _record_kernel_calls(eng, every: bool) -> list:
     each passes the call on and keeps ``(kind, args, kwargs)`` of every
     call (``every``) or of the first call of each kind (a uniform, a gap
     draw, a gap prefix sum, each kind of hop, a timeline table and its
-    lanes, each kind of wait scan, a RAM-core scan)."""
+    lanes, each kind of wait scan, a RAM-core scan, a token bucket)."""
     calls: list = []
     draws, scan, route = eng.draws, eng.scan, eng.route
 
@@ -1462,6 +1687,10 @@ def _record_kernel_calls(eng, every: bool) -> list:
         def ram_core(self, *args):
             keep("ram_core", args, {})
             return scan.ram_core(*args)
+
+        def bucket(self, *args):
+            keep("bucket", args, {})
+            return scan.bucket(*args)
 
     class Route:
         def table(self, *args):
@@ -1517,15 +1746,39 @@ def _compare(torch, label: str, got: tuple, want: tuple) -> float:
 
 
 def _fast_check_payload(data: dict) -> dict:
-    """``data`` cut to FAST_CHECK_HORIZON seconds, its events' times scaled
-    with it (heavy_inj_single_server's spike then runs from 18 s to 30 s)."""
+    """``data`` cut to FAST_CHECK_HORIZON seconds, its events' and fault
+    windows' times scaled with it (heavy_inj_single_server's spike then runs
+    from 18 s to 30 s, outage_retry's outage from 5 s to 12.5 s)."""
     data = copy.deepcopy(data)
     scale = FAST_CHECK_HORIZON / data["sim_settings"]["total_simulation_time"]
     data["sim_settings"]["total_simulation_time"] = FAST_CHECK_HORIZON
     for event in data.get("events", []):
         event["start"]["t_start"] *= scale
         event["end"]["t_end"] *= scale
+    for fault in data.get("fault_timeline", {}).get("events", []):
+        fault["t_start"] *= scale
+        fault["t_end"] *= scale
     return data
+
+
+def path_overrides(name: str, plan, n: int, *, hazard_scale: float = 1.0):
+    """The overrides a path's sweep of ``n`` scenarios of seed 0 runs: its
+    sweep axes (FAST_SWEEP_AXES), and a chaos campaign's fault tables
+    sampled for scenarios 0 .. n-1 (MTBF divided by ``hazard_scale``), or
+    None for a plain path."""
+    from asyncflow_tpu_torch.compiler import hazards
+    from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
+    from asyncflow_tpu_torch.parallel import make_overrides
+
+    axes = FAST_SWEEP_AXES.get(name)
+    ov = make_overrides(plan, n, **axes(n)) if axes else None
+    if not plan.has_hazards:
+        return ov
+    tables = hazards.hazard_fault_tables(plan, 0, 0, n, hazard_scale=hazard_scale)
+    return (ov or base_overrides(plan))._replace(
+        fault_srv_times=tables.srv_times, fault_srv_down=tables.srv_down,
+        fault_edge_times=tables.edge_times, fault_edge_lat=tables.edge_lat,
+        fault_edge_drop=tables.edge_drop)
 
 
 def _fast_engine(torch, data: dict, horizon: float | None = None, **kw):
@@ -1587,6 +1840,89 @@ def _scan_width_check(torch, kernel, plain) -> float:
     return err
 
 
+def _fault_hop_check(torch, kernel, plain) -> float:
+    """The hop under per-scenario fault tables at the headline's width
+    (2048 x 87,840 lanes of chaos_campaign's edges), synthetic on the card
+    from a seed: send times over 1.1 horizons, a tenth of the lanes dead;
+    nine breakpoints a scenario shifted by up to 40 s (clipped at 0, the
+    first at 0), on lb-srv2 overlapping degrades (4x, then 1.5x more and
+    +0.2 dropout), a partition of lb-srv1 and a degrade of the entry edge,
+    scaled per scenario; over the static entry edge and lb-srv2, and over
+    the LB's slots by rank.  Bit-exact; returns the largest difference."""
+    from asyncflow_tpu_torch.compiler import compile_payload
+    from asyncflow_tpu_torch.engines.torchsim import draws
+    from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+    from asyncflow_tpu_torch.schemas import SimulationPayload
+
+    plan = compile_payload(SimulationPayload.from_dict(CHAOS_CAMPAIGN))
+    s, n, ne = MAIN_SCENARIOS, plan.max_requests, plan.n_edges
+    g = torch.Generator(device="cuda").manual_seed(29)
+    times = torch.tensor([0.0, 50.0, 100.0, 150.0, 200.0, 300.0, 400.0, 450.0, 500.0],
+                         device="cuda")
+    fault_t = torch.clamp_min(times + 40.0 * torch.rand((s, 1), device="cuda", generator=g),
+                              0.0)
+    fault_t[:, 0] = 0.0
+    lat = torch.ones((s, times.numel(), ne), device="cuda")
+    boost = torch.zeros_like(lat)
+    lat[:, 1:4, 3] = 4.0
+    lat[:, 2:6, 3] *= 1.5
+    boost[:, 2:6, 3] = 0.2
+    boost[:, 4:6, 2] = 1.0  # the partition of lb-srv1
+    lat[:, 6:8, 0] = 2.0
+    lat = lat * (1.0 + torch.rand((s, 1, 1), device="cuda", generator=g))
+    row = lambda x: torch.as_tensor(x, device="cuda").expand(s, ne).contiguous()  # noqa: E731
+    tables = draws.EdgeTables(
+        dist=plan.edge_dist, mean=row(plan.edge_mean), var=row(plan.edge_var),
+        drop=row(plan.edge_dropout), horizon=plan.horizon,
+        lb_edge=torch.as_tensor(plan.lb_edge_index, device="cuda").int(),
+        lb_target=torch.as_tensor(plan.lb_target, device="cuda").int(),
+        fault_t=fault_t, fault_lat=lat, fault_drop=boost)
+    t_send = torch.rand((s, n), device="cuda", generator=g) * (1.1 * plan.horizon)
+    alive = torch.rand((s, n), device="cuda", generator=g) < 0.9
+    uk, zk = draws.hop_keys(scenario_keys(29, s, device="cuda"), 32)
+    err = 0.0
+    rank = torch.arange(n, device="cuda").expand(s, n) + torch.arange(s, device="cuda")[:, None]
+    for kw in ({"edge": 0}, {"edge": 3}, {"rank": rank}):
+        args = (tables, t_send, alive, uk, zk)
+        want = _call(plain, "hop_fault", args, kw)
+        err = max(err, _compare(torch, f"fast check: fault hop {sorted(kw)}",
+                                _call(kernel, "hop_fault", args, kw), want))
+        if "rank" in kw and int(want[4].sum()) == 0:
+            raise SmokeError("fast check: the synthetic fault tables dropped nothing")
+        del want
+    print(f"fast check: the hop under per-scenario fault tables == plain on {s} x {n} lanes "
+          "(static entry edge and lb-srv2, the LB by rank)", flush=True)
+    return err
+
+
+#: the token bucket's (rate, burst) pairs phase 4 holds to the plain version
+BUCKET_CASES = ((5.0, 50.0), (0.37, 3.0), (100.0, 1.0), (0.0, 2.0), (13.3, 7.0))
+
+
+def _bucket_check(torch, kernel, plain) -> float:
+    """station_scan's token bucket against its plain version on 2048
+    synthetic sorted rows of 9,750 elements (the guide's outage sweep's
+    lanes), a third invalid (INF, as the budget's non-wants), runs of
+    equal times, at each of BUCKET_CASES; bit-exact."""
+    s, m = MAIN_SCENARIOS, 9750
+    err = 0.0
+    for seed, (rate, burst) in enumerate(BUCKET_CASES):
+        g = torch.Generator(device="cuda").manual_seed(100 + seed)
+        gaps = torch.empty((s, m), device="cuda").exponential_(1.3 * rate + 1.0, generator=g)
+        t = torch.cumsum(gaps, dim=1)
+        t[:, 100:110] = t[:, 100:101]
+        v = torch.rand((s, m), device="cuda", generator=g) < 0.7
+        t = torch.where(v, t, 1e30)
+        want = plain.bucket(t, v, rate, burst)
+        err = max(err, _compare(torch, f"fast check: bucket at rate {rate}, burst {burst}",
+                                (kernel.bucket(t, v, rate, burst),), (want,)))
+        if not bool((v & ~want).any()) or not bool(want.any()):
+            raise SmokeError(f"fast check: the bucket at rate {rate} never refuses or accepts")
+    print(f"fast check: station_scan's token bucket == plain on {s} x {m} rows at "
+          f"{len(BUCKET_CASES)} (rate, burst) pairs", flush=True)
+    return err
+
+
 def phase_fast_check(torch) -> dict:
     """Phase 4: the fast path's kernels against their plain versions on the
     card, on each fast payload cut to FAST_CHECK_HORIZON seconds (events
@@ -1614,13 +1950,19 @@ def phase_fast_check(torch) -> dict:
     for name, data in FAST_PAYLOADS.items():
         eng = _fast_engine(torch, _fast_check_payload(data), collect_clocks=True)
         keys = scenario_keys(0, FAST_CHECK_SCENARIOS, device="cuda")
+        # a chaos campaign's windows made ten times as frequent: in 60 s
+        ov = path_overrides(name, eng.plan, FAST_CHECK_SCENARIOS, hazard_scale=10.0)
         kernels = _wrappers(eng)
         calls = _record_kernel_calls(eng, every=True)
-        got = eng.run_tensors(keys)
+        got = eng.run_tensors(keys, ov)
         _set_wrappers(eng, kernels)
         need = ["edge_draws", "station_scan"] + (["lb_route"] if eng.timeline else [])
         if any(kernels[k].launches == 0 for k in need):
             raise SmokeError(f"fast check {name}: a kernel was not launched")
+        if ((eng.has_edge_faults and kernels["edge_draws"].fault_launches == 0)
+                or (eng.plan.retry_budget_tokens >= 0
+                    and kernels["station_scan"].mode_launches["bucket"] == 0)):
+            raise SmokeError(f"fast check {name}: no fault hop or no budget bucket launched")
         for i, (kind, args, kw) in enumerate(calls):
             kernel = CALL_KINDS[kind][0]
             err = _compare(torch, f"fast check {name}: call {i} ({kind})",
@@ -1630,9 +1972,10 @@ def phase_fast_check(torch) -> dict:
         kinds_seen |= {kind for kind, _, _ in calls}
         want_eng = copy.copy(eng)
         _set_wrappers(want_eng, plains)
-        want = want_eng.run_tensors(keys)
+        want = want_eng.run_tensors(keys, ov)
         for field in ("hist", "thr", "lat_count", "n_generated", "n_dropped", "n_overflow",
-                      "clock", "gauge_means"):
+                      "clock", "gauge_means", "n_rejected", "n_dark_lost", "n_timed_out",
+                      "n_retries", "n_budget_exhausted", "att_hist"):
             if not torch.equal(got[field], want[field]):
                 raise SmokeError(f"fast check {name}: {field} differs between the runs")
         print(
@@ -1640,11 +1983,14 @@ def phase_fast_check(torch) -> dict:
             f"{FAST_CHECK_HORIZON} s, {eng.n} lanes): {len(calls)} calls of kinds "
             f"{sorted({kind for kind, _, _ in calls})}; completed "
             f"{int(got['lat_count'].sum())}, generated {int(got['n_generated'].sum())}, "
-            f"dropped {int(got['n_dropped'].sum())}; clocks and gauge means identical",
+            f"dropped {int(got['n_dropped'].sum())}, dark-lost "
+            f"{int(got['n_dark_lost'].sum())}, retries {int(got['n_retries'].sum())}; "
+            "clocks and gauge means identical",
             flush=True,
         )
     wanted = {"uniform", "gap", "gap_cumsum", "hop", "hop_lb", "hop_spike", "hop_slot_spike",
-              "waits", "waits_kw", "ram_core", "route_table", "route_slots"}
+              "waits", "waits_kw", "ram_core", "route_table", "route_slots", "hop_fault",
+              "hop_lb_fault", "bucket"}
     if not wanted <= kinds_seen:
         raise SmokeError(f"fast check: no call of kinds {sorted(wanted - kinds_seen)}")
     # the synthetic timeline on event_inj_lb's full-width arrivals: srv-1
@@ -1694,6 +2040,8 @@ def phase_fast_check(torch) -> dict:
     del ts, valids, args, slots, want
     width_err = _scan_width_check(torch, eng.scan, plains["station_scan"])
     measured["station_scan"] = max(measured["station_scan"], width_err)
+    measured["fault_hop"] = _fault_hop_check(torch, eng.draws, plains["edge_draws"])
+    measured["bucket"] = _bucket_check(torch, eng.scan, plains["station_scan"])
     u = torch.arange(2**23, dtype=torch.float64, device="cuda").div(2**23).float().view(8, -1)
     measured["edge_draws"] = max(measured["edge_draws"], _compare(
         torch, "fast check: log1p_xla on every uniform", _call(eng.draws, "gap_of", (u,), {}),
@@ -1723,21 +2071,84 @@ def _lindley_closed_form(torch, a, d, v):
     return torch.clamp_min(c - svc - arr, 0.0)
 
 
+#: each earlier fast path's completions and drops at 2048 scenarios of
+#: seed 0 (chip_smoke.py's final run of the earlier slice, NVIDIA H100
+#: 80GB HBM3 at 700 W): the resilience machinery must leave them as they
+#: were
+EARLIER_FAST = {
+    "two_servers_lb": {"completed": 157444539, "dropped": 6460007},
+    "single_server": {"completed": 33144419, "dropped": 1014953},
+    "heavy_inj_single_server": {"completed": 178873692, "dropped": 5478427},
+    "event_inj_lb": {"completed": 47250674, "dropped": 1937973},
+    "two_gen_lb": {"completed": 157460400, "dropped": 6459417},
+    "db_pool_k2": {"completed": 4793678, "dropped": 146356},
+}
+
+
+def _check_resilience_sweep(name: str, summary: dict, res) -> None:
+    """A resilience path's sweep: dark refusals are its only refusals and
+    some happen; on the chaos campaign, the scorecard (availability in
+    (0, 1); the dark seconds and truncated windows of the sampled tables
+    equal to the reference's; no time to drain: the port streams no
+    ready-queue series) and request conservation; with a retry policy, every ended
+    attempt an issued one and every completion an ended one, and on
+    outage_retry some retries and some budget denials; on
+    trace_parity_resilient, whose outage spans the horizon, no completion,
+    no timeout, and every ended request ended on its third attempt (each
+    of its attempts refused, then abandoned)."""
+    import numpy as np
+
+    if summary["dark_lost_total"] < 1 or summary["rejected_total"] != summary["dark_lost_total"]:
+        raise SmokeError(f"fast {name}: dark-lost {summary['dark_lost_total']} of "
+                         f"{summary['rejected_total']} rejected")
+    if name == "chaos_campaign":
+        in_flight = (res.total_generated - res.completed - res.total_dropped
+                     - res.overflow_dropped - res.total_rejected)
+        ref = REFERENCE_FAST[name]
+        if (np.any(in_flight < 0) or not 0.0 < summary["availability_fraction"] < 1.0
+                or summary["unavailable_s_total"] != ref["unavailable_s_total"]
+                or summary["hazard_truncated_total"] != ref["hazard_truncated_total"]
+                or summary["time_to_drain_mean_s"] is not None):
+            raise SmokeError(f"fast {name}: in flight [{in_flight.min()}, {in_flight.max()}], "
+                             f"scorecard {summary}")
+        return
+    # an ended attempt was issued: spawned, or re-issued by a grant (the
+    # relaxation's last pass may end a request on two attempts)
+    ended = res.attempts_hist.sum(axis=1)
+    if np.any(ended > res.total_generated + res.total_retries) or np.any(res.completed > ended):
+        raise SmokeError(f"fast {name}: ended {ended.sum()} of {res.total_generated.sum()} "
+                         f"generated and {res.total_retries.sum()} re-issued, "
+                         f"{res.completed.sum()} completed")
+    if name == "trace_parity_resilient" and (
+            summary["completed_total"] != 0 or summary["timed_out_total"] != 0
+            or np.any(res.attempts_hist[:, :-1] != 0) or ended.sum() == 0):
+        raise SmokeError(f"fast {name}: completed {summary['completed_total']}, timed out "
+                         f"{summary['timed_out_total']}, attempts {res.attempts_hist.sum(0)}")
+    if name == "outage_retry" and (summary["retries_total"] < 1
+                                   or summary["retry_budget_exhausted_total"] < 1):
+        raise SmokeError(f"fast {name}: no retry or no budget denial: {summary}")
+
+
 def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     """Phase 5, one path: ``SweepRunner(payload).run(2048, seed=0)`` at the
-    payload's full horizon through ``engine="auto"``, which must take the
-    fast path and launch its kernels (``lb_route`` where the LB has a
-    timeline, the Kiefer-Wolfowitz scan where a DB pool has several
-    connections, every carry scan through the warp walk); request
-    conservation; the pooled p95 within 2% of the
-    JAX fast path's and of the port's DES kernel's on the same payload
-    (``des``, phase 3's sweep of it, or a kernel sweep here); the DES
-    kernel's sweep, where it runs here, with no truncated and no
-    overflowed scenario; then the first call of each kind of the path's
-    own run, at full width, through the kernel and through its plain
-    version on the same arguments, bit-exact; each edge_draws and lb_route
-    kind, the path's main station_scan kind (the RAM-core scan or else a
-    one-server wait scan) and its Kiefer-Wolfowitz scan timed between CUDA
+    payload's full horizon through ``engine="auto"`` (with the path's
+    sweep axes, FAST_SWEEP_AXES), which must take the fast path and launch
+    its kernels (``lb_route`` where the LB has a timeline, the
+    Kiefer-Wolfowitz scan where a DB pool has several connections, every
+    carry scan through the warp walk, the hop under fault tables where
+    faults reach an edge, the token bucket where a retry budget is set);
+    for the earlier paths, request conservation and the completions and
+    drops of the earlier slice's sweep, unchanged; for a resilience path,
+    its own invariants (``_check_resilience_sweep``) and the DES kernel's
+    refusal by name; the pooled p95 within 2% of the JAX fast path's and of
+    the port's DES kernel's on the same payload, where each has one
+    (``des``, phase 3's sweep of it, or a kernel sweep here; the DES
+    kernel's sweep with no truncated and no overflowed scenario); then the
+    first call of each kind of the path's own run, at full width, through
+    the kernel and through its plain version on the same arguments,
+    bit-exact; each edge_draws and lb_route kind, the path's main
+    station_scan kind (the RAM-core scan or else a one-server wait scan),
+    its Kiefer-Wolfowitz scan and its token bucket timed between CUDA
     events, beside its bound, its plain version's time and the library's;
     and the stable rank's time."""
     import numpy as np
@@ -1747,43 +2158,72 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank
     from asyncflow_tpu_torch.parallel import SweepRunner
 
+    from asyncflow_tpu_torch.errors import UnsupportedFeatureError
+    from asyncflow_tpu_torch.parallel import make_overrides
+
     data = FAST_PAYLOADS[name]
     runner = SweepRunner(data, device="cuda")
     if runner.engine_kind != "fast":
         raise SmokeError(f"fast {name}: auto took the {runner.engine_kind} engine")
     eng = runner.engine
     plan = eng.plan
-    runner.run(MAIN_SCENARIOS, seed=0)  # warm the allocator and the libraries
+    axes = FAST_SWEEP_AXES.get(name)
+    sweep_ov = make_overrides(plan, MAIN_SCENARIOS, **axes(MAIN_SCENARIOS)) if axes else None
+    runner.run(MAIN_SCENARIOS, seed=0, overrides=sweep_ov)  # warm the allocator and libraries
     for wrapper in _wrappers(eng).values():
         wrapper.launches = 0
+    eng.draws.fault_launches = 0
     eng.scan.mode_launches = dict.fromkeys(eng.scan.mode_launches, 0)
     eng.scan.walk_launches = dict.fromkeys(eng.scan.walk_launches, 0)
     torch.cuda.reset_peak_memory_stats()
-    report = runner.run(MAIN_SCENARIOS, seed=0)
+    report = runner.run(MAIN_SCENARIOS, seed=0, overrides=sweep_ov)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: w.launches for k, w in _wrappers(eng).items()}
+    fault_launches = eng.draws.fault_launches
     mode_launches = dict(eng.scan.mode_launches)
     walk_launches = dict(eng.scan.walk_launches)
     need = ["edge_draws", "station_scan"] + (["lb_route"] if eng.timeline else [])
     kw_pool = bool(np.any(plan.server_db_pool > 1))
     carries = mode_launches["kw"] + mode_launches["ram_core"]
     if (min(launches[k] for k in need) < 1 or (kw_pool and mode_launches["kw"] < 1)
-            or walk_launches["warp"] != carries):
-        raise SmokeError(f"fast {name}: the sweep launched {launches}, station_scan by mode "
-                         f"{mode_launches} and by walk {walk_launches}")
+            or walk_launches["warp"] != carries
+            or (eng.has_edge_faults and fault_launches < 1)
+            or (plan.retry_budget_tokens >= 0 and mode_launches["bucket"] < 1)):
+        raise SmokeError(f"fast {name}: the sweep launched {launches} ({fault_launches} fault "
+                         f"hops), station_scan by mode {mode_launches} and by walk "
+                         f"{walk_launches}")
     summary = report.summary()
     res = report.results
-    in_flight = (res.total_generated - res.completed - res.total_dropped
-                 - res.overflow_dropped - res.total_rejected)
-    if np.any(in_flight < 0) or summary["overflow_total"] != 0:
-        msg = (f"fast {name}: in flight [{in_flight.min()}, {in_flight.max()}], "
-               f"overflow {summary['overflow_total']}")
-        raise SmokeError(msg)
-    for key in ("latency_p50_s", "latency_p95_s", "latency_p99_s", "latency_mean_s"):
+    if name in RESILIENCE_PATHS:
+        _check_resilience_sweep(name, summary, res)
+    else:
+        in_flight = (res.total_generated - res.completed - res.total_dropped
+                     - res.overflow_dropped - res.total_rejected)
+        if np.any(in_flight < 0):
+            raise SmokeError(f"fast {name}: in flight [{in_flight.min()}, {in_flight.max()}]")
+        earlier = EARLIER_FAST[name]
+        now = {"completed": summary["completed_total"], "dropped": summary["dropped_total"]}
+        if now != earlier:
+            raise SmokeError(f"fast {name}: {now}, where the earlier slice's sweep gave "
+                             f"{earlier}")
+    if summary["overflow_total"] != 0:
+        raise SmokeError(f"fast {name}: overflow {summary['overflow_total']}")
+    quantiles = ("latency_p50_s", "latency_p95_s", "latency_p99_s", "latency_mean_s")
+    for key in quantiles if summary["completed_total"] else ():
         if not np.isfinite(summary[key]):
             raise SmokeError(f"fast {name}: {key} is not finite")
     p95 = summary["latency_p95_s"]
-    if des is None:
+    if name in RESILIENCE_PATHS:
+        with_kernel = None
+        try:
+            SweepRunner(data, engine="kernel", device="cuda")
+        except UnsupportedFeatureError as err:
+            with_kernel = err.feature
+        if with_kernel != RESILIENCE_PATHS[name]:
+            raise SmokeError(f"fast {name}: the DES kernel did not refuse it by its feature "
+                             f"{RESILIENCE_PATHS[name]!r} (refused: {with_kernel!r})")
+        des = {"p95_s": None, "refused": with_kernel}
+    elif des is None:
         sweep = SweepRunner(data, engine="kernel", device="cuda").run(MAIN_SCENARIOS, seed=0)
         des_summary = sweep.summary()
         if des_summary["truncated_total"] != 0 or des_summary["overflow_total"] != 0:
@@ -1793,11 +2233,12 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
             raise SmokeError(msg)
         des = {"p95_s": des_summary["latency_p95_s"], "scen_per_s": sweep.scenarios_per_second}
     des_p95 = des["p95_s"]
-    ref = REFERENCE_FAST[name]["p95_s"]
-    rel_ref, rel_des = p95 / ref - 1.0, p95 / des_p95 - 1.0
+    ref = REFERENCE_FAST[name]["p95_s"] if name in REFERENCE_FAST else None
+    rel_ref = p95 / ref - 1.0 if ref is not None else 0.0
+    rel_des = p95 / des_p95 - 1.0 if des_p95 is not None else 0.0
     if abs(rel_ref) > P95_RTOL or abs(rel_des) > P95_RTOL:
         msg = (f"fast {name}: pooled p95 {p95:.6f} s is {rel_ref:+.2%} from the JAX fast "
-               f"path's {ref} and {rel_des:+.2%} from the DES kernel's {des_p95:.6f}")
+               f"path's {ref} and {rel_des:+.2%} from the DES kernel's {des_p95}")
         raise SmokeError(msg)
 
     # each kind of call of this path's own run, at full width: the kernel
@@ -1806,10 +2247,16 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     keys = scenario_keys(0, MAIN_SCENARIOS, device="cuda")
     wrappers, plains = _wrappers(eng), _plain_wrappers()
     calls = _record_kernel_calls(eng, every=False)
-    eng.run_tensors(keys)
+    t_sample = time.perf_counter()
+    ov_full = path_overrides(name, plan, MAIN_SCENARIOS)
+    # the host's share of a chaos sweep: its campaign's tables (numpy and
+    # the port's threefry on the CPU), as the sweep samples them
+    sample_s = time.perf_counter() - t_sample if plan.has_hazards else None
+    eng.run_tensors(keys, ov_full)
+    del ov_full
     _set_wrappers(eng, wrappers)
     kinds = {kind for kind, _, _ in calls}
-    scan_kinds = {"ram_core" if "ram_core" in kinds else "waits", "waits_kw"}
+    scan_kinds = {"ram_core" if "ram_core" in kinds else "waits", "waits_kw", "bucket"}
     max_err = dict.fromkeys(FAST_KERNELS, 0.0)
     timed: dict = {k: {} for k in FAST_KERNELS}
     for kind, args, kw in calls:
@@ -1838,20 +2285,34 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     del ts, valids
     rank_ms = time_kernel(torch, lambda: time_rank(t, valid), repeats=3)
     del t, valid, calls
+    against = (f" ({rel_ref:+.3%} vs the JAX fast path {ref * 1e3:.4f} ms"
+               if ref is not None else " (no JAX reference")
+    against += (f", {rel_des:+.3%} vs the DES kernel {des_p95 * 1e3:.4f} ms)"
+                if des_p95 is not None else f"; the DES kernel refuses {des['refused']!r})")
     print(
         f"fast path {name}: {MAIN_SCENARIOS} scenarios x {plan.horizon:.0f} s, "
         f"{eng.n} lanes ({eng.gen_n} a stream), chunks of {runner.default_chunk}, launches "
-        f"{launches} (station_scan by mode {mode_launches}, by walk {walk_launches}), "
+        f"{launches} ({fault_launches} hops under fault tables; station_scan by mode "
+        f"{mode_launches}, by walk {walk_launches}), "
         f"{report.wall_seconds:.3f} s wall, {summary['scenarios_per_second']:.1f} scen/s"
         + ("" if des.get("scen_per_s") is None
            else f" (DES kernel sweep {des['scen_per_s']:.1f} scen/s)")
         + f", peak device memory {peak_gb:.2f} GB; p50 "
-        f"{summary['latency_p50_s'] * 1e3:.3f} ms, p95 {p95 * 1e3:.4f} ms ({rel_ref:+.3%} vs "
-        f"the JAX fast path {ref * 1e3:.4f} ms, {rel_des:+.3%} vs the DES kernel "
-        f"{des_p95 * 1e3:.4f} ms), p99 {summary['latency_p99_s'] * 1e3:.3f} ms; completed "
+        f"{summary['latency_p50_s'] * 1e3:.3f} ms, p95 {p95 * 1e3:.4f} ms{against}, p99 "
+        f"{summary['latency_p99_s'] * 1e3:.3f} ms; completed "
         f"{summary['completed_total']}, dropped {summary['dropped_total']}",
         flush=True,
     )
+    if sample_s is not None:
+        print(f"  the campaign's fault tables of {MAIN_SCENARIOS} scenarios sampled on the "
+              f"host in {sample_s:.3f} s", flush=True)
+    if name in RESILIENCE_PATHS:
+        print("  resilience: " + ", ".join(
+            f"{key} {summary.get(key)}" for key in (
+                "rejected_total", "dark_lost_total", "availability_fraction",
+                "unavailable_s_total", "hazard_truncated_total", "timed_out_total",
+                "retries_total", "retry_budget_exhausted_total", "goodput_fraction")),
+            flush=True)
     for kernel, modes in timed.items():
         for kind, m in modes.items():
             lib = "null" if m["library_ms"] is None else f"{m['library_ms']:.3f} ms"
@@ -1859,13 +2320,19 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
                   f"library {lib}, {_bound_text(m)}", flush=True)
     print(f"  stable row rank (torch.sort) of the arrivals: {rank_ms:.3f} ms; calls "
           f"{sorted(kinds)} at full width bit-exact with their plain versions", flush=True)
-    hop_kind = next((k for k in ("hop_lb", "hop_slot_spike", "hop_spike", "hop")
-                     if k in kinds), "hop")
+    hop_kind = next((k for k in ("hop_lb_fault", "hop_lb", "hop_slot_spike", "hop_spike",
+                                 "hop_fault", "hop") if k in kinds), "hop")
     headline_kind = {"edge_draws": hop_kind,
                      "station_scan": "ram_core" if "ram_core" in kinds else "waits",
                      "lb_route": "route_table"}
     return {
         "launches": launches,
+        "fault_launches": fault_launches,
+        "hazard_sample_s": sample_s,
+        "summary": {k: summary.get(k) for k in (
+            "completed_total", "dropped_total", "rejected_total", "dark_lost_total",
+            "availability_fraction", "unavailable_s_total", "timed_out_total",
+            "retries_total", "retry_budget_exhausted_total")},
         "mode_launches": mode_launches,
         "walk_launches": walk_launches,
         "wall_s": report.wall_seconds,
@@ -1880,41 +2347,16 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     }
 
 
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    if not (ROOT / "asyncflow_tpu_torch").is_dir():
-        print(f"chip_smoke: no asyncflow_tpu_torch package beside {ROOT}", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    try:
-        t0 = time.perf_counter()
-        phase_setup(torch)
-        t1 = time.perf_counter()
-        check = phase_kernel_vs_twin(torch)
-        t2 = time.perf_counter()
-        paths = {name: phase_path(torch, name) for name in PAYLOADS}
-        t3 = time.perf_counter()
-        fast_check = phase_fast_check(torch)
-        t4 = time.perf_counter()
-        fast = {name: phase_fast_path(torch, name, paths.get(name)) for name in FAST_PAYLOADS}
-        t5 = time.perf_counter()
-    except (SmokeError, subprocess.CalledProcessError) as err:
-        print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
-        return 1
+def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> list:
+    """The kernels line's entries: the DES kernel at the headline's capped
+    check (its launches over the six DES paths), each fast kernel at its
+    headline call (its launches over the nine fast paths), and the
+    resilience modes at their paths' calls."""
     from asyncflow_tpu_torch.engines.torchsim.des_kernel import DesKernel
     from asyncflow_tpu_torch.engines.torchsim.draws import EdgeDraws
     from asyncflow_tpu_torch.engines.torchsim.routing import LbRoute
     from asyncflow_tpu_torch.engines.torchsim.station_scan import StationScan
 
-    print(f"phase seconds: setup {t1 - t0:.1f}, kernel vs twin {t2 - t1:.1f}, "
-          f"paths {t3 - t2:.1f}, fast kernels vs plain {t4 - t3:.1f}, fast paths {t5 - t4:.1f}")
     headline = check["two_servers_lb"]
     kernels = [
         {
@@ -1962,7 +2404,9 @@ def main() -> int:
             "replaces": wrapper.replaces,
             "launches": sum(f["launches"][wrapper.name] for f in fast.values()),
             "max_abs_err": max(fast_check[wrapper.name],
-                               *(f["max_abs_err"][wrapper.name] for f in fast.values())),
+                               *(f["max_abs_err"][wrapper.name] for f in fast.values()),
+                               *((fast_check["fault_hop"],) if wrapper is EdgeDraws else ()),
+                               *((fast_check["bucket"],) if wrapper is StationScan else ())),
             "ms": sum(m["ms"] for m in parts),
             "plain_ms": sum(m["plain_ms"] for m in parts),
             "bound_ms": max(bound.values()),
@@ -1980,11 +2424,75 @@ def main() -> int:
                     },
                     **({"mode_launches": f["mode_launches"],
                         "walk_launches": f["walk_launches"]} if wrapper is StationScan
+                       else {"fault_launches": f["fault_launches"]} if wrapper is EdgeDraws
                        else {}),
                 }
                 for name, f in fast.items()
             },
         })
+    # the resilience modes at their paths' calls: the LB hop under
+    # chaos_campaign's sampled fault tables, the retry budget's token bucket
+    # of outage_retry (its launches on every path)
+    for label, wrapper, path, kind, replaces, launches in (
+        ("edge_draws (hop under fault tables)", EdgeDraws, "chaos_campaign", "hop_lb_fault",
+         "asyncflow_tpu/engines/jaxsim/fastpath.py:799 (_edge_fault), :834-839 and "
+         ":849-850 (_edge_hop's fault branch), :865-867 and :891-892 (_edge_hop_dyn's)",
+         sum(f["fault_launches"] for f in fast.values())),
+        ("station_scan (token bucket)", StationScan, "outage_retry", "bucket",
+         "asyncflow_tpu/engines/jaxsim/fastpath.py:302 (_token_bucket_scan)",
+         sum(f["mode_launches"]["bucket"] for f in fast.values())),
+    ):
+        m = fast[path]["timed"][wrapper.name]["modes"][kind]
+        kernels.append({
+            "name": label,
+            "route": wrapper.route,
+            "source": wrapper.source,
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(fast_check["fault_hop" if kind != "bucket" else "bucket"],
+                               fast[path]["max_abs_err"][wrapper.name]),
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+            "call": kind,
+            "path": path,
+        })
+    return kernels
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "asyncflow_tpu_torch").is_dir():
+        print(f"chip_smoke: no asyncflow_tpu_torch package beside {ROOT}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        t0 = time.perf_counter()
+        phase_setup(torch)
+        t1 = time.perf_counter()
+        check = phase_kernel_vs_twin(torch)
+        t2 = time.perf_counter()
+        paths = {name: phase_path(torch, name) for name in PAYLOADS}
+        t3 = time.perf_counter()
+        fast_check = phase_fast_check(torch)
+        t4 = time.perf_counter()
+        fast = {name: phase_fast_path(torch, name, paths.get(name)) for name in FAST_PAYLOADS}
+        t5 = time.perf_counter()
+    except (SmokeError, subprocess.CalledProcessError) as err:
+        print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
+        return 1
+    print(f"phase seconds: setup {t1 - t0:.1f}, kernel vs twin {t2 - t1:.1f}, "
+          f"paths {t3 - t2:.1f}, fast kernels vs plain {t4 - t3:.1f}, fast paths {t5 - t4:.1f}")
+    kernels = kernels_report(check, paths, fast_check, fast)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(

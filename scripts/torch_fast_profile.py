@@ -4,7 +4,8 @@
     python3 scripts/torch_fast_profile.py [PATH ...] [--scenarios N]
 
 For each path (a key of ``chip_smoke.FAST_PAYLOADS``; all by default) it
-runs ``SweepRunner(payload).run(N, seed=0)`` once to warm up, then once
+runs ``SweepRunner(payload).run(N, seed=0)`` (with the path's sweep axes,
+``chip_smoke.FAST_SWEEP_AXES``) once to warm up, then once
 under ``torch.profiler`` with CPU and CUDA activities, and prints the
 sweep's wall time, the device time summed over kernels, the device's idle
 share of the wall (1 - device time / wall), the peak device memory of an
@@ -52,17 +53,19 @@ def profile_path(torch, name: str, scenarios: int) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
-    from asyncflow_tpu_torch.parallel import SweepRunner
+    from asyncflow_tpu_torch.parallel import SweepRunner, make_overrides
 
     runner = SweepRunner(chip_smoke.FAST_PAYLOADS[name], device="cuda")
-    runner.run(scenarios, seed=0)
+    axes = chip_smoke.FAST_SWEEP_AXES.get(name)
+    ov = make_overrides(runner.plan, scenarios, **axes(scenarios)) if axes else None
+    runner.run(scenarios, seed=0, overrides=ov)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runner.run(scenarios, seed=0)
+    runner.run(scenarios, seed=0, overrides=ov)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.run(scenarios, seed=0)
+        runner.run(scenarios, seed=0, overrides=ov)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel: dict[str, float] = defaultdict(float)

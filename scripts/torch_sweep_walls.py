@@ -8,7 +8,8 @@ two checkouts of the port in one call.
 Imports the port and ``chip_smoke.FAST_PAYLOADS`` from DIR (this checkout
 by default; another commit's tree unpacked with ``git archive``), and for
 each path (a key of ``FAST_PAYLOADS``; all by default) runs
-``SweepRunner(payload).run(N, seed=0)`` once to warm up, then ``--repeats``
+``SweepRunner(payload).run(N, seed=0)`` (with the path's sweep axes,
+``FAST_SWEEP_AXES``, where the tree has them) once to warm up, then ``--repeats``
 times with no profiler, each run ending in ``torch.cuda.synchronize()``.
 Prints the card's name and power limit, then a line a path: every wall in
 ms, their median and quartiles, and the scenarios a second at the median.
@@ -42,14 +43,21 @@ def main() -> int:
     from asyncflow_tpu_torch.parallel import SweepRunner
 
     print(f"card: {chip_smoke.card_line()}; tree {args.tree}", flush=True)
+    # a path's sweep axes, in a tree that has any
+    axes_of = getattr(chip_smoke, "FAST_SWEEP_AXES", {})
     for name in args.paths or list(chip_smoke.FAST_PAYLOADS):
         runner = SweepRunner(chip_smoke.FAST_PAYLOADS[name], device="cuda")
-        runner.run(args.scenarios, seed=0)
+        ov = None
+        if name in axes_of:
+            from asyncflow_tpu_torch.parallel import make_overrides
+
+            ov = make_overrides(runner.plan, args.scenarios, **axes_of[name](args.scenarios))
+        runner.run(args.scenarios, seed=0, overrides=ov)
         walls = []
         for _ in range(args.repeats):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            runner.run(args.scenarios, seed=0)
+            runner.run(args.scenarios, seed=0, overrides=ov)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         q1, median, q3 = statistics.quantiles(walls, n=4)

@@ -322,3 +322,67 @@ def test_sweep_auto_takes_the_fast_path_on_cuda(cuda_device) -> None:
     summary = runner.run(32, seed=1, chunk_size=16).summary()
     assert runner.engine.draws.launches > 0 and runner.engine.scan.launches == 2
     assert summary["completed_total"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True])
+def test_fault_hop_matches_plain_on_cuda(cuda_device, per_row: bool) -> None:
+    """The hop under edge fault tables (shared or a row a scenario: a
+    partition of edge 1, overlapping degrades of edge 3, a degrade of edge 2
+    from t = 0) over each static edge, three LB slots by rank and by slot,
+    with spikes: every output identical."""
+    kernel, plain = draws.EdgeDraws(), draws.PlainEdgeDraws()
+    keys = scenario_keys(22, S, device=cuda_device)
+    uk, zk = draws.hop_keys(keys, 32)
+    mean, var, drop = _edge_params(cuda_device)
+    g = np.random.default_rng(3)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32, device=cuda_device)
+    alive = torch.tensor(g.random((S, N)) > 0.1, device=cuda_device)
+    rank = torch.tensor(g.permuted(np.tile(np.arange(N), (S, 1)), axis=1), device=cuda_device)
+    slot = torch.tensor(g.integers(0, 3, (S, N)), dtype=torch.int32, device=cuda_device)
+    times = torch.tensor([0.0, 0.3, 0.5, 0.7, 0.9, 1.1, 1.6], device=cuda_device)
+    lat = torch.ones((7, 4), device=cuda_device)
+    boost = torch.zeros((7, 4), device=cuda_device)
+    boost[1:3, 1] = 1.0
+    lat[2:5, 3] *= 3.0
+    boost[2:5, 3] += 0.2
+    lat[4:6, 3] *= 1.5
+    boost[4:6, 3] += 0.3
+    lat[:, 2], boost[:, 2] = 2.0, 0.1
+    if per_row:
+        times = torch.clamp_min(times + 0.05 * torch.arange(S, device=cuda_device)[:, None], 0.0)
+        times[:, 0] = 0.0
+        lat = (lat * (1.0 + torch.rand((S, 1, 1), device=cuda_device))).contiguous()
+        boost = boost.expand(S, 7, 4).contiguous()
+    tables = draws.EdgeTables(
+        dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+        lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32, device=cuda_device),
+        lb_target=torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda_device),
+        spike_t=torch.tensor([0.0, 0.5, 1.5], device=cuda_device),
+        spike_v=torch.full((3, 4), 0.125, device=cuda_device),
+        fault_t=times, fault_lat=lat, fault_drop=boost,
+    )
+    for kw in [{"edge": e} for e in range(4)] + [{"rank": rank}, {"slot": slot}]:
+        got = kernel.hop(tables, t_send, alive, uk, zk, **kw)
+        want = plain.hop(tables, t_send, alive, uk, zk, **kw)
+        for x, y in zip(got, want, strict=True):
+            assert (x is None and y is None) or torch.equal(x, y), kw.keys()
+    assert kernel.fault_launches == kernel.launches == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("rate", "burst"), [(5.0, 50.0), (0.37, 3.0), (100.0, 1.0),
+                                             (0.0, 2.0)])
+def test_bucket_matches_plain_on_cuda(cuda_device, rate: float, burst: float) -> None:
+    """The token bucket on 45 sorted rows of 20,011 elements (most rows
+    start unaligned), a third invalid, runs of equal times."""
+    g = np.random.default_rng(8)
+    t = np.cumsum(g.exponential(1.0 / (1.3 * rate + 1.0), (ROWS, N)), axis=1)
+    t[:, 100:110] = t[:, 100:101]
+    v = g.random((ROWS, N)) < 0.7
+    t = torch.tensor(np.where(v, t, 1e30), dtype=torch.float32, device=cuda_device)
+    v = torch.tensor(v, device=cuda_device)
+    kernel = station_scan.StationScan()
+    got = kernel.bucket(t, v, rate, burst)
+    assert torch.equal(got, station_scan.PlainStationScan().bucket(t, v, rate, burst))
+    assert kernel.mode_launches["bucket"] == 1 and kernel.walk_launches["thread"] == 1

@@ -545,3 +545,116 @@ def test_wide_carry_needs_scratch(host_libs) -> None:
         S=SCAN_ROWS, m=a.shape[1], mode=ram, cores=1, ram_k=top + 1,
     )
     assert lib.station_scan_launch(ctypes.byref(args), None) == -1
+
+
+def _fault_tables(per_row: bool):
+    """Edge fault tables over edges 0..3 on [0, 2.2): a partition of edge 1
+    on [0.3, 0.7), degrades of edge 3 overlapping on [0.5, 1.1) and
+    [0.9, 1.6) (factors multiply, boosts add), a degrade of edge 2 from
+    t = 0; per scenario, each row's times shifted by 0.1 s a row (clipped
+    at 0, the first row at 0)."""
+    times = np.array([0.0, 0.3, 0.5, 0.7, 0.9, 1.1, 1.6], np.float32)
+    lat = np.ones((7, 4), np.float32)
+    boost = np.zeros((7, 4), np.float32)
+    boost[1:3, 1] = 1.0
+    lat[2:5, 3] *= 3.0
+    boost[2:5, 3] += 0.2
+    lat[4:6, 3] *= 1.5
+    boost[4:6, 3] += 0.3
+    lat[:, 2] = 2.0
+    boost[:, 2] = 0.1
+    if not per_row:
+        return tuple(torch.tensor(x) for x in (times, lat, boost))
+    shift = 0.1 * np.arange(S, dtype=np.float32)[:, None]
+    rows = np.maximum(times[None, :] + shift, np.float32(0.0))
+    rows[:, 0] = 0.0
+    return (torch.tensor(rows), torch.tensor(np.broadcast_to(lat, (S, 7, 4)).copy()),
+            torch.tensor(np.broadcast_to(boost, (S, 7, 4)).copy()))
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("lanes", ["edge", "rank", "slot_spikes"])
+def test_fault_hop_matches_plain(host_libs, per_row: bool, lanes: str) -> None:
+    """The hop under edge fault windows (shared or a row a scenario, a
+    partition, overlapping degrades, one from t = 0): the same checks as
+    the plain hop's, and the partition drops every send."""
+    keys = scenario_keys(15, S)
+    uk, zk = draws.hop_keys(keys, 32)
+    mean, var, drop = _edge_params()
+    g = np.random.default_rng(6)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32)
+    t_send[:, :7] = torch.tensor([0.0, 0.3, 0.5, 0.7, 0.9, 1.1, 1.6])  # at breakpoints
+    alive = torch.tensor(g.random((S, N)) > 0.1)
+    fault_t, fault_lat, fault_drop = _fault_tables(per_row)
+    lb = lanes != "edge"
+    spike_t, spike_v = _spike_tables() if lanes == "slot_spikes" else (None, None)
+    tables = draws.EdgeTables(
+        dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+        lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32) if lb else None,
+        lb_target=torch.tensor([0, 1, 2], dtype=torch.int32) if lb else None,
+        spike_t=spike_t, spike_v=spike_v,
+        fault_t=fault_t, fault_lat=fault_lat, fault_drop=fault_drop,
+    )
+    rank = torch.tensor(g.permuted(np.tile(np.arange(N), (S, 1)), axis=1), dtype=torch.int64)
+    slot = torch.tensor(g.integers(0, 3, (S, N)), dtype=torch.int32)
+    ptr = lambda x: 0 if x is None else x.data_ptr()  # noqa: E731
+    for edge in ([None] if lb else range(4)):
+        kw = ({"edge": edge} if not lb else {"rank": rank} if lanes == "rank"
+              else {"slot": slot})
+        want = draws.hop_plain(tables, t_send, alive, uk, zk, **kw)
+        k_slots = 3 if lb else 1
+        out = draws.HopOut(
+            t_next=torch.empty((S, N), dtype=torch.float32),
+            ok=torch.empty((S, N), dtype=torch.bool),
+            target=torch.empty((S, N), dtype=torch.int32) if lb else None,
+            span=torch.empty((S, k_slots), dtype=torch.float32),
+            dropped=torch.empty(S, dtype=torch.int64),
+        )
+        partial = torch.empty((S, draws.lane_blocks(N), k_slots + 1), dtype=torch.float64)
+        ukw, zkw, dist = draws.key_words(uk), draws.key_words(zk), torch.tensor(DIST)
+        args = draws._EdgeDrawArgs(
+            ukey=ukw.data_ptr(), zkey=zkw.data_ptr(), t_send=t_send.data_ptr(),
+            alive=alive.data_ptr(), rank=ptr(kw.get("rank")), slot=ptr(kw.get("slot")),
+            lb_edge=ptr(tables.lb_edge), lb_target=ptr(tables.lb_target),
+            mean=mean.data_ptr(), var=var.data_ptr(), drop=drop.data_ptr(),
+            dist=dist.data_ptr(), spike_t=ptr(spike_t), spike_v=ptr(spike_v),
+            fault_t=fault_t.data_ptr(), fault_lat=fault_lat.data_ptr(),
+            fault_drop=fault_drop.data_ptr(),
+            out=out.t_next.data_ptr(), ok=out.ok.data_ptr(), target=ptr(out.target),
+            partial=partial.data_ptr(), span=out.span.data_ptr(),
+            dropped=out.dropped.data_ptr(), S=S, n=N, horizon=2.0, NE=4,
+            NB=0 if spike_t is None else 3, K=k_slots, edge=-1 if lb else edge,
+            mode=draws.MODE_HOP, NF=7, fault_per_row=int(per_row),
+        )
+        _launch(host_libs["edge_draws"], "edge_draws_launch", args)
+        assert torch.equal(out.ok, want.ok), edge
+        assert torch.equal(out.dropped, want.dropped), edge
+        if lb:
+            assert torch.equal(out.target, want.target)
+        assert _ulps(out.t_next, want.t_next) <= 4, edge
+        assert _ulps(out.span, want.span) <= 1, edge
+        if edge == 1:
+            # the partition drops every send inside it
+            idx = draws.fault_rows(fault_t, t_send)
+            parted = alive & (t_send < 2.0) & ((idx == 1) | (idx == 2))
+            assert bool(parted.any()) and not bool((want.ok & parted).any())
+
+
+@pytest.mark.parametrize(("rate", "burst"), [(5.0, 50.0), (0.37, 3.0), (100.0, 1.0),
+                                             (0.0, 2.0)])
+def test_bucket_matches_plain(host_libs, rate: float, burst: float) -> None:
+    """The token-bucket mode on sorted rows of 4099 elements (a third
+    invalid, runs of equal times), exactly."""
+    g = np.random.default_rng(7)
+    t = np.cumsum(g.exponential(1.0 / (1.3 * rate + 1.0), (S, N)), axis=1).astype(np.float32)
+    t[:, 100:110] = t[:, 100:101]
+    v = torch.tensor(g.random((S, N)) < 0.7)
+    t = torch.tensor(np.where(v.numpy(), t, np.float32(1e30)))
+    flag = torch.empty((S, N), dtype=torch.bool)
+    args = station_scan._StationArgs(a=t.data_ptr(), v=v.data_ptr(), flag=flag.data_ptr(),
+                                     S=S, m=N, mode=station_scan.MODE_BUCKET, cores=1,
+                                     rate=rate, burst=burst)
+    _launch(host_libs["station_scan"], "station_scan_launch", args)
+    want = station_scan.token_bucket_plain(t, v, rate, burst)
+    assert torch.equal(flag, want)
+    assert bool(want.any()) and bool((v & ~want).any())  # the bucket accepts and refuses

@@ -44,11 +44,11 @@ def test_journey_on_the_reference_arrivals(name: str) -> None:
 
     t, alive, finish, done = (np.asarray(x) for x in jax.vmap(one)(keys))
     eng = FastEngine(compile_payload(SimulationPayload.from_dict(data)), device="cpu")
-    got_finish, got_done, _, _ = eng._journey(
+    got_finish, got_done = eng._journey(
         torch.as_tensor(np.asarray(keys).astype(np.int64)),
         eng._overrides(base_overrides(eng.plan), 4),
         [torch.as_tensor(t)], [torch.as_tensor(alive)],
-    )
+    )[:2]
     assert np.array_equal(got_done.numpy(), done)
     diff = np.abs(got_finish.numpy() - finish)[done]
     assert diff.max() <= 4 * np.spacing(np.float32(30.0))

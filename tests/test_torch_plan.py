@@ -207,10 +207,7 @@ UNSUPPORTED = {
     "brownout_queue_threshold": lambda d: _server(d).update(overload={
         "max_ready_queue": 4, "brownout_queue_threshold": 2, "brownout_cpu_factor": 0.5,
     }),
-    "retry_policy": lambda d: d.update(retry_policy={"max_attempts": 2}),
-    "fault_timeline": lambda d: d.update(fault_timeline={"events": []}),
     "hedge_policy": lambda d: d.update(hedge_policy={"delay_s": 0.05}),
-    "hazard_model": lambda d: d.update(hazard_model={"domains": []}),
     "replay": lambda d: d["rqs_input"].update(replay={"times": [0.1]}),
     "serving": lambda d: _server(d).update(serving={"max_batch_tokens": 64}),
     "health": lambda d: _lb_node(d).update(health={"alpha": 0.2}),

@@ -282,7 +282,11 @@ def _reference_p95(name: str, seed: int, n: int) -> None:
 
 def _reference_fast_p95(name: str, seed: int, n: int) -> None:
     """Pooled p50 / p95 / p99 of the JAX scan fast path on a
-    ``chip_smoke.FAST_PAYLOADS`` payload at its full horizon."""
+    ``chip_smoke.FAST_PAYLOADS`` payload at its full horizon: a plain plan
+    through ``FastEngine``, a resilience plan through the reference's
+    ``SweepRunner(engine="fast")`` (which samples a chaos campaign's tables)
+    with the path's ``chip_smoke.FAST_SWEEP_AXES``, in chunks of 256, and
+    its resilience totals."""
     import importlib.util
     import os
 
@@ -302,6 +306,23 @@ def _reference_fast_p95(name: str, seed: int, n: int) -> None:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     plan = compile_payload(SimulationPayload.model_validate(smoke.FAST_PAYLOADS[name]))
+    if name in smoke.RESILIENCE_PATHS:
+        from asyncflow_tpu.parallel.sweep import SweepRunner as JaxSweepRunner
+        from asyncflow_tpu.parallel.sweep import make_overrides
+
+        axes = smoke.FAST_SWEEP_AXES.get(name)
+        runner = JaxSweepRunner(SimulationPayload.model_validate(smoke.FAST_PAYLOADS[name]),
+                                engine="fast", use_mesh=False)
+        report = runner.run(n, seed=seed, chunk_size=256,
+                            overrides=make_overrides(plan, n, **axes(n)) if axes else None)
+        summary = report.summary()
+        print(f"{name}: fast path sweep, seed {seed}, scenarios 0..{n - 1}")
+        for key in ("latency_p50_s", "latency_p95_s", "latency_p99_s", "completed_total",
+                    "dropped_total", "rejected_total", "dark_lost_total", "timed_out_total",
+                    "retries_total", "retry_budget_exhausted_total", "availability_fraction",
+                    "unavailable_s_total", "hazard_truncated_total"):
+            print(f"{key} {summary.get(key)!r}")
+        return
     state = FastEngine(plan).run_batch(scenario_keys(seed, n))
     pooled = np.asarray(state.hist).sum(axis=0)
     print(f"{name}: fast path, seed {seed}, scenarios 0..{n - 1}, lanes {plan.max_requests}")

@@ -200,6 +200,50 @@ def normal_edges(data: dict) -> None:
                                        "variance": 0.001}
 
 
+def resilient_edges(data: dict) -> None:
+    """normal_edges under edge fault windows: the entry edge degraded from
+    t = 0, two overlapping degrades of lb-srv1 (factors multiply, boosts
+    add) and a network spike on it (added after the factor), a partition of
+    lb-srv2, and a dark window of srv-2."""
+    normal_edges(data)
+    data["events"] = [{
+        "event_id": "spike", "target_id": "lb-srv1",
+        "start": {"kind": "network_spike_start", "t_start": 4.0, "spike_s": 0.01},
+        "end": {"kind": "network_spike_end", "t_end": 10.0},
+    }]
+    data["fault_timeline"] = {"events": [
+        {"fault_id": "entry", "kind": "edge_degrade", "target_id": "gen-client",
+         "t_start": 0.0, "t_end": 8.0, "latency_factor": 2.0, "dropout_boost": 0.05},
+        {"fault_id": "slow", "kind": "edge_degrade", "target_id": "lb-srv1",
+         "t_start": 3.0, "t_end": 12.0, "latency_factor": 3.0},
+        {"fault_id": "lossy", "kind": "edge_degrade", "target_id": "lb-srv1",
+         "t_start": 6.0, "t_end": 15.0, "latency_factor": 1.5, "dropout_boost": 0.1},
+        {"fault_id": "cut", "kind": "edge_partition", "target_id": "lb-srv2",
+         "t_start": 9.0, "t_end": 11.0},
+        {"fault_id": "dark", "kind": "server_outage", "target_id": "srv-2",
+         "t_start": 12.0, "t_end": 14.0},
+    ]}
+
+
+#: the client retry policy of the resilience guide's runnable outage sweep
+#: (docs/guides/resilience.md, "A runnable outage sweep")
+GUIDE_RETRY = {
+    "request_timeout_s": 0.5, "max_attempts": 3, "backoff_base_s": 0.1,
+    "backoff_multiplier": 2.0, "backoff_cap_s": 1.0, "budget_tokens": 50,
+    "budget_refill_per_s": 5.0,
+}
+
+
+def outage_retry(data: dict) -> None:
+    """The guide's outage sweep: single_server.yml with its retry policy and
+    one outage of srv-1 from 10 s to 25 s."""
+    data["retry_policy"] = dict(GUIDE_RETRY)
+    data["fault_timeline"] = {"events": [{
+        "fault_id": "srv-1-outage", "kind": "server_outage", "target_id": "srv-1",
+        "t_start": 10.0, "t_end": 25.0,
+    }]}
+
+
 def cache_mixture(data: dict) -> None:
     """CPU 2 ms, then a cache that hits in 2 ms with probability 0.8 and
     misses in 50 ms (the reference's tests/parity/test_cache_dynamics.py):
@@ -308,6 +352,8 @@ MUTATIONS = {
     "db_pool_k2": (EXAMPLES / "single_server.yml", db_pool_k2),
     "queue_cap": (BASE, queue_cap),
     "conn_cap": (BASE, conn_cap),
+    "resilient_edges": (LB, resilient_edges),
+    "outage_retry": (BASE, outage_retry),
 }
 
 
@@ -386,11 +432,32 @@ def reference_window_draws(jax_plan, keys, n_windows: int | None = None):
     return users, counts
 
 
-def run_both(data: dict, n: int, seed: int, transform=None):
+def hazard_overrides(ref_plan, seed: int, n: int, **scales):
+    """The reference's base overrides carrying the chaos campaign's sampled
+    fault tables of scenarios 0 .. n-1 of ``seed`` (``hazard_scale`` /
+    ``mttr_scale`` in ``scales``), as its sweep builds them.  The tables
+    are sampled by the port's ``hazard_fault_tables`` (equal to the
+    reference's, ``tests/test_torch_hazards.py``, and without the JAX
+    compile of the reference's scalar draws)."""
+    from asyncflow_tpu.engines.jaxsim.params import base_overrides
+    from asyncflow_tpu_torch.compiler.hazards import hazard_fault_tables
+
+    tables = hazard_fault_tables(ref_plan, seed, 0, n, **scales)
+    return base_overrides(ref_plan)._replace(
+        fault_srv_times=tables.srv_times, fault_srv_down=tables.srv_down,
+        fault_edge_times=tables.edge_times, fault_edge_lat=tables.edge_lat,
+        fault_edge_drop=tables.edge_drop,
+    )
+
+
+def run_both(data: dict, n: int, seed: int, transform=None, overrides=None):
     """(reference state, port state, port plan) of ``n`` scenarios of
     ``seed``: the JAX ``FastEngine`` and the port's on the CPU, the port fed
     the reference's per-window user and count draws.  ``transform``, where
-    given, maps each package's compiled plan to the plan that runs."""
+    given, maps each package's compiled plan to the plan that runs;
+    ``overrides``, where given, maps the reference's plan to its
+    ``ScenarioOverrides``, which both engines run (the port's through
+    ``overrides_from_arrays``)."""
     import jax
 
     from asyncflow_tpu.compiler import compile_payload as jax_compile
@@ -405,11 +472,15 @@ def run_both(data: dict, n: int, seed: int, transform=None):
     plan = compile_payload(SimulationPayload.from_dict(data))
     if transform is not None:
         ref_plan, plan = transform(ref_plan), transform(plan)
+    from asyncflow_tpu_torch.engines.torchsim.params import overrides_from_arrays
+
     keys = jax_keys(seed, n)
-    ref = jax.tree_util.tree_map(np.asarray, JaxFastEngine(ref_plan).run_batch(keys))
+    jov = overrides(ref_plan) if overrides is not None else None
+    ref = jax.tree_util.tree_map(np.asarray, JaxFastEngine(ref_plan).run_batch(keys, jov))
     eng = FastEngine(plan, device="cpu")
     windows = reference_window_draws(ref_plan, keys)
-    got = eng.run_batch(np.asarray(keys), window_draws=windows)
+    ov = None if jov is None else overrides_from_arrays(jov._asdict())
+    got = eng.run_batch(np.asarray(keys), ov, window_draws=windows)
     return ref, got, plan
 
 
@@ -421,7 +492,9 @@ def assert_matches_reference(ref, got, plan, name: str) -> None:
     """The slice's tolerances against the reference fast path.  Arrival
     times are the reference's bit for bit (XLA's CPU ``log1p`` and
     ``cumsum`` order), drops are settled by the same uniforms, so the
-    counters are exact.  An edge delay's ``log`` / ``exp`` may round an
+    counters are exact: generated, dropped, completed, and the resilience
+    counters (dark refusals, timeouts, retries, budget denials and the
+    attempts histogram).  An edge delay's ``log`` / ``exp`` may round an
     ulp apart between XLA and torch on the CPU, and the reference's float
     sums associate differently: latency sums and pooled gauge means agree
     within rtol 1e-3, except the ready-queue gauges: they sum waits, small
@@ -433,7 +506,9 @@ def assert_matches_reference(ref, got, plan, name: str) -> None:
     assert np.array_equal(got.n_generated, ref.n_generated), name
     assert np.array_equal(got.n_overflow, ref.n_overflow), name
     assert ref.n_generated.min() > 0, name
-    for field in ("n_dropped", "lat_count"):
+    assert np.array_equal(got.att_hist, ref.att_hist), name
+    for field in ("n_dropped", "lat_count", "n_rejected", "n_dark_lost", "n_timed_out",
+                  "n_retries", "n_budget_exhausted"):
         a, b = getattr(got, field).astype(np.int64), getattr(ref, field).astype(np.int64)
         assert np.array_equal(a, b), f"{name}: {field} {a.tolist()} against {b.tolist()}"
     edges = hist_edges()
