@@ -44,7 +44,9 @@
 //      gauge span, the sum over
 //      ok lanes of max(min(t_send + delay, h) - min(t_send, h), 0), in
 //      float64 in a fixed order (a thread's lanes, the block's threads, the
-//      row's blocks) and rounded once;
+//      row's blocks) and rounded once; a hop with no span output (the
+//      least-connections candidates, whose sums belong to the lanes that
+//      pick the slot) writes only t_next and ok, with no epilogue;
 //   2 gaps: 16-lane block inclusive sums (S, ld_out) and block totals
 //      (S, ld_tot) of the drawn gaps or of x_in.
 //
@@ -415,14 +417,16 @@ __global__ void gaps_kernel(EdgeDrawArgs a) {
 }
 
 // kFault: the hop reads fault tables (a separate instance, so that a hop
-// without them runs the code it ran before they existed)
-template <bool kFault>
+// without them runs the code it ran before they existed); kSums: the hop
+// sums its spans and drops (the epilogue), else it writes t_next and ok only
+template <bool kFault, bool kSums>
 __global__ void hop_kernel(EdgeDrawArgs a) {
   const int K = a.K;
   const unsigned nt = blockDim.x, tid = threadIdx.x;
   double* acc = edge_smem;                                       // (K, threads)
   int* drops = reinterpret_cast<int*>(edge_smem + (size_t)K * nt);  // (threads,)
-  for (int k = 0; k < K; ++k) acc[k * nt + tid] = 0.0;
+  if (kSums)
+    for (int k = 0; k < K; ++k) acc[k * nt + tid] = 0.0;
   int my_drops = 0;
   uint32_t row, lane0;
   int cnt;
@@ -507,7 +511,7 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
         const float t_end = ts + d;
         if (ok) {
           okbits |= 1u << lane;
-          acc[slot * nt + tid] += (double)fmaxf(fminf(t_end, h) - fminf(ts, h), 0.0f);
+          if (kSums) acc[slot * nt + tid] += (double)fmaxf(fminf(t_end, h) - fminf(ts, h), 0.0f);
         }
         my_drops += (gate && dropped) ? 1 : 0;
         t[i] = ok ? t_end : ts;
@@ -517,6 +521,7 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
     }
     store_mask16(a.ok + base, cnt, okbits);
   }
+  if (!kSums) return;
   drops[tid] = my_drops;
   // the block's sums: each column by one thread, over the block's threads
   // in order (the host build runs threads one after another: the last sums)
@@ -578,8 +583,11 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
   } else if (a.mode == kHopMode) {
     if (a.out == nullptr || a.ok == nullptr || a.t_send == nullptr || a.alive == nullptr ||
         a.ukey == nullptr || a.mean == nullptr || a.var == nullptr || a.drop == nullptr ||
-        a.dist == nullptr || a.partial == nullptr || a.span == nullptr ||
-        a.dropped == nullptr)
+        a.dist == nullptr)
+      return -1;
+    // the sums' outputs, all or none (none: no epilogue)
+    if ((a.span == nullptr) != (a.partial == nullptr) ||
+        (a.span == nullptr) != (a.dropped == nullptr))
       return -1;
     if (a.rank != nullptr && a.slot != nullptr) return -1;
     if (a.rank != nullptr || a.slot != nullptr) {
@@ -592,7 +600,7 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
     if (a.spike_t != nullptr && (a.spike_v == nullptr || a.NB < 1)) return -1;
     if (a.fault_t != nullptr && (a.fault_lat == nullptr || a.fault_drop == nullptr || a.NF < 1))
       return -1;
-    smem = (size_t)a.K * kThreads * sizeof(double) + kThreads * sizeof(int);
+    if (a.span != nullptr) smem = (size_t)a.K * kThreads * sizeof(double) + kThreads * sizeof(int);
   } else if (a.mode == kGapsMode) {
     if (a.out == nullptr || a.tot == nullptr || (a.x_in == nullptr && a.ukey == nullptr))
       return -1;
@@ -629,14 +637,16 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
       a.mean = whole.mean + r0 * whole.NE;
       a.var = whole.var + r0 * whole.NE;
       a.drop = whole.drop + r0 * whole.NE;
-      a.partial = whole.partial + r0 * blocks * (whole.K + 1);
+      if (whole.partial != nullptr) a.partial = whole.partial + r0 * blocks * (whole.K + 1);
       if (whole.fault_t != nullptr && whole.fault_per_row) {
         a.fault_t = whole.fault_t + r0 * whole.NF;
         a.fault_lat = whole.fault_lat + r0 * whole.NF * whole.NE;
         a.fault_drop = whole.fault_drop + r0 * whole.NF * whole.NE;
       }
-      a.span = whole.span + r0 * whole.K;
-      a.dropped = whole.dropped + r0;
+      if (whole.span != nullptr) {
+        a.span = whole.span + r0 * whole.K;
+        a.dropped = whole.dropped + r0;
+      }
     }
     const dim3 grid((unsigned)blocks, (unsigned)rows);
     const dim3 block(kThreads);
@@ -645,10 +655,15 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
     } else if (a.mode == kGapsMode) {
       gaps_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
     } else {
-      const auto hop = a.fault_t != nullptr ? hop_kernel<true> : hop_kernel<false>;
+      const bool sums = a.span != nullptr;
+      const auto hop = a.fault_t != nullptr
+                           ? (sums ? hop_kernel<true, true> : hop_kernel<true, false>)
+                           : (sums ? hop_kernel<false, true> : hop_kernel<false, false>);
       hop<<<grid, block, smem, (cudaStream_t)stream>>>(a);
-      const dim3 rgrid((unsigned)((rows + kThreads - 1) / kThreads));
-      hop_reduce_kernel<<<rgrid, block, 0, (cudaStream_t)stream>>>(a);
+      if (sums) {
+        const dim3 rgrid((unsigned)((rows + kThreads - 1) / kThreads));
+        hop_reduce_kernel<<<rgrid, block, 0, (cudaStream_t)stream>>>(a);
+      }
     }
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;

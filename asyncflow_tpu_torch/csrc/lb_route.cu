@@ -1,5 +1,5 @@
-// Round robin under an outage timeline on Hopper (sm_90a): each alive
-// request's LB slot, or -1 where no target is healthy.
+// Round robin under an outage timeline, and least connections, on Hopper
+// (sm_90a): each alive request's LB slot, or -1 where no target is healthy.
 //
 // Replaces the reference fast path's _routed_slots and _advance_timeline
 // (asyncflow_tpu/engines/jaxsim/fastpath.py:1037-1065, :1008-1035): a
@@ -41,6 +41,25 @@
 // A table launch runs route_count (none without marks) and route_marks; a
 // lanes launch runs lanes.
 //
+// Least connections (mode 2) replaces _routed_slots_lc (:1067-1127), a
+// lax.scan over the time-ordered arrivals carrying, per LB slot, a ring of
+// R outstanding delivery times; an arrival's connection count on a slot is
+// how many of its ring's entries lie after it, it picks the rotation's
+// first position with the fewest (the first minimum of count * EL + pos),
+// and unless its candidate send on that slot drops, its candidate delivery
+// time replaces the smallest entry of that slot's ring.  A pick depends on
+// every earlier delivery, so the scan is walked as it is: one warp a row
+// (lc: a block of one warp a scenario).  The EL x R ring entries lie in the
+// block's shared memory, slot k's entry j on lane j % 32: an arrival costs
+// one compare an entry and a warp sum a slot; lane 0 applies the marks to
+// the rotation (in shared memory) and makes the pick, which a shuffle
+// broadcasts; the replaced entry is found by a warp minimum of the slot's
+// entries (each lane's smallest, as an ordered integer) and written by the
+// first lane holding it.  A group of 32 arrivals' times, flags, candidate
+// deliveries and drops is staged coalesced first (their loads leave the
+// carry's chain).  Bound: bytes (t, ok and EL candidates of 5 B an arrival
+// read once, the pick written once) or the EL x R compares an arrival.
+//
 // Bound: bytes.  The table pass reads t and alive (5 B a lane), the lanes
 // pass the rank and alive and writes the slot (13 B a lane); the marks'
 // compares and the search are a few operations a lane.  The count spreads
@@ -62,12 +81,15 @@ struct LbRouteArgs {
   const int32_t* tl_slot;   // (NTL,) LB slot of the mark, or -1 (none)
   uint32_t* partial;        // table: (S, row blocks, NTL) counts of the row's blocks
   int32_t* table;           // (S, NTL + 1, 2 + EL)
-  int32_t* slot;            // lanes: (S, n) out
+  int32_t* slot;            // lanes, lc: (S, n) out
+  const float* deliv;       // lc: (S, n, EL) candidate delivery times, time order
+  const uint8_t* drop;      // lc: (S, n, EL) candidate drops
   int64_t S;
   int64_t n;
   int32_t NTL;
   int32_t EL;
   int32_t mode;
+  int32_t R;                // lc: ring entries a slot
 };
 
 // the count kernel's counts of the block (NTL unsigned)
@@ -77,6 +99,9 @@ namespace {
 
 constexpr int kTableMode = 0;
 constexpr int kLanesMode = 1;
+constexpr int kLcMode = 2;
+constexpr int kLcSlots = 32;      // LB slots least connections takes
+constexpr int kLcRing = 128;      // ring entries a slot it takes
 constexpr int kThreads = 256;
 constexpr int kMarksAPass = 16;   // marks counted in registers a pass
 constexpr int kUnroll = 4;        // four-lane units a thread loads at once
@@ -85,6 +110,7 @@ constexpr int kMaxRows = 65535;   // scenarios a launch on a (.., scenarios) gri
 constexpr int kMaxMarks = 4096;   // marks (shared memory)
 constexpr int kMaxSlots = 1024;   // LB slots
 constexpr unsigned kAll = 0xffffffffu;
+constexpr float kInf = 1e30f;
 
 // lanes a warp reduces over: a warp on the card, one in the host build
 #ifdef __CUDACC__
@@ -281,6 +307,117 @@ __global__ void lanes_kernel(LbRouteArgs a) {
   a.slot[i] = out;
 }
 
+// float x as an unsigned integer in the same order (no NaN)
+__device__ __forceinline__ unsigned ordered(float x) {
+  const unsigned u = __float_as_uint(x);
+  return (u & 0x80000000u) != 0u ? ~u : (u | 0x80000000u);
+}
+
+// Least connections: a block of one warp a scenario.  Shared memory: the
+// rotation and the slots' counts (EL ints each), the rings (EL x rp
+// floats, rp = R rounded up to the lanes), and the group's candidates (kLanes
+// x EL floats and bytes).
+__global__ void __launch_bounds__(kLanes) lc_kernel(LbRouteArgs a) {
+  const int el = a.EL, r = a.R;
+  const int rp = (r + kLanes - 1) / kLanes * kLanes;
+  int32_t* rot = reinterpret_cast<int32_t*>(route_smem);
+  int32_t* conn = rot + el;
+  float* ring = reinterpret_cast<float*>(conn + el);
+  float* cand = ring + el * rp;
+  uint8_t* cdrop = reinterpret_cast<uint8_t*>(cand + kLanes * el);
+  const int lane = (int)threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const int64_t n = a.n;
+  const float* t = a.t + row * n;
+  const uint8_t* ok = a.alive + row * n;
+  const float* deliv = a.deliv + row * n * el;
+  const uint8_t* drop = a.drop + row * n * el;
+  int32_t* out = a.slot + row * n;
+  for (int q = lane; q < el * rp; q += kLanes) ring[q] = -kInf;
+  if (lane == 0)
+    for (int k = 0; k < el; ++k) rot[k] = k;
+  int len = el;  // lane 0's
+  int ptr = 0;   // lane 0's: the next mark
+  __syncwarp();
+  for (int64_t k0 = 0; k0 < n; k0 += kLanes) {
+    const int cnt = n - k0 < kLanes ? (int)(n - k0) : kLanes;
+    // the group: a lane an arrival's time and flag, its candidates
+    // coalesced into shared memory
+    const float my_t = lane < cnt ? t[k0 + lane] : kInf;
+    const bool my_ok = lane < cnt && ok[k0 + lane] != 0;
+    for (int q = lane; q < cnt * el; q += kLanes) {
+      cand[q] = deliv[k0 * el + q];
+      cdrop[q] = drop[k0 * el + q];
+    }
+    __syncwarp();
+    for (int p = 0; p < cnt; ++p) {
+      const float ta = __shfl_sync(kAll, my_t, p);
+      const bool oka = __shfl_sync(kAll, my_ok ? 1 : 0, p) != 0;
+      if (lane == 0) {
+        // the marks whose time has come, in table order
+        while (ptr < a.NTL && a.tl_time[ptr] <= ta) {
+          const int s = a.tl_slot[ptr];
+          if (s >= 0) {
+            int at = -1;
+            for (int i = 0; i < len && at < 0; ++i)
+              if (rot[i] == s) at = i;
+            if (a.tl_down[ptr] == 1) {
+              if (at >= 0) {
+                for (int i = at; i + 1 < el; ++i) rot[i] = rot[i + 1];
+                --len;
+              }
+            } else if (at < 0) {
+              rot[len < el - 1 ? len : el - 1] = s;
+              len = len + 1 < el ? len + 1 : el;
+            }
+          }
+          ++ptr;
+        }
+      }
+      int picked = -1;
+      if (oka) {
+        // each slot's entries after the arrival
+        for (int k = 0; k < el; ++k) {
+          unsigned c = 0u;
+          for (int j = lane; j < r; j += kLanes) c += ring[k * rp + j] > ta ? 1u : 0u;
+          c = __reduce_add_sync(kAll, c);
+          if (lane == 0) conn[k] = (int32_t)c;
+        }
+        if (lane == 0 && len > 0) {
+          int best = conn[rot[0]] * el;
+          picked = rot[0];
+          for (int pos = 1; pos < len; ++pos) {
+            const int key = conn[rot[pos]] * el + pos;
+            if (key < best) {
+              best = key;
+              picked = rot[pos];
+            }
+          }
+        }
+        picked = __shfl_sync(kAll, picked, 0);
+        if (picked >= 0 && cdrop[p * el + picked] == 0) {
+          // the slot's smallest entry becomes the delivery
+          float* slot_ring = ring + picked * rp;
+          unsigned mine = 0xFFFFFFFFu;
+          int at = -1;
+          for (int j = lane; j < r; j += kLanes) {
+            const unsigned u = ordered(slot_ring[j]);
+            if (u < mine) {
+              mine = u;
+              at = j;
+            }
+          }
+          const unsigned least = __reduce_min_sync(kAll, mine);
+          const unsigned holders = __ballot_sync(kAll, at >= 0 && mine == least);
+          if (lane == __ffs(holders) - 1) slot_ring[at] = cand[p * el + picked];
+        }
+      }
+      if (lane == 0) out[k0 + p] = picked;
+      __syncwarp();
+    }
+  }
+}
+
 // the count kernel's instance for kM marks a pass
 template <int kM>
 int launch_count(const LbRouteArgs& a, void* stream) {
@@ -305,7 +442,8 @@ int64_t lb_route_row_blocks(int64_t n) { return row_blocks(n); }
 // -1 for arguments the kernel does not take.
 int lb_route_launch(const LbRouteArgs* args, void* stream) {
   LbRouteArgs a = *args;
-  if (a.S <= 0 || a.n <= 0 || a.n > 0x7FFFFFFFll || a.table == nullptr) return -1;
+  if (a.S <= 0 || a.n <= 0 || a.n > 0x7FFFFFFFll) return -1;
+  if (a.table == nullptr && a.mode != kLcMode) return -1;
   if (a.NTL < 0 || a.NTL > kMaxMarks || a.EL < 1 || a.EL > kMaxSlots) return -1;
   const LbRouteArgs whole = a;
   if (a.mode == kTableMode) {
@@ -336,6 +474,19 @@ int lb_route_launch(const LbRouteArgs* args, void* stream) {
     const dim3 grid((unsigned)((a.S + 127) / 128));
     const dim3 block(128);
     route_marks_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (a.mode == kLcMode) {
+    if (a.t == nullptr || a.alive == nullptr || a.deliv == nullptr || a.drop == nullptr ||
+        a.slot == nullptr || a.EL > kLcSlots || a.R < 1 || a.R > kLcRing ||
+        (a.NTL > 0 && (a.tl_time == nullptr || a.tl_down == nullptr || a.tl_slot == nullptr)))
+      return -1;
+    const int rp = (a.R + kLanes - 1) / kLanes * kLanes;
+    const size_t smem = (size_t)2 * a.EL * sizeof(int32_t) + (size_t)a.EL * rp * sizeof(float) +
+                        (size_t)kLanes * a.EL * (sizeof(float) + 1);
+    const dim3 grid((unsigned)a.S);
+    const dim3 block(kLanes);
+    lc_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   }
   if (a.mode != kLanesMode || a.rank == nullptr || a.alive == nullptr || a.slot == nullptr)

@@ -4,10 +4,11 @@
 // (asyncflow_tpu/engines/jaxsim/fastpath.py): the max-plus associative
 // scan of _lindley_waits (:278), the Kiefer-Wolfowitz lax.scan of
 // _kw_waits (:198), the joint RAM-slot and core lax.scan of
-// _ram_core_scan (:233) and the arrival token bucket's lax.scan,
-// _token_bucket_scan (:302).  Each row of the (S, m) inputs is one
-// station's time-sorted stream of one scenario, walked in order with the
-// station's state:
+// _ram_core_scan (:233), the arrival token bucket's lax.scan,
+// _token_bucket_scan (:302), and the overload controls' lax.scans,
+// _controlled_station_scan (:331) and _socket_station_scan (:374).  Each
+// row of the (S, m) inputs is one station's time-sorted stream of one
+// scenario, walked in order with the station's state:
 //
 //   mode 0 (c = 1)  C_k = max(A_k + S_k, C_{k-1} + S_k),
 //                   wait_k = max(0, (C_k - S_k) - A_k);
@@ -23,7 +24,22 @@
 //                   accept where valid and tok >= 1, spending one; the
 //                   tokens and the clock ``last`` advance on every valid
 //                   element, refused ones included; output the accepted
-//                   flag (a byte).
+//                   flag (a byte);
+//   mode 4          the controlled queue: the c core-free times and a ring
+//                   of the last r = max(cap, 1) grants; over enqueue times
+//                   e: shed where cap >= 0 and the ring's oldest grant lies
+//                   after e; g = max(e, w_0), wait g - e; abandoned where
+//                   live (not shed), timeout >= 0 and wait > timeout; a live
+//                   element inserts g + S (g if abandoned) and pushes g;
+//                   outputs the wait and a flag byte (1 shed, 2 abandoned);
+//   mode 5          the socket queue, in arrival order: mode 4's carry and
+//                   the sorted vector of the conn connections' exit times
+//                   (-inf at first); refused where its first exit lies after
+//                   the arrival; the shed and deadline tests on burst
+//                   elements only; a live element inserts its exit (e if
+//                   shed, g if abandoned, g + S + post if served, a + post
+//                   if io-only), a burst one that is not shed takes a core
+//                   and pushes g; flag 4 refused.
 //
 // Invalid elements leave the carry unchanged, so a row may interleave
 // other stations' lanes.  Built with --fmad=false: each float operation
@@ -35,7 +51,8 @@
 // associative form (a K x K max-plus product a combine), so the
 // parallelism is across rows and across the carry vector.  Two walks:
 //
-// The thread walk (modes 0 and 3; modes 1 and 2 past kWarpWidthMax entries): one
+// The thread walk (modes 0 and 3, mode 4 with one core; the carry modes past
+// kWarpWidthMax entries): one
 // thread a row, 16 rows a block (half a warp: the lanes of a warp read
 // different rows, one L1 wavefront each, so the wavefronts, not the lanes,
 // are the cost, and 16-row blocks spread the 2048 rows over 128 SMs).  It
@@ -49,8 +66,18 @@
 // times other block sizes and prefetch distances (-DSTATION_ROWS,
 // -DSTATION_AHEAD).
 //
-// The warp walk (modes 1 and 2 up to kWarpWidthMax entries): one warp a
-// row, kWarps rows a block.  A carry vector wider than kWholeMax entries
+// The controlled and socket modes keep their ring as a circular buffer
+// with a head index (the reference's shift only reorders storage: its first
+// entry is the buffer's head): in the block's shared memory on the thread
+// walk, spread over the warp's lanes on the warp walk (entry j on lane
+// j % 32, read by a shuffle from its owner, written by it).  Their walks are
+// simple, one element at a time on the thread walk; making them fast is
+// later work.
+//
+// The warp walk (modes 1, 2, 5 and mode 4 past one core, up to
+// kWarpWidthMax entries a vector; the socket mode's connections in the
+// RAM-core mode's place of the RAM slots): one warp a row, kWarps rows a
+// block.  A carry vector wider than kWholeMax entries
 // is spread over the lanes: lane l holds entries [l E, (l + 1) E), E the
 // smallest power of two that covers the vector over the lanes; a narrower
 // one (one core, a pool of two) is held whole on every lane, as RegVec
@@ -76,6 +103,14 @@
 // rows the walk is bound by the SM's shuffle and shared-load pipe (two
 // shuffles an element a spread vector), not by the chain.
 //
+// The warp walk is instantiated for each form of its vectors (a power of
+// two entries, whole or spread) that a launch can reach: modes 1 and 4 at
+// each core form, mode 2 at each pair of RAM-slot and core forms, mode 5
+// at each core form with its connections (at most kRingMax) in the one
+// form that holds any of them, spread at kRingPer entries a lane (the
+// +inf padding past the live entries leaves the walk's results as they
+// are at a narrower form).
+//
 // The host build (tests/test_torch_fast_host.py) compiles this source with
 // g++ at one lane a row (kLanes = 1: one lane holds the whole vector, the
 // shuffles are identities), so the host tests hold the same code to the
@@ -95,14 +130,19 @@ struct StationArgs {
   float* out1;           // core waits (mode 2)
   float* out2;           // departures (mode 2)
   float* scratch;        // (S, ram_k + cores) carries of the global walk, else unused
-  uint8_t* flag;         // (S, m) accepted flags (mode 3)
+  uint8_t* flag;         // (S, m) accepted flags (mode 3); shed, abandoned, refused bits (4, 5)
+  const float* e;        // (S, m) enqueue times (mode 5; mode 4's come in a)
+  const uint8_t* b;      // (S, m) burst flags (mode 5)
   int64_t S;
   int64_t m;
   int32_t mode;
   int32_t cores;
   int32_t ram_k;
-  float rate;   // mode 3: tokens refilled a second
-  float burst;  // mode 3: the bucket's size (and its tokens at time 0)
+  int32_t cap;    // modes 4, 5: the ready-queue cap (< 0: none)
+  int32_t conn;   // mode 5: the connection cap
+  float rate;     // mode 3: tokens refilled a second
+  float burst;    // mode 3: the bucket's size (and its tokens at time 0)
+  float timeout;  // modes 4, 5: the dequeue deadline (< 0: none)
 };
 
 namespace {
@@ -132,6 +172,8 @@ constexpr int kWholeMax = 4;                         // vectors whole on every l
 constexpr int kWarps = 4;                            // rows (warps) a block of the warp walk
 constexpr int kGroup = 32;                           // elements a group: a 128-byte line
 constexpr int kPerLane = kGroup / kLanes;            // of them, a lane's
+constexpr int kRingMax = 128;                        // ring entries and connections (4, 5)
+constexpr int kRingPer = kRingMax / kLanes;          // ring entries a lane (warp walk)
 
 // which walk a launch takes (station_scan_walk)
 constexpr int kWalkThread = 0;
@@ -155,8 +197,8 @@ struct MemVec {
   float* f;
   int c;
 
-  __device__ __forceinline__ void init() {
-    for (int j = 0; j < c; ++j) f[j] = 0.0f;
+  __device__ __forceinline__ void init(float value = 0.0f) {
+    for (int j = 0; j < c; ++j) f[j] = value;
   }
   __device__ __forceinline__ float first() const { return f[0]; }
   __device__ __forceinline__ void insert_first(float x) {
@@ -383,6 +425,94 @@ __global__ void station_scan_kernel(StationArgs a) {
   }
 }
 
+// One core's free time in a register: the one-entry vector.
+struct OneCore {
+  float f;
+
+  __device__ __forceinline__ float first() const { return f; }
+  __device__ __forceinline__ void insert_first(float x) { f = x; }
+};
+
+// One row of the controlled (4) or socket (5) mode by one thread, an
+// element at a time: the core vector wc, the connections' exit times conn
+// (mode 5) and the ring, entry j at ring[j * stride].
+template <int kMode, class CoreVec>
+__device__ __forceinline__ void control_walk(const StationArgs& a, int64_t row, CoreVec& wc,
+                                             MemVec& conn, float* ring, int stride) {
+  const int64_t base = row * a.m;
+  const float* __restrict__ A = a.a + base;
+  const float* __restrict__ E = kMode == 5 ? a.e + base : A;
+  const float* __restrict__ D = a.d + base;
+  const float* __restrict__ Q = kMode == 5 ? a.post + base : nullptr;
+  const uint8_t* __restrict__ B = kMode == 5 ? a.b + base : nullptr;
+  const uint8_t* __restrict__ V = a.v + base;
+  float* __restrict__ W0 = a.out0 + base;
+  uint8_t* __restrict__ F = a.flag + base;
+  const bool cap_on = a.cap >= 0;
+  const bool to_on = a.timeout >= 0.0f;
+  const int r = a.cap > 1 ? a.cap : 1;
+  for (int j = 0; j < r; ++j) ring[j * stride] = -kInf;
+  int head = 0;
+  for (int64_t k = 0; k < a.m; ++k) {
+    if (kAhead > 0 && (k & 31) == 0 && k + kAhead < a.m) {
+      // the row's lines kAhead elements on, into L1 (the loads below are
+      // scalar, one row a thread)
+      prefetch_l1(A + k + kAhead);
+      prefetch_l1(D + k + kAhead);
+      prefetch_l1(V + k + kAhead);
+      if (kMode == 5) {
+        prefetch_l1(E + k + kAhead);
+        prefetch_l1(Q + k + kAhead);
+        prefetch_l1(B + k + kAhead);
+      }
+    }
+    const bool ok = V[k] != 0;
+    const float ak = A[k], ek = E[k], dk = D[k];
+    const bool bk = kMode == 5 ? B[k] != 0 : true;
+    const bool refused = kMode == 5 && ok && conn.first() > ak;
+    const bool live = ok && !refused;
+    const bool shed = live && bk && cap_on && ring[head * stride] > ek;
+    const float g = fmaxf(ek, wc.first());
+    const float wait = bk ? g - ek : 0.0f;
+    const bool through = live && bk && !shed;
+    const bool ab = through && to_on && wait > a.timeout;
+    if (kMode == 5 && live)
+      conn.insert_first(bk ? (shed ? ek : (ab ? g : (g + dk) + Q[k])) : ak + Q[k]);
+    if (through) {
+      wc.insert_first(g + (ab ? 0.0f : dk));
+      ring[head * stride] = g;
+      head = head + 1 == r ? 0 : head + 1;
+    }
+    W0[k] = wait;
+    F[k] = (uint8_t)((shed ? 1 : 0) | (ab ? 2 : 0) | (refused ? 4 : 0));
+  }
+}
+
+// The thread walk of modes 4 and 5: one core in a register (mode 4), or
+// the vectors in global scratch (the connections first, then the cores);
+// the rows' rings in the block's shared memory, entry j of thread i at
+// j * kRows + i.
+template <int kMode>
+__global__ void control_thread_kernel(StationArgs a) {
+  __shared__ float rings[kRingMax * kRows];
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= a.S) return;
+  float* ring = rings + threadIdx.x;
+  if (a.scratch == nullptr) {
+    OneCore wc{0.0f};
+    MemVec none{nullptr, 0};
+    control_walk<kMode>(a, row, wc, none, ring, kRows);
+    return;
+  }
+  const int cw = kMode == 5 ? a.conn : 0;
+  float* carry = a.scratch + row * (int64_t)(cw + a.cores);
+  MemVec conn{carry, cw};
+  MemVec wc{carry + cw, a.cores};
+  conn.init(-kInf);
+  wc.init();
+  control_walk<kMode>(a, row, wc, conn, ring, kRows);
+}
+
 // ---------------------------------------------------------------------------
 // the warp walk
 // ---------------------------------------------------------------------------
@@ -397,11 +527,11 @@ struct LaneVec {
   float f[E];
   float first;
 
-  __device__ __forceinline__ void init(int live, int lane) {
+  __device__ __forceinline__ void init(int live, int lane, float value = 0.0f) {
     const int at = kSpan == 1 ? 0 : lane * E;
 #pragma unroll
-    for (int e = 0; e < E; ++e) f[e] = at + e < live ? 0.0f : INFINITY;
-    first = live > 0 ? 0.0f : INFINITY;
+    for (int e = 0; e < E; ++e) f[e] = at + e < live ? value : INFINITY;
+    first = live > 0 ? value : INFINITY;
   }
   // the vector's second entry, from its owner lane; +inf where the vector
   // is one entry wide
@@ -432,6 +562,44 @@ struct LaneVec {
   }
 };
 
+// The ring of the last r grants on the warp walk: entry j on lane
+// j % kLanes, in its slot j / kLanes; ``head`` (the oldest entry) and r on
+// every lane.
+struct LaneRing {
+  float f[kRingPer];
+  int head;
+  int r;
+
+  __device__ __forceinline__ void init(int cap) {
+#pragma unroll
+    for (int i = 0; i < kRingPer; ++i) f[i] = -kInf;
+    head = 0;
+    r = cap > 1 ? cap : 1;
+  }
+  // the oldest entry, from its owner lane (one lane: indexed directly)
+  __device__ __forceinline__ float oldest() const {
+    if constexpr (kLanes == 1) return f[head];
+    const int slot = head / kLanes;
+    float x = f[0];
+#pragma unroll
+    for (int i = 1; i < kRingPer; ++i) x = i == slot ? f[i] : x;
+    return __shfl_sync(kAll, x, head % kLanes);
+  }
+  // where ``on`` (the same on every lane): the oldest entry becomes g
+  __device__ __forceinline__ void push(bool on, float g, int lane) {
+    const int next = head + 1 == r ? 0 : head + 1;
+    if constexpr (kLanes == 1) {
+      if (on) f[head] = g;
+    } else {
+      const int slot = head / kLanes;
+      const bool mine = on && head % kLanes == lane;
+#pragma unroll
+      for (int i = 0; i < kRingPer; ++i) f[i] = mine && i == slot ? g : f[i];
+    }
+    head = on ? next : head;
+  }
+};
+
 // How a vector of ``width`` entries lies in the warp walk: up to
 // kWholeMax entries whole on every lane, E the smallest power of two that
 // covers it (one lane in the host build: always whole); wider, over the
@@ -455,18 +623,23 @@ Form form_of(int width) {
 // The output slot of element p of a group on its owner lane p % kLanes.
 __device__ __forceinline__ int own_slot(int p) { return kPerLane == 1 ? 0 : p / kLanes; }
 
-// One row a warp in mode kMode (1 or 2): the RAM-slot vector of ER entries
-// a lane over SR lanes (mode 2), the core vector of EC over SC.  Every
+// One row a warp in mode kMode (1, 2, 4 or 5): the RAM-slot vector of ER
+// entries a lane over SR lanes (mode 2; the connections' exit times in mode
+// 5), the core vector of EC over SC, and the ring (modes 4, 5).  Every
 // group of kGroup elements is walked whole: its elements outside the row
 // load as invalid, which leave the carry as it is, and their outputs are
-// not stored.  An invalid element (or, for the cores, an empty burst)
-// inserts the vector's first entry, so the walk has no branch an element.
+// not stored.  An invalid element (or, for the cores, an empty burst; in
+// modes 4 and 5 an element that takes no core or connection) inserts the
+// vector's first entry, so the walk has no branch an element.
 template <int kMode, int ER, int SR, int EC, int SC>
 __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(StationArgs a) {
-  // a warp's group: arrival, service, pre-IO and post-IO as four rows of
-  // kGroup floats, and the validity bytes
+  constexpr bool kTwo = kMode == 2 || kMode == 5;  // a second vector, pre / enqueue and post
+  constexpr bool kFlags = kMode == 4 || kMode == 5;
+  // a warp's group: arrival, service, pre-IO (mode 5: enqueue) and post-IO
+  // as four rows of kGroup floats, the validity bytes and the burst bytes
   __shared__ float4 stage_f[kWarps][4][kGroup / 4];
   __shared__ uchar4 stage_v[kWarps][kGroup / 4];
+  __shared__ uchar4 stage_b[kWarps][kGroup / 4];
   const int lane = (int)(threadIdx.x % kLanes);
   const int w = (int)(threadIdx.x / kLanes);
   const int64_t row = (int64_t)blockIdx.x * kWarps + w;
@@ -476,24 +649,31 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
   const float* __restrict__ A = a.a + base;
   const float* __restrict__ D = a.d + base;
   const uint8_t* __restrict__ V = a.v + base;
-  const float* __restrict__ P = kMode == 2 ? a.pre + base : nullptr;
-  const float* __restrict__ Q = kMode == 2 ? a.post + base : nullptr;
+  const float* __restrict__ P = kMode == 2 ? a.pre + base : kMode == 5 ? a.e + base : nullptr;
+  const float* __restrict__ Q = kTwo ? a.post + base : nullptr;
+  const uint8_t* __restrict__ B = kMode == 5 ? a.b + base : nullptr;
   float* __restrict__ W0 = a.out0 + base;
   float* __restrict__ W1 = kMode == 2 ? a.out1 + base : nullptr;
   float* __restrict__ W2 = kMode == 2 ? a.out2 + base : nullptr;
+  uint8_t* __restrict__ F = kFlags ? a.flag + base : nullptr;
   float* sf = reinterpret_cast<float*>(stage_f[w]);
   uint8_t* sv = reinterpret_cast<uint8_t*>(stage_v[w]);
+  uint8_t* sb = reinterpret_cast<uint8_t*>(stage_b[w]);
 
   LaneVec<EC, SC> wc;
   LaneVec<ER, SR> wr;
   wc.init(a.cores, lane);
-  wr.init(kMode == 2 ? a.ram_k : 0, lane);
+  wr.init(kMode == 2 ? a.ram_k : kMode == 5 ? a.conn : 0, lane, kMode == 5 ? -kInf : 0.0f);
+  LaneRing ring;
+  ring.init(a.cap);
+  const bool cap_on = a.cap >= 0;
+  const bool to_on = a.timeout >= 0.0f;
 
   // groups start on the rows' 128-byte lines: the first one holds
   // (base % kGroup) elements before the row
   const int64_t lead = base % kGroup;
   float xa[kPerLane], xd[kPerLane], xp[kPerLane], xq[kPerLane];
-  uint8_t xv[kPerLane];
+  uint8_t xv[kPerLane], xb[kPerLane];
   const auto load = [&](int64_t k0) {
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) {
@@ -502,13 +682,15 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
       xa[i] = in ? A[k] : 0.0f;
       xd[i] = in ? D[k] : 0.0f;
       xv[i] = in ? V[k] : 0;
-      if constexpr (kMode == 2) {
+      if constexpr (kTwo) {
         xp[i] = in ? P[k] : 0.0f;
         xq[i] = in ? Q[k] : 0.0f;
       }
+      if constexpr (kMode == 5) xb[i] = in ? B[k] : 0;
     }
   };
   float o0[kPerLane], o1[kPerLane], o2[kPerLane];
+  uint8_t of[kPerLane];
   load(-lead);
   for (int64_t k0 = -lead; k0 < m; k0 += kGroup) {
     // stage this group, then set the next group's loads in flight
@@ -517,11 +699,12 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
       const int p = lane + i * kLanes;
       sf[p] = xa[i];
       sf[kGroup + p] = xd[i];
-      if constexpr (kMode == 2) {
+      if constexpr (kTwo) {
         sf[2 * kGroup + p] = xp[i];
         sf[3 * kGroup + p] = xq[i];
       }
       sv[p] = xv[i];
+      if constexpr (kMode == 5) sb[p] = xb[i];
     }
     __syncwarp();
     if (k0 + kGroup < m) load(k0 + kGroup);
@@ -531,10 +714,12 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
       const float4 d4 = stage_f[w][1][q];
       const uchar4 v4 = stage_v[w][q];
       float4 p4{}, q4{};
-      if constexpr (kMode == 2) {
+      uchar4 b4{};
+      if constexpr (kTwo) {
         p4 = stage_f[w][2][q];
         q4 = stage_f[w][3][q];
       }
+      if constexpr (kMode == 5) b4 = stage_b[w][q];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int p = 4 * q + i;
@@ -546,11 +731,12 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
         const float c2 = wc.second();
         const float cn = wc.next_lane();
         float e0, e1 = 0.0f, e2 = 0.0f;
+        uint8_t fl = 0;
         if constexpr (kMode == 1) {
           const float f0 = wc.first;
           e0 = ok ? fmaxf(f0 - ak, 0.0f) : 0.0f;
           wc.insert_first(ok ? fmaxf(f0, ak) + dk : f0, c2, cn, lane);
-        } else {
+        } else if constexpr (kMode == 2) {
           const float r2 = wr.second();
           const float rn = wr.next_lane();
           const float g = fmaxf(ak, wr.first);
@@ -562,6 +748,33 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
           e0 = g - ak;
           e1 = start - enq;
           e2 = rel;
+        } else {
+          // mode 4 reads its enqueue times in a; mode 5 its arrivals in a,
+          // its enqueue times, trailing IO and burst flags besides
+          const float ek = kMode == 5 ? lane_of(p4, i) : ak;
+          const bool bk = kMode == 5 ? lane_of(b4, i) : true;
+          const float oldest = ring.oldest();
+          float r2 = 0.0f, rn = 0.0f;
+          if constexpr (kMode == 5) {
+            r2 = wr.second();
+            rn = wr.next_lane();
+          }
+          const bool refused = kMode == 5 && ok && wr.first > ak;
+          const bool live = ok && !refused;
+          const bool shed = live && bk && cap_on && oldest > ek;
+          const float g = fmaxf(ek, wc.first);
+          const float wait = bk ? g - ek : 0.0f;
+          const bool through = live && bk && !shed;
+          const bool ab = through && to_on && wait > a.timeout;
+          if constexpr (kMode == 5) {
+            const float pk = lane_of(q4, i);
+            const float exit_t = bk ? (shed ? ek : (ab ? g : (g + dk) + pk)) : ak + pk;
+            wr.insert_first(live ? exit_t : wr.first, r2, rn, lane);
+          }
+          wc.insert_first(through ? g + (ab ? 0.0f : dk) : wc.first, c2, cn, lane);
+          ring.push(through, g, lane);
+          e0 = wait;
+          fl = (uint8_t)((shed ? 1 : 0) | (ab ? 2 : 0) | (refused ? 4 : 0));
         }
         // the element's outputs, kept by its owner lane
         if (p % kLanes == lane) {
@@ -570,6 +783,7 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
             o1[own_slot(p)] = e1;
             o2[own_slot(p)] = e2;
           }
+          if constexpr (kFlags) of[own_slot(p)] = fl;
         }
       }
     }
@@ -582,6 +796,7 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
           W1[k] = o1[i];
           W2[k] = o2[i];
         }
+        if constexpr (kFlags) F[k] = of[i];
       }
     }
     __syncwarp();  // the stage is rewritten next group
@@ -592,6 +807,8 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
 // form c.
 template <int kMode, int ER, int SR, int EC, int SC>
 int launch_warp_walk(const StationArgs& a, Form r, Form c, void* stream) {
+  // mode 2's RAM slots take their own form; mode 5's connections come in
+  // at their one form
   if constexpr (kMode == 2 && SR == 1 && kLanes > 1) {
     if (r.span != 1) return launch_warp_walk<kMode, ER, kLanes, EC, SC>(a, r, c, stream);
   }
@@ -622,13 +839,14 @@ int station_scan_args_size() { return (int)sizeof(StationArgs); }
 int station_scan_lanes() { return kLanes; }
 int station_scan_warp_width_max() { return kWarpWidthMax; }
 
-// The walk a launch takes: 0 one thread a row (modes 0 and 3), 1 one warp a row
-// (modes 1 and 2 with both vectors up to kWarpWidthMax entries), 2 one
-// thread a row with the carry in global scratch of ram_k + cores floats a
-// row (wider).
+// The walk a launch takes: 0 one thread a row (modes 0 and 3, mode 4 with
+// one core), 1 one warp a row (modes 1, 2, 4 and 5 with both vectors up to
+// kWarpWidthMax entries), 2 one thread a row with the carry in global
+// scratch of ram_k + cores floats a row (wider; ram_k is the connection cap
+// in mode 5).
 int station_scan_walk(int mode, int cores, int ram_k) {
-  if (mode == 0 || mode == 3) return kWalkThread;
-  const int width = mode == 2 && ram_k > cores ? ram_k : cores;
+  if (mode == 0 || mode == 3 || (mode == 4 && cores == 1)) return kWalkThread;
+  const int width = (mode == 2 || mode == 5) && ram_k > cores ? ram_k : cores;
   return width <= kWarpWidthMax ? kWalkWarp : kWalkGlobal;
 }
 
@@ -643,20 +861,33 @@ int station_scan_launch(const StationArgs* args, void* stream) {
   const StationArgs a = *args;
   if (a.S <= 0 || a.m <= 0 || a.a == nullptr || a.v == nullptr) return -1;
   if (a.mode == 3 ? a.flag == nullptr : (a.d == nullptr || a.out0 == nullptr)) return -1;
-  if (a.mode < 0 || a.mode > 3 || a.cores < 1) return -1;
+  if (a.mode < 0 || a.mode > 5 || a.cores < 1) return -1;
   if (a.mode == 2 && (a.ram_k < 1 || a.pre == nullptr || a.post == nullptr ||
                       a.out1 == nullptr || a.out2 == nullptr))
     return -1;
-  const int walk = station_scan_walk(a.mode, a.cores, a.ram_k);
-  if (walk == kWalkWarp) {
-    const Form c = form_of(a.cores);
-    if (a.mode == 1) return launch_warp_walk<1, 1, 1, 1, 1>(a, Form{1, 1}, c, stream);
-    return launch_warp_walk<2, 1, 1, 1, 1>(a, form_of(a.ram_k), c, stream);
-  }
+  if ((a.mode == 4 || a.mode == 5) && (a.flag == nullptr || a.cap > kRingMax)) return -1;
+  if (a.mode == 5 && (a.conn < 1 || a.conn > kRingMax || a.e == nullptr ||
+                      a.post == nullptr || a.b == nullptr))
+    return -1;
+  const int second = a.mode == 5 ? a.conn : a.ram_k;
+  const int walk = station_scan_walk(a.mode, a.cores, second);
   if (walk == kWalkGlobal && a.scratch == nullptr) return -1;
   const int threads = kRows;
   const int64_t blocks = (a.S + threads - 1) / threads;
-  station_scan_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  if (walk == kWalkWarp) {
+    const Form c = form_of(a.cores);
+    if (a.mode == 1) return launch_warp_walk<1, 1, 1, 1, 1>(a, Form{1, 1}, c, stream);
+    if (a.mode == 2) return launch_warp_walk<2, 1, 1, 1, 1>(a, form_of(a.ram_k), c, stream);
+    if (a.mode == 4) return launch_warp_walk<4, 1, 1, 1, 1>(a, Form{1, 1}, c, stream);
+    return launch_warp_walk<5, kRingPer, kLanes, 1, 1>(a, Form{kRingPer, kLanes}, c, stream);
+  }
+  if (a.mode == 4 || a.mode == 5) {
+    // one core (mode 4) in a register, else the carry in global scratch
+    const auto kernel = a.mode == 4 ? control_thread_kernel<4> : control_thread_kernel<5>;
+    kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  } else {
+    station_scan_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

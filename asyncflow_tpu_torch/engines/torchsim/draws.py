@@ -428,13 +428,14 @@ class HopOut(NamedTuple):
     """A hop's outputs: (S, n) ``t_next`` (the arrival time where ``ok``, else
     the send time) and ``ok`` (sent and not dropped); the LB hop's (S, n)
     int32 ``target`` server (None on a static edge); (S, K) float32 ``span``,
-    each edge slot's gauge span, and (S,) int64 ``dropped``."""
+    each edge slot's gauge span, and (S,) int64 ``dropped`` (both None from
+    a hop asked for no sums)."""
 
     t_next: torch.Tensor
     ok: torch.Tensor
     target: torch.Tensor | None
-    span: torch.Tensor
-    dropped: torch.Tensor
+    span: torch.Tensor | None
+    dropped: torch.Tensor | None
 
 
 def hop_plain(
@@ -447,8 +448,10 @@ def hop_plain(
     edge: int | None = None,
     rank: torch.Tensor | None = None,
     slot: torch.Tensor | None = None,
+    sums: bool = True,
 ) -> HopOut:
-    """The fused hop, op by op: lanes where ``alive`` and ``t_send <
+    """The fused hop, op by op (``sums`` false: no spans and no drop
+    count): lanes where ``alive`` and ``t_send <
     horizon`` send over the static ``edge``; with the arrival ``rank``,
     over LB slot ``rank % K``; with ``slot`` (S, n) int32, over that LB
     slot, a gated lane of slot -1 (no healthy target) counting as dropped
@@ -485,6 +488,9 @@ def hop_plain(
         delay = spike_add(delay, t_send, tables.spike_t, tables.spike_v, edge=edge, eidx=eidx)
     ok = gate & ~dropped
     t_end = t_send + delay
+    if not sums:
+        return HopOut(t_next=torch.where(ok, t_end, t_send), ok=ok, target=target, span=None,
+                      dropped=None)
     lane_span = torch.where(
         ok, torch.clamp_min(torch.clamp_max(t_end, h) - torch.clamp_max(t_send, h), 0.0), 0.0,
     ).double()
@@ -579,13 +585,15 @@ class PlainEdgeDraws:
         return -log1p_xla(-u)
 
     def hop(self, tables, t_send, alive, ukey, zkey, *, edge=None, rank=None,
-            slot=None) -> HopOut:
-        return hop_plain(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank, slot=slot)
+            slot=None, sums=True) -> HopOut:
+        return hop_plain(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank, slot=slot,
+                         sums=sums)
 
 
 class EdgeDraws:
     """The per-lane draws of the fast path with their launch count, in all
-    (``launches``) and of hops under fault tables (``fault_launches``)."""
+    (``launches``), of hops under fault tables (``fault_launches``) and of
+    hops without sums (``bare_launches``: least connections' candidates)."""
 
     name = "edge_draws"
     route = "cuda"
@@ -599,6 +607,7 @@ class EdgeDraws:
     def __init__(self) -> None:
         self.launches = 0
         self.fault_launches = 0
+        self.bare_launches = 0
 
     def uniform(self, keys: torch.Tensor, n: int, *, gap: bool = False) -> torch.Tensor:
         """(S, n) uniforms of each scenario's stream ``keys`` (S, 2), or
@@ -655,6 +664,7 @@ class EdgeDraws:
         edge: int | None = None,
         rank: torch.Tensor | None = None,
         slot: torch.Tensor | None = None,
+        sums: bool = True,
     ) -> HopOut:
         """The fused hop (:func:`hop_plain`) of the lanes ``t_send`` (S, n)
         float32 and ``alive`` (S, n) bool, over the static ``edge``, the LB
@@ -662,7 +672,8 @@ class EdgeDraws:
         each lane (-1: no healthy target); ``ukey`` (S, 2) keys the
         uniform stream, ``zkey`` the normal one where a law reads it; the
         fault tables of ``tables``, where given, are read in the kernel at
-        each lane's send time."""
+        each lane's send time.  Without ``sums`` the kernel's instance with
+        no epilogue runs: no spans, no drop count."""
         if sum(x is not None for x in (edge, rank, slot)) != 1:
             msg = "edge_draws.hop takes exactly one of edge, rank and slot"
             raise ValueError(msg)
@@ -673,7 +684,7 @@ class EdgeDraws:
         dev = t_send.device
         if dev.type == "cpu":
             return PlainEdgeDraws().hop(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank,
-                                        slot=slot)
+                                        slot=slot, sums=sums)
         s, n = t_send.shape
         ne = tables.mean.shape[1]
         _need(t_send, torch.float32, (s, n), dev, "t_send")
@@ -711,11 +722,11 @@ class EdgeDraws:
             t_next=torch.empty((s, n), dtype=torch.float32, device=dev),
             ok=torch.empty((s, n), dtype=torch.bool, device=dev),
             target=target,
-            span=torch.empty((s, k_slots), dtype=torch.float32, device=dev),
-            dropped=torch.empty(s, dtype=torch.int64, device=dev),
+            span=torch.empty((s, k_slots), dtype=torch.float32, device=dev) if sums else None,
+            dropped=torch.empty(s, dtype=torch.int64, device=dev) if sums else None,
         )
-        partial = torch.empty((s, lane_blocks(n), k_slots + 1), dtype=torch.float64,
-                              device=dev)
+        partial = (torch.empty((s, lane_blocks(n), k_slots + 1), dtype=torch.float64,
+                               device=dev) if sums else None)
         self._launch(
             MODE_HOP, s, n,
             ukey=key_words(ukey), zkey=key_words(zkey) if needs_z else None,
@@ -760,6 +771,8 @@ class EdgeDraws:
         self.launches += 1
         if fields.get("fault_t") is not None:
             self.fault_launches += 1
+        if mode == MODE_HOP and fields.get("span") is None:
+            self.bare_launches += 1
 
 
 def hop_keys(keys: torch.Tensor, site: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -17,6 +17,9 @@ lanes, here batched over scenarios as (S, n) tensors:
    rank modulo the slots; under an outage timeline the ``lb_route`` kernel
    gives each lane its slot from the rotation's segments between marks
    (``_routed_slots``), -1 (dropped at the LB) where every server is down;
+   least connections draws every slot's candidate send (keyed 32 + slot),
+   and the ``lb_route`` kernel walks the arrivals in time order with each
+   slot's ring of outstanding deliveries (``_routed_slots_lc``);
 4. each server is a FIFO G/G/c core queue visited once a CPU burst; its
    merged visit stream is sorted by enqueue time and walked by the station
    scan (Lindley for one core, Kiefer-Wolfowitz for several); multi-burst
@@ -25,7 +28,12 @@ lanes, here batched over scenarios as (S, n) tensors:
    or trailing IO it sits in; a modelled DB pool is one more FIFO station
    of K connections after the last burst, whose wait delays the departure;
 5. chained servers run in the exit DAG's topological order;
-6. resilience: an edge's fault windows (a hand-authored timeline, or a
+6. overload controls: a server's token bucket limits its arrivals in time
+   order (the station kernel's bucket mode); a ready-queue cap or a
+   dequeue deadline runs the controlled scan over the enqueue times, a
+   connection cap the socket scan over the arrivals (its two modes): they
+   shed at the enqueue, abandon at the deadline and refuse at the arrival;
+7. resilience: an edge's fault windows (a hand-authored timeline, or a
    chaos campaign's per-scenario tables) boost its dropout and multiply
    its delay at the send time, inside the hop; a server inside a dark
    window refuses an arrival before anything else there; with a client
@@ -35,19 +43,23 @@ lanes, here batched over scenarios as (S, n) tensors:
    (a token bucket over the retry wants in time order) decide which
    attempts re-issue (``_run_one``'s retry branch).
 
-The slice: any number of generators; round robin with fixed membership or
-under an outage timeline, or no LB; any servers and cores, chained or not;
-alternating CPU / IO endpoints with one or several bursts, weighted and
-IO-only endpoints; non-binding or binding RAM; stochastic cache segments;
-DB connection pools; uniform, exponential, normal and lognormal edges with
-dropout; network spikes (added to an edge's delay at its send time); fault
-timelines, chaos-campaign hazard tables and client retries.
-Everything else is refused by name before any work (:func:`fast_refusal`).
+The slice: every plan the reference's analysis accepts (``fastpath_ok``):
+any number of generators; round robin with fixed membership or under an
+outage timeline, least connections, or no LB; any servers and cores,
+chained or not; alternating CPU / IO endpoints with one or several bursts,
+weighted and IO-only endpoints; non-binding or binding RAM; stochastic
+cache segments; DB connection pools; rate limits, ready-queue caps,
+dequeue deadlines and connection caps; uniform, exponential, normal and
+lognormal edges with dropout; network spikes (added to an edge's delay at
+its send time); fault timelines, chaos-campaign hazard tables and client
+retries.  Anything else is refused by name before any work
+(:func:`fast_refusal`).
 
 Every draw site folds the reference's constants into the scenario key
 (arrivals ``fold_in(key, 0)`` then, per stream g of several, ``101 + g``,
 then 3 and 4; entry hop j ``16 + j``, or ``1024 + stride g + j`` per
-stream; the LB hop 32; the shared endpoint pick 6 and exit 7; per server
+stream; the LB hop 32, or least connections' candidate on slot k ``32 +
+k``; the shared endpoint pick 6 and exit 7; per server
 ``64 + s``, ``128 + s`` and the cache draws ``160 + s``), so the per-lane
 uniforms and normals are the reference's.  The per-window user and count
 draws come from the port's own keyed sampler (users from the DES kernel's
@@ -58,9 +70,10 @@ through ``run_batch(window_draws=...)``.
 The arrival times are the reference's bit for bit: the gaps go through
 XLA's CPU ``log1p`` and their prefix sum keeps XLA's CPU ``cumsum`` order
 (``draws.log1p_xla``, ``draws.prefix_sum_xla``).  On a CUDA device the
-draws and hops run in the ``edge_draws`` kernel, the station recursions in
-the ``station_scan`` kernel and the timeline's routing in the ``lb_route``
-kernels; on the CPU each runs its plain version.
+draws and hops run in the ``edge_draws`` kernel, the station recursions,
+rate limits and overload controls in the ``station_scan`` kernel and the
+timeline's routing and least connections in the ``lb_route`` kernels; on
+the CPU each runs its plain version.
 """
 
 from __future__ import annotations
@@ -103,7 +116,12 @@ from asyncflow_tpu_torch.engines.torchsim.params import (
     base_overrides,
     fill_overrides,
 )
-from asyncflow_tpu_torch.engines.torchsim.routing import LbRoute, Timeline, route_lanes
+from asyncflow_tpu_torch.engines.torchsim.routing import (
+    LbRoute,
+    Timeline,
+    route_lanes,
+    route_lanes_lc,
+)
 from asyncflow_tpu_torch.engines.torchsim.sampling import (
     N_HIST_BINS,
     TINY,
@@ -116,7 +134,12 @@ from asyncflow_tpu_torch.engines.torchsim.sortutil import (
     time_rank,
     to_sorted,
 )
-from asyncflow_tpu_torch.engines.torchsim.station_scan import StationScan
+from asyncflow_tpu_torch.engines.torchsim.station_scan import (
+    FLAG_ABANDONED,
+    FLAG_REFUSED,
+    FLAG_SHED,
+    StationScan,
+)
 from asyncflow_tpu_torch.errors import FastPathIneligibleError, UnsupportedFeatureError
 
 #: fold-in tag of the per-window arrival-count stream (counter (w, 0))
@@ -143,8 +166,9 @@ class FastState(NamedTuple):
     n_overflow: np.ndarray
     #: (S, n_gauges) exact time-average of every gauge over the horizon
     gauge_means: np.ndarray
-    #: arrivals refused by a dark fault window (the fast path models no
-    #: other refusal)
+    #: arrivals refused by a dark fault window or a rate limit, shed by a
+    #: ready-queue cap, abandoned at a dequeue deadline or refused by a
+    #: connection cap
     n_rejected: np.ndarray
     #: the dark-window subset of n_rejected: the availability numerator
     n_dark_lost: np.ndarray
@@ -160,25 +184,14 @@ class FastState(NamedTuple):
 
 
 def fast_refusal(plan: StaticPlan) -> tuple[str, str] | None:
-    """(feature, where) of the first feature of ``plan`` that this slice's
-    fast engine does not model, or None when it models the plan.  A plan
-    the reference's own analysis declines (``fastpath_ok`` false) is
-    reported as ``("fastpath", reason)``."""
+    """(feature, where) of the first feature of ``plan`` that the fast
+    engine does not model, or None when it models the plan.  A plan the
+    reference's own analysis declines (``fastpath_ok`` false) is reported
+    as ``("fastpath", reason)``."""
     if plan.unsupported:
         return plan.unsupported[0], "plan"
     if not plan.fastpath_ok:
         return "fastpath", plan.fastpath_reason
-    checks = (
-        (plan.n_lb_edges > 0 and plan.lb_algo != 0, "least-connections routing",
-         "load balancer"),
-        (plan.has_rate_limit, "rate limit", "server overload"),
-        (plan.has_queue_cap, "ready-queue cap", "server overload"),
-        (plan.has_queue_timeout, "dequeue deadline", "server overload"),
-        (plan.has_conn_cap, "connection cap", "server overload"),
-    )
-    for hit, feature, where in checks:
-        if hit:
-            return feature, where
     return None
 
 
@@ -335,11 +348,14 @@ class FastEngine:
         if plan.has_spikes:
             self._hop_static.update(spike_t=table(plan.spike_times, torch.float32),
                                     spike_v=table(plan.spike_values, torch.float32))
-        #: the LB's outage timeline, where round robin runs under one
+        #: least connections' LB (its marks, if any, apply in its walk)
+        self.lc = plan.n_lb_edges > 0 and plan.lb_algo == 1
+        #: the LB's outage timeline, where round robin runs under one; always
+        #: under least connections (no marks without outages)
         self.timeline = (
             Timeline(plan.timeline_times, plan.timeline_down, plan.timeline_slot,
                      plan.n_lb_edges, dev)
-            if plan.n_lb_edges > 0 and plan.has_timeline else None
+            if plan.n_lb_edges > 0 and (plan.has_timeline or self.lc) else None
         )
 
     # ------------------------------------------------------------------
@@ -478,9 +494,27 @@ class FastEngine:
              **lanes) -> HopOut:
         """The fused hop keyed ``fold_in(key, site)`` (its uniform stream, or
         the shared ``ukey``) of the lanes ``alive`` sending at ``t`` over
-        ``edge=``, or the LB's ``rank=`` or ``slot=``."""
+        ``edge=``, or the LB's ``rank=`` or ``slot=`` (``sums=False``: no
+        spans, no drop count)."""
         uk, zk = hop_keys(keys, site)
         return self.draws.hop(tables, t, alive, uk if ukey is None else ukey, zk, **lanes)
+
+    def _lc_route(self, tables: EdgeTables, keys, t, alive):
+        """Least connections: every slot's candidate send of the lanes
+        ``alive`` at ``t`` (the static hop keyed ``32 + slot``, no sums: they
+        belong to the lanes that pick the slot), the picks, and the picked
+        slot's outcome: (slot (S, n) int64, -1 where no target is healthy;
+        its arrival time and sent flag)."""
+        plan = self.plan
+        cands = [self._hop(tables, keys, 32 + k, t, alive, edge=e, sums=False)
+                 for k, e in enumerate(plan.lb_edge_index.tolist())]
+        deliv = torch.stack([c.t_next for c in cands], dim=2)
+        sent = torch.stack([c.ok for c in cands], dim=2)
+        del cands
+        slot = route_lanes_lc(self.route, self.timeline, t, alive, deliv, ~sent,
+                              int(plan.lc_ring)).long()
+        pick = torch.clamp_min(slot, 0)[..., None]
+        return slot, deliv.gather(2, pick)[..., 0], sent.gather(2, pick)[..., 0]
 
     def _entry_chains(self, keys, tables, ts: list, valids: list, gm, n_dropped, record=True):
         """Each stream's entry chain on its own lanes, then the streams'
@@ -536,29 +570,49 @@ class FastEngine:
     def _journey(self, keys, ov: dict, ts: list, valids: list, *, record: bool = True):
         """One pass of entry chains, routing, the servers in topological
         order and the exits (``_journey``): (finish, completed, fail_t,
-        gauge_means, n_dropped, n_dark_lost); dark refusals are the fast
-        path's only rejections.  ``fail_t`` (None but for the retry driver,
-        ``track_fail``) is a lane's failure time as its client sees it (INF
-        where it completed or was in flight at the horizon): a drop on the
-        entry chain at the attempt's issue, a drop at the LB or on its edge
-        at the send there, a dark refusal at the arrival, a drop on the exit
-        edge at the departure.  ``record=False`` skips every gauge and
-        counter (the retry driver's relaxation passes need only the outcome
-        times)."""
+        gauge_means, n_dropped, n_rejected, n_dark_lost).  ``fail_t`` (None
+        but for the retry driver, ``track_fail``) is a lane's failure time as
+        its client sees it (INF where it completed or was in flight at the
+        horizon): a drop on the entry chain at the attempt's issue, a drop
+        at the LB or on its edge at the send there, a dark refusal, a rate
+        limit or a connection cap's refusal at the arrival, a shed at the
+        enqueue, an abandon at the deadline, a drop on the exit edge at the
+        departure.  ``record=False`` skips every gauge and counter (the
+        retry driver's relaxation passes need only the outcome times)."""
         plan, dev, n = self.plan, self.device, self.n
         s_rows = ts[0].shape[0]
         horizon = f32(plan.horizon)
         gm = torch.zeros((s_rows, plan.n_gauges), dtype=torch.float32, device=dev)
         n_dropped = torch.zeros(s_rows, dtype=torch.int64, device=dev)
         n_dark = torch.zeros(s_rows, dtype=torch.int64, device=dev)
+        n_rej = torch.zeros(s_rows, dtype=torch.int64, device=dev)
         tab = self._tables
         tables = self._edge_tables(ov)
         t, alive, fail_t = self._entry_chains(keys, tables, ts, valids, gm, n_dropped, record)
 
-        # ---- routing: round robin by arrival rank, or under the timeline ----
+        # ---- routing: least connections, or round robin by arrival rank or
+        # under the timeline ----
         alive = alive & (t < horizon)
         srv = torch.full_like(t, max(plan.entry_target, 0), dtype=torch.int32)
-        if plan.n_lb_edges > 0:
+        if self.lc:
+            slot, t_next, sent = self._lc_route(tables, keys, t, alive)
+            unrouted = alive & (slot < 0)
+            alive = alive & ~unrouted
+            ok = alive & sent
+            if record:
+                lane_span = torch.where(ok, torch.clamp_min(
+                    torch.clamp_max(t_next, horizon) - torch.clamp_max(t, horizon), 0.0), 0.0)
+                for k, e in enumerate(plan.lb_edge_index.tolist()):
+                    gm[:, e] += torch.where(slot == k, lane_span, 0.0).double().sum(dim=1).float()
+                del lane_span
+                n_dropped += unrouted.sum(dim=1) + (alive & ~sent).sum(dim=1)
+            if fail_t is not None:
+                # no healthy target, or dropped on the picked edge: at the send
+                fail_t = torch.where(unrouted | (alive & ~sent), t, fail_t)
+            srv = self._hop_static["lb_target"][torch.clamp_min(slot, 0)]
+            t, alive = torch.where(ok, t_next, t), ok
+            del slot, t_next, sent, unrouted
+        elif plan.n_lb_edges > 0:
             if self.timeline is None:
                 lanes = {"rank": time_rank(t, alive)}
             else:
@@ -594,10 +648,27 @@ class FastEngine:
                 dark = mine & self._server_down(ov, s, t)
                 if record:
                     n_dark += dark.sum(dim=1)
+                    n_rej += dark.sum(dim=1)
                 if fail_t is not None:
                     fail_t = torch.where(dark, t, fail_t)
                 alive = alive & ~dark
                 mine = mine & ~dark
+            rate = float(plan.server_rate_limit[s]) if len(plan.server_rate_limit) else -1.0
+            if rate >= 0:
+                # the token bucket over the server's arrivals in time order
+                rank_rl = time_rank(t, mine)
+                accepted = self.scan.bucket(
+                    to_sorted(torch.where(mine, t, INF), rank_rl, INF),
+                    to_sorted(mine, rank_rl, False), rate, float(plan.server_rate_burst[s]),
+                ).gather(1, rank_rl)
+                limited = mine & ~accepted
+                del rank_rl, accepted
+                if record:
+                    n_rej += limited.sum(dim=1)
+                if fail_t is not None:
+                    fail_t = torch.where(limited, t, fail_t)
+                alive = alive & ~limited
+                mine = mine & ~limited
             nep = int(plan.n_endpoints[s])
             u = u_ep_shared if u_ep_shared is not None else self.draws.uniform(
                 fold_in(keys, 64 + s), n)
@@ -624,7 +695,25 @@ class FastEngine:
             ram_k = int(plan.ram_slots[s]) if len(plan.ram_slots) else 0
             w_ram = torch.zeros_like(t)
             visits = 0
-            if kb == 0 and ram_k <= 0:
+            cap = int(plan.server_queue_cap[s]) if len(plan.server_queue_cap) else -1
+            timeout = (float(plan.server_queue_timeout[s]) if len(plan.server_queue_timeout)
+                       else -1.0)
+            conn = int(plan.server_conn_cap[s]) if len(plan.server_conn_cap) else -1
+            if conn >= 0 or (kb > 0 and ram_k <= 0 and (cap >= 0 or timeout >= 0)):
+                # the overload controls' scans (at most one burst, no RAM
+                # tier): their rejections leave the lanes here
+                enq, wait, pre, validb, dep, rejected, fail_at = self._controlled_queue(
+                    s, cores, t, mine, ep, post, place, extra, cap, timeout, conn, ram, gm,
+                    record)
+                if record:
+                    n_rej += rejected.sum(dim=1)
+                if fail_t is not None:
+                    fail_t = torch.where(rejected, fail_at, fail_t)
+                alive = alive & ~rejected
+                mine = mine & ~rejected
+                visits = kb
+                del rejected, fail_at
+            elif kb == 0 and ram_k <= 0:
                 dep = t + post
             elif ram_k > 0:
                 nb = tab["n_bursts"][s][ep]
@@ -687,7 +776,73 @@ class FastEngine:
                 finish = torch.where(done, hop.t_next, finish)
                 completed = completed | done
                 alive = torch.where(mine, False, alive)
-        return finish, completed, fail_t, gm, n_dropped, n_dark
+        return finish, completed, fail_t, gm, n_dropped, n_rej, n_dark
+
+    def _controlled_queue(self, s, cores, t, mine, ep, post, place, extra, cap: int,
+                          timeout: float, conn: int, ram, gm, record: bool):
+        """Server ``s``'s single-burst core queue under its overload
+        controls: with a connection cap the socket scan in arrival order,
+        else the controlled scan (a ready-queue cap, a dequeue deadline) in
+        enqueue order (a cache extra before the burst shifts the enqueue;
+        io-only endpoints skip the queue).  Returns the gauge shapes
+        (enqueue, wait, pre-IO, valid), (S, n, 1) each (a shed request
+        waits 0, an abandon its full wait), the departure, the rejected
+        lanes and the instant each fails at (refused: the arrival, shed: the
+        enqueue, abandoned: the end of its wait).  Under a connection cap a
+        shed or abandoned request holds its RAM from the arrival to that
+        instant (added to ``gm`` here)."""
+        plan, tab = self.plan, self._tables
+        horizon = f32(plan.horizon)
+        nb = tab["n_bursts"][s][ep]
+        is_b = nb >= 1
+        pre0 = torch.where(is_b, tab["burst_pre_io"][s][ep][..., 0], 0.0)
+        dur0 = torch.where(is_b, tab["burst_dur"][s][ep][..., 0], 0.0)
+        if conn >= 0:
+            arr = torch.where(mine, t, INF)
+            rank = time_rank(arr, mine)
+            w_s, f_s = self.scan.socket(
+                to_sorted(arr, rank, INF),
+                to_sorted(torch.where(mine, t + pre0, INF), rank, INF),
+                to_sorted(torch.where(mine, dur0, 0.0), rank, 0.0),
+                to_sorted(torch.where(mine, post, 0.0), rank, 0.0),
+                to_sorted(mine & is_b, rank, False), to_sorted(mine, rank, False),
+                cores, conn, cap, timeout,
+            )
+            flags = torch.where(mine, f_s.gather(1, rank), 0)
+            refused = (flags & FLAG_REFUSED) != 0
+            shed = (flags & FLAG_SHED) != 0
+            part = mine & is_b & ~refused
+            wait = torch.where(part & ~shed, w_s.gather(1, rank), 0.0)
+        else:
+            if place is not None:
+                # a cache miss before the burst shifts the enqueue time
+                pre_extra = torch.zeros_like(pre0)
+                for c in range(place.shape[2]):
+                    pre_extra = pre_extra + torch.where(place[..., c] == 0, extra[..., c], 0.0)
+                pre0 = pre0 + torch.where(is_b, pre_extra, 0.0)
+            part = mine & is_b
+            enq = torch.where(part, t + pre0, INF)
+            rank = time_rank(enq, part)
+            w_s, f_s = self.scan.controlled(
+                to_sorted(enq, rank, INF), to_sorted(torch.where(part, dur0, 0.0), rank, 0.0),
+                to_sorted(part, rank, False), cores, cap, timeout,
+            )
+            flags = torch.where(part, f_s.gather(1, rank), 0)
+            refused = torch.zeros_like(mine)
+            shed = (flags & FLAG_SHED) != 0
+            wait = torch.where(part, w_s.gather(1, rank), 0.0)
+        del rank, w_s, f_s
+        abandoned = (flags & FLAG_ABANDONED) != 0
+        enq0 = t + pre0
+        fail_at = torch.where(refused, t, torch.where(shed, enq0, enq0 + wait))
+        if conn >= 0 and record:
+            # a shed or abandoned request's RAM, held until it leaves
+            gm[:, plan.gauge_ram(s)] += _span(t, torch.where(shed, enq0, enq0 + wait),
+                                             (shed | abandoned) & (ram > 0), horizon,
+                                             amount=ram)
+        dep = t + pre0 + wait + dur0 + post
+        return (enq0[..., None], torch.where(shed, 0.0, wait)[..., None], pre0[..., None],
+                part[..., None], dep, refused | shed | abandoned, fail_at)
 
     def _server_down(self, ov: dict, s: int, t: torch.Tensor) -> torch.Tensor:
         """(S, n) bool: server ``s`` sits in a dark window at each lane's
@@ -929,7 +1084,7 @@ class FastEngine:
                 1, torch.where(ended, blk, self.attempts), ended.to(torch.int64),
             )[:, : self.attempts].to(torch.int32)
             del timed, grant, deny, ended
-        gm, n_dropped, n_dark = out[3:]
+        gm, n_dropped, n_rej, n_dark = out[3:]
         del ts, valids, out
 
         latency = torch.where(success, finish - t0, 0.0)
@@ -965,7 +1120,7 @@ class FastEngine:
             "n_dropped": n_dropped.to(torch.int32),
             "n_overflow": overflow,
             "gauge_means": gm / f32(plan.horizon),
-            "n_rejected": n_dark.to(torch.int32),
+            "n_rejected": n_rej.to(torch.int32),
             "n_dark_lost": n_dark.to(torch.int32),
             "n_timed_out": timed_out.to(torch.int32),
             "n_retries": retries.to(torch.int32),

@@ -1,7 +1,8 @@
-"""Round robin under an outage timeline: the port of the reference fast
-path's ``_routed_slots`` and ``_advance_timeline`` (``asyncflow_tpu/
-engines/jaxsim/fastpath.py:1037-1065``, ``:1008-1035``), with the CUDA
-kernel that computes it (``csrc/lb_route.cu``).
+"""Round robin under an outage timeline and least connections: the port of
+the reference fast path's ``_routed_slots``, ``_routed_slots_lc`` and
+``_advance_timeline`` (``asyncflow_tpu/engines/jaxsim/fastpath.py:1037-1065``,
+``:1067-1127``, ``:1008-1035``), with the CUDA kernels that compute them
+(``csrc/lb_route.cu``).
 
 The reference scans a scenario's arrivals in time order carrying the LB
 rotation (a dense prefix of slot ids with a length): before each arrival
@@ -25,6 +26,10 @@ segment's start rank and starting rotation, and each lane's pick is then
   a time (the tests' oracle, at small sizes);
 - :func:`route_table_plain`, :func:`route_slots_plain`: the segment form,
   as the kernel computes it;
+- :func:`lc_picks_plain`: least connections over time-sorted arrivals (the
+  reference's scan, which the kernel walks too: a pick depends on every
+  earlier delivery, so it has no segment form), and
+  :func:`routed_slots_lc_plain`, the same on lanes in any order;
 - :class:`LbRoute`: the wrapper.  On CUDA tensors it launches the kernels
   (built on first use) or raises; on CPU tensors it runs the plain
   versions.  ``launches`` counts kernel launches.
@@ -38,14 +43,19 @@ import torch
 
 from asyncflow_tpu_torch.engines.torchsim import _build
 from asyncflow_tpu_torch.engines.torchsim.params import INF
-from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank
+from asyncflow_tpu_torch.engines.torchsim.sortutil import time_rank, to_sorted
 from asyncflow_tpu_torch.errors import KernelBuildError, KernelLaunchError
 
 MODE_TABLE = 0
 MODE_LANES = 1
+MODE_LC = 2
 #: the kernel's limits on marks and LB slots (its shared memory)
 MAX_MARKS = 4096
 MAX_SLOTS = 1024
+#: least connections: the LB slots and the in-flight ring of each slot the
+#: kernel takes (the compiler's bound on the ring is 128)
+MAX_LC_SLOTS = 32
+MAX_LC_RING = 128
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +110,6 @@ def routed_slots_scan(t, alive, tl_time, tl_down, tl_slot, el: int):
     ``_advance_timeline``'s loop before each arrival."""
     s_rows, n = t.shape
     dev = t.device
-    ntl = int(tl_time.shape[0])
     rank = time_rank(t, alive)
     t_sorted = torch.full_like(t, INF).scatter_(1, rank, torch.where(alive, t, INF))
     ok_sorted = torch.zeros_like(alive).scatter_(1, rank, alive)
@@ -111,21 +120,68 @@ def routed_slots_scan(t, alive, tl_time, tl_down, tl_slot, el: int):
     times, downs, slots = tl_time.to(dev), tl_down.to(dev).long(), tl_slot.to(dev).long()
     for i in range(n):
         t_arr, ok = t_sorted[:, i], ok_sorted[:, i]
-        while ntl:
-            idx = torch.clamp_max(ptr, ntl - 1)
-            cond = (ptr < ntl) & (times[idx] <= t_arr)
-            if not bool(cond.any()):
-                break
-            s, down = slots[idx], downs[idx] == 1
-            act = cond & (s >= 0)
-            rot, length = rotation_remove(rot, length, s, act & down, el)
-            rot, length = rotation_insert(rot, length, s, act & ~down, el)
-            ptr = ptr + cond.long()
+        rot, length, ptr = _advance_marks(rot, length, ptr, t_arr, times, downs, slots, el)
         take = ok & (length > 0)
         picked[:, i] = torch.where(take, rot[:, 0], -1)
         rot = rotation_advance(rot, length, take, el)
     slot = picked.gather(1, rank).to(torch.int32)
     return slot, slot >= 0
+
+
+def _advance_marks(rot, length, ptr, t_arr, times, downs, slots, el: int):
+    """``_advance_timeline``: apply, in table order, every mark whose time
+    is at most each row's ``t_arr``."""
+    ntl = int(times.shape[0])
+    while ntl:
+        idx = torch.clamp_max(ptr, ntl - 1)
+        cond = (ptr < ntl) & (times[idx] <= t_arr)
+        if not bool(cond.any()):
+            break
+        s, down = slots[idx], downs[idx] == 1
+        act = cond & (s >= 0)
+        rot, length = rotation_remove(rot, length, s, act & down, el)
+        rot, length = rotation_insert(rot, length, s, act & ~down, el)
+        ptr = ptr + cond.long()
+    return rot, length, ptr
+
+
+def lc_picks_plain(t, ok, deliv, drop, tl_time, tl_down, tl_slot, el: int, ring: int):
+    """(S, n) int32 least-connections pick of each arrival, in each row's
+    time order: arrivals ``t`` (sorted, INF past the alive ones) and ``ok``,
+    and each arrival's candidate delivery time and drop on every LB slot,
+    ``deliv`` and ``drop`` (S, n, EL).  Each slot carries a ring of
+    ``ring`` outstanding delivery times (-INF at first); before an arrival
+    the marks whose time has come are applied to the rotation; the arrival
+    takes the rotation's first position ``pos`` with the fewest ring
+    entries after it (the first minimum of ``count * el + pos``), -1 where
+    the rotation is empty, and unless its send on that slot is dropped its
+    delivery time replaces the smallest entry of that slot's ring (the
+    ring matters only through its counts, so which tied smallest entry is
+    replaced changes no result) (``_routed_slots_lc``)."""
+    s_rows, n = t.shape
+    dev = t.device
+    times, downs, slots = tl_time.to(dev), tl_down.to(dev).long(), tl_slot.to(dev).long()
+    rot = torch.arange(el, dtype=torch.int64, device=dev).expand(s_rows, el).clone()
+    length = torch.full((s_rows,), el, dtype=torch.int64, device=dev)
+    ptr = torch.zeros(s_rows, dtype=torch.int64, device=dev)
+    rings = torch.full((s_rows, el, max(ring, 1)), -INF, dtype=torch.float32, device=dev)
+    pos = torch.arange(el, device=dev)[None, :]
+    rows = torch.arange(s_rows, device=dev)
+    picked = torch.empty((s_rows, n), dtype=torch.int32, device=dev)
+    for i in range(n):
+        t_arr = t[:, i]
+        rot, length, ptr = _advance_marks(rot, length, ptr, t_arr, times, downs, slots, el)
+        conn = (rings > t_arr[:, None, None]).sum(dim=2)
+        key = torch.where(pos < length[:, None], conn.gather(1, rot) * el + pos, 2**30)
+        best = key.argmin(dim=1)
+        slot = rot.gather(1, best[:, None])[:, 0]
+        take = ok[:, i] & (length > 0)
+        picked[:, i] = torch.where(take, slot, -1).to(torch.int32)
+        row = torch.clamp(slot, 0, el - 1)
+        put = take & ~drop[rows, i, row]
+        j = rings[rows, row].argmin(dim=1)
+        rings[rows, row, j] = torch.where(put, deliv[rows, i, row], rings[rows, row, j])
+    return picked
 
 
 def route_table_plain(t, alive, tl_time, tl_down, tl_slot, el: int) -> torch.Tensor:
@@ -195,10 +251,10 @@ class _LbRouteArgs(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "t", "alive", "rank", "tl_time", "tl_down", "tl_slot", "partial", "table",
-            "slot",
+            "slot", "deliv", "drop",
         )]
         + [(name, ctypes.c_int64) for name in ("S", "n")]
-        + [(name, ctypes.c_int32) for name in ("NTL", "EL", "mode")]
+        + [(name, ctypes.c_int32) for name in ("NTL", "EL", "mode", "R")]
     )
 
 
@@ -248,20 +304,27 @@ class PlainLbRoute:
     def slots(self, table, rank, alive):
         return route_slots_plain(table, rank, alive)
 
+    def lc(self, tl: Timeline, t, ok, deliv, drop, ring: int):
+        return lc_picks_plain(t, ok, deliv, drop, tl.times, tl.down, tl.slot, tl.el, ring)
+
 
 class LbRoute:
-    """Round robin under an outage timeline, with its launch count."""
+    """Round robin under an outage timeline and least connections, with
+    the launch count (``launches``) and least connections' own
+    (``lc_launches``)."""
 
     name = "lb_route"
     route = "cuda"
     source = "asyncflow_tpu_torch/csrc/lb_route.cu"
     replaces = (
         "asyncflow_tpu/engines/jaxsim/fastpath.py:1037 (_routed_slots: a lax.scan over the "
-        "arrivals), :1008 (_advance_timeline: its lax.while_loop over the marks)"
+        "arrivals), :1008 (_advance_timeline: its lax.while_loop over the marks), :1067 "
+        "(_routed_slots_lc: a lax.scan over the arrivals with each slot's in-flight ring)"
     )
 
     def __init__(self) -> None:
         self.launches = 0
+        self.lc_launches = 0
 
     def table(self, tl: Timeline, t: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
         """(S, NTL + 1, 2 + EL) int32 segment table of the lanes ``t`` (S, n)
@@ -299,7 +362,36 @@ class LbRoute:
         self._launch(MODE_LANES, s, n, ntl, el, rank=rank, alive=alive, table=table, slot=out)
         return out
 
-    def _launch(self, mode: int, s: int, n: int, ntl: int, el: int, **tensors) -> None:
+    def lc(self, tl: Timeline, t: torch.Tensor, ok: torch.Tensor, deliv: torch.Tensor,
+           drop: torch.Tensor, ring: int) -> torch.Tensor:
+        """(S, n) int32 least-connections pick of each arrival in each row's
+        time order (:func:`lc_picks_plain`): ``t`` (S, n) float32 and ``ok``
+        (S, n) bool sorted by time, ``deliv`` (S, n, EL) float32 and
+        ``drop`` (S, n, EL) bool in the same order; ``ring`` in-flight
+        entries a slot."""
+        if t.device.type == "cpu":
+            return PlainLbRoute().lc(tl, t, ok, deliv, drop, ring)
+        s, n = t.shape
+        el = tl.el
+        _need(t, torch.float32, (s, n), t.device, "t")
+        _need(ok, torch.bool, (s, n), t.device, "ok")
+        _need(deliv, torch.float32, (s, n, el), t.device, "deliv")
+        _need(drop, torch.bool, (s, n, el), t.device, "drop")
+        for name in ("times", "down", "slot"):
+            if getattr(tl, name).device != t.device:
+                msg = f"lb_route: the timeline's {name} must lie on {t.device}"
+                raise ValueError(msg)
+        if not 1 <= el <= MAX_LC_SLOTS or not 1 <= ring <= MAX_LC_RING:
+            msg = (f"lb_route: least connections takes 1..{MAX_LC_SLOTS} LB slots and rings "
+                   f"of 1..{MAX_LC_RING} entries, got {el} and {ring}")
+            raise ValueError(msg)
+        out = torch.empty((s, n), dtype=torch.int32, device=t.device)
+        self._launch(MODE_LC, s, n, tl.n_marks, el, ring=ring, t=t, alive=ok, deliv=deliv,
+                     drop=drop, tl_time=tl.times, tl_down=tl.down, tl_slot=tl.slot, slot=out)
+        return out
+
+    def _launch(self, mode: int, s: int, n: int, ntl: int, el: int, ring: int = 0,
+                **tensors) -> None:
         dev = tensors["alive"].device
         if dev.type != "cuda":
             msg = f"lb_route runs on cuda or cpu tensors, got {dev}"
@@ -310,7 +402,7 @@ class LbRoute:
         if s == 0 or n == 0:
             return
         lib = _library()
-        args = _LbRouteArgs(S=s, n=n, NTL=ntl, EL=el, mode=mode)
+        args = _LbRouteArgs(S=s, n=n, NTL=ntl, EL=el, mode=mode, R=ring)
         for name, t in tensors.items():
             if t is not None and t.numel():
                 setattr(args, name, t.data_ptr())
@@ -320,6 +412,8 @@ class LbRoute:
             msg = f"lb_route launch failed: code {rc}"
             raise KernelLaunchError(msg)
         self.launches += 1
+        if mode == MODE_LC:
+            self.lc_launches += 1
 
 
 def _need(x: torch.Tensor, dtype: torch.dtype, shape: tuple, dev, name: str) -> None:
@@ -336,3 +430,27 @@ def route_lanes(engine_route, tl: Timeline, t: torch.Tensor, alive: torch.Tensor
     arrival rank, the table, the lanes), -1 where none is healthy."""
     rank = time_rank(t, alive)
     return engine_route.slots(engine_route.table(tl, t, alive), rank, alive)
+
+
+def route_lanes_lc(engine_route, tl: Timeline, t, alive, deliv, drop, ring: int):
+    """(S, n) int32 least-connections LB slot of each alive lane sending at
+    ``t``, -1 where none is healthy: the lanes and their (S, n, EL)
+    candidate deliveries and drops put in time order (dead lanes last),
+    the picks, and the picks put back in lane order."""
+    rank = time_rank(t, alive)
+    by_slot = rank[..., None].expand_as(deliv)
+    picks = engine_route.lc(
+        tl, to_sorted(torch.where(alive, t, INF), rank, INF), to_sorted(alive, rank, False),
+        torch.full_like(deliv, -INF).scatter_(1, by_slot, deliv),
+        torch.zeros_like(drop).scatter_(1, by_slot, drop), ring,
+    )
+    return picks.gather(1, rank)
+
+
+def routed_slots_lc_plain(t, alive, drop, deliv, tl_time, tl_down, tl_slot, el: int,
+                          ring: int):
+    """(slot, routed), (S, n) each: ``_routed_slots_lc`` on lanes in any
+    order, through :func:`lc_picks_plain`."""
+    tl = Timeline(tl_time, tl_down, tl_slot, el, t.device)
+    slot = route_lanes_lc(PlainLbRoute(), tl, t, alive, deliv, drop, ring)
+    return slot, slot >= 0

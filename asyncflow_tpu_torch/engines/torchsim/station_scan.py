@@ -19,16 +19,26 @@ computes, operation for operation:
   departure);
 - :func:`token_bucket_plain`: the arrival-order token bucket
   (``_token_bucket_scan``, ``:302``), returning the accepted flags: the
-  client retry budget's pass over the retry wants, and the shape of a
-  server's rate limit.
+  client retry budget's pass over the retry wants, and a server's rate
+  limit over its arrivals;
+- :func:`controlled_plain`: the FIFO core queue under a ready-queue cap
+  and a dequeue deadline (``_controlled_station_scan``, ``:331``): the
+  Kiefer-Wolfowitz vector and a ring of the last ``max(cap, 1)`` grant
+  times, returning the wait and a flag byte (bit 0 shed, bit 1 abandoned);
+- :func:`socket_plain`: the same under a connection cap
+  (``_socket_station_scan``, ``:374``), in arrival order, with the sorted
+  vector of the connections' exit times besides (bit 2 of its flag byte:
+  refused).
 
 Invalid entries leave the carry as it is (their outputs are computed and
 ignored), so a stream may interleave other stations' lanes.
 :class:`StationScan` is the wrapper: CUDA tensors launch the kernel (built
 on first use) or raise, CPU tensors run the plain version.  The kernel
-walks a row with one thread in Lindley's and the bucket's modes, and with
-one warp in the two carry modes, each carry vector spread over the warp's lanes, or whole
-on every lane where it is narrow (:func:`carry_form`); a vector wider
+walks a row with one thread in Lindley's and the bucket's modes and the
+controlled mode at one core, and with one warp in the carry modes, the
+controlled mode past one core and the socket mode, each carry vector
+spread over the warp's lanes, or whole on every lane where it is narrow
+(:func:`carry_form`; the socket mode's connections always spread); a vector wider
 than :data:`WARP_WIDTH_MAX` entries (a core count the schema does not
 bound) goes back to one thread a row with the carry in global scratch
 (:func:`walk_of`).
@@ -42,15 +52,25 @@ import torch
 
 from asyncflow_tpu_torch.engines.torchsim import _build
 from asyncflow_tpu_torch.engines.torchsim.params import INF
+from asyncflow_tpu_torch.engines.torchsim.sampling import f32
 from asyncflow_tpu_torch.errors import KernelBuildError, KernelLaunchError
 
 MODE_LINDLEY = 0
 MODE_KW = 1
 MODE_RAM_CORE = 2
 MODE_BUCKET = 3
+MODE_CONTROLLED = 4
+MODE_SOCKET = 5
 #: each mode's name, as ``StationScan.mode_launches`` counts it
 MODE_NAMES = {MODE_LINDLEY: "lindley", MODE_KW: "kw", MODE_RAM_CORE: "ram_core",
-              MODE_BUCKET: "bucket"}
+              MODE_BUCKET: "bucket", MODE_CONTROLLED: "controlled", MODE_SOCKET: "socket"}
+#: the flag bits of the controlled and socket modes
+FLAG_SHED = 1
+FLAG_ABANDONED = 2
+FLAG_REFUSED = 4
+#: the widest ready-queue ring and connection vector the two modes take
+#: (the compiler refuses larger caps on the fast path)
+RING_MAX = 128
 #: the kernel's walks (station_scan.cu, ``station_scan_walk``): one thread
 #: a row (Lindley), one warp a row with the carry over its lanes (the carry
 #: modes up to WARP_WIDTH_MAX entries a vector), one thread a row with the
@@ -67,10 +87,12 @@ WHOLE_MAX = 4
 
 
 def walk_of(mode: int, cores: int, ram_k: int) -> int:
-    """The walk the kernel takes for a launch (``station_scan_walk``)."""
-    if mode in (MODE_LINDLEY, MODE_BUCKET):
+    """The walk the kernel takes for a launch (``station_scan_walk``);
+    ``ram_k`` is the RAM slots in the RAM-core mode and the connection cap
+    in the socket mode."""
+    if mode in (MODE_LINDLEY, MODE_BUCKET) or (mode == MODE_CONTROLLED and cores == 1):
         return WALK_THREAD
-    width = max(cores, ram_k) if mode == MODE_RAM_CORE else cores
+    width = max(cores, ram_k) if mode in (MODE_RAM_CORE, MODE_SOCKET) else cores
     return WALK_WARP if width <= WARP_WIDTH_MAX else WALK_GLOBAL
 
 
@@ -181,6 +203,95 @@ def token_bucket_plain(t: torch.Tensor, v: torch.Tensor, rate: float,
     return out
 
 
+class _Ring:
+    """Each row's ring of the last ``max(cap, 1)`` grant times, -INF at
+    first, as a circular buffer: ``oldest`` is the entry the reference's
+    shifting ring holds first."""
+
+    def __init__(self, rows: int, cap: int, device) -> None:
+        self.r = max(cap, 1)
+        self.f = torch.full((rows, self.r), -INF, dtype=torch.float32, device=device)
+        self.head = torch.zeros((rows, 1), dtype=torch.int64, device=device)
+
+    def oldest(self) -> torch.Tensor:
+        return self.f.gather(1, self.head)[:, 0]
+
+    def push(self, g: torch.Tensor, on: torch.Tensor) -> None:
+        self.f = torch.where(on[:, None], self.f.scatter(1, self.head, g[:, None]), self.f)
+        self.head = torch.where(on[:, None], (self.head + 1) % self.r, self.head)
+
+
+def controlled_plain(e: torch.Tensor, d: torch.Tensor, v: torch.Tensor, cores: int, cap: int,
+                     timeout: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(wait, flags), (S, m) float32 and uint8, of a ``cores``-server FIFO
+    over the enqueue times ``e`` (sorted), services ``d`` and validity
+    ``v`` under a ready-queue cap (``cap`` >= 0; the ring is kept, never
+    tested, below 0) and a dequeue deadline (``timeout`` >= 0): an element
+    is shed where the oldest of the last ``max(cap, 1)`` grants lies after
+    its enqueue, abandoned where it is live and waits past the deadline
+    (it frees its core at its grant); a live element takes a core and its
+    grant enters the ring (``_controlled_station_scan``)."""
+    s_rows, m = e.shape
+    cap_on, to_on, limit = cap >= 0, timeout >= 0.0, f32(timeout)
+    w = torch.zeros((s_rows, cores), dtype=e.dtype, device=e.device)
+    ring = _Ring(s_rows, cap, e.device)
+    wait = torch.empty_like(e)
+    flags = torch.empty((s_rows, m), dtype=torch.uint8, device=e.device)
+    for k in range(m):
+        ek, dk, ok = e[:, k], d[:, k], v[:, k]
+        shed = ok & (ring.oldest() > ek) if cap_on else torch.zeros_like(ok)
+        g = torch.maximum(ek, w[:, 0])
+        wk = g - ek
+        live = ok & ~shed
+        ab = live & (wk > limit) if to_on else torch.zeros_like(ok)
+        w0 = g + torch.where(ab, 0.0, dk)
+        w = torch.where(live[:, None], insert_sorted(w, w0), w)
+        ring.push(g, live)
+        wait[:, k] = wk
+        flags[:, k] = shed.to(torch.uint8) * FLAG_SHED + ab.to(torch.uint8) * FLAG_ABANDONED
+    return wait, flags
+
+
+def socket_plain(a: torch.Tensor, e: torch.Tensor, d: torch.Tensor, post: torch.Tensor,
+                 b: torch.Tensor, v: torch.Tensor, cores: int, conn: int, cap: int,
+                 timeout: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(wait, flags) of a server under a connection cap of ``conn``, in
+    arrival order: arrivals ``a`` (sorted), enqueue times ``e``, services
+    ``d``, trailing IO ``post``, burst flags ``b`` (io-only elements take
+    no core) and validity ``v``; the ready-queue cap and deadline as in
+    :func:`controlled_plain`.  An arrival is refused where every
+    connection's exit lies after it; an admitted one holds a connection
+    until its exit (its enqueue if shed, its grant if abandoned, else the
+    end of its service and trailing IO; ``a + post`` on an io-only
+    element) (``_socket_station_scan``)."""
+    s_rows, m = a.shape
+    cap_on, to_on, limit = cap >= 0, timeout >= 0.0, f32(timeout)
+    w = torch.zeros((s_rows, cores), dtype=a.dtype, device=a.device)
+    exits = torch.full((s_rows, conn), -INF, dtype=a.dtype, device=a.device)
+    ring = _Ring(s_rows, cap, a.device)
+    wait = torch.empty_like(a)
+    flags = torch.empty((s_rows, m), dtype=torch.uint8, device=a.device)
+    for k in range(m):
+        ak, ek, dk, pk, bk, ok = a[:, k], e[:, k], d[:, k], post[:, k], b[:, k], v[:, k]
+        refused = ok & (exits[:, 0] > ak)
+        live = ok & ~refused
+        shed = live & bk & (ring.oldest() > ek) if cap_on else torch.zeros_like(ok)
+        g = torch.maximum(ek, w[:, 0])
+        wk = torch.where(bk, g - ek, 0.0)
+        through = live & bk & ~shed
+        ab = through & (wk > limit) if to_on else torch.zeros_like(ok)
+        exit_t = torch.where(bk, torch.where(shed, ek, torch.where(ab, g, (g + dk) + pk)),
+                             ak + pk)
+        exits = torch.where(live[:, None], insert_sorted(exits, exit_t), exits)
+        w0 = g + torch.where(ab, 0.0, dk)
+        w = torch.where(through[:, None], insert_sorted(w, w0), w)
+        ring.push(g, through)
+        wait[:, k] = wk
+        flags[:, k] = (shed.to(torch.uint8) * FLAG_SHED + ab.to(torch.uint8) * FLAG_ABANDONED
+                       + refused.to(torch.uint8) * FLAG_REFUSED)
+    return wait, flags
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -191,11 +302,11 @@ class _StationArgs(ctypes.Structure):
 
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "a", "d", "v", "pre", "post", "out0", "out1", "out2", "scratch", "flag",
+            "a", "d", "v", "pre", "post", "out0", "out1", "out2", "scratch", "flag", "e", "b",
         )]
         + [(name, ctypes.c_int64) for name in ("S", "m")]
-        + [(name, ctypes.c_int32) for name in ("mode", "cores", "ram_k")]
-        + [(name, ctypes.c_float) for name in ("rate", "burst")]
+        + [(name, ctypes.c_int32) for name in ("mode", "cores", "ram_k", "cap", "conn")]
+        + [(name, ctypes.c_float) for name in ("rate", "burst", "timeout")]
     )
 
 
@@ -227,11 +338,17 @@ class PlainStationScan:
     def bucket(self, t, v, rate: float, burst: float):
         return token_bucket_plain(t, v, rate, burst)
 
+    def controlled(self, e, d, v, cores: int, cap: int, timeout: float):
+        return controlled_plain(e, d, v, cores, cap, timeout)
+
+    def socket(self, a, e, d, post, b, v, cores: int, conn: int, cap: int, timeout: float):
+        return socket_plain(a, e, d, post, b, v, cores, conn, cap, timeout)
+
 
 class StationScan:
     """The station recursions with their launch count, in all, by mode
     (``mode_launches``: Lindley, Kiefer-Wolfowitz, RAM-core, the token
-    bucket) and by walk
+    bucket, the controlled and the socket scans) and by walk
     (``walk_launches``: a thread a row, a warp a row, the global-scratch
     walk).  A carry vector of up to :data:`WARP_WIDTH_MAX` entries is held
     by a warp's lanes (:func:`carry_form`); a wider one lives in global
@@ -242,7 +359,8 @@ class StationScan:
     source = "asyncflow_tpu_torch/csrc/station_scan.cu"
     replaces = (
         "asyncflow_tpu/engines/jaxsim/fastpath.py:278 (_lindley_waits), :198 (_kw_waits), "
-        ":233 (_ram_core_scan), :302 (_token_bucket_scan)"
+        ":233 (_ram_core_scan), :302 (_token_bucket_scan), :331 (_controlled_station_scan), "
+        ":374 (_socket_station_scan)"
     )
 
     def __init__(self) -> None:
@@ -279,8 +397,38 @@ class StationScan:
                      flag=flag)
         return flag
 
+    def controlled(self, e: torch.Tensor, d: torch.Tensor, v: torch.Tensor, cores: int,
+                   cap: int, timeout: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """(wait, flags) of the FIFO core queue under a ready-queue cap and
+        a dequeue deadline over each row's sorted enqueue times
+        (:func:`controlled_plain`)."""
+        if e.device.type == "cpu":
+            return PlainStationScan().controlled(e, d, v, cores, cap, timeout)
+        _check_cap(cap)
+        wait = torch.empty_like(e)
+        flags = torch.empty(e.shape, dtype=torch.uint8, device=e.device)
+        self._launch(MODE_CONTROLLED, cores, 0, cap=cap, timeout=f32(timeout), a=e, d=d, v=v,
+                     out0=wait, flag=flags)
+        return wait, flags
+
+    def socket(self, a, e, d, post, b, v, cores: int, conn: int, cap: int,
+               timeout: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """(wait, flags) of a server under a connection cap over each row's
+        sorted arrivals (:func:`socket_plain`)."""
+        if a.device.type == "cpu":
+            return PlainStationScan().socket(a, e, d, post, b, v, cores, conn, cap, timeout)
+        _check_cap(cap)
+        if not 1 <= conn <= RING_MAX:
+            msg = f"station_scan: the connection cap {conn} must lie in 1..{RING_MAX}"
+            raise ValueError(msg)
+        wait = torch.empty_like(a)
+        flags = torch.empty(a.shape, dtype=torch.uint8, device=a.device)
+        self._launch(MODE_SOCKET, cores, conn, cap=cap, timeout=f32(timeout), a=a, e=e, d=d,
+                     post=post, b=b, v=v, out0=wait, flag=flags)
+        return wait, flags
+
     def _launch(self, mode: int, cores: int, ram_k: int, *, rate: float = 0.0,
-                burst: float = 0.0, **tensors) -> None:
+                burst: float = 0.0, cap: int = -1, timeout: float = -1.0, **tensors) -> None:
         a = tensors["a"]
         dev = a.device
         if dev.type != "cuda":
@@ -290,8 +438,10 @@ class StationScan:
             msg = f"station_scan: cores {cores} and RAM slots {ram_k} must be positive"
             raise ValueError(msg)
         s, m = a.shape
+        flag_dtype = torch.uint8 if mode in (MODE_CONTROLLED, MODE_SOCKET) else torch.bool
         for name, t in tensors.items():
-            dtype = torch.bool if name in ("v", "flag") else torch.float32
+            dtype = (flag_dtype if name == "flag" else torch.bool if name in ("v", "b")
+                     else torch.float32)
             if t.dtype != dtype or tuple(t.shape) != (s, m) or not t.is_contiguous() \
                     or t.device != dev:
                 msg = (
@@ -304,10 +454,12 @@ class StationScan:
         lib = _library()
         walk = lib.station_scan_walk(mode, cores, ram_k)
         if walk == WALK_GLOBAL:
-            width = cores + (ram_k if mode == MODE_RAM_CORE else 0)
+            width = cores + (ram_k if mode in (MODE_RAM_CORE, MODE_SOCKET) else 0)
             tensors["scratch"] = torch.empty((s, width), dtype=torch.float32, device=dev)
-        args = _StationArgs(S=s, m=m, mode=mode, cores=cores, ram_k=ram_k, rate=rate,
-                            burst=burst)
+        conn = ram_k if mode == MODE_SOCKET else 0
+        args = _StationArgs(S=s, m=m, mode=mode, cores=cores,
+                            ram_k=ram_k if mode == MODE_RAM_CORE else 0, rate=rate,
+                            burst=burst, cap=cap, conn=conn, timeout=timeout)
         for name, t in tensors.items():
             setattr(args, name, t.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -318,3 +470,9 @@ class StationScan:
         self.launches += 1
         self.mode_launches[MODE_NAMES[mode]] += 1
         self.walk_launches[WALK_NAMES[walk]] += 1
+
+
+def _check_cap(cap: int) -> None:
+    if cap > RING_MAX:
+        msg = f"station_scan: the ready-queue cap {cap} exceeds the ring's {RING_MAX} entries"
+        raise ValueError(msg)

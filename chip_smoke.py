@@ -43,13 +43,16 @@ no result line):
    ``lb_route``) against their plain PyTorch versions on the card, on each
    fast path's payload (two_servers_lb, single_server,
    heavy_inj_single_server, event_inj_lb, two_gen_lb, db_pool_k2,
-   chaos_campaign, outage_retry, trace_parity_resilient) cut to 60 s (its
+   chaos_campaign, outage_retry, trace_parity_resilient, rate_limited_lb,
+   overload_cap8, overload_sockets, lc_mixed_fleet) cut to 60 s (its
    events and fault windows scaled into it; chaos_campaign's tables sampled
    with its MTBF divided by ten) at 64 scenarios: every kernel call of the
    engine's run (uniforms, arrival gaps and their prefix sum, static, LB,
    slot, spiked and fault-table hops, the outage timeline's table and
    lanes, Lindley and Kiefer-Wolfowitz scans, RAM-core scans, the retry
-   budget's token bucket) repeated through the plain version, bit-exact,
+   budget's and the rate limit's token buckets, the controlled and socket
+   scans, least connections' candidate hops without sums and its picks)
+   repeated through the plain version, bit-exact,
    and the whole engine through each, with identical integer outputs
    (the resilience counters included), per-request clocks and gauge
    means; a synthetic timeline with an all-down interval and same-time
@@ -60,14 +63,20 @@ no result line):
    the hop under synthetic per-scenario fault tables (a partition,
    overlapping degrades) at the headline's width, static and by rank; the
    token bucket on 2048 synthetic rows of 9,750 at five (rate, burst)
-   pairs; and XLA's ``log1p`` in the kernel against its plain version on
-   each of the 2**23 uniforms;
-5. the nine fast paths: ``SweepRunner(payload).run(2048, seed=0)``
+   pairs; the controlled and socket scans on 2048 synthetic rows over the
+   grid of cores, ready-queue caps, deadlines and connection caps
+   (``CONTROL_GRID``), and least connections on 2048 synthetic rows with and
+   without a timeline (``LC_CASES``); and XLA's ``log1p`` in the kernel
+   against its plain version on each of the 2**23 uniforms;
+5. the thirteen fast paths: ``SweepRunner(payload).run(2048, seed=0)``
    through ``engine="auto"`` (with the path's sweep axes), which must take
    the fast path and launch its kernels (counts set to 0 before the run:
    ``edge_draws`` and ``station_scan`` on every path, ``lb_route`` on
    event_inj_lb, the Kiefer-Wolfowitz mode on db_pool_k2, the fault-table
-   hop on chaos_campaign, the token bucket on outage_retry), on
+   hop on chaos_campaign, the token bucket on outage_retry and
+   rate_limited_lb, the controlled scan on overload_cap8, the socket scan on
+   overload_sockets, least connections and its candidate hops on
+   lc_mixed_fleet), on
    two_servers_lb (600 s), single_server (500 s, a binding RAM of 20
    slots), heavy_inj_single_server (600 s, a 3 s spike from 180 s to 300 s,
    in default chunks of 1,797 scenarios), event_inj_lb (600 s: outages and
@@ -76,16 +85,26 @@ no result line):
    outage_retry (the resilience guide's outage sweep, 120 s: the outage
    slid over 90 s, the retry driver and its budget) and
    trace_parity_resilient (90 s: every attempt refused, retried,
-   abandoned): for the six earlier paths request conservation and the
+   abandoned), rate_limited_lb (600 s: the resilience example's srv-2
+   behind its token bucket), overload_cap8 and overload_sockets (120 s: the
+   overload example's ready-queue cap of 8, and its server under a
+   connection cap of 6 with a cap of 4 and a 0.1 s deadline) and
+   lc_mixed_fleet (600 s: the mixed fleet's least connections at 24 MB):
+   for the six earlier paths request conservation and the
    completions and drops of the earlier slice's final run; for the three
    resilience paths their invariants (dark refusals, the scorecard of the
    sampled tables equal to the reference's, the attempts' accounting) and
-   the DES kernel's refusal by name; the pooled p95 within 2% of the JAX
-   fast path's and of the DES kernel's on the same payload (its sweep
-   untruncated), where each has one; then the first call of each kind
+   the DES kernel's refusal by name; for the four overload and routing
+   paths request conservation, rejections where a control binds, and the
+   p95 and rejected fraction printed beside the DES kernel's on the same
+   payload (the two engines sample arrivals differently); the pooled p95
+   within 2% of the JAX fast path's and (the earlier paths) of the DES
+   kernel's on the same payload (its sweep untruncated), where each has
+   one; then the first call of each kind
    (uniform, gap, gap prefix sum, static, LB, slot, spiked or fault-table
    hop, timeline table and lanes, wait scan of one server or of several,
-   RAM-core scan, token bucket) of the path's own run at full width,
+   RAM-core scan, token bucket, controlled and socket scans, hop without
+   sums, least-connections picks) of the path's own run at full width,
    repeated through the kernel and through its plain version on the same
    arguments, bit-exact; each edge_draws and lb_route kind's call and the
    path's station_scan kinds timed between CUDA events beside its bound,
@@ -547,6 +566,81 @@ TRACE_PARITY_RESILIENT = {
 }
 
 
+def _rate_limited_lb() -> dict:
+    """examples/sweeps/resilience_controls.py, ``build_payload("none")`` at
+    its top load (150 users), over the YAML's own 600 s: ``_resilience_all``
+    without the breaker and the deadline (srv-2 behind a 5 rps / burst-5
+    token bucket, srv-1 at CPU 18 ms)."""
+    data = _resilience_all()
+    del data["topology_graph"]["nodes"]["load_balancer"]["circuit_breaker"]
+    del data["topology_graph"]["nodes"]["servers"][0]["overload"]
+    return data
+
+
+def overload_payload(users: float, overload: dict | None) -> dict:
+    """examples/sweeps/overload_policy.py's ``payload_with``: single_server.yml
+    with CPU 30 ms then IO 10 ms an endpoint, over 120 s, at ``users`` x 20
+    req/min (its load points run 60 to 110), under ``overload``."""
+    data = copy.deepcopy(SINGLE_SERVER)
+    srv = data["topology_graph"]["nodes"]["servers"][0]
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.030}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.010}},
+    ]
+    if overload is not None:
+        srv["overload"] = overload
+    data["rqs_input"]["avg_active_users"]["mean"] = users
+    data["sim_settings"]["total_simulation_time"] = 120
+    return data
+
+
+def mixed_fleet_payload(heavy_need_mb: float = 24.0, horizon: int = 600) -> dict:
+    """examples/sweeps/mixed_fleet_sweep.py's ``build_payload``: a generator
+    of 60 users x 30 req/min, least connections over a 2-core node (4 GB,
+    64 MB a request) and a 1-core node (1 GB) serving a light endpoint and
+    a heavy one of ``heavy_need_mb``."""
+
+    def endpoint(name: str, need: float, io_s: float) -> dict:
+        return {"endpoint_name": name, "steps": [
+            {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.002}},
+            {"kind": "ram", "step_operation": {"necessary_ram": need}},
+            {"kind": "io_wait", "step_operation": {"io_waiting_time": io_s}},
+        ]}
+
+    def edge(eid: str, source: str, target: str, mean: float) -> dict:
+        return {"id": eid, "source": source, "target": target,
+                "latency": {"mean": mean, "distribution": "exponential"}}
+
+    return {
+        "rqs_input": {"id": "gen", "avg_active_users": {"mean": 60.0},
+                      "avg_request_per_minute_per_user": {"mean": 30.0},
+                      "user_sampling_window": 10},
+        "topology_graph": {
+            "nodes": {
+                "client": {"id": "client"},
+                "load_balancer": {"id": "lb", "algorithms": "least_connection",
+                                  "server_covered": ["big", "small"]},
+                "servers": [
+                    {"id": "big", "server_resources": {"cpu_cores": 2, "ram_mb": 4096},
+                     "endpoints": [endpoint("/work", 64.0, 0.04)]},
+                    {"id": "small", "server_resources": {"cpu_cores": 1, "ram_mb": 1024},
+                     "endpoints": [endpoint("/light", 16.0, 0.02),
+                                   endpoint("/heavy", heavy_need_mb, 0.12)]},
+                ],
+            },
+            "edges": [
+                edge("gen-client", "gen", "client", 0.003),
+                edge("client-lb", "client", "lb", 0.002),
+                edge("lb-big", "lb", "big", 0.02),
+                edge("lb-small", "lb", "small", 0.02),
+                edge("big-client", "big", "client", 0.003),
+                edge("small-client", "small", "client", 0.003),
+            ],
+        },
+        "sim_settings": {"total_simulation_time": horizon, "sample_period_s": 0.05},
+    }
+
+
 def outage_retry_axes(n: int) -> dict:
     """The guide's sweep axes for ``n`` scenarios: the outage slid over
     [0, 90] s, the client timeout 0.5 s (``make_overrides``' arguments)."""
@@ -593,7 +687,22 @@ FAST_PAYLOADS = {
 #: each fast path's sweep axes for n scenarios (``make_overrides``'
 #: arguments), where its sweep has any
 FAST_SWEEP_AXES = {"outage_retry": outage_retry_axes}
+#: the overload and routing paths: the resilience example's srv-2
+#: behind its token bucket, the overload example's ready-queue cap of 8 and
+#: its server under a connection cap with the cap and deadline composed, and
+#: the mixed fleet's least connections at its 24 MB point
+CONTROL_PATHS = {
+    "rate_limited_lb": _rate_limited_lb(),
+    "overload_cap8": overload_payload(110, {"max_ready_queue": 8}),
+    "overload_sockets": overload_payload(110, {"max_connections": 6, "max_ready_queue": 4,
+                                               "queue_timeout_s": 0.1}),
+    "lc_mixed_fleet": mixed_fleet_payload(24.0, horizon=600),
+}
+FAST_PAYLOADS.update(CONTROL_PATHS)
 #: the resilience paths, which the DES kernel refuses by the feature named
+#: the station_scan mode each overload path must launch
+CONTROL_MODES = {"rate_limited_lb": "bucket", "overload_cap8": "controlled",
+                 "overload_sockets": "socket"}
 RESILIENCE_PATHS = {"chaos_campaign": "hazards", "outage_retry": "faults",
                     "trace_parity_resilient": "faults"}
 
@@ -601,21 +710,22 @@ MAIN_SCENARIOS = 2048
 #: a pool too large for shared memory (des_kernel.cu, layout_of)
 POOL_GLOBAL = 2048
 #: iteration cap of the kernel-against-twin check on the headline's plan:
-#: every scenario truncates after ~6 s of simulated time, which keeps the
-#: twin (one batched step per event) near a minute on the card (8,000
+#: every scenario truncates after ~4 s of simulated time, which keeps the
+#: twin (one batched step per event) under a minute on the card (8,000
 #: iterations took 88.7–107.9 s, varying with the card's host: the smoke's
-#: whole run must stay well inside its time limit)
-CHECK_ITERATIONS = 5000
-#: the same for event_inj_lb's and resilience_all's plans (~16 s simulated
-#: at ~40 req/s)
-PATH_CHECK_ITERATIONS = 4000
-#: the same for the three workload paths' plans: db_pool_k2 ~27 s
-#: simulated of its 120 s, llm_cost ~25 s of its 60 s (at ~20 req/s),
-#: two_gen_lb ~4 s (at ~133 req/s)
-WORKLOAD_CHECK_ITERATIONS = {"db_pool_k2": 2000, "llm_cost": 2000, "two_gen_lb": 2000}
+#: whole run must stay well inside its time limit; 5,000 until the fast
+#: path's overload and routing paths joined it)
+CHECK_ITERATIONS = 3500
+#: the same for event_inj_lb's and resilience_all's plans (~12 s simulated
+#: at ~40 req/s; 4,000 before)
+PATH_CHECK_ITERATIONS = 3000
+#: the same for the three workload paths' plans: db_pool_k2 ~20 s
+#: simulated of its 120 s, llm_cost ~19 s of its 60 s (at ~20 req/s),
+#: two_gen_lb ~3 s (at ~133 req/s; 2,000 each before)
+WORKLOAD_CHECK_ITERATIONS = {"db_pool_k2": 1500, "llm_cost": 1500, "two_gen_lb": 1500}
 #: event_inj_lb's windows, scaled into the capped check's simulated time:
-#: they end by 10.8 s
-EVENT_CHECK_TIME_SCALE = 0.02
+#: they end by 8.1 s
+EVENT_CHECK_TIME_SCALE = 0.015
 #: the JAX reference kernel on each path's payload at its full horizon:
 #: pooled p95 (seconds), pooled rejected fraction and mean LLM cost per
 #: completed request of PallasEngine(interpret=True) on scenarios 0..31 of
@@ -659,6 +769,13 @@ REFERENCE_FAST = {
     "event_inj_lb": {"p95_s": 0.04334861363138333},
     "two_gen_lb": {"p95_s": 0.034871473184246715},
     "db_pool_k2": {"p95_s": 0.1565345446763432},
+    # the overload and routing paths through the reference's
+    # SweepRunner(engine="fast") on scenarios 0..2047 of seed 0, with their
+    # rejected fractions
+    "rate_limited_lb": {"p95_s": 0.055575036266824564, "rejected_fraction": 0.3850285003265662},
+    "overload_cap8": {"p95_s": 0.28224541471622583, "rejected_fraction": 0.10521060837581807},
+    "overload_sockets": {"p95_s": 0.14099077131015, "rejected_fraction": 0.1613944272360538},
+    "lc_mixed_fleet": {"p95_s": 0.154020766943107, "rejected_fraction": 0.0},
 }
 #: horizon of the fast kernels' check against their plain versions, and
 #: its scenarios
@@ -1473,7 +1590,8 @@ SCAN_LANE_OPS = (0, 2, 0)
 #: carry entry it moves past (not counted: the data decides); the token
 #: bucket's valid test, accept test and three selects, and its subtract,
 #: multiply, add, min and spend
-SCAN_ELEMENT_OPS = {"waits": (3, 5), "ram_core": (4, 8), "bucket": (5, 5)}
+SCAN_ELEMENT_OPS = {"waits": (3, 5), "ram_core": (4, 8), "bucket": (5, 5),
+                    "controlled": (9, 5), "socket": (14, 9)}
 #: a hop lane under fault tables: per breakpoint the compare and the add of
 #: the row search; then the boost's add and clip (max, min) and the factor's
 #: multiply
@@ -1481,6 +1599,14 @@ FAULT_BREAKPOINT_OPS = (1, 1)
 FAULT_LANE_OPS = (0, 4)
 #: a Kiefer-Wolfowitz element, per core: the insertion's compare and select
 KW_CORE_OPS = (1, 1)
+#: the controlled scan, an element: the ring's read and the head's step,
+#: the cap and deadline tests, the live and flag logic, the stores' selects
+#: (9 integer); the ring's compare, the grant's max, the wait's subtract,
+#: the deadline's compare and the release's add (5 float); the socket scan
+#: adds the refusal's compare, the burst selects and the exit's two adds
+#: and selects (14, 9), and a compare and a select a connection for the
+#: sorted insertion of the exit (CONN_ENTRY_OPS)
+CONN_ENTRY_OPS = (1, 1)
 
 
 def _ops(lanes, per_lane) -> list:
@@ -1522,7 +1648,9 @@ def _draws_bound(torch, kind: str, args: tuple, kw: dict) -> dict:
     lanes = s * n
     rank, given = kw.get("rank"), kw.get("slot")
     k_slots = 1 if kw.get("edge") is not None else int(tables.lb_edge.shape[0])
-    moved = lanes * (4 + 1 + 4 + 1) + s * (4 * k_slots + 8)
+    # a hop without sums writes no spans and no drop count
+    sums = kw.get("sums") is not False
+    moved = lanes * (4 + 1 + 4 + 1) + (s * (4 * k_slots + 8) if sums else 0)
     ops = [a + b for a, b in zip(_ops(lanes, UNIFORM_LANE_OPS), _ops(lanes, HOP_LANE_OPS))]
     if kw.get("edge") is not None:
         per_law = {int(tables.dist[kw["edge"]]): lanes}
@@ -1562,13 +1690,29 @@ ROUTE_MARK_OPS = (1, 1)
 ROUTE_ALIVE_OPS = (1, 0)
 ROUTE_SEARCH_STEP_OPS = (3, 0)
 ROUTE_PICK_OPS = (24, 0)
+#: least connections, an alive arrival: per ring entry the compare with the
+#: arrival and the count's add (LC_ENTRY_OPS); per slot the warp sum and the
+#: pick's key and compare (LC_SLOT_OPS); the mark test, the drop read, the
+#: replaced entry's minimum, ballot and store (LC_ARRIVAL_OPS)
+LC_ENTRY_OPS = (1, 1)
+LC_SLOT_OPS = (4, 0)
+LC_ARRIVAL_OPS = (12, 0)
 
 
 def _route_bound(kind: str, args: tuple) -> dict:
     """The least time of one lb_route launch: the table pass reads t and
     alive (5 B a lane) and writes the table; the lanes pass reads the rank,
-    alive and the table and writes the slot (13 B a lane); against the
-    operations this run's alive lanes need."""
+    alive and the table and writes the slot (13 B a lane); least connections
+    reads t, the flag and each slot's candidate delivery and drop (5 + 5 EL
+    B an arrival) and writes the pick (4 B); against the operations this
+    run's alive lanes need."""
+    if kind == "route_lc":
+        tl, t, ok, deliv, _drop, ring = args
+        lanes, n_alive, el = t.numel(), int(ok.sum()), int(deliv.shape[2])
+        moved = lanes * (5 + 5 * el + 4) + tl.n_marks * 12
+        int_ops = n_alive * (el * ring * LC_ENTRY_OPS[0] + el * LC_SLOT_OPS[0]
+                             + LC_ARRIVAL_OPS[0])
+        return _bound_of(moved, int_ops, n_alive * el * ring * LC_ENTRY_OPS[1])
     if kind == "route_table":
         tl, t, alive = args
         lanes, n_alive = t.numel(), int(alive.sum())
@@ -1590,16 +1734,24 @@ def _scan_bound(kind: str, args: tuple) -> dict:
     each output written once, against its element operations."""
     tensors = [x for x in args if hasattr(x, "numel")]
     elems = tensors[0].numel()
-    # the waits (float), the RAM-core scan's three outputs, the bucket's flags
-    out_bytes = {"waits": 4, "waits_kw": 4, "ram_core": 12, "bucket": 1}[kind]
+    # the waits (float), the RAM-core scan's three outputs, the bucket's
+    # flags, the controlled and socket scans' waits and flags
+    out_bytes = {"waits": 4, "waits_kw": 4, "ram_core": 12, "bucket": 1, "controlled": 5,
+                 "socket": 5}[kind]
     moved = sum(x.numel() * x.element_size() for x in tensors) + out_bytes * elems
     ops = SCAN_ELEMENT_OPS["waits" if kind == "waits_kw" else kind]
     int_ops, fp_ops = elems * ops[0], elems * ops[1]
-    if kind == "waits_kw":
-        # the sorted insertion into the K core-free times, by selects
-        cores = args[3]
+    # the sorted insertion into the K core-free times, by selects (one core:
+    # none), and the socket scan's into its connections' exits
+    cores = {"waits_kw": args[3] if kind == "waits_kw" else 0,
+             "controlled": args[3] if kind == "controlled" else 0,
+             "socket": args[6] if kind == "socket" else 0}.get(kind, 0)
+    if cores > 1:
         int_ops += elems * cores * KW_CORE_OPS[0]
         fp_ops += elems * cores * KW_CORE_OPS[1]
+    if kind == "socket":
+        int_ops += elems * args[7] * CONN_ENTRY_OPS[0]
+        fp_ops += elems * args[7] * CONN_ENTRY_OPS[1]
     return _bound_of(moved, int_ops, fp_ops)
 
 
@@ -1635,12 +1787,19 @@ CALL_KINDS = {
     "hop_spike_fault": ("edge_draws", "hop"),
     "hop_lb_spike_fault": ("edge_draws", "hop"),
     "hop_slot_spike_fault": ("edge_draws", "hop"),
+    "hop_bare": ("edge_draws", "hop"),
+    "hop_bare_spike": ("edge_draws", "hop"),
+    "hop_bare_fault": ("edge_draws", "hop"),
+    "hop_bare_spike_fault": ("edge_draws", "hop"),
     "waits": ("station_scan", "waits"),
     "waits_kw": ("station_scan", "waits"),
     "ram_core": ("station_scan", "ram_core"),
     "bucket": ("station_scan", "bucket"),
+    "controlled": ("station_scan", "controlled"),
+    "socket": ("station_scan", "socket"),
     "route_table": ("lb_route", "table"),
     "route_slots": ("lb_route", "slots"),
+    "route_lc": ("lb_route", "lc"),
 }
 #: the fast path's kernel wrappers, by name
 FAST_KERNELS = ("edge_draws", "station_scan", "lb_route")
@@ -1648,7 +1807,8 @@ FAST_KERNELS = ("edge_draws", "station_scan", "lb_route")
 
 def _hop_kind(tables, kw: dict) -> str:
     lanes = ("hop_lb" if kw.get("rank") is not None
-             else "hop_slot" if kw.get("slot") is not None else "hop")
+             else "hop_slot" if kw.get("slot") is not None
+             else "hop_bare" if kw.get("sums") is False else "hop")
     return (lanes + ("_spike" if tables.spike_t is not None else "")
             + ("_fault" if tables.fault_t is not None else ""))
 
@@ -1692,6 +1852,14 @@ def _record_kernel_calls(eng, every: bool) -> list:
             keep("bucket", args, {})
             return scan.bucket(*args)
 
+        def controlled(self, *args):
+            keep("controlled", args, {})
+            return scan.controlled(*args)
+
+        def socket(self, *args):
+            keep("socket", args, {})
+            return scan.socket(*args)
+
     class Route:
         def table(self, *args):
             keep("route_table", args, {})
@@ -1700,6 +1868,10 @@ def _record_kernel_calls(eng, every: bool) -> list:
         def slots(self, *args):
             keep("route_slots", args, {})
             return route.slots(*args)
+
+        def lc(self, *args):
+            keep("route_lc", args, {})
+            return route.lc(*args)
 
     eng.draws, eng.scan, eng.route = Draws(), Scan(), Route()
     return calls
@@ -1923,6 +2095,104 @@ def _bucket_check(torch, kernel, plain) -> float:
     return err
 
 
+#: the controlled and socket scans' grid phase 4 holds to the plain
+#: versions: cores (one on the thread walk, the warp walk whole and spread),
+#: ready-queue caps (none, one, 8, the ring's 128), deadlines (none, 50 ms)
+#: and connection caps (one, 6, the widest 128), on synthetic rows of
+#: CONTROL_CHECK_ELEMENTS
+CONTROL_GRID = {"cores": (1, 2, 33), "cap": (-1, 1, 8, 128), "timeout": (-1.0, 0.05),
+                "conn": (1, 6, 128)}
+CONTROL_CHECK_ELEMENTS = 601
+#: least connections' synthetic cases: (LB slots, ring, marks (time, down,
+#: slot)): the mixed fleet's two slots and ring of 23, a timeline with
+#: marks at one time and every slot down a while, the widest (32 slots,
+#: rings of 128)
+LC_CASES = (
+    (2, 23, ()),
+    (3, 5, ((2.0, 1, 0), (4.0, 1, 1), (4.0, 1, 2), (6.0, 0, 1), (6.0, 0, 0), (9.0, 1, 1))),
+    (32, 128, ((3.0, 1, 0),)),
+)
+LC_CHECK_ARRIVALS = 3001
+
+
+def _control_rows(torch, seed: int, cores: int):
+    """(arrival, enqueue, service, post-IO, burst, valid), (2048, m) on the
+    card: arrivals at 1.3x the cores' service rate, a third invalid (INF),
+    a tenth io-only, a 3 ms pre-IO before each burst."""
+    s, m = MAIN_SCENARIOS, CONTROL_CHECK_ELEMENTS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.cumsum(torch.empty((s, m), device="cuda").exponential_(
+        52.0 * cores / 0.67, generator=g), dim=1)
+    d = torch.empty((s, m), device="cuda").exponential_(40.0, generator=g)
+    post = torch.empty((s, m), device="cuda").exponential_(20.0, generator=g)
+    v = torch.rand((s, m), device="cuda", generator=g) < 0.67
+    b = v & (torch.rand((s, m), device="cuda", generator=g) < 0.9)
+    a = torch.where(v, a, 1e30)
+    return a, torch.where(v, a + 0.003, 1e30), d, post, b, v
+
+
+def _control_check(torch, kernel, plain) -> float:
+    """station_scan's controlled and socket modes against their plain
+    versions over CONTROL_GRID on 2048 synthetic rows; bit-exact, and each
+    control binding somewhere."""
+    import itertools
+
+    err, seen = 0.0, 0
+    for i, (cores, cap, timeout) in enumerate(itertools.product(
+            CONTROL_GRID["cores"], CONTROL_GRID["cap"], CONTROL_GRID["timeout"])):
+        a, e, d, post, b, v = _control_rows(torch, 200 + i, cores)
+        e_b = torch.where(b, e, 1e30)
+        args = (e_b, d, b, cores, cap, timeout)
+        got = kernel.controlled(*args)
+        want = plain.controlled(*args)
+        err = max(err, _compare(torch, f"control check: controlled {args[3:]}", got, want))
+        for bit in (1, 2):
+            seen |= bit if bool(((want[1] & bit) != 0).any()) else 0
+        for conn in CONTROL_GRID["conn"]:
+            args = (a, e, d, post, b, v, cores, conn, cap, timeout)
+            got = kernel.socket(*args)
+            want = plain.socket(*args)
+            err = max(err, _compare(torch, f"control check: socket {args[6:]}", got, want))
+            for bit in (1, 2, 4):
+                seen |= bit if bool(((want[1] & bit) != 0).any()) else 0
+    if seen != 7:
+        raise SmokeError(f"control check: the flags seen over the grid are {seen}, not 7")
+    print(f"fast check: station_scan's controlled and socket modes == plain on "
+          f"{MAIN_SCENARIOS} x {CONTROL_CHECK_ELEMENTS} rows over {CONTROL_GRID}", flush=True)
+    return err
+
+
+def _lc_check(torch, kernel, plain) -> float:
+    """lb_route's least connections against its plain version on 2048
+    synthetic rows of LC_CHECK_ARRIVALS sorted arrivals (dead lanes last)
+    at each of LC_CASES; bit-exact."""
+    from asyncflow_tpu_torch.engines.torchsim import routing
+
+    s, n = MAIN_SCENARIOS, LC_CHECK_ARRIVALS
+    err = 0.0
+    for i, (el, ring, marks) in enumerate(LC_CASES):
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        t = torch.sort(torch.rand((s, n), device="cuda", generator=g) * 10, dim=1).values
+        ok = torch.rand((s, n), device="cuda", generator=g) < 0.9
+        order = torch.sort((~ok).int(), dim=1, stable=True).indices
+        ok = ok.gather(1, order)
+        t = torch.where(ok, t.gather(1, order), 1e30)
+        deliv = t[..., None] + torch.rand((s, n, el), device="cuda", generator=g) * (
+            0.005 * ring)
+        drop = torch.rand((s, n, el), device="cuda", generator=g) < 0.1
+        tl = routing.Timeline([m[0] for m in marks], [m[1] for m in marks],
+                              [m[2] for m in marks], el, "cuda")
+        args = (tl, t, ok, deliv, drop, ring)
+        want = _call(plain, "route_lc", args, {})
+        err = max(err, _compare(torch, f"lc check: {el} slots, ring {ring}",
+                                _call(kernel, "route_lc", args, {}), want))
+        if bool((want[0][ok] < 0).any()) != (i == 1):
+            raise SmokeError(f"lc check: case {i} routes every lane or none as it should not")
+    print(f"fast check: lb_route's least connections == plain on {s} x {n} arrivals at "
+          f"{len(LC_CASES)} (slots, ring, marks) cases", flush=True)
+    return err
+
+
 def phase_fast_check(torch) -> dict:
     """Phase 4: the fast path's kernels against their plain versions on the
     card, on each fast payload cut to FAST_CHECK_HORIZON seconds (events
@@ -1990,7 +2260,7 @@ def phase_fast_check(torch) -> dict:
         )
     wanted = {"uniform", "gap", "gap_cumsum", "hop", "hop_lb", "hop_spike", "hop_slot_spike",
               "waits", "waits_kw", "ram_core", "route_table", "route_slots", "hop_fault",
-              "hop_lb_fault", "bucket"}
+              "hop_lb_fault", "bucket", "controlled", "socket", "route_lc", "hop_bare"}
     if not wanted <= kinds_seen:
         raise SmokeError(f"fast check: no call of kinds {sorted(wanted - kinds_seen)}")
     # the synthetic timeline on event_inj_lb's full-width arrivals: srv-1
@@ -2042,6 +2312,8 @@ def phase_fast_check(torch) -> dict:
     measured["station_scan"] = max(measured["station_scan"], width_err)
     measured["fault_hop"] = _fault_hop_check(torch, eng.draws, plains["edge_draws"])
     measured["bucket"] = _bucket_check(torch, eng.scan, plains["station_scan"])
+    measured["controls"] = _control_check(torch, eng.scan, plains["station_scan"])
+    measured["lc"] = _lc_check(torch, eng.route, plains["lb_route"])
     u = torch.arange(2**23, dtype=torch.float64, device="cuda").div(2**23).float().view(8, -1)
     measured["edge_draws"] = max(measured["edge_draws"], _compare(
         torch, "fast check: log1p_xla on every uniform", _call(eng.draws, "gap_of", (u,), {}),
@@ -2083,6 +2355,28 @@ EARLIER_FAST = {
     "two_gen_lb": {"completed": 157460400, "dropped": 6459417},
     "db_pool_k2": {"completed": 4793678, "dropped": 146356},
 }
+
+
+def _controlled_wide(plan) -> bool:
+    """Whether the servers the fast path sends to the controlled scan (a
+    ready-queue cap or a dequeue deadline, no connection cap, no RAM tier)
+    have more than one core, so that the scan takes the warp walk; the walk
+    check counts a path's controlled launches on one walk."""
+    wide = set()
+    for s in range(len(plan.server_cores)):
+        nep = int(plan.n_endpoints[s])
+        kb = int(plan.n_bursts[s, :nep].max()) if nep else 0
+        ram_k = int(plan.ram_slots[s]) if len(plan.ram_slots) else 0
+        cap = int(plan.server_queue_cap[s]) if len(plan.server_queue_cap) else -1
+        timeout = (float(plan.server_queue_timeout[s]) if len(plan.server_queue_timeout)
+                   else -1.0)
+        conn = int(plan.server_conn_cap[s]) if len(plan.server_conn_cap) else -1
+        if conn < 0 and kb > 0 and ram_k <= 0 and (cap >= 0 or timeout >= 0):
+            wide.add(int(plan.server_cores[s]) > 1)
+    if len(wide) > 1:
+        raise SmokeError("the walk check takes a path whose controlled servers all have "
+                         "one core or all more than one")
+    return wide == {True}
 
 
 def _check_resilience_sweep(name: str, summary: dict, res) -> None:
@@ -2172,7 +2466,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     runner.run(MAIN_SCENARIOS, seed=0, overrides=sweep_ov)  # warm the allocator and libraries
     for wrapper in _wrappers(eng).values():
         wrapper.launches = 0
-    eng.draws.fault_launches = 0
+    eng.draws.fault_launches = eng.draws.bare_launches = eng.route.lc_launches = 0
     eng.scan.mode_launches = dict.fromkeys(eng.scan.mode_launches, 0)
     eng.scan.walk_launches = dict.fromkeys(eng.scan.walk_launches, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -2180,22 +2474,38 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: w.launches for k, w in _wrappers(eng).items()}
     fault_launches = eng.draws.fault_launches
+    bare_launches, lc_launches = eng.draws.bare_launches, eng.route.lc_launches
     mode_launches = dict(eng.scan.mode_launches)
     walk_launches = dict(eng.scan.walk_launches)
     need = ["edge_draws", "station_scan"] + (["lb_route"] if eng.timeline else [])
     kw_pool = bool(np.any(plan.server_db_pool > 1))
-    carries = mode_launches["kw"] + mode_launches["ram_core"]
+    # the carry modes and the socket scan take the warp walk, the controlled
+    # scan too past one core (no path's station is wider than it holds)
+    carries = mode_launches["kw"] + mode_launches["ram_core"] + mode_launches["socket"]
+    if _controlled_wide(plan):
+        carries += mode_launches["controlled"]
     if (min(launches[k] for k in need) < 1 or (kw_pool and mode_launches["kw"] < 1)
-            or walk_launches["warp"] != carries
+            or walk_launches["global"] != 0 or walk_launches["warp"] != carries
             or (eng.has_edge_faults and fault_launches < 1)
-            or (plan.retry_budget_tokens >= 0 and mode_launches["bucket"] < 1)):
+            or (plan.retry_budget_tokens >= 0 and mode_launches["bucket"] < 1)
+            or (name in CONTROL_MODES and mode_launches[CONTROL_MODES[name]] < 1)
+            or (eng.lc and min(lc_launches, bare_launches) < 1)):
         raise SmokeError(f"fast {name}: the sweep launched {launches} ({fault_launches} fault "
-                         f"hops), station_scan by mode {mode_launches} and by walk "
-                         f"{walk_launches}")
+                         f"hops, {bare_launches} hops without sums, {lc_launches} "
+                         f"least-connections walks), station_scan by mode {mode_launches} "
+                         f"and by walk {walk_launches}")
     summary = report.summary()
     res = report.results
+    rejected_fraction = summary["rejected_total"] / max(int(res.total_generated.sum()), 1)
     if name in RESILIENCE_PATHS:
         _check_resilience_sweep(name, summary, res)
+    elif name in CONTROL_PATHS:
+        in_flight = (res.total_generated - res.completed - res.total_dropped
+                     - res.overflow_dropped - res.total_rejected)
+        binds = name in CONTROL_MODES
+        if np.any(in_flight < 0) or (summary["rejected_total"] > 0) != binds:
+            raise SmokeError(f"fast {name}: in flight [{in_flight.min()}, {in_flight.max()}], "
+                             f"rejected {summary['rejected_total']}")
     else:
         in_flight = (res.total_generated - res.completed - res.total_dropped
                      - res.overflow_dropped - res.total_rejected)
@@ -2231,12 +2541,18 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
                    f"{des_summary['truncated_total']} and overflowed "
                    f"{des_summary['overflow_total']} scenarios")
             raise SmokeError(msg)
-        des = {"p95_s": des_summary["latency_p95_s"], "scen_per_s": sweep.scenarios_per_second}
+        des = {"p95_s": des_summary["latency_p95_s"], "scen_per_s": sweep.scenarios_per_second,
+               "rejected_fraction": des_summary["rejected_total"]
+               / max(int(sweep.results.total_generated.sum()), 1)}
     des_p95 = des["p95_s"]
     ref = REFERENCE_FAST[name]["p95_s"] if name in REFERENCE_FAST else None
     rel_ref = p95 / ref - 1.0 if ref is not None else 0.0
     rel_des = p95 / des_p95 - 1.0 if des_p95 is not None else 0.0
-    if abs(rel_ref) > P95_RTOL or abs(rel_des) > P95_RTOL:
+    # the overload and routing paths are held to the JAX fast path; their
+    # DES kernel numbers are printed beside (its arrivals are sampled
+    # otherwise, and its controls act on its own event order)
+    held_des = 0.0 if name in CONTROL_PATHS else rel_des
+    if abs(rel_ref) > P95_RTOL or abs(held_des) > P95_RTOL:
         msg = (f"fast {name}: pooled p95 {p95:.6f} s is {rel_ref:+.2%} from the JAX fast "
                f"path's {ref} and {rel_des:+.2%} from the DES kernel's {des_p95}")
         raise SmokeError(msg)
@@ -2256,7 +2572,8 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     del ov_full
     _set_wrappers(eng, wrappers)
     kinds = {kind for kind, _, _ in calls}
-    scan_kinds = {"ram_core" if "ram_core" in kinds else "waits", "waits_kw", "bucket"}
+    scan_kinds = {"ram_core" if "ram_core" in kinds else "waits", "waits_kw", "bucket",
+                  "controlled", "socket"}
     max_err = dict.fromkeys(FAST_KERNELS, 0.0)
     timed: dict = {k: {} for k in FAST_KERNELS}
     for kind, args, kw in calls:
@@ -2306,6 +2623,14 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     if sample_s is not None:
         print(f"  the campaign's fault tables of {MAIN_SCENARIOS} scenarios sampled on the "
               f"host in {sample_s:.3f} s", flush=True)
+    if name in CONTROL_PATHS:
+        ref_rej = REFERENCE_FAST[name]["rejected_fraction"]
+        print(f"  controls: rejected fraction {rejected_fraction:.6f} (JAX fast path "
+              f"{ref_rej:.6f}; DES kernel {des['rejected_fraction']:.6f}, "
+              f"{rejected_fraction - des['rejected_fraction']:+.6f}); p95 "
+              f"{p95 * 1e3:.4f} ms, DES kernel {des_p95 * 1e3:.4f} ms ({rel_des:+.3%}); "
+              f"{lc_launches} least-connections walks, {bare_launches} hops without sums",
+              flush=True)
     if name in RESILIENCE_PATHS:
         print("  resilience: " + ", ".join(
             f"{key} {summary.get(key)}" for key in (
@@ -2328,6 +2653,10 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     return {
         "launches": launches,
         "fault_launches": fault_launches,
+        "bare_launches": bare_launches,
+        "lc_launches": lc_launches,
+        "rejected_fraction": rejected_fraction,
+        "des_rejected_fraction": des.get("rejected_fraction"),
         "hazard_sample_s": sample_s,
         "summary": {k: summary.get(k) for k in (
             "completed_total", "dropped_total", "rejected_total", "dark_lost_total",
@@ -2350,8 +2679,8 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
 def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> list:
     """The kernels line's entries: the DES kernel at the headline's capped
     check (its launches over the six DES paths), each fast kernel at its
-    headline call (its launches over the nine fast paths), and the
-    resilience modes at their paths' calls."""
+    headline call (its launches over the thirteen fast paths), and the
+    resilience, overload and routing modes at their paths' calls."""
     from asyncflow_tpu_torch.engines.torchsim.des_kernel import DesKernel
     from asyncflow_tpu_torch.engines.torchsim.draws import EdgeDraws
     from asyncflow_tpu_torch.engines.torchsim.routing import LbRoute
@@ -2406,7 +2735,9 @@ def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> li
             "max_abs_err": max(fast_check[wrapper.name],
                                *(f["max_abs_err"][wrapper.name] for f in fast.values()),
                                *((fast_check["fault_hop"],) if wrapper is EdgeDraws else ()),
-                               *((fast_check["bucket"],) if wrapper is StationScan else ())),
+                               *((fast_check["bucket"], fast_check["controls"])
+                                 if wrapper is StationScan else ()),
+                               *((fast_check["lc"],) if wrapper is LbRoute else ())),
             "ms": sum(m["ms"] for m in parts),
             "plain_ms": sum(m["plain_ms"] for m in parts),
             "bound_ms": max(bound.values()),
@@ -2430,9 +2761,15 @@ def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> li
                 for name, f in fast.items()
             },
         })
-    # the resilience modes at their paths' calls: the LB hop under
-    # chaos_campaign's sampled fault tables, the retry budget's token bucket
-    # of outage_retry (its launches on every path)
+    # the resilience and overload modes at their paths' calls: the LB hop
+    # under chaos_campaign's sampled fault tables, the retry budget's token
+    # bucket of outage_retry (its launches on every path), the rate limit's
+    # bucket of rate_limited_lb, the controlled and socket scans of the
+    # overload paths, least connections' walk and its candidates' hops
+    # without sums on lc_mixed_fleet
+    def mode_total(mode: str) -> int:
+        return sum(f["mode_launches"][mode] for f in fast.values())
+
     for label, wrapper, path, kind, replaces, launches in (
         ("edge_draws (hop under fault tables)", EdgeDraws, "chaos_campaign", "hop_lb_fault",
          "asyncflow_tpu/engines/jaxsim/fastpath.py:799 (_edge_fault), :834-839 and "
@@ -2440,16 +2777,33 @@ def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> li
          sum(f["fault_launches"] for f in fast.values())),
         ("station_scan (token bucket)", StationScan, "outage_retry", "bucket",
          "asyncflow_tpu/engines/jaxsim/fastpath.py:302 (_token_bucket_scan)",
-         sum(f["mode_launches"]["bucket"] for f in fast.values())),
+         mode_total("bucket")),
+        ("station_scan (token bucket, rate limit)", StationScan, "rate_limited_lb", "bucket",
+         "asyncflow_tpu/engines/jaxsim/fastpath.py:302 (_token_bucket_scan), applied "
+         ":1427-1453", mode_total("bucket")),
+        ("station_scan (controlled)", StationScan, "overload_cap8", "controlled",
+         "asyncflow_tpu/engines/jaxsim/fastpath.py:331 (_controlled_station_scan)",
+         mode_total("controlled")),
+        ("station_scan (socket)", StationScan, "overload_sockets", "socket",
+         "asyncflow_tpu/engines/jaxsim/fastpath.py:374 (_socket_station_scan)",
+         mode_total("socket")),
+        ("lb_route (least connections)", LbRoute, "lc_mixed_fleet", "route_lc",
+         "asyncflow_tpu/engines/jaxsim/fastpath.py:1067 (_routed_slots_lc)",
+         sum(f["lc_launches"] for f in fast.values())),
+        ("edge_draws (hop without sums)", EdgeDraws, "lc_mixed_fleet", "hop_bare",
+         "asyncflow_tpu/engines/jaxsim/fastpath.py:1287-1293 (_edge_hop a slot, keyed "
+         "32 + slot)", sum(f["bare_launches"] for f in fast.values())),
     ):
         m = fast[path]["timed"][wrapper.name]["modes"][kind]
+        check_err = {"hop_lb_fault": "fault_hop", "bucket": "bucket", "controlled": "controls",
+                     "socket": "controls", "route_lc": "lc", "hop_bare": "edge_draws"}[kind]
         kernels.append({
             "name": label,
             "route": wrapper.route,
             "source": wrapper.source,
             "replaces": replaces,
             "launches": launches,
-            "max_abs_err": max(fast_check["fault_hop" if kind != "bucket" else "bucket"],
+            "max_abs_err": max(fast_check[check_err],
                                fast[path]["max_abs_err"][wrapper.name]),
             "ms": m["ms"],
             "plain_ms": m["plain_ms"],

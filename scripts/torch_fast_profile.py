@@ -30,8 +30,8 @@ ROOT = Path(__file__).resolve().parents[1]
 KINDS = (
     ("edge_draws", ("uniform_kernel", "gaps_kernel", "hop_kernel", "hop_reduce_kernel",
                     "edge_draws_kernel")),
-    ("station_scan", ("station_scan",)),
-    ("lb_route", ("route_count_kernel", "route_marks_kernel", "lanes_kernel")),
+    ("station_scan", ("station_scan", "control_thread_kernel")),
+    ("lb_route", ("route_count_kernel", "route_marks_kernel", "lanes_kernel", "lc_kernel")),
     ("float adds", ("CUDAFunctor_add", "AddFunctor")),
     ("clamps", ("clamp",)),
     ("selects (where)", ("where",)),

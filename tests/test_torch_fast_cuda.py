@@ -386,3 +386,127 @@ def test_bucket_matches_plain_on_cuda(cuda_device, rate: float, burst: float) ->
     got = kernel.bucket(t, v, rate, burst)
     assert torch.equal(got, station_scan.PlainStationScan().bucket(t, v, rate, burst))
     assert kernel.mode_launches["bucket"] == 1 and kernel.walk_launches["thread"] == 1
+
+
+def _control_rows(dev, seed: int, m: int, cores: int):
+    """(arrival, enqueue, service, post-IO, burst, valid) (ROWS, m) on the
+    card: arrivals at 1.3x the cores' service rate, a third invalid, a
+    tenth io-only, a 3 ms pre-IO a burst."""
+    a, d, v = _stream(dev, seed, m, rate=52.0 * cores / 0.67, svc=0.025)
+    g = np.random.default_rng(seed + 1)
+    b = v & torch.tensor(g.random(tuple(a.shape)) < 0.9, device=dev)
+    e = torch.where(v, a + np.float32(0.003), 1e30)
+    post = torch.tensor(g.exponential(0.05, tuple(a.shape)), dtype=torch.float32, device=dev)
+    return a, e, d, post, b, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cores", [1, 2, 4, station_scan.WARP_WIDTH_MAX + 1])
+@pytest.mark.parametrize("cap", [-1, 1, 8, 128])
+@pytest.mark.parametrize("timeout", [-1.0, 0.05])
+def test_controlled_matches_plain_on_cuda(cuda_device, cores: int, cap: int,
+                                          timeout: float) -> None:
+    """The controlled mode on rows of 2001 (most start unaligned): one core
+    on the thread walk, the warp walk, the global walk."""
+    _a, e, d, _post, b, _v = _control_rows(cuda_device, 11, 2001, min(cores, 40))
+    e = torch.where(b, e, 1e30)
+    kernel = station_scan.StationScan()
+    got = kernel.controlled(e, d, b, cores, cap, timeout)
+    want = station_scan.PlainStationScan().controlled(e, d, b, cores, cap, timeout)
+    assert all(torch.equal(x, y) for x, y in zip(got, want, strict=True))
+    assert kernel.mode_launches["controlled"] == 1
+    assert kernel.walk_launches[_walk(station_scan.MODE_CONTROLLED, cores, 0)] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("cores", "conn"), [(1, 1), (1, 6), (2, 5), (4, 33), (1, 128),
+                                             (33, 6), (station_scan.WARP_WIDTH_MAX + 1, 6)])
+@pytest.mark.parametrize(("cap", "timeout"), [(-1, -1.0), (1, 0.05), (8, -1.0), (128, 0.05)])
+def test_socket_matches_plain_on_cuda(cuda_device, cores: int, conn: int, cap: int,
+                                      timeout: float) -> None:
+    """The socket mode: the connections in their one spread form (1 to 128
+    of them), the cores whole on every lane or spread, and the global
+    walk."""
+    a, e, d, post, b, v = _control_rows(cuda_device, 12, 2001, min(cores, 40))
+    kernel = station_scan.StationScan()
+    got = kernel.socket(a, e, d, post, b, v, cores, conn, cap, timeout)
+    want = station_scan.PlainStationScan().socket(a, e, d, post, b, v, cores, conn, cap, timeout)
+    assert all(torch.equal(x, y) for x, y in zip(got, want, strict=True))
+    assert kernel.mode_launches["socket"] == 1
+    assert kernel.walk_launches[_walk(station_scan.MODE_SOCKET, cores, conn)] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("el", "ring", "marks"), [
+    (2, 23, []),
+    (3, 5, [(2.0, 1, 0), (4.0, 1, 1), (4.0, 1, 2), (6.0, 0, 1), (6.0, 0, 0), (9.0, 1, 1)]),
+    (routing.MAX_LC_SLOTS, routing.MAX_LC_RING, [(3.0, 1, 0)]),
+])
+def test_lc_matches_plain_on_cuda(cuda_device, el: int, ring: int, marks: list) -> None:
+    """Least connections on 45 rows of 3001 arrivals in time order (dead
+    lanes last), with and without a timeline (every slot down a while)."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    t = torch.sort(torch.rand(ROWS, 3001, generator=g, device=cuda_device) * 10, dim=1).values
+    ok = torch.rand(ROWS, 3001, generator=g, device=cuda_device) < 0.9
+    order = torch.sort((~ok).int(), dim=1, stable=True).indices
+    ok = ok.gather(1, order)
+    t = torch.where(ok, t.gather(1, order), 1e30)
+    deliv = t[..., None] + torch.rand(ROWS, 3001, el, generator=g, device=cuda_device) * (
+        0.005 * ring)
+    drop = torch.rand(ROWS, 3001, el, generator=g, device=cuda_device) < 0.1
+    tl = routing.Timeline([m[0] for m in marks], [m[1] for m in marks],
+                          [m[2] for m in marks], el, cuda_device)
+    kernel = routing.LbRoute()
+    got = kernel.lc(tl, t, ok, deliv, drop, ring)
+    assert torch.equal(got, routing.PlainLbRoute().lc(tl, t, ok, deliv, drop, ring))
+    assert kernel.lc_launches == kernel.launches == 1
+
+
+def _overload(overload: dict, cores: int = 1) -> dict:
+    """One server of ``cores`` at CPU 30 ms then IO 10 ms a request, ~1.1x
+    its cores' capacity, under ``overload``."""
+    data = _single_server()
+    data["rqs_input"]["avg_active_users"]["mean"] = 110 * cores
+    data["rqs_input"]["avg_request_per_minute_per_user"]["mean"] = 20
+    srv = data["topology_graph"]["nodes"]["servers"][0]
+    srv["server_resources"]["cpu_cores"] = cores
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.030}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.010}},
+    ]
+    srv["overload"] = overload
+    return data
+
+
+def _lc_two_streams_outage() -> dict:
+    data = _two_streams_outage()
+    data["topology_graph"]["nodes"]["load_balancer"]["algorithms"] = "least_connection"
+    return data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [
+    lambda: _overload({"rate_limit_rps": 3.0, "rate_limit_burst": 3}),
+    lambda: _overload({"max_ready_queue": 8}),
+    lambda: _overload({"queue_timeout_s": 0.1}, cores=2),
+    lambda: _overload({"max_connections": 6, "max_ready_queue": 4, "queue_timeout_s": 0.1}),
+    _lc_two_streams_outage,
+])
+def test_fast_engine_controls_match_plain_on_cuda(cuda_device, make) -> None:
+    """The overload controls and least connections through the whole engine
+    on the card, kernels against plain versions: every integer output (the
+    rejections included) and every clock identical."""
+    plan = compile_payload(SimulationPayload.from_dict(make()))
+    eng = FastEngine(plan, device=cuda_device, collect_clocks=True)
+    keys = scenario_keys(5, 16, device=cuda_device)
+    got = eng.run_tensors(keys)
+    assert eng.draws.launches > 0 and eng.scan.launches > 0
+    assert eng.route.lc_launches == (1 if plan.lb_algo == 1 else 0)
+    plain = copy.copy(eng)
+    plain.draws, plain.scan = draws.PlainEdgeDraws(), station_scan.PlainStationScan()
+    plain.route = routing.PlainLbRoute()
+    want = plain.run_tensors(keys)
+    for field in ("hist", "thr", "lat_count", "n_generated", "n_dropped", "n_overflow",
+                  "n_rejected", "clock", "lat_sum", "gauge_means"):
+        assert torch.equal(got[field], want[field]), field
+    assert plan.lb_algo == 1 or int(got["n_rejected"].sum()) > 0

@@ -74,6 +74,9 @@ inline void __syncwarp(unsigned = 0xffffffffu) {}
 template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
 template <class T> inline T __shfl_down_sync(unsigned, T v, unsigned) { return v; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
+inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
+inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 """
 #: a one-dimensional launch (station_scan.cu) and a launch on dim3 grids
 #: (edge_draws.cu, lb_route.cu), each made a loop that runs the threads one
@@ -101,10 +104,11 @@ HOST_LAUNCH_2D = (
 HOST_SMEM = {"edge_draws": "double edge_smem[1 << 13];\n",
              "lb_route": "uint32_t route_smem[1 << 14];\n"}
 #: the launch statements on dim3 grids each source has
-LAUNCHES_2D = {"edge_draws": 4, "lb_route": 3}
+LAUNCHES_2D = {"edge_draws": 4, "lb_route": 4}
 
 
-def _build(tmp: Path, name: str) -> ctypes.CDLL:
+def _start(tmp: Path, name: str) -> tuple[subprocess.Popen, Path]:
+    """g++ of ``name``'s host build, started; :func:`_finish` waits for it."""
     src = (CSRC / f"{name}.cu").read_text()
     assert "#include <cuda_runtime.h>" in src
     src = src.replace("#include <cuda_runtime.h>", '#include "shim.h"')
@@ -113,17 +117,28 @@ def _build(tmp: Path, name: str) -> ctypes.CDLL:
             "the launch statements changed: update LAUNCH_2D"
         src = LAUNCH_2D.sub(HOST_LAUNCH_2D, src) + HOST_SMEM[name]
     else:
-        assert len(LAUNCH.findall(src)) == 2, "the launch statements changed: update LAUNCH"
+        assert len(LAUNCH.findall(src)) == 3, "the launch statements changed: update LAUNCH"
         src = LAUNCH.sub(HOST_LAUNCH, src)
-    (tmp / "shim.h").write_text(SHIM)
+    if not (tmp / "shim.h").exists():  # builds running at once share it
+        (tmp / "shim.h").write_text(SHIM)
     (tmp / f"{name}.cpp").write_text(src)
     lib = tmp / f"lib{name}_host.so"
-    out = subprocess.run(  # noqa: S603 - fixed argv
+    proc = subprocess.Popen(  # noqa: S603 - fixed argv
         [shutil.which("g++"), "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
          "-Wno-unknown-pragmas", "-o", str(lib), str(tmp / f"{name}.cpp")],
-        capture_output=True, text=True, timeout=300,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
-    assert out.returncode == 0, out.stderr
+    return proc, lib
+
+
+def _finish(proc: subprocess.Popen, lib: Path) -> ctypes.CDLL:
+    try:
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err
     return ctypes.CDLL(str(lib))
 
 
@@ -132,7 +147,9 @@ def host_libs(tmp_path_factory) -> dict[str, ctypes.CDLL]:
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel sources for the host")
     tmp = tmp_path_factory.mktemp("fast_host")
-    libs = {name: _build(tmp, name) for name in ("edge_draws", "station_scan", "lb_route")}
+    # the three g++ builds at once
+    started = {name: _start(tmp, name) for name in ("station_scan", "edge_draws", "lb_route")}
+    libs = {name: _finish(*job) for name, job in started.items()}
     for name, lib in libs.items():
         getattr(lib, f"{name}_launch").argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         getattr(lib, f"{name}_launch").restype = ctypes.c_int
@@ -658,3 +675,142 @@ def test_bucket_matches_plain(host_libs, rate: float, burst: float) -> None:
     want = station_scan.token_bucket_plain(t, v, rate, burst)
     assert torch.equal(flag, want)
     assert bool(want.any()) and bool((v & ~want).any())  # the bucket accepts and refuses
+
+
+def _control_rows(seed: int, m: int, cores: int):
+    """(arrival, enqueue, service, post-IO, burst, valid) (SCAN_ROWS, m):
+    arrivals at 1.3x the cores' service rate, a third invalid, a tenth
+    io-only, each row's tail padded INF, a 3 ms pre-IO a burst."""
+    a, d, v = _stream(seed, m, rate=52.0 * cores / 0.67, svc=0.025)
+    g = np.random.default_rng(seed + 1)
+    b = v & torch.tensor(g.random(a.shape) < 0.9)
+    e = torch.where(v, a + np.float32(0.003), 1e30)
+    post = torch.tensor(g.exponential(0.05, a.shape).astype(np.float32))
+    return a, e, d, post, b, v
+
+
+#: (cores, cap, timeout) of the controlled mode: Lindley's thread walk with
+#: the ring in shared memory, the warp walk at the card's width classes, the
+#: global walk; the ring's edges (none, 1 entry, 128) and a deadline
+CONTROLLED_CASES = [(cores, cap, timeout)
+                    for cores in (1, 2, 5, 33, station_scan.WARP_WIDTH_MAX + 1)
+                    for cap, timeout in ((-1, 0.05), (1, -1.0), (8, 0.05), (128, -1.0))]
+
+
+@pytest.mark.parametrize(("cores", "cap", "timeout"), CONTROLLED_CASES)
+def test_controlled_matches_plain(host_libs, cores: int, cap: int, timeout: float) -> None:
+    _a, e, d, _post, b, _v = _control_rows(11, 1001, min(cores, 40))
+    e = torch.where(b, e, 1e30)
+    wait = torch.empty_like(e)
+    flags = torch.empty(e.shape, dtype=torch.uint8)
+    scratch = _scratch(station_scan.MODE_CONTROLLED, cores, 0)
+    args = station_scan._StationArgs(
+        a=e.data_ptr(), d=d.data_ptr(), v=b.data_ptr(), out0=wait.data_ptr(),
+        flag=flags.data_ptr(), scratch=0 if scratch is None else scratch.data_ptr(),
+        S=SCAN_ROWS, m=e.shape[1], mode=station_scan.MODE_CONTROLLED, cores=cores, cap=cap,
+        timeout=timeout,
+    )
+    _launch(host_libs["station_scan"], "station_scan_launch", args)
+    want = station_scan.controlled_plain(e, d, b, cores, cap, timeout)
+    assert torch.equal(wait, want[0]) and torch.equal(flags, want[1])
+    if cores <= 33 and cap >= 0 and cap < 128:
+        assert bool((want[1] & station_scan.FLAG_SHED).any())
+
+
+#: (cores, connections) of the socket mode: the warp walk with the cores
+#: whole on every lane or spread (the connections in their one form), and
+#: the global walk
+SOCKET_CASES = [(cores, conn) for cores in (1, 2, 33, station_scan.WARP_WIDTH_MAX + 1)
+                for conn in (1, 5, 33, station_scan.RING_MAX)]
+
+
+@pytest.mark.parametrize(("cap", "timeout"), [(-1, -1.0), (4, 0.05)])
+@pytest.mark.parametrize(("cores", "conn"), SOCKET_CASES)
+def test_socket_matches_plain(host_libs, cores: int, conn: int, cap: int,
+                              timeout: float) -> None:
+    a, e, d, post, b, v = _control_rows(12, 1001, min(cores, 40))
+    wait = torch.empty_like(a)
+    flags = torch.empty(a.shape, dtype=torch.uint8)
+    scratch = _scratch(station_scan.MODE_SOCKET, cores, conn)
+    args = station_scan._StationArgs(
+        a=a.data_ptr(), e=e.data_ptr(), d=d.data_ptr(), post=post.data_ptr(),
+        b=b.data_ptr(), v=v.data_ptr(), out0=wait.data_ptr(), flag=flags.data_ptr(),
+        scratch=0 if scratch is None else scratch.data_ptr(), S=SCAN_ROWS, m=a.shape[1],
+        mode=station_scan.MODE_SOCKET, cores=cores, cap=cap, conn=conn, timeout=timeout,
+    )
+    _launch(host_libs["station_scan"], "station_scan_launch", args)
+    want = station_scan.socket_plain(a, e, d, post, b, v, cores, conn, cap, timeout)
+    assert torch.equal(wait, want[0]) and torch.equal(flags, want[1])
+    if conn <= cores + 4:
+        assert bool((want[1] & station_scan.FLAG_REFUSED).any())
+
+
+#: (LB slots, ring, marks (time, down, slot)) of least connections: the
+#: mixed fleet's two slots and ring of 23, a timeline with marks at one time
+#: and every slot down a while, five slots, and the widest (32 slots, rings
+#: of 128)
+LC_CASES = {
+    "two_slots": (2, 23, []),
+    "timeline": (3, 5, [(2.0, 1, 0), (4.0, 1, 1), (4.0, 1, 2), (6.0, 0, 1), (6.0, 0, 0),
+                        (9.0, 1, 1)]),
+    "five_slots": (5, 40, [(1.0, 1, 3)]),
+    "widest": (routing.MAX_LC_SLOTS, routing.MAX_LC_RING, [(3.0, 1, 0)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LC_CASES))
+def test_lc_matches_plain(host_libs, name: str) -> None:
+    el, ring, marks = LC_CASES[name]
+    g = torch.Generator().manual_seed(1)
+    rows, n = 3, 1501
+    t = torch.sort(torch.rand(rows, n, generator=g) * 10, dim=1).values
+    ok = torch.rand(rows, n, generator=g) < 0.9
+    order = torch.sort((~ok).int(), dim=1, stable=True).indices  # dead lanes last
+    ok = ok.gather(1, order)
+    t = torch.where(ok, t.gather(1, order), 1e30)
+    deliv = t[..., None] + torch.rand(rows, n, el, generator=g) * 0.005 * ring
+    drop = torch.rand(rows, n, el, generator=g) < 0.1
+    tl = routing.Timeline([m[0] for m in marks], [m[1] for m in marks],
+                          [m[2] for m in marks], el, "cpu")
+    out = torch.empty((rows, n), dtype=torch.int32)
+    args = routing._LbRouteArgs(S=rows, n=n, NTL=tl.n_marks, EL=el, mode=routing.MODE_LC,
+                                R=ring)
+    tensors = {"t": t, "alive": ok, "deliv": deliv, "drop": drop, "slot": out,
+               "tl_time": tl.times, "tl_down": tl.down, "tl_slot": tl.slot}
+    for key, x in tensors.items():
+        if x.numel():
+            setattr(args, key, x.data_ptr())
+    _launch(host_libs["lb_route"], "lb_route_launch", args)
+    want = routing.PlainLbRoute().lc(tl, t, ok, deliv, drop, ring)
+    assert torch.equal(out, want)
+    # only the timeline with every slot down leaves an alive lane unrouted;
+    # every slot takes traffic
+    assert bool((want[ok] < 0).any()) == (name == "timeline")
+    assert set(range(el)) <= set(want[ok].tolist())
+
+
+def test_hop_without_sums_matches_plain(host_libs) -> None:
+    """The hop's instance with no epilogue: t_next and ok as the plain
+    version's, no span, partial or drop count written."""
+    mean, var, drop = _edge_params()
+    keys = scenario_keys(4, S)
+    g = np.random.default_rng(3)
+    t = torch.tensor(g.uniform(0.0, 2.2, (S, N)).astype(np.float32))
+    alive = torch.tensor(g.random((S, N)) < 0.9)
+    tables = draws.EdgeTables(dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0)
+    uk, zk = draws.hop_keys(keys, 32)
+    ukw, zkw, dist = draws.key_words(uk), draws.key_words(zk), torch.tensor(DIST)
+    for edge in range(4):
+        want = draws.hop_plain(tables, t, alive, uk, zk, edge=edge, sums=False)
+        out = torch.empty_like(t)
+        ok = torch.empty_like(alive)
+        args = draws._EdgeDrawArgs(
+            ukey=ukw.data_ptr(), zkey=zkw.data_ptr(),
+            t_send=t.data_ptr(), alive=alive.data_ptr(), mean=mean.data_ptr(),
+            var=var.data_ptr(), drop=drop.data_ptr(),
+            dist=dist.data_ptr(), out=out.data_ptr(), ok=ok.data_ptr(),
+            S=S, n=N, horizon=2.0, NE=4, K=1, edge=edge, mode=draws.MODE_HOP,
+        )
+        _launch(host_libs["edge_draws"], "edge_draws_launch", args)
+        assert torch.equal(ok, want.ok)
+        assert _ulps(out, want.t_next) <= 4

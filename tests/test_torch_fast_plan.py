@@ -15,7 +15,7 @@ from torch_fast_cases import EXAMPLES, MUTATIONS, example, mutated, port_example
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
-from asyncflow_tpu_torch.compiler import compile_payload
+from asyncflow_tpu_torch.compiler import compile_payload, plan_from_arrays
 from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine, fast_refusal
 from asyncflow_tpu_torch.errors import (
     FastPathIneligibleError,
@@ -117,19 +117,41 @@ def test_decisions_reach_both_sides() -> None:
 
 
 @pytest.mark.parametrize(
-    ("name", "feature"),
+    ("field", "value", "feature"),
     [
-        ("least_connections", "least-connections routing"),
-        ("queue_cap", "ready-queue cap"),
-        ("conn_cap", "connection cap"),
+        ("hedge_delay", 0.05, "hedge"),
+        ("health_alpha", 0.3, "health"),
+        ("server_brownout_q", np.array([4], dtype=np.int32), "brownout"),
     ],
 )
-def test_out_of_slice_features_are_refused_by_name(name: str, feature: str) -> None:
-    plan = compile_payload(SimulationPayload.from_dict(mutated(name)))
+def test_out_of_slice_features_are_refused_by_name(field: str, value, feature: str) -> None:
+    """A plan carrying a feature the port does not model (set here on a
+    plan's fields, as a reference plan carries it) is refused by its name."""
+    fields = dict(vars(compile_payload(SimulationPayload.from_dict(example("single_server")))))
+    fields[field] = value
+    plan = plan_from_arrays(fields)
     assert plan.fastpath_ok
-    assert fast_refusal(plan)[0] == feature
+    assert fast_refusal(plan) == (feature, "plan")
     with pytest.raises(UnsupportedFeatureError, match=feature):
         FastEngine(plan, device="cpu")
+
+
+@pytest.mark.parametrize(
+    ("name", "holds"),
+    [
+        ("least_connections", lambda plan: plan.lb_algo == 1),
+        ("queue_cap", lambda plan: plan.has_queue_cap),
+        ("conn_cap", lambda plan: plan.has_conn_cap),
+    ],
+)
+def test_overload_and_routing_controls_build_on_the_fast_path(name: str, holds) -> None:
+    """Least connections, the ready-queue cap and the connection cap, which
+    the fast engine once refused by name, build where the reference's
+    analysis accepts the plan."""
+    plan = compile_payload(SimulationPayload.from_dict(mutated(name)))
+    assert plan.fastpath_ok and holds(plan)
+    assert fast_refusal(plan) is None
+    assert FastEngine(plan, device="cpu").plan is plan
 
 
 def test_event_inj_lb_runs_on_the_fast_path() -> None:

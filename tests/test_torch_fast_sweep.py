@@ -1,8 +1,9 @@
 """The sweep plane over the fast path: ``engine="auto"`` takes the fast path
 where the reference's analysis and this slice's engine allow it and the
-DES kernel otherwise; ``engine="fast"`` refuses an out-of-slice plan by
-name; rate-raising overrides past the fast path's proofs are refused;
-chunked sweeps, by the default chunk or a given one, equal unchunked ones."""
+DES kernel otherwise; ``engine="fast"`` refuses a plan the reference's
+analysis declines, with its reason; rate-raising overrides past the fast
+path's proofs are refused; chunked sweeps, by the default chunk or a given
+one, equal unchunked ones."""
 
 from __future__ import annotations
 
@@ -14,7 +15,6 @@ from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
 from asyncflow_tpu_torch.errors import (
     FastPathIneligibleError,
     FastPathOverrideError,
-    UnsupportedFeatureError,
 )
 from asyncflow_tpu_torch.parallel import SweepRunner
 
@@ -39,29 +39,71 @@ def _rate_limited() -> dict:
         (lambda: example("event_inj_lb"), "fast"),
         (lambda: mutated("two_gen_lb", horizon=5), "fast"),
         (lambda: mutated("db_pool_k2", horizon=5), "fast"),
-        (lambda: mutated("queue_cap", horizon=5), "kernel"),
-        (lambda: mutated("least_connections", horizon=5), "kernel"),
+        (lambda: mutated("queue_cap", horizon=5), "fast"),
+        (lambda: mutated("least_connections", horizon=5), "fast"),
+        (lambda: mutated("conn_cap", horizon=5), "fast"),
         (lambda: mutated("heterogeneous_ram", horizon=5), "kernel"),
-        (_rate_limited, "kernel"),
+        (_rate_limited, "fast"),
     ],
 )
 def test_auto_picks_fast_where_it_may(make, kind: str) -> None:
     runner = SweepRunner(make(), device="cpu")
     assert runner.engine_kind == kind
     assert type(runner.engine).__name__ == ("FastEngine" if kind == "fast" else "KernelEngine")
+    if kind == "fast":
+        assert SweepRunner(make(), engine="fast", device="cpu").engine_kind == "fast"
 
 
-@pytest.mark.parametrize("name", port_examples())
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _resilience_deadline() -> dict:
+    """resilience_controls.py's "deadline" variant: srv-1's dequeue deadline
+    beside srv-2's token bucket (the reference declines it)."""
+    data = mutated("rate_limited_lb", horizon=120)
+    data["topology_graph"]["nodes"]["servers"][0]["overload"] = {"queue_timeout_s": 0.080}
+    return data
+
+
+#: the documented overload and routing sweeps' payloads: the resilience
+#: example's "none" (a rate limit) and "deadline" variants, the overload
+#: example's cap of 8 and its server under a deadline and under a
+#: connection cap, and the mixed fleet's least connections at 24 MB and at
+#: a binding 320 MB
+SWEEP_PAYLOADS = {
+    "resilience_controls_none": lambda: mutated("rate_limited_lb", horizon=120),
+    "resilience_controls_deadline": _resilience_deadline,
+    "overload_policy_cap8": lambda: mutated("overload_cap8", horizon=120),
+    "overload_policy_deadline": lambda: mutated("overload_deadline", horizon=120),
+    "overload_policy_sockets": lambda: mutated("overload_sockets", horizon=120),
+    "mixed_fleet_24mb": lambda: _smoke().mixed_fleet_payload(24.0, horizon=30),
+    "mixed_fleet_320mb": lambda: _smoke().mixed_fleet_payload(320.0, horizon=30),
+}
+
+
+@pytest.mark.parametrize("name", port_examples() + sorted(SWEEP_PAYLOADS))
 def test_auto_takes_the_reference_engine_on_every_example(name: str) -> None:
     """The reference's ``auto`` takes its fast path where its plan's
     ``fastpath_ok`` holds; the port's takes its own there, and the DES
-    kernel elsewhere."""
+    kernel elsewhere: on every example YAML and on the overload and routing
+    sweeps' payloads."""
     from asyncflow_tpu.compiler import compile_payload as jax_compile
     from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
 
-    data = example(name)
+    data = SWEEP_PAYLOADS[name]() if name in SWEEP_PAYLOADS else example(name)
     want = "fast" if jax_compile(JaxPayload.model_validate(data)).fastpath_ok else "kernel"
     assert SweepRunner(data, device="cpu").engine_kind == want
+    if name in SWEEP_PAYLOADS:
+        declined = ("resilience_controls_deadline", "mixed_fleet_320mb")
+        assert want == ("kernel" if name in declined else "fast")
 
 
 def test_per_stream_overrides_on_the_fast_path() -> None:
@@ -87,18 +129,17 @@ def test_per_stream_overrides_on_the_fast_path() -> None:
 
 
 @pytest.mark.parametrize(
-    ("make", "error", "match"),
+    ("make", "match"),
     [
-        (lambda: mutated("least_connections", horizon=5), UnsupportedFeatureError,
-         "least-connections"),
-        (lambda: mutated("conn_cap", horizon=5), UnsupportedFeatureError, "connection cap"),
-        (_rate_limited, UnsupportedFeatureError, "rate limit"),
-        (lambda: mutated("heterogeneous_ram", horizon=5), FastPathIneligibleError,
-         "heterogeneous RAM"),
+        (lambda: mutated("heterogeneous_ram", horizon=5), "heterogeneous RAM"),
+        (SWEEP_PAYLOADS["resilience_controls_deadline"],
+         "dequeue deadline with a RAM admission tier"),
+        (SWEEP_PAYLOADS["mixed_fleet_320mb"], "heterogeneous RAM needs can bind"),
     ],
 )
-def test_engine_fast_refuses_out_of_slice_plans(make, error, match: str) -> None:
-    with pytest.raises(error, match=match):
+def test_engine_fast_refuses_out_of_slice_plans(make, match: str) -> None:
+    """A plan the reference's analysis declines is refused with its reason."""
+    with pytest.raises(FastPathIneligibleError, match=match):
         SweepRunner(make(), engine="fast", device="cpu")
 
 

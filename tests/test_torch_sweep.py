@@ -283,10 +283,11 @@ def _reference_p95(name: str, seed: int, n: int) -> None:
 def _reference_fast_p95(name: str, seed: int, n: int) -> None:
     """Pooled p50 / p95 / p99 of the JAX scan fast path on a
     ``chip_smoke.FAST_PAYLOADS`` payload at its full horizon: a plain plan
-    through ``FastEngine``, a resilience plan through the reference's
+    through ``FastEngine``, a resilience or an overload and routing plan
+    (``chip_smoke.CONTROL_PATHS``) through the reference's
     ``SweepRunner(engine="fast")`` (which samples a chaos campaign's tables)
     with the path's ``chip_smoke.FAST_SWEEP_AXES``, in chunks of 256, and
-    its resilience totals."""
+    its resilience totals and rejected fraction."""
     import importlib.util
     import os
 
@@ -306,7 +307,7 @@ def _reference_fast_p95(name: str, seed: int, n: int) -> None:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     plan = compile_payload(SimulationPayload.model_validate(smoke.FAST_PAYLOADS[name]))
-    if name in smoke.RESILIENCE_PATHS:
+    if name in smoke.RESILIENCE_PATHS or name in smoke.CONTROL_PATHS:
         from asyncflow_tpu.parallel.sweep import SweepRunner as JaxSweepRunner
         from asyncflow_tpu.parallel.sweep import make_overrides
 
@@ -322,6 +323,9 @@ def _reference_fast_p95(name: str, seed: int, n: int) -> None:
                     "retries_total", "retry_budget_exhausted_total", "availability_fraction",
                     "unavailable_s_total", "hazard_truncated_total"):
             print(f"{key} {summary.get(key)!r}")
+        res = report.results
+        print(f"rejected_fraction "
+              f"{int(res.total_rejected.sum()) / max(int(res.total_generated.sum()), 1)!r}")
         return
     state = FastEngine(plan).run_batch(scenario_keys(seed, n))
     pooled = np.asarray(state.hist).sum(axis=0)

@@ -169,6 +169,27 @@ def least_connections(data: dict) -> None:
     data["topology_graph"]["nodes"]["load_balancer"]["algorithms"] = "least_connection"
 
 
+def lc_outage(data: dict) -> None:
+    """Least connections with srv-2 down from 10 s to 30 s (the reference's
+    ``test_fastpath_least_connections_outage``)."""
+    least_connections(data)
+    data["events"] = [{
+        "event_id": "o1", "target_id": "srv-2",
+        "start": {"kind": "server_down", "t_start": 10.0},
+        "end": {"kind": "server_up", "t_end": 30.0},
+    }]
+
+
+def lc_discriminates(data: dict) -> None:
+    """Least connections with a congested LB edge (25x its transit time) at
+    300 users (``test_fastpath_least_connections_discriminates``)."""
+    least_connections(data)
+    for edge in data["topology_graph"]["edges"]:
+        if edge["id"] == "lb-srv1":
+            edge["latency"]["mean"] = 0.05
+    data["rqs_input"]["avg_active_users"]["mean"] = 300
+
+
 def huge_inflight(data: dict) -> None:
     least_connections(data)
     for edge in data["topology_graph"]["edges"]:
@@ -328,6 +349,55 @@ def conn_cap(data: dict) -> None:
     data["rqs_input"]["avg_active_users"]["mean"] = 60
 
 
+def rate_limited_lb(data: dict) -> None:
+    """examples/sweeps/resilience_controls.py's ``build_payload("none")``:
+    srv-2 behind a 5 rps token bucket of 5, srv-1's CPU 18 ms, 150 users."""
+    data["rqs_input"]["avg_active_users"]["mean"] = 150.0
+    for srv in data["topology_graph"]["nodes"]["servers"]:
+        if srv["id"] == "srv-2":
+            srv["overload"] = {"rate_limit_rps": 5.0, "rate_limit_burst": 5}
+        else:
+            srv["endpoints"][0]["steps"][0]["step_operation"] = {"cpu_time": 0.018}
+
+
+def _overload_server(data: dict, users: float, overload: dict | None) -> None:
+    """examples/sweeps/overload_policy.py's server: CPU 30 ms then IO 10 ms
+    at ``users`` x 20 req/min, with ``overload`` controls."""
+    srv = _server(data)
+    srv["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.030}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.010}},
+    ]
+    if overload is not None:
+        srv["overload"] = overload
+    data["rqs_input"]["avg_active_users"]["mean"] = users
+
+
+def overload_cap8(data: dict) -> None:
+    """overload_policy.py's ``payload_with(8)`` at its top point, 110 users."""
+    _overload_server(data, 110, {"max_ready_queue": 8})
+
+
+def overload_deadline(data: dict) -> None:
+    """The same server with a dequeue deadline of 0.2 s, 100 users."""
+    _overload_server(data, 100, {"queue_timeout_s": 0.2})
+
+
+def overload_sockets(data: dict) -> None:
+    """The same server at 110 users under a connection cap of 6, a
+    ready-queue cap of 4 and a dequeue deadline of 0.1 s (the socket scan
+    with the cap and the deadline composed)."""
+    _overload_server(data, 110, {"max_connections": 6, "max_ready_queue": 4,
+                                 "queue_timeout_s": 0.1})
+
+
+def retry_queue_cap(data: dict) -> None:
+    """The guide's retry policy on overload_policy.py's server under a
+    ready-queue cap of 4 at 110 users: shed attempts retry."""
+    _overload_server(data, 110, {"max_ready_queue": 4})
+    data["retry_policy"] = dict(GUIDE_RETRY)
+
+
 #: (base, mutation) of every plan the plan test compares
 MUTATIONS = {
     "cpu_queueing": (BASE, cpu_queueing),
@@ -343,6 +413,8 @@ MUTATIONS = {
     "outside_envelope": (BASE, outside_envelope),
     "oversized_ram": (BASE, oversized_ram),
     "least_connections": (LB, least_connections),
+    "lc_outage": (LB, lc_outage),
+    "lc_discriminates": (LB, lc_discriminates),
     "huge_inflight": (LB, huge_inflight),
     "outage": (LB, outage),
     "normal_edges": (LB, normal_edges),
@@ -354,6 +426,11 @@ MUTATIONS = {
     "conn_cap": (BASE, conn_cap),
     "resilient_edges": (LB, resilient_edges),
     "outage_retry": (BASE, outage_retry),
+    "rate_limited_lb": (EXAMPLES / "two_servers_lb.yml", rate_limited_lb),
+    "overload_cap8": (EXAMPLES / "single_server.yml", overload_cap8),
+    "overload_deadline": (EXAMPLES / "single_server.yml", overload_deadline),
+    "overload_sockets": (EXAMPLES / "single_server.yml", overload_sockets),
+    "retry_queue_cap": (EXAMPLES / "single_server.yml", retry_queue_cap),
 }
 
 
