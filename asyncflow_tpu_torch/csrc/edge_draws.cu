@@ -36,7 +36,10 @@
 //      nothing), and the slot's target server (S, n); under edge fault
 //      windows the row of the fault table active at the send time
 //      (max(searchsorted(fault_t, t_send, right) - 1, 0), on the
-//      scenario's own row of (S, NF) or on the shared (NF,)) boosts the
+//      scenario's own row of (S, NF) or on the shared (NF,), the row's
+//      tables staged in the block's shared memory where they fit, found by
+//      a binary search of fixed steps, a thread's four lanes at a time)
+//      boosts the
 //      drop probability, p = clip(drop + boost, 0, 1), and multiplies the
 //      law's delay by its factor before the spike is added (two roundings,
 //      as XLA's _edge_hop); per scenario the drop
@@ -118,6 +121,9 @@ constexpr int kLanes = 16;  // lanes a thread: one block of XLA's cumsum
 constexpr int kLaneBlock = kThreads * kLanes;
 constexpr int kMaxRows = 65535;  // scenarios a launch (gridDim.y)
 constexpr int kMaxSlots = 32;    // LB slots (shared memory)
+// the hop's dynamic shared memory: its sums' accumulators, then its row's
+// fault tables where they fit (else its lanes read them in global memory)
+constexpr size_t kHopSmem = 48 * 1024;
 
 constexpr int kUniform = 0;
 constexpr int kExponential = 2;
@@ -352,6 +358,31 @@ __device__ __forceinline__ void store_mask16(uint8_t* p, int cnt, uint32_t bits)
   for (int i = 0; i < cnt; ++i) p[i] = (uint8_t)((bits >> i) & 1u);
 }
 
+// the fault search's first step: the largest power of two <= nf (its steps
+// top, top / 2, .., 1 reach 2 top - 1 >= nf breakpoints)
+__host__ __device__ __forceinline__ int fault_top(int nf) {
+  int top = 1;
+  while (2 * top <= nf) top *= 2;
+  return top;
+}
+
+// bytes of the hop's sums' accumulators (K doubles and an int a thread)
+__host__ __device__ __forceinline__ size_t hop_sums_bytes(bool sums, int K) {
+  return sums ? (size_t)K * kThreads * sizeof(double) + kThreads * sizeof(int) : 0;
+}
+
+// floats of a row's fault tables staged: the nf breakpoints padded to
+// 2 fault_top(nf), nf x ne factors and as many boosts
+__host__ __device__ __forceinline__ size_t fault_floats(int nf, int ne) {
+  return 2 * (size_t)fault_top(nf) + 2 * (size_t)nf * ne;
+}
+
+// whether the hop stages its row's fault tables in shared memory, beside
+// its sums' accumulators
+__host__ __device__ __forceinline__ bool fault_staged(bool sums, int K, int nf, int ne) {
+  return hop_sums_bytes(sums, K) + fault_floats(nf, ne) * sizeof(float) <= kHopSmem;
+}
+
 // the thread's row, its first lane and how many of its 16 lanes the row
 // holds; false past the row's end
 __device__ __forceinline__ bool thread_lanes(int64_t n, uint32_t& row, uint32_t& lane0,
@@ -418,8 +449,10 @@ __global__ void gaps_kernel(EdgeDrawArgs a) {
 
 // kFault: the hop reads fault tables (a separate instance, so that a hop
 // without them runs the code it ran before they existed); kSums: the hop
-// sums its spans and drops (the epilogue), else it writes t_next and ok only
-template <bool kFault, bool kSums>
+// sums its spans and drops (the epilogue), else it writes t_next and ok
+// only; kStaged: it reads the tables from its row's copy in shared memory
+// (fault_staged), else where they lie, in global memory
+template <bool kFault, bool kSums, bool kStaged>
 __global__ void hop_kernel(EdgeDrawArgs a) {
   const int K = a.K;
   const unsigned nt = blockDim.x, tid = threadIdx.x;
@@ -427,6 +460,42 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
   int* drops = reinterpret_cast<int*>(edge_smem + (size_t)K * nt);  // (threads,)
   if (kSums)
     for (int k = 0; k < K; ++k) acc[k * nt + tid] = 0.0;
+  // the block's row of the fault tables (or the shared tables); staged,
+  // copied to shared memory once: the breakpoints padded with NaN (which no
+  // time passes) to 2 top entries, then the factors, then the boosts
+  const int top = kFault ? fault_top(a.NF) : 0;
+  const size_t frow = kFault && a.fault_per_row ? (size_t)blockIdx.y : 0;
+  const size_t cells = (size_t)a.NF * a.NE;
+  const float* gt = kFault ? a.fault_t + frow * a.NF : nullptr;
+  const float* glat = kFault ? a.fault_lat + frow * cells : nullptr;
+  const float* gdrop = kFault ? a.fault_drop + frow * cells : nullptr;
+  float* st = !kStaged ? nullptr
+              : kSums  ? reinterpret_cast<float*>(drops + nt)
+                       : reinterpret_cast<float*>(edge_smem);
+  const float* ft = kStaged ? st : gt;
+  const float* flat = kStaged ? st + 2 * top : glat;
+  const float* fdrop = kStaged ? st + 2 * top + cells : gdrop;
+  if constexpr (kStaged) {
+    const float nan = __uint_as_float(0x7FC00000u);
+#ifdef __CUDACC__
+    const size_t first = tid, step = nt;
+#else
+    // the host build runs the threads one after another: the first stages
+    const size_t first = 0, step = 1;
+    if (tid == 0)
+#endif
+    {
+      for (size_t j = first; j < (size_t)(2 * top); j += step)
+        st[j] = j < (size_t)a.NF ? gt[j] : nan;
+      for (size_t j = first; j < cells; j += step) {
+        st[2 * top + j] = glat[j];
+        st[2 * top + cells + j] = gdrop[j];
+      }
+    }
+#ifdef __CUDACC__
+    __syncthreads();
+#endif
+  }
   int my_drops = 0;
   uint32_t row, lane0;
   int cnt;
@@ -439,11 +508,6 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
     const float* mean = a.mean + (size_t)row * a.NE;
     const float* var = a.var + (size_t)row * a.NE;
     const float* drop = a.drop + (size_t)row * a.NE;
-    // the scenario's fault tables (or the shared ones)
-    const size_t frow = a.fault_per_row ? (size_t)row : 0;
-    const float* ft = kFault ? a.fault_t + frow * a.NF : nullptr;
-    const float* flat = kFault ? a.fault_lat + frow * a.NF * a.NE : nullptr;
-    const float* fdrop = kFault ? a.fault_drop + frow * a.NF * a.NE : nullptr;
     const uint32_t alive = load_mask16(a.alive + base, cnt);
     const bool lb = a.rank != nullptr || a.slot != nullptr;
     uint32_t okbits = 0;
@@ -456,6 +520,26 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
       load4(a.t_send + base + c, cnt - c, t);
       if (a.rank != nullptr) load4_rank(a.rank + base + c, cnt - c, rk);
       if (a.slot != nullptr) load4i(a.slot + base + c, cnt - c, sl);
+      // the four lanes' fault rows at their send times: the last breakpoint
+      // <= ts, -1 as 0, from fi, the count of breakpoints <= ts
+      // (searchsorted right), by a binary search of fixed steps top, top /
+      // 2, .., 1 (floor(log2(NF)) + 1 compares and adds; on the padded row
+      // where staged, else bounded by NF), the four searches interleaved
+      int fi[4] = {0, 0, 0, 0};
+      if (kFault) {
+        for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j = fi[i] + step - 1;
+            if constexpr (kStaged)
+              fi[i] += ft[j] <= t[i] ? step : 0;
+            else
+              fi[i] += j < a.NF && ft[j] <= t[i] ? step : 0;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) fi[i] = fi[i] > 0 ? fi[i] - 1 : 0;
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int lane = c + i;
@@ -478,12 +562,8 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
         float p = drop[e];
         float factor = 1.0f;
         if (kFault) {
-          // the fault row at the send time: the last breakpoint <= ts, -1 as 0
-          int fi = -1;
-          for (int j = 0; j < a.NF; ++j) fi += ft[j] <= ts ? 1 : 0;
-          if (fi < 0) fi = 0;
-          factor = flat[(size_t)fi * a.NE + e];
-          p = fminf(fmaxf(p + fdrop[(size_t)fi * a.NE + e], 0.0f), 1.0f);
+          factor = flat[fi[i] * a.NE + e];
+          p = fminf(fmaxf(p + fdrop[fi[i] * a.NE + e], 0.0f), 1.0f);
         }
         const float m = mean[e];
         const int law = a.dist[e];
@@ -600,7 +680,9 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
     if (a.spike_t != nullptr && (a.spike_v == nullptr || a.NB < 1)) return -1;
     if (a.fault_t != nullptr && (a.fault_lat == nullptr || a.fault_drop == nullptr || a.NF < 1))
       return -1;
-    if (a.span != nullptr) smem = (size_t)a.K * kThreads * sizeof(double) + kThreads * sizeof(int);
+    smem = hop_sums_bytes(a.span != nullptr, a.K);
+    if (a.fault_t != nullptr && fault_staged(a.span != nullptr, a.K, a.NF, a.NE))
+      smem += fault_floats(a.NF, a.NE) * sizeof(float);  // the staged tables
   } else if (a.mode == kGapsMode) {
     if (a.out == nullptr || a.tot == nullptr || (a.x_in == nullptr && a.ukey == nullptr))
       return -1;
@@ -656,9 +738,12 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
       gaps_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
     } else {
       const bool sums = a.span != nullptr;
-      const auto hop = a.fault_t != nullptr
-                           ? (sums ? hop_kernel<true, true> : hop_kernel<true, false>)
-                           : (sums ? hop_kernel<false, true> : hop_kernel<false, false>);
+      const bool staged = a.fault_t != nullptr && fault_staged(sums, a.K, a.NF, a.NE);
+      const auto hop =
+          a.fault_t == nullptr
+              ? (sums ? hop_kernel<false, true, false> : hop_kernel<false, false, false>)
+          : staged ? (sums ? hop_kernel<true, true, true> : hop_kernel<true, false, true>)
+                   : (sums ? hop_kernel<true, true, false> : hop_kernel<true, false, false>);
       hop<<<grid, block, smem, (cudaStream_t)stream>>>(a);
       if (sums) {
         const dim3 rgrid((unsigned)((rows + kThreads - 1) / kThreads));

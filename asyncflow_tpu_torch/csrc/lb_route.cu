@@ -49,16 +49,25 @@
 // and unless its candidate send on that slot drops, its candidate delivery
 // time replaces the smallest entry of that slot's ring.  A pick depends on
 // every earlier delivery, so the scan is walked as it is: one warp a row
-// (lc: a block of one warp a scenario).  The EL x R ring entries lie in the
-// block's shared memory, slot k's entry j on lane j % 32: an arrival costs
-// one compare an entry and a warp sum a slot; lane 0 applies the marks to
-// the rotation (in shared memory) and makes the pick, which a shuffle
-// broadcasts; the replaced entry is found by a warp minimum of the slot's
-// entries (each lane's smallest, as an ordered integer) and written by the
-// first lane holding it.  A group of 32 arrivals' times, flags, candidate
-// deliveries and drops is staged coalesced first (their loads leave the
-// carry's chain).  Bound: bytes (t, ok and EL candidates of 5 B an arrival
-// read once, the pick written once) or the EL x R compares an arrival.
+// (lc: a block of one warp a scenario), and only the chain carried from
+// one arrival to the next is made short.  Every lane keeps the rotation
+// (each slot's position in it) and makes the same pick, with no shuffle;
+// slot k's ring entry j lies on lane j % 32, in a register for the
+// payloads' shape (2 slots, rings of at most 32) or, for any other, in the
+// lane's own column of shared memory; a slot's count is a ballot's
+// popcount.  Arrivals come in time
+// order, so a ring entry at or before an arrival never counts again: while
+// the picked slot holds one, the smallest entry is such a dead one, and
+// the delivery may replace any dead entry (only counts are read), found in
+// the count's own ballot; only a ring of live entries takes the warp
+// minimum of its entries (each lane's smallest, as an ordered integer).
+// An arrival's chain is thus a ballot, a popcount, a few integer steps and
+// a select, with no shared-memory round trip.  A group of 32 arrivals'
+// times and flags is read into registers and its candidate deliveries and
+// drops into shared memory, coalesced, one group ahead in the registers
+// form (their loads leave the carry's chain).  Bound: bytes (t, ok and EL
+// candidates of 5 B an arrival read once, the pick written once) or the EL
+// x R compares an arrival.
 //
 // Bound: bytes.  The table pass reads t and alive (5 B a lane), the lanes
 // pass the rank and alive and writes the slot (13 B a lane); the marks'
@@ -102,6 +111,8 @@ constexpr int kLanesMode = 1;
 constexpr int kLcMode = 2;
 constexpr int kLcSlots = 32;      // LB slots least connections takes
 constexpr int kLcRing = 128;      // ring entries a slot it takes
+constexpr int kLcRegSlots = 2;    // LB slots of least connections' registers form
+constexpr int kAbsent = 1 << 30;  // least connections' key of a slot outside the rotation
 constexpr int kThreads = 256;
 constexpr int kMarksAPass = 16;   // marks counted in registers a pass
 constexpr int kUnroll = 4;        // four-lane units a thread loads at once
@@ -118,6 +129,7 @@ constexpr int kLanes = 32;
 #else
 constexpr int kLanes = 1;
 #endif
+constexpr unsigned kLaneMask = kLanes == 32 ? 0xFFFFFFFFu : (1u << kLanes) - 1u;
 
 // a row's four-lane units from its first 16-byte boundary of t (head
 // lanes before it; the tail after the last unit); alive is 4-byte aligned
@@ -313,19 +325,75 @@ __device__ __forceinline__ unsigned ordered(float x) {
   return (u & 0x80000000u) != 0u ? ~u : (u | 0x80000000u);
 }
 
-// Least connections: a block of one warp a scenario.  Shared memory: the
-// rotation and the slots' counts (EL ints each), the rings (EL x rp
-// floats, rp = R rounded up to the lanes), and the group's candidates (kLanes
-// x EL floats and bytes).
-__global__ void __launch_bounds__(kLanes) lc_kernel(LbRouteArgs a) {
-  const int el = a.EL, r = a.R;
-  const int rp = (r + kLanes - 1) / kLanes * kLanes;
-  int32_t* rot = reinterpret_cast<int32_t*>(route_smem);
-  int32_t* conn = rot + el;
-  float* ring = reinterpret_cast<float*>(conn + el);
-  float* cand = ring + el * rp;
-  uint8_t* cdrop = reinterpret_cast<uint8_t*>(cand + kLanes * el);
+// The lanes whose ring entry q lies within the ring of r entries (entry
+// q kLanes + lane), as a ballot's mask.
+__device__ __forceinline__ unsigned lc_valid(int r, int q) {
+  const int n = r - q * kLanes;
+  return n >= kLanes ? kLaneMask : n <= 0 ? 0u : (1u << n) - 1u;
+}
+
+// The next group's arrivals, loaded while the current group walks: a
+// lane's arrival time, flag and drops (bit k: the send on slot k drops),
+// and kA of the group's candidate deliveries (entry lane + q kLanes of the
+// group's kLanes x EL block).
+template <int kA>
+struct LcGroup {
+  float t;
+  bool ok;
+  unsigned drops;
+  float c[kA];
+};
+
+template <int kA>
+__device__ __forceinline__ void lc_fetch(LcGroup<kA>& g, const float* t, const uint8_t* ok,
+                                         const float* deliv, const uint8_t* drop, int64_t n,
+                                         int el, int64_t k0, int lane) {
+  const int cnt = n - k0 < kLanes ? (int)(n - k0) : kLanes;
+  g.t = lane < cnt ? t[k0 + lane] : kInf;
+  g.ok = lane < cnt && ok[k0 + lane] != 0;
+  g.drops = 0u;
+  if (lane < cnt)
+    for (int k = 0; k < el; ++k) g.drops |= drop[(k0 + lane) * el + k] != 0 ? 1u << k : 0u;
+#pragma unroll
+  for (int q = 0; q < kA; ++q) {
+    const int i = lane + q * kLanes;
+    if (q < el && i < cnt * el) g.c[q] = deliv[k0 * el + i];
+  }
+}
+
+// Least connections: a block of one warp a scenario.  Every lane holds the
+// whole carried state but the rings: each slot's key base (its position in
+// the rotation times 32 plus the slot, or kAbsent) and the rotation's
+// length, updated alike on every lane, so every lane makes the same pick,
+// the least of count * EL * 32 + base (the first minimum of count * EL +
+// pos, the slot in its low 5 bits), with no shuffle.  Slot k's ring entry j
+// lies on lane j % kLanes, at q = j / kLanes.  Two forms:
+//   kRegs: exactly kSlots slots and rings of at most kLanes entries, the
+//      ring a register a slot (ring[k]); a slot's count is the popcount of
+//      one ballot; a group is loaded one group ahead, and an arrival's
+//      candidates of every slot are read before its pick;
+//   else: at most kSlots slots and any ring, in the lane's own column of
+//      shared memory (col[(k per + q) kLanes]), which no other lane reads;
+//      a count is one ballot a q.
+// The delivery replaces the slot's smallest entry: while the slot holds a
+// dead entry (at or before the arrival), the smallest is dead, and every
+// dead entry stays dead for every later arrival (arrivals come in time
+// order), so any one may take it, as only the counts are read: the first
+// lane's at the first q holding one, from the count's own ballots.  A slot
+// of live entries only takes the least (ordered(entry), lane) by one warp
+// minimum and a ballot.  A group of kLanes arrivals is read coalesced:
+// times and flags into registers (an arrival's by shuffle), the candidates
+// into shared memory (kLanes x EL floats) and each arrival's drops as a
+// word of bits.
+template <int kSlots, bool kRegs>
+__global__ void __launch_bounds__(kLanes, 1) lc_kernel(LbRouteArgs a) {
+  constexpr int kA = kRegs ? kSlots : 1;
+  const int el = kRegs ? kSlots : a.EL;
+  const int r = a.R, ntl = a.NTL;
+  const int per = (r + kLanes - 1) / kLanes;
   const int lane = (int)threadIdx.x;
+  const unsigned lane_bit = 1u << lane;
+  const int el32 = el * 32;
   const int64_t row = blockIdx.x;
   const int64_t n = a.n;
   const float* t = a.t + row * n;
@@ -333,89 +401,204 @@ __global__ void __launch_bounds__(kLanes) lc_kernel(LbRouteArgs a) {
   const float* deliv = a.deliv + row * n * el;
   const uint8_t* drop = a.drop + row * n * el;
   int32_t* out = a.slot + row * n;
-  for (int q = lane; q < el * rp; q += kLanes) ring[q] = -kInf;
-  if (lane == 0)
-    for (int k = 0; k < el; ++k) rot[k] = k;
-  int len = el;  // lane 0's
-  int ptr = 0;   // lane 0's: the next mark
-  __syncwarp();
+  float* cand = reinterpret_cast<float*>(route_smem);
+  unsigned* cdrop = reinterpret_cast<unsigned*>(cand + kLanes * el);
+  float* col = reinterpret_cast<float*>(cdrop + kLanes) + lane;
+  float ring[kRegs ? kSlots : 1];
+  const unsigned valid = lc_valid(r, 0);  // the lanes whose entry lies in the ring
+  int base[kSlots];  // position in the rotation * 32 + slot, or kAbsent
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    base[k] = k < el ? k * 32 + k : kAbsent;
+    if constexpr (kRegs) {
+      ring[k] = -kInf;
+    } else if (k < el) {
+      for (int q = 0; q < per; ++q) col[(k * per + q) * kLanes] = -kInf;
+    }
+  }
+  int len = el;
+  int ptr = 0;  // the next mark
+  float next_t = ntl > 0 ? a.tl_time[0] : 0.0f;
+  LcGroup<kA> g;
+  if constexpr (kRegs) lc_fetch(g, t, ok, deliv, drop, n, el, 0, lane);
   for (int64_t k0 = 0; k0 < n; k0 += kLanes) {
     const int cnt = n - k0 < kLanes ? (int)(n - k0) : kLanes;
-    // the group: a lane an arrival's time and flag, its candidates
-    // coalesced into shared memory
-    const float my_t = lane < cnt ? t[k0 + lane] : kInf;
-    const bool my_ok = lane < cnt && ok[k0 + lane] != 0;
-    for (int q = lane; q < cnt * el; q += kLanes) {
-      cand[q] = deliv[k0 * el + q];
-      cdrop[q] = drop[k0 * el + q];
+    __syncwarp();  // every lane is done with the last group's candidates
+    float my_t;
+    bool my_ok;
+    if constexpr (kRegs) {
+      my_t = g.t;
+      my_ok = g.ok;
+      cdrop[lane] = g.drops;
+#pragma unroll
+      for (int q = 0; q < kA; ++q) {
+        const int i = lane + q * kLanes;
+        if (i < cnt * el) cand[i] = g.c[q];
+      }
+      if (k0 + kLanes < n) lc_fetch(g, t, ok, deliv, drop, n, el, k0 + kLanes, lane);
+    } else {
+      my_t = lane < cnt ? t[k0 + lane] : kInf;
+      my_ok = lane < cnt && ok[k0 + lane] != 0;
+      unsigned bits = 0u;
+      if (lane < cnt)
+        for (int k = 0; k < el; ++k) bits |= drop[(k0 + lane) * el + k] != 0 ? 1u << k : 0u;
+      cdrop[lane] = bits;
+      for (int i = lane; i < cnt * el; i += kLanes) cand[i] = deliv[k0 * el + i];
     }
     __syncwarp();
-    for (int p = 0; p < cnt; ++p) {
-      const float ta = __shfl_sync(kAll, my_t, p);
-      const bool oka = __shfl_sync(kAll, my_ok ? 1 : 0, p) != 0;
-      if (lane == 0) {
-        // the marks whose time has come, in table order
-        while (ptr < a.NTL && a.tl_time[ptr] <= ta) {
-          const int s = a.tl_slot[ptr];
-          if (s >= 0) {
-            int at = -1;
-            for (int i = 0; i < len && at < 0; ++i)
-              if (rot[i] == s) at = i;
-            if (a.tl_down[ptr] == 1) {
-              if (at >= 0) {
-                for (int i = at; i + 1 < el; ++i) rot[i] = rot[i + 1];
-                --len;
-              }
-            } else if (at < 0) {
-              rot[len < el - 1 ? len : el - 1] = s;
-              len = len + 1 < el ? len + 1 : el;
+    const unsigned okbits = __ballot_sync(kAll, my_ok);
+    int my_pick = -1;  // the pick of arrival k0 + lane
+    // every group walks kLanes arrivals: past the row's end a lane's
+    // arrival is dead at kInf, which picks nothing and leaves the rings
+    // as they are (the marks it applies come after the row's last arrival)
+    float ta = __shfl_sync(kAll, my_t, 0);
+#pragma unroll 8
+    for (int p = 0; p < kLanes; ++p) {
+      // the next arrival's time, fetched a step ahead (off the chain)
+      const float ta_next = __shfl_sync(kAll, my_t, (p + 1) & (kLanes - 1));
+      // the marks whose time has come, in table order
+      while (ptr < ntl && next_t <= ta) {
+        const int s = a.tl_slot[ptr];
+        if (s >= 0 && s < el) {
+          int at = kAbsent;  // the slot's base
+#pragma unroll
+          for (int k = 0; k < kSlots; ++k)
+            if (k == s) at = base[k];
+          if (a.tl_down[ptr] == 1) {
+            if (at < kAbsent) {
+              // the slots after it move up one place
+#pragma unroll
+              for (int k = 0; k < kSlots; ++k)
+                base[k] = k == s ? kAbsent : base[k] < kAbsent && base[k] > at ? base[k] - 32
+                                                                                : base[k];
+              --len;
             }
+          } else if (at == kAbsent) {
+#pragma unroll
+            for (int k = 0; k < kSlots; ++k)
+              if (k == s) base[k] = len * 32 + k;
+            ++len;
           }
-          ++ptr;
+        }
+        ++ptr;
+        next_t = ptr < ntl ? a.tl_time[ptr] : 0.0f;
+      }
+      // the candidates of every slot, read before the pick in the
+      // registers form (off the chain)
+      const unsigned drops = cdrop[p];
+      float dk[kRegs ? kSlots : 1];
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) dk[k] = cand[p * el + k];
+      }
+      // each slot's count, a ballot of its live entries (after ta) a q,
+      // and the least key
+      unsigned live[kRegs ? kSlots : 1];
+      int best = kAbsent;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (k < el) {
+          int c = 0;
+          if constexpr (kRegs) {
+            live[k] = __ballot_sync(kAll, ring[k] > ta);
+            c = __popc(live[k]);
+          } else {
+            for (int q = 0; q < per; ++q)
+              c += __popc(__ballot_sync(kAll, col[(k * per + q) * kLanes] > ta));
+          }
+          const int key = c * el32 + base[k];
+          best = key < best ? key : best;
         }
       }
-      int picked = -1;
-      if (oka) {
-        // each slot's entries after the arrival
-        for (int k = 0; k < el; ++k) {
-          unsigned c = 0u;
-          for (int j = lane; j < r; j += kLanes) c += ring[k * rp + j] > ta ? 1u : 0u;
-          c = __reduce_add_sync(kAll, c);
-          if (lane == 0) conn[k] = (int32_t)c;
+      // a dead arrival, or an empty rotation, picks -1; the rest runs
+      // without a branch (slot is a slot of the rotation where it picks)
+      const bool take = ((okbits >> p) & 1u) != 0u && best < kAbsent;
+      const int slot = best & 31;
+      const int picked = take ? slot : -1;
+      {
+        float d;
+        if constexpr (kRegs) {
+          d = dk[0];
+#pragma unroll
+          for (int k = 1; k < kSlots; ++k) d = k == slot ? dk[k] : d;
+        } else {
+          d = cand[p * el + (take ? slot : 0)];
         }
-        if (lane == 0 && len > 0) {
-          int best = conn[rot[0]] * el;
-          picked = rot[0];
-          for (int pos = 1; pos < len; ++pos) {
-            const int key = conn[rot[pos]] * el + pos;
-            if (key < best) {
-              best = key;
-              picked = rot[pos];
-            }
+        // the lanes holding a dead entry at the first q holding one
+        int at = -1;
+        unsigned holders = 0u;
+        if constexpr (kRegs) {
+          unsigned lv = live[0];
+#pragma unroll
+          for (int k = 1; k < kSlots; ++k) lv = k == slot ? live[k] : lv;
+          holders = ~lv & valid;
+          at = holders != 0u ? 0 : -1;
+        } else if (take) {
+          for (int q = 0; q < per && at < 0; ++q) {
+            holders = ~__ballot_sync(kAll, col[(slot * per + q) * kLanes] > ta) &
+                      lc_valid(r, q);
+            at = holders != 0u ? q : at;
           }
         }
-        picked = __shfl_sync(kAll, picked, 0);
-        if (picked >= 0 && cdrop[p * el + picked] == 0) {
-          // the slot's smallest entry becomes the delivery
-          float* slot_ring = ring + picked * rp;
+        if (take && at < 0) {
+          // every entry is live: this lane's smallest, then the warp's
           unsigned mine = 0xFFFFFFFFu;
-          int at = -1;
-          for (int j = lane; j < r; j += kLanes) {
-            const unsigned u = ordered(slot_ring[j]);
-            if (u < mine) {
-              mine = u;
-              at = j;
+#pragma unroll
+          for (int k = 0; k < kSlots; ++k) {
+            if (k == slot) {
+              if constexpr (kRegs) {
+                const unsigned u = ordered(ring[k]);
+                if (lane < r && u < mine) {
+                  mine = u;
+                  at = 0;
+                }
+              } else {
+                for (int q = 0; q < per; ++q) {
+                  const unsigned u = ordered(col[(k * per + q) * kLanes]);
+                  if (q * kLanes + lane < r && u < mine) {
+                    mine = u;
+                    at = q;
+                  }
+                }
+              }
             }
           }
           const unsigned least = __reduce_min_sync(kAll, mine);
-          const unsigned holders = __ballot_sync(kAll, at >= 0 && mine == least);
-          if (lane == __ffs(holders) - 1) slot_ring[at] = cand[p * el + picked];
+          holders = __ballot_sync(kAll, at >= 0 && mine == least);
+        }
+        // the first holder lane writes the delivery, unless it dropped
+        const bool put = take && ((drops >> slot) & 1u) == 0u &&
+                         (holders & (0u - holders)) == lane_bit;
+        if constexpr (kRegs) {
+#pragma unroll
+          for (int k = 0; k < kSlots; ++k) ring[k] = put && k == slot ? d : ring[k];
+        } else if (put) {
+          col[(slot * per + at) * kLanes] = d;
         }
       }
-      if (lane == 0) out[k0 + p] = picked;
-      __syncwarp();
+      my_pick = lane == p ? picked : my_pick;
+      ta = ta_next;
     }
+    if (lane < cnt) out[k0 + lane] = my_pick;
   }
+}
+
+using LcKernel = void (*)(LbRouteArgs);
+
+// Whether least connections over EL slots with rings of R entries takes
+// the registers form: the payloads' shape, kLcRegSlots slots and a ring a
+// lane at most; every other shape takes the shared-memory form of
+// kLcSlots.
+__host__ __device__ __forceinline__ bool lc_in_registers(int el, int r) {
+  return el == kLcRegSlots && r <= kLanes;
+}
+
+// shared memory of the instance: the group's candidates and drops, and the
+// rings where they are not in registers
+size_t lc_smem(int el, int r) {
+  const int per = (r + kLanes - 1) / kLanes;
+  const size_t group = (size_t)kLanes * el * sizeof(float) + (size_t)kLanes * sizeof(unsigned);
+  return group + (lc_in_registers(el, r) ? 0 : (size_t)el * per * kLanes * sizeof(float));
 }
 
 // the count kernel's instance for kM marks a pass
@@ -481,12 +664,12 @@ int lb_route_launch(const LbRouteArgs* args, void* stream) {
         a.slot == nullptr || a.EL > kLcSlots || a.R < 1 || a.R > kLcRing ||
         (a.NTL > 0 && (a.tl_time == nullptr || a.tl_down == nullptr || a.tl_slot == nullptr)))
       return -1;
-    const int rp = (a.R + kLanes - 1) / kLanes * kLanes;
-    const size_t smem = (size_t)2 * a.EL * sizeof(int32_t) + (size_t)a.EL * rp * sizeof(float) +
-                        (size_t)kLanes * a.EL * (sizeof(float) + 1);
+    const LcKernel lc = lc_in_registers(a.EL, a.R) ? lc_kernel<kLcRegSlots, true>
+                                                   : lc_kernel<kLcSlots, false>;
+    const size_t smem = lc_smem(a.EL, a.R);
     const dim3 grid((unsigned)a.S);
     const dim3 block(kLanes);
-    lc_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(a);
+    lc<<<grid, block, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   }
   if (a.mode != kLanesMode || a.rank == nullptr || a.alive == nullptr || a.slot == nullptr)

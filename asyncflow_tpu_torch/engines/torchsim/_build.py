@@ -5,7 +5,9 @@ defines into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds), named by a digest of its source and
 flags so that a stale build is never reused.  The build directory is
 ``build/torch_kernels/`` at the root of the checkout.  :func:`build` starts
-one nvcc per library, all at once.
+one nvcc per library, all at once, and keeps each library's ``ptxas -v``
+log beside it (``.ptxas``), so that a build found there reports its
+registers and spills as a fresh one does.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
-#: what ptxas reported (registers, spills) for each library built here
+#: what ptxas reported (registers, spills) for each library that
+#: :func:`build` built or found built
 ptxas_report: dict[str, str] = {}
 
 
@@ -68,14 +71,17 @@ def library_path(name: str) -> Path:
 
 def build(names: list[str] | None = None) -> dict[str, Path]:
     """Compile the named sources (all by default) that have no current
-    build, one nvcc process each, started together."""
+    build, one nvcc process each, started together; a current build's
+    ptxas log is read back into :data:`ptxas_report`."""
     names = list(SOURCES) if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: dict[str, tuple[subprocess.Popen, Path, Path]] = {}
     try:
         for name in names:
             target = library_path(name)
-            if target.exists():
+            log_path = target.with_suffix(".ptxas")
+            if target.exists() and log_path.exists():
+                ptxas_report[name] = log_path.read_text()
                 continue
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             src, defines = SOURCES[name]
@@ -94,6 +100,10 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             else:
+                # the log first: a library is current only with its log
+                log_tmp = tmp.with_suffix(".ptxas")
+                log_tmp.write_text(log)
+                log_tmp.replace(target.with_suffix(".ptxas"))
                 tmp.replace(target)
         if failed:
             raise KernelBuildError("\n".join(failed))

@@ -368,7 +368,8 @@ class LbRoute:
         time order (:func:`lc_picks_plain`): ``t`` (S, n) float32 and ``ok``
         (S, n) bool sorted by time, ``deliv`` (S, n, EL) float32 and
         ``drop`` (S, n, EL) bool in the same order; ``ring`` in-flight
-        entries a slot."""
+        entries a slot.  The kernel relies on the order: an entry at or
+        before one arrival never counts for a later one."""
         if t.device.type == "cpu":
             return PlainLbRoute().lc(tl, t, ok, deliv, drop, ring)
         s, n = t.shape

@@ -61,12 +61,16 @@ no result line):
    ``SCAN_WIDTH_CASES`` (the warp walk's width classes up to 1024
    entries, and past them the global-scratch walk) on 2048 synthetic rows;
    the hop under synthetic per-scenario fault tables (a partition,
-   overlapping degrades) at the headline's width, static and by rank; the
+   overlapping degrades, duplicate breakpoint times with decoy rows that
+   must never be read, sends exactly on breakpoints) at the headline's
+   width, static and by rank; the
    token bucket on 2048 synthetic rows of 9,750 at five (rate, burst)
    pairs; the controlled and socket scans on 2048 synthetic rows over the
    grid of cores, ready-queue caps, deadlines and connection caps
    (``CONTROL_GRID``), and least connections on 2048 synthetic rows with and
-   without a timeline (``LC_CASES``); and XLA's ``log1p`` in the kernel
+   without a timeline, at the widest shape (32 slots, rings of 128) and on
+   rings of 32 and 33 entries, the edges of the kernel's lane layout
+   (``LC_CASES``); and XLA's ``log1p`` in the kernel
    against its plain version on each of the 2**23 uniforms;
 5. the thirteen fast paths: ``SweepRunner(payload).run(2048, seed=0)``
    through ``engine="auto"`` (with the path's sweep axes), which must take
@@ -111,7 +115,9 @@ no result line):
    its plain version's time and the library's (the closed form ``cumsum``
    / ``cummax`` for the one-core scan), and the stable rank's time.
 
-It prints a JSON line of per-kernel measurements, the card's name and power
+It prints the redesigned kernels' times beside their bounds with their
+instances' registers and spills (``REDESIGNED``; any spill of theirs fails
+phase 1), a JSON line of per-kernel measurements, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and
 the repository beside it; it imports neither JAX nor the JAX package.
 """
@@ -948,6 +954,13 @@ def card_line() -> str:
     return _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
 
 
+#: the kernels redesigned for this card whose instances must not spill
+#: (their ptxas lines are kept for the summary line): (library, kernel)
+REDESIGNED = (("lb_route", "lc_kernel"), ("edge_draws", "hop_kernel<true"))
+#: ptxas' registers and spills of the redesigned kernels' instances
+REDESIGNED_PTXAS: dict = {}
+
+
 def phase_setup(torch) -> None:
     from asyncflow_tpu_torch.engines.torchsim import _build
 
@@ -969,6 +982,13 @@ def phase_setup(torch) -> None:
         if name in ("edge_draws", "station_scan", "lb_route"):
             for entry, res in ptxas_entries(report).items():
                 print(f"  ptxas[{name}] {entry}: {res}")
+                if any(name == lib and entry.startswith(k) for lib, k in REDESIGNED):
+                    REDESIGNED_PTXAS[entry] = res
+    spilled = {e: r for e, r in REDESIGNED_PTXAS.items()
+               if "0 bytes spill stores, 0 bytes spill loads" not in r}
+    if spilled or not REDESIGNED_PTXAS:
+        raise SmokeError(f"a redesigned kernel's instance spills (or ptxas named none): "
+                         f"{spilled}")
     for name, plan in _path_plans().items():
         print(f"  {name}: {_layout_text(kernel_layout(plan))}")
 
@@ -1592,10 +1612,11 @@ SCAN_LANE_OPS = (0, 2, 0)
 #: multiply, add, min and spend
 SCAN_ELEMENT_OPS = {"waits": (3, 5), "ram_core": (4, 8), "bucket": (5, 5),
                     "controlled": (9, 5), "socket": (14, 9)}
-#: a hop lane under fault tables: per breakpoint the compare and the add of
-#: the row search; then the boost's add and clip (max, min) and the factor's
-#: multiply
-FAULT_BREAKPOINT_OPS = (1, 1)
+#: a hop lane under fault tables: per step of the row's search (the
+#: reference's searchsorted: ceil(log2(NF + 1)) steps, whatever the kernel
+#: does) the compare and the select; then the boost's add and clip (max,
+#: min) and the factor's multiply
+FAULT_SEARCH_STEP_OPS = (1, 1)
 FAULT_LANE_OPS = (0, 4)
 #: a Kiefer-Wolfowitz element, per core: the insertion's compare and select
 KW_CORE_OPS = (1, 1)
@@ -1676,9 +1697,9 @@ def _draws_bound(torch, kind: str, args: tuple, kw: dict) -> dict:
         # read once; the row search and the fault's arithmetic a lane
         moved += sum(x.numel() * 4 for x in (tables.fault_t, tables.fault_lat,
                                              tables.fault_drop))
-        nf = int(tables.fault_t.shape[-1])
-        ops[0] += lanes * (nf * FAULT_BREAKPOINT_OPS[0] + FAULT_LANE_OPS[0])
-        ops[1] += lanes * (nf * FAULT_BREAKPOINT_OPS[1] + FAULT_LANE_OPS[1])
+        steps = int(tables.fault_t.shape[-1]).bit_length()  # ceil(log2(NF + 1))
+        ops[0] += lanes * (steps * FAULT_SEARCH_STEP_OPS[0] + FAULT_LANE_OPS[0])
+        ops[1] += lanes * (steps * FAULT_SEARCH_STEP_OPS[1] + FAULT_LANE_OPS[1])
     return _bound_of(moved, *ops)
 
 
@@ -2012,6 +2033,11 @@ def _scan_width_check(torch, kernel, plain) -> float:
     return err
 
 
+#: breakpoints of the fault hop check's wide shared table: 64 KiB of
+#: float32, past the 48 KiB of shared memory the hop stages them in
+WIDE_FAULTS = 16_384
+
+
 def _fault_hop_check(torch, kernel, plain) -> float:
     """The hop under per-scenario fault tables at the headline's width
     (2048 x 87,840 lanes of chaos_campaign's edges), synthetic on the card
@@ -2020,7 +2046,9 @@ def _fault_hop_check(torch, kernel, plain) -> float:
     first at 0), on lb-srv2 overlapping degrades (4x, then 1.5x more and
     +0.2 dropout), a partition of lb-srv1 and a degrade of the entry edge,
     scaled per scenario; over the static entry edge and lb-srv2, and over
-    the LB's slots by rank.  Bit-exact; returns the largest difference."""
+    the LB's slots by rank; then a shared table of ``WIDE_FAULTS``
+    breakpoints over the LB's slots.  Bit-exact; returns the largest
+    difference."""
     from asyncflow_tpu_torch.compiler import compile_payload
     from asyncflow_tpu_torch.engines.torchsim import draws
     from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
@@ -2031,9 +2059,6 @@ def _fault_hop_check(torch, kernel, plain) -> float:
     g = torch.Generator(device="cuda").manual_seed(29)
     times = torch.tensor([0.0, 50.0, 100.0, 150.0, 200.0, 300.0, 400.0, 450.0, 500.0],
                          device="cuda")
-    fault_t = torch.clamp_min(times + 40.0 * torch.rand((s, 1), device="cuda", generator=g),
-                              0.0)
-    fault_t[:, 0] = 0.0
     lat = torch.ones((s, times.numel(), ne), device="cuda")
     boost = torch.zeros_like(lat)
     lat[:, 1:4, 3] = 4.0
@@ -2041,6 +2066,16 @@ def _fault_hop_check(torch, kernel, plain) -> float:
     boost[:, 2:6, 3] = 0.2
     boost[:, 4:6, 2] = 1.0  # the partition of lb-srv1
     lat[:, 6:8, 0] = 2.0
+    # duplicate breakpoint times: before rows 2, 5 and 7, decoy rows at
+    # their times (a factor of 7 and a boost of 0.45 on every edge), which
+    # the search must never read (at a duplicate time the last row holds)
+    keep = [0, 1, 2, 2, 3, 4, 5, 5, 5, 6, 7, 7, 8]
+    decoy = [j + 1 < len(keep) and keep[j + 1] == keep[j] for j in range(len(keep))]
+    times, lat, boost = times[keep], lat[:, keep].clone(), boost[:, keep].clone()
+    lat[:, decoy], boost[:, decoy] = 7.0, 0.45
+    fault_t = torch.clamp_min(times + 40.0 * torch.rand((s, 1), device="cuda", generator=g),
+                              0.0)
+    fault_t[:, 0] = 0.0
     lat = lat * (1.0 + torch.rand((s, 1, 1), device="cuda", generator=g))
     row = lambda x: torch.as_tensor(x, device="cuda").expand(s, ne).contiguous()  # noqa: E731
     tables = draws.EdgeTables(
@@ -2051,6 +2086,9 @@ def _fault_hop_check(torch, kernel, plain) -> float:
         fault_t=fault_t, fault_lat=lat, fault_drop=boost)
     t_send = torch.rand((s, n), device="cuda", generator=g) * (1.1 * plan.horizon)
     alive = torch.rand((s, n), device="cuda", generator=g) < 0.9
+    # 64 sends a breakpoint exactly on each scenario's breakpoint times
+    nf = fault_t.shape[1]
+    t_send[:, : 64 * nf] = fault_t.repeat(1, 64)
     uk, zk = draws.hop_keys(scenario_keys(29, s, device="cuda"), 32)
     err = 0.0
     rank = torch.arange(n, device="cuda").expand(s, n) + torch.arange(s, device="cuda")[:, None]
@@ -2062,8 +2100,27 @@ def _fault_hop_check(torch, kernel, plain) -> float:
         if "rank" in kw and int(want[4].sum()) == 0:
             raise SmokeError("fast check: the synthetic fault tables dropped nothing")
         del want
+    # a shared table of WIDE_FAULTS breakpoints on a grid of 1/64 s (many
+    # repeat), past the hop's shared memory: its lanes search it in global
+    # memory
+    grid = torch.randint(0, int(64 * plan.horizon), (WIDE_FAULTS,), device="cuda", generator=g)
+    wide_t = torch.sort(grid).values.float() / 64
+    wide_t[0] = 0.0
+    wide = draws.EdgeTables(
+        dist=tables.dist, mean=tables.mean, var=tables.var, drop=tables.drop,
+        horizon=tables.horizon, lb_edge=tables.lb_edge, lb_target=tables.lb_target,
+        fault_t=wide_t,
+        fault_lat=1.0 + 2.0 * torch.rand((WIDE_FAULTS, ne), device="cuda", generator=g),
+        fault_drop=0.5 * torch.rand((WIDE_FAULTS, ne), device="cuda", generator=g))
+    t_send[:, : WIDE_FAULTS // 8] = wide_t[::8]
+    args, kw = (wide, t_send, alive, uk, zk), {"rank": rank}
+    err = max(err, _compare(torch, "fast check: fault hop, wide shared table",
+                            _call(kernel, "hop_fault", args, kw),
+                            _call(plain, "hop_fault", args, kw)))
     print(f"fast check: the hop under per-scenario fault tables == plain on {s} x {n} lanes "
-          "(static entry edge and lb-srv2, the LB by rank)", flush=True)
+          f"({nf} breakpoints a scenario, four duplicates, {64 * nf} sends on breakpoints; "
+          "static entry edge and lb-srv2, the LB by rank); under a shared table of "
+          f"{WIDE_FAULTS} breakpoints (past shared memory), the LB by rank", flush=True)
     return err
 
 
@@ -2105,12 +2162,16 @@ CONTROL_GRID = {"cores": (1, 2, 33), "cap": (-1, 1, 8, 128), "timeout": (-1.0, 0
 CONTROL_CHECK_ELEMENTS = 601
 #: least connections' synthetic cases: (LB slots, ring, marks (time, down,
 #: slot)): the mixed fleet's two slots and ring of 23, a timeline with
-#: marks at one time and every slot down a while, the widest (32 slots,
-#: rings of 128)
+#: marks at one time and every slot down a while (the only case that leaves
+#: an alive arrival unrouted), the widest (32 slots, rings of 128: the
+#: rings in shared memory), and two slots' rings of a warp's 32 lanes (the
+#: registers form's widest) and of 33 (the shared-memory form)
 LC_CASES = (
     (2, 23, ()),
     (3, 5, ((2.0, 1, 0), (4.0, 1, 1), (4.0, 1, 2), (6.0, 0, 1), (6.0, 0, 0), (9.0, 1, 1))),
     (32, 128, ((3.0, 1, 0),)),
+    (2, 32, ()),
+    (2, 33, ()),
 )
 LC_CHECK_ARRIVALS = 3001
 
@@ -2816,6 +2877,30 @@ def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> li
     return kernels
 
 
+def redesigned_report(fast: dict) -> None:
+    """The redesigned kernels at their paths' full-width calls: least
+    connections on lc_mixed_fleet, the static and LB hops under
+    chaos_campaign's fault tables (each beside the same run's plain-table
+    hop of the headline), each ms beside its bound, and every instance's
+    registers and spills."""
+    def mode(path: str, lib: str, kind: str) -> str:
+        m = fast[path]["timed"][lib]["modes"].get(kind)
+        if m is None:
+            return f"{kind} not called"
+        return f"{kind} {m['ms']:.4f} ms (bound {m['bound_ms']:.4f} ms, {m['bound_by']})"
+
+    print("redesigned: lb_route least connections on lc_mixed_fleet: "
+          + mode("lc_mixed_fleet", "lb_route", "route_lc"), flush=True)
+    print("redesigned: edge_draws under fault tables on chaos_campaign: "
+          + "; ".join(mode("chaos_campaign", "edge_draws", k) for k in ("hop_fault",
+                                                                         "hop_lb_fault"))
+          + "; the headline's plain hops: "
+          + "; ".join(mode("two_servers_lb", "edge_draws", k) for k in ("hop", "hop_lb")),
+          flush=True)
+    for entry, res in REDESIGNED_PTXAS.items():
+        print(f"redesigned: ptxas {entry}: {res}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2847,6 +2932,7 @@ def main() -> int:
     print(f"phase seconds: setup {t1 - t0:.1f}, kernel vs twin {t2 - t1:.1f}, "
           f"paths {t3 - t2:.1f}, fast kernels vs plain {t4 - t3:.1f}, fast paths {t5 - t4:.1f}")
     kernels = kernels_report(check, paths, fast_check, fast)
+    redesigned_report(fast)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(

@@ -324,13 +324,24 @@ def test_sweep_auto_takes_the_fast_path_on_cuda(cuda_device) -> None:
     assert summary["completed_total"] > 0
 
 
+#: duplicate breakpoints of the "duplicates" tables: before the base row at
+#: each index, that many decoy rows at its time (a factor of 5 and a boost
+#: of 0.4 on every edge), never read: at a duplicate time the last row holds
+FAULT_DECOYS = {1: 1, 4: 2, 6: 1}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("per_row", [False, True])
-def test_fault_hop_matches_plain_on_cuda(cuda_device, per_row: bool) -> None:
+@pytest.mark.parametrize(("per_row", "duplicates"), [
+    pytest.param(per_row, dup, id=f"{per_row}" + ("-duplicates" if dup else ""))
+    for dup in (False, True) for per_row in (False, True)
+])
+def test_fault_hop_matches_plain_on_cuda(cuda_device, per_row: bool, duplicates: bool) -> None:
     """The hop under edge fault tables (shared or a row a scenario: a
     partition of edge 1, overlapping degrades of edge 3, a degrade of edge 2
-    from t = 0) over each static edge, three LB slots by rank and by slot,
-    with spikes: every output identical."""
+    from t = 0; with and without duplicate breakpoint times) over each
+    static edge, three LB slots by rank and by slot, with spikes, eight
+    sends a breakpoint exactly on the scenario's breakpoint times: every
+    output identical."""
     kernel, plain = draws.EdgeDraws(), draws.PlainEdgeDraws()
     keys = scenario_keys(22, S, device=cuda_device)
     uk, zk = draws.hop_keys(keys, 32)
@@ -349,11 +360,19 @@ def test_fault_hop_matches_plain_on_cuda(cuda_device, per_row: bool) -> None:
     lat[4:6, 3] *= 1.5
     boost[4:6, 3] += 0.3
     lat[:, 2], boost[:, 2] = 2.0, 0.1
+    if duplicates:
+        keep = [i for i in range(7) for _ in range(FAULT_DECOYS.get(i, 0) + 1)]
+        decoy = torch.tensor([j + 1 < len(keep) and keep[j + 1] == keep[j]
+                              for j in range(len(keep))], device=cuda_device)
+        times, lat, boost = times[keep], lat[keep].clone(), boost[keep].clone()
+        lat[decoy], boost[decoy] = 5.0, 0.4
+    nf = int(times.shape[0])
     if per_row:
         times = torch.clamp_min(times + 0.05 * torch.arange(S, device=cuda_device)[:, None], 0.0)
         times[:, 0] = 0.0
         lat = (lat * (1.0 + torch.rand((S, 1, 1), device=cuda_device))).contiguous()
-        boost = boost.expand(S, 7, 4).contiguous()
+        boost = boost.expand(S, nf, 4).contiguous()
+    t_send[:, : 8 * nf] = times.expand(S, nf).repeat(1, 8)  # on the breakpoints
     tables = draws.EdgeTables(
         dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
         lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32, device=cuda_device),
@@ -368,6 +387,44 @@ def test_fault_hop_matches_plain_on_cuda(cuda_device, per_row: bool) -> None:
         for x, y in zip(got, want, strict=True):
             assert (x is None and y is None) or torch.equal(x, y), kw.keys()
     assert kernel.fault_launches == kernel.launches == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("nf", "per_row"), [(300, False), (20_000, True)])
+def test_wide_fault_tables_match_plain_on_cuda(cuda_device, nf: int, per_row: bool) -> None:
+    """The LB hop by rank under fault tables of hundreds and of tens of
+    thousands of breakpoints (on a grid of 1/512 s, so many repeat; the
+    second past the hop's shared memory, searched in global memory), a
+    send on every eighth breakpoint: every output identical."""
+    kernel, plain = draws.EdgeDraws(), draws.PlainEdgeDraws()
+    uk, zk = draws.hop_keys(scenario_keys(24, S, device=cuda_device), 32)
+    mean, var, drop = _edge_params(cuda_device)
+    g = np.random.default_rng(9)
+    rows = S if per_row else 1
+    times = np.sort(g.integers(0, 1127, (rows, nf)), axis=1).astype(np.float32) / 512
+    times[:, 0] = 0.0
+    lat = g.uniform(0.5, 3.0, (rows, nf, 4)).astype(np.float32)
+    boost = g.uniform(-0.1, 0.6, (rows, nf, 4)).astype(np.float32)
+    if not per_row:
+        times, lat, boost = times[0], lat[0], boost[0]
+    fault_t, fault_lat, fault_drop = (torch.tensor(x, device=cuda_device)
+                                      for x in (times, lat, boost))
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32, device=cuda_device)
+    on = fault_t.expand(S, nf)[:, ::8][:, : N // 2]
+    t_send[:, : on.shape[1]] = on  # on the breakpoints
+    alive = torch.tensor(g.random((S, N)) > 0.1, device=cuda_device)
+    rank = torch.tensor(g.permuted(np.tile(np.arange(N), (S, 1)), axis=1), device=cuda_device)
+    tables = draws.EdgeTables(
+        dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+        lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32, device=cuda_device),
+        lb_target=torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda_device),
+        fault_t=fault_t, fault_lat=fault_lat, fault_drop=fault_drop,
+    )
+    got = kernel.hop(tables, t_send, alive, uk, zk, rank=rank)
+    want = plain.hop(tables, t_send, alive, uk, zk, rank=rank)
+    for x, y in zip(got, want, strict=True):
+        assert (x is None and y is None) or torch.equal(x, y)
+    assert kernel.fault_launches == kernel.launches == 1
 
 
 @pytest.mark.cuda
@@ -436,15 +493,37 @@ def test_socket_matches_plain_on_cuda(cuda_device, cores: int, conn: int, cap: i
     assert kernel.walk_launches[_walk(station_scan.MODE_SOCKET, cores, conn)] == 1
 
 
+#: the candidate delays' spread of a least-connections case (el, ring):
+#: deliveries that outlast the row, so that counts saturate and tie, and
+#: rings mostly full of live entries, so that the smallest must be
+#: replaced (default 0.005 s x the ring)
+LC_DELAY = {(4, 3): 50.0, (2, 4): 0.3}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(("el", "ring", "marks"), [
     (2, 23, []),
     (3, 5, [(2.0, 1, 0), (4.0, 1, 1), (4.0, 1, 2), (6.0, 0, 1), (6.0, 0, 0), (9.0, 1, 1)]),
     (routing.MAX_LC_SLOTS, routing.MAX_LC_RING, [(3.0, 1, 0)]),
+    (2, 32, []),
+    (2, 33, []),
+    (4, 3, [(5.0, 1, 2), (7.0, 0, 2)]),
+    (5, 40, [(1.0, 1, 3)]),
+    (8, 100, [(2.0, 1, 7), (3.0, 0, 7)]),
+    (16, 64, []),
+    (16, 65, [(4.0, 1, 15)]),
+    (32, 32, [(6.0, 1, 31)]),
+    (32, 33, []),
+    (2, 4, []),
+    (2, 1, []),
 ])
 def test_lc_matches_plain_on_cuda(cuda_device, el: int, ring: int, marks: list) -> None:
     """Least connections on 45 rows of 3001 arrivals in time order (dead
-    lanes last), with and without a timeline (every slot down a while)."""
+    lanes last), with and without a timeline (every slot down a while), on
+    both forms of the kernel's rings: a register a slot (two slots, rings
+    of 1 to 32) and a lane's column of shared memory (every other shape, up
+    to 32 slots x 128); the edges of a warp's lanes (32, 33), counts that
+    saturate and tie, and full rings (``LC_DELAY``)."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
     t = torch.sort(torch.rand(ROWS, 3001, generator=g, device=cuda_device) * 10, dim=1).values
     ok = torch.rand(ROWS, 3001, generator=g, device=cuda_device) < 0.9
@@ -452,7 +531,7 @@ def test_lc_matches_plain_on_cuda(cuda_device, el: int, ring: int, marks: list) 
     ok = ok.gather(1, order)
     t = torch.where(ok, t.gather(1, order), 1e30)
     deliv = t[..., None] + torch.rand(ROWS, 3001, el, generator=g, device=cuda_device) * (
-        0.005 * ring)
+        LC_DELAY.get((el, ring), 0.005 * ring))
     drop = torch.rand(ROWS, 3001, el, generator=g, device=cuda_device) < 0.1
     tl = routing.Timeline([m[0] for m in marks], [m[1] for m in marks],
                           [m[2] for m in marks], el, cuda_device)

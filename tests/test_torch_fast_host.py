@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from asyncflow_tpu_torch.engines.torchsim import draws, routing, station_scan
+from asyncflow_tpu_torch.engines.torchsim import _build, draws, routing, station_scan
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.engines.torchsim.sampling import (
     D_EXPONENTIAL,
@@ -77,6 +77,7 @@ inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
 inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
 inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 """
 #: a one-dimensional launch (station_scan.cu) and a launch on dim3 grids
 #: (edge_draws.cu, lb_route.cu), each made a loop that runs the threads one
@@ -564,12 +565,20 @@ def test_wide_carry_needs_scratch(host_libs) -> None:
     assert lib.station_scan_launch(ctypes.byref(args), None) == -1
 
 
-def _fault_tables(per_row: bool):
+#: duplicate breakpoints of the fault tables' "duplicates" form: before the
+#: base row at each index, that many decoy rows at its time (a factor of 5
+#: and a boost of 0.4 on every edge), which a lookup must never read: at a
+#: duplicate time the last row holds
+FAULT_DECOYS = {1: 1, 4: 2, 6: 1}
+
+
+def _fault_tables(per_row: bool, duplicates: bool = False):
     """Edge fault tables over edges 0..3 on [0, 2.2): a partition of edge 1
     on [0.3, 0.7), degrades of edge 3 overlapping on [0.5, 1.1) and
     [0.9, 1.6) (factors multiply, boosts add), a degrade of edge 2 from
-    t = 0; per scenario, each row's times shifted by 0.1 s a row (clipped
-    at 0, the first row at 0)."""
+    t = 0; with ``duplicates``, decoy rows before three of the breakpoints
+    at their times (``FAULT_DECOYS``); per scenario, each row's times
+    shifted by 0.1 s a row (clipped at 0, the first row at 0)."""
     times = np.array([0.0, 0.3, 0.5, 0.7, 0.9, 1.1, 1.6], np.float32)
     lat = np.ones((7, 4), np.float32)
     boost = np.zeros((7, 4), np.float32)
@@ -580,29 +589,51 @@ def _fault_tables(per_row: bool):
     boost[4:6, 3] += 0.3
     lat[:, 2] = 2.0
     boost[:, 2] = 0.1
+    if duplicates:
+        rows = [(times[i], lat[i], boost[i]) for i in range(7)]
+        for i in sorted(FAULT_DECOYS, reverse=True):
+            decoy = (times[i], np.full(4, 5.0, np.float32), np.full(4, 0.4, np.float32))
+            rows[i:i] = [decoy] * FAULT_DECOYS[i]
+        times = np.array([r[0] for r in rows], np.float32)
+        lat, boost = np.stack([r[1] for r in rows]), np.stack([r[2] for r in rows])
     if not per_row:
         return tuple(torch.tensor(x) for x in (times, lat, boost))
+    nf = times.shape[0]
     shift = 0.1 * np.arange(S, dtype=np.float32)[:, None]
     rows = np.maximum(times[None, :] + shift, np.float32(0.0))
     rows[:, 0] = 0.0
-    return (torch.tensor(rows), torch.tensor(np.broadcast_to(lat, (S, 7, 4)).copy()),
-            torch.tensor(np.broadcast_to(boost, (S, 7, 4)).copy()))
+    return (torch.tensor(rows), torch.tensor(np.broadcast_to(lat, (S, nf, 4)).copy()),
+            torch.tensor(np.broadcast_to(boost, (S, nf, 4)).copy()))
 
 
-@pytest.mark.parametrize("per_row", [False, True])
-@pytest.mark.parametrize("lanes", ["edge", "rank", "slot_spikes"])
-def test_fault_hop_matches_plain(host_libs, per_row: bool, lanes: str) -> None:
+#: (lanes, per_row, duplicates) of the fault hop's cases: each lane form on
+#: shared and per-scenario tables, then the same with duplicate breakpoints
+FAULT_CASES = [
+    pytest.param(lanes, per_row, dup, id=f"{lanes}-{per_row}" + ("-duplicates" if dup else ""))
+    for dup in (False, True) for per_row in (False, True)
+    for lanes in ("edge", "rank", "slot_spikes")
+]
+
+
+@pytest.mark.parametrize(("lanes", "per_row", "duplicates"), FAULT_CASES)
+def test_fault_hop_matches_plain(host_libs, per_row: bool, lanes: str,
+                                 duplicates: bool) -> None:
     """The hop under edge fault windows (shared or a row a scenario, a
-    partition, overlapping degrades, one from t = 0): the same checks as
-    the plain hop's, and the partition drops every send."""
+    partition, overlapping degrades, one from t = 0; with and without
+    duplicate breakpoint times): the same checks as the plain hop's, and
+    the partition drops every send.  Eight sends a breakpoint lie exactly
+    on the scenario's own breakpoint times, so a lookup that read a decoy
+    row, or the row before a breakpoint, would move their drops or delays."""
     keys = scenario_keys(15, S)
     uk, zk = draws.hop_keys(keys, 32)
     mean, var, drop = _edge_params()
     g = np.random.default_rng(6)
     t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32)
-    t_send[:, :7] = torch.tensor([0.0, 0.3, 0.5, 0.7, 0.9, 1.1, 1.6])  # at breakpoints
     alive = torch.tensor(g.random((S, N)) > 0.1)
-    fault_t, fault_lat, fault_drop = _fault_tables(per_row)
+    fault_t, fault_lat, fault_drop = _fault_tables(per_row, duplicates)
+    nf = int(fault_t.shape[-1])
+    on = fault_t.expand(S, nf) if not per_row else fault_t
+    t_send[:, : 8 * nf] = on.repeat(1, 8)  # on the breakpoints
     lb = lanes != "edge"
     spike_t, spike_v = _spike_tables() if lanes == "slot_spikes" else (None, None)
     tables = draws.EdgeTables(
@@ -641,7 +672,7 @@ def test_fault_hop_matches_plain(host_libs, per_row: bool, lanes: str) -> None:
             partial=partial.data_ptr(), span=out.span.data_ptr(),
             dropped=out.dropped.data_ptr(), S=S, n=N, horizon=2.0, NE=4,
             NB=0 if spike_t is None else 3, K=k_slots, edge=-1 if lb else edge,
-            mode=draws.MODE_HOP, NF=7, fault_per_row=int(per_row),
+            mode=draws.MODE_HOP, NF=nf, fault_per_row=int(per_row),
         )
         _launch(host_libs["edge_draws"], "edge_draws_launch", args)
         assert torch.equal(out.ok, want.ok), edge
@@ -653,8 +684,81 @@ def test_fault_hop_matches_plain(host_libs, per_row: bool, lanes: str) -> None:
         if edge == 1:
             # the partition drops every send inside it
             idx = draws.fault_rows(fault_t, t_send)
-            parted = alive & (t_send < 2.0) & ((idx == 1) | (idx == 2))
+            boost = (fault_drop[idx, 1] if not per_row
+                     else fault_drop[:, :, 1].gather(1, idx))
+            parted = alive & (t_send < 2.0) & (boost >= 1.0)
             assert bool(parted.any()) and not bool((want.ok & parted).any())
+
+
+def _wide_fault_tables(nf: int, per_row: bool, seed: int):
+    """``nf`` breakpoints on [0, 2.2) drawn on a grid of 1/512 s (so that
+    many times repeat), the first at 0, with random factors in [0.5, 3) and
+    boosts in [-0.1, 0.6) over four edges; per scenario when ``per_row``."""
+    g = np.random.default_rng(seed)
+    rows = S if per_row else 1
+    times = np.sort(g.integers(0, 1127, (rows, nf)), axis=1).astype(np.float32) / 512
+    times[:, 0] = 0.0
+    lat = g.uniform(0.5, 3.0, (rows, nf, 4)).astype(np.float32)
+    boost = g.uniform(-0.1, 0.6, (rows, nf, 4)).astype(np.float32)
+    if not per_row:
+        times, lat, boost = times[0], lat[0], boost[0]
+    return tuple(torch.tensor(x) for x in (times, lat, boost))
+
+
+#: breakpoints of the wide fault tables: a row whose tables the hop stages
+#: in its 48 KiB of shared memory beside three slots' sums, and one past
+#: all 48 KiB (its lanes read them in global memory)
+WIDE_FAULTS = [pytest.param(300, False, id="staged"), pytest.param(20_000, True, id="global")]
+
+
+@pytest.mark.parametrize(("nf", "per_row"), WIDE_FAULTS)
+def test_wide_fault_tables_match_plain(host_libs, nf: int, per_row: bool) -> None:
+    """The LB hop by rank under fault tables of hundreds and of tens of
+    thousands of breakpoints, many at duplicate times, a send on every
+    eighth breakpoint: the same outputs as the plain hop, whether its
+    tables fit in shared memory or not."""
+    uk, zk = draws.hop_keys(scenario_keys(16, S), 32)
+    mean, var, drop = _edge_params()
+    g = np.random.default_rng(7)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32)
+    alive = torch.tensor(g.random((S, N)) > 0.1)
+    fault_t, fault_lat, fault_drop = _wide_fault_tables(nf, per_row, 8)
+    on = fault_t.expand(S, nf)[:, ::8][:, : N // 2]
+    t_send[:, : on.shape[1]] = on  # on the breakpoints
+    rank = torch.tensor(g.permuted(np.tile(np.arange(N), (S, 1)), axis=1), dtype=torch.int64)
+    tables = draws.EdgeTables(
+        dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+        lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32),
+        lb_target=torch.tensor([0, 1, 2], dtype=torch.int32),
+        fault_t=fault_t, fault_lat=fault_lat, fault_drop=fault_drop,
+    )
+    want = draws.hop_plain(tables, t_send, alive, uk, zk, rank=rank)
+    out = draws.HopOut(
+        t_next=torch.empty((S, N), dtype=torch.float32),
+        ok=torch.empty((S, N), dtype=torch.bool),
+        target=torch.empty((S, N), dtype=torch.int32),
+        span=torch.empty((S, 3), dtype=torch.float32),
+        dropped=torch.empty(S, dtype=torch.int64),
+    )
+    partial = torch.empty((S, draws.lane_blocks(N), 4), dtype=torch.float64)
+    ukw, zkw, dist = draws.key_words(uk), draws.key_words(zk), torch.tensor(DIST)
+    args = draws._EdgeDrawArgs(
+        ukey=ukw.data_ptr(), zkey=zkw.data_ptr(), t_send=t_send.data_ptr(),
+        alive=alive.data_ptr(), rank=rank.data_ptr(), lb_edge=tables.lb_edge.data_ptr(),
+        lb_target=tables.lb_target.data_ptr(), mean=mean.data_ptr(), var=var.data_ptr(),
+        drop=drop.data_ptr(), dist=dist.data_ptr(), fault_t=fault_t.data_ptr(),
+        fault_lat=fault_lat.data_ptr(), fault_drop=fault_drop.data_ptr(),
+        out=out.t_next.data_ptr(), ok=out.ok.data_ptr(), target=out.target.data_ptr(),
+        partial=partial.data_ptr(), span=out.span.data_ptr(), dropped=out.dropped.data_ptr(),
+        S=S, n=N, horizon=2.0, NE=4, K=3, edge=-1, mode=draws.MODE_HOP, NF=nf,
+        fault_per_row=int(per_row),
+    )
+    _launch(host_libs["edge_draws"], "edge_draws_launch", args)
+    assert torch.equal(out.ok, want.ok)
+    assert torch.equal(out.dropped, want.dropped)
+    assert torch.equal(out.target, want.target)
+    assert _ulps(out.t_next, want.t_next) <= 4
+    assert _ulps(out.span, want.span) <= 1
 
 
 @pytest.mark.parametrize(("rate", "burst"), [(5.0, 50.0), (0.37, 3.0), (100.0, 1.0),
@@ -747,15 +851,28 @@ def test_socket_matches_plain(host_libs, cores: int, conn: int, cap: int,
 
 #: (LB slots, ring, marks (time, down, slot)) of least connections: the
 #: mixed fleet's two slots and ring of 23, a timeline with marks at one time
-#: and every slot down a while, five slots, and the widest (32 slots, rings
-#: of 128)
+#: and every slot down a while, five slots, the widest (32 slots, rings of
+#: 128), rings of exactly one warp's lanes and one past it (the card's
+#: layout's edges), four slots on rings of 3 whose deliveries outlast the
+#: row, so that every slot's count saturates and ties (the pick falls to
+#: the rotation's order), two slots on rings of 4 with ~10 deliveries in
+#: flight a slot: the rings are mostly full of live entries, so that the
+#: smallest must be replaced, and two slots on rings of 1, which the host
+#: build's one lane a warp holds in the registers form
 LC_CASES = {
     "two_slots": (2, 23, []),
     "timeline": (3, 5, [(2.0, 1, 0), (4.0, 1, 1), (4.0, 1, 2), (6.0, 0, 1), (6.0, 0, 0),
                         (9.0, 1, 1)]),
     "five_slots": (5, 40, [(1.0, 1, 3)]),
     "widest": (routing.MAX_LC_SLOTS, routing.MAX_LC_RING, [(3.0, 1, 0)]),
+    "ring_32": (2, 32, []),
+    "ring_33": (2, 33, []),
+    "tied": (4, 3, [(5.0, 1, 2), (7.0, 0, 2)]),
+    "full": (2, 4, []),
+    "ring_1": (2, 1, []),
 }
+#: the spread of a case's candidate delays (default 0.005 s x the ring)
+LC_DELAY = {"tied": 50.0, "full": 0.3, "ring_1": 0.02}
 
 
 @pytest.mark.parametrize("name", sorted(LC_CASES))
@@ -768,7 +885,8 @@ def test_lc_matches_plain(host_libs, name: str) -> None:
     order = torch.sort((~ok).int(), dim=1, stable=True).indices  # dead lanes last
     ok = ok.gather(1, order)
     t = torch.where(ok, t.gather(1, order), 1e30)
-    deliv = t[..., None] + torch.rand(rows, n, el, generator=g) * 0.005 * ring
+    delay = LC_DELAY.get(name, 0.005 * ring)
+    deliv = t[..., None] + torch.rand(rows, n, el, generator=g) * delay
     drop = torch.rand(rows, n, el, generator=g) < 0.1
     tl = routing.Timeline([m[0] for m in marks], [m[1] for m in marks],
                           [m[2] for m in marks], el, "cpu")
@@ -814,3 +932,28 @@ def test_hop_without_sums_matches_plain(host_libs) -> None:
         _launch(host_libs["edge_draws"], "edge_draws_launch", args)
         assert torch.equal(ok, want.ok)
         assert _ulps(out, want.t_next) <= 4
+
+
+def test_a_found_build_reports_its_ptxas_log(tmp_path, monkeypatch) -> None:
+    """A library found built with its ptxas log beside it is not rebuilt
+    and reports that log, as a fresh build does; one without its log is
+    built again."""
+
+    class Rebuilt(Exception):
+        pass
+
+    def nvcc_path() -> str:
+        raise Rebuilt
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "ptxas_report", {})
+    monkeypatch.setattr(_build, "nvcc_path", nvcc_path)
+    target = _build.library_path("lb_route")
+    target.write_bytes(b"")
+    log = "ptxas info    : Used 40 registers, 0 bytes spill stores, 0 bytes spill loads\n"
+    target.with_suffix(".ptxas").write_text(log)
+    assert _build.build(["lb_route"]) == {"lb_route": target}
+    assert _build.ptxas_report == {"lb_route": log}
+    target.with_suffix(".ptxas").unlink()
+    with pytest.raises(Rebuilt):
+        _build.build(["lb_route"])

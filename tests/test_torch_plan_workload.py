@@ -426,6 +426,39 @@ def test_lam_table_distribution_matches_the_reference() -> None:
         assert abs(a.mean() - b.mean()) < 4.0 * se, (off, a.mean(), b.mean())
 
 
+#: mean users of the two 60 s windows of overload_cap8 (120 s) over 2048
+#: scenarios of seeds 0..5, as ``lam_table`` draws them: seed 0's, 110.417,
+#: is +2.5 standard errors (SE 0.164) from the mean 110, the port's
+#: realisation behind its knee paths' offset from the JAX engines (both port
+#: engines draw users from this stream; the JAX fast path's seed 0 has
+#: 109.920); seeds 1..5: 109.754, 110.087, 110.055, 110.209, 110.141
+USER_SEEDS = (0, 1, 2, 3, 4, 5)
+
+
+@pytest.mark.parametrize(("case", "mean", "windows"),
+                         [("mean", 60.0, 20), ("mean", 110.0, 20), ("mean", 150.0, 20),
+                          ("mean", 400.0, 20), ("seeds", 110.0, 2)])
+def test_lam_table_users_are_poisson(case: str, mean: float, windows: int) -> None:
+    """``lam_table``'s Poisson users (``user_var < 0``) at the payloads'
+    means over 2048 scenarios x 20 windows of seed 0: the mean within 4
+    standard errors and a chi-square goodness-of-fit test against the
+    Poisson pmf at p >= 1e-3 (``torch_fast_cases.assert_poisson``).  The
+    ``seeds`` case draws overload_cap8's two windows for each of
+    ``USER_SEEDS`` and holds each seed's mean users within 4 standard
+    errors of the mean (the values are in ``USER_SEEDS``' comment)."""
+    from torch_fast_cases import assert_poisson
+
+    n = 2048
+    if case == "mean":
+        users = lam_table(scenario_keys(0, n), mean, 1.0, n_windows=windows, user_var=-1.0)
+        assert_poisson(users.numpy().astype(np.int64).ravel(), mean)
+        return
+    se = np.sqrt(mean / (n * windows))
+    for seed in USER_SEEDS:
+        users = lam_table(scenario_keys(seed, n), mean, 1.0, n_windows=windows, user_var=-1.0)
+        assert abs(float(users.double().mean()) - mean) < 4.0 * se, seed
+
+
 # ---------------------------------------------------------------------------
 # sweep results
 # ---------------------------------------------------------------------------
