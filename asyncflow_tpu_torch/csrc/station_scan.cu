@@ -49,9 +49,9 @@
 // pre-IO and post-IO in mode 2) and its outputs written once, for a few
 // float operations.  A row is sequential, and a K-server FIFO has no cheap
 // associative form (a K x K max-plus product a combine), so the
-// parallelism is across rows and across the carry vector.  Two walks:
+// parallelism is across rows and across the carry vector.  The walks:
 //
-// The thread walk (modes 0 and 3, mode 4 with one core; the carry modes past
+// The thread walk (mode 0, mode 4 with one core; the carry modes past
 // kWarpWidthMax entries): one
 // thread a row, 16 rows a block (half a warp: the lanes of a warp read
 // different rows, one L1 wavefront each, so the wavefronts, not the lanes,
@@ -70,9 +70,10 @@
 // with a head index (the reference's shift only reorders storage: its first
 // entry is the buffer's head): in the block's shared memory on the thread
 // walk, spread over the warp's lanes on the warp walk (entry j on lane
-// j % 32, read by a shuffle from its owner, written by it).  Their walks are
-// simple, one element at a time on the thread walk; making them fast is
-// later work.
+// j % 32, read by a shuffle from its owner, written by it); the socket
+// mode's lane walk keeps it as a shifting FIFO (below).  The controlled
+// mode's walks are simple, one element at a time on the thread walk; making
+// them fast is later work.
 //
 // The warp walk (modes 1, 2, 5 and mode 4 past one core, up to
 // kWarpWidthMax entries a vector; the socket mode's connections in the
@@ -109,7 +110,47 @@
 // at each core form with its connections (at most kRingMax) in the one
 // form that holds any of them, spread at kRingPer entries a lane (the
 // +inf padding past the live entries leaves the walk's results as they
-// are at a narrower form).
+// are at a narrower form).  Mode 5 takes it only past the lane walk's
+// shapes.
+//
+// The token bucket (mode 3) a warp a row, its chain on the valid elements
+// only.  The clock ``last`` is the time of the row's previous valid
+// element: it depends on validity alone, so each valid element's refill
+// (t - last) * rate is computed off the chain, a lane an element (the
+// previous valid lane found in the line's ballot, the line's last valid
+// time carried to the next line), and written compacted (a popcount of the
+// ballot below the lane) to the warp's stage.  The chain then walks only
+// the line's valid elements, every lane alike: y = min(burst, tokens +
+// inc), tokens = y >= 1 ? y - 1 : y, storing the tokens before each step;
+// each lane recomputes its own y from them (the same operands, so the same
+// bits) for its accepted flag.  A line with no valid element costs a
+// ballot and a store of zero flags, so a row's invalid tail (the fast path
+// sorts the valid elements first) is nearly free.  The row comes in lines
+// of 32 elements on its 128-byte boundaries, a lane an element, coalesced,
+// kBucketLines lines in flight while the previous ones are walked.
+//
+// The lane walk (mode 5 up to kLaneWhole connections, ring entries and
+// cores): a lane a row, 32 rows a warp, a warp a block.  Every vector is
+// whole in the lane's registers: the connections and the cores as
+// RegVec's selects, the ring as a shifting FIFO whose oldest entry is
+// always its first (a push shifts the entries below max(cap, 1) - 1 down
+// and writes the grant at max(cap, 1) - 1, by bit selects against masks
+// set once), so no element takes a shuffle or an index into registers and
+// the warp issues one instruction for 32 rows' elements.  At 2048 rows that
+// is 64 warps, one on each of 64 schedulers, with no other warp to hide an
+// element's dependent instructions: the walk is bound by their latency
+// (about 90 instructions an element, 13 of them on the chain through the
+// first connection's exit).  The rows come in
+// groups of 32 elements on the tensor's 128-byte boundaries, each lane
+// copying its own row's group asynchronously (cp.async, 16 bytes a copy)
+// into one of two shared stages while the other is walked; a row's 16-byte
+// chunk c lies at c ^ (row & 7) (a byte input's half h at h ^ ((row >> 2)
+// & 1)), so the lanes' 16-byte reads of 8 rows at a time hit no bank
+// twice.  Each lane stores its own outputs, a chunk's four waits and four
+// flags at a time (element by element in a chunk that the row shares with
+// its neighbour).  A group in which no row has a valid element leaves the
+// carry as it is and takes no chain.  The lane walk needs every input and
+// output on a 16-byte boundary (the wrapper copies an input that is not).
 //
 // The host build (tests/test_torch_fast_host.py) compiles this source with
 // g++ at one lane a row (kLanes = 1: one lane holds the whole vector, the
@@ -174,11 +215,14 @@ constexpr int kGroup = 32;                           // elements a group: a 128-
 constexpr int kPerLane = kGroup / kLanes;            // of them, a lane's
 constexpr int kRingMax = 128;                        // ring entries and connections (4, 5)
 constexpr int kRingPer = kRingMax / kLanes;          // ring entries a lane (warp walk)
+constexpr int kLaneWhole = 8;   // connections, ring entries and cores of the lane walk
+constexpr int kBucketLines = 8;  // lines of kLanes elements the bucket keeps in flight
 
 // which walk a launch takes (station_scan_walk)
 constexpr int kWalkThread = 0;
 constexpr int kWalkWarp = 1;
 constexpr int kWalkGlobal = 2;
+constexpr int kWalkLane = 3;
 
 __device__ __forceinline__ void prefetch_l1(const void* p) {
 #ifdef __CUDA_ARCH__
@@ -344,69 +388,9 @@ __device__ __forceinline__ void walk(const StationArgs& a, int64_t row, MemVec& 
   for (int64_t k = body; k < a.m; ++k) one(k);
 }
 
-// The token bucket of one row (mode 3) by one thread: the thread walk's
-// head, 16-byte body and tail, a float4 of times and a uchar4 of valid
-// flags in, a uchar4 of accepted flags out.
-struct Bucket {
-  float rate;
-  float burst;
-  float tokens;
-  float last;
-
-  __device__ __forceinline__ bool step(float t, bool v) {
-    float tok = fminf(burst, tokens + (t - last) * rate);
-    const bool acc = v && tok >= 1.0f;
-    tok = tok - (acc ? 1.0f : 0.0f);
-    if (v) {
-      tokens = tok;
-      last = t;
-    }
-    return acc;
-  }
-};
-
-__device__ __forceinline__ void bucket_walk(const StationArgs& a, int64_t row) {
-  const int64_t base = row * a.m;
-  const float* __restrict__ T = a.a + base;
-  const uint8_t* __restrict__ V = a.v + base;
-  uint8_t* __restrict__ F = a.flag + base;
-  Bucket b{a.rate, a.burst, a.burst, 0.0f};
-  const int64_t lead = (4 - (base & 3)) & 3;
-  const int64_t head = lead < a.m ? lead : a.m;
-  const int64_t body = head + (a.m - head) / kVec * kVec;
-  for (int64_t k = 0; k < head; ++k) F[k] = b.step(T[k], V[k] != 0) ? 1 : 0;
-  for (int64_t k0 = head; k0 < body; k0 += kVec) {
-    if (kAhead > 0 && k0 + kAhead < a.m) {
-      prefetch_l1(T + k0 + kAhead);
-      prefetch_l1(V + k0 + kAhead);
-    }
-    float4 tv[kVec / 4];
-    uchar4 vv[kVec / 4];
-#pragma unroll
-    for (int q = 0; q < kVec / 4; ++q) {
-      tv[q] = *reinterpret_cast<const float4*>(T + k0 + 4 * q);
-      vv[q] = *reinterpret_cast<const uchar4*>(V + k0 + 4 * q);
-    }
-#pragma unroll
-    for (int q = 0; q < kVec / 4; ++q) {
-      uchar4 f;
-      f.x = b.step(tv[q].x, vv[q].x != 0) ? 1 : 0;
-      f.y = b.step(tv[q].y, vv[q].y != 0) ? 1 : 0;
-      f.z = b.step(tv[q].z, vv[q].z != 0) ? 1 : 0;
-      f.w = b.step(tv[q].w, vv[q].w != 0) ? 1 : 0;
-      *reinterpret_cast<uchar4*>(F + k0 + 4 * q) = f;
-    }
-  }
-  for (int64_t k = body; k < a.m; ++k) F[k] = b.step(T[k], V[k] != 0) ? 1 : 0;
-}
-
 __global__ void station_scan_kernel(StationArgs a) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= a.S) return;
-  if (a.mode == 3) {
-    bucket_walk(a, row);
-    return;
-  }
   if (a.mode == 0) {
     MemVec none{nullptr, 0};
     walk<0>(a, row, none, none);
@@ -803,6 +787,367 @@ __global__ void __launch_bounds__(kWarps * kLanes) station_scan_warp_kernel(Stat
   }
 }
 
+// ---------------------------------------------------------------------------
+// the token bucket a warp a row
+// ---------------------------------------------------------------------------
+
+// the lanes below ``lane`` (none in the host build)
+__device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
+
+// the highest set bit of a mask that is not 0
+__device__ __forceinline__ int top_bit(unsigned x) {
+#ifdef __CUDACC__
+  return 31 - __clz(x);
+#else
+  return 31 - __builtin_clz(x);
+#endif
+}
+
+// One row of the token bucket (mode 3) a warp, kWarps rows a block, in
+// lines of kLanes elements (a lane an element), kBucketLines lines loaded
+// while the ones before them are walked.
+__global__ void __launch_bounds__(kWarps * kLanes) bucket_warp_kernel(StationArgs a) {
+  // a warp's line: its valid elements' refills, compacted, and the tokens
+  // before each of them, four past the line's widest (the walk's last
+  // step of four may run past its valid elements)
+  constexpr int kStage = (kLanes + 4 + 3) / 4;
+  __shared__ float4 stage_inc[kWarps][kStage];
+  __shared__ float4 stage_tok[kWarps][kStage];
+  const int lane = (int)(threadIdx.x % kLanes);
+  const int w = (int)(threadIdx.x / kLanes);
+  const int64_t row = (int64_t)blockIdx.x * kWarps + w;
+  if (row >= a.S) return;  // the whole warp
+  const int64_t m = a.m;
+  const int64_t base = row * m;
+  const float* __restrict__ T = a.a + base;
+  const uint8_t* __restrict__ V = a.v + base;
+  uint8_t* __restrict__ F = a.flag + base;
+  float* sinc = reinterpret_cast<float*>(stage_inc[w]);
+  float* stok = reinterpret_cast<float*>(stage_tok[w]);
+  for (int j = lane; j < 4 * kStage; j += kLanes) sinc[j] = stok[j] = 0.0f;
+  __syncwarp();
+  const unsigned below = lanes_below(lane);
+  const float rate = a.rate;
+  const float burst = a.burst;
+  float tokens = burst;
+  float last = 0.0f;
+  constexpr int kSpan = kBucketLines * kLanes;  // elements a step
+  // lines start on the rows' 128-byte boundaries: the first one holds
+  // (base % kLanes) elements before the row, which load as invalid
+  const int64_t lead = base % kLanes;
+  float xt[kBucketLines];
+  uint8_t xv[kBucketLines];
+  const auto load = [&](int64_t k0) {
+#pragma unroll
+    for (int i = 0; i < kBucketLines; ++i) {
+      const int64_t k = k0 + i * kLanes + lane;
+      const bool in = k >= 0 && k < m;
+      xt[i] = in ? T[k] : 0.0f;
+      xv[i] = in ? V[k] : 0;
+    }
+  };
+  load(-lead);
+  for (int64_t k0 = -lead; k0 < m; k0 += kSpan) {
+    float ct[kBucketLines];
+    uint8_t cv[kBucketLines];
+#pragma unroll
+    for (int i = 0; i < kBucketLines; ++i) {
+      ct[i] = xt[i];
+      cv[i] = xv[i];
+    }
+    if (k0 + kSpan < m) load(k0 + kSpan);
+#pragma unroll
+    for (int i = 0; i < kBucketLines; ++i) {
+      const bool ok = cv[i] != 0;
+      const unsigned valid = __ballot_sync(kAll, ok);
+      uint8_t accepted = 0;
+      if (valid != 0u) {
+        // off the chain: the refill since the row's previous valid element,
+        // at the element's place among the line's valid ones
+        const unsigned prior = valid & below;
+        const float t_prior = __shfl_sync(kAll, ct[i], prior != 0u ? top_bit(prior) : 0);
+        const float inc = (ct[i] - (prior != 0u ? t_prior : last)) * rate;
+        const int at = __popc(prior);
+        if (ok) sinc[at] = inc;
+        last = __shfl_sync(kAll, ct[i], top_bit(valid));
+        __syncwarp();
+        // the chain, over the line's valid elements only, four steps at a
+        // time: the next four refills load before this four's steps, and
+        // the tokens before each step store after them, so no shared
+        // access waits on the chain; steps past the valid elements run on
+        // stale refills, and the tokens come back from before the first
+        const int n = __popc(valid);
+        float4 next = stage_inc[w][0];
+        for (int j = 0; j < n; j += 4) {
+          const float4 inc4 = next;
+          next = stage_inc[w][j / 4 + 1];
+          float4 before;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            set_lane(before, u, tokens);
+            const float y = fminf(burst, tokens + lane_of(inc4, u));
+            tokens = y >= 1.0f ? y - 1.0f : y;
+          }
+          stage_tok[w][j / 4] = before;
+        }
+        if ((n & 3) != 0) tokens = stok[n];
+        __syncwarp();
+        if (ok) accepted = fminf(burst, stok[at] + inc) >= 1.0f ? 1 : 0;
+        __syncwarp();  // the stage is rewritten next line
+      }
+      const int64_t k = k0 + i * kLanes + lane;
+      if (k >= 0 && k < m) F[k] = accepted;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the lane walk
+// ---------------------------------------------------------------------------
+
+// Copy 16 bytes to shared memory, the first ``valid`` of them from src and
+// the rest zero, asynchronously on the card.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src, int valid) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid));
+#elif !defined(__CUDACC__)
+  std::memset(dst, 0, 16);
+  if (valid > 0) std::memcpy(dst, src, valid);
+#endif
+}
+// close this lane's copies issued since the last commit as one group
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+// wait for all but this lane's newest group of copies
+__device__ __forceinline__ void copy_wait_all_but_one() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 1;\n" ::);
+#endif
+}
+
+// The ring of the last r = max(cap, 1) grants as a shifting FIFO of
+// kLaneWhole registers: its oldest entry is always f[0]; a push moves f[j +
+// 1] to f[j] below r - 1 and writes the grant at r - 1 (and above it, where
+// nothing is read), by bit selects against masks set once.
+struct ShiftRing {
+  float f[kLaneWhole];
+  uint32_t keep[kLaneWhole];  // all ones where f[j + 1] moves down on a push
+
+  __device__ __forceinline__ void init(int cap) {
+    const int r = cap > 1 ? cap : 1;
+#pragma unroll
+    for (int j = 0; j < kLaneWhole; ++j) {
+      f[j] = -kInf;
+      keep[j] = j + 1 < r ? 0xffffffffu : 0u;
+    }
+  }
+  __device__ __forceinline__ void push(bool on, float g) {
+    const uint32_t gb = __float_as_uint(g);
+#pragma unroll
+    for (int j = 0; j < kLaneWhole; ++j) {
+      const uint32_t nb =
+          j + 1 < kLaneWhole ? __float_as_uint(f[j + 1 < kLaneWhole ? j + 1 : j]) : gb;
+      const float next = __uint_as_float((nb & keep[j]) | (gb & ~keep[j]));
+      f[j] = on ? next : f[j];
+    }
+  }
+};
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// Where a lane's row keeps a group's 16-byte chunk c of a float input and
+// its 16-byte half h of a byte input in the stage: no two of 8 lanes'
+// 16-byte reads share a bank.
+__device__ __forceinline__ int chunk_at(int lane, int c) { return c ^ (lane & 7); }
+__device__ __forceinline__ int half_at(int lane, int h) { return h ^ ((lane >> 2) & 1); }
+
+// One row a lane, kLanes rows a warp, a warp a block: the socket scan
+// (mode 5) with its connections (kLaneWhole entries), its ring and its EC
+// cores whole in the lane's registers.  Every row of the warp walks its
+// groups of kGroup elements on the tensor's
+// 128-byte boundaries in step: group i of row R holds the elements (R m /
+// kGroup + i) kGroup - R m + [0, kGroup) of it, those outside the row
+// invalid and not stored.  Each lane copies its own row's groups into the
+// stage (16 bytes a copy) and stores its own outputs (a chunk's waits and
+// flags a store each, element by element at the row's two ends).
+template <int EC>
+__global__ void __launch_bounds__(kLanes) lane_walk_kernel(StationArgs a) {
+  constexpr int kChunks = kGroup / 4;  // 16-byte chunks of a float input a group
+  constexpr int kHalves = kGroup / 16;  // 16-byte halves of a byte input a group
+  constexpr int kF = 4;  // float inputs: arrival, enqueue, service, post-IO
+  constexpr int kB = 2;  // byte inputs: validity, burst flags
+  // two stages of each lane's group of the float and byte inputs
+  __shared__ float4 stage_f[2][kF][kLanes][kChunks];
+  __shared__ uint4 stage_b[2][kB][kLanes][kHalves];
+  const int lane = (int)(threadIdx.x % kLanes);
+  const int64_t row = (int64_t)blockIdx.x * kLanes + lane;
+  const bool mine = row < a.S;
+  const int64_t m = a.m;
+  const int64_t total = a.S * m;
+  const float* const src_f[4] = {a.a, a.e, a.d, a.post};
+  const uint8_t* const src_b[2] = {a.v, a.b};
+  // this lane's row: its first group's first element (of the tensor's),
+  // and the elements of that group before the row
+  const int64_t first = mine ? row * m / kGroup * kGroup : 0;
+  const int lead = mine ? (int)(row * m - first) : 0;
+  const int64_t groups = (m + kGroup - 1) / kGroup + 1;  // the most any row spans
+
+  // group i of this lane's row into stage ``buf``, zeros past the tensor
+  const auto stage = [&](int buf, int64_t i) {
+    const int64_t at = first + i * kGroup;
+    const int64_t left = mine ? total - at : 0;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int64_t rest = left - 4 * c;
+      const int n = rest <= 0 ? 0 : rest >= 4 ? 4 : (int)rest;
+#pragma unroll
+      for (int f = 0; f < kF; ++f)
+        copy16_async(&stage_f[buf][f][lane][chunk_at(lane, c)],
+                     n > 0 ? src_f[f] + at + 4 * c : src_f[f], 4 * n);
+    }
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      const int64_t rest = left - 16 * h;
+      const int n = rest <= 0 ? 0 : rest >= 16 ? 16 : (int)rest;
+#pragma unroll
+      for (int f = 0; f < kB; ++f)
+        copy16_async(&stage_b[buf][f][lane][half_at(lane, h)],
+                     n > 0 ? src_b[f] + at + 16 * h : src_b[f], n);
+    }
+    copy_commit();
+  };
+
+  LaneVec<kLaneWhole, 1> conn;
+  LaneVec<EC, 1> wc;
+  ShiftRing ring;
+  conn.init(a.conn, 0, -kInf);
+  wc.init(a.cores, 0);
+  ring.init(a.cap);
+  const bool cap_on = a.cap >= 0;
+  const bool to_on = a.timeout >= 0.0f;
+  const float timeout = a.timeout;
+
+  stage(0, 0);
+  for (int64_t i = 0; i < groups; ++i) {
+    const int buf = (int)(i & 1);
+    if (i + 1 < groups) {
+      stage(buf ^ 1, i + 1);
+    } else {
+      copy_commit();  // an empty group: the wait below still means group i
+    }
+    copy_wait_all_but_one();
+    __syncwarp();
+    // this row's group: the elements [lo, hi) lie in the row
+    const int64_t at = first + i * kGroup;
+    const int64_t k0 = i * kGroup - lead;
+    const int lo = !mine || k0 >= 0 ? 0 : (int)-k0;
+    const int hi = !mine ? 0 : m - k0 >= kGroup ? kGroup : (int)(m - k0);
+    uint32_t any = 0;
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      const uint4 v = stage_b[buf][0][lane][half_at(lane, h)];
+      any |= v.x | v.y | v.z | v.w;
+    }
+    // the chunk's outputs, 16 bytes of waits and 4 flag bytes, to the
+    // row's outputs where the chunk lies in it, else element by element
+    const auto store = [&](int c, const float4& w4, uint32_t flw) {
+      const int j = 4 * c;
+      if (j >= lo && j + 4 <= hi) {
+        *reinterpret_cast<float4*>(a.out0 + at + j) = w4;
+        *reinterpret_cast<uint32_t*>(a.flag + at + j) = flw;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (j + u >= lo && j + u < hi) {
+            a.out0[at + j + u] = lane_of(w4, u);
+            a.flag[at + j + u] = (uint8_t)(flw >> (8 * u));
+          }
+        }
+      }
+    };
+    // kFull walks the chain, else no row has a valid element here and the
+    // carry stays
+    const auto walk = [&](auto full) {
+      constexpr bool kFull = decltype(full)::value;
+#pragma unroll 1
+      for (int c = 0; c < kChunks; ++c) {
+        const int at4 = chunk_at(lane, c);
+        const float4 a4 = stage_f[buf][0][lane][at4];
+        const uint32_t vw = reinterpret_cast<const uint32_t*>(
+            &stage_b[buf][0][lane][half_at(lane, c / 4)])[c % 4];
+        uint32_t flw = 0;
+        float4 w4{};
+        const float4 e4 = stage_f[buf][1][lane][at4];
+        const uint32_t bw = reinterpret_cast<const uint32_t*>(
+            &stage_b[buf][1][lane][half_at(lane, c / 4)])[c % 4];
+        float4 d4{}, p4{};
+        if constexpr (kFull) {
+          d4 = stage_f[buf][2][lane][at4];
+          p4 = stage_f[buf][3][lane][at4];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = 4 * c + u;
+          const float ak = lane_of(a4, u);
+          const float ek = lane_of(e4, u);
+          const bool bk = ((bw >> (8 * u)) & 0xffu) != 0u;
+          if constexpr (kFull) {
+            const bool ok = j >= lo && j < hi && ((vw >> (8 * u)) & 0xffu) != 0u;
+            const float dk = lane_of(d4, u);
+            const float pk = lane_of(p4, u);
+            const bool refused = ok && conn.first > ak;
+            const bool live = ok && !refused;
+            const bool shed = live && bk && cap_on && ring.f[0] > ek;
+            const float g = fmaxf(ek, wc.first);
+            const float wait = bk ? g - ek : 0.0f;
+            const bool through = live && bk && !shed;
+            const bool ab = through && to_on && wait > timeout;
+            const float exit_t = bk ? (shed ? ek : (ab ? g : (g + dk) + pk)) : ak + pk;
+            conn.insert_first(live ? exit_t : conn.first, conn.second(), INFINITY, 0);
+            wc.insert_first(through ? g + (ab ? 0.0f : dk) : wc.first, wc.second(),
+                            INFINITY, 0);
+            ring.push(through, g);
+            set_lane(w4, u, wait);
+            flw |= ((shed ? 1u : 0u) | (ab ? 2u : 0u) | (refused ? 4u : 0u)) << (8 * u);
+          } else {
+            set_lane(w4, u, bk ? fmaxf(ek, wc.first) - ek : 0.0f);
+          }
+        }
+        store(c, w4, flw);
+      }
+    };
+    if (__ballot_sync(kAll, hi > lo && any != 0u) != 0u) {
+      walk(Flag<true>{});
+    } else {
+      walk(Flag<false>{});
+    }
+    __syncwarp();  // the stage is rewritten next group
+  }
+}
+
+// Launch the lane walk's instance: one core in a register, or up to
+// kLaneWhole (two instances keep the library's build time down; a
+// narrower vector pads with +inf).
+template <int EC>
+int launch_lane_walk(const StationArgs& a, void* stream) {
+  if constexpr (EC == 1) {
+    if (a.cores > 1) return launch_lane_walk<kLaneWhole>(a, stream);
+  }
+  const int threads = kLanes;
+  const int64_t blocks = (a.S + kLanes - 1) / kLanes;
+  const auto kernel = lane_walk_kernel<EC>;
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // Launch the warp walk's instance for the RAM-slot form r and the core
 // form c.
 template <int kMode, int ER, int SR, int EC, int SC>
@@ -839,16 +1184,23 @@ int station_scan_args_size() { return (int)sizeof(StationArgs); }
 int station_scan_lanes() { return kLanes; }
 int station_scan_warp_width_max() { return kWarpWidthMax; }
 
-// The walk a launch takes: 0 one thread a row (modes 0 and 3, mode 4 with
-// one core), 1 one warp a row (modes 1, 2, 4 and 5 with both vectors up to
-// kWarpWidthMax entries), 2 one thread a row with the carry in global
+// The walk a launch takes: 0 one thread a row (mode 0, mode 4 with one
+// core), 1 one warp a row (mode 3; modes 1, 2, 4 and 5 with both vectors up
+// to kWarpWidthMax entries), 2 one thread a row with the carry in global
 // scratch of ram_k + cores floats a row (wider; ram_k is the connection cap
-// in mode 5).
-int station_scan_walk(int mode, int cores, int ram_k) {
-  if (mode == 0 || mode == 3 || (mode == 4 && cores == 1)) return kWalkThread;
+// in mode 5), 3 one lane a row (mode 5 with its connections, ring and
+// cores up to kLaneWhole entries each).
+int station_scan_walk(int mode, int cores, int ram_k, int cap) {
+  if (mode == 0 || (mode == 4 && cores == 1)) return kWalkThread;
+  if (mode == 3) return kWalkWarp;
+  if (mode == 5 && ram_k <= kLaneWhole && cap <= kLaneWhole && cores <= kLaneWhole)
+    return kWalkLane;
   const int width = (mode == 2 || mode == 5) && ram_k > cores ? ram_k : cores;
   return width <= kWarpWidthMax ? kWalkWarp : kWalkGlobal;
 }
+
+// The widest connection vector, ring and core vector of the lane walk.
+int station_scan_lane_whole() { return kLaneWhole; }
 
 // How the warp walk holds a vector of ``width`` floats: the entries a lane
 // holds, and the lanes the vector spans (1: whole on every lane).
@@ -870,8 +1222,21 @@ int station_scan_launch(const StationArgs* args, void* stream) {
                       a.post == nullptr || a.b == nullptr))
     return -1;
   const int second = a.mode == 5 ? a.conn : a.ram_k;
-  const int walk = station_scan_walk(a.mode, a.cores, second);
+  const int walk = station_scan_walk(a.mode, a.cores, second, a.cap);
   if (walk == kWalkGlobal && a.scratch == nullptr) return -1;
+  if (walk == kWalkLane) {
+    // every input and output on a 16-byte boundary
+    const uintptr_t at = (uintptr_t)a.a | (uintptr_t)a.e | (uintptr_t)a.d | (uintptr_t)a.post |
+                         (uintptr_t)a.v | (uintptr_t)a.b | (uintptr_t)a.out0 | (uintptr_t)a.flag;
+    if ((at & 15u) != 0u) return -1;
+    return launch_lane_walk<1>(a, stream);
+  }
+  if (a.mode == 3) {
+    const int threads = kWarps * kLanes;
+    const int64_t blocks = (a.S + kWarps - 1) / kWarps;
+    bucket_warp_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   const int threads = kRows;
   const int64_t blocks = (a.S + threads - 1) / threads;
   if (walk == kWalkWarp) {

@@ -34,13 +34,16 @@ Invalid entries leave the carry as it is (their outputs are computed and
 ignored), so a stream may interleave other stations' lanes.
 :class:`StationScan` is the wrapper: CUDA tensors launch the kernel (built
 on first use) or raise, CPU tensors run the plain version.  The kernel
-walks a row with one thread in Lindley's and the bucket's modes and the
-controlled mode at one core, and with one warp in the carry modes, the
-controlled mode past one core and the socket mode, each carry vector
-spread over the warp's lanes, or whole on every lane where it is narrow
-(:func:`carry_form`; the socket mode's connections always spread); a vector wider
-than :data:`WARP_WIDTH_MAX` entries (a core count the schema does not
-bound) goes back to one thread a row with the carry in global scratch
+walks a row with one thread in Lindley's mode and the controlled mode at
+one core; with one warp in the bucket's mode (its chain over the valid
+elements only), the carry modes, the controlled mode past one core and the
+socket mode past the lane walk's shapes, each carry vector spread over the
+warp's lanes, or whole on every lane where it is narrow (:func:`carry_form`;
+the socket mode's connections always spread); with one lane in the socket
+mode up to :data:`LANE_WHOLE` connections, ring entries and cores, every
+vector whole in the lane's registers.  A vector wider than
+:data:`WARP_WIDTH_MAX` entries (a core count the schema does not bound)
+goes back to one thread a row with the carry in global scratch
 (:func:`walk_of`).
 """
 
@@ -72,13 +75,19 @@ FLAG_REFUSED = 4
 #: (the compiler refuses larger caps on the fast path)
 RING_MAX = 128
 #: the kernel's walks (station_scan.cu, ``station_scan_walk``): one thread
-#: a row (Lindley), one warp a row with the carry over its lanes (the carry
-#: modes up to WARP_WIDTH_MAX entries a vector), one thread a row with the
-#: carry in global scratch (wider)
+#: a row (Lindley), one warp a row (the bucket; the carry modes up to
+#: WARP_WIDTH_MAX entries a vector, the carry over its lanes), one thread a
+#: row with the carry in global scratch (wider), one lane a row (the socket
+#: mode up to LANE_WHOLE entries a vector)
 WALK_THREAD = 0
 WALK_WARP = 1
 WALK_GLOBAL = 2
-WALK_NAMES = {WALK_THREAD: "thread", WALK_WARP: "warp", WALK_GLOBAL: "global"}
+WALK_LANE = 3
+WALK_NAMES = {WALK_THREAD: "thread", WALK_WARP: "warp", WALK_GLOBAL: "global",
+              WALK_LANE: "lane"}
+#: the widest connection vector, ring and core vector of the lane walk
+#: (kLaneWhole)
+LANE_WHOLE = 8
 #: lanes of the warp walk, the widest carry vector it holds, and the widest
 #: it holds whole on every lane (kLanes, kWarpWidthMax, kWholeMax)
 WARP_LANES = 32
@@ -86,12 +95,16 @@ WARP_WIDTH_MAX = 1024
 WHOLE_MAX = 4
 
 
-def walk_of(mode: int, cores: int, ram_k: int) -> int:
+def walk_of(mode: int, cores: int, ram_k: int, cap: int = -1) -> int:
     """The walk the kernel takes for a launch (``station_scan_walk``);
     ``ram_k`` is the RAM slots in the RAM-core mode and the connection cap
-    in the socket mode."""
-    if mode in (MODE_LINDLEY, MODE_BUCKET) or (mode == MODE_CONTROLLED and cores == 1):
+    in the socket mode, ``cap`` the ready-queue cap."""
+    if mode == MODE_LINDLEY or (mode == MODE_CONTROLLED and cores == 1):
         return WALK_THREAD
+    if mode == MODE_BUCKET:
+        return WALK_WARP
+    if mode == MODE_SOCKET and max(ram_k, cap, cores) <= LANE_WHOLE:
+        return WALK_LANE
     width = max(cores, ram_k) if mode in (MODE_RAM_CORE, MODE_SOCKET) else cores
     return WALK_WARP if width <= WARP_WIDTH_MAX else WALK_GLOBAL
 
@@ -316,7 +329,7 @@ def _library() -> ctypes.CDLL:
     lib.station_scan_launch.restype = ctypes.c_int
     lib.station_scan_args_size.argtypes = []
     lib.station_scan_args_size.restype = ctypes.c_int
-    lib.station_scan_walk.argtypes = [ctypes.c_int] * 3
+    lib.station_scan_walk.argtypes = [ctypes.c_int] * 4
     lib.station_scan_walk.restype = ctypes.c_int
     if lib.station_scan_args_size() != ctypes.sizeof(_StationArgs):
         msg = "StationArgs layout mismatch between station_scan.cu and its ctypes mirror"
@@ -350,9 +363,10 @@ class StationScan:
     (``mode_launches``: Lindley, Kiefer-Wolfowitz, RAM-core, the token
     bucket, the controlled and the socket scans) and by walk
     (``walk_launches``: a thread a row, a warp a row, the global-scratch
-    walk).  A carry vector of up to :data:`WARP_WIDTH_MAX` entries is held
-    by a warp's lanes (:func:`carry_form`); a wider one lives in global
-    scratch that the launch allocates."""
+    walk, a lane a row).  A carry vector of up to :data:`WARP_WIDTH_MAX`
+    entries is held by a warp's lanes (:func:`carry_form`); a wider one
+    lives in global scratch that the launch allocates.  The lane walk takes
+    its inputs on 16-byte boundaries: an input off one is copied first."""
 
     name = "station_scan"
     route = "cuda"
@@ -452,7 +466,11 @@ class StationScan:
         if s == 0 or m == 0:
             return
         lib = _library()
-        walk = lib.station_scan_walk(mode, cores, ram_k)
+        walk = lib.station_scan_walk(mode, cores, ram_k, cap)
+        if walk == WALK_LANE:
+            for name, t in tensors.items():
+                if not name.startswith("out") and name != "flag" and t.data_ptr() % 16:
+                    tensors[name] = t.clone()
         if walk == WALK_GLOBAL:
             width = cores + (ram_k if mode in (MODE_RAM_CORE, MODE_SOCKET) else 0)
             tensors["scratch"] = torch.empty((s, width), dtype=torch.float32, device=dev)

@@ -126,6 +126,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -956,7 +957,15 @@ def card_line() -> str:
 
 #: the kernels redesigned for this card whose instances must not spill
 #: (their ptxas lines are kept for the summary line): (library, kernel)
-REDESIGNED = (("lb_route", "lc_kernel"), ("edge_draws", "hop_kernel<true"))
+REDESIGNED = (("lb_route", "lc_kernel"), ("edge_draws", "hop_kernel<true"),
+              ("station_scan", "bucket_warp_kernel"), ("station_scan", "lane_walk_kernel"))
+#: the dependent clocks of one valid element's chain in the redesigned
+#: station_scan walks, read from their SASS (sm_90a): the bucket's tokens
+#: (add, min, compare, select) and the socket scan's connections (the
+#: refusal's compare, the shed and deadline tests, the exit's selects, the
+#: insertion's compare and select); a row's chain floor is its valid
+#: elements times these clocks at the card's SM clock
+SCAN_CHAIN_CLOCKS = {"bucket": 18, "socket": 52}
 #: ptxas' registers and spills of the redesigned kernels' instances
 REDESIGNED_PTXAS: dict = {}
 
@@ -2126,29 +2135,42 @@ def _fault_hop_check(torch, kernel, plain) -> float:
 
 #: the token bucket's (rate, burst) pairs phase 4 holds to the plain version
 BUCKET_CASES = ((5.0, 50.0), (0.37, 3.0), (100.0, 1.0), (0.0, 2.0), (13.3, 7.0))
+#: the bucket check's row layouts and their valid shares: valid elements
+#: among invalid ones (the budget's wants among its lanes), the valid
+#: elements first and an invalid tail (a server's arrivals as the fast path
+#: sorts them for its rate limit), and sparse wants (a retry pass's)
+BUCKET_LAYOUTS = {"interspersed": 0.7, "sorted tail": 0.6, "sparse": 0.05}
 
 
 def _bucket_check(torch, kernel, plain) -> float:
     """station_scan's token bucket against its plain version on 2048
     synthetic sorted rows of 9,750 elements (the guide's outage sweep's
-    lanes), a third invalid (INF, as the budget's non-wants), runs of
-    equal times, at each of BUCKET_CASES; bit-exact."""
+    lanes), invalid elements at INF (as the budget's non-wants), runs of
+    equal times, at each of BUCKET_CASES in each of BUCKET_LAYOUTS (the
+    valid elements arrive at 1.3 x rate + 1 a second in each); bit-exact."""
     s, m = MAIN_SCENARIOS, 9750
     err = 0.0
-    for seed, (rate, burst) in enumerate(BUCKET_CASES):
+    for seed, ((rate, burst), (layout, share)) in enumerate(
+            itertools.product(BUCKET_CASES, BUCKET_LAYOUTS.items())):
         g = torch.Generator(device="cuda").manual_seed(100 + seed)
-        gaps = torch.empty((s, m), device="cuda").exponential_(1.3 * rate + 1.0, generator=g)
+        gaps = torch.empty((s, m), device="cuda").exponential_(
+            (1.3 * rate + 1.0) / share, generator=g)
         t = torch.cumsum(gaps, dim=1)
         t[:, 100:110] = t[:, 100:101]
-        v = torch.rand((s, m), device="cuda", generator=g) < 0.7
+        if layout == "sorted tail":
+            n_valid = (torch.rand((s, 1), device="cuda", generator=g) * 0.4 + 0.4) * m
+            v = torch.arange(m, device="cuda")[None, :] < n_valid
+        else:
+            v = torch.rand((s, m), device="cuda", generator=g) < share
         t = torch.where(v, t, 1e30)
         want = plain.bucket(t, v, rate, burst)
-        err = max(err, _compare(torch, f"fast check: bucket at rate {rate}, burst {burst}",
-                                (kernel.bucket(t, v, rate, burst),), (want,)))
+        label = f"fast check: bucket at rate {rate}, burst {burst}, {layout}"
+        err = max(err, _compare(torch, label, (kernel.bucket(t, v, rate, burst),), (want,)))
         if not bool((v & ~want).any()) or not bool(want.any()):
-            raise SmokeError(f"fast check: the bucket at rate {rate} never refuses or accepts")
+            raise SmokeError(f"{label}: the bucket never refuses or accepts")
     print(f"fast check: station_scan's token bucket == plain on {s} x {m} rows at "
-          f"{len(BUCKET_CASES)} (rate, burst) pairs", flush=True)
+          f"{len(BUCKET_CASES)} (rate, burst) pairs in each of {sorted(BUCKET_LAYOUTS)}",
+          flush=True)
     return err
 
 
@@ -2160,6 +2182,10 @@ def _bucket_check(torch, kernel, plain) -> float:
 CONTROL_GRID = {"cores": (1, 2, 33), "cap": (-1, 1, 8, 128), "timeout": (-1.0, 0.05),
                 "conn": (1, 6, 128)}
 CONTROL_CHECK_ELEMENTS = 601
+#: the socket scan's lane walk at the edges of its shapes, (connections,
+#: cap) at one core and at two with a deadline: LANE_WHOLE of each (the
+#: lane walk) and one past either (the warp walk)
+SOCKET_EDGES = ((8, 8), (9, 8), (8, 9), (9, 9))
 #: least connections' synthetic cases: (LB slots, ring, marks (time, down,
 #: slot)): the mixed fleet's two slots and ring of 23, a timeline with
 #: marks at one time and every slot down a while (the only case that leaves
@@ -2194,10 +2220,9 @@ def _control_rows(torch, seed: int, cores: int):
 
 def _control_check(torch, kernel, plain) -> float:
     """station_scan's controlled and socket modes against their plain
-    versions over CONTROL_GRID on 2048 synthetic rows; bit-exact, and each
+    versions over CONTROL_GRID on 2048 synthetic rows, and the socket scan
+    at SOCKET_EDGES, each on the walk its shape takes; bit-exact, and each
     control binding somewhere."""
-    import itertools
-
     err, seen = 0.0, 0
     for i, (cores, cap, timeout) in enumerate(itertools.product(
             CONTROL_GRID["cores"], CONTROL_GRID["cap"], CONTROL_GRID["timeout"])):
@@ -2218,8 +2243,20 @@ def _control_check(torch, kernel, plain) -> float:
                 seen |= bit if bool(((want[1] & bit) != 0).any()) else 0
     if seen != 7:
         raise SmokeError(f"control check: the flags seen over the grid are {seen}, not 7")
+    for i, (cores, (conn, cap)) in enumerate(itertools.product((1, 2), SOCKET_EDGES)):
+        a, e, d, post, b, v = _control_rows(torch, 400 + i, cores)
+        args = (a, e, d, post, b, v, cores, conn, cap, 0.05)
+        before = dict(kernel.walk_launches)
+        got = kernel.socket(*args)
+        walk = next(k for k, n in kernel.walk_launches.items() if n > before[k])
+        want = plain.socket(*args)
+        err = max(err, _compare(torch, f"control check: socket {args[6:]} ({walk})", got, want))
+        if walk != ("lane" if max(conn, cap) <= 8 else "warp"):
+            raise SmokeError(f"control check: socket {args[6:]} took the {walk} walk")
     print(f"fast check: station_scan's controlled and socket modes == plain on "
-          f"{MAIN_SCENARIOS} x {CONTROL_CHECK_ELEMENTS} rows over {CONTROL_GRID}", flush=True)
+          f"{MAIN_SCENARIOS} x {CONTROL_CHECK_ELEMENTS} rows over {CONTROL_GRID} and the "
+          f"socket scan's (connections, cap) at {SOCKET_EDGES} at one and two cores",
+          flush=True)
     return err
 
 
@@ -2440,6 +2477,27 @@ def _controlled_wide(plan) -> bool:
     return wide == {True}
 
 
+def _socket_lane(plan) -> bool:
+    """Whether the servers the fast path sends to the socket scan (a
+    connection cap) take its lane walk (connections, cap and cores up to
+    LANE_WHOLE); the walk check counts a path's socket launches on one
+    walk."""
+    from asyncflow_tpu_torch.engines.torchsim import station_scan
+
+    lane = set()
+    for s in range(len(plan.server_cores)):
+        conn = int(plan.server_conn_cap[s]) if len(plan.server_conn_cap) else -1
+        cap = int(plan.server_queue_cap[s]) if len(plan.server_queue_cap) else -1
+        if conn >= 0:
+            walk = station_scan.walk_of(station_scan.MODE_SOCKET, int(plan.server_cores[s]),
+                                        conn, cap)
+            lane.add(walk == station_scan.WALK_LANE)
+    if len(lane) > 1:
+        raise SmokeError("the walk check takes a path whose socket servers all take the "
+                         "lane walk or none")
+    return lane == {True}
+
+
 def _check_resilience_sweep(name: str, summary: dict, res) -> None:
     """A resilience path's sweep: dark refusals are its only refusals and
     some happen; on the chaos campaign, the scorecard (availability in
@@ -2540,13 +2598,17 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     walk_launches = dict(eng.scan.walk_launches)
     need = ["edge_draws", "station_scan"] + (["lb_route"] if eng.timeline else [])
     kw_pool = bool(np.any(plan.server_db_pool > 1))
-    # the carry modes and the socket scan take the warp walk, the controlled
-    # scan too past one core (no path's station is wider than it holds)
-    carries = mode_launches["kw"] + mode_launches["ram_core"] + mode_launches["socket"]
+    # the carry modes and the bucket take the warp walk, the controlled scan
+    # too past one core, the socket scan past the lane walk's shapes (no
+    # path's station is wider than the warp walk holds)
+    lanes = mode_launches["socket"] if _socket_lane(plan) else 0
+    carries = (mode_launches["kw"] + mode_launches["ram_core"] + mode_launches["bucket"]
+               + mode_launches["socket"] - lanes)
     if _controlled_wide(plan):
         carries += mode_launches["controlled"]
     if (min(launches[k] for k in need) < 1 or (kw_pool and mode_launches["kw"] < 1)
             or walk_launches["global"] != 0 or walk_launches["warp"] != carries
+            or walk_launches["lane"] != lanes
             or (eng.has_edge_faults and fault_launches < 1)
             or (plan.retry_budget_tokens >= 0 and mode_launches["bucket"] < 1)
             or (name in CONTROL_MODES and mode_launches[CONTROL_MODES[name]] < 1)
@@ -2656,6 +2718,12 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
                  else _scan_bound(kind, args))
         timed[kernel][kind] = {"call": kind, "ms": ms, "plain_ms": plain_ms,
                                "library_ms": library_ms, **bound}
+        if kind in SCAN_CHAIN_CLOCKS:
+            # the valid elements: each row's are its chain's length
+            valid = args[1 if kind == "bucket" else 5]
+            timed[kernel][kind].update(
+                shape=tuple(valid.shape), valid_share=float(valid.float().mean()),
+                valid_max=int(valid.sum(dim=1).max()))
     ov = eng._overrides(base_overrides(plan), MAIN_SCENARIOS)
     _lam, counts = eng.window_draws(keys, ov["um"], ov["rr"])
     ts, valids, _ = eng._stream_arrivals(fold_in(keys, 0), counts)
@@ -2877,12 +2945,20 @@ def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> li
     return kernels
 
 
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (``nvidia-smi``), MHz."""
+    out = _run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"])
+    return float(out.splitlines()[0])
+
+
 def redesigned_report(fast: dict) -> None:
     """The redesigned kernels at their paths' full-width calls: least
     connections on lc_mixed_fleet, the static and LB hops under
     chaos_campaign's fault tables (each beside the same run's plain-table
-    hop of the headline), each ms beside its bound, and every instance's
-    registers and spills."""
+    hop of the headline), the token bucket on rate_limited_lb and on
+    outage_retry's last pass, the socket scan on overload_sockets (each
+    with its valid share and chain floor), each ms beside its bound, and
+    every instance's registers and spills."""
     def mode(path: str, lib: str, kind: str) -> str:
         m = fast[path]["timed"][lib]["modes"].get(kind)
         if m is None:
@@ -2897,6 +2973,19 @@ def redesigned_report(fast: dict) -> None:
           + "; the headline's plain hops: "
           + "; ".join(mode("two_servers_lb", "edge_draws", k) for k in ("hop", "hop_lb")),
           flush=True)
+    mhz = sm_clock_mhz()
+    for path, kind in (("rate_limited_lb", "bucket"), ("outage_retry", "bucket"),
+                       ("overload_sockets", "socket")):
+        m = fast[path]["timed"]["station_scan"]["modes"].get(kind)
+        if m is None:
+            print(f"redesigned: station_scan {kind} on {path}: not called", flush=True)
+            continue
+        floor_ms = m["valid_max"] * SCAN_CHAIN_CLOCKS[kind] / (mhz * 1e3)
+        print(f"redesigned: station_scan {kind} on {path} ({m['shape'][0]} x "
+              f"{m['shape'][1]}, valid share {m['valid_share']:.4f}, the longest row "
+              f"{m['valid_max']} valid): {m['ms']:.4f} ms (bound {m['bound_ms']:.4f} ms, "
+              f"{m['bound_by']}; chain floor {floor_ms:.4f} ms at "
+              f"{SCAN_CHAIN_CLOCKS[kind]} clocks an element, {mhz:.0f} MHz)", flush=True)
     for entry, res in REDESIGNED_PTXAS.items():
         print(f"redesigned: ptxas {entry}: {res}", flush=True)
 

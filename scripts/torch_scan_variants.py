@@ -2,7 +2,8 @@
 """Time builds of the port's station_scan kernel on one CUDA card.
 
     python3 scripts/torch_scan_variants.py [--rows 16] [--ahead 256] [--against SOURCE]
-                                           [--row-counts 132,2048]
+                                           [--row-counts 132,2048] [--paths NAME,...]
+                                           [--no-synthetic]
 
 Builds ``csrc/station_scan.cu`` once for each pair of rows a block of the
 thread walk (``-DSTATION_ROWS``) and prefetch distance in elements
@@ -21,8 +22,15 @@ every build's outputs must equal the first build's bit for bit.  With
 ``--row-counts``, each case is timed again on this source's last build
 at those row counts (its rows' length kept): 132 rows is one warp an SM of the
 warp walk, so the time an element a row there is the walk's chain, and at
-more rows what the SM's pipes allow.  Prints the card's name and power
-limit and one line a build and case.  Needs a CUDA card.
+more rows what the SM's pipes allow.  ``--paths`` names fast paths of
+``chip_smoke.FAST_PAYLOADS`` (say rate_limited_lb, outage_retry,
+overload_sockets): each path's full-width sweep (2048 scenarios of seed 0,
+its sweep axes) runs once through the port's fast engine, its first token
+bucket and socket scan calls are recorded, and every build is timed on
+their arguments in the same turns, its outputs held equal to the first
+build's and to the plain version's; each line gives the call's valid share.
+``--no-synthetic`` skips the synthetic cases.  Prints the card's name and
+power limit and one line a build and case.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -90,6 +99,56 @@ def launcher(torch, lib, mode: int, cores: int, ram_k: int, inputs: dict):
     return run
 
 
+def recorded_launcher(torch, lib, kind: str, args: tuple):
+    """A function that launches ``lib``'s kernel on a recorded token bucket
+    (``kind`` "bucket") or socket scan call's arguments and returns its
+    outputs."""
+    from asyncflow_tpu_torch.engines.torchsim import station_scan
+
+    if kind == "bucket":
+        t, v, rate, burst = args
+        outs = [torch.empty_like(v)]
+        st = station_scan._StationArgs(a=t.data_ptr(), v=v.data_ptr(), flag=outs[0].data_ptr(),
+                                       S=t.shape[0], m=t.shape[1], mode=station_scan.MODE_BUCKET,
+                                       cores=1, rate=rate, burst=burst)
+    else:
+        a, e, d, post, b, v, cores, conn, cap, timeout = args
+        outs = [torch.empty_like(a), torch.empty(a.shape, dtype=torch.uint8, device=a.device)]
+        st = station_scan._StationArgs(
+            a=a.data_ptr(), e=e.data_ptr(), d=d.data_ptr(), post=post.data_ptr(),
+            b=b.data_ptr(), v=v.data_ptr(), out0=outs[0].data_ptr(), flag=outs[1].data_ptr(),
+            S=a.shape[0], m=a.shape[1], mode=station_scan.MODE_SOCKET, cores=cores, conn=conn,
+            cap=cap, timeout=float(torch.tensor(timeout, dtype=torch.float32)))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        rc = lib.station_scan_launch(ctypes.byref(st), stream)
+        if rc != 0:
+            msg = f"station_scan launch failed: code {rc}"
+            raise RuntimeError(msg)
+        return outs
+
+    return run
+
+
+def path_calls(torch, name: str) -> list:
+    """(kind, args) of the first token bucket and socket scan calls of the
+    fast path ``name``'s full-width run, as chip_smoke's phase 5 records
+    them."""
+    import chip_smoke
+    from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+    from asyncflow_tpu_torch.parallel import SweepRunner
+
+    eng = SweepRunner(chip_smoke.FAST_PAYLOADS[name], device="cuda").engine
+    n = chip_smoke.MAIN_SCENARIOS
+    keys = scenario_keys(0, n, device="cuda")
+    wrappers = chip_smoke._wrappers(eng)
+    calls = chip_smoke._record_kernel_calls(eng, every=False)
+    eng.run_tensors(keys, chip_smoke.path_overrides(name, eng.plan, n))
+    chip_smoke._set_wrappers(eng, wrappers)
+    return [(kind, args) for kind, args, _ in calls if kind in ("bucket", "socket")]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rows", default="16")
@@ -98,6 +157,10 @@ def main() -> int:
                         help="another station_scan.cu to build and time beside this one")
     parser.add_argument("--row-counts", default="",
                         help="row counts to time each case at on this source's build")
+    parser.add_argument("--paths", default="",
+                        help="fast paths whose recorded bucket and socket calls to time")
+    parser.add_argument("--no-synthetic", action="store_true",
+                        help="skip the synthetic cases")
     opts = parser.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -119,7 +182,10 @@ def main() -> int:
             name = f"station_scan_rows{rows}_ahead{ahead}"
             _build.SOURCES[name] = (src, (f"-DSTATION_ROWS={rows}", f"-DSTATION_AHEAD={ahead}"))
             names.append(name)
-    _build.build(names)
+    t0 = time.perf_counter()
+    # with --paths, the fast engine's own libraries besides, all at once
+    _build.build(None if opts.paths else names)
+    print(f"built {len(names)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     libs = {}
     for name in names:
         for line in _build.ptxas_report.get(name, "").splitlines():
@@ -138,6 +204,24 @@ def main() -> int:
         "kw K=2 (2048 x 3810)": (station_scan.MODE_KW, 2, 0, (2048, 3_810, 40.0, 0.06, 3)),
     }
     order = names + names[::-1]
+    plain = station_scan.PlainStationScan()
+    for path in (p for p in opts.paths.split(",") if p):
+        for kind, args in path_calls(torch, path):
+            valid = args[1 if kind == "bucket" else 5]
+            case = (f"{path} {kind} ({valid.shape[0]} x {valid.shape[1]}, valid share "
+                    f"{float(valid.float().mean()):.4f})")
+            want = getattr(plain, kind)(*args)
+            want = list(want) if isinstance(want, tuple) else [want]
+            for name in order:
+                run = recorded_launcher(torch, libs[name], kind, args)
+                out = run()
+                if not all(torch.equal(x, y) for x, y in zip(out, want, strict=True)):
+                    print(f"{case}: {name} differs from the plain version", file=sys.stderr)
+                    return 1
+                ms = chip_smoke.time_kernel(torch, run, repeats=5)
+                print(f"{case}: {name} {ms:.4f} ms", flush=True)
+    if opts.no_synthetic:
+        return 0
     for case, (mode, cores, ram_k, shape) in cases.items():
         inputs = streams(torch, *shape)
         first = None

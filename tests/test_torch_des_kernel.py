@@ -29,6 +29,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 import yaml
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.engines.jaxsim.engine import scenario_keys as jax_scenario_keys
@@ -39,6 +43,8 @@ from asyncflow_tpu_torch.compiler import compile_payload
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 S = 8
 DATA = Path(__file__).resolve().parents[1] / "examples" / "yaml_input" / "data"

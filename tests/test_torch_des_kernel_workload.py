@@ -30,6 +30,10 @@ import numpy as np
 import pytest
 from test_torch_des_kernel import _event_inj, _lb, _single
 from test_torch_plan_workload import cache, db_pool, featured, llm_cost, two_gen
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.engines.jaxsim.engine import scenario_keys as jax_scenario_keys
@@ -41,6 +45,8 @@ from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 S = 8
 INT_FIELDS = ("hist", "thr", "lat_count", "n_generated", "n_dropped", "n_overflow",

@@ -11,13 +11,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_fast_cases import assert_poisson, example
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    assert_poisson,
+    example,
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu_torch.compiler import compile_payload
 from asyncflow_tpu_torch.engines.torchsim import draws
 from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 #: every float32 a uniform takes: k / 2**23
 UNIFORMS = torch.arange(2**23, dtype=torch.float64).div(2**23).float()

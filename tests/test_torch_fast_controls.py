@@ -15,10 +15,16 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.engines.jaxsim import fastpath as ref_fastpath
 from asyncflow_tpu_torch.engines.torchsim import station_scan
 from asyncflow_tpu_torch.engines.torchsim.params import INF
+
+one_torch_thread()
 
 M = 300
 CORES = (1, 2, 4)
@@ -110,5 +116,7 @@ def test_wrapper_on_cpu_is_the_plain_version() -> None:
         station_scan._check_cap(station_scan.RING_MAX + 1)
     assert station_scan.walk_of(station_scan.MODE_CONTROLLED, 1, 0) == station_scan.WALK_THREAD
     assert station_scan.walk_of(station_scan.MODE_CONTROLLED, 2, 0) == station_scan.WALK_WARP
-    assert station_scan.walk_of(station_scan.MODE_SOCKET, 1, 6) == station_scan.WALK_WARP
+    assert station_scan.walk_of(station_scan.MODE_SOCKET, 1, 6, 4) == station_scan.WALK_LANE
+    assert station_scan.walk_of(station_scan.MODE_SOCKET, 1, 9, 4) == station_scan.WALK_WARP
     assert station_scan.walk_of(station_scan.MODE_SOCKET, 1025, 6) == station_scan.WALK_GLOBAL
+    assert station_scan.walk_of(station_scan.MODE_BUCKET, 1, 0) == station_scan.WALK_WARP

@@ -11,9 +11,17 @@ rejections included), p95 within a histogram bin
 from __future__ import annotations
 
 import pytest
-from torch_fast_cases import assert_matches_reference, mutated, run_both
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    assert_matches_reference,
+    mutated,
+    one_torch_thread,
+    run_both,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu_torch.parallel import SweepRunner
+
+one_torch_thread()
 
 CASES = ("rate_limited_lb", "overload_cap8", "overload_deadline", "overload_sockets",
          "retry_queue_cap")

@@ -141,8 +141,8 @@ def _stream(dev, seed: int, m: int, rate: float, svc: float):
     return (torch.tensor(x, device=dev) for x in (a, d, v))
 
 
-def _walk(mode: int, cores: int, ram_k: int) -> str:
-    return station_scan.WALK_NAMES[station_scan.walk_of(mode, cores, ram_k)]
+def _walk(mode: int, cores: int, ram_k: int, cap: int = -1) -> str:
+    return station_scan.WALK_NAMES[station_scan.walk_of(mode, cores, ram_k, cap)]
 
 
 @pytest.mark.cuda
@@ -442,7 +442,31 @@ def test_bucket_matches_plain_on_cuda(cuda_device, rate: float, burst: float) ->
     kernel = station_scan.StationScan()
     got = kernel.bucket(t, v, rate, burst)
     assert torch.equal(got, station_scan.PlainStationScan().bucket(t, v, rate, burst))
-    assert kernel.mode_launches["bucket"] == 1 and kernel.walk_launches["thread"] == 1
+    assert kernel.mode_launches["bucket"] == 1 and kernel.walk_launches["warp"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["sorted_tail", "sparse"])
+@pytest.mark.parametrize(("rows", "m"), [(45, 20_011), (1, 31), (33, 4_099)])
+def test_bucket_layouts_match_plain_on_cuda(cuda_device, layout: str, rows: int,
+                                            m: int) -> None:
+    """The token bucket's warp walk on rows whose valid elements come first
+    (an invalid tail of each row's own length) and on sparse rows (~5%
+    valid), the valid elements at 1.3x the refill rate, at row counts and
+    lengths that fill no whole line or block."""
+    rate, burst, share = 5.0, 3.0, 0.6 if layout == "sorted_tail" else 0.05
+    g = np.random.default_rng(9)
+    t = np.cumsum(g.exponential(share / (1.3 * rate), (rows, m)), axis=1)
+    if layout == "sorted_tail":
+        v = np.arange(m)[None, :] < g.integers(m // 3, m, (rows, 1))
+    else:
+        v = g.random((rows, m)) < share
+    t = torch.tensor(np.where(v, t, 1e30), dtype=torch.float32, device=cuda_device)
+    v = torch.tensor(v, device=cuda_device)
+    kernel = station_scan.StationScan()
+    got = kernel.bucket(t, v, rate, burst)
+    assert torch.equal(got, station_scan.PlainStationScan().bucket(t, v, rate, burst))
+    assert kernel.walk_launches["warp"] == 1
 
 
 def _control_rows(dev, seed: int, m: int, cores: int):
@@ -481,16 +505,45 @@ def test_controlled_matches_plain_on_cuda(cuda_device, cores: int, cap: int,
 @pytest.mark.parametrize(("cap", "timeout"), [(-1, -1.0), (1, 0.05), (8, -1.0), (128, 0.05)])
 def test_socket_matches_plain_on_cuda(cuda_device, cores: int, conn: int, cap: int,
                                       timeout: float) -> None:
-    """The socket mode: the connections in their one spread form (1 to 128
-    of them), the cores whole on every lane or spread, and the global
-    walk."""
+    """The socket mode: the lane walk (up to 8 connections, cap and cores
+    whole in a lane's registers), the warp walk's connections in their one
+    spread form (1 to 128 of them) with the cores whole on every lane or
+    spread, and the global walk."""
     a, e, d, post, b, v = _control_rows(cuda_device, 12, 2001, min(cores, 40))
     kernel = station_scan.StationScan()
     got = kernel.socket(a, e, d, post, b, v, cores, conn, cap, timeout)
     want = station_scan.PlainStationScan().socket(a, e, d, post, b, v, cores, conn, cap, timeout)
     assert all(torch.equal(x, y) for x, y in zip(got, want, strict=True))
     assert kernel.mode_launches["socket"] == 1
-    assert kernel.walk_launches[_walk(station_scan.MODE_SOCKET, cores, conn)] == 1
+    assert kernel.walk_launches[_walk(station_scan.MODE_SOCKET, cores, conn, cap)] == 1
+
+
+def _off_boundary(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts one element past its buffer's
+    start, off a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    out = buf[1:1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("cores", "conn", "cap"), [(1, 8, 8), (1, 9, 8), (1, 8, 9), (2, 8, 8),
+                                                    (2, 9, 9), (8, 8, 8), (9, 6, 4), (5, 3, 1)])
+def test_socket_edges_match_plain_on_cuda(cuda_device, cores: int, conn: int, cap: int) -> None:
+    """The socket scan at the edges of the lane walk's shapes (8 of each,
+    and one past the connections, the cap or the cores: the warp walk) on
+    37 rows (a warp and a part) of 1001, then on inputs that start one
+    element past a 16-byte boundary, which the wrapper copies before the
+    lane walk takes them."""
+    rows = tuple(x[:37, :1001].contiguous() for x in _control_rows(cuda_device, 14, 1001, cores))
+    plain = station_scan.PlainStationScan()
+    for args in (rows, tuple(_off_boundary(x) for x in rows)):
+        kernel = station_scan.StationScan()
+        got = kernel.socket(*args, cores, conn, cap, 0.05)
+        want = plain.socket(*args, cores, conn, cap, 0.05)
+        assert all(torch.equal(x, y) for x, y in zip(got, want, strict=True))
+        assert kernel.walk_launches[_walk(station_scan.MODE_SOCKET, cores, conn, cap)] == 1
 
 
 #: the candidate delays' spread of a least-connections case (el, ring):

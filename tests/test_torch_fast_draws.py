@@ -11,7 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_fast_cases import mutated
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    mutated,
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.engines.jaxsim.engine import scenario_keys as jax_keys
@@ -29,6 +33,8 @@ from asyncflow_tpu_torch.engines.torchsim.sortutil import (
     time_rank,
 )
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 S, N = 4, 3001
 

@@ -9,7 +9,16 @@ so that their spike's start and end both fall inside.  Tolerances in
 from __future__ import annotations
 
 import pytest
-from torch_fast_cases import assert_matches_reference, example, mutated, run_both
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    assert_matches_reference,
+    example,
+    mutated,
+    one_torch_thread,
+    run_both,
+    torch_inference_mode,
+)
+
+one_torch_thread()
 
 CASES = {
     "two_servers_lb": lambda: example("two_servers_lb", horizon=30),

@@ -8,7 +8,16 @@ relaxation), a server chain, and IO-only endpoints.  Tolerances in
 from __future__ import annotations
 
 import pytest
-from torch_fast_cases import assert_matches_reference, example, mutated, run_both
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    assert_matches_reference,
+    example,
+    mutated,
+    one_torch_thread,
+    run_both,
+    torch_inference_mode,
+)
+
+one_torch_thread()
 
 CASES = {
     "single_server": lambda: example("single_server", horizon=60),

@@ -15,12 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_fast_cases import (
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
     assert_matches_reference,
     example,
     hazard_overrides,
     mutated,
+    one_torch_thread,
     run_both,
+    torch_inference_mode,
 )
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
@@ -33,6 +35,8 @@ from asyncflow_tpu_torch.engines.torchsim import draws
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.parallel import SweepRunner, make_overrides
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 S, N = 4, 2001
 HORIZON = 20.0

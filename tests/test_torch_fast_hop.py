@@ -12,7 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_fast_cases import example, mutated
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    example,
+    mutated,
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.engines.jaxsim.engine import scenario_keys as jax_keys
@@ -23,6 +28,8 @@ from asyncflow_tpu_torch.compiler import compile_payload
 from asyncflow_tpu_torch.engines.torchsim import draws
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 S, N = 4, 3001
 

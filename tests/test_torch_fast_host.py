@@ -31,6 +31,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu_torch.engines.torchsim import _build, draws, routing, station_scan
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
@@ -40,6 +44,8 @@ from asyncflow_tpu_torch.engines.torchsim.sampling import (
     D_NORMAL,
     D_UNIFORM,
 )
+
+one_torch_thread()
 
 CSRC = Path(draws.__file__).resolve().parents[2] / "csrc"
 
@@ -118,7 +124,7 @@ def _start(tmp: Path, name: str) -> tuple[subprocess.Popen, Path]:
             "the launch statements changed: update LAUNCH_2D"
         src = LAUNCH_2D.sub(HOST_LAUNCH_2D, src) + HOST_SMEM[name]
     else:
-        assert len(LAUNCH.findall(src)) == 3, "the launch statements changed: update LAUNCH"
+        assert len(LAUNCH.findall(src)) == 5, "the launch statements changed: update LAUNCH"
         src = LAUNCH.sub(HOST_LAUNCH, src)
     if not (tmp / "shim.h").exists():  # builds running at once share it
         (tmp / "shim.h").write_text(SHIM)
@@ -528,22 +534,31 @@ def test_wide_carry_needs_scratch(host_libs) -> None:
     """The library's width limits are the wrapper's: the warp walk holds
     carry vectors of up to WARP_WIDTH_MAX entries, each whole on every lane
     (one lane a row here), padded to a power of two; a wider vector takes
-    the global walk, which is refused without its scratch."""
+    the global walk, which is refused without its scratch.  The socket mode
+    takes the lane walk up to LANE_WHOLE connections, ring entries and
+    cores, which is refused on inputs off their boundaries; the bucket
+    takes the warp walk."""
     lib = host_libs["station_scan"]
     for fn in ("station_scan_walk", "station_scan_lane_entries", "station_scan_lane_span",
-               "station_scan_lanes", "station_scan_warp_width_max"):
+               "station_scan_lanes", "station_scan_warp_width_max", "station_scan_lane_whole"):
         getattr(lib, fn).restype = ctypes.c_int
     top = station_scan.WARP_WIDTH_MAX
     assert lib.station_scan_warp_width_max() == top
-    kw, ram = station_scan.MODE_KW, station_scan.MODE_RAM_CORE
-    thread, warp, wide = (station_scan.WALK_THREAD, station_scan.WALK_WARP,
-                          station_scan.WALK_GLOBAL)
-    cases = [(station_scan.MODE_LINDLEY, 1, 0, thread), (kw, 2, 0, warp),
-             (kw, top, 0, warp), (kw, top + 1, 0, wide), (ram, 1, 1, warp),
-             (ram, top, top, warp), (ram, 1, top + 1, wide), (ram, top + 1, 1, wide)]
-    for mode, cores, ram_k, walk in cases:
-        assert station_scan.walk_of(mode, cores, ram_k) == walk
-        assert lib.station_scan_walk(mode, cores, ram_k) == walk
+    whole = station_scan.LANE_WHOLE
+    assert lib.station_scan_lane_whole() == whole
+    kw, ram, sock = station_scan.MODE_KW, station_scan.MODE_RAM_CORE, station_scan.MODE_SOCKET
+    thread, warp, wide, lane = (station_scan.WALK_THREAD, station_scan.WALK_WARP,
+                                station_scan.WALK_GLOBAL, station_scan.WALK_LANE)
+    cases = [(station_scan.MODE_LINDLEY, 1, 0, -1, thread), (kw, 2, 0, -1, warp),
+             (kw, top, 0, -1, warp), (kw, top + 1, 0, -1, wide), (ram, 1, 1, -1, warp),
+             (ram, top, top, -1, warp), (ram, 1, top + 1, -1, wide), (ram, top + 1, 1, -1, wide),
+             (station_scan.MODE_BUCKET, 1, 0, -1, warp), (sock, 1, 6, 4, lane),
+             (sock, whole, whole, whole, lane), (sock, whole + 1, whole, whole, warp),
+             (sock, 1, whole + 1, -1, warp), (sock, 1, 1, whole + 1, warp),
+             (sock, top + 1, 6, 4, wide)]
+    for mode, cores, ram_k, cap, walk in cases:
+        assert station_scan.walk_of(mode, cores, ram_k, cap) == walk
+        assert lib.station_scan_walk(mode, cores, ram_k, cap) == walk
     lanes = lib.station_scan_lanes()
     assert lanes == 1
     for width in (1, 2, 3, 4, 5, 31, 32, 33, 64, 65, top):
@@ -563,6 +578,16 @@ def test_wide_carry_needs_scratch(host_libs) -> None:
         S=SCAN_ROWS, m=a.shape[1], mode=ram, cores=1, ram_k=top + 1,
     )
     assert lib.station_scan_launch(ctypes.byref(args), None) == -1
+    a, e, d, post, b, v = _control_rows(12, 64, 1)
+    flags = torch.empty(a.shape, dtype=torch.uint8)
+    for shift_f, shift_b in ((4, 0), (0, 1)):
+        args = station_scan._StationArgs(
+            a=a.data_ptr() + shift_f, e=e.data_ptr(), d=d.data_ptr(), post=post.data_ptr(),
+            b=b.data_ptr(), v=v.data_ptr() + shift_b, out0=out.data_ptr(),
+            flag=flags.data_ptr(), S=SCAN_ROWS - 1, m=a.shape[1] - 1, mode=sock, cores=1,
+            cap=4, conn=6, timeout=-1.0,
+        )
+        assert lib.station_scan_launch(ctypes.byref(args), None) == -1
 
 
 #: duplicate breakpoints of the fault tables' "duplicates" form: before the
@@ -781,6 +806,37 @@ def test_bucket_matches_plain(host_libs, rate: float, burst: float) -> None:
     assert bool(want.any()) and bool((v & ~want).any())  # the bucket accepts and refuses
 
 
+#: row layouts of the bucket's warp walk: the valid elements first and an
+#: invalid tail of each row's own length (as the fast path sorts a server's
+#: arrivals for its rate limit), and ~5% of the elements valid (a retry
+#: pass's wants among its lanes)
+BUCKET_LAYOUTS = {"sorted_tail": 0.6, "sparse": 0.05}
+
+
+@pytest.mark.parametrize("layout", sorted(BUCKET_LAYOUTS))
+def test_bucket_layouts_match_plain(host_libs, layout: str) -> None:
+    """The token bucket on sorted rows of 4099 in each layout, the valid
+    elements arriving at 1.3x the refill rate (a bucket of 3 at 5 a
+    second), exactly."""
+    rate, burst, share = 5.0, 3.0, BUCKET_LAYOUTS[layout]
+    g = np.random.default_rng(17)
+    t = np.cumsum(g.exponential(share / (1.3 * rate), (S, N)), axis=1).astype(np.float32)
+    if layout == "sorted_tail":
+        v = np.arange(N)[None, :] < g.integers(N // 3, N, (S, 1))
+    else:
+        v = g.random((S, N)) < share
+    v = torch.tensor(v)
+    t = torch.tensor(np.where(v.numpy(), t, np.float32(1e30)))
+    flag = torch.empty((S, N), dtype=torch.bool)
+    args = station_scan._StationArgs(a=t.data_ptr(), v=v.data_ptr(), flag=flag.data_ptr(),
+                                     S=S, m=N, mode=station_scan.MODE_BUCKET, cores=1,
+                                     rate=rate, burst=burst)
+    _launch(host_libs["station_scan"], "station_scan_launch", args)
+    want = station_scan.token_bucket_plain(t, v, rate, burst)
+    assert torch.equal(flag, want)
+    assert bool(want.any()) and bool((v & ~want).any())
+
+
 def _control_rows(seed: int, m: int, cores: int):
     """(arrival, enqueue, service, post-IO, burst, valid) (SCAN_ROWS, m):
     arrivals at 1.3x the cores' service rate, a third invalid, a tenth
@@ -847,6 +903,30 @@ def test_socket_matches_plain(host_libs, cores: int, conn: int, cap: int,
     assert torch.equal(wait, want[0]) and torch.equal(flags, want[1])
     if conn <= cores + 4:
         assert bool((want[1] & station_scan.FLAG_REFUSED).any())
+
+
+#: (cores, connections, cap) at the edges of the socket scan's lane walk:
+#: LANE_WHOLE of each, and one past the connections, the cap or the cores
+#: (the warp walk)
+SOCKET_EDGES = [(cores, conn, cap) for cores in (1, 2) for conn, cap in ((8, 8), (9, 8), (8, 9))]
+SOCKET_EDGES += [(8, 8, 8), (9, 6, 4)]
+
+
+@pytest.mark.parametrize(("cores", "conn", "cap"), SOCKET_EDGES)
+def test_socket_edges_match_plain(host_libs, cores: int, conn: int, cap: int) -> None:
+    a, e, d, post, b, v = _control_rows(13, 1001, cores)
+    wait = torch.empty_like(a)
+    flags = torch.empty(a.shape, dtype=torch.uint8)
+    args = station_scan._StationArgs(
+        a=a.data_ptr(), e=e.data_ptr(), d=d.data_ptr(), post=post.data_ptr(),
+        b=b.data_ptr(), v=v.data_ptr(), out0=wait.data_ptr(), flag=flags.data_ptr(),
+        S=SCAN_ROWS, m=a.shape[1], mode=station_scan.MODE_SOCKET, cores=cores, cap=cap,
+        conn=conn, timeout=0.05,
+    )
+    _launch(host_libs["station_scan"], "station_scan_launch", args)
+    want = station_scan.socket_plain(a, e, d, post, b, v, cores, conn, cap, 0.05)
+    assert torch.equal(wait, want[0]) and torch.equal(flags, want[1])
+    assert bool(want[1].any())  # a control binds
 
 
 #: (LB slots, ring, marks (time, down, slot)) of least connections: the

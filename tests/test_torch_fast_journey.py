@@ -6,7 +6,13 @@ on the CPU: the arrival times bit for bit (XLA's CPU ``log1p`` and
 from __future__ import annotations
 
 import pytest
-from torch_fast_cases import example
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    example,
+    one_torch_thread,
+    torch_inference_mode,
+)
+
+one_torch_thread()
 
 
 @pytest.mark.parametrize("name", ["single_server", "two_servers_lb"])

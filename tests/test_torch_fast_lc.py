@@ -19,7 +19,13 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_fast_cases import assert_matches_reference, mutated, run_both
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    assert_matches_reference,
+    mutated,
+    one_torch_thread,
+    run_both,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.engines.jaxsim.fastpath import FastEngine as JaxFastEngine
@@ -29,6 +35,8 @@ from asyncflow_tpu_torch.engines.torchsim import draws, routing
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.engines.torchsim.params import INF
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 ROOT = Path(__file__).resolve().parents[1]
 S, N = 3, 900

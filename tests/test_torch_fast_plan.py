@@ -11,7 +11,15 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
-from torch_fast_cases import EXAMPLES, MUTATIONS, example, mutated, port_examples
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    EXAMPLES,
+    MUTATIONS,
+    example,
+    mutated,
+    one_torch_thread,
+    port_examples,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
@@ -22,6 +30,8 @@ from asyncflow_tpu_torch.errors import (
     UnsupportedFeatureError,
 )
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 FAST_FIELDS = (
     "max_bursts", "n_bursts", "burst_dur", "burst_pre_io", "endpoint_post_io",

@@ -16,13 +16,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_fast_cases import assert_matches_reference, example, mutated, run_both
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    assert_matches_reference,
+    example,
+    mutated,
+    one_torch_thread,
+    run_both,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.engines.jaxsim.fastpath import _token_bucket_scan
 from asyncflow_tpu.parallel.sweep import make_overrides as jax_make_overrides
 from asyncflow_tpu_torch.engines.torchsim.station_scan import token_bucket_plain
 from asyncflow_tpu_torch.errors import FastPathOverrideError, UnsupportedFeatureError
 from asyncflow_tpu_torch.parallel import SweepRunner, make_overrides
+
+one_torch_thread()
 
 S, M = 16, 2001
 

@@ -12,9 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.engines.jaxsim.fastpath import _kw_waits, _lindley_waits, _ram_core_scan
 from asyncflow_tpu_torch.engines.torchsim import station_scan
+
+one_torch_thread()
 
 S = 3
 HORIZON = 60.0

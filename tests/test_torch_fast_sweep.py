@@ -9,7 +9,13 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
-from torch_fast_cases import example, mutated, port_examples
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    example,
+    mutated,
+    one_torch_thread,
+    port_examples,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
 from asyncflow_tpu_torch.errors import (
@@ -17,6 +23,8 @@ from asyncflow_tpu_torch.errors import (
     FastPathOverrideError,
 )
 from asyncflow_tpu_torch.parallel import SweepRunner
+
+one_torch_thread()
 
 
 def _rate_limited() -> dict:

@@ -11,7 +11,14 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
-from torch_fast_cases import assert_matches_reference, assert_poisson, mutated, run_both
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    assert_matches_reference,
+    assert_poisson,
+    mutated,
+    one_torch_thread,
+    run_both,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.engines.jaxsim.fastpath import FastEngine as JaxFastEngine
@@ -21,6 +28,8 @@ from asyncflow_tpu_torch.compiler.plan import CACHE_POST_DB, CACHE_PRE_DB
 from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine, stream_slots
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 #: (mutation, horizon): each cut short
 CASES = {

@@ -9,13 +9,21 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
-from torch_fast_cases import BASE, example, load
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    BASE,
+    example,
+    load,
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.compiler import hazards as jax_hazards
 from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
 from asyncflow_tpu_torch.compiler import compile_payload, hazards
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 COUNT = 24
 TABLE_FIELDS = ("srv_times", "srv_down", "edge_times", "edge_lat", "edge_drop", "starts",

@@ -37,6 +37,10 @@ from test_torch_cuda import (
     _lc_mixed,
     _payload,
 )
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu_torch.compiler import compile_payload
 from asyncflow_tpu_torch.engines.torchsim import des_kernel
@@ -44,6 +48,8 @@ from asyncflow_tpu_torch.engines.torchsim.des_reference import des_reference
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 SOURCE = Path(des_kernel.__file__).resolve().parents[2] / "csrc" / "des_kernel.cu"
 S = 16

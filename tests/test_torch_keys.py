@@ -13,6 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.engines.jaxsim.engine import scenario_keys as jax_scenario_keys
 from asyncflow_tpu.engines.jaxsim.pallas_engine import (
@@ -29,6 +33,8 @@ from asyncflow_tpu_torch.engines.torchsim.keys import (
     threefry2x32,
     uniform_from_bits,
 )
+
+one_torch_thread()
 
 
 def _u32(rng: np.random.Generator, n: int) -> np.ndarray:

@@ -13,6 +13,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 import yaml
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
@@ -20,6 +24,8 @@ from asyncflow_tpu_torch.compiler import KERNEL_FIELDS, compile_payload, plan_fr
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import KernelEngine
 from asyncflow_tpu_torch.errors import PayloadError, UnsupportedFeatureError
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 ROOT = Path(__file__).resolve().parents[1]
 DATA = ROOT / "examples" / "yaml_input" / "data"

@@ -18,6 +18,10 @@ import numpy as np
 import pydantic
 import pytest
 import torch
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
@@ -33,6 +37,8 @@ from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
 from asyncflow_tpu_torch.errors import PayloadError
 from asyncflow_tpu_torch.parallel import SweepRunner
 from asyncflow_tpu_torch.schemas import SimulationPayload
+
+one_torch_thread()
 
 ROOT = Path(__file__).resolve().parents[1]
 

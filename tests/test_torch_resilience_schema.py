@@ -14,7 +14,17 @@ import copy
 import numpy as np
 import pytest
 from pydantic import ValidationError
-from torch_fast_cases import BASE, GUIDE_RETRY, LB, ROOT, example, load, mutated
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    BASE,
+    GUIDE_RETRY,
+    LB,
+    ROOT,
+    example,
+    load,
+    mutated,
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu.compiler import compile_payload as jax_compile
 from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
@@ -22,6 +32,8 @@ from asyncflow_tpu_torch.compiler import KERNEL_FIELDS, compile_payload
 from asyncflow_tpu_torch.errors import PayloadError, UnsupportedFeatureError
 from asyncflow_tpu_torch.parallel import SweepRunner
 from asyncflow_tpu_torch.schemas import RetryPolicy, SimulationPayload
+
+one_torch_thread()
 
 ZERO_AVAILABILITY = BASE.parent / "zero_availability.yml"
 

@@ -24,10 +24,16 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    one_torch_thread,
+    torch_inference_mode,
+)
 
 from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
 from asyncflow_tpu_torch.errors import NoDeviceError, ProofHeadroomError
 from asyncflow_tpu_torch.parallel import SweepRunner
+
+one_torch_thread()
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 0.08  # pooled-ensemble tolerance, as tests/parity/test_pallas_engine.py
