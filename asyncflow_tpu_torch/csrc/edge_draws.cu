@@ -1,6 +1,5 @@
 // The scan fast path's per-lane draws on Hopper (sm_90a): the fused edge
-// hop, the arrival gaps with the first level of their prefix sum, and
-// plain uniforms.
+// hop, the arrival gaps with their prefix sum, and plain uniforms.
 //
 // Replaces the XLA work of the reference's fast path
 // (asyncflow_tpu/engines/jaxsim/fastpath.py): the edge hop with its lane
@@ -19,8 +18,8 @@
 // float32 erfinv polynomial), then adds the network spike active at the
 // send time.  A gap is -log1p(-u) with XLA's CPU log1p, so the arrivals
 // take the reference's values; XLA's CPU cumsum is a recursive scan of
-// 16-lane blocks, and this kernel computes its first level (and, fed the
-// block totals, every further level).  Built with --fmad=false: every float
+// 16-lane blocks, and this kernel computes every level of it in one pass a
+// row (gap_sum_kernel).  Built with --fmad=false: every float
 // operation rounds on its own, as the plain PyTorch version's does; the
 // multiply-adds XLA fuses in its log1p are fmaf here, and float64 steps
 // rounded once in the plain version (equal on every uniform).
@@ -50,17 +49,27 @@
 //      row's blocks) and rounded once; a hop with no span output (the
 //      least-connections candidates, whose sums belong to the lanes that
 //      pick the slot) writes only t_next and ok, with no epilogue;
-//   2 gaps: 16-lane block inclusive sums (S, ld_out) and block totals
-//      (S, ld_tot) of the drawn gaps or of x_in.
+//   2 gaps: out (S, ld_out) = 0, then the inclusive prefix sums of the
+//      drawn gaps in XLA's order, n of them.
 //
 // Grid (lane blocks, scenarios), 128 threads a block, 16 lanes a thread:
 // 32-bit lane indices and no division.  Rows whose start is 16-byte
-// aligned move float4 / uint4; others move scalars.
+// aligned move float4 / uint4; others move scalars.  The gaps' prefix sum
+// takes a block of kTileBlocks threads a row instead (gap_sum_kernel): its
+// value at lane i is lane i's sum within its 16-lane block plus P_2 of the
+// block before, where P_L of an entry is its sum within its level-L block
+// plus P_{L+1} of the block before that, each from block totals at or
+// before i, so one streaming pass over the row, tile by tile, computes
+// every level in XLA's order and writes each lane once (XLA's recursion,
+// run level by level, wrote and read back every level and every partial
+// sum).
 //
 // Bound: operations.  A lane costs one threefry block (two with a normal
 // law) of about 86 integer operations, against 10 bytes moved by a hop
 // lane (22 on the LB hop by rank, 18 by slot): at the card's int32 rate a
-// block is ~3x the static hop's bytes' time at 3.35 TB/s.
+// block is ~3x the static hop's bytes' time at 3.35 TB/s.  A gap lane adds
+// XLA's log1p (about 37 float operations) and its prefix sum's adds, and
+// writes 4 bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,7 +77,7 @@
 struct EdgeDrawArgs {
   const int32_t* ukey;       // (S, 2) key words of the uniform stream
   const int32_t* zkey;       // (S, 2) key words of the normal stream, or null
-  const float* x_in;         // gaps: (S, ld_in) values to scan, or null (draw)
+  const float* x_in;         // uniform: (S, n) uniforms to take the gaps of, or null
   const float* t_send;       // hop: (S, n) send times
   const uint8_t* alive;      // hop: (S, n)
   const int64_t* rank;       // hop: (S, n) arrival rank (LB slot rank % K), or null
@@ -84,18 +93,15 @@ struct EdgeDrawArgs {
   const float* fault_t;      // (NF,) or (S, NF) fault breakpoints (first 0), or null
   const float* fault_lat;    // (NF, NE) or (S, NF, NE) latency factor of each edge
   const float* fault_drop;   // (NF, NE) or (S, NF, NE) dropout boost of each edge
-  float* out;                // uniform: (S, n); hop: t_next (S, n); gaps: (S, ld_out)
+  float* out;                // uniform: (S, n); hop: t_next (S, n); gaps: (S, ld_out), 1 + n used
   uint8_t* ok;               // hop: (S, n)
   int32_t* target;           // hop with rank: (S, n)
-  float* tot;                // gaps: (S, ld_tot)
   double* partial;           // hop: (S, lane blocks, K + 1)
   float* span;               // hop: (S, K)
   int64_t* dropped;          // hop: (S,)
   int64_t S;
-  int64_t n;  // lanes a row (gaps: valid values a row)
-  int64_t ld_in;
-  int64_t ld_out;
-  int64_t ld_tot;
+  int64_t n;       // lanes a row
+  int64_t ld_out;  // gaps: the output's row stride, n + 1 or more
   float horizon;
   int32_t NE;
   int32_t NB;
@@ -120,6 +126,19 @@ constexpr int kThreads = 128;
 constexpr int kLanes = 16;  // lanes a thread: one block of XLA's cumsum
 constexpr int kLaneBlock = kThreads * kLanes;
 constexpr int kMaxRows = 65535;  // scenarios a launch (gridDim.y)
+// the gap prefix sum: a tile of kTileBlocks level-1 blocks (4096 lanes, one
+// level-3 block of XLA's recursion) a step; levels up to 16^8 = 2^32 lanes
+// (every n a launch takes); its threads a row: a level-1 block each on the
+// card, one in the host build (it runs a block's threads one after another,
+// so one thread takes every step of the tile in turn)
+constexpr int kTileBlocks = 256;
+constexpr int kTileLanes = kTileBlocks * kLanes;
+constexpr int kMaxLevels = 8;
+#ifdef __CUDACC__
+constexpr int kRowThreads = kTileBlocks;
+#else
+constexpr int kRowThreads = 1;
+#endif
 constexpr int kMaxSlots = 32;    // LB slots (shared memory)
 // the hop's dynamic shared memory: its sums' accumulators, then its row's
 // fault tables where they fit (else its lanes read them in global memory)
@@ -416,35 +435,144 @@ __global__ void uniform_kernel(EdgeDrawArgs a) {
   }
 }
 
-__global__ void gaps_kernel(EdgeDrawArgs a) {
-  uint32_t row, lane0;
-  int cnt;
-  if (!thread_lanes(a.n, row, lane0, cnt)) return;
-  const uint32_t k0 = a.ukey != nullptr ? (uint32_t)a.ukey[2 * row] : 0u;
-  const uint32_t k1 = a.ukey != nullptr ? (uint32_t)a.ukey[2 * row + 1] : 0u;
-  const float* in = a.x_in != nullptr ? a.x_in + (size_t)row * (size_t)a.ld_in + lane0 : nullptr;
-  float* out = a.out + (size_t)row * (size_t)a.ld_out + lane0;
-  // XLA's block of 16: padded with zeros, summed in order in float32
-  float acc = 0.0f;
-#pragma unroll 1
-  for (int c = 0; c < kLanes; c += 4) {
-    float v[4];
-    if (in != nullptr) {
-      load4(in + c, cnt - c, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        v[i] = c + i < cnt ? -log1p_xla(-uniform_of(k0, k1, lane0 + (uint32_t)(c + i)))
-                           : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc = acc + v[i];
-      v[i] = acc;
-    }
-    store4(out + c, 4, v);
+// Enter one block total at level 4 of XLA's recursion (of ``levels``);
+// returns that entry's inclusive prefix.  Each level L >= 4 keeps its
+// open block's running sum acc[L], its entries cnt[L] and its offset
+// off[L], the prefix of the block before it (0 for the first, as XLA's
+// zero pad adds); a block's 16th entry completes it, and its total enters
+// level L + 1, whose prefix is the next block's offset.  The top level
+// (one block) adds no offset.
+__device__ __forceinline__ float enter_total(float t, int levels, float* acc, float* off,
+                                             int* cnt) {
+  float first = 0.0f;
+  int below = 0;  // the level whose completed block this entry is, or 0
+  for (int L = 4; L <= levels; ++L) {
+    acc[L] = acc[L] + t;
+    const float p = L == levels ? acc[L] : acc[L] + off[L];
+    if (below == 0) first = p;
+    else off[below] = p;
+    if (L == levels || ++cnt[L] < kLanes) break;
+    t = acc[L];
+    acc[L] = 0.0f;
+    cnt[L] = 0;
+    below = L;
   }
-  a.tot[(size_t)row * (size_t)a.ld_tot + lane0 / kLanes] = acc;
+  return first;
+}
+
+// One row a block: the gaps and their inclusive prefix sums in
+// XLA's order, written once after a leading zero.  The row is walked in
+// tiles of kTileLanes lanes, one level-3 block of XLA's recursion: each
+// thread sums its level-1 blocks of 16 lanes in order (the lanes past n
+// zero, as XLA pads); kTileBlocks / 16 threads scan the tile's 16-entry
+// level-2 blocks of those totals; one thread scans the tile's level-2
+// totals (level 3: the tile's own block) and carries levels 4 and up from
+// tile to tile (enter_total); each thread then sets its level-1 block's
+// offset, the prefix of the block before it (P_2 of block b - 1: its
+// level-2 sum plus its level-2 block's offset, the prefix P_3 of the
+// level-2 block before that), and each lane adds it to its sum.  Every
+// add is one of XLA's, in its order; no level is written to device
+// memory.
+__global__ void __launch_bounds__(kRowThreads) gap_sum_kernel(EdgeDrawArgs a) {
+  __shared__ float4 loc[kTileLanes / 4];  // the tile's level-1 sums
+  __shared__ float sums[kTileBlocks];      // level-1 totals, then level-2 sums
+  __shared__ float offset[kTileBlocks];    // each level-1 block's offset
+  __shared__ float off2[kTileBlocks / kLanes];  // each level-2 block's offset
+  __shared__ float off1;                   // the tile's first level-1 block's offset
+  const unsigned tid = threadIdx.x;
+  const size_t row = blockIdx.y;
+  const int64_t n = a.n;
+  int levels = 1;  // XLA's: the least L with 16^L >= n
+  for (int64_t span = kLanes; span < n; span *= kLanes) ++levels;
+  const uint32_t k0 = (uint32_t)a.ukey[2 * row];
+  const uint32_t k1 = (uint32_t)a.ukey[2 * row + 1];
+  float* out = a.out + row * (size_t)a.ld_out;
+  if (tid == 0) out[0] = 0.0f;
+  // thread 0's carry from tile to tile: levels 4 and up, the offset of the
+  // tile's level-3 block (P_4 of the tile before), the prefix P_3 of the
+  // last level-2 block and P_2 of the last level-1 block
+  float acc[kMaxLevels + 1], off[kMaxLevels + 1];
+  int cnt[kMaxLevels + 1];
+  if (tid == 0) {
+    for (int L = 0; L <= kMaxLevels; ++L) {
+      acc[L] = 0.0f;
+      off[L] = 0.0f;
+      cnt[L] = 0;
+    }
+  }
+  float off3 = 0.0f;
+  float last_p3 = 0.0f;
+  float last_p2 = 0.0f;
+  for (int64_t tile0 = 0; tile0 < n; tile0 += kTileLanes) {
+    // level 1: each block of 16 lanes summed in order, its sums to the tile
+    for (int b = (int)tid; b < kTileBlocks; b += kRowThreads) {
+      const int64_t lane0 = tile0 + (int64_t)b * kLanes;
+      const int64_t left = n - lane0;
+      const int cnt1 = left <= 0 ? 0 : left < kLanes ? (int)left : kLanes;
+      float acc1 = 0.0f;
+#pragma unroll 1
+      for (int c = 0; c < kLanes && c < cnt1; c += 4) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float gap = c + i < cnt1
+                                ? -log1p_xla(-uniform_of(k0, k1, (uint32_t)(lane0 + c + i)))
+                                : 0.0f;
+          acc1 = acc1 + gap;
+          v[i] = acc1;
+        }
+        float4 f;
+        f.x = v[0];
+        f.y = v[1];
+        f.z = v[2];
+        f.w = v[3];
+        loc[b * (kLanes / 4) + c / 4] = f;
+      }
+      sums[b] = acc1;
+    }
+    __syncthreads();
+    // level 2: each block of 16 level-1 totals summed in order, in place
+    for (int j = (int)tid; j < kTileBlocks / kLanes; j += kRowThreads) {
+      float acc2 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kLanes; ++i) {
+        acc2 = acc2 + sums[j * kLanes + i];
+        sums[j * kLanes + i] = acc2;
+      }
+    }
+    __syncthreads();
+    // level 3, the tile's block, in order: each level-2 block's offset; the
+    // tile's total then enters level 4
+    if (tid == 0) {
+      if (levels >= 3) {
+        float acc3 = 0.0f;
+        for (int j = 0; j < kTileBlocks / kLanes; ++j) {
+          off2[j] = last_p3;
+          acc3 = acc3 + sums[j * kLanes + kLanes - 1];
+          last_p3 = levels == 3 ? acc3 : acc3 + off3;
+        }
+        if (levels >= 4) off3 = enter_total(acc3, levels, acc, off, cnt);
+      }
+      off1 = last_p2;
+      const float p2 = sums[kTileBlocks - 1];
+      last_p2 = levels >= 3 ? p2 + off2[kTileBlocks / kLanes - 1] : p2;
+    }
+    __syncthreads();
+    // each level-1 block's offset: P_2 of the block before it
+    for (int b = (int)tid; b < kTileBlocks; b += kRowThreads) {
+      float x = off1;
+      if (b > 0) x = levels >= 3 ? sums[b - 1] + off2[(b - 1) / kLanes] : sums[b - 1];
+      offset[b] = x;
+    }
+    __syncthreads();
+    // each lane: its level-1 sum plus its block's offset (levels 2 and up)
+    const float* tile = reinterpret_cast<const float*>(loc);
+    for (int i = (int)tid; i < kTileLanes && tile0 + i < n; i += kRowThreads) {
+      const float v = tile[i];
+      out[1 + tile0 + i] = levels == 1 ? v : v + offset[i / kLanes];
+    }
+    __syncthreads();  // the tile's shared memory is rewritten next tile
+  }
 }
 
 // kFault: the hop reads fault tables (a separate instance, so that a hop
@@ -684,9 +812,7 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
     if (a.fault_t != nullptr && fault_staged(a.span != nullptr, a.K, a.NF, a.NE))
       smem += fault_floats(a.NF, a.NE) * sizeof(float);  // the staged tables
   } else if (a.mode == kGapsMode) {
-    if (a.out == nullptr || a.tot == nullptr || (a.x_in == nullptr && a.ukey == nullptr))
-      return -1;
-    if (a.ld_out < (a.n + kLanes - 1) / kLanes * kLanes) return -1;
+    if (a.out == nullptr || a.ukey == nullptr || a.ld_out < a.n + 1) return -1;
   } else {
     return -1;
   }
@@ -701,11 +827,9 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
     a.S = rows;
     a.ukey = whole.ukey != nullptr ? whole.ukey + 2 * r0 : nullptr;
     a.zkey = whole.zkey != nullptr ? whole.zkey + 2 * r0 : nullptr;
-    if (whole.x_in != nullptr)
-      a.x_in = whole.x_in + r0 * (whole.mode == kGapsMode ? whole.ld_in : whole.n);
+    if (whole.x_in != nullptr) a.x_in = whole.x_in + r0 * whole.n;
     if (whole.mode == kGapsMode) {
       a.out = whole.out + r0 * whole.ld_out;
-      a.tot = whole.tot + r0 * whole.ld_tot;
     } else {
       a.out = whole.out + r0 * whole.n;
     }
@@ -735,7 +859,10 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
     if (a.mode == kUniformMode) {
       uniform_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
     } else if (a.mode == kGapsMode) {
-      gaps_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+      // a block a row
+      const dim3 gap_grid(1u, (unsigned)rows);
+      const dim3 gap_block(kRowThreads);
+      gap_sum_kernel<<<gap_grid, gap_block, 0, (cudaStream_t)stream>>>(a);
     } else {
       const bool sums = a.span != nullptr;
       const bool staged = a.fault_t != nullptr && fault_staged(sums, a.K, a.NF, a.NE);

@@ -51,8 +51,7 @@
 // associative form (a K x K max-plus product a combine), so the
 // parallelism is across rows and across the carry vector.  The walks:
 //
-// The thread walk (mode 0, mode 4 with one core; the carry modes past
-// kWarpWidthMax entries): one
+// The thread walk (mode 0; the carry modes past kWarpWidthMax entries): one
 // thread a row, 16 rows a block (half a warp: the lanes of a warp read
 // different rows, one L1 wavefront each, so the wavefronts, not the lanes,
 // are the cost, and 16-row blocks spread the 2048 rows over 128 SMs).  It
@@ -68,19 +67,17 @@
 //
 // The controlled and socket modes keep their ring as a circular buffer
 // with a head index (the reference's shift only reorders storage: its first
-// entry is the buffer's head): in the block's shared memory on the thread
+// entry is the buffer's head): in the block's shared memory on the global
 // walk, spread over the warp's lanes on the warp walk (entry j on lane
-// j % 32, read by a shuffle from its owner, written by it); the socket
-// mode's lane walk keeps it as a shifting FIFO (below).  The controlled
-// mode's walks are simple, one element at a time on the thread walk; making
-// them fast is later work.
+// j % 32, read by a shuffle from its owner, written by it); their lane walk
+// keeps it as a shifting FIFO (below).
 //
-// The warp walk (modes 1, 2, 5 and mode 4 past one core, up to
-// kWarpWidthMax entries a vector; the socket mode's connections in the
-// RAM-core mode's place of the RAM slots): one warp a row, kWarps rows a
-// block.  A carry vector wider than kWholeMax entries
-// is spread over the lanes: lane l holds entries [l E, (l + 1) E), E the
-// smallest power of two that covers the vector over the lanes; a narrower
+// The warp walk (modes 1 and 2, modes 4 and 5 past the lane walk's shapes,
+// up to kWarpWidthMax entries a vector; the socket mode's connections in
+// the RAM-core mode's place of the RAM slots): one warp a row, kWarps rows
+// a block.  A carry vector wider than kWholeMax entries is spread over the
+// lanes: lane l holds entries [l E, (l + 1) E), E the smallest power of
+// two that covers the vector over the lanes; a narrower
 // one (one core, a pool of two) is held whole on every lane, as RegVec
 // held it (a template pair (E, span) a vector, padded with +inf).  The
 // insertion is RegVec's selects, unchanged: entry j becomes f[j+1] where
@@ -110,8 +107,8 @@
 // at each core form with its connections (at most kRingMax) in the one
 // form that holds any of them, spread at kRingPer entries a lane (the
 // +inf padding past the live entries leaves the walk's results as they
-// are at a narrower form).  Mode 5 takes it only past the lane walk's
-// shapes.
+// are at a narrower form).  Modes 4 and 5 take it only past the lane
+// walk's shapes.
 //
 // The token bucket (mode 3) a warp a row, its chain on the valid elements
 // only.  The clock ``last`` is the time of the row's previous valid
@@ -129,9 +126,10 @@
 // of 32 elements on its 128-byte boundaries, a lane an element, coalesced,
 // kBucketLines lines in flight while the previous ones are walked.
 //
-// The lane walk (mode 5 up to kLaneWhole connections, ring entries and
-// cores): a lane a row, 32 rows a warp, a warp a block.  Every vector is
-// whole in the lane's registers: the connections and the cores as
+// The lane walk (modes 4 and 5 up to kLaneWhole ring entries and cores, and
+// in mode 5 connections): a lane a row, 32 rows a warp, a warp a block.
+// Every vector is whole in the lane's registers: the connections and the
+// cores as
 // RegVec's selects, the ring as a shifting FIFO whose oldest entry is
 // always its first (a push shifts the entries below max(cap, 1) - 1 down
 // and writes the grant at max(cap, 1) - 1, by bit selects against masks
@@ -139,8 +137,11 @@
 // the warp issues one instruction for 32 rows' elements.  At 2048 rows that
 // is 64 warps, one on each of 64 schedulers, with no other warp to hide an
 // element's dependent instructions: the walk is bound by their latency
-// (about 90 instructions an element, 13 of them on the chain through the
-// first connection's exit).  The rows come in
+// (about 90 instructions an element in mode 5, 13 of them on the chain
+// through the first connection's exit; mode 4 has no connections, no
+// refusal and no burst flags, so its chain runs from the oldest grant's
+// shed test through the grant, the wait and the deadline to the core's
+// insertion and the ring's push).  The rows come in
 // groups of 32 elements on the tensor's 128-byte boundaries, each lane
 // copying its own row's group asynchronously (cp.async, 16 bytes a copy)
 // into one of two shared stages while the other is walked; a row's 16-byte
@@ -409,19 +410,11 @@ __global__ void station_scan_kernel(StationArgs a) {
   }
 }
 
-// One core's free time in a register: the one-entry vector.
-struct OneCore {
-  float f;
-
-  __device__ __forceinline__ float first() const { return f; }
-  __device__ __forceinline__ void insert_first(float x) { f = x; }
-};
-
 // One row of the controlled (4) or socket (5) mode by one thread, an
 // element at a time: the core vector wc, the connections' exit times conn
 // (mode 5) and the ring, entry j at ring[j * stride].
-template <int kMode, class CoreVec>
-__device__ __forceinline__ void control_walk(const StationArgs& a, int64_t row, CoreVec& wc,
+template <int kMode>
+__device__ __forceinline__ void control_walk(const StationArgs& a, int64_t row, MemVec& wc,
                                              MemVec& conn, float* ring, int stride) {
   const int64_t base = row * a.m;
   const float* __restrict__ A = a.a + base;
@@ -472,7 +465,7 @@ __device__ __forceinline__ void control_walk(const StationArgs& a, int64_t row, 
   }
 }
 
-// The thread walk of modes 4 and 5: one core in a register (mode 4), or
+// The global walk of modes 4 and 5 (a core vector past kWarpWidthMax):
 // the vectors in global scratch (the connections first, then the cores);
 // the rows' rings in the block's shared memory, entry j of thread i at
 // j * kRows + i.
@@ -482,12 +475,6 @@ __global__ void control_thread_kernel(StationArgs a) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= a.S) return;
   float* ring = rings + threadIdx.x;
-  if (a.scratch == nullptr) {
-    OneCore wc{0.0f};
-    MemVec none{nullptr, 0};
-    control_walk<kMode>(a, row, wc, none, ring, kRows);
-    return;
-  }
   const int cw = kMode == 5 ? a.conn : 0;
   float* carry = a.scratch + row * (int64_t)(cw + a.cores);
   MemVec conn{carry, cw};
@@ -969,21 +956,30 @@ struct Flag {
 __device__ __forceinline__ int chunk_at(int lane, int c) { return c ^ (lane & 7); }
 __device__ __forceinline__ int half_at(int lane, int h) { return h ^ ((lane >> 2) & 1); }
 
-// One row a lane, kLanes rows a warp, a warp a block: the socket scan
-// (mode 5) with its connections (kLaneWhole entries), its ring and its EC
-// cores whole in the lane's registers.  Every row of the warp walks its
-// groups of kGroup elements on the tensor's
-// 128-byte boundaries in step: group i of row R holds the elements (R m /
-// kGroup + i) kGroup - R m + [0, kGroup) of it, those outside the row
-// invalid and not stored.  Each lane copies its own row's groups into the
-// stage (16 bytes a copy) and stores its own outputs (a chunk's waits and
-// flags a store each, element by element at the row's two ends).
-template <int EC>
+// One row a lane, kLanes rows a warp, a warp a block: the controlled scan
+// (kMode 4) or the socket scan (kMode 5), with the ring, the EC cores and
+// (mode 5) the connections (kLaneWhole entries) whole in the lane's
+// registers.  Every row of the warp walks its groups of kGroup elements on
+// the tensor's 128-byte boundaries in step: group i of row R holds the
+// elements (R m / kGroup + i) kGroup - R m + [0, kGroup) of it, those
+// outside the row invalid and not stored.  Each lane copies its own row's
+// groups into the stage (16 bytes a copy) and stores its own outputs (a
+// chunk's waits and flags a store each, element by element at the row's
+// two ends).  Mode 4 stages only what it reads: its enqueue times (in a),
+// services and validity; every element of it is a burst, so its chain has
+// no refusal test, no burst select and no exit time.
+template <int kMode, int EC>
 __global__ void __launch_bounds__(kLanes) lane_walk_kernel(StationArgs a) {
+  constexpr bool kSocket = kMode == 5;
   constexpr int kChunks = kGroup / 4;  // 16-byte chunks of a float input a group
   constexpr int kHalves = kGroup / 16;  // 16-byte halves of a byte input a group
-  constexpr int kF = 4;  // float inputs: arrival, enqueue, service, post-IO
-  constexpr int kB = 2;  // byte inputs: validity, burst flags
+  // float inputs: arrival, enqueue, service, post-IO (mode 4: enqueue,
+  // service); byte inputs: validity, burst flags (mode 4: validity)
+  constexpr int kF = kSocket ? 4 : 2;
+  constexpr int kB = kSocket ? 2 : 1;
+  constexpr int kE = kSocket ? 1 : 0;  // the stage rows of the enqueue times,
+  constexpr int kD = kSocket ? 2 : 1;  // the services
+  constexpr int kQ = kSocket ? 3 : 1;  // and the post-IO (mode 5)
   // two stages of each lane's group of the float and byte inputs
   __shared__ float4 stage_f[2][kF][kLanes][kChunks];
   __shared__ uint4 stage_b[2][kB][kLanes][kHalves];
@@ -992,7 +988,7 @@ __global__ void __launch_bounds__(kLanes) lane_walk_kernel(StationArgs a) {
   const bool mine = row < a.S;
   const int64_t m = a.m;
   const int64_t total = a.S * m;
-  const float* const src_f[4] = {a.a, a.e, a.d, a.post};
+  const float* const src_f[4] = {a.a, kSocket ? a.e : a.d, a.d, a.post};
   const uint8_t* const src_b[2] = {a.v, a.b};
   // this lane's row: its first group's first element (of the tensor's),
   // and the elements of that group before the row
@@ -1025,7 +1021,7 @@ __global__ void __launch_bounds__(kLanes) lane_walk_kernel(StationArgs a) {
     copy_commit();
   };
 
-  LaneVec<kLaneWhole, 1> conn;
+  LaneVec<kSocket ? kLaneWhole : 1, 1> conn;
   LaneVec<EC, 1> wc;
   ShiftRing ring;
   conn.init(a.conn, 0, -kInf);
@@ -1085,33 +1081,37 @@ __global__ void __launch_bounds__(kLanes) lane_walk_kernel(StationArgs a) {
             &stage_b[buf][0][lane][half_at(lane, c / 4)])[c % 4];
         uint32_t flw = 0;
         float4 w4{};
-        const float4 e4 = stage_f[buf][1][lane][at4];
-        const uint32_t bw = reinterpret_cast<const uint32_t*>(
-            &stage_b[buf][1][lane][half_at(lane, c / 4)])[c % 4];
+        const float4 e4 = stage_f[buf][kE][lane][at4];
+        uint32_t bw = 0xffffffffu;  // mode 4: every element a burst
+        if constexpr (kSocket)
+          bw = reinterpret_cast<const uint32_t*>(
+              &stage_b[buf][kB - 1][lane][half_at(lane, c / 4)])[c % 4];
         float4 d4{}, p4{};
         if constexpr (kFull) {
-          d4 = stage_f[buf][2][lane][at4];
-          p4 = stage_f[buf][3][lane][at4];
+          d4 = stage_f[buf][kD][lane][at4];
+          if constexpr (kSocket) p4 = stage_f[buf][kQ][lane][at4];
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int j = 4 * c + u;
           const float ak = lane_of(a4, u);
           const float ek = lane_of(e4, u);
-          const bool bk = ((bw >> (8 * u)) & 0xffu) != 0u;
+          const bool bk = !kSocket || ((bw >> (8 * u)) & 0xffu) != 0u;
           if constexpr (kFull) {
             const bool ok = j >= lo && j < hi && ((vw >> (8 * u)) & 0xffu) != 0u;
             const float dk = lane_of(d4, u);
-            const float pk = lane_of(p4, u);
-            const bool refused = ok && conn.first > ak;
+            const bool refused = kSocket && ok && conn.first > ak;
             const bool live = ok && !refused;
             const bool shed = live && bk && cap_on && ring.f[0] > ek;
             const float g = fmaxf(ek, wc.first);
             const float wait = bk ? g - ek : 0.0f;
             const bool through = live && bk && !shed;
             const bool ab = through && to_on && wait > timeout;
-            const float exit_t = bk ? (shed ? ek : (ab ? g : (g + dk) + pk)) : ak + pk;
-            conn.insert_first(live ? exit_t : conn.first, conn.second(), INFINITY, 0);
+            if constexpr (kSocket) {
+              const float pk = lane_of(p4, u);
+              const float exit_t = bk ? (shed ? ek : (ab ? g : (g + dk) + pk)) : ak + pk;
+              conn.insert_first(live ? exit_t : conn.first, conn.second(), INFINITY, 0);
+            }
             wc.insert_first(through ? g + (ab ? 0.0f : dk) : wc.first, wc.second(),
                             INFINITY, 0);
             ring.push(through, g);
@@ -1133,17 +1133,17 @@ __global__ void __launch_bounds__(kLanes) lane_walk_kernel(StationArgs a) {
   }
 }
 
-// Launch the lane walk's instance: one core in a register, or up to
-// kLaneWhole (two instances keep the library's build time down; a
-// narrower vector pads with +inf).
-template <int EC>
+// Launch the lane walk's instance of mode kMode: one core in a register,
+// or up to kLaneWhole (two instances a mode keep the library's build time
+// down; a narrower vector pads with +inf).
+template <int kMode, int EC>
 int launch_lane_walk(const StationArgs& a, void* stream) {
   if constexpr (EC == 1) {
-    if (a.cores > 1) return launch_lane_walk<kLaneWhole>(a, stream);
+    if (a.cores > 1) return launch_lane_walk<kMode, kLaneWhole>(a, stream);
   }
   const int threads = kLanes;
   const int64_t blocks = (a.S + kLanes - 1) / kLanes;
-  const auto kernel = lane_walk_kernel<EC>;
+  const auto kernel = lane_walk_kernel<kMode, EC>;
   kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1184,16 +1184,17 @@ int station_scan_args_size() { return (int)sizeof(StationArgs); }
 int station_scan_lanes() { return kLanes; }
 int station_scan_warp_width_max() { return kWarpWidthMax; }
 
-// The walk a launch takes: 0 one thread a row (mode 0, mode 4 with one
-// core), 1 one warp a row (mode 3; modes 1, 2, 4 and 5 with both vectors up
-// to kWarpWidthMax entries), 2 one thread a row with the carry in global
-// scratch of ram_k + cores floats a row (wider; ram_k is the connection cap
-// in mode 5), 3 one lane a row (mode 5 with its connections, ring and
-// cores up to kLaneWhole entries each).
+// The walk a launch takes: 0 one thread a row (mode 0), 1 one warp a row
+// (mode 3; modes 1, 2, 4 and 5 with both vectors up to kWarpWidthMax
+// entries), 2 one thread a row with the carry in global scratch of ram_k +
+// cores floats a row (wider; ram_k is the connection cap in mode 5), 3 one
+// lane a row (modes 4 and 5 with their ring, cores and, in mode 5,
+// connections up to kLaneWhole entries each).
 int station_scan_walk(int mode, int cores, int ram_k, int cap) {
-  if (mode == 0 || (mode == 4 && cores == 1)) return kWalkThread;
+  if (mode == 0) return kWalkThread;
   if (mode == 3) return kWalkWarp;
-  if (mode == 5 && ram_k <= kLaneWhole && cap <= kLaneWhole && cores <= kLaneWhole)
+  if ((mode == 4 || (mode == 5 && ram_k <= kLaneWhole)) && cap <= kLaneWhole &&
+      cores <= kLaneWhole)
     return kWalkLane;
   const int width = (mode == 2 || mode == 5) && ram_k > cores ? ram_k : cores;
   return width <= kWarpWidthMax ? kWalkWarp : kWalkGlobal;
@@ -1229,7 +1230,7 @@ int station_scan_launch(const StationArgs* args, void* stream) {
     const uintptr_t at = (uintptr_t)a.a | (uintptr_t)a.e | (uintptr_t)a.d | (uintptr_t)a.post |
                          (uintptr_t)a.v | (uintptr_t)a.b | (uintptr_t)a.out0 | (uintptr_t)a.flag;
     if ((at & 15u) != 0u) return -1;
-    return launch_lane_walk<1>(a, stream);
+    return a.mode == 4 ? launch_lane_walk<4, 1>(a, stream) : launch_lane_walk<5, 1>(a, stream);
   }
   if (a.mode == 3) {
     const int threads = kWarps * kLanes;
@@ -1247,7 +1248,7 @@ int station_scan_launch(const StationArgs* args, void* stream) {
     return launch_warp_walk<5, kRingPer, kLanes, 1, 1>(a, Form{kRingPer, kLanes}, c, stream);
   }
   if (a.mode == 4 || a.mode == 5) {
-    // one core (mode 4) in a register, else the carry in global scratch
+    // the carry in global scratch
     const auto kernel = a.mode == 4 ? control_thread_kernel<4> : control_thread_kernel<5>;
     kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
   } else {

@@ -528,10 +528,9 @@ class _EdgeDrawArgs(ctypes.Structure):
         [(name, ctypes.c_void_p) for name in (
             "ukey", "zkey", "x_in", "t_send", "alive", "rank", "slot", "lb_edge", "lb_target",
             "mean", "var", "drop", "dist", "spike_t", "spike_v", "fault_t", "fault_lat",
-            "fault_drop", "out", "ok", "target",
-            "tot", "partial", "span", "dropped",
+            "fault_drop", "out", "ok", "target", "partial", "span", "dropped",
         )]
-        + [(name, ctypes.c_int64) for name in ("S", "n", "ld_in", "ld_out", "ld_tot")]
+        + [(name, ctypes.c_int64) for name in ("S", "n", "ld_out")]
         + [("horizon", ctypes.c_float)]
         + [(name, ctypes.c_int32) for name in (
             "NE", "NB", "K", "edge", "mode", "gap", "NF", "fault_per_row")]
@@ -579,7 +578,7 @@ class PlainEdgeDraws:
         return gaps(keys, n) if gap else uniform(keys, n)
 
     def gap_cumsum(self, keys: torch.Tensor, n: int) -> torch.Tensor:
-        return prefix_sum_xla(gaps(keys, n))
+        return F.pad(prefix_sum_xla(gaps(keys, n)), (1, 0))
 
     def gap_of(self, u: torch.Tensor) -> torch.Tensor:
         return -log1p_xla(-u)
@@ -631,27 +630,16 @@ class EdgeDraws:
         return out
 
     def gap_cumsum(self, keys: torch.Tensor, n: int) -> torch.Tensor:
-        """(S, n) prefix sums of the exponential gaps of stream ``keys`` in
-        XLA's order (:func:`prefix_sum_xla`): the kernel draws the gaps and
-        sums their 16-lane blocks, then sums each level of block totals."""
+        """(S, n + 1): a zero, then the prefix sums of the exponential gaps
+        of stream ``keys`` in XLA's order (:func:`prefix_sum_xla`); the
+        kernel draws the gaps and computes every level of the sum in one
+        launch, a block a row, writing each lane once."""
         if keys.device.type == "cpu":
             return PlainEdgeDraws().gap_cumsum(keys, n)
-        return self._scan(n, ukey=key_words(keys))
-
-    def _scan(self, m: int, *, ukey=None, x_in=None) -> torch.Tensor:
-        dev = (ukey if ukey is not None else x_in).device
-        s = (ukey if ukey is not None else x_in).shape[0]
-        nb = -(-m // SCAN_BLOCK)
-        ld_tot = -(-nb // SCAN_BLOCK) * SCAN_BLOCK
-        loc = torch.empty((s, nb * SCAN_BLOCK), dtype=torch.float32, device=dev)
-        tot = torch.empty((s, ld_tot), dtype=torch.float32, device=dev)
-        self._launch(
-            MODE_GAPS, s, m, ukey=ukey, x_in=x_in, out=loc, tot=tot,
-            ld_in=0 if x_in is None else x_in.stride(0), ld_out=nb * SCAN_BLOCK, ld_tot=ld_tot,
-        )
-        if nb == 1:
-            return loc[:, :m]
-        return _scan_down(loc, self._scan(nb, x_in=tot), m)
+        s = keys.shape[0]
+        out = torch.empty((s, n + 1), dtype=torch.float32, device=keys.device)
+        self._launch(MODE_GAPS, s, n, ukey=key_words(keys), out=out, ld_out=n + 1)
+        return out
 
     def hop(
         self,
@@ -744,7 +732,7 @@ class EdgeDraws:
         )
         return out
 
-    _SCALARS = ("ld_in", "ld_out", "ld_tot", "horizon", "NE", "NB", "K", "edge", "gap", "NF",
+    _SCALARS = ("ld_out", "horizon", "NE", "NB", "K", "edge", "gap", "NF",
                 "fault_per_row")
 
     def _launch(self, mode: int, s: int, n: int, **fields) -> None:

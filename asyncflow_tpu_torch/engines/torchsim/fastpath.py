@@ -437,9 +437,9 @@ class FastEngine:
         valid = slot[None, :] < total[:, None]
         win = searchsorted_small(offsets, slot.expand(s, n), "right").clamp_(0, nw - 1)
         # the gaps' prefix sum in XLA's association order, so that the
-        # arrivals take the reference's values
-        cum = self.draws.gap_cumsum(fold_in(k_arr, 3), n)
-        prefix = torch.cat([cum.new_zeros((s, 1)), cum], dim=1)
+        # arrivals take the reference's values, after a leading zero
+        prefix = self.draws.gap_cumsum(fold_in(k_arr, 3), n)
+        cum = prefix[:, 1:]
         begin = torch.cat([offsets.new_zeros((s, 1)), offsets[:, :-1]], dim=1)
         base = prefix.gather(1, begin.clamp(0, n))
         wsum = prefix.gather(1, offsets.clamp(0, n)) - base

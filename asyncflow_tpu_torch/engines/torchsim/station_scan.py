@@ -34,13 +34,13 @@ Invalid entries leave the carry as it is (their outputs are computed and
 ignored), so a stream may interleave other stations' lanes.
 :class:`StationScan` is the wrapper: CUDA tensors launch the kernel (built
 on first use) or raise, CPU tensors run the plain version.  The kernel
-walks a row with one thread in Lindley's mode and the controlled mode at
-one core; with one warp in the bucket's mode (its chain over the valid
-elements only), the carry modes, the controlled mode past one core and the
-socket mode past the lane walk's shapes, each carry vector spread over the
-warp's lanes, or whole on every lane where it is narrow (:func:`carry_form`;
-the socket mode's connections always spread); with one lane in the socket
-mode up to :data:`LANE_WHOLE` connections, ring entries and cores, every
+walks a row with one thread in Lindley's mode; with one warp in the
+bucket's mode (its chain over the valid elements only), the carry modes,
+and the controlled and socket modes past the lane walk's shapes, each
+carry vector spread over the warp's lanes, or whole on every lane where it
+is narrow (:func:`carry_form`; the socket mode's connections always
+spread); with one lane in the controlled and socket modes up to
+:data:`LANE_WHOLE` ring entries, cores and (socket) connections, every
 vector whole in the lane's registers.  A vector wider than
 :data:`WARP_WIDTH_MAX` entries (a core count the schema does not bound)
 goes back to one thread a row with the carry in global scratch
@@ -77,15 +77,15 @@ RING_MAX = 128
 #: the kernel's walks (station_scan.cu, ``station_scan_walk``): one thread
 #: a row (Lindley), one warp a row (the bucket; the carry modes up to
 #: WARP_WIDTH_MAX entries a vector, the carry over its lanes), one thread a
-#: row with the carry in global scratch (wider), one lane a row (the socket
-#: mode up to LANE_WHOLE entries a vector)
+#: row with the carry in global scratch (wider), one lane a row (the
+#: controlled and socket modes up to LANE_WHOLE entries a vector)
 WALK_THREAD = 0
 WALK_WARP = 1
 WALK_GLOBAL = 2
 WALK_LANE = 3
 WALK_NAMES = {WALK_THREAD: "thread", WALK_WARP: "warp", WALK_GLOBAL: "global",
               WALK_LANE: "lane"}
-#: the widest connection vector, ring and core vector of the lane walk
+#: the widest ring, core vector and connection vector of the lane walk
 #: (kLaneWhole)
 LANE_WHOLE = 8
 #: lanes of the warp walk, the widest carry vector it holds, and the widest
@@ -99,11 +99,12 @@ def walk_of(mode: int, cores: int, ram_k: int, cap: int = -1) -> int:
     """The walk the kernel takes for a launch (``station_scan_walk``);
     ``ram_k`` is the RAM slots in the RAM-core mode and the connection cap
     in the socket mode, ``cap`` the ready-queue cap."""
-    if mode == MODE_LINDLEY or (mode == MODE_CONTROLLED and cores == 1):
+    if mode == MODE_LINDLEY:
         return WALK_THREAD
     if mode == MODE_BUCKET:
         return WALK_WARP
-    if mode == MODE_SOCKET and max(ram_k, cap, cores) <= LANE_WHOLE:
+    if (mode == MODE_CONTROLLED or (mode == MODE_SOCKET and ram_k <= LANE_WHOLE)) \
+            and max(cap, cores) <= LANE_WHOLE:
         return WALK_LANE
     width = max(cores, ram_k) if mode in (MODE_RAM_CORE, MODE_SOCKET) else cores
     return WALK_WARP if width <= WARP_WIDTH_MAX else WALK_GLOBAL

@@ -67,7 +67,10 @@ no result line):
    token bucket on 2048 synthetic rows of 9,750 at five (rate, burst)
    pairs; the controlled and socket scans on 2048 synthetic rows over the
    grid of cores, ready-queue caps, deadlines and connection caps
-   (``CONTROL_GRID``), and least connections on 2048 synthetic rows with and
+   (``CONTROL_GRID``; the controlled scan must take the lane walk up to 8
+   cores and cap 8, else the warp walk); the gaps' prefix sum, one launch
+   a call, at the headline's 2048 x 87,840 and at ``GAP_SUM_CASES``; and
+   least connections on 2048 synthetic rows with and
    without a timeline, at the widest shape (32 slots, rings of 128) and on
    rings of 32 and 33 entries, the edges of the kernel's lane layout
    (``LC_CASES``); and XLA's ``log1p`` in the kernel
@@ -115,7 +118,8 @@ no result line):
    its plain version's time and the library's (the closed form ``cumsum``
    / ``cummax`` for the one-core scan), and the stable rank's time.
 
-It prints the redesigned kernels' times beside their bounds with their
+It prints the redesigned kernels' times beside their bounds (and, for
+this slice's two, the parent tree's times, ``PARENT_MS``) with their
 instances' registers and spills (``REDESIGNED``; any spill of theirs fails
 phase 1), a JSON line of per-kernel measurements, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs a CUDA card and
@@ -958,14 +962,30 @@ def card_line() -> str:
 #: the kernels redesigned for this card whose instances must not spill
 #: (their ptxas lines are kept for the summary line): (library, kernel)
 REDESIGNED = (("lb_route", "lc_kernel"), ("edge_draws", "hop_kernel<true"),
-              ("station_scan", "bucket_warp_kernel"), ("station_scan", "lane_walk_kernel"))
+              ("station_scan", "bucket_warp_kernel"), ("station_scan", "lane_walk_kernel"),
+              ("edge_draws", "gap_sum_kernel"))
 #: the dependent clocks of one valid element's chain in the redesigned
 #: station_scan walks, read from their SASS (sm_90a): the bucket's tokens
-#: (add, min, compare, select) and the socket scan's connections (the
+#: (add, min, compare, select), the socket scan's connections (the
 #: refusal's compare, the shed and deadline tests, the exit's selects, the
-#: insertion's compare and select); a row's chain floor is its valid
-#: elements times these clocks at the card's SM clock
-SCAN_CHAIN_CLOCKS = {"bucket": 18, "socket": 52}
+#: insertion's compare and select) and the controlled scan's cores (the
+#: grant's max, the wait's subtract, the deadline's compare, the select and
+#: the core's add); a row's chain floor is its valid elements times these
+#: clocks at the card's SM clock
+SCAN_CHAIN_CLOCKS = {"bucket": 18, "socket": 52, "controlled": 22}
+#: the parent tree's times of this slice's redesigned kernels, (path, kind)
+#: -> text: the controlled scan by scripts/torch_scan_variants.py --against
+#: the parent's station_scan.cu, the gap prefix sum (the call, and with the
+#: fast path's copy of it behind a zero column) by
+#: scripts/torch_gap_sum_times.py --tree the parent's checkout, each turn
+#: of the parent's in one call with this tree's (NVIDIA H100 80GB HBM3, 700 W)
+PARENT_MS = {
+    ("overload_cap8", "controlled"): "1.8618, 1.8700 ms (the thread walk)",
+    ("two_servers_lb", "gap_cumsum"): "2.1724, 2.1489 ms; with the copy 2.7159, 2.6744 ms",
+    ("heavy_inj_single_server", "gap_cumsum"):
+        "2.1582, 2.0609 ms; with the copy 2.9344, 2.8742 ms",
+    ("chaos_campaign", "gap_cumsum"): "2.0035, 2.0722 ms; with the copy 2.6394, 2.7557 ms",
+}
 #: ptxas' registers and spills of the redesigned kernels' instances
 REDESIGNED_PTXAS: dict = {}
 
@@ -2182,6 +2202,10 @@ def _bucket_check(torch, kernel, plain) -> float:
 CONTROL_GRID = {"cores": (1, 2, 33), "cap": (-1, 1, 8, 128), "timeout": (-1.0, 0.05),
                 "conn": (1, 6, 128)}
 CONTROL_CHECK_ELEMENTS = 601
+#: the gap prefix sum's rows beyond the paths' calls: (rows, lanes) at the
+#: edge of five levels of XLA's scan (16^4 + 1 lanes) and past them (16^5
+#: + 1: six levels)
+GAP_SUM_CASES = ((MAIN_SCENARIOS, 65_537), (64, 1_048_577))
 #: the socket scan's lane walk at the edges of its shapes, (connections,
 #: cap) at one core and at two with a deadline: LANE_WHOLE of each (the
 #: lane walk) and one past either (the warp walk)
@@ -2229,9 +2253,14 @@ def _control_check(torch, kernel, plain) -> float:
         a, e, d, post, b, v = _control_rows(torch, 200 + i, cores)
         e_b = torch.where(b, e, 1e30)
         args = (e_b, d, b, cores, cap, timeout)
+        before = dict(kernel.walk_launches)
         got = kernel.controlled(*args)
+        walk = next(k for k, n in kernel.walk_launches.items() if n > before[k])
         want = plain.controlled(*args)
-        err = max(err, _compare(torch, f"control check: controlled {args[3:]}", got, want))
+        err = max(err, _compare(torch, f"control check: controlled {args[3:]} ({walk})", got,
+                                want))
+        if walk != ("lane" if max(cores, cap) <= 8 else "warp"):
+            raise SmokeError(f"control check: controlled {args[3:]} took the {walk} walk")
         for bit in (1, 2):
             seen |= bit if bool(((want[1] & bit) != 0).any()) else 0
         for conn in CONTROL_GRID["conn"]:
@@ -2254,9 +2283,32 @@ def _control_check(torch, kernel, plain) -> float:
         if walk != ("lane" if max(conn, cap) <= 8 else "warp"):
             raise SmokeError(f"control check: socket {args[6:]} took the {walk} walk")
     print(f"fast check: station_scan's controlled and socket modes == plain on "
-          f"{MAIN_SCENARIOS} x {CONTROL_CHECK_ELEMENTS} rows over {CONTROL_GRID} and the "
-          f"socket scan's (connections, cap) at {SOCKET_EDGES} at one and two cores",
+          f"{MAIN_SCENARIOS} x {CONTROL_CHECK_ELEMENTS} rows over {CONTROL_GRID} (the "
+          f"controlled scan on the lane walk up to 8 cores and cap 8, else the warp walk) and "
+          f"the socket scan's (connections, cap) at {SOCKET_EDGES} at one and two cores",
           flush=True)
+    return err
+
+
+def _gap_sum_check(torch, kernel, plain) -> float:
+    """edge_draws' gap prefix sum against its plain version at the
+    headline's lanes (2048 x 87,840: five levels) and at GAP_SUM_CASES,
+    each one launch; bit-exact."""
+    from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+
+    err = 0.0
+    for i, (s, n) in enumerate(((MAIN_SCENARIOS, 87_840), *GAP_SUM_CASES)):
+        keys = scenario_keys(500 + i, s, device="cuda")
+        launches = kernel.launches
+        got = kernel.gap_cumsum(keys, n)
+        if kernel.launches != launches + 1:
+            raise SmokeError(f"gap sum check: {s} x {n} took "
+                             f"{kernel.launches - launches} launches")
+        err = max(err, _compare(torch, f"gap sum check: {s} x {n}", (got,),
+                                (plain.gap_cumsum(keys, n),)))
+        del got
+    print(f"fast check: edge_draws' gap prefix sum == plain, one launch a call, on "
+          f"{MAIN_SCENARIOS} x 87840 and {GAP_SUM_CASES} (rows, lanes)", flush=True)
     return err
 
 
@@ -2411,6 +2463,8 @@ def phase_fast_check(torch) -> dict:
     measured["fault_hop"] = _fault_hop_check(torch, eng.draws, plains["edge_draws"])
     measured["bucket"] = _bucket_check(torch, eng.scan, plains["station_scan"])
     measured["controls"] = _control_check(torch, eng.scan, plains["station_scan"])
+    measured["edge_draws"] = max(measured["edge_draws"], _gap_sum_check(
+        torch, eng.draws, plains["edge_draws"]))
     measured["lc"] = _lc_check(torch, eng.route, plains["lb_route"])
     u = torch.arange(2**23, dtype=torch.float64, device="cuda").div(2**23).float().view(8, -1)
     measured["edge_draws"] = max(measured["edge_draws"], _compare(
@@ -2455,12 +2509,14 @@ EARLIER_FAST = {
 }
 
 
-def _controlled_wide(plan) -> bool:
+def _controlled_lane(plan) -> bool:
     """Whether the servers the fast path sends to the controlled scan (a
     ready-queue cap or a dequeue deadline, no connection cap, no RAM tier)
-    have more than one core, so that the scan takes the warp walk; the walk
-    check counts a path's controlled launches on one walk."""
-    wide = set()
+    take its lane walk (cores and cap up to LANE_WHOLE), else the warp
+    walk; the walk check counts a path's controlled launches on one walk."""
+    from asyncflow_tpu_torch.engines.torchsim import station_scan
+
+    lane = set()
     for s in range(len(plan.server_cores)):
         nep = int(plan.n_endpoints[s])
         kb = int(plan.n_bursts[s, :nep].max()) if nep else 0
@@ -2470,11 +2526,13 @@ def _controlled_wide(plan) -> bool:
                    else -1.0)
         conn = int(plan.server_conn_cap[s]) if len(plan.server_conn_cap) else -1
         if conn < 0 and kb > 0 and ram_k <= 0 and (cap >= 0 or timeout >= 0):
-            wide.add(int(plan.server_cores[s]) > 1)
-    if len(wide) > 1:
-        raise SmokeError("the walk check takes a path whose controlled servers all have "
-                         "one core or all more than one")
-    return wide == {True}
+            walk = station_scan.walk_of(station_scan.MODE_CONTROLLED,
+                                        int(plan.server_cores[s]), 0, cap)
+            lane.add(walk == station_scan.WALK_LANE)
+    if len(lane) > 1:
+        raise SmokeError("the walk check takes a path whose controlled servers all take the "
+                         "lane walk or none")
+    return lane == {True}
 
 
 def _socket_lane(plan) -> bool:
@@ -2598,14 +2656,13 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     walk_launches = dict(eng.scan.walk_launches)
     need = ["edge_draws", "station_scan"] + (["lb_route"] if eng.timeline else [])
     kw_pool = bool(np.any(plan.server_db_pool > 1))
-    # the carry modes and the bucket take the warp walk, the controlled scan
-    # too past one core, the socket scan past the lane walk's shapes (no
-    # path's station is wider than the warp walk holds)
-    lanes = mode_launches["socket"] if _socket_lane(plan) else 0
+    # the carry modes and the bucket take the warp walk, the controlled and
+    # socket scans too past the lane walk's shapes (no path's station is
+    # wider than the warp walk holds)
+    lanes = ((mode_launches["socket"] if _socket_lane(plan) else 0)
+             + (mode_launches["controlled"] if _controlled_lane(plan) else 0))
     carries = (mode_launches["kw"] + mode_launches["ram_core"] + mode_launches["bucket"]
-               + mode_launches["socket"] - lanes)
-    if _controlled_wide(plan):
-        carries += mode_launches["controlled"]
+               + mode_launches["socket"] + mode_launches["controlled"] - lanes)
     if (min(launches[k] for k in need) < 1 or (kw_pool and mode_launches["kw"] < 1)
             or walk_launches["global"] != 0 or walk_launches["warp"] != carries
             or walk_launches["lane"] != lanes
@@ -2718,9 +2775,16 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
                  else _scan_bound(kind, args))
         timed[kernel][kind] = {"call": kind, "ms": ms, "plain_ms": plain_ms,
                                "library_ms": library_ms, **bound}
+        if kind == "gap_cumsum":
+            # a yardstick for the scan alone: torch's cumsum over the same
+            # gaps (another order, no draws: not the same function)
+            gaps = wrappers[kernel].uniform(*args, gap=True)
+            timed[kernel][kind]["cumsum_ms"] = time_kernel(
+                torch, lambda: torch.cumsum(gaps, dim=1), repeats=5)
+            del gaps
         if kind in SCAN_CHAIN_CLOCKS:
             # the valid elements: each row's are its chain's length
-            valid = args[1 if kind == "bucket" else 5]
+            valid = args[{"bucket": 1, "controlled": 2}.get(kind, 5)]
             timed[kernel][kind].update(
                 shape=tuple(valid.shape), valid_share=float(valid.float().mean()),
                 valid_max=int(valid.sum(dim=1).max()))
@@ -2956,9 +3020,12 @@ def redesigned_report(fast: dict) -> None:
     connections on lc_mixed_fleet, the static and LB hops under
     chaos_campaign's fault tables (each beside the same run's plain-table
     hop of the headline), the token bucket on rate_limited_lb and on
-    outage_retry's last pass, the socket scan on overload_sockets (each
-    with its valid share and chain floor), each ms beside its bound, and
-    every instance's registers and spills."""
+    outage_retry's last pass, the socket scan on overload_sockets and the
+    controlled scan on overload_cap8 (each with its valid share and chain
+    floor), the gap prefix sum on the headline, heavy_inj_single_server
+    and chaos_campaign (beside torch's cumsum over the same gaps), each ms
+    beside its bound (and the parent tree's, PARENT_MS), and every
+    instance's registers and spills."""
     def mode(path: str, lib: str, kind: str) -> str:
         m = fast[path]["timed"][lib]["modes"].get(kind)
         if m is None:
@@ -2974,8 +3041,12 @@ def redesigned_report(fast: dict) -> None:
           + "; ".join(mode("two_servers_lb", "edge_draws", k) for k in ("hop", "hop_lb")),
           flush=True)
     mhz = sm_clock_mhz()
+    def parent(path: str, kind: str) -> str:
+        was = PARENT_MS.get((path, kind))
+        return "" if was is None else f"; parent {was}"
+
     for path, kind in (("rate_limited_lb", "bucket"), ("outage_retry", "bucket"),
-                       ("overload_sockets", "socket")):
+                       ("overload_sockets", "socket"), ("overload_cap8", "controlled")):
         m = fast[path]["timed"]["station_scan"]["modes"].get(kind)
         if m is None:
             print(f"redesigned: station_scan {kind} on {path}: not called", flush=True)
@@ -2985,7 +3056,16 @@ def redesigned_report(fast: dict) -> None:
               f"{m['shape'][1]}, valid share {m['valid_share']:.4f}, the longest row "
               f"{m['valid_max']} valid): {m['ms']:.4f} ms (bound {m['bound_ms']:.4f} ms, "
               f"{m['bound_by']}; chain floor {floor_ms:.4f} ms at "
-              f"{SCAN_CHAIN_CLOCKS[kind]} clocks an element, {mhz:.0f} MHz)", flush=True)
+              f"{SCAN_CHAIN_CLOCKS[kind]} clocks an element, {mhz:.0f} MHz"
+              f"{parent(path, kind)})", flush=True)
+    for path in ("two_servers_lb", "heavy_inj_single_server", "chaos_campaign"):
+        m = fast[path]["timed"]["edge_draws"]["modes"].get("gap_cumsum")
+        if m is None:
+            print(f"redesigned: edge_draws gap prefix sum on {path}: not called", flush=True)
+            continue
+        print(f"redesigned: edge_draws gap prefix sum on {path}: {m['ms']:.4f} ms, one launch "
+              f"(bound {m['bound_ms']:.4f} ms, {m['bound_by']}; torch.cumsum over the same "
+              f"gaps {m['cumsum_ms']:.4f} ms{parent(path, 'gap_cumsum')})", flush=True)
     for entry, res in REDESIGNED_PTXAS.items():
         print(f"redesigned: ptxas {entry}: {res}", flush=True)
 

@@ -28,9 +28,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 #: kinds of kernel, by a piece of the kernel's name (the first that matches)
 KINDS = (
-    ("edge_draws", ("uniform_kernel", "gaps_kernel", "hop_kernel", "hop_reduce_kernel",
-                    "edge_draws_kernel")),
-    ("station_scan", ("station_scan", "control_thread_kernel")),
+    ("edge_draws", ("uniform_kernel", "gap_sum_kernel", "hop_kernel", "hop_reduce_kernel",
+                    "edge_draws_kernel", "EdgeDrawArgs")),
+    ("station_scan", ("station_scan", "control_thread_kernel", "StationArgs")),
     ("lb_route", ("route_count_kernel", "route_marks_kernel", "lanes_kernel", "lc_kernel")),
     ("float adds", ("CUDAFunctor_add", "AddFunctor")),
     ("clamps", ("clamp",)),

@@ -24,11 +24,13 @@ at those row counts (its rows' length kept): 132 rows is one warp an SM of the
 warp walk, so the time an element a row there is the walk's chain, and at
 more rows what the SM's pipes allow.  ``--paths`` names fast paths of
 ``chip_smoke.FAST_PAYLOADS`` (say rate_limited_lb, outage_retry,
-overload_sockets): each path's full-width sweep (2048 scenarios of seed 0,
-its sweep axes) runs once through the port's fast engine, its first token
-bucket and socket scan calls are recorded, and every build is timed on
-their arguments in the same turns, its outputs held equal to the first
-build's and to the plain version's; each line gives the call's valid share.
+overload_sockets, overload_cap8): each path's full-width sweep (2048
+scenarios of seed 0, its sweep axes) runs once through the port's fast
+engine, its first token bucket, socket and controlled scan calls are
+recorded, and every build is timed on their arguments in the same turns,
+its outputs held equal to the first build's and to the plain version's;
+each line gives the call's valid share and the walk this tree's library
+takes for it.
 ``--no-synthetic`` skips the synthetic cases.  Prints the card's name and
 power limit and one line a build and case.  Needs a CUDA card.
 """
@@ -101,8 +103,8 @@ def launcher(torch, lib, mode: int, cores: int, ram_k: int, inputs: dict):
 
 def recorded_launcher(torch, lib, kind: str, args: tuple):
     """A function that launches ``lib``'s kernel on a recorded token bucket
-    (``kind`` "bucket") or socket scan call's arguments and returns its
-    outputs."""
+    (``kind`` "bucket"), socket or controlled scan call's arguments and
+    returns its outputs."""
     from asyncflow_tpu_torch.engines.torchsim import station_scan
 
     if kind == "bucket":
@@ -111,6 +113,14 @@ def recorded_launcher(torch, lib, kind: str, args: tuple):
         st = station_scan._StationArgs(a=t.data_ptr(), v=v.data_ptr(), flag=outs[0].data_ptr(),
                                        S=t.shape[0], m=t.shape[1], mode=station_scan.MODE_BUCKET,
                                        cores=1, rate=rate, burst=burst)
+    elif kind == "controlled":
+        e, d, v, cores, cap, timeout = args
+        outs = [torch.empty_like(e), torch.empty(e.shape, dtype=torch.uint8, device=e.device)]
+        st = station_scan._StationArgs(
+            a=e.data_ptr(), d=d.data_ptr(), v=v.data_ptr(), out0=outs[0].data_ptr(),
+            flag=outs[1].data_ptr(), S=e.shape[0], m=e.shape[1],
+            mode=station_scan.MODE_CONTROLLED, cores=cores, cap=cap,
+            timeout=float(torch.tensor(timeout, dtype=torch.float32)))
     else:
         a, e, d, post, b, v, cores, conn, cap, timeout = args
         outs = [torch.empty_like(a), torch.empty(a.shape, dtype=torch.uint8, device=a.device)]
@@ -132,9 +142,9 @@ def recorded_launcher(torch, lib, kind: str, args: tuple):
 
 
 def path_calls(torch, name: str) -> list:
-    """(kind, args) of the first token bucket and socket scan calls of the
-    fast path ``name``'s full-width run, as chip_smoke's phase 5 records
-    them."""
+    """(kind, args) of the first token bucket, socket and controlled scan
+    calls of the fast path ``name``'s full-width run, as chip_smoke's phase
+    5 records them."""
     import chip_smoke
     from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
     from asyncflow_tpu_torch.parallel import SweepRunner
@@ -146,7 +156,8 @@ def path_calls(torch, name: str) -> list:
     calls = chip_smoke._record_kernel_calls(eng, every=False)
     eng.run_tensors(keys, chip_smoke.path_overrides(name, eng.plan, n))
     chip_smoke._set_wrappers(eng, wrappers)
-    return [(kind, args) for kind, args, _ in calls if kind in ("bucket", "socket")]
+    return [(kind, args) for kind, args, _ in calls
+            if kind in ("bucket", "socket", "controlled")]
 
 
 def main() -> int:
@@ -207,9 +218,14 @@ def main() -> int:
     plain = station_scan.PlainStationScan()
     for path in (p for p in opts.paths.split(",") if p):
         for kind, args in path_calls(torch, path):
-            valid = args[1 if kind == "bucket" else 5]
+            valid = args[{"bucket": 1, "controlled": 2}.get(kind, 5)]
+            mode = {"bucket": station_scan.MODE_BUCKET, "controlled": station_scan.MODE_CONTROLLED,
+                    "socket": station_scan.MODE_SOCKET}[kind]
+            shape = (1, 0, -1) if kind == "bucket" else (
+                (args[3], 0, args[4]) if kind == "controlled" else (args[6], args[7], args[8]))
+            walk = station_scan.WALK_NAMES[station_scan.walk_of(mode, *shape)]
             case = (f"{path} {kind} ({valid.shape[0]} x {valid.shape[1]}, valid share "
-                    f"{float(valid.float().mean()):.4f})")
+                    f"{float(valid.float().mean()):.4f}, this tree's {walk} walk)")
             want = getattr(plain, kind)(*args)
             want = list(want) if isinstance(want, tuple) else [want]
             for name in order:

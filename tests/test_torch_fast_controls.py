@@ -114,8 +114,11 @@ def test_wrapper_on_cpu_is_the_plain_version() -> None:
     assert scan.launches == 0
     with pytest.raises(ValueError, match="ring"):
         station_scan._check_cap(station_scan.RING_MAX + 1)
-    assert station_scan.walk_of(station_scan.MODE_CONTROLLED, 1, 0) == station_scan.WALK_THREAD
-    assert station_scan.walk_of(station_scan.MODE_CONTROLLED, 2, 0) == station_scan.WALK_WARP
+    assert station_scan.walk_of(station_scan.MODE_CONTROLLED, 1, 0) == station_scan.WALK_LANE
+    assert station_scan.walk_of(station_scan.MODE_CONTROLLED, 8, 0, 8) == station_scan.WALK_LANE
+    assert station_scan.walk_of(station_scan.MODE_CONTROLLED, 1, 0, 9) == station_scan.WALK_WARP
+    assert station_scan.walk_of(station_scan.MODE_CONTROLLED, 9, 0) == station_scan.WALK_WARP
+    assert station_scan.walk_of(station_scan.MODE_CONTROLLED, 1025, 0) == station_scan.WALK_GLOBAL
     assert station_scan.walk_of(station_scan.MODE_SOCKET, 1, 6, 4) == station_scan.WALK_LANE
     assert station_scan.walk_of(station_scan.MODE_SOCKET, 1, 9, 4) == station_scan.WALK_WARP
     assert station_scan.walk_of(station_scan.MODE_SOCKET, 1025, 6) == station_scan.WALK_GLOBAL

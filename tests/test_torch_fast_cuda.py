@@ -94,6 +94,19 @@ def test_edge_draws_match_plain_on_cuda(cuda_device) -> None:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 16, 17, 4096, 4097, 70_000, 87_840])
+def test_gap_cumsum_matches_plain_on_cuda(cuda_device, n: int) -> None:
+    """The gaps' prefix sum, one launch a call (a block a row), over one to
+    five levels of XLA's scan: a zero, then the sums, bit for bit."""
+    kernel, plain = draws.EdgeDraws(), draws.PlainEdgeDraws()
+    keys = scenario_keys(22, S, device=cuda_device)
+    got = kernel.gap_cumsum(keys, n)
+    assert kernel.launches == 1
+    assert got.shape == (S, n + 1)
+    assert torch.equal(got, plain.gap_cumsum(keys, n))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("marks", [
     ([], [], []),
     ([0.4, 0.9, 1.2, 1.6], [1, 0, 1, 0], [0, 0, 2, 2]),
@@ -487,8 +500,9 @@ def _control_rows(dev, seed: int, m: int, cores: int):
 @pytest.mark.parametrize("timeout", [-1.0, 0.05])
 def test_controlled_matches_plain_on_cuda(cuda_device, cores: int, cap: int,
                                           timeout: float) -> None:
-    """The controlled mode on rows of 2001 (most start unaligned): one core
-    on the thread walk, the warp walk, the global walk."""
+    """The controlled mode on rows of 2001 (most start unaligned): the lane
+    walk up to 8 cores and cap 8, else the warp walk (one core at cap 128
+    too), and the global walk past the warp walk's widest vector."""
     _a, e, d, _post, b, _v = _control_rows(cuda_device, 11, 2001, min(cores, 40))
     e = torch.where(b, e, 1e30)
     kernel = station_scan.StationScan()
@@ -496,7 +510,10 @@ def test_controlled_matches_plain_on_cuda(cuda_device, cores: int, cap: int,
     want = station_scan.PlainStationScan().controlled(e, d, b, cores, cap, timeout)
     assert all(torch.equal(x, y) for x, y in zip(got, want, strict=True))
     assert kernel.mode_launches["controlled"] == 1
-    assert kernel.walk_launches[_walk(station_scan.MODE_CONTROLLED, cores, 0)] == 1
+    walk = ("global" if cores > station_scan.WARP_WIDTH_MAX
+            else "lane" if max(cores, cap) <= station_scan.LANE_WHOLE else "warp")
+    assert _walk(station_scan.MODE_CONTROLLED, cores, 0, cap) == walk
+    assert kernel.walk_launches[walk] == 1
 
 
 @pytest.mark.cuda
@@ -544,6 +561,26 @@ def test_socket_edges_match_plain_on_cuda(cuda_device, cores: int, conn: int, ca
         want = plain.socket(*args, cores, conn, cap, 0.05)
         assert all(torch.equal(x, y) for x, y in zip(got, want, strict=True))
         assert kernel.walk_launches[_walk(station_scan.MODE_SOCKET, cores, conn, cap)] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("cores", "cap"), [(1, 8), (1, 9), (8, 8), (9, 8), (8, 9), (2, 0)])
+def test_controlled_edges_match_plain_on_cuda(cuda_device, cores: int, cap: int) -> None:
+    """The controlled scan at the edges of the lane walk's shapes (8 cores
+    and cap 8, one past either: the warp walk) on 37 rows of 1001, then on
+    inputs that start one element past a 16-byte boundary, which the
+    wrapper copies before the lane walk takes them."""
+    _a, e, d, _post, b, _v = (x[:37, :1001].contiguous()
+                              for x in _control_rows(cuda_device, 15, 1001, cores))
+    e = torch.where(b, e, 1e30)
+    plain = station_scan.PlainStationScan()
+    walk = "lane" if max(cores, cap) <= station_scan.LANE_WHOLE else "warp"
+    for args in ((e, d, b), tuple(_off_boundary(x) for x in (e, d, b))):
+        kernel = station_scan.StationScan()
+        got = kernel.controlled(*args, cores, cap, 0.05)
+        want = plain.controlled(*args, cores, cap, 0.05)
+        assert all(torch.equal(x, y) for x, y in zip(got, want, strict=True))
+        assert kernel.walk_launches[walk] == 1
 
 
 #: the candidate delays' spread of a least-connections case (el, ring):

@@ -77,6 +77,7 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned old = *p; *p += v;
 #define __launch_bounds__(...)
 #define __host__
 inline void __syncwarp(unsigned = 0xffffffffu) {}
+inline void __syncthreads() {}
 template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
 template <class T> inline T __shfl_down_sync(unsigned, T v, unsigned) { return v; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
@@ -226,31 +227,31 @@ def test_gap_of_every_uniform_matches_plain(host_libs) -> None:
     assert torch.equal(out, draws.PlainEdgeDraws().gap_of(u))
 
 
-def _host_scan(lib, m: int, *, ukey=None, x_in=None) -> torch.Tensor:
-    """EdgeDraws._scan on the host build: one gaps-mode launch a level."""
-    s = (ukey if ukey is not None else x_in).shape[0]
-    nb = -(-m // 16)
-    ld_tot = -(-nb // 16) * 16
-    loc = torch.empty((s, nb * 16), dtype=torch.float32)
-    tot = torch.empty((s, ld_tot), dtype=torch.float32)
-    args = draws._EdgeDrawArgs(
-        ukey=0 if ukey is None else ukey.data_ptr(), x_in=0 if x_in is None else x_in.data_ptr(),
-        out=loc.data_ptr(), tot=tot.data_ptr(), S=s, n=m,
-        ld_in=0 if x_in is None else x_in.stride(0), ld_out=nb * 16, ld_tot=ld_tot,
-        mode=draws.MODE_GAPS, edge=-1, K=1,
-    )
+def _host_gap_sum(lib, s: int, n: int, ukey: torch.Tensor) -> torch.Tensor:
+    """EdgeDraws.gap_cumsum on the host build: one gaps-mode launch, (s,
+    n + 1) with the leading zero."""
+    out = torch.full((s, n + 1), float("nan"), dtype=torch.float32)
+    args = draws._EdgeDrawArgs(ukey=ukey.data_ptr(), out=out.data_ptr(), S=s, n=n, ld_out=n + 1,
+                               mode=draws.MODE_GAPS, edge=-1, K=1)
     _launch(lib, "edge_draws_launch", args)
-    if nb == 1:
-        return loc[:, :m]
-    return draws._scan_down(loc, _host_scan(lib, nb, x_in=tot), m)
+    return out
 
 
-@pytest.mark.parametrize("n", [1, 16, 17, 4099, 40_000])
+#: row lengths of the gap prefix sum: one to six levels of XLA's scan (a
+#: block of 16, one past it, a tile of 4096 and one past it, the five
+#: levels of 70,000 and of the headline's 87,840 lanes, and 16^5 + 1)
+GAP_SUM_LANES = [1, 16, 17, 4096, 4099, 40_000, 70_000, 87_840, 16**5 + 1]
+
+
+@pytest.mark.parametrize("n", GAP_SUM_LANES)
 def test_gap_cumsum_matches_plain(host_libs, n: int) -> None:
-    """The gaps mode and its levels: XLA's base-16 scan, bit for bit."""
-    keys = scenario_keys(14, S)
-    got = _host_scan(host_libs["edge_draws"], n, ukey=draws.key_words(keys))
+    """The gaps mode in one pass a row: XLA's base-16 scan, bit for bit,
+    after a leading zero (fewer rows past 65,536 lanes)."""
+    s = S if n <= 65_536 else 2 if n < 16**5 else 1
+    keys = scenario_keys(14, s)
+    got = _host_gap_sum(host_libs["edge_draws"], s, n, draws.key_words(keys))
     assert torch.equal(got, draws.PlainEdgeDraws().gap_cumsum(keys, n))
+    assert torch.equal(got[:, 1:], draws.prefix_sum_xla(draws.gaps(keys, n)))
 
 
 def _spike_tables():
@@ -534,10 +535,11 @@ def test_wide_carry_needs_scratch(host_libs) -> None:
     """The library's width limits are the wrapper's: the warp walk holds
     carry vectors of up to WARP_WIDTH_MAX entries, each whole on every lane
     (one lane a row here), padded to a power of two; a wider vector takes
-    the global walk, which is refused without its scratch.  The socket mode
-    takes the lane walk up to LANE_WHOLE connections, ring entries and
-    cores, which is refused on inputs off their boundaries; the bucket
-    takes the warp walk."""
+    the global walk, which is refused without its scratch.  The controlled
+    mode takes the lane walk up to LANE_WHOLE ring entries and cores, the
+    socket mode up to LANE_WHOLE connections besides, each refused on
+    inputs off their boundaries, and else the warp walk (one core at a cap
+    of 9 too); the bucket takes the warp walk."""
     lib = host_libs["station_scan"]
     for fn in ("station_scan_walk", "station_scan_lane_entries", "station_scan_lane_span",
                "station_scan_lanes", "station_scan_warp_width_max", "station_scan_lane_whole"):
@@ -547,6 +549,7 @@ def test_wide_carry_needs_scratch(host_libs) -> None:
     whole = station_scan.LANE_WHOLE
     assert lib.station_scan_lane_whole() == whole
     kw, ram, sock = station_scan.MODE_KW, station_scan.MODE_RAM_CORE, station_scan.MODE_SOCKET
+    ctl = station_scan.MODE_CONTROLLED
     thread, warp, wide, lane = (station_scan.WALK_THREAD, station_scan.WALK_WARP,
                                 station_scan.WALK_GLOBAL, station_scan.WALK_LANE)
     cases = [(station_scan.MODE_LINDLEY, 1, 0, -1, thread), (kw, 2, 0, -1, warp),
@@ -556,6 +559,11 @@ def test_wide_carry_needs_scratch(host_libs) -> None:
              (sock, whole, whole, whole, lane), (sock, whole + 1, whole, whole, warp),
              (sock, 1, whole + 1, -1, warp), (sock, 1, 1, whole + 1, warp),
              (sock, top + 1, 6, 4, wide)]
+    cases += [(ctl, cores, 0, cap, lane) for cores in range(1, whole + 1)
+              for cap in (-1, 0, 1, whole)]
+    cases += [(ctl, 1, 0, whole + 1, warp), (ctl, whole, 0, whole + 1, warp),
+              (ctl, whole + 1, 0, -1, warp), (ctl, 1, 0, station_scan.RING_MAX, warp),
+              (ctl, top, 0, whole, warp), (ctl, top + 1, 0, 1, wide)]
     for mode, cores, ram_k, cap, walk in cases:
         assert station_scan.walk_of(mode, cores, ram_k, cap) == walk
         assert lib.station_scan_walk(mode, cores, ram_k, cap) == walk
@@ -580,14 +588,15 @@ def test_wide_carry_needs_scratch(host_libs) -> None:
     assert lib.station_scan_launch(ctypes.byref(args), None) == -1
     a, e, d, post, b, v = _control_rows(12, 64, 1)
     flags = torch.empty(a.shape, dtype=torch.uint8)
-    for shift_f, shift_b in ((4, 0), (0, 1)):
-        args = station_scan._StationArgs(
-            a=a.data_ptr() + shift_f, e=e.data_ptr(), d=d.data_ptr(), post=post.data_ptr(),
-            b=b.data_ptr(), v=v.data_ptr() + shift_b, out0=out.data_ptr(),
-            flag=flags.data_ptr(), S=SCAN_ROWS - 1, m=a.shape[1] - 1, mode=sock, cores=1,
-            cap=4, conn=6, timeout=-1.0,
-        )
-        assert lib.station_scan_launch(ctypes.byref(args), None) == -1
+    for mode in (sock, ctl):
+        for shift_f, shift_b in ((4, 0), (0, 1)):
+            args = station_scan._StationArgs(
+                a=a.data_ptr() + shift_f, e=e.data_ptr(), d=d.data_ptr(), post=post.data_ptr(),
+                b=b.data_ptr(), v=v.data_ptr() + shift_b, out0=out.data_ptr(),
+                flag=flags.data_ptr(), S=SCAN_ROWS - 1, m=a.shape[1] - 1, mode=mode, cores=1,
+                cap=4, conn=6, timeout=-1.0,
+            )
+            assert lib.station_scan_launch(ctypes.byref(args), None) == -1
 
 
 #: duplicate breakpoints of the fault tables' "duplicates" form: before the
@@ -849,9 +858,10 @@ def _control_rows(seed: int, m: int, cores: int):
     return a, e, d, post, b, v
 
 
-#: (cores, cap, timeout) of the controlled mode: Lindley's thread walk with
-#: the ring in shared memory, the warp walk at the card's width classes, the
-#: global walk; the ring's edges (none, 1 entry, 128) and a deadline
+#: (cores, cap, timeout) of the controlled mode: the lane walk (cores and
+#: cap up to LANE_WHOLE), the warp walk at the card's width classes (and at
+#: the widest ring), the global walk with the ring in shared memory; the
+#: ring's edges (none, 1 entry, 128) and a deadline
 CONTROLLED_CASES = [(cores, cap, timeout)
                     for cores in (1, 2, 5, 33, station_scan.WARP_WIDTH_MAX + 1)
                     for cap, timeout in ((-1, 0.05), (1, -1.0), (8, 0.05), (128, -1.0))]
@@ -875,6 +885,34 @@ def test_controlled_matches_plain(host_libs, cores: int, cap: int, timeout: floa
     assert torch.equal(wait, want[0]) and torch.equal(flags, want[1])
     if cores <= 33 and cap >= 0 and cap < 128:
         assert bool((want[1] & station_scan.FLAG_SHED).any())
+
+
+@pytest.mark.parametrize("timeout", [-1.0, 0.05])
+@pytest.mark.parametrize("cap", [-1, 0, 1, station_scan.LANE_WHOLE])
+@pytest.mark.parametrize("cores", [1, 2, station_scan.LANE_WHOLE])
+def test_controlled_lane_walk_matches_plain(host_libs, cores: int, cap: int,
+                                            timeout: float) -> None:
+    """The controlled mode's lane walk over its shapes (cores and cap up to
+    LANE_WHOLE, a deadline or none) on rows of 1001 (each starts at another
+    offset from a 16-byte boundary), bit for bit."""
+    assert station_scan.walk_of(station_scan.MODE_CONTROLLED, cores, 0, cap) \
+        == station_scan.WALK_LANE
+    _a, e, d, _post, b, _v = _control_rows(15, 1001, cores)
+    e = torch.where(b, e, 1e30)
+    wait = torch.empty_like(e)
+    flags = torch.empty(e.shape, dtype=torch.uint8)
+    args = station_scan._StationArgs(
+        a=e.data_ptr(), d=d.data_ptr(), v=b.data_ptr(), out0=wait.data_ptr(),
+        flag=flags.data_ptr(), S=SCAN_ROWS, m=e.shape[1], mode=station_scan.MODE_CONTROLLED,
+        cores=cores, cap=cap, timeout=timeout,
+    )
+    _launch(host_libs["station_scan"], "station_scan_launch", args)
+    want = station_scan.controlled_plain(e, d, b, cores, cap, timeout)
+    assert torch.equal(wait, want[0]) and torch.equal(flags, want[1])
+    bits = (station_scan.FLAG_SHED if cap >= 0 else 0) \
+        | (station_scan.FLAG_ABANDONED if timeout >= 0 else 0)
+    assert int(want[1].max()) > 0 if bits else not bool(want[1].any())
+    assert not bool((want[1] & ~torch.tensor(bits, dtype=torch.uint8)).any())
 
 
 #: (cores, connections) of the socket mode: the warp walk with the cores
