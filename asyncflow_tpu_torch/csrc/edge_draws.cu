@@ -36,25 +36,43 @@
 //      windows the row of the fault table active at the send time
 //      (max(searchsorted(fault_t, t_send, right) - 1, 0), on the
 //      scenario's own row of (S, NF) or on the shared (NF,), the row's
-//      tables staged in the block's shared memory where they fit, found by
-//      a binary search of fixed steps, a thread's four lanes at a time)
-//      boosts the
-//      drop probability, p = clip(drop + boost, 0, 1), and multiplies the
-//      law's delay by its factor before the spike is added (two roundings,
-//      as XLA's _edge_hop); per scenario the drop
-//      count (gate & dropped, and the LB's drops) and each edge slot's
-//      gauge span, the sum over
-//      ok lanes of max(min(t_send + delay, h) - min(t_send, h), 0), in
-//      float64 in a fixed order (a thread's lanes, the block's threads, the
-//      row's blocks) and rounded once; a hop with no span output (the
-//      least-connections candidates, whose sums belong to the lanes that
-//      pick the slot) writes only t_next and ok, with no epilogue;
+//      tables staged in the block's shared memory where they fit) boosts
+//      the drop probability, p = clip(drop + boost, 0, 1), and multiplies
+//      the law's delay by its factor before the spike is added (two
+//      roundings, as XLA's _edge_hop); per scenario the drop count (gate &
+//      dropped, and the LB's drops) and each edge slot's gauge span, the
+//      sum over ok lanes of max(min(t_send + delay, h) - min(t_send, h), 0),
+//      in float64 in a fixed order (a thread's 16 consecutive lanes, the
+//      block's threads, the row's blocks) and rounded once;
 //   2 gaps: out (S, ld_out) = 0, then the inclusive prefix sums of the
-//      drawn gaps in XLA's order, n of them.
+//      drawn gaps in XLA's order, n of them;
+//   3 candidates (least connections): each lane's hop over every one of
+//      the K slots' edges (lb_edge), slot k with its own keys (ukey, zkey
+//      (S, K, 2)), out t_next and ok (S, n, K); no sums (they belong to the
+//      lanes that pick a slot).  The fault and spike rows depend on the
+//      send time only: searched once a lane for every slot.
 //
-// Grid (lane blocks, scenarios), 128 threads a block, 16 lanes a thread:
-// 32-bit lane indices and no division.  Rows whose start is 16-byte
-// aligned move float4 / uint4; others move scalars.  The gaps' prefix sum
+// Grid (lane blocks, scenarios), 128 threads a block, 16 lanes a thread,
+// 32-bit lane indices and no division.  A block's 2048 lanes are drawn in
+// one of two ways.  Where the lane arrays start on 16-byte boundaries (4-byte
+// for the masks), thread j takes lanes 16 j .. 16 j + 15, moving each chunk
+// of four as one vector: the uniform mode row by row, and the hop over one
+// slot where every row of the launch does (n a multiple of 4), its span
+// summed in a register as it draws.  Else (rows of widths not a multiple of
+// 16 lanes start off a boundary, where 16 consecutive lanes a thread moved
+// them as scalars, each warp's access spread over 2 KiB; and the hop over
+// several slots, whose sums as they are drawn would be a shared
+// read-modify-write a lane) thread j takes lanes j, j + 128, .., j + 1920:
+// a warp's loads and stores are 32 consecutive lanes, coalesced at any
+// start, and the hop's sums keep their order through shared memory: each
+// lane writes its span (and its slot) there, and thread j then sums lanes
+// 16 j .. 16 j + 15 in order (16-byte chunks swizzled within each 128-byte
+// row, so both sides fall on distinct banks).  The block stages its slot
+// table (each slot's drop, mean, var, edge and law, target, and
+// the candidates' keys), the spike breakpoints with each slot's spike
+// column, and the fault tables in shared memory
+// where they fit; the spike and fault rows are found by binary searches of
+// fixed steps, a thread's four lanes at a time.  The gaps' prefix sum
 // takes a block of kTileBlocks threads a row instead (gap_sum_kernel): its
 // value at lane i is lane i's sum within its 16-lane block plus P_2 of the
 // block before, where P_L of an entry is its sum within its level-L block
@@ -66,23 +84,24 @@
 //
 // Bound: operations.  A lane costs one threefry block (two with a normal
 // law) of about 86 integer operations, against 10 bytes moved by a hop
-// lane (22 on the LB hop by rank, 18 by slot): at the card's int32 rate a
-// block is ~3x the static hop's bytes' time at 3.35 TB/s.  A gap lane adds
-// XLA's log1p (about 37 float operations) and its prefix sum's adds, and
-// writes 4 bytes.
+// lane (22 on the LB hop by rank, 18 by slot; a candidate lane 5 + 5 a
+// slot, against a block a slot): at the card's int32 rate a block is ~3x
+// the static hop's bytes' time at 3.35 TB/s.  A gap lane adds XLA's log1p
+// (about 37 float operations) and its prefix sum's adds, and writes 4
+// bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 struct EdgeDrawArgs {
-  const int32_t* ukey;       // (S, 2) key words of the uniform stream
-  const int32_t* zkey;       // (S, 2) key words of the normal stream, or null
+  const int32_t* ukey;       // (S, 2) key words of the uniform stream (candidates: (S, K, 2))
+  const int32_t* zkey;       // (S, 2) key words of the normal stream (or (S, K, 2)), or null
   const float* x_in;         // uniform: (S, n) uniforms to take the gaps of, or null
   const float* t_send;       // hop: (S, n) send times
   const uint8_t* alive;      // hop: (S, n)
   const int64_t* rank;       // hop: (S, n) arrival rank (LB slot rank % K), or null
   const int32_t* slot;       // hop: (S, n) LB slot, -1 for none healthy, or null
-  const int32_t* lb_edge;    // (K,) edge of each LB slot
+  const int32_t* lb_edge;    // (K,) edge of each LB slot (or candidate)
   const int32_t* lb_target;  // (K,) server of each LB slot
   const float* mean;         // (S, NE)
   const float* var;          // (S, NE)
@@ -93,8 +112,8 @@ struct EdgeDrawArgs {
   const float* fault_t;      // (NF,) or (S, NF) fault breakpoints (first 0), or null
   const float* fault_lat;    // (NF, NE) or (S, NF, NE) latency factor of each edge
   const float* fault_drop;   // (NF, NE) or (S, NF, NE) dropout boost of each edge
-  float* out;                // uniform: (S, n); hop: t_next (S, n); gaps: (S, ld_out), 1 + n used
-  uint8_t* ok;               // hop: (S, n)
+  float* out;  // uniform: (S, n); hop: t_next (S, n), candidates (S, n, K); gaps: (S, ld_out)
+  uint8_t* ok;               // hop: (S, n); candidates: (S, n, K)
   int32_t* target;           // hop with rank: (S, n)
   double* partial;           // hop: (S, lane blocks, K + 1)
   float* span;               // hop: (S, K)
@@ -105,7 +124,7 @@ struct EdgeDrawArgs {
   float horizon;
   int32_t NE;
   int32_t NB;
-  int32_t K;     // hop: edge slots (1 for a static edge)
+  int32_t K;     // hop: edge slots (1 for a static edge); candidates: slots
   int32_t edge;  // hop: the static edge, or -1 with rank
   int32_t mode;
   int32_t gap;   // uniform: write the gap -log1p(-u)
@@ -113,15 +132,15 @@ struct EdgeDrawArgs {
   int32_t fault_per_row;  // hop: the fault tables have a row a scenario
 };
 
-// per-thread gauge accumulators of the hop, (K, threads) doubles, and the
-// drop counters, (threads,) ints after them
-extern __shared__ double edge_smem[];
+// the hop's dynamic shared memory (hop_smem), 16-byte aligned
+extern __shared__ uint4 edge_smem[];
 
 namespace {
 
 constexpr int kUniformMode = 0;
 constexpr int kHopMode = 1;
 constexpr int kGapsMode = 2;
+constexpr int kCandidatesMode = 3;
 constexpr int kThreads = 128;
 constexpr int kLanes = 16;  // lanes a thread: one block of XLA's cumsum
 constexpr int kLaneBlock = kThreads * kLanes;
@@ -140,8 +159,13 @@ constexpr int kRowThreads = kTileBlocks;
 constexpr int kRowThreads = 1;
 #endif
 constexpr int kMaxSlots = 32;    // LB slots (shared memory)
-// the hop's dynamic shared memory: its sums' accumulators, then its row's
-// fault tables where they fit (else its lanes read them in global memory)
+// the hop's lane forms (hop_kernel's kForm)
+constexpr int kStrided = 0;
+constexpr int kConsecutive = 1;
+constexpr int kCandidates = 2;
+// the hop's dynamic shared memory (hop_smem): its slot table and sums'
+// buffers, then its spike and fault tables where they fit (else its lanes
+// read them in global memory)
 constexpr size_t kHopSmem = 48 * 1024;
 
 constexpr int kUniform = 0;
@@ -270,113 +294,6 @@ __device__ __forceinline__ float normal_of(uint32_t k0, uint32_t k1, uint32_t i)
   return 1.41421354f * erfinv_xla(u);
 }
 
-// 4 floats of a chunk from p (cnt of them valid; the rest read as 0): one
-// float4 where p is 16-byte aligned and all 4 are valid, else scalars
-__device__ __forceinline__ void load4(const float* p, int cnt, float v[4]) {
-  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = i < cnt ? p[i] : 0.0f;
-}
-
-__device__ __forceinline__ void store4(float* p, int cnt, const float v[4]) {
-  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
-    float4 f;
-    f.x = v[0];
-    f.y = v[1];
-    f.z = v[2];
-    f.w = v[3];
-    *reinterpret_cast<float4*>(p) = f;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (i < cnt) p[i] = v[i];
-}
-
-__device__ __forceinline__ void store4i(int32_t* p, int cnt, const int32_t v[4]) {
-  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
-    int4 f;
-    f.x = v[0];
-    f.y = v[1];
-    f.z = v[2];
-    f.w = v[3];
-    *reinterpret_cast<int4*>(p) = f;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (i < cnt) p[i] = v[i];
-}
-
-__device__ __forceinline__ void load4i(const int32_t* p, int cnt, int32_t v[4]) {
-  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
-    const int4 f = *reinterpret_cast<const int4*>(p);
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = i < cnt ? p[i] : 0;
-}
-
-// 4 ranks of a chunk as 32-bit slots' numerators: two 16-byte loads where
-// aligned
-__device__ __forceinline__ void load4_rank(const int64_t* p, int cnt, uint32_t v[4]) {
-  if (cnt >= 4 && ((uintptr_t)p & 15u) == 0) {
-    const longlong2 a = reinterpret_cast<const longlong2*>(p)[0];
-    const longlong2 b = reinterpret_cast<const longlong2*>(p)[1];
-    v[0] = (uint32_t)a.x;
-    v[1] = (uint32_t)a.y;
-    v[2] = (uint32_t)b.x;
-    v[3] = (uint32_t)b.y;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = i < cnt ? (uint32_t)p[i] : 0u;
-}
-
-// a thread's 16 mask bytes as 16 bits (bit i: byte i nonzero): one uint4
-// where aligned
-__device__ __forceinline__ uint32_t load_mask16(const uint8_t* p, int cnt) {
-  uint32_t bits = 0;
-  if (cnt == kLanes && ((uintptr_t)p & 15u) == 0) {
-    const uint4 w = *reinterpret_cast<const uint4*>(p);
-    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < kLanes; ++i)
-      bits |= (((words[i / 4] >> (8 * (i % 4))) & 0xFFu) != 0u ? 1u : 0u) << i;
-    return bits;
-  }
-  for (int i = 0; i < cnt; ++i)
-    if (p[i] != 0) bits |= 1u << i;
-  return bits;
-}
-
-__device__ __forceinline__ void store_mask16(uint8_t* p, int cnt, uint32_t bits) {
-  if (cnt == kLanes && ((uintptr_t)p & 15u) == 0) {
-    uint32_t words[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int i = 0; i < kLanes; ++i) words[i / 4] |= ((bits >> i) & 1u) << (8 * (i % 4));
-    uint4 w;
-    w.x = words[0];
-    w.y = words[1];
-    w.z = words[2];
-    w.w = words[3];
-    *reinterpret_cast<uint4*>(p) = w;
-    return;
-  }
-  for (int i = 0; i < cnt; ++i) p[i] = (uint8_t)((bits >> i) & 1u);
-}
-
 // the fault search's first step: the largest power of two <= nf (its steps
 // top, top / 2, .., 1 reach 2 top - 1 >= nf breakpoints)
 __host__ __device__ __forceinline__ int fault_top(int nf) {
@@ -385,53 +302,122 @@ __host__ __device__ __forceinline__ int fault_top(int nf) {
   return top;
 }
 
-// bytes of the hop's sums' accumulators (K doubles and an int a thread)
-__host__ __device__ __forceinline__ size_t hop_sums_bytes(bool sums, int K) {
-  return sums ? (size_t)K * kThreads * sizeof(double) + kThreads * sizeof(int) : 0;
-}
-
 // floats of a row's fault tables staged: the nf breakpoints padded to
 // 2 fault_top(nf), nf x ne factors and as many boosts
 __host__ __device__ __forceinline__ size_t fault_floats(int nf, int ne) {
   return 2 * (size_t)fault_top(nf) + 2 * (size_t)nf * ne;
 }
 
-// whether the hop stages its row's fault tables in shared memory, beside
-// its sums' accumulators
-__host__ __device__ __forceinline__ bool fault_staged(bool sums, int K, int nf, int ne) {
-  return hop_sums_bytes(sums, K) + fault_floats(nf, ne) * sizeof(float) <= kHopSmem;
+// The hop's dynamic shared memory, byte offsets from its start: the sums'
+// per-thread accumulators (K x threads doubles) and the block's lane spans
+// (kLaneBlock floats), the slot table (each slot's drop, mean and var bits
+// and its edge x 8 + law; the candidates' keys, or the sums' targets), the
+// sums' drop counts (threads ints) and lane slots (kLaneBlock bytes), then
+// the spike breakpoints with each slot's spike column (nb x (1 + K)
+// floats) and the row's fault tables (fault_floats), each where it fits.
+struct HopSmem {
+  size_t acc, span, par, key, tgt, drops, slots, spike, fault, total;
+  bool spike_staged, fault_staged;
+};
+
+__host__ __device__ __forceinline__ HopSmem hop_smem(bool sums, int K, int nb, int nf, int ne) {
+  HopSmem m;
+  size_t at = 0;
+  m.acc = at;
+  if (sums) at += (size_t)K * kThreads * sizeof(double);
+  m.span = at;
+  if (sums) at += kLaneBlock * sizeof(float);
+  m.par = at;
+  at += (size_t)K * sizeof(uint4);
+  m.key = at;
+  if (!sums) at += (size_t)K * sizeof(uint4);
+  m.tgt = at;
+  if (sums) at += ((size_t)K * sizeof(int32_t) + 15) & ~(size_t)15;
+  m.drops = at;
+  if (sums) at += kThreads * sizeof(int);
+  m.slots = at;
+  if (sums) at += kLaneBlock;
+  m.spike = at;
+  const size_t spike = (size_t)nb * (1 + (size_t)K) * sizeof(float);
+  m.spike_staged = nb > 0 && at + spike <= kHopSmem;
+  if (m.spike_staged) at += spike;
+  m.fault = at;
+  const size_t fault = nf > 0 ? fault_floats(nf, ne) * sizeof(float) : 0;
+  m.fault_staged = nf > 0 && at + fault <= kHopSmem;
+  if (m.fault_staged) at += fault;
+  m.total = at;
+  return m;
 }
 
-// the thread's row, its first lane and how many of its 16 lanes the row
-// holds; false past the row's end
-__device__ __forceinline__ bool thread_lanes(int64_t n, uint32_t& row, uint32_t& lane0,
-                                             int& cnt) {
-  row = blockIdx.y;
-  lane0 = (blockIdx.x * blockDim.x + threadIdx.x) * (uint32_t)kLanes;
-  if ((int64_t)lane0 >= n) return false;
-  const int64_t left = n - (int64_t)lane0;
-  cnt = left < kLanes ? (int)left : kLanes;
-  return true;
+// whether p lies on a boundary of `bytes` (a power of two)
+__host__ __device__ __forceinline__ bool aligned(const void* p, uintptr_t bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
 }
 
+// a lane's word in the block's span buffer: 16-byte chunks swizzled within
+// each 128-byte row (chunk c at c ^ ((c >> 3) & 7)), so that a warp's 32
+// consecutive lanes and a quarter warp's 16-byte reads of 16 consecutive
+// lanes a thread each fall on distinct banks
+__device__ __forceinline__ uint32_t span_word(uint32_t w) {
+  const uint32_t c = w >> 2;
+  return ((c ^ ((c >> 3) & 7u)) << 2) | (w & 3u);
+}
+
+// A row whose out (and x_in) starts on a 16-byte boundary: each thread
+// draws 16 consecutive lanes, a chunk of four moved as one float4; else
+// lanes 128 apart, a warp's accesses 32 consecutive lanes
 __global__ void uniform_kernel(EdgeDrawArgs a) {
-  uint32_t row, lane0;
-  int cnt;
-  if (!thread_lanes(a.n, row, lane0, cnt)) return;
+  const uint32_t row = blockIdx.y;
+  const uint32_t blk0 = blockIdx.x * (uint32_t)kLaneBlock;
+  const unsigned tid = threadIdx.x;
+  const size_t base = (size_t)row * (size_t)a.n;
   const uint32_t k0 = a.ukey != nullptr ? (uint32_t)a.ukey[2 * row] : 0u;
   const uint32_t k1 = a.ukey != nullptr ? (uint32_t)a.ukey[2 * row + 1] : 0u;
-  const size_t base = (size_t)row * (size_t)a.n + lane0;
+  const bool consec =
+      aligned(a.out + base, 16) && (a.x_in == nullptr || aligned(a.x_in + base, 16));
 #pragma unroll 1
-  for (int c = 0; c < kLanes; c += 4) {
-    float v[4];
-    if (a.x_in != nullptr) load4(a.x_in + base + c, cnt - c, v);
+  for (int g = 0; g < kLanes; g += 4) {
+    uint32_t lane[4];
+    bool in[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float u =
-          a.x_in != nullptr ? v[i] : uniform_of(k0, k1, lane0 + (uint32_t)(c + i));
+      lane[i] = consec ? blk0 + tid * (uint32_t)kLanes + (uint32_t)(g + i)
+                       : blk0 + tid + (uint32_t)(kThreads * (g + i));
+      in[i] = (int64_t)lane[i] < a.n;
+    }
+    const bool vec = consec && in[3];
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (a.x_in != nullptr) {
+      if (vec) {
+        const float4 f = *reinterpret_cast<const float4*>(a.x_in + base + lane[0]);
+        v[0] = f.x;
+        v[1] = f.y;
+        v[2] = f.z;
+        v[3] = f.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (in[i]) v[i] = a.x_in[base + lane[i]];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (!vec && !in[i]) continue;
+      const float u = a.x_in != nullptr ? v[i] : uniform_of(k0, k1, lane[i]);
       v[i] = a.gap ? -log1p_xla(-u) : u;
     }
-    store4(a.out + base + c, cnt - c, v);
+    if (vec) {
+      float4 f;
+      f.x = v[0];
+      f.y = v[1];
+      f.z = v[2];
+      f.w = v[3];
+      *reinterpret_cast<float4*>(a.out + base + lane[0]) = f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (in[i]) a.out[base + lane[i]] = v[i];
+    }
   }
 }
 
@@ -575,36 +561,83 @@ __global__ void __launch_bounds__(kRowThreads) gap_sum_kernel(EdgeDrawArgs a) {
   }
 }
 
+// One lane's delay over the edge of a slot's parameters p (the bits of its
+// drop, mean and var, and its edge x 8 + law) and whether its uniform drops
+// it, under the fault row's factor and boost (kFault); the spike is added
+// by the caller.  Each operation in the order of the plain version.
+template <bool kFault>
+__device__ __forceinline__ float lane_delay(uint32_t k0, uint32_t k1, uint32_t z0, uint32_t z1,
+                                            uint32_t lane, const uint4 p, float factor,
+                                            float boost, bool& dropped) {
+  const float u = uniform_of(k0, k1, lane);
+  float pd = __uint_as_float(p.x);
+  if (kFault) pd = fminf(fmaxf(pd + boost, 0.0f), 1.0f);
+  const float m = __uint_as_float(p.y);
+  const uint32_t law = p.w & 7u;
+  const float u_lat = (u - pd) / fmaxf(1.0f - pd, kTiny);
+  float d;
+  if (law == kUniform) {
+    d = u_lat;
+  } else if (law == kExponential) {
+    d = -m * logf(fmaxf(1.0f - u_lat, kTiny));
+  } else {
+    const float z = normal_of(z0, z1, lane);
+    const float x = m + __uint_as_float(p.z) * z;
+    d = law == kNormal ? fmaxf(x, 0.0f) : expf(x);
+  }
+  if (kFault) d = d * factor;
+  dropped = u < pd;
+  return d;
+}
+
 // kFault: the hop reads fault tables (a separate instance, so that a hop
-// without them runs the code it ran before they existed); kSums: the hop
-// sums its spans and drops (the epilogue), else it writes t_next and ok
-// only; kStaged: it reads the tables from its row's copy in shared memory
-// (fault_staged), else where they lie, in global memory
-template <bool kFault, bool kSums, bool kStaged>
-__global__ void hop_kernel(EdgeDrawArgs a) {
+// without them runs the code it ran before they existed); kStaged: it reads
+// them from its row's copy in shared memory (hop_smem), else where they
+// lie, in global memory; kForm: the hop over one slot a lane with its sums
+// (mode 1), its lanes 128 apart a thread (kStrided) or, where the launch's
+// rows all start on 16-byte boundaries and it has one slot, 16 consecutive
+// (kConsecutive), or least connections' candidates (mode 3, kCandidates: every
+// slot's hop of each lane, no sums, lanes 128 apart)
+template <bool kFault, bool kStaged, int kForm>
+__global__ void __launch_bounds__(kThreads) hop_kernel(EdgeDrawArgs a) {
+  constexpr bool kCands = kForm == kCandidates;
+  constexpr bool kConsec = kForm == kConsecutive;
   const int K = a.K;
   const unsigned nt = blockDim.x, tid = threadIdx.x;
-  double* acc = edge_smem;                                       // (K, threads)
-  int* drops = reinterpret_cast<int*>(edge_smem + (size_t)K * nt);  // (threads,)
-  if (kSums)
-    for (int k = 0; k < K; ++k) acc[k * nt + tid] = 0.0;
+  const uint32_t row = blockIdx.y;
+  const uint32_t blk0 = blockIdx.x * (uint32_t)kLaneBlock;
+  const int64_t n = a.n;
+  const int nb = a.spike_t != nullptr ? a.NB : 0;
+  const int ne = a.NE;
+  const HopSmem m = hop_smem(!kCands, K, nb, kFault ? a.NF : 0, ne);
+  char* smem = reinterpret_cast<char*>(edge_smem);
+  double* acc = reinterpret_cast<double*>(smem + m.acc);    // (K, threads)
+  float* spans = reinterpret_cast<float*>(smem + m.span);   // (kLaneBlock,), swizzled
+  uint4* par = reinterpret_cast<uint4*>(smem + m.par);      // (K,)
+  uint4* key = reinterpret_cast<uint4*>(smem + m.key);      // (K,): u, then z key words
+  int32_t* tgt = reinterpret_cast<int32_t*>(smem + m.tgt);  // (K,)
+  int* drops = reinterpret_cast<int*>(smem + m.drops);      // (threads,)
+  uint8_t* slots = reinterpret_cast<uint8_t*>(smem + m.slots);  // (kLaneBlock,)
+  float* sp = reinterpret_cast<float*>(smem + m.spike);     // (nb,), then (K, nb)
+  const bool lb = a.rank != nullptr || a.slot != nullptr;
+  const float* mean = a.mean + (size_t)row * ne;
+  const float* var = a.var + (size_t)row * ne;
+  const float* drop = a.drop + (size_t)row * ne;
   // the block's row of the fault tables (or the shared tables); staged,
   // copied to shared memory once: the breakpoints padded with NaN (which no
   // time passes) to 2 top entries, then the factors, then the boosts
   const int top = kFault ? fault_top(a.NF) : 0;
-  const size_t frow = kFault && a.fault_per_row ? (size_t)blockIdx.y : 0;
-  const size_t cells = (size_t)a.NF * a.NE;
+  const size_t frow = kFault && a.fault_per_row ? (size_t)row : 0;
+  const size_t cells = (size_t)a.NF * ne;
   const float* gt = kFault ? a.fault_t + frow * a.NF : nullptr;
   const float* glat = kFault ? a.fault_lat + frow * cells : nullptr;
   const float* gdrop = kFault ? a.fault_drop + frow * cells : nullptr;
-  float* st = !kStaged ? nullptr
-              : kSums  ? reinterpret_cast<float*>(drops + nt)
-                       : reinterpret_cast<float*>(edge_smem);
+  float* st = kStaged ? reinterpret_cast<float*>(smem + m.fault) : nullptr;
   const float* ft = kStaged ? st : gt;
   const float* flat = kStaged ? st + 2 * top : glat;
   const float* fdrop = kStaged ? st + 2 * top + cells : gdrop;
-  if constexpr (kStaged) {
-    const float nan = __uint_as_float(0x7FC00000u);
+  const float* spike_t = m.spike_staged ? sp : a.spike_t;
+  {
 #ifdef __CUDACC__
     const size_t first = tid, step = nt;
 #else
@@ -613,69 +646,181 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
     if (tid == 0)
 #endif
     {
-      for (size_t j = first; j < (size_t)(2 * top); j += step)
-        st[j] = j < (size_t)a.NF ? gt[j] : nan;
-      for (size_t j = first; j < cells; j += step) {
-        st[2 * top + j] = glat[j];
-        st[2 * top + cells + j] = gdrop[j];
+      for (size_t k = first; k < (size_t)K; k += step) {
+        const int e = kCands || lb ? a.lb_edge[k] : a.edge;
+        uint4 p;
+        p.x = __float_as_uint(drop[e]);
+        p.y = __float_as_uint(mean[e]);
+        p.z = __float_as_uint(var[e]);
+        p.w = (uint32_t)e * 8u + (uint32_t)a.dist[e];
+        par[k] = p;
+        if (!kCands) tgt[k] = lb ? a.lb_target[k] : 0;
+        if (kCands) {
+          const size_t w = ((size_t)row * K + k) * 2;
+          uint4 kk;
+          kk.x = (uint32_t)a.ukey[w];
+          kk.y = (uint32_t)a.ukey[w + 1];
+          kk.z = a.zkey != nullptr ? (uint32_t)a.zkey[w] : 0u;
+          kk.w = a.zkey != nullptr ? (uint32_t)a.zkey[w + 1] : 0u;
+          key[k] = kk;
+        }
+      }
+      if (m.spike_staged) {
+        for (size_t j = first; j < (size_t)nb; j += step) sp[j] = a.spike_t[j];
+        for (size_t j = first; j < (size_t)nb * K; j += step) {
+          const size_t k = j / nb;
+          const int e = kCands || lb ? a.lb_edge[k] : a.edge;
+          sp[nb + j] = a.spike_v[(j - k * nb) * ne + e];
+        }
+      }
+      if (kStaged) {
+        const float nan = __uint_as_float(0x7FC00000u);
+        for (size_t j = first; j < (size_t)(2 * top); j += step)
+          st[j] = j < (size_t)a.NF ? gt[j] : nan;
+        for (size_t j = first; j < cells; j += step) {
+          st[2 * top + j] = glat[j];
+          st[2 * top + cells + j] = gdrop[j];
+        }
       }
     }
 #ifdef __CUDACC__
     __syncthreads();
 #endif
   }
+  // the spike a lane adds: row si of slot k's column (edge e)
+  auto spike_of = [&](int si, int k, uint32_t e) {
+    return m.spike_staged ? sp[nb + k * nb + si] : a.spike_v[(size_t)si * ne + e];
+  };
+  const size_t base = (size_t)row * (size_t)n;
+  const float h = a.horizon;
+  const uint32_t k0 = kCands ? 0u : (uint32_t)a.ukey[2 * row];
+  const uint32_t k1 = kCands ? 0u : (uint32_t)a.ukey[2 * row + 1];
+  const uint32_t z0 = !kCands && a.zkey != nullptr ? (uint32_t)a.zkey[2 * row] : 0u;
+  const uint32_t z1 = !kCands && a.zkey != nullptr ? (uint32_t)a.zkey[2 * row + 1] : 0u;
+  // the lanes a thread: 16 consecutive (kConsecutive), their chunks of four
+  // moved as vectors and their spans summed in a register as they are
+  // drawn; else lanes 128 apart, their spans and slots left in shared
+  // memory and summed after the loop
+  double own = 0.0;  // the consecutive lanes' sum (one slot)
   int my_drops = 0;
-  uint32_t row, lane0;
-  int cnt;
-  if (thread_lanes(a.n, row, lane0, cnt)) {
-    const size_t base = (size_t)row * (size_t)a.n + lane0;
-    const uint32_t k0 = (uint32_t)a.ukey[2 * row], k1 = (uint32_t)a.ukey[2 * row + 1];
-    const uint32_t z0 = a.zkey != nullptr ? (uint32_t)a.zkey[2 * row] : 0u;
-    const uint32_t z1 = a.zkey != nullptr ? (uint32_t)a.zkey[2 * row + 1] : 0u;
-    const float h = a.horizon;
-    const float* mean = a.mean + (size_t)row * a.NE;
-    const float* var = a.var + (size_t)row * a.NE;
-    const float* drop = a.drop + (size_t)row * a.NE;
-    const uint32_t alive = load_mask16(a.alive + base, cnt);
-    const bool lb = a.rank != nullptr || a.slot != nullptr;
-    uint32_t okbits = 0;
 #pragma unroll 1
-    for (int c = 0; c < kLanes; c += 4) {
-      float t[4];
-      int32_t tgt[4] = {0, 0, 0, 0};
-      uint32_t rk[4] = {0u, 0u, 0u, 0u};
-      int32_t sl[4] = {0, 0, 0, 0};
-      load4(a.t_send + base + c, cnt - c, t);
-      if (a.rank != nullptr) load4_rank(a.rank + base + c, cnt - c, rk);
-      if (a.slot != nullptr) load4i(a.slot + base + c, cnt - c, sl);
-      // the four lanes' fault rows at their send times: the last breakpoint
-      // <= ts, -1 as 0, from fi, the count of breakpoints <= ts
-      // (searchsorted right), by a binary search of fixed steps top, top /
-      // 2, .., 1 (floor(log2(NF)) + 1 compares and adds; on the padded row
-      // where staged, else bounded by NF), the four searches interleaved
-      int fi[4] = {0, 0, 0, 0};
-      if (kFault) {
-        for (int step = top; step > 0; step >>= 1) {
+  for (int g = 0; g < kLanes; g += 4) {
+    // four lanes: consecutive, or 128 apart (each a warp's 32 consecutive
+    // lanes)
+    uint32_t lane[4];
+    bool in[4], live[4];
+    float t[4];
+    uint32_t rk[4] = {0u, 0u, 0u, 0u};
+    int32_t sl[4] = {0, 0, 0, 0};
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int j = fi[i] + step - 1;
-            if constexpr (kStaged)
-              fi[i] += ft[j] <= t[i] ? step : 0;
-            else
-              fi[i] += j < a.NF && ft[j] <= t[i] ? step : 0;
-          }
-        }
+    for (int i = 0; i < 4; ++i) {
+      lane[i] = kConsec ? blk0 + tid * (uint32_t)kLanes + (uint32_t)(g + i)
+                        : blk0 + tid + (uint32_t)(kThreads * (g + i));
+      in[i] = (int64_t)lane[i] < n;
+    }
+    const bool vec = kConsec && in[3];
+    if (vec) {
+      const size_t at = base + lane[0];
+      const float4 f = *reinterpret_cast<const float4*>(a.t_send + at);
+      t[0] = f.x;
+      t[1] = f.y;
+      t[2] = f.z;
+      t[3] = f.w;
+      const uint32_t al = *reinterpret_cast<const uint32_t*>(a.alive + at);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) fi[i] = fi[i] > 0 ? fi[i] - 1 : 0;
+      for (int i = 0; i < 4; ++i) live[i] = ((al >> (8 * i)) & 0xFFu) != 0u;
+      if (!kCands && a.rank != nullptr) {
+        const longlong2 r0 = reinterpret_cast<const longlong2*>(a.rank + at)[0];
+        const longlong2 r1 = reinterpret_cast<const longlong2*>(a.rank + at)[1];
+        rk[0] = (uint32_t)r0.x;
+        rk[1] = (uint32_t)r0.y;
+        rk[2] = (uint32_t)r1.x;
+        rk[3] = (uint32_t)r1.y;
       }
+      if (!kCands && a.slot != nullptr) {
+        const int4 q = *reinterpret_cast<const int4*>(a.slot + at);
+        sl[0] = q.x;
+        sl[1] = q.y;
+        sl[2] = q.z;
+        sl[3] = q.w;
+      }
+    } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int lane = c + i;
-        if (lane >= cnt) continue;
+        t[i] = in[i] ? a.t_send[base + lane[i]] : 0.0f;
+        live[i] = in[i] && a.alive[base + lane[i]] != 0;
+        if (!kCands && in[i] && a.rank != nullptr) rk[i] = (uint32_t)a.rank[base + lane[i]];
+        if (!kCands && in[i] && a.slot != nullptr) sl[i] = a.slot[base + lane[i]];
+      }
+    }
+    // the four lanes' fault rows at their send times: the last breakpoint
+    // <= ts, -1 as 0, from fi, the count of breakpoints <= ts
+    // (searchsorted right), by a binary search of fixed steps top, top /
+    // 2, .., 1 (floor(log2(NF)) + 1 compares and adds; on the padded row
+    // where staged, else bounded by NF), the four searches interleaved
+    int fi[4] = {0, 0, 0, 0};
+    if (kFault) {
+      for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = fi[i] + step - 1;
+          if constexpr (kStaged)
+            fi[i] += ft[j] <= t[i] ? step : 0;
+          else
+            fi[i] += j < a.NF && ft[j] <= t[i] ? step : 0;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fi[i] = fi[i] > 0 ? fi[i] - 1 : 0;
+    }
+    // their spike rows: searchsorted(spike_t, ts, right) - 1, -1 wrapping
+    // to the last row, by the same fixed steps bounded by NB
+    int si[4] = {0, 0, 0, 0};
+    if (nb > 0) {
+      for (int step = fault_top(nb); step > 0; step >>= 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = si[i] + step - 1;
+          si[i] += j < nb && spike_t[j] <= t[i] ? step : 0;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) si[i] = si[i] > 0 ? si[i] - 1 : nb - 1;
+    }
+    if constexpr (kCands) {
+      // every slot's hop of the four lanes, slot k with its own keys
+#pragma unroll 1
+      for (int k = 0; k < K; ++k) {
+        const uint4 p = par[k];
+        const uint4 kk = key[k];
+        const uint32_t e = p.w >> 3;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (!in[i]) continue;
+          const float ts = t[i];
+          const bool gate = live[i] && ts < h;
+          bool dropped;
+          float d = lane_delay<kFault>(kk.x, kk.y, kk.z, kk.w, lane[i], p,
+                                       kFault ? flat[fi[i] * ne + e] : 1.0f,
+                                       kFault ? fdrop[fi[i] * ne + e] : 0.0f, dropped);
+          if (nb > 0) d = d + spike_of(si[i], k, e);
+          const bool ok = gate && !dropped;
+          const size_t o = (base + lane[i]) * (size_t)K + (size_t)k;
+          a.out[o] = ok ? ts + d : ts;
+          a.ok[o] = ok ? 1u : 0u;
+        }
+      }
+    } else {
+      // the consecutive lanes' outputs, stored after the four
+      float o[4] = {t[0], t[1], t[2], t[3]};
+      uint32_t okw = 0u;  // the four ok bytes
+      int32_t tg[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!in[i]) continue;
         const float ts = t[i];
-        bool gate = ((alive >> lane) & 1u) && ts < h;
+        bool gate = live[i] && ts < h;
         int slot = 0;
-        int e = a.edge;
         if (lb) {
           if (a.slot != nullptr && gate && sl[i] < 0) {
             // no healthy target: dropped at the LB
@@ -683,76 +828,140 @@ __global__ void hop_kernel(EdgeDrawArgs a) {
             gate = false;
           }
           if (gate) slot = a.slot != nullptr ? sl[i] : (int)(rk[i] % (uint32_t)K);
-          e = a.lb_edge[slot];
-          tgt[i] = a.lb_target[slot];
         }
-        const float u = uniform_of(k0, k1, lane0 + (uint32_t)lane);
-        float p = drop[e];
-        float factor = 1.0f;
-        if (kFault) {
-          factor = flat[fi[i] * a.NE + e];
-          p = fminf(fmaxf(p + fdrop[fi[i] * a.NE + e], 0.0f), 1.0f);
-        }
-        const float m = mean[e];
-        const int law = a.dist[e];
-        const float u_lat = (u - p) / fmaxf(1.0f - p, kTiny);
-        float d;
-        if (law == kUniform) {
-          d = u_lat;
-        } else if (law == kExponential) {
-          d = -m * logf(fmaxf(1.0f - u_lat, kTiny));
-        } else {
-          const float z = normal_of(z0, z1, lane0 + (uint32_t)lane);
-          const float x = m + var[e] * z;
-          d = law == kNormal ? fmaxf(x, 0.0f) : expf(x);
-        }
-        if (kFault) d = d * factor;
-        if (a.spike_t != nullptr) {
-          // searchsorted(spike_t, ts, right) - 1, -1 wrapping to the last row
-          int idx = -1;
-          for (int j = 0; j < a.NB; ++j) idx += a.spike_t[j] <= ts ? 1 : 0;
-          if (idx < 0) idx = a.NB - 1;
-          d = d + a.spike_v[(size_t)idx * a.NE + e];
-        }
-        const bool dropped = u < p;
+        const uint4 p = par[slot];
+        const uint32_t e = p.w >> 3;
+        bool dropped;
+        float d = lane_delay<kFault>(k0, k1, z0, z1, lane[i], p,
+                                     kFault ? flat[fi[i] * ne + e] : 1.0f,
+                                     kFault ? fdrop[fi[i] * ne + e] : 0.0f, dropped);
+        if (nb > 0) d = d + spike_of(si[i], slot, e);
         const bool ok = gate && !dropped;
         const float t_end = ts + d;
-        if (ok) {
-          okbits |= 1u << lane;
-          if (kSums) acc[slot * nt + tid] += (double)fmaxf(fminf(t_end, h) - fminf(ts, h), 0.0f);
+        // the lane's span (0 where not sent) for its slot: added to the
+        // thread's sum in lane order, or left with its slot for the sums
+        const float span = ok ? fmaxf(fminf(t_end, h) - fminf(ts, h), 0.0f) : 0.0f;
+        if constexpr (kConsec) {
+          o[i] = ok ? t_end : ts;
+          okw |= (ok ? 1u : 0u) << (8 * i);
+          if (lb) tg[i] = tgt[slot];
+          own += (double)span;
+        } else {
+          a.out[base + lane[i]] = ok ? t_end : ts;
+          a.ok[base + lane[i]] = ok ? 1u : 0u;
+          if (lb) a.target[base + lane[i]] = tgt[slot];
+          const uint32_t w = lane[i] - blk0;
+          spans[span_word(w)] = span;
+          slots[w] = (uint8_t)slot;
         }
         my_drops += (gate && dropped) ? 1 : 0;
-        t[i] = ok ? t_end : ts;
       }
-      store4(a.out + base + c, cnt - c, t);
-      if (lb) store4i(a.target + base + c, cnt - c, tgt);
+      if constexpr (kConsec) {
+        if (vec) {
+          const size_t at = base + lane[0];
+          float4 f;
+          f.x = o[0];
+          f.y = o[1];
+          f.z = o[2];
+          f.w = o[3];
+          *reinterpret_cast<float4*>(a.out + at) = f;
+          *reinterpret_cast<uint32_t*>(a.ok + at) = okw;
+          if (lb) {
+            int4 q;
+            q.x = tg[0];
+            q.y = tg[1];
+            q.z = tg[2];
+            q.w = tg[3];
+            *reinterpret_cast<int4*>(a.target + at) = q;
+          }
+        } else {
+          // the row's last lanes
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (!in[i]) continue;
+            a.out[base + lane[i]] = o[i];
+            a.ok[base + lane[i]] = (uint8_t)((okw >> (8 * i)) & 1u);
+            if (lb) a.target[base + lane[i]] = tg[i];
+          }
+        }
+      }
     }
-    store_mask16(a.ok + base, cnt, okbits);
   }
-  if (!kSums) return;
-  drops[tid] = my_drops;
-  // the block's sums: each column by one thread, over the block's threads
-  // in order (the host build runs threads one after another: the last sums)
+  if constexpr (!kCands) {
+    drops[tid] = my_drops;
+    if (kConsec) acc[tid] = own;
+    // each thread's sums over its 16 consecutive lanes, in order (a lane
+    // not sent adds 0 to slot 0), where its lanes were 128 apart; the host
+    // build runs the threads one after another: the last sums every
+    // thread's lanes, then the block's
 #ifdef __CUDACC__
-  __syncthreads();
-  if ((int)tid > K) return;
-  const int k_first = (int)tid, k_last = (int)tid;
+    if (!kConsec) __syncthreads();
+    const unsigned th_first = tid, th_last = kConsec ? tid : tid + 1;
 #else
-  if (tid != nt - 1) return;
-  const int k_first = 0, k_last = K;
+    if (tid != nt - 1) return;
+    const unsigned th_first = 0, th_last = kConsec ? 0 : nt;
 #endif
-  double* part = a.partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (size_t)(K + 1);
-  for (int k = k_first; k <= k_last; ++k) {
-    double sum = 0.0;
-    if (k < K) {
-      for (unsigned j = 0; j < nt; ++j) sum += acc[k * nt + j];
-    } else {
-      int64_t count = 0;
-      for (unsigned j = 0; j < nt; ++j) count += drops[j];
-      sum = (double)count;
+    for (unsigned th = th_first; th < th_last; ++th) {
+      const uint32_t w0 = th * (uint32_t)kLanes;
+      const int64_t left = n - (int64_t)blk0 - (int64_t)w0;
+      const int cnt = left <= 0 ? 0 : left < kLanes ? (int)left : kLanes;
+      float v[kLanes];
+#pragma unroll
+      for (int q = 0; q < kLanes / 4; ++q) {
+        const float4 c = *reinterpret_cast<const float4*>(spans + span_word(w0 + 4 * q));
+        v[4 * q] = c.x;
+        v[4 * q + 1] = c.y;
+        v[4 * q + 2] = c.z;
+        v[4 * q + 3] = c.w;
+      }
+      // (unrolled, so that v and the slot words stay in registers)
+      if (K == 1) {
+        double s = 0.0;
+#pragma unroll
+        for (int i = 0; i < kLanes; ++i)
+          if (i < cnt) s += (double)v[i];
+        acc[th] = s;
+      } else {
+        const uint4 sw = *reinterpret_cast<const uint4*>(slots + w0);
+        const uint32_t words[4] = {sw.x, sw.y, sw.z, sw.w};
+        for (int k = 0; k < K; ++k) acc[k * nt + th] = 0.0;
+#pragma unroll
+        for (int i = 0; i < kLanes; ++i) {
+          const int k = (int)((words[i / 4] >> (8 * (i % 4))) & 0xFFu);
+          if (i < cnt) acc[k * nt + th] += (double)v[i];
+        }
+      }
     }
-    part[k] = sum;
+    // the block's sums: each column by one thread, over the block's threads
+    // in order
+#ifdef __CUDACC__
+    __syncthreads();
+    if ((int)tid > K) return;
+    const int k_first = (int)tid, k_last = (int)tid;
+#else
+    const int k_first = 0, k_last = K;
+#endif
+    double* part = a.partial + ((size_t)row * gridDim.x + blockIdx.x) * (size_t)(K + 1);
+    for (int k = k_first; k <= k_last; ++k) {
+      double sum = 0.0;
+      if (k < K) {
+        for (unsigned j = 0; j < nt; ++j) sum += acc[k * nt + j];
+      } else {
+        int64_t count = 0;
+        for (unsigned j = 0; j < nt; ++j) count += drops[j];
+        sum = (double)count;
+      }
+      part[k] = sum;
+    }
   }
+}
+
+// the hop's instance of a lane form
+template <bool kFault, bool kStaged>
+void (*hop_instance(int form))(EdgeDrawArgs) {
+  return form == kCandidates    ? hop_kernel<kFault, kStaged, kCandidates>
+         : form == kConsecutive ? hop_kernel<kFault, kStaged, kConsecutive>
+                                : hop_kernel<kFault, kStaged, kStrided>;
 }
 
 // the hop's per-scenario sums: each row's lane blocks in order
@@ -785,58 +994,80 @@ int edge_draws_lane_block() { return kLaneBlock; }
 int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
   EdgeDrawArgs a = *args;
   if (a.S <= 0 || a.n <= 0 || a.n > 0xFFFF0000ll) return -1;
-  size_t smem = 0;
+  const bool hop_mode = a.mode == kHopMode || a.mode == kCandidatesMode;
+  const bool cands = a.mode == kCandidatesMode;
+  HopSmem m{};
   if (a.mode == kUniformMode) {
     if (a.out == nullptr || (a.ukey == nullptr) == (a.x_in == nullptr)) return -1;
-  } else if (a.mode == kHopMode) {
+  } else if (hop_mode) {
     if (a.out == nullptr || a.ok == nullptr || a.t_send == nullptr || a.alive == nullptr ||
         a.ukey == nullptr || a.mean == nullptr || a.var == nullptr || a.drop == nullptr ||
-        a.dist == nullptr)
+        a.dist == nullptr || a.K < 1 || a.K > kMaxSlots)
       return -1;
-    // the sums' outputs, all or none (none: no epilogue)
-    if ((a.span == nullptr) != (a.partial == nullptr) ||
-        (a.span == nullptr) != (a.dropped == nullptr))
-      return -1;
-    if (a.rank != nullptr && a.slot != nullptr) return -1;
-    if (a.rank != nullptr || a.slot != nullptr) {
-      if (a.edge >= 0 || a.K < 1 || a.K > kMaxSlots || a.lb_edge == nullptr ||
-          a.lb_target == nullptr || a.target == nullptr)
+    if (cands) {
+      // every slot's edge, no LB lanes and no sums
+      if (a.lb_edge == nullptr || a.edge >= 0 || a.rank != nullptr || a.slot != nullptr ||
+          a.target != nullptr || a.span != nullptr || a.partial != nullptr ||
+          a.dropped != nullptr)
         return -1;
-    } else if (a.edge < 0 || a.edge >= a.NE || a.K != 1) {
-      return -1;
+    } else {
+      if (a.span == nullptr || a.partial == nullptr || a.dropped == nullptr) return -1;
+      if (a.rank != nullptr && a.slot != nullptr) return -1;
+      if (a.rank != nullptr || a.slot != nullptr) {
+        if (a.edge >= 0 || a.lb_edge == nullptr || a.lb_target == nullptr ||
+            a.target == nullptr)
+          return -1;
+      } else if (a.edge < 0 || a.edge >= a.NE || a.K != 1) {
+        return -1;
+      }
     }
     if (a.spike_t != nullptr && (a.spike_v == nullptr || a.NB < 1)) return -1;
     if (a.fault_t != nullptr && (a.fault_lat == nullptr || a.fault_drop == nullptr || a.NF < 1))
       return -1;
-    smem = hop_sums_bytes(a.span != nullptr, a.K);
-    if (a.fault_t != nullptr && fault_staged(a.span != nullptr, a.K, a.NF, a.NE))
-      smem += fault_floats(a.NF, a.NE) * sizeof(float);  // the staged tables
+    m = hop_smem(!cands, a.K, a.spike_t != nullptr ? a.NB : 0,
+                 a.fault_t != nullptr ? a.NF : 0, a.NE);
+    if (m.total > kHopSmem) return -1;
   } else if (a.mode == kGapsMode) {
     if (a.out == nullptr || a.ukey == nullptr || a.ld_out < a.n + 1) return -1;
   } else {
     return -1;
   }
+  const size_t smem = m.total;
+  // the hop's lanes 16 consecutive a thread where it has one slot and every
+  // row of every lane array starts on a 16-byte boundary (4-byte for the
+  // masks): n a multiple of 4 and the arrays so aligned
+  const int form =
+      cands ? kCandidates
+      : a.K == 1 && a.n % 4 == 0 && aligned(a.t_send, 16) && aligned(a.out, 16) &&
+              aligned(a.alive, 4) && aligned(a.ok, 4) &&
+              (a.rank == nullptr || aligned(a.rank, 16)) &&
+              (a.slot == nullptr || aligned(a.slot, 16)) &&
+              (a.target == nullptr || aligned(a.target, 16))
+          ? kConsecutive
+          : kStrided;
   const int64_t blocks = (a.n + kLaneBlock - 1) / kLaneBlock;
   if (blocks > 0x7FFFFFFFll) return -1;
   const int64_t total_rows = a.S;
   const EdgeDrawArgs whole = a;
+  // a row's key words and outputs a lane: K of each for the candidates
+  const int64_t per = cands ? whole.K : 1;
   for (int64_t r0 = 0; r0 < total_rows; r0 += kMaxRows) {
     const int64_t rows = total_rows - r0 < kMaxRows ? total_rows - r0 : kMaxRows;
     // the chunk's rows as rows 0.. of its own arguments
     a = whole;
     a.S = rows;
-    a.ukey = whole.ukey != nullptr ? whole.ukey + 2 * r0 : nullptr;
-    a.zkey = whole.zkey != nullptr ? whole.zkey + 2 * r0 : nullptr;
+    a.ukey = whole.ukey != nullptr ? whole.ukey + 2 * per * r0 : nullptr;
+    a.zkey = whole.zkey != nullptr ? whole.zkey + 2 * per * r0 : nullptr;
     if (whole.x_in != nullptr) a.x_in = whole.x_in + r0 * whole.n;
     if (whole.mode == kGapsMode) {
       a.out = whole.out + r0 * whole.ld_out;
     } else {
-      a.out = whole.out + r0 * whole.n;
+      a.out = whole.out + r0 * whole.n * per;
     }
-    if (whole.mode == kHopMode) {
+    if (hop_mode) {
       a.t_send = whole.t_send + r0 * whole.n;
       a.alive = whole.alive + r0 * whole.n;
-      a.ok = whole.ok + r0 * whole.n;
+      a.ok = whole.ok + r0 * whole.n * per;
       if (whole.rank != nullptr) a.rank = whole.rank + r0 * whole.n;
       if (whole.slot != nullptr) a.slot = whole.slot + r0 * whole.n;
       if (whole.target != nullptr) a.target = whole.target + r0 * whole.n;
@@ -864,15 +1095,11 @@ int edge_draws_launch(const EdgeDrawArgs* args, void* stream) {
       const dim3 gap_block(kRowThreads);
       gap_sum_kernel<<<gap_grid, gap_block, 0, (cudaStream_t)stream>>>(a);
     } else {
-      const bool sums = a.span != nullptr;
-      const bool staged = a.fault_t != nullptr && fault_staged(sums, a.K, a.NF, a.NE);
-      const auto hop =
-          a.fault_t == nullptr
-              ? (sums ? hop_kernel<false, true, false> : hop_kernel<false, false, false>)
-          : staged ? (sums ? hop_kernel<true, true, true> : hop_kernel<true, false, true>)
-                   : (sums ? hop_kernel<true, true, false> : hop_kernel<true, false, false>);
+      const auto hop = a.fault_t == nullptr ? hop_instance<false, false>(form)
+                       : m.fault_staged     ? hop_instance<true, true>(form)
+                                            : hop_instance<true, false>(form);
       hop<<<grid, block, smem, (cudaStream_t)stream>>>(a);
-      if (sums) {
+      if (!cands) {
         const dim3 rgrid((unsigned)((rows + kThreads - 1) / kThreads));
         hop_reduce_kernel<<<rgrid, block, 0, (cudaStream_t)stream>>>(a);
       }

@@ -510,6 +510,25 @@ def hop_plain(
     )
 
 
+def candidates_plain(
+    tables: EdgeTables,
+    t_send: torch.Tensor,
+    alive: torch.Tensor,
+    ukeys: torch.Tensor,
+    zkeys: torch.Tensor | None,
+    edges: list[int],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Least connections' candidates: each slot's hop without sums of the
+    lanes ``alive`` sending at ``t_send`` (S, n), slot k over static edge
+    ``edges[k]`` keyed ``ukeys[:, k]`` (and ``zkeys[:, k]``), stacked into
+    (S, n, K) ``t_next`` and ``ok``."""
+    hops = [hop_plain(tables, t_send, alive, ukeys[:, k],
+                      None if zkeys is None else zkeys[:, k], edge=e, sums=False)
+            for k, e in enumerate(edges)]
+    return (torch.stack([h.t_next for h in hops], dim=2),
+            torch.stack([h.ok for h in hops], dim=2))
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -517,6 +536,7 @@ def hop_plain(
 MODE_UNIFORM = 0
 MODE_HOP = 1
 MODE_GAPS = 2
+MODE_CANDIDATES = 3
 #: LB slots the hop takes (its per-thread gauge accumulators in shared memory)
 MAX_LB_SLOTS = 32
 
@@ -584,15 +604,17 @@ class PlainEdgeDraws:
         return -log1p_xla(-u)
 
     def hop(self, tables, t_send, alive, ukey, zkey, *, edge=None, rank=None,
-            slot=None, sums=True) -> HopOut:
-        return hop_plain(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank, slot=slot,
-                         sums=sums)
+            slot=None) -> HopOut:
+        return hop_plain(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank, slot=slot)
+
+    def candidates(self, tables, t_send, alive, ukeys, zkeys, edges):
+        return candidates_plain(tables, t_send, alive, ukeys, zkeys, edges)
 
 
 class EdgeDraws:
     """The per-lane draws of the fast path with their launch count, in all
     (``launches``), of hops under fault tables (``fault_launches``) and of
-    hops without sums (``bare_launches``: least connections' candidates)."""
+    least connections' candidates (``cand_launches``)."""
 
     name = "edge_draws"
     route = "cuda"
@@ -606,7 +628,7 @@ class EdgeDraws:
     def __init__(self) -> None:
         self.launches = 0
         self.fault_launches = 0
-        self.bare_launches = 0
+        self.cand_launches = 0
 
     def uniform(self, keys: torch.Tensor, n: int, *, gap: bool = False) -> torch.Tensor:
         """(S, n) uniforms of each scenario's stream ``keys`` (S, 2), or
@@ -652,7 +674,6 @@ class EdgeDraws:
         edge: int | None = None,
         rank: torch.Tensor | None = None,
         slot: torch.Tensor | None = None,
-        sums: bool = True,
     ) -> HopOut:
         """The fused hop (:func:`hop_plain`) of the lanes ``t_send`` (S, n)
         float32 and ``alive`` (S, n) bool, over the static ``edge``, the LB
@@ -660,8 +681,7 @@ class EdgeDraws:
         each lane (-1: no healthy target); ``ukey`` (S, 2) keys the
         uniform stream, ``zkey`` the normal one where a law reads it; the
         fault tables of ``tables``, where given, are read in the kernel at
-        each lane's send time.  Without ``sums`` the kernel's instance with
-        no epilogue runs: no spans, no drop count."""
+        each lane's send time."""
         if sum(x is not None for x in (edge, rank, slot)) != 1:
             msg = "edge_draws.hop takes exactly one of edge, rank and slot"
             raise ValueError(msg)
@@ -672,13 +692,8 @@ class EdgeDraws:
         dev = t_send.device
         if dev.type == "cpu":
             return PlainEdgeDraws().hop(tables, t_send, alive, ukey, zkey, edge=edge, rank=rank,
-                                        slot=slot, sums=sums)
+                                        slot=slot)
         s, n = t_send.shape
-        ne = tables.mean.shape[1]
-        _need(t_send, torch.float32, (s, n), dev, "t_send")
-        _need(alive, torch.bool, (s, n), dev, "alive")
-        for name in ("mean", "var", "drop"):
-            _need(getattr(tables, name), torch.float32, (s, ne), dev, name)
         k_slots = 1
         target = None
         if edge is None:
@@ -687,12 +702,87 @@ class EdgeDraws:
             else:
                 _need(slot, torch.int32, (s, n), dev, "slot")
             k_slots = int(tables.lb_edge.shape[0])
-            if k_slots > MAX_LB_SLOTS:
-                msg = f"edge_draws.hop takes at most {MAX_LB_SLOTS} LB edges, got {k_slots}"
-                raise ValueError(msg)
-            for name in ("lb_edge", "lb_target"):
-                _need(getattr(tables, name), torch.int32, (k_slots,), dev, name)
+            _need(tables.lb_target, torch.int32, (k_slots,), dev, "lb_target")
             target = torch.empty((s, n), dtype=torch.int32, device=dev)
+        fields = self._hop_fields(tables, t_send, alive, k_slots,
+                                  lb_edge=tables.lb_edge if edge is None else None)
+        out = HopOut(
+            t_next=torch.empty((s, n), dtype=torch.float32, device=dev),
+            ok=torch.empty((s, n), dtype=torch.bool, device=dev),
+            target=target,
+            span=torch.empty((s, k_slots), dtype=torch.float32, device=dev),
+            dropped=torch.empty(s, dtype=torch.int64, device=dev),
+        )
+        partial = torch.empty((s, lane_blocks(n), k_slots + 1), dtype=torch.float64, device=dev)
+        self._launch(
+            MODE_HOP, s, n, **fields,
+            ukey=key_words(ukey), zkey=key_words(zkey) if needs_z else None,
+            rank=rank, slot=slot, lb_target=tables.lb_target if edge is None else None,
+            out=out.t_next, ok=out.ok, target=target, partial=partial, span=out.span,
+            dropped=out.dropped, edge=-1 if edge is None else int(edge),
+        )
+        return out
+
+    def candidates(
+        self,
+        tables: EdgeTables,
+        t_send: torch.Tensor,
+        alive: torch.Tensor,
+        ukeys: torch.Tensor,
+        zkeys: torch.Tensor | None,
+        edges: list[int],
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Least connections' candidates (:func:`candidates_plain`): each
+        lane of ``t_send`` (S, n) float32 and ``alive`` (S, n) bool hopped
+        over every slot's static edge ``edges[k]``, slot k keyed by
+        ``ukeys[:, k]`` (and ``zkeys[:, k]`` where a law reads a normal),
+        (S, K, 2) each; returns (S, n, K) ``t_next`` and ``ok``, in one
+        launch (the fault and spike rows searched once a lane)."""
+        k_slots, ne = len(edges), tables.mean.shape[1]
+        if not 0 < k_slots <= MAX_LB_SLOTS or not all(0 <= e < ne for e in edges):
+            msg = (f"edge_draws.candidates takes 1 to {MAX_LB_SLOTS} edges of the plan's {ne}, "
+                   f"got {edges}")
+            raise ValueError(msg)
+        needs_z = any(int(tables.dist[e]) in NORMAL_LAWS for e in edges)
+        if needs_z and zkeys is None:
+            msg = "edge_draws.candidates: a normal or lognormal edge needs its z stream keys"
+            raise ValueError(msg)
+        dev = t_send.device
+        if dev.type == "cpu":
+            return PlainEdgeDraws().candidates(tables, t_send, alive, ukeys, zkeys, edges)
+        s, n = t_send.shape
+        for name, keys in (("ukeys", ukeys), ("zkeys", zkeys if needs_z else None)):
+            if keys is not None and tuple(keys.shape) != (s, k_slots, 2):
+                msg = (f"edge_draws.candidates: {name} must be ({s}, {k_slots}, 2), got "
+                       f"{tuple(keys.shape)}")
+                raise ValueError(msg)
+        lb_edge = torch.as_tensor(np.asarray(edges, np.int32), device=dev)
+        fields = self._hop_fields(tables, t_send, alive, k_slots, lb_edge=lb_edge)
+        t_next = torch.empty((s, n, k_slots), dtype=torch.float32, device=dev)
+        ok = torch.empty((s, n, k_slots), dtype=torch.bool, device=dev)
+        self._launch(
+            MODE_CANDIDATES, s, n, **fields,
+            ukey=key_words(ukeys), zkey=key_words(zkeys) if needs_z else None,
+            out=t_next, ok=ok,
+        )
+        return t_next, ok
+
+    def _hop_fields(self, tables: EdgeTables, t_send, alive, k_slots: int, lb_edge) -> dict:
+        """The arguments every hop mode passes: the lanes, the slots' edges,
+        the edge parameters, the law table and the spike and fault tables,
+        each checked."""
+        s, n = t_send.shape
+        dev = t_send.device
+        ne = tables.mean.shape[1]
+        _need(t_send, torch.float32, (s, n), dev, "t_send")
+        _need(alive, torch.bool, (s, n), dev, "alive")
+        for name in ("mean", "var", "drop"):
+            _need(getattr(tables, name), torch.float32, (s, ne), dev, name)
+        if lb_edge is not None:
+            if k_slots > MAX_LB_SLOTS:
+                msg = f"edge_draws takes at most {MAX_LB_SLOTS} LB edges, got {k_slots}"
+                raise ValueError(msg)
+            _need(lb_edge, torch.int32, (k_slots,), dev, "lb_edge")
         nb = 0
         if tables.spike_t is not None:
             nb = int(tables.spike_t.shape[0])
@@ -706,31 +796,16 @@ class EdgeDraws:
             _need(tables.fault_t, torch.float32, (*rows, nf), dev, "fault_t")
             for name in ("fault_lat", "fault_drop"):
                 _need(getattr(tables, name), torch.float32, (*rows, nf, ne), dev, name)
-        out = HopOut(
-            t_next=torch.empty((s, n), dtype=torch.float32, device=dev),
-            ok=torch.empty((s, n), dtype=torch.bool, device=dev),
-            target=target,
-            span=torch.empty((s, k_slots), dtype=torch.float32, device=dev) if sums else None,
-            dropped=torch.empty(s, dtype=torch.int64, device=dev) if sums else None,
-        )
-        partial = (torch.empty((s, lane_blocks(n), k_slots + 1), dtype=torch.float64,
-                               device=dev) if sums else None)
-        self._launch(
-            MODE_HOP, s, n,
-            ukey=key_words(ukey), zkey=key_words(zkey) if needs_z else None,
-            t_send=t_send, alive=alive, rank=rank, slot=slot,
-            lb_edge=tables.lb_edge if edge is None else None,
-            lb_target=tables.lb_target if edge is None else None,
-            mean=tables.mean, var=tables.var, drop=tables.drop,
-            dist=torch.as_tensor(np.asarray(tables.dist, np.int32), device=dev),
-            spike_t=tables.spike_t, spike_v=tables.spike_v,
-            fault_t=tables.fault_t, fault_lat=tables.fault_lat, fault_drop=tables.fault_drop,
-            out=out.t_next, ok=out.ok, target=target, partial=partial, span=out.span,
-            dropped=out.dropped,
-            horizon=f32(tables.horizon), NE=ne, NB=nb, K=k_slots,
-            edge=-1 if edge is None else int(edge), NF=nf, fault_per_row=per_row,
-        )
-        return out
+        return {
+            "t_send": t_send, "alive": alive, "lb_edge": lb_edge,
+            "mean": tables.mean, "var": tables.var, "drop": tables.drop,
+            "dist": torch.as_tensor(np.asarray(tables.dist, np.int32), device=dev),
+            "spike_t": tables.spike_t, "spike_v": tables.spike_v,
+            "fault_t": tables.fault_t, "fault_lat": tables.fault_lat,
+            "fault_drop": tables.fault_drop,
+            "horizon": f32(tables.horizon), "NE": ne, "NB": nb, "K": k_slots, "NF": nf,
+            "fault_per_row": per_row,
+        }
 
     _SCALARS = ("ld_out", "horizon", "NE", "NB", "K", "edge", "gap", "NF",
                 "fault_per_row")
@@ -759,8 +834,8 @@ class EdgeDraws:
         self.launches += 1
         if fields.get("fault_t") is not None:
             self.fault_launches += 1
-        if mode == MODE_HOP and fields.get("span") is None:
-            self.bare_launches += 1
+        if mode == MODE_CANDIDATES:
+            self.cand_launches += 1
 
 
 def hop_keys(keys: torch.Tensor, site: int) -> tuple[torch.Tensor, torch.Tensor]:

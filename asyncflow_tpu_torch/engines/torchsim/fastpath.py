@@ -494,23 +494,22 @@ class FastEngine:
              **lanes) -> HopOut:
         """The fused hop keyed ``fold_in(key, site)`` (its uniform stream, or
         the shared ``ukey``) of the lanes ``alive`` sending at ``t`` over
-        ``edge=``, or the LB's ``rank=`` or ``slot=`` (``sums=False``: no
-        spans, no drop count)."""
+        ``edge=``, or the LB's ``rank=`` or ``slot=``."""
         uk, zk = hop_keys(keys, site)
         return self.draws.hop(tables, t, alive, uk if ukey is None else ukey, zk, **lanes)
 
     def _lc_route(self, tables: EdgeTables, keys, t, alive):
         """Least connections: every slot's candidate send of the lanes
-        ``alive`` at ``t`` (the static hop keyed ``32 + slot``, no sums: they
-        belong to the lanes that pick the slot), the picks, and the picked
-        slot's outcome: (slot (S, n) int64, -1 where no target is healthy;
-        its arrival time and sent flag)."""
+        ``alive`` at ``t`` (the static hop keyed ``32 + slot``, in one
+        launch for all slots, (S, n, slots), no sums: they belong to the
+        lanes that pick the slot), the picks, and the picked slot's outcome:
+        (slot (S, n) int64, -1 where no target is healthy; its arrival time
+        and sent flag)."""
         plan = self.plan
-        cands = [self._hop(tables, keys, 32 + k, t, alive, edge=e, sums=False)
-                 for k, e in enumerate(plan.lb_edge_index.tolist())]
-        deliv = torch.stack([c.t_next for c in cands], dim=2)
-        sent = torch.stack([c.ok for c in cands], dim=2)
-        del cands
+        edges = plan.lb_edge_index.tolist()
+        uk, zk = zip(*(hop_keys(keys, 32 + k) for k in range(len(edges))))
+        deliv, sent = self.draws.candidates(tables, t, alive, torch.stack(uk, dim=1),
+                                            torch.stack(zk, dim=1), edges)
         slot = route_lanes_lc(self.route, self.timeline, t, alive, deliv, ~sent,
                               int(plan.lc_ring)).long()
         pick = torch.clamp_min(slot, 0)[..., None]

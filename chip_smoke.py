@@ -51,7 +51,8 @@ no result line):
    slot, spiked and fault-table hops, the outage timeline's table and
    lanes, Lindley and Kiefer-Wolfowitz scans, RAM-core scans, the retry
    budget's and the rate limit's token buckets, the controlled and socket
-   scans, least connections' candidate hops without sums and its picks)
+   scans, least connections' candidates (one launch for every slot) and
+   its picks)
    repeated through the plain version, bit-exact,
    and the whole engine through each, with identical integer outputs
    (the resilience counters included), per-request clocks and gauge
@@ -63,7 +64,9 @@ no result line):
    the hop under synthetic per-scenario fault tables (a partition,
    overlapping degrades, duplicate breakpoint times with decoy rows that
    must never be read, sends exactly on breakpoints) at the headline's
-   width, static and by rank; the
+   width, static and by rank; the LB hop by slot and least connections'
+   candidates at widths of every residue mod 16 on 17 rows and at
+   event_inj_lb's and lc_mixed_fleet's widths; the
    token bucket on 2048 synthetic rows of 9,750 at five (rate, burst)
    pairs; the controlled and socket scans on 2048 synthetic rows over the
    grid of cores, ready-queue caps, deadlines and connection caps
@@ -110,8 +113,8 @@ no result line):
    one; then the first call of each kind
    (uniform, gap, gap prefix sum, static, LB, slot, spiked or fault-table
    hop, timeline table and lanes, wait scan of one server or of several,
-   RAM-core scan, token bucket, controlled and socket scans, hop without
-   sums, least-connections picks) of the path's own run at full width,
+   RAM-core scan, token bucket, controlled and socket scans,
+   least-connections candidates and picks) of the path's own run at full width,
    repeated through the kernel and through its plain version on the same
    arguments, bit-exact; each edge_draws and lb_route kind's call and the
    path's station_scan kinds timed between CUDA events beside its bound,
@@ -961,7 +964,7 @@ def card_line() -> str:
 
 #: the kernels redesigned for this card whose instances must not spill
 #: (their ptxas lines are kept for the summary line): (library, kernel)
-REDESIGNED = (("lb_route", "lc_kernel"), ("edge_draws", "hop_kernel<true"),
+REDESIGNED = (("lb_route", "lc_kernel"), ("edge_draws", "hop_kernel"),
               ("station_scan", "bucket_warp_kernel"), ("station_scan", "lane_walk_kernel"),
               ("edge_draws", "gap_sum_kernel"))
 #: the dependent clocks of one valid element's chain in the redesigned
@@ -974,17 +977,14 @@ REDESIGNED = (("lb_route", "lc_kernel"), ("edge_draws", "hop_kernel<true"),
 #: clocks at the card's SM clock
 SCAN_CHAIN_CLOCKS = {"bucket": 18, "socket": 52, "controlled": 22}
 #: the parent tree's times of this slice's redesigned kernels, (path, kind)
-#: -> text: the controlled scan by scripts/torch_scan_variants.py --against
-#: the parent's station_scan.cu, the gap prefix sum (the call, and with the
-#: fast path's copy of it behind a zero column) by
-#: scripts/torch_gap_sum_times.py --tree the parent's checkout, each turn
-#: of the parent's in one call with this tree's (NVIDIA H100 80GB HBM3, 700 W)
+#: -> text: the LB hop by slot and least connections' candidates (the
+#: parent's two hops without sums) at the path's own calls, by
+#: scripts/torch_hop_times.py --tree the parent's checkout, its two turns in
+#: one call with this tree's (parent, change, change, parent; NVIDIA H100
+#: 80GB HBM3, 700 W)
 PARENT_MS = {
-    ("overload_cap8", "controlled"): "1.8618, 1.8700 ms (the thread walk)",
-    ("two_servers_lb", "gap_cumsum"): "2.1724, 2.1489 ms; with the copy 2.7159, 2.6744 ms",
-    ("heavy_inj_single_server", "gap_cumsum"):
-        "2.1582, 2.0609 ms; with the copy 2.9344, 2.8742 ms",
-    ("chaos_campaign", "gap_cumsum"): "2.0035, 2.0722 ms; with the copy 2.6394, 2.7557 ms",
+    ("event_inj_lb", "hop_slot_spike"): "1.6511, 1.6544 ms",
+    ("lc_mixed_fleet", "candidates"): "1.1172, 1.1412 ms in two launches",
 }
 #: ptxas' registers and spills of the redesigned kernels' instances
 REDESIGNED_PTXAS: dict = {}
@@ -1631,6 +1631,8 @@ UNIFORM_LANE_OPS = (86, 1, 0)
 LOG1P_RATIONAL_OPS = (0, 37, 0)
 LOG1P_LOG_OPS = (4, 33, 0)
 HOP_LANE_OPS = (0, 11, 1)
+#: a least-connections candidate, a lane and slot: the hop's but the span
+CAND_SLOT_OPS = (0, 7, 0)
 LAW_LANE_OPS = {0: (0, 0, 0), 2: (0, 4, 0), 3: (86, 26, 0), 4: (86, 26, 0)}
 LB_SLOT_OPS = (1, 0, 0)
 SCAN_LANE_OPS = (0, 2, 0)
@@ -1693,14 +1695,25 @@ def _draws_bound(torch, kind: str, args: tuple, kw: dict) -> dict:
     if kind == "gap_of":
         (u,) = args
         return _bound_of(u.numel() * 8, *_log1p_ops(torch, u))
+    if kind.startswith("candidates"):
+        # t and alive read once, each slot's t_next and ok written; a
+        # threefry block (two with a normal law) a lane and slot, the spike
+        # and fault rows searched once a lane
+        tables, t_send, _alive, _ukeys, _zkeys, edges = args
+        lanes = t_send.numel()
+        ops = [0, 0, 0]
+        for e in edges:
+            per = [a + b + c for a, b, c in zip(UNIFORM_LANE_OPS, CAND_SLOT_OPS,
+                                                 LAW_LANE_OPS[int(tables.dist[e])])]
+            ops = [a + b for a, b in zip(ops, _ops(lanes, per))]
+        return _bound_of(*_hop_table_ops(tables, lanes, ops, len(edges),
+                                         lanes * (5 + 5 * len(edges))))
     tables, t_send, alive, _ukey, _zkey = args
     s, n = t_send.shape
     lanes = s * n
     rank, given = kw.get("rank"), kw.get("slot")
     k_slots = 1 if kw.get("edge") is not None else int(tables.lb_edge.shape[0])
-    # a hop without sums writes no spans and no drop count
-    sums = kw.get("sums") is not False
-    moved = lanes * (4 + 1 + 4 + 1) + (s * (4 * k_slots + 8) if sums else 0)
+    moved = lanes * (4 + 1 + 4 + 1) + s * (4 * k_slots + 8)
     ops = [a + b for a, b in zip(_ops(lanes, UNIFORM_LANE_OPS), _ops(lanes, HOP_LANE_OPS))]
     if kw.get("edge") is not None:
         per_law = {int(tables.dist[kw["edge"]]): lanes}
@@ -1718,18 +1731,28 @@ def _draws_bound(torch, kind: str, args: tuple, kw: dict) -> dict:
     for law, count in per_law.items():
         if count:
             ops = [a + b for a, b in zip(ops, _ops(count, LAW_LANE_OPS[law]))]
+    return _bound_of(*_hop_table_ops(tables, lanes, ops, 1, moved))
+
+
+def _hop_table_ops(tables, lanes: int, ops: list, slots: int, moved: int) -> tuple:
+    """(bytes, int32, fp32, fp64 operations): ``moved`` and ``ops`` with a
+    hop's spike and fault work: a lane's spike search (a compare a
+    breakpoint, as the reference's searchsorted scans) and fault row search
+    (ceil(log2(NF + 1)) steps) once a lane, each of ``slots`` hops' spike
+    add and fault arithmetic, and the fault tables' bytes."""
+    ops = list(ops)
     if tables.spike_t is not None:
         nb = int(tables.spike_t.shape[0])
-        ops[1] += lanes * (nb + 1)
+        ops[1] += lanes * (nb + slots)
     if tables.fault_t is not None:
         # each scenario's (or the shared) breakpoints, factors and boosts
         # read once; the row search and the fault's arithmetic a lane
         moved += sum(x.numel() * 4 for x in (tables.fault_t, tables.fault_lat,
                                              tables.fault_drop))
         steps = int(tables.fault_t.shape[-1]).bit_length()  # ceil(log2(NF + 1))
-        ops[0] += lanes * (steps * FAULT_SEARCH_STEP_OPS[0] + FAULT_LANE_OPS[0])
-        ops[1] += lanes * (steps * FAULT_SEARCH_STEP_OPS[1] + FAULT_LANE_OPS[1])
-    return _bound_of(moved, *ops)
+        ops[0] += lanes * (steps * FAULT_SEARCH_STEP_OPS[0] + slots * FAULT_LANE_OPS[0])
+        ops[1] += lanes * (steps * FAULT_SEARCH_STEP_OPS[1] + slots * FAULT_LANE_OPS[1])
+    return (moved, *ops)
 
 
 #: lb_route: the table pass's mark test, a lane and a mark (the compare,
@@ -1837,10 +1860,10 @@ CALL_KINDS = {
     "hop_spike_fault": ("edge_draws", "hop"),
     "hop_lb_spike_fault": ("edge_draws", "hop"),
     "hop_slot_spike_fault": ("edge_draws", "hop"),
-    "hop_bare": ("edge_draws", "hop"),
-    "hop_bare_spike": ("edge_draws", "hop"),
-    "hop_bare_fault": ("edge_draws", "hop"),
-    "hop_bare_spike_fault": ("edge_draws", "hop"),
+    "candidates": ("edge_draws", "candidates"),
+    "candidates_spike": ("edge_draws", "candidates"),
+    "candidates_fault": ("edge_draws", "candidates"),
+    "candidates_spike_fault": ("edge_draws", "candidates"),
     "waits": ("station_scan", "waits"),
     "waits_kw": ("station_scan", "waits"),
     "ram_core": ("station_scan", "ram_core"),
@@ -1855,10 +1878,11 @@ CALL_KINDS = {
 FAST_KERNELS = ("edge_draws", "station_scan", "lb_route")
 
 
-def _hop_kind(tables, kw: dict) -> str:
-    lanes = ("hop_lb" if kw.get("rank") is not None
-             else "hop_slot" if kw.get("slot") is not None
-             else "hop_bare" if kw.get("sums") is False else "hop")
+def _hop_kind(tables, kw: dict, lanes: str | None = None) -> str:
+    """A hop's kind (``lanes``: "candidates" for least connections' one
+    launch over every slot)."""
+    lanes = lanes or ("hop_lb" if kw.get("rank") is not None
+                      else "hop_slot" if kw.get("slot") is not None else "hop")
     return (lanes + ("_spike" if tables.spike_t is not None else "")
             + ("_fault" if tables.fault_t is not None else ""))
 
@@ -1888,6 +1912,10 @@ def _record_kernel_calls(eng, every: bool) -> list:
         def hop(self, tables, *args, **kw):
             keep(_hop_kind(tables, kw), (tables, *args), kw)
             return draws.hop(tables, *args, **kw)
+
+        def candidates(self, tables, *args):
+            keep(_hop_kind(tables, {}, "candidates"), (tables, *args), {})
+            return draws.candidates(tables, *args)
 
     class Scan:
         def waits(self, *args):
@@ -2059,6 +2087,56 @@ def _scan_width_check(torch, kernel, plain) -> float:
         raise SmokeError(f"fast check: the width cases took the walks {walks}")
     print(f"fast check: station_scan == plain at {len(SCAN_WIDTH_CASES)} carry widths "
           f"({s} x {m} synthetic streams; walks {walks})", flush=True)
+    return err
+
+
+#: the lanes a row of phase 4's hop width check, beside event_inj_lb's and
+#: lc_mixed_fleet's own: widths 1, 3, 8 and 15 mod 16, two past a block of
+#: 2048 lanes, on HOP_CHECK_ROWS rows (every row residue mod 16)
+HOP_CHECK_WIDTHS = (17, 2051, 40, 4111)
+HOP_CHECK_ROWS = 17
+
+
+def _hop_width_check(torch, kernel, plain) -> float:
+    """The LB hop by slot (a tenth of the lanes with no healthy target) and
+    least connections' candidates against their plain versions at every
+    row residue: on event_inj_lb's tables (its spikes, its two LB slots)
+    and lc_mixed_fleet's, at HOP_CHECK_WIDTHS and each path's own width, on
+    HOP_CHECK_ROWS rows of lanes made on the card from a seed.  Bit-exact;
+    returns the largest difference."""
+    from asyncflow_tpu_torch.engines.torchsim import draws
+    from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+    from asyncflow_tpu_torch.engines.torchsim.params import base_overrides
+
+    rows, err, widths = HOP_CHECK_ROWS, 0.0, {}
+    g = torch.Generator(device="cuda").manual_seed(31)
+    keys = scenario_keys(31, rows, device="cuda")
+    uk, zk = draws.hop_keys(keys, 32)
+    for path in ("event_inj_lb", "lc_mixed_fleet"):
+        eng = _fast_engine(torch, FAST_PAYLOADS[path])
+        plan = eng.plan
+        tables = eng._edge_tables(eng._overrides(base_overrides(plan), rows))
+        edges = plan.lb_edge_index.tolist()
+        uks, zks = (torch.stack(x, dim=1) for x in zip(*(draws.hop_keys(keys, 32 + k)
+                                                         for k in range(len(edges)))))
+        widths[path] = (*HOP_CHECK_WIDTHS, eng.n)
+        for n in widths[path]:
+            t_send = torch.rand((rows, n), device="cuda", generator=g) * (1.1 * plan.horizon)
+            alive = torch.rand((rows, n), device="cuda", generator=g) < 0.9
+            slot = torch.randint(0, len(edges), (rows, n), device="cuda", generator=g)
+            slot = torch.where(torch.rand((rows, n), device="cuda", generator=g) < 0.1, -1,
+                               slot).int()
+            for kind, args, kw in (
+                (_hop_kind(tables, {"slot": slot}), (tables, t_send, alive, uk, zk),
+                 {"slot": slot}),
+                (_hop_kind(tables, {}, "candidates"), (tables, t_send, alive, uks, zks, edges),
+                 {}),
+            ):
+                err = max(err, _compare(torch, f"fast check: {kind} on {path}'s tables at "
+                                        f"{rows} x {n}", _call(kernel, kind, args, kw),
+                                        _call(plain, kind, args, kw)))
+    print(f"fast check: the LB hop by slot and least connections' candidates == plain at "
+          f"{rows} rows of {widths} lanes", flush=True)
     return err
 
 
@@ -2410,7 +2488,7 @@ def phase_fast_check(torch) -> dict:
         )
     wanted = {"uniform", "gap", "gap_cumsum", "hop", "hop_lb", "hop_spike", "hop_slot_spike",
               "waits", "waits_kw", "ram_core", "route_table", "route_slots", "hop_fault",
-              "hop_lb_fault", "bucket", "controlled", "socket", "route_lc", "hop_bare"}
+              "hop_lb_fault", "bucket", "controlled", "socket", "route_lc", "candidates"}
     if not wanted <= kinds_seen:
         raise SmokeError(f"fast check: no call of kinds {sorted(wanted - kinds_seen)}")
     # the synthetic timeline on event_inj_lb's full-width arrivals: srv-1
@@ -2461,6 +2539,7 @@ def phase_fast_check(torch) -> dict:
     width_err = _scan_width_check(torch, eng.scan, plains["station_scan"])
     measured["station_scan"] = max(measured["station_scan"], width_err)
     measured["fault_hop"] = _fault_hop_check(torch, eng.draws, plains["edge_draws"])
+    measured["hop_widths"] = _hop_width_check(torch, eng.draws, plains["edge_draws"])
     measured["bucket"] = _bucket_check(torch, eng.scan, plains["station_scan"])
     measured["controls"] = _control_check(torch, eng.scan, plains["station_scan"])
     measured["edge_draws"] = max(measured["edge_draws"], _gap_sum_check(
@@ -2643,7 +2722,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     runner.run(MAIN_SCENARIOS, seed=0, overrides=sweep_ov)  # warm the allocator and libraries
     for wrapper in _wrappers(eng).values():
         wrapper.launches = 0
-    eng.draws.fault_launches = eng.draws.bare_launches = eng.route.lc_launches = 0
+    eng.draws.fault_launches = eng.draws.cand_launches = eng.route.lc_launches = 0
     eng.scan.mode_launches = dict.fromkeys(eng.scan.mode_launches, 0)
     eng.scan.walk_launches = dict.fromkeys(eng.scan.walk_launches, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -2651,7 +2730,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: w.launches for k, w in _wrappers(eng).items()}
     fault_launches = eng.draws.fault_launches
-    bare_launches, lc_launches = eng.draws.bare_launches, eng.route.lc_launches
+    cand_launches, lc_launches = eng.draws.cand_launches, eng.route.lc_launches
     mode_launches = dict(eng.scan.mode_launches)
     walk_launches = dict(eng.scan.walk_launches)
     need = ["edge_draws", "station_scan"] + (["lb_route"] if eng.timeline else [])
@@ -2669,9 +2748,9 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
             or (eng.has_edge_faults and fault_launches < 1)
             or (plan.retry_budget_tokens >= 0 and mode_launches["bucket"] < 1)
             or (name in CONTROL_MODES and mode_launches[CONTROL_MODES[name]] < 1)
-            or (eng.lc and min(lc_launches, bare_launches) < 1)):
+            or (eng.lc and min(lc_launches, cand_launches) < 1)):
         raise SmokeError(f"fast {name}: the sweep launched {launches} ({fault_launches} fault "
-                         f"hops, {bare_launches} hops without sums, {lc_launches} "
+                         f"hops, {cand_launches} least-connections candidates, {lc_launches} "
                          f"least-connections walks), station_scan by mode {mode_launches} "
                          f"and by walk {walk_launches}")
     summary = report.summary()
@@ -2822,7 +2901,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
               f"{ref_rej:.6f}; DES kernel {des['rejected_fraction']:.6f}, "
               f"{rejected_fraction - des['rejected_fraction']:+.6f}); p95 "
               f"{p95 * 1e3:.4f} ms, DES kernel {des_p95 * 1e3:.4f} ms ({rel_des:+.3%}); "
-              f"{lc_launches} least-connections walks, {bare_launches} hops without sums",
+              f"{lc_launches} least-connections walks, {cand_launches} candidates launches",
               flush=True)
     if name in RESILIENCE_PATHS:
         print("  resilience: " + ", ".join(
@@ -2846,7 +2925,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     return {
         "launches": launches,
         "fault_launches": fault_launches,
-        "bare_launches": bare_launches,
+        "cand_launches": cand_launches,
         "lc_launches": lc_launches,
         "rejected_fraction": rejected_fraction,
         "des_rejected_fraction": des.get("rejected_fraction"),
@@ -2927,7 +3006,8 @@ def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> li
             "launches": sum(f["launches"][wrapper.name] for f in fast.values()),
             "max_abs_err": max(fast_check[wrapper.name],
                                *(f["max_abs_err"][wrapper.name] for f in fast.values()),
-                               *((fast_check["fault_hop"],) if wrapper is EdgeDraws else ()),
+                               *((fast_check["fault_hop"], fast_check["hop_widths"])
+                                 if wrapper is EdgeDraws else ()),
                                *((fast_check["bucket"], fast_check["controls"])
                                  if wrapper is StationScan else ()),
                                *((fast_check["lc"],) if wrapper is LbRoute else ())),
@@ -2983,13 +3063,13 @@ def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> li
         ("lb_route (least connections)", LbRoute, "lc_mixed_fleet", "route_lc",
          "asyncflow_tpu/engines/jaxsim/fastpath.py:1067 (_routed_slots_lc)",
          sum(f["lc_launches"] for f in fast.values())),
-        ("edge_draws (hop without sums)", EdgeDraws, "lc_mixed_fleet", "hop_bare",
-         "asyncflow_tpu/engines/jaxsim/fastpath.py:1287-1293 (_edge_hop a slot, keyed "
-         "32 + slot)", sum(f["bare_launches"] for f in fast.values())),
+        ("edge_draws (least-connections candidates)", EdgeDraws, "lc_mixed_fleet",
+         "candidates", "asyncflow_tpu/engines/jaxsim/fastpath.py:1287-1293 (_edge_hop a "
+         "slot, keyed 32 + slot)", sum(f["cand_launches"] for f in fast.values())),
     ):
         m = fast[path]["timed"][wrapper.name]["modes"][kind]
         check_err = {"hop_lb_fault": "fault_hop", "bucket": "bucket", "controlled": "controls",
-                     "socket": "controls", "route_lc": "lc", "hop_bare": "edge_draws"}[kind]
+                     "socket": "controls", "route_lc": "lc", "candidates": "hop_widths"}[kind]
         kernels.append({
             "name": label,
             "route": wrapper.route,
@@ -3022,10 +3102,11 @@ def redesigned_report(fast: dict) -> None:
     hop of the headline), the token bucket on rate_limited_lb and on
     outage_retry's last pass, the socket scan on overload_sockets and the
     controlled scan on overload_cap8 (each with its valid share and chain
-    floor), the gap prefix sum on the headline, heavy_inj_single_server
-    and chaos_campaign (beside torch's cumsum over the same gaps), each ms
-    beside its bound (and the parent tree's, PARENT_MS), and every
-    instance's registers and spills."""
+    floor), the LB hop by slot on event_inj_lb and least connections'
+    candidates on lc_mixed_fleet, the gap prefix sum on the headline,
+    heavy_inj_single_server and chaos_campaign (beside torch's cumsum over
+    the same gaps), each ms beside its bound (and the parent tree's,
+    PARENT_MS), and every instance's registers and spills."""
     def mode(path: str, lib: str, kind: str) -> str:
         m = fast[path]["timed"][lib]["modes"].get(kind)
         if m is None:
@@ -3058,6 +3139,17 @@ def redesigned_report(fast: dict) -> None:
               f"{m['bound_by']}; chain floor {floor_ms:.4f} ms at "
               f"{SCAN_CHAIN_CLOCKS[kind]} clocks an element, {mhz:.0f} MHz"
               f"{parent(path, kind)})", flush=True)
+    for path, lanes, label in (("event_inj_lb", "hop_slot", "LB hop by slot"),
+                               ("lc_mixed_fleet", "candidates", "least-connections candidates")):
+        modes = fast[path]["timed"]["edge_draws"]["modes"]
+        kind = next((k for k in modes if k.split("_spike")[0].split("_fault")[0] == lanes), None)
+        if kind is None:
+            print(f"redesigned: edge_draws {label} on {path}: not called", flush=True)
+            continue
+        m = modes[kind]
+        print(f"redesigned: edge_draws {label} on {path} ({kind}): {m['ms']:.4f} ms, one "
+              f"launch (bound {m['bound_ms']:.4f} ms, {m['bound_by']}{parent(path, kind)})",
+              flush=True)
     for path in ("two_servers_lb", "heavy_inj_single_server", "chaos_campaign"):
         m = fast[path]["timed"]["edge_draws"]["modes"].get("gap_cumsum")
         if m is None:

@@ -93,6 +93,100 @@ def test_edge_draws_match_plain_on_cuda(cuda_device) -> None:
     assert kernel.launches == launches + hops
 
 
+#: (rows, lanes a row) of the hop checks: 17 rows (every row residue mod
+#: 16) of widths 1, 3, 8 and 15 mod 16, two past a block of 2048 lanes, then
+#: event_inj_lb's and lc_mixed_fleet's widths
+HOP_WIDTHS = [(17, 17), (17, 2051), (17, 40), (17, 4111), (17, 28_323), (17, 20_035)]
+
+
+def _spikes(dev):
+    spike_t = torch.tensor([0.0, 0.5, 1.5], device=dev)
+    spike_v = torch.zeros((3, 4), device=dev)
+    spike_v[1, 1], spike_v[1, 3], spike_v[2, 3] = 0.25, 0.125, 0.5
+    return spike_t, spike_v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("rows", "n"), HOP_WIDTHS)
+def test_hop_widths_match_plain_on_cuda(cuda_device, rows: int, n: int) -> None:
+    """At each of HOP_WIDTHS, with spikes: the LB hop by slot (three slots,
+    a tenth of the lanes -1), every static edge's hop and least
+    connections' candidates over three slots: every output identical, the
+    spans too."""
+    kernel, plain = draws.EdgeDraws(), draws.PlainEdgeDraws()
+    keys = scenario_keys(25, rows, device=cuda_device)
+    uk, zk = draws.hop_keys(keys, 32)
+    mean, var, drop = (x[:rows] for x in _edge_params(cuda_device))
+    g = np.random.default_rng(4)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (rows, n)), dtype=torch.float32,
+                          device=cuda_device)
+    alive = torch.tensor(g.random((rows, n)) > 0.1, device=cuda_device)
+    slot = torch.tensor(np.where(g.random((rows, n)) < 0.1, -1, g.integers(0, 3, (rows, n))),
+                        dtype=torch.int32, device=cuda_device)
+    spike_t, spike_v = _spikes(cuda_device)
+    tables = draws.EdgeTables(
+        dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+        lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32, device=cuda_device),
+        lb_target=torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda_device),
+        spike_t=spike_t, spike_v=spike_v,
+    )
+    for kw in [{"slot": slot}] + [{"edge": e} for e in range(4)]:
+        got = kernel.hop(tables, t_send, alive, uk, zk, **kw)
+        want = plain.hop(tables, t_send, alive, uk, zk, **kw)
+        for x, y in zip(got, want, strict=True):
+            assert (x is None and y is None) or torch.equal(x, y), kw.keys()
+    uks, zks = (torch.stack(x, dim=1) for x in zip(*(draws.hop_keys(keys, 32 + k)
+                                                     for k in range(3))))
+    got = kernel.candidates(tables, t_send, alive, uks, zks, [3, 1, 2])
+    want = plain.candidates(tables, t_send, alive, uks, zks, [3, 1, 2])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernel.launches == 6 and kernel.cand_launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faults", ["none", "staged", "global"])
+@pytest.mark.parametrize("slots", [1, 2, 3, 32])
+def test_candidates_match_plain_on_cuda(cuda_device, slots: int, faults: str) -> None:
+    """Least connections' candidates in one launch over 1 to 32 slots
+    (every law among their edges), with spikes, without fault tables and
+    under shared ones (staged in shared memory) or 20,000 breakpoints a
+    scenario (read in global memory): t_next and ok (S, n, slots)
+    identical to the stacked hops without sums."""
+    kernel, plain = draws.EdgeDraws(), draws.PlainEdgeDraws()
+    keys = scenario_keys(26, S, device=cuda_device)
+    mean, var, drop = _edge_params(cuda_device)
+    g = np.random.default_rng(8)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32, device=cuda_device)
+    alive = torch.tensor(g.random((S, N)) > 0.1, device=cuda_device)
+    fault = {}
+    if faults == "staged":
+        fault = {"fault_t": torch.tensor([0.0, 0.3, 0.5, 0.7], device=cuda_device),
+                 "fault_lat": torch.tensor(g.uniform(0.5, 3.0, (4, 4)), dtype=torch.float32,
+                                           device=cuda_device),
+                 "fault_drop": torch.tensor(g.uniform(-0.1, 0.6, (4, 4)), dtype=torch.float32,
+                                            device=cuda_device)}
+    elif faults == "global":
+        times = np.sort(g.integers(0, 1127, (S, 20_000)), axis=1).astype(np.float32) / 512
+        times[:, 0] = 0.0
+        fault = {"fault_t": torch.tensor(times, device=cuda_device),
+                 "fault_lat": torch.tensor(g.uniform(0.5, 3.0, (S, 20_000, 4)),
+                                           dtype=torch.float32, device=cuda_device),
+                 "fault_drop": torch.tensor(g.uniform(-0.1, 0.6, (S, 20_000, 4)),
+                                            dtype=torch.float32, device=cuda_device)}
+    spike_t, spike_v = _spikes(cuda_device)
+    tables = draws.EdgeTables(dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+                              spike_t=spike_t, spike_v=spike_v, **fault)
+    edges = [(3 + k) % 4 for k in range(slots)]
+    uks, zks = (torch.stack(x, dim=1) for x in zip(*(draws.hop_keys(keys, 32 + k)
+                                                     for k in range(slots))))
+    got = kernel.candidates(tables, t_send, alive, uks, zks, edges)
+    want = plain.candidates(tables, t_send, alive, uks, zks, edges)
+    assert got[0].shape == (S, N, slots)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernel.cand_launches == kernel.launches == 1
+    assert kernel.fault_launches == (0 if faults == "none" else 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 16, 17, 4096, 4097, 70_000, 87_840])
 def test_gap_cumsum_matches_plain_on_cuda(cuda_device, n: int) -> None:
@@ -438,6 +532,85 @@ def test_wide_fault_tables_match_plain_on_cuda(cuda_device, nf: int, per_row: bo
     for x, y in zip(got, want, strict=True):
         assert (x is None and y is None) or torch.equal(x, y)
     assert kernel.fault_launches == kernel.launches == 1
+
+
+#: (lanes, spike breakpoints, fault breakpoints, lanes a row) of the wide
+#: spike tables' cases, each placed in the hop's 48 KiB of shared memory as
+#: named (as in test_torch_fast_host.WIDE_SPIKES): the LB hop by slot with
+#: its spikes staged, in global memory, and staged pushing 300 shared fault
+#: breakpoints into global memory; the static hop and the candidates (two
+#: slots) with their spikes in global memory, and staged pushing the fault
+#: tables out; the last on rows of a multiple of 4 lanes (the static hop's
+#: consecutive lanes a thread)
+WIDE_SPIKES = [
+    pytest.param("slot", 300, 0, 4111, id="slot-staged"),
+    pytest.param("slot", 6000, 0, 4111, id="slot-global"),
+    pytest.param("slot", 2000, 300, 4111, id="slot-staged-faults_global"),
+    pytest.param("edge", 6000, 0, 4111, id="static-global"),
+    pytest.param("edge", 3500, 300, 4111, id="static-staged-faults_global"),
+    pytest.param("candidates", 6000, 0, 4111, id="candidates-global"),
+    pytest.param("candidates", 3500, 300, 4111, id="candidates-staged-faults_global"),
+    pytest.param("edge", 3500, 300, 4112, id="static-consecutive-staged-faults_global"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("lanes", "nb", "nf", "n"), WIDE_SPIKES)
+def test_wide_spike_tables_match_plain_on_cuda(cuda_device, lanes: str, nb: int, nf: int,
+                                               n: int) -> None:
+    """The hop by slot, the static hop and the candidates under spike
+    tables of hundreds and of thousands of breakpoints (on a grid of 1/512
+    s, so many repeat), a send on every eighth breakpoint, with and without
+    fault tables beside them, on 17 rows (of 4,111 lanes: every row residue
+    mod 16): every output identical, the spans too."""
+    dev = cuda_device
+    kernel, plain = draws.EdgeDraws(), draws.PlainEdgeDraws()
+    rows = 17
+    keys = scenario_keys(27, rows, device=dev)
+    mean, var, drop = (x[:rows] for x in _edge_params(dev))
+    g = np.random.default_rng(12)
+    times = np.sort(g.integers(0, 1127, nb)).astype(np.float32) / 512
+    times[0] = 0.0
+    spike_t = torch.tensor(times, device=dev)
+    spike_v = torch.tensor(g.uniform(0.0, 0.5, (nb, 4)), dtype=torch.float32, device=dev)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (rows, n)), dtype=torch.float32, device=dev)
+    on = spike_t[::8][: n // 2]
+    t_send[:, : on.shape[0]] = on  # on the breakpoints
+    alive = torch.tensor(g.random((rows, n)) > 0.1, device=dev)
+    fault = {}
+    if nf:
+        ft = np.sort(g.integers(0, 1127, nf)).astype(np.float32) / 512
+        ft[0] = 0.0
+        fault = {"fault_t": torch.tensor(ft, device=dev),
+                 "fault_lat": torch.tensor(g.uniform(0.5, 3.0, (nf, 4)), dtype=torch.float32,
+                                           device=dev),
+                 "fault_drop": torch.tensor(g.uniform(-0.1, 0.6, (nf, 4)), dtype=torch.float32,
+                                            device=dev)}
+    lb = lanes == "slot"
+    tables = draws.EdgeTables(
+        dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+        lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32, device=dev) if lb else None,
+        lb_target=torch.tensor([0, 1, 2], dtype=torch.int32, device=dev) if lb else None,
+        spike_t=spike_t, spike_v=spike_v, **fault,
+    )
+    if lanes == "candidates":
+        uks, zks = (torch.stack(x, dim=1) for x in zip(*(draws.hop_keys(keys, 32 + k)
+                                                         for k in range(2))))
+        got = kernel.candidates(tables, t_send, alive, uks, zks, [3, 1])
+        want = plain.candidates(tables, t_send, alive, uks, zks, [3, 1])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert kernel.cand_launches == kernel.launches == 1
+        return
+    uk, zk = draws.hop_keys(keys, 32)
+    slot = torch.tensor(np.where(g.random((rows, n)) < 0.1, -1, g.integers(0, 3, (rows, n))),
+                        dtype=torch.int32, device=dev)
+    calls = [{"slot": slot}] if lb else [{"edge": 1}, {"edge": 3}]
+    for kw in calls:
+        got = kernel.hop(tables, t_send, alive, uk, zk, **kw)
+        want = plain.hop(tables, t_send, alive, uk, zk, **kw)
+        for x, y in zip(got, want, strict=True):
+            assert (x is None and y is None) or torch.equal(x, y), kw.keys()
+    assert kernel.launches == len(calls)
 
 
 @pytest.mark.cuda

@@ -109,7 +109,7 @@ HOST_LAUNCH_2D = (
 )
 #: the dynamic shared memory of edge_draws.cu's hop and of lb_route.cu's
 #: table, as static buffers
-HOST_SMEM = {"edge_draws": "double edge_smem[1 << 13];\n",
+HOST_SMEM = {"edge_draws": "uint4 edge_smem[1 << 12];\n",
              "lb_route": "uint32_t route_smem[1 << 14];\n"}
 #: the launch statements on dim3 grids each source has
 LAUNCHES_2D = {"edge_draws": 4, "lb_route": 4}
@@ -197,11 +197,11 @@ S, N = 3, 4099
 DIST = np.array([D_UNIFORM, D_EXPONENTIAL, D_NORMAL, D_LOGNORMAL], np.int32)
 
 
-def _edge_params():
+def _edge_params(rows: int = S):
     g = np.random.default_rng(5)
-    mean = torch.tensor(g.uniform(0.001, 0.01, (S, 4)), dtype=torch.float32)
-    var = torch.tensor(g.uniform(0.0005, 0.3, (S, 4)), dtype=torch.float32)
-    drop = torch.tensor(np.tile([0.0, 0.05, 0.0, 0.2], (S, 1)), dtype=torch.float32)
+    mean = torch.tensor(g.uniform(0.001, 0.01, (rows, 4)), dtype=torch.float32)
+    var = torch.tensor(g.uniform(0.0005, 0.3, (rows, 4)), dtype=torch.float32)
+    drop = torch.tensor(np.tile([0.0, 0.05, 0.0, 0.2], (rows, 1)), dtype=torch.float32)
     return mean, var, drop
 
 
@@ -262,16 +262,37 @@ def _spike_tables():
     return spike_t, spike_v
 
 
+def _own_spans(out, t_send, pick: torch.Tensor | None, k_slots: int) -> torch.Tensor:
+    """Each slot's gauge span from the kernel's own lanes (its t_next and
+    ok; ``pick`` each lane's slot, None on a static edge), summed in the
+    kernel's order: what the kernel's spans must equal bit for bit."""
+    h = torch.tensor(2.0, dtype=torch.float32)
+    lane = torch.where(out.ok, torch.clamp_min(
+        torch.clamp_max(out.t_next, h) - torch.clamp_max(t_send, h), 0.0), 0.0).double()
+    if pick is None:
+        return draws.lane_block_sum(lane)[:, None].float()
+    return torch.stack([draws.lane_block_sum(torch.where(pick == k, lane, 0.0))
+                        for k in range(k_slots)], dim=1).float()
+
+
+#: (rows, lanes a row) of the hop's checks: rows of 4099 lanes (most start
+#: off a 16-byte boundary), then 17 rows (every row residue mod 16) of
+#: widths 1, 3, 8 and 15 mod 16, two of them past one block of 2048 lanes
+HOP_WIDTHS = [(S, N), (17, 17), (17, 2051), (17, 40), (17, 4111)]
+
+
+@pytest.mark.parametrize(("rows", "n"), HOP_WIDTHS)
 @pytest.mark.parametrize("lb", [False, True])
 @pytest.mark.parametrize("spikes", [False, True])
-def test_hop_matches_plain(host_libs, lb: bool, spikes: bool) -> None:
+def test_hop_matches_plain(host_libs, lb: bool, spikes: bool, rows: int, n: int) -> None:
     """The fused hop over every static edge, or over three LB slots (edges
-    3, 1, 2; slot = rank % 3), with and without spikes: per-lane outputs
-    exact but for the delays' libm rounding, drop counts exact, spans
-    within 1 ulp.  Rows of 4099 lanes: most rows start unaligned."""
+    3, 1, 2; slot = rank % 3), with and without spikes, at each of
+    HOP_WIDTHS: per-lane outputs exact but for the delays' libm rounding,
+    drop counts exact, spans within 1 ulp."""
+    S, N = rows, n  # noqa: N806 - the module's names for the shape
     keys = scenario_keys(12, S)
     uk, zk = draws.hop_keys(keys, 32)
-    mean, var, drop = _edge_params()
+    mean, var, drop = _edge_params(S)
     g = np.random.default_rng(1)
     t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32)
     alive = torch.tensor(g.random((S, N)) > 0.1)
@@ -314,25 +335,32 @@ def test_hop_matches_plain(host_libs, lb: bool, spikes: bool) -> None:
         _launch(host_libs["edge_draws"], "edge_draws_launch", args)
         assert torch.equal(out.ok, want.ok), edge
         assert torch.equal(out.dropped, want.dropped), edge
-        assert want.dropped.sum() > 0 or edge in (0, 2), edge
+        assert want.dropped.sum() > 0 or edge in (0, 2) or N < 100, edge
         if lb:
             assert torch.equal(out.target, want.target)
         assert _ulps(out.t_next, want.t_next) <= 4, edge
         if torch.equal(out.t_next, want.t_next):
             # the same lanes: the float64 sums in one order are the same
             assert torch.equal(out.span, want.span), edge
-        assert _ulps(out.span, want.span) <= 1, edge
-        assert bool((want.span > 0).all()), edge
+        gate = alive & (t_send < 2.0)
+        pick = torch.where(gate, rank % 3, 0) if lb else None
+        assert torch.equal(out.span, _own_spans(out, t_send, pick, k_slots)), edge
+        if N == HOP_WIDTHS[0][1]:
+            # a row of few lanes carries one lane's libm rounding into its span
+            assert _ulps(out.span, want.span) <= 1, edge
+        assert bool((want.span > 0).all()) or N < 100, edge
 
 
+@pytest.mark.parametrize(("rows", "n"), HOP_WIDTHS)
 @pytest.mark.parametrize("spikes", [False, True])
-def test_hop_slot_matches_plain(host_libs, spikes: bool) -> None:
+def test_hop_slot_matches_plain(host_libs, spikes: bool, rows: int, n: int) -> None:
     """The LB hop over a given slot a lane (three slots, a tenth of the
-    lanes -1: no healthy target, dropped at the LB): the same checks as
-    the rank form's."""
+    lanes -1: no healthy target, dropped at the LB) at each of HOP_WIDTHS:
+    the same checks as the rank form's."""
+    S, N = rows, n  # noqa: N806 - the module's names for the shape
     keys = scenario_keys(13, S)
     uk, zk = draws.hop_keys(keys, 32)
-    mean, var, drop = _edge_params()
+    mean, var, drop = _edge_params(S)
     g = np.random.default_rng(2)
     t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32)
     alive = torch.tensor(g.random((S, N)) > 0.1)
@@ -377,7 +405,11 @@ def test_hop_slot_matches_plain(host_libs, spikes: bool) -> None:
     assert _ulps(out.t_next, want.t_next) <= 4
     if torch.equal(out.t_next, want.t_next):
         assert torch.equal(out.span, want.span)
-    assert _ulps(out.span, want.span) <= 1
+    pick = torch.where(gate & (slot >= 0), slot.long(), 0)
+    assert torch.equal(out.span, _own_spans(out, t_send, pick, 3))
+    if N == HOP_WIDTHS[0][1]:
+        # a row of few lanes carries one lane's libm rounding into its span
+        assert _ulps(out.span, want.span) <= 1
 
 
 #: outage timelines over three LB slots: (times, down, slot), in table order
@@ -1025,31 +1057,175 @@ def test_lc_matches_plain(host_libs, name: str) -> None:
     assert set(range(el)) <= set(want[ok].tolist())
 
 
-def test_hop_without_sums_matches_plain(host_libs) -> None:
-    """The hop's instance with no epilogue: t_next and ok as the plain
-    version's, no span, partial or drop count written."""
+#: least connections' candidate edges of each slot count: every law among them
+CANDIDATE_EDGES = {1: [3], 2: [0, 1], 3: [3, 1, 2]}
+#: the candidates' fault tables: none, a shared table staged in shared
+#: memory, and a table a scenario past it (read in global memory)
+CANDIDATE_FAULTS = ["none", "staged", "global"]
+
+
+@pytest.mark.parametrize("faults", CANDIDATE_FAULTS)
+@pytest.mark.parametrize("spikes", [False, True])
+@pytest.mark.parametrize("slots", sorted(CANDIDATE_EDGES))
+def test_candidates_match_plain(host_libs, slots: int, spikes: bool, faults: str) -> None:
+    """Least connections' candidates in one launch: each slot's hop over
+    its own edge with its own keys, written (S, n, slots), against the plain
+    version's stack of hops without sums: ``ok`` exact, ``t_next`` within
+    4 ulps (the delays' libm rounding)."""
     mean, var, drop = _edge_params()
     keys = scenario_keys(4, S)
     g = np.random.default_rng(3)
     t = torch.tensor(g.uniform(0.0, 2.2, (S, N)).astype(np.float32))
     alive = torch.tensor(g.random((S, N)) < 0.9)
-    tables = draws.EdgeTables(dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0)
-    uk, zk = draws.hop_keys(keys, 32)
+    edges = CANDIDATE_EDGES[slots]
+    spike_t, spike_v = _spike_tables() if spikes else (None, None)
+    fault = {"none": (None, None, None), "staged": _fault_tables(per_row=False),
+             "global": _wide_fault_tables(20_000, True, 9)}[faults]
+    if faults == "staged":
+        t[:, :56] = fault[0].repeat(8)  # sends on the breakpoints
+    tables = draws.EdgeTables(dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+                              spike_t=spike_t, spike_v=spike_v, fault_t=fault[0],
+                              fault_lat=fault[1], fault_drop=fault[2])
+    uk, zk = (torch.stack(x, dim=1) for x in zip(*(draws.hop_keys(keys, 32 + k)
+                                                   for k in range(slots))))
+    want = draws.candidates_plain(tables, t, alive, uk, zk, edges)
+    out = torch.empty((S, N, slots), dtype=torch.float32)
+    ok = torch.empty((S, N, slots), dtype=torch.bool)
     ukw, zkw, dist = draws.key_words(uk), draws.key_words(zk), torch.tensor(DIST)
-    for edge in range(4):
-        want = draws.hop_plain(tables, t, alive, uk, zk, edge=edge, sums=False)
-        out = torch.empty_like(t)
-        ok = torch.empty_like(alive)
+    lb_edge = torch.tensor(edges, dtype=torch.int32)
+    ptr = lambda x: 0 if x is None else x.data_ptr()  # noqa: E731
+    nf = 0 if fault[0] is None else int(fault[0].shape[-1])
+    args = draws._EdgeDrawArgs(
+        ukey=ukw.data_ptr(), zkey=zkw.data_ptr(), t_send=t.data_ptr(), alive=alive.data_ptr(),
+        lb_edge=lb_edge.data_ptr(), mean=mean.data_ptr(), var=var.data_ptr(),
+        drop=drop.data_ptr(), dist=dist.data_ptr(), spike_t=ptr(spike_t), spike_v=ptr(spike_v),
+        fault_t=ptr(fault[0]), fault_lat=ptr(fault[1]), fault_drop=ptr(fault[2]),
+        out=out.data_ptr(), ok=ok.data_ptr(), S=S, n=N, horizon=2.0, NE=4,
+        NB=0 if spike_t is None else 3, K=slots, edge=-1, mode=draws.MODE_CANDIDATES, NF=nf,
+        fault_per_row=int(faults == "global"),
+    )
+    _launch(host_libs["edge_draws"], "edge_draws_launch", args)
+    assert torch.equal(ok, want[1])
+    assert _ulps(out, want[0]) <= 4
+    # every slot sends lanes; some gated lanes are dropped
+    assert bool(ok.any(dim=(0, 1)).all())
+    assert bool(((alive & (t < 2.0))[..., None] & ~ok).any())
+
+
+def _wide_spike_tables(nb: int, seed: int):
+    """``nb`` spike breakpoints on [0, 2.2) drawn on a grid of 1/512 s (so
+    that many times repeat), the first at 0, with spikes in [0, 0.5) on
+    every edge."""
+    g = np.random.default_rng(seed)
+    times = np.sort(g.integers(0, 1127, nb)).astype(np.float32) / 512
+    times[0] = 0.0
+    spike_v = g.uniform(0.0, 0.5, (nb, 4)).astype(np.float32)
+    return torch.tensor(times), torch.tensor(spike_v)
+
+
+#: (lanes, spike breakpoints, fault breakpoints, lanes a row) of the wide
+#: spike tables' cases, each placed in the hop's 48 KiB of shared memory as
+#: named: the LB hop by slot (three slots) with its spikes staged, with its
+#: spikes in global memory, and with its spikes staged pushing 300 shared
+#: fault breakpoints into global memory; the static hop and the candidates
+#: (two slots) with their spikes in global memory, and staged pushing the
+#: fault tables out; the last on rows of a multiple of 4 lanes (the static
+#: hop's consecutive lanes a thread)
+WIDE_SPIKES = [
+    pytest.param("slot", 300, 0, N, id="slot-staged"),
+    pytest.param("slot", 6000, 0, N, id="slot-global"),
+    pytest.param("slot", 2000, 300, N, id="slot-staged-faults_global"),
+    pytest.param("edge", 6000, 0, N, id="static-global"),
+    pytest.param("edge", 3500, 300, N, id="static-staged-faults_global"),
+    pytest.param("candidates", 6000, 0, N, id="candidates-global"),
+    pytest.param("candidates", 3500, 300, N, id="candidates-staged-faults_global"),
+    pytest.param("edge", 3500, 300, 4100, id="static-consecutive-staged-faults_global"),
+]
+
+
+@pytest.mark.parametrize(("lanes", "nb", "nf", "n"), WIDE_SPIKES)
+def test_wide_spike_tables_match_plain(host_libs, lanes: str, nb: int, nf: int, n: int) -> None:
+    """The hop by slot, the static hop and the candidates under spike
+    tables of hundreds and of thousands of breakpoints, many at duplicate
+    times, a send on every eighth breakpoint (so that a search that took
+    the row before a breakpoint, or one of its duplicates, would move their
+    delays), with and without fault tables beside them: the same outputs
+    as the plain version, wherever the tables lie."""
+    N = n  # noqa: N806 - the module's name for the shape
+    uk, zk = draws.hop_keys(scenario_keys(17, S), 32)
+    mean, var, drop = _edge_params()
+    g = np.random.default_rng(10)
+    t_send = torch.tensor(g.uniform(0.0, 2.2, (S, N)), dtype=torch.float32)
+    alive = torch.tensor(g.random((S, N)) > 0.1)
+    spike_t, spike_v = _wide_spike_tables(nb, 11)
+    on = spike_t[::8][: N // 2]
+    t_send[:, : on.shape[0]] = on  # on the breakpoints
+    fault = _wide_fault_tables(nf, False, 12) if nf else (None, None, None)
+    slot = torch.tensor(np.where(g.random((S, N)) < 0.1, -1, g.integers(0, 3, (S, N))),
+                        dtype=torch.int32)
+    lb = lanes == "slot"
+    tables = draws.EdgeTables(
+        dist=DIST, mean=mean, var=var, drop=drop, horizon=2.0,
+        lb_edge=torch.tensor([3, 1, 2], dtype=torch.int32) if lb else None,
+        lb_target=torch.tensor([0, 1, 2], dtype=torch.int32) if lb else None,
+        spike_t=spike_t, spike_v=spike_v,
+        fault_t=fault[0], fault_lat=fault[1], fault_drop=fault[2],
+    )
+    ptr = lambda x: 0 if x is None else x.data_ptr()  # noqa: E731
+    dist = torch.tensor(DIST)
+    common = {"mean": mean.data_ptr(), "var": var.data_ptr(), "drop": drop.data_ptr(),
+              "dist": dist.data_ptr(), "t_send": t_send.data_ptr(), "alive": alive.data_ptr(),
+              "spike_t": spike_t.data_ptr(), "spike_v": spike_v.data_ptr(),
+              "fault_t": ptr(fault[0]), "fault_lat": ptr(fault[1]),
+              "fault_drop": ptr(fault[2]), "S": S, "n": N, "horizon": 2.0, "NE": 4, "NB": nb,
+              "NF": nf}
+    if lanes == "candidates":
+        edges = [3, 1]
+        uks, zks = (torch.stack(x, dim=1) for x in zip(*(draws.hop_keys(
+            scenario_keys(17, S), 32 + k) for k in range(2))))
+        want = draws.candidates_plain(tables, t_send, alive, uks, zks, edges)
+        out = torch.empty((S, N, 2), dtype=torch.float32)
+        ok = torch.empty((S, N, 2), dtype=torch.bool)
+        ukw, zkw = draws.key_words(uks), draws.key_words(zks)
+        lb_edge = torch.tensor(edges, dtype=torch.int32)
         args = draws._EdgeDrawArgs(
-            ukey=ukw.data_ptr(), zkey=zkw.data_ptr(),
-            t_send=t.data_ptr(), alive=alive.data_ptr(), mean=mean.data_ptr(),
-            var=var.data_ptr(), drop=drop.data_ptr(),
-            dist=dist.data_ptr(), out=out.data_ptr(), ok=ok.data_ptr(),
-            S=S, n=N, horizon=2.0, NE=4, K=1, edge=edge, mode=draws.MODE_HOP,
-        )
+            ukey=ukw.data_ptr(), zkey=zkw.data_ptr(), lb_edge=lb_edge.data_ptr(),
+            out=out.data_ptr(), ok=ok.data_ptr(), K=2, edge=-1, mode=draws.MODE_CANDIDATES,
+            **common)
         _launch(host_libs["edge_draws"], "edge_draws_launch", args)
-        assert torch.equal(ok, want.ok)
-        assert _ulps(out, want.t_next) <= 4
+        assert torch.equal(ok, want[1])
+        assert _ulps(out, want[0]) <= 4
+        return
+    k_slots = 3 if lb else 1
+    for edge in ([None] if lb else [1, 3]):
+        kw = {"slot": slot} if lb else {"edge": edge}
+        want = draws.hop_plain(tables, t_send, alive, uk, zk, **kw)
+        out = draws.HopOut(
+            t_next=torch.empty((S, N), dtype=torch.float32),
+            ok=torch.empty((S, N), dtype=torch.bool),
+            target=torch.empty((S, N), dtype=torch.int32) if lb else None,
+            span=torch.empty((S, k_slots), dtype=torch.float32),
+            dropped=torch.empty(S, dtype=torch.int64),
+        )
+        partial = torch.empty((S, draws.lane_blocks(N), k_slots + 1), dtype=torch.float64)
+        ukw, zkw = draws.key_words(uk), draws.key_words(zk)
+        args = draws._EdgeDrawArgs(
+            ukey=ukw.data_ptr(), zkey=zkw.data_ptr(), slot=ptr(kw.get("slot")),
+            lb_edge=ptr(tables.lb_edge), lb_target=ptr(tables.lb_target),
+            out=out.t_next.data_ptr(), ok=out.ok.data_ptr(), target=ptr(out.target),
+            partial=partial.data_ptr(), span=out.span.data_ptr(),
+            dropped=out.dropped.data_ptr(), K=k_slots, edge=-1 if lb else edge,
+            mode=draws.MODE_HOP, **common)
+        _launch(host_libs["edge_draws"], "edge_draws_launch", args)
+        assert torch.equal(out.ok, want.ok), edge
+        assert torch.equal(out.dropped, want.dropped), edge
+        if lb:
+            assert torch.equal(out.target, want.target)
+        assert _ulps(out.t_next, want.t_next) <= 4, edge
+        gate = alive & (t_send < 2.0)
+        pick = torch.where(gate & (slot >= 0), slot.long(), 0) if lb else None
+        assert torch.equal(out.span, _own_spans(out, t_send, pick, k_slots)), edge
+        assert _ulps(out.span, want.span) <= 1, edge
 
 
 def test_a_found_build_reports_its_ptxas_log(tmp_path, monkeypatch) -> None:

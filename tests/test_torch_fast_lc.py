@@ -108,9 +108,11 @@ def test_lc_plain_is_the_reference_scan(scan_case) -> None:
         assert not (picks[inside] == 1).any()
 
 
-def test_hop_without_sums_writes_the_same_lanes() -> None:
-    """The least-connections candidates' hop (no spans, no drop count) is
-    the hop's t_next and ok."""
+@pytest.mark.parametrize("slots", [1, 2, 3])
+def test_candidates_are_the_stacked_hops(slots: int) -> None:
+    """Least connections' candidates (``EdgeDraws.candidates``, one call for
+    every slot) are each slot's hop, keyed ``32 + slot``, over its edge:
+    its t_next and ok in (S, n, slots)."""
     plan = compile_payload(SimulationPayload.from_dict(mutated("normal_edges", horizon=5)))
     keys = scenario_keys(3, S)
     g = np.random.default_rng(2)
@@ -122,12 +124,15 @@ def test_hop_without_sums_writes_the_same_lanes() -> None:
         mean=torch.from_numpy(np.tile(plan.edge_mean, (S, 1)).astype(np.float32)),
         var=torch.from_numpy(np.tile(plan.edge_var, (S, 1)).astype(np.float32)),
         drop=torch.full((S, ne), 0.2), horizon=plan.horizon)
-    uk, zk = draws.hop_keys(keys, 33)
-    for edge in range(ne):
-        full = draws.EdgeDraws().hop(tables, t, alive, uk, zk, edge=edge)
-        bare = draws.EdgeDraws().hop(tables, t, alive, uk, zk, edge=edge, sums=False)
-        assert bare.span is None and bare.dropped is None
-        assert torch.equal(bare.t_next, full.t_next) and torch.equal(bare.ok, full.ok)
+    edges = [(ne - 1 - k) % ne for k in range(slots)]
+    hop_keys = [draws.hop_keys(keys, 32 + k) for k in range(slots)]
+    t_next, ok = draws.EdgeDraws().candidates(
+        tables, t, alive, torch.stack([k[0] for k in hop_keys], dim=1),
+        torch.stack([k[1] for k in hop_keys], dim=1), edges)
+    assert t_next.shape == ok.shape == (S, N, slots)
+    for k, e in enumerate(edges):
+        full = draws.EdgeDraws().hop(tables, t, alive, *hop_keys[k], edge=e)
+        assert torch.equal(t_next[..., k], full.t_next) and torch.equal(ok[..., k], full.ok)
 
 
 ENGINE_CASES = {
