@@ -246,6 +246,10 @@ class StaticPlan:
     hz_srv_targets: np.ndarray = field(default_factory=lambda: np.empty((0, 0), np.int8))
     hz_edge_targets: np.ndarray = field(default_factory=lambda: np.empty((0, 0), np.int8))
     hz_max_faults: int = 0
+    #: the servers' and edges' ids in plan order (the names a streamed gauge
+    #: series selects its columns by)
+    server_ids: list[str] = field(default_factory=list)
+    edge_ids: list[str] = field(default_factory=list)
     #: features outside this slice that the plan carries (only plans
     #: carried across with :func:`plan_from_arrays` can have any)
     unsupported: tuple[str, ...] = ()
@@ -1588,6 +1592,8 @@ def compile_payload(
         retry_jitter=retry.jitter,
         retry_budget_tokens=retry.budget_tokens,
         retry_budget_refill=retry.budget_refill,
+        server_ids=[server.id for server in servers],
+        edge_ids=[edge.id for edge in edges],
         **(
             {
                 "hz_mtbf_dist": hazards.mtbf_dist,
@@ -1649,6 +1655,8 @@ def plan_from_arrays(fields: Mapping[str, object]) -> StaticPlan:
             kw[name] = np.array(value, copy=True)
         elif spec.type == "list[int]":
             kw[name] = [int(x) for x in value]
+        elif spec.type == "list[str]":
+            kw[name] = [str(x) for x in value]
         elif spec.type == "str":
             kw[name] = str(value)
         elif spec.type == "int":

@@ -72,6 +72,15 @@ class LbAlgorithmsName(StrEnum):
     LEAST_CONNECTIONS = "least_connection"
 
 
+class SampledMetricName(StrEnum):
+    """Fixed-cadence time-series metrics: the gauges a sweep can stream."""
+
+    READY_QUEUE_LEN = "ready_queue_len"
+    EVENT_LOOP_IO_SLEEP = "event_loop_io_sleep"
+    RAM_IN_USE = "ram_in_use"
+    EDGE_CONCURRENT_CONNECTION = "edge_concurrent_connection"
+
+
 class EventDescription(StrEnum):
     """Kinds of events that can be injected in a simulation window."""
 

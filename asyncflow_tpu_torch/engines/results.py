@@ -1,6 +1,6 @@
 """Host-side sweep results: the slice's subset of the reference's
-``engines/results.py`` (``SweepResults``, ``hist_percentile``) and of
-``engines/jaxsim/engine.py:sweep_results``."""
+``engines/results.py`` (``SweepResults``, ``hist_percentile``, the streamed
+gauge series' band histograms) and of ``engines/jaxsim/engine.py:sweep_results``."""
 
 from __future__ import annotations
 
@@ -8,9 +8,59 @@ import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from asyncflow_tpu_torch.engines.torchsim.params import hist_edges
 from asyncflow_tpu_torch.schemas.settings import SimulationSettings
+
+#: fixed-bin resolution of the streamed gauge histograms behind
+#: :attr:`SweepResults.gauge_bands`: linear bins over [0, cap) a gauge
+#: column, so a band value is exact to cap / GAUGE_HIST_BINS
+GAUGE_HIST_BINS = 128
+
+#: the quantiles :attr:`SweepResults.gauge_bands` reports, in row order
+GAUGE_BAND_QS = (50.0, 90.0, 99.0)
+
+
+def gauge_hist_caps(plan, sel) -> np.ndarray:
+    """Each selected gauge column's value cap for the band histograms: the
+    request pool for connection and queue gauges, the server's RAM for
+    ``ram_in_use`` (``sel`` holds columns of the ``[edges | ready | io |
+    ram]`` layout)."""
+    sel = np.asarray(sel, np.int64)
+    caps = np.full(sel.shape, float(plan.pool_size), np.float64)
+    ram0 = plan.n_edges + 2 * plan.n_servers
+    is_ram = sel >= ram0
+    if np.any(is_ram):
+        caps[is_ram] = np.asarray(plan.server_ram, np.float64)[sel[is_ram] - ram0]
+    return np.maximum(caps, 1e-9)
+
+
+def build_gauge_hist(series: np.ndarray, caps: np.ndarray, *,
+                     n_bins: int = GAUGE_HIST_BINS) -> np.ndarray:
+    """An ``(S, T_g, k)`` gauge series reduced to ``(T_g, k, B)`` int64
+    fixed-bin counts over the scenario axis: float64 ``floor(v / cap * B)``
+    clipped to ``[0, B - 1]`` (the reference's rule; counted with one
+    ``bincount`` over (tick, column, bin) cells in place of its
+    ``np.add.at``, ~3x faster at the headline's 2048 x 599 x 2)."""
+    series = np.asarray(series)
+    _, n_t, k = series.shape
+    caps = np.asarray(caps, np.float64).reshape(1, 1, k)
+    idx = np.clip(np.floor(series.astype(np.float64) / caps * n_bins).astype(np.int64),
+                  0, n_bins - 1)
+    cell = (np.arange(n_t)[None, :, None] * k + np.arange(k)[None, None, :]) * n_bins
+    counts = np.bincount((cell + idx).ravel(), minlength=n_t * k * n_bins)
+    return counts.reshape(n_t, k, n_bins).astype(np.int64)
+
+
+def gauge_series_of(grid, sel) -> np.ndarray:
+    """(S, T_g, k) streamed series of the grid's columns ``sel``: the
+    columns sliced before the cumulative sum over the rows, which runs on
+    the grid's device, then the first and last rows (before the first tick,
+    past the horizon) cut."""
+    grid = torch.as_tensor(grid)
+    cols = torch.as_tensor(np.asarray(sel, np.int64), device=grid.device)
+    return torch.cumsum(grid.index_select(2, cols), dim=1)[:, 1:-1].cpu().numpy()
 
 
 @dataclass
@@ -72,23 +122,58 @@ class SweepResults:
     degraded_goodput: np.ndarray | None = None
     hazard_truncated: np.ndarray | None = None
     time_to_drain: np.ndarray | None = None
+    #: (S, T_g, k) streamed gauge series on the coarse grid (fast-path
+    #: sweeps with a gauge_series spec; None otherwise): column j is the
+    #: j-th selected gauge, row i its value at t = (i + 1) x the period
+    gauge_series: np.ndarray | None = None
+    #: seconds between gauge_series rows (sample_period x stride)
+    gauge_series_period: float | None = None
+    #: (T_g, k, B) int64 band histograms over the scenarios of each coarse
+    #: tick and selected column (``B = GAUGE_HIST_BINS`` linear bins over
+    #: [0, cap)), built per chunk and summed over chunks
+    gauge_hist: np.ndarray | None = None
+    #: (k,) each column's histogram cap (:func:`gauge_hist_caps`)
+    gauge_hist_cap: np.ndarray | None = None
 
     def percentile(self, q: float) -> np.ndarray:
         """Per-scenario latency percentile estimated from the histograms."""
         return hist_percentile(self.latency_hist, self.hist_edges, q)
 
+    @property
+    def gauge_bands(self) -> np.ndarray | None:
+        """(3, T_g, k) bands over the scenarios of the streamed series, rows
+        in :data:`GAUGE_BAND_QS` order, from the band histograms with
+        :func:`hist_percentile`'s interpolation (exact to cap /
+        GAUGE_HIST_BINS); None without a gauge_series spec."""
+        if self.gauge_hist is None or self.gauge_hist_cap is None:
+            return None
+        n_t, k, bins = self.gauge_hist.shape
+        out = np.zeros((len(GAUGE_BAND_QS), n_t, k))
+        for j in range(k):
+            edges = np.linspace(0.0, float(self.gauge_hist_cap[j]), bins + 1)
+            for qi, q in enumerate(GAUGE_BAND_QS):
+                out[qi, :, j] = hist_percentile(self.gauge_hist[:, j, :], edges, q)
+        return out
+
+
+#: fields that are not stacked over scenarios: shared by the chunks, or (the
+#: band histograms) summed over them
+_UNSTACKED = ("settings", "hist_edges", "gauge_series_period", "gauge_hist", "gauge_hist_cap")
+
 
 def concat_results(parts: list[SweepResults]) -> SweepResults:
-    """Chunks of one sweep, concatenated along the scenario axis in order."""
+    """Chunks of one sweep, concatenated along the scenario axis in order;
+    the gauge band histograms are summed."""
     first = parts[0]
     return dataclasses.replace(
         first,
         **{
             f.name: np.concatenate([getattr(p, f.name) for p in parts])
             for f in dataclasses.fields(first)
-            if f.name not in ("settings", "hist_edges")
-            and getattr(first, f.name) is not None
+            if f.name not in _UNSTACKED and getattr(first, f.name) is not None
         },
+        gauge_hist=(None if first.gauge_hist is None
+                    else np.sum([p.gauge_hist for p in parts], axis=0)),
     )
 
 
@@ -98,16 +183,28 @@ def _optional(state, name: str, dtype=None) -> np.ndarray | None:
 
 
 def sweep_results(state, settings=None, *, has_llm: bool = False, has_retry: bool = False,
-                  has_faults: bool = False) -> SweepResults:
+                  has_faults: bool = False, gauge_sel=None, series_period: float | None = None,
+                  gauge_hist_cap: np.ndarray | None = None) -> SweepResults:
     """Host-side :class:`SweepResults` of a batched DES-kernel or fast-path
     state; the LLM cost moments are kept where the plan has LLM segments,
     the retry counters where it has a retry policy and the dark-lost count
-    where it has faults or hazards."""
+    where it has faults or hazards.  With ``gauge_sel``, the fast path's
+    streamed series of those columns of ``state.gauge`` (a stride grid,
+    numpy or a tensor on its device; :func:`gauge_series_of`), its
+    ``series_period`` and its band histograms over ``gauge_hist_cap``."""
 
     def when(on: bool, name: str):
         return _optional(state, name) if on else None
 
+    series = hist = None
+    if gauge_sel is not None:
+        series = gauge_series_of(state.gauge, gauge_sel)
+        hist = build_gauge_hist(series, gauge_hist_cap)
     return SweepResults(
+        gauge_series=series,
+        gauge_series_period=series_period if series is not None else None,
+        gauge_hist=hist,
+        gauge_hist_cap=gauge_hist_cap if series is not None else None,
         settings=settings,
         completed=np.asarray(state.lat_count),
         latency_hist=np.asarray(state.hist),

@@ -23,7 +23,7 @@ from asyncflow_tpu_torch.errors import KernelBuildError
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 #: library name -> (source, extra nvcc flags): the DES kernel is built twice,
-#: without and with its workload group of instances; the fast path's three
+#: without and with its workload group of instances; the fast path's four
 #: kernels once each
 SOURCES = {
     "des_kernel": (CSRC / "des_kernel.cu", ("-DDES_WORKLOAD=0",)),
@@ -31,6 +31,7 @@ SOURCES = {
     "edge_draws": (CSRC / "edge_draws.cu", ()),
     "station_scan": (CSRC / "station_scan.cu", ()),
     "lb_route": (CSRC / "lb_route.cu", ()),
+    "gauge_grid": (CSRC / "gauge_grid.cu", ()),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

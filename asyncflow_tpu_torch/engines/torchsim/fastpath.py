@@ -101,6 +101,7 @@ from asyncflow_tpu_torch.engines.torchsim.draws import (
     hop_keys,
     prefix_sum_xla,
 )
+from asyncflow_tpu_torch.engines.torchsim.gauge_grid import GaugeGrid
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import (
     _edge_table,
     _float_tensor,
@@ -157,6 +158,11 @@ class FastState(NamedTuple):
     lat_min: np.ndarray
     lat_max: np.ndarray
     thr: np.ndarray
+    #: (S, rows, n_gauges) interval endpoints of every gauge on the sample
+    #: ticks (a cumulative sum over the rows gives each tick's value):
+    #: ``n_samples + 2`` rows with collect_gauges, ``n_samples // k + 2``
+    #: with gauge_series_stride k; (S, 1, 1) zeros without either
+    gauge: np.ndarray
     #: (S, n, 2) (arrival, finish) of the completed requests in arrival
     #: order, compacted to the front; (1, 2) zeros without collect_clocks
     clock: np.ndarray
@@ -275,19 +281,33 @@ class FastEngine:
         trace=None,
         blame: bool = False,
     ) -> None:
+        """``collect_gauges`` collects every gauge on the fine grid of the
+        plan's sample ticks; ``gauge_series_stride`` k > 0, without it, on a
+        grid coarsened k-fold (period ``sample_period * k``, ``n_samples //
+        k`` ticks), the sweep's streamed series: the value at a coarse tick
+        is the fine grid's at that time.  The grid consumes no draws."""
         check_fast_slice(plan)
-        for on, feature in (
-            (collect_gauges, "gauge grid"),
-            (gauge_series_stride, "gauge grid"),
-            (trace is not None, "flight recorder"),
-            (blame, "blame"),
-        ):
+        for on, feature in ((trace is not None, "flight recorder"), (blame, "blame")):
             if on:
                 raise UnsupportedFeatureError(feature, "fast path option")
         if relax_sweeps is not None and relax_sweeps < 1:
             msg = f"relax_sweeps must be >= 1, got {relax_sweeps}"
             raise ValueError(msg)
+        if gauge_series_stride < 0:
+            msg = f"gauge_series_stride must be >= 0, got {gauge_series_stride}"
+            raise ValueError(msg)
         self.plan = plan
+        if collect_gauges:
+            self._gauge_period = plan.sample_period
+            self._gauge_samples = plan.n_samples
+        elif gauge_series_stride:
+            self._gauge_period = plan.sample_period * gauge_series_stride
+            self._gauge_samples = plan.n_samples // gauge_series_stride
+        else:
+            self._gauge_period = plan.sample_period
+            self._gauge_samples = 0
+        self._collect_gauge_grid = collect_gauges or gauge_series_stride > 0
+        self.gauge_series_stride = 0 if collect_gauges else gauge_series_stride
         self.device = resolve_device(device)
         #: each stream's arrival lanes, a contiguous slice each, in generator
         #: order
@@ -328,6 +348,7 @@ class FastEngine:
         self.draws = EdgeDraws()
         self.scan = StationScan()
         self.route = LbRoute()
+        self.gauge = GaugeGrid()
         dev = self.device
         self._dist = np.asarray(plan.edge_dist, np.int32)
         self._tables = {
@@ -515,7 +536,8 @@ class FastEngine:
         pick = torch.clamp_min(slot, 0)[..., None]
         return slot, deliv.gather(2, pick)[..., 0], sent.gather(2, pick)[..., 0]
 
-    def _entry_chains(self, keys, tables, ts: list, valids: list, gm, n_dropped, record=True):
+    def _entry_chains(self, keys, tables, ts: list, valids: list, gm, n_dropped, record=True,
+                      grid=None):
         """Each stream's entry chain on its own lanes, then the streams'
         lanes side by side: (t, alive, fail_t), (S, n), ``fail_t`` the issue
         time of a lane dropped on the chain (INF elsewhere; None where the
@@ -541,6 +563,7 @@ class FastEngine:
                 hop = self._hop(tables, keys, site(g, j), t, alive, edge=eidx)
                 if record:
                     gm[:, eidx] += hop.span[:, 0]
+                    self._gauge_intervals(grid, eidx, t, hop.t_next, 1.0, hop.ok)
                     n_dropped += hop.dropped
                 if fail is not None:
                     fail = torch.where(alive & (t < horizon) & ~hop.ok, t0, fail)
@@ -569,7 +592,7 @@ class FastEngine:
     def _journey(self, keys, ov: dict, ts: list, valids: list, *, record: bool = True):
         """One pass of entry chains, routing, the servers in topological
         order and the exits (``_journey``): (finish, completed, fail_t,
-        gauge_means, n_dropped, n_rejected, n_dark_lost).  ``fail_t`` (None
+        gauge_means, n_dropped, n_rejected, n_dark_lost, gauge grid).  ``fail_t`` (None
         but for the retry driver, ``track_fail``) is a lane's failure time as
         its client sees it (INF where it completed or was in flight at the
         horizon): a drop on the entry chain at the attempt's issue, a drop
@@ -577,7 +600,8 @@ class FastEngine:
         limit or a connection cap's refusal at the arrival, a shed at the
         enqueue, an abandon at the deadline, a drop on the exit edge at the
         departure.  ``record=False`` skips every gauge and counter (the
-        retry driver's relaxation passes need only the outcome times)."""
+        retry driver's relaxation passes need only the outcome times); the
+        grid is None where it does not record or collects no grid."""
         plan, dev, n = self.plan, self.device, self.n
         s_rows = ts[0].shape[0]
         horizon = f32(plan.horizon)
@@ -585,9 +609,13 @@ class FastEngine:
         n_dropped = torch.zeros(s_rows, dtype=torch.int64, device=dev)
         n_dark = torch.zeros(s_rows, dtype=torch.int64, device=dev)
         n_rej = torch.zeros(s_rows, dtype=torch.int64, device=dev)
+        grid = (torch.zeros((s_rows, self._gauge_samples + 2, plan.n_gauges),
+                            dtype=torch.float32, device=dev)
+                if record and self._collect_gauge_grid else None)
         tab = self._tables
         tables = self._edge_tables(ov)
-        t, alive, fail_t = self._entry_chains(keys, tables, ts, valids, gm, n_dropped, record)
+        t, alive, fail_t = self._entry_chains(keys, tables, ts, valids, gm, n_dropped, record,
+                                              grid)
 
         # ---- routing: least connections, or round robin by arrival rank or
         # under the timeline ----
@@ -603,6 +631,8 @@ class FastEngine:
                     torch.clamp_max(t_next, horizon) - torch.clamp_max(t, horizon), 0.0), 0.0)
                 for k, e in enumerate(plan.lb_edge_index.tolist()):
                     gm[:, e] += torch.where(slot == k, lane_span, 0.0).double().sum(dim=1).float()
+                    if grid is not None:
+                        self._gauge_intervals(grid, e, t, t_next, 1.0, ok & (slot == k))
                 del lane_span
                 n_dropped += unrouted.sum(dim=1) + (alive & ~sent).sum(dim=1)
             if fail_t is not None:
@@ -617,12 +647,17 @@ class FastEngine:
             else:
                 lanes = {"slot": route_lanes(self.route, self.timeline, t, alive)}
             hop = self._hop(tables, keys, 32, t, alive, **lanes)
-            del lanes
             srv = hop.target
             if record:
+                pick = (lanes["rank"] % plan.n_lb_edges if "rank" in lanes
+                        else lanes["slot"]) if grid is not None else None
                 for k, e in enumerate(plan.lb_edge_index.tolist()):
                     gm[:, e] += hop.span[:, k]
+                    if grid is not None:
+                        self._gauge_intervals(grid, e, t, hop.t_next, 1.0, hop.ok & (pick == k))
+                del pick
                 n_dropped += hop.dropped
+            del lanes
             if fail_t is not None:
                 # no healthy target, or dropped on the LB's edge: at the send
                 fail_t = torch.where(alive & ~hop.ok, t, fail_t)
@@ -703,7 +738,7 @@ class FastEngine:
                 # tier): their rejections leave the lanes here
                 enq, wait, pre, validb, dep, rejected, fail_at = self._controlled_queue(
                     s, cores, t, mine, ep, post, place, extra, cap, timeout, conn, ram, gm,
-                    record)
+                    record, grid)
                 if record:
                     n_rej += rejected.sum(dim=1)
                 if fail_t is not None:
@@ -745,10 +780,15 @@ class FastEngine:
                 visits = kb
             for k in range(visits if record else 0):
                 vb = validb[..., k]
-                gm[:, plan.gauge_ready(s)] += _span(enq[..., k], enq[..., k] + wait[..., k],
-                                                   vb, horizon)
-                gm[:, plan.gauge_io(s)] += _span(enq[..., k] - pre[..., k], enq[..., k], vb,
-                                                horizon)
+                e_k, w_k, p_k = enq[..., k], wait[..., k], pre[..., k]
+                gm[:, plan.gauge_ready(s)] += _span(e_k, e_k + w_k, vb, horizon)
+                gm[:, plan.gauge_io(s)] += _span(e_k - p_k, e_k, vb, horizon)
+                if grid is not None:
+                    self._gauge_intervals(grid, plan.gauge_ready(s), e_k, e_k + w_k, 1.0,
+                                          vb & (w_k > 0))
+                    self._gauge_intervals(grid, plan.gauge_io(s), e_k - p_k, e_k, 1.0,
+                                          vb & (p_k > 0))
+                del e_k, w_k, p_k
             trail_start = dep - post
             dep = self._db_station(s, ep, mine, trail_start, trail_extra, dep)
             if record:
@@ -756,12 +796,18 @@ class FastEngine:
                 gm[:, plan.gauge_io(s)] += _span(trail_start, dep, mine & (dep > trail_start),
                                                 horizon)
                 gm[:, plan.gauge_ram(s)] += _span(t + w_ram, dep, mine, horizon, amount=ram)
+                if grid is not None:
+                    self._gauge_intervals(grid, plan.gauge_io(s), trail_start, dep, 1.0,
+                                          mine & (dep > trail_start))
+                    self._gauge_intervals(grid, plan.gauge_ram(s), t + w_ram, dep, ram,
+                                          mine & (ram > 0))
 
             # exit edge: the send happens only while the clock runs
             eidx = int(plan.exit_edge[s])
             hop = self._hop(tables, keys, 128 + s, dep, mine, edge=eidx, ukey=exit_key)
             if record:
                 gm[:, eidx] += hop.span[:, 0]
+                self._gauge_intervals(grid, eidx, dep, hop.t_next, 1.0, hop.ok)
                 n_dropped += hop.dropped
             if fail_t is not None:
                 fail_t = torch.where(mine & (dep < horizon) & ~hop.ok, dep, fail_t)
@@ -775,10 +821,18 @@ class FastEngine:
                 finish = torch.where(done, hop.t_next, finish)
                 completed = completed | done
                 alive = torch.where(mine, False, alive)
-        return finish, completed, fail_t, gm, n_dropped, n_rej, n_dark
+        return finish, completed, fail_t, gm, n_dropped, n_rej, n_dark, grid
+
+    def _gauge_intervals(self, grid, gidx: int, t0, t1, amount, on) -> None:
+        """+amount at ``t0``'s bucket and -amount at ``t1``'s in column
+        ``gidx`` of ``grid`` where ``on`` (``_gauge_intervals``); nothing
+        without a grid (the sites that build their intervals first skip the
+        call themselves)."""
+        if grid is not None:
+            self.gauge.add(grid, gidx, t0, t1, on, amount, self._gauge_period)
 
     def _controlled_queue(self, s, cores, t, mine, ep, post, place, extra, cap: int,
-                          timeout: float, conn: int, ram, gm, record: bool):
+                          timeout: float, conn: int, ram, gm, record: bool, grid=None):
         """Server ``s``'s single-burst core queue under its overload
         controls: with a connection cap the socket scan in arrival order,
         else the controlled scan (a ready-queue cap, a dequeue deadline) in
@@ -789,7 +843,7 @@ class FastEngine:
         lanes and the instant each fails at (refused: the arrival, shed: the
         enqueue, abandoned: the end of its wait).  Under a connection cap a
         shed or abandoned request holds its RAM from the arrival to that
-        instant (added to ``gm`` here)."""
+        instant (added to ``gm`` and the grid here)."""
         plan, tab = self.plan, self._tables
         horizon = f32(plan.horizon)
         nb = tab["n_bursts"][s][ep]
@@ -836,9 +890,12 @@ class FastEngine:
         fail_at = torch.where(refused, t, torch.where(shed, enq0, enq0 + wait))
         if conn >= 0 and record:
             # a shed or abandoned request's RAM, held until it leaves
-            gm[:, plan.gauge_ram(s)] += _span(t, torch.where(shed, enq0, enq0 + wait),
-                                             (shed | abandoned) & (ram > 0), horizon,
-                                             amount=ram)
+            rej_end = torch.where(shed, enq0, enq0 + wait)
+            rej_ram = (shed | abandoned) & (ram > 0)
+            gm[:, plan.gauge_ram(s)] += _span(t, rej_end, rej_ram, horizon, amount=ram)
+            if grid is not None:
+                self._gauge_intervals(grid, plan.gauge_ram(s), t, rej_end, ram, rej_ram)
+            del rej_end, rej_ram
         dep = t + pre0 + wait + dur0 + post
         return (enq0[..., None], torch.where(shed, 0.0, wait)[..., None], pre0[..., None],
                 part[..., None], dep, refused | shed | abandoned, fail_at)
@@ -1083,7 +1140,9 @@ class FastEngine:
                 1, torch.where(ended, blk, self.attempts), ended.to(torch.int64),
             )[:, : self.attempts].to(torch.int32)
             del timed, grant, deny, ended
-        gm, n_dropped, n_rej, n_dark = out[3:]
+        gm, n_dropped, n_rej, n_dark, grid = out[3:]
+        if grid is None:
+            grid = torch.zeros((s, 1, 1), dtype=torch.float32, device=dev)
         del ts, valids, out
 
         latency = torch.where(success, finish - t0, 0.0)
@@ -1113,6 +1172,7 @@ class FastEngine:
             "lat_min": torch.where(success, latency, INF).min(dim=1).values,
             "lat_max": torch.where(success, latency, 0.0).max(dim=1).values,
             "thr": thr.to(torch.int32),
+            "gauge": grid,
             "clock": clock,
             "clock_n": count,
             "n_generated": valid.sum(dim=1).to(torch.int32),

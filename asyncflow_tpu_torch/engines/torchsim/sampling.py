@@ -37,3 +37,22 @@ def latency_bin(latency, lo: float, scale: float, n_bins: int):
 
     x = (torch.log(torch.clamp_min(latency, f32(1e-6))) - f32(lo)) * f32(scale)
     return torch.clamp(x.to(torch.int32), 0, n_bins - 1)
+
+
+def bucket_scale(period: float) -> float:
+    """The float32 reciprocal of a sample period, as XLA folds a division by
+    the constant into a multiply: ``x / period`` is ``x * (1 / period)`` with
+    the reciprocal rounded to float32 from float32 operands."""
+    return float(np.float32(1.0) / np.float32(period))
+
+
+def sample_bucket(t, period: float, n_samples: int):
+    """Sample-tick bucket of float32 times (torch tensor): a delta at ``t``
+    affects the samples at ticks >= t, ``ceil(t / period)`` clipped to
+    ``[0, n_samples + 1]`` (int64).  The quotient is XLA's (``bucket_scale``);
+    the clip comes before the integer conversion, so "never" (``INF``) lands
+    in the last row."""
+    import torch
+
+    b = torch.ceil(t * bucket_scale(period))
+    return torch.clamp(b, 0.0, float(n_samples + 1)).to(torch.int64)

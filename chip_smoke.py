@@ -119,7 +119,22 @@ no result line):
    arguments, bit-exact; each edge_draws and lb_route kind's call and the
    path's station_scan kinds timed between CUDA events beside its bound,
    its plain version's time and the library's (the closed form ``cumsum``
-   / ``cummax`` for the one-core scan), and the stable rank's time.
+   / ``cummax`` for the one-core scan), and the stable rank's time;
+   chaos_campaign streams both servers' ready queues (``GAUGE_PATHS``),
+   launches ``gauge_grid`` and must report a finite mean time to drain;
+6. the gauge grid: the headline (600 s, 2048 scenarios) with both servers'
+   ready queues streamed at 1 s and without, in turns in one process (their
+   walls and scen/s printed), every other output equal, the series run
+   launching ``gauge_grid`` (its count set to 0 just before it) in its
+   shared-memory form; that run's calls replayed through the kernel and the
+   plain scatter, bit-exact, and timed beside their bound and one
+   ``scatter_add_`` of the same buckets; the fine grid of the headline cut
+   to 30 s at a 0.01 s period (3,001 rows: the global-memory form),
+   bit-exact; examples/sweeps/gauge_series_sweep.py's payload at 2048
+   scenarios (its ready-queue band's width and the pooled p95's interval);
+   examples/sweeps/overload_policy.py's user_mean axis through
+   ``make_overrides`` (each load point's p95 and rejected fraction, with
+   and without a ready-queue cap of 8).
 
 It prints the redesigned kernels' times beside their bounds (and, for
 this slice's two, the parent tree's times, ``PARENT_MS``) with their
@@ -719,6 +734,11 @@ CONTROL_MODES = {"rate_limited_lb": "bucket", "overload_cap8": "controlled",
                  "overload_sockets": "socket"}
 RESILIENCE_PATHS = {"chaos_campaign": "hazards", "outage_retry": "faults",
                     "trace_parity_resilient": "faults"}
+#: the streamed series of the headline's gauge runs and of the chaos
+#: campaign (its time to drain reads them): both servers' ready queues at 1 s
+GAUGE_SERIES = ("ready_queue_len", ["srv-1", "srv-2"], 1.0)
+#: the fast paths that stream a series
+GAUGE_PATHS = {"chaos_campaign": GAUGE_SERIES}
 
 MAIN_SCENARIOS = 2048
 #: a pool too large for shared memory (des_kernel.cu, layout_of)
@@ -2639,8 +2659,9 @@ def _check_resilience_sweep(name: str, summary: dict, res) -> None:
     """A resilience path's sweep: dark refusals are its only refusals and
     some happen; on the chaos campaign, the scorecard (availability in
     (0, 1); the dark seconds and truncated windows of the sampled tables
-    equal to the reference's; no time to drain: the port streams no
-    ready-queue series) and request conservation; with a retry policy, every ended
+    equal to the reference's; a finite mean time to drain, from the ready
+    queues the sweep streams, GAUGE_PATHS) and request conservation; with a
+    retry policy, every ended
     attempt an issued one and every completion an ended one, and on
     outage_retry some retries and some budget denials; on
     trace_parity_resilient, whose outage spans the horizon, no completion,
@@ -2658,7 +2679,8 @@ def _check_resilience_sweep(name: str, summary: dict, res) -> None:
         if (np.any(in_flight < 0) or not 0.0 < summary["availability_fraction"] < 1.0
                 or summary["unavailable_s_total"] != ref["unavailable_s_total"]
                 or summary["hazard_truncated_total"] != ref["hazard_truncated_total"]
-                or summary["time_to_drain_mean_s"] is not None):
+                or summary["time_to_drain_mean_s"] is None
+                or not np.isfinite(summary["time_to_drain_mean_s"])):
             raise SmokeError(f"fast {name}: in flight [{in_flight.min()}, {in_flight.max()}], "
                              f"scorecard {summary}")
         return
@@ -2712,7 +2734,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     from asyncflow_tpu_torch.parallel import make_overrides
 
     data = FAST_PAYLOADS[name]
-    runner = SweepRunner(data, device="cuda")
+    runner = SweepRunner(data, device="cuda", gauge_series=GAUGE_PATHS.get(name))
     if runner.engine_kind != "fast":
         raise SmokeError(f"fast {name}: auto took the {runner.engine_kind} engine")
     eng = runner.engine
@@ -2725,10 +2747,15 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     eng.draws.fault_launches = eng.draws.cand_launches = eng.route.lc_launches = 0
     eng.scan.mode_launches = dict.fromkeys(eng.scan.mode_launches, 0)
     eng.scan.walk_launches = dict.fromkeys(eng.scan.walk_launches, 0)
+    eng.gauge.launches = 0
     torch.cuda.reset_peak_memory_stats()
     report = runner.run(MAIN_SCENARIOS, seed=0, overrides=sweep_ov)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: w.launches for k, w in _wrappers(eng).items()}
+    gauge_launches = eng.gauge.launches
+    if (gauge_launches > 0) != (name in GAUGE_PATHS):
+        raise SmokeError(f"fast {name}: {gauge_launches} gauge_grid launches, with "
+                         f"{'a' if name in GAUGE_PATHS else 'no'} streamed series")
     fault_launches = eng.draws.fault_launches
     cand_launches, lc_launches = eng.draws.cand_launches, eng.route.lc_launches
     mode_launches = dict(eng.scan.mode_launches)
@@ -2908,8 +2935,13 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
             f"{key} {summary.get(key)}" for key in (
                 "rejected_total", "dark_lost_total", "availability_fraction",
                 "unavailable_s_total", "hazard_truncated_total", "timed_out_total",
-                "retries_total", "retry_budget_exhausted_total", "goodput_fraction")),
+                "retries_total", "retry_budget_exhausted_total", "goodput_fraction",
+                "time_to_drain_mean_s")),
             flush=True)
+    if name in GAUGE_PATHS:
+        drained = int(np.isfinite(res.time_to_drain).sum()) if res.time_to_drain is not None else 0
+        print(f"  streamed {GAUGE_PATHS[name]}: {gauge_launches} gauge_grid launches; time to "
+              f"drain finite in {drained} of {MAIN_SCENARIOS} scenarios", flush=True)
     for kernel, modes in timed.items():
         for kind, m in modes.items():
             lib = "null" if m["library_ms"] is None else f"{m['library_ms']:.3f} ms"
@@ -2924,6 +2956,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
                      "lb_route": "route_table"}
     return {
         "launches": launches,
+        "gauge_launches": gauge_launches,
         "fault_launches": fault_launches,
         "cand_launches": cand_launches,
         "lc_launches": lc_launches,
@@ -2948,7 +2981,244 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     }
 
 
-def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> list:
+#: gauge_grid's work a lane: the two buckets' multiplies, ceilings and
+#: clamps (fp32), their conversions and addresses (int32)
+GAUGE_LANE_OPS = (4, 8)
+#: the fine grid's check: the headline cut to 30 s at a 0.01 s sample
+#: period, 3,001 rows, past the shared form's 2,048 (the global form)
+GAUGE_FINE_HORIZON = 30
+GAUGE_FINE_PERIOD = 0.01
+#: examples/sweeps/overload_policy.py's load points (fractions of BASE_USERS
+#: = 100 users), swept through make_overrides' user_mean axis from a base at
+#: the top point, 110 users (a rate raise past the base would leave the
+#: fast path's proofs)
+OVERLOAD_LOAD_POINTS = (0.6, 0.75, 0.9, 1.0, 1.1)
+OVERLOAD_BASE_USERS = 100
+
+
+def gauge_series_payload() -> dict:
+    """examples/sweeps/gauge_series_sweep.py's payload: single_server.yml
+    at CPU 20 ms then IO 10 ms, 120 users, 120 s."""
+    data = copy.deepcopy(SINGLE_SERVER)
+    data["topology_graph"]["nodes"]["servers"][0]["endpoints"][0]["steps"] = [
+        {"kind": "initial_parsing", "step_operation": {"cpu_time": 0.020}},
+        {"kind": "io_wait", "step_operation": {"io_waiting_time": 0.01}},
+    ]
+    data["rqs_input"]["avg_active_users"]["mean"] = 120
+    data["sim_settings"]["total_simulation_time"] = 120
+    return data
+
+
+def _record_gauge_calls(eng) -> tuple:
+    """Put a recorder in place of the engine's gauge_grid wrapper: each call
+    is passed on, its arguments kept with a copy of the grid it was given.
+    Returns the calls and the wrapper, to be put back."""
+    calls: list = []
+    inner = eng.gauge
+
+    class Recorder:
+        def add(self, grid, col, t0, t1, on, amount, period):
+            calls.append((grid.clone(), col, t0, t1, on, amount, period))
+            inner.add(grid, col, t0, t1, on, amount, period)
+
+    eng.gauge = Recorder()
+    return calls, inner
+
+
+def _gauge_replay(torch, label: str, calls: list, *, timed: bool = False) -> dict:
+    """Each recorded call through the kernel and through its plain version
+    on a copy of its grid, bit-exact (the amounts are whole); with
+    ``timed``, each call's ms between CUDA events, the plain version's, one
+    ``scatter_add_`` of the precomputed buckets (the library call) and the
+    bound: means a launch."""
+    import numpy as np
+
+    from asyncflow_tpu_torch.engines.torchsim.gauge_grid import GaugeGrid, gauge_add_plain
+    from asyncflow_tpu_torch.engines.torchsim.sampling import sample_bucket
+
+    kernel, timer = GaugeGrid(), GaugeGrid()
+    rows = []
+    for i, (grid, col, t0, t1, on, amount, period) in enumerate(calls):
+        whole = isinstance(amount, float) or bool(torch.all(amount == torch.round(amount)))
+        if not whole:
+            raise SmokeError(f"gauge {label}: call {i} adds fractional amounts")
+        got = grid.clone()
+        kernel.add(got, col, t0, t1, on, amount, period)
+        want = grid.clone()
+        plain_ms, _ = _time_plain(torch, lambda: gauge_add_plain(want, col, t0, t1, on, amount,
+                                                                 period))
+        if not torch.equal(got, want):
+            diff = (got - want).abs().max().item()
+            raise SmokeError(f"gauge {label}: call {i} (column {col}) differs from the plain "
+                             f"scatter by up to {diff}")
+        del got, want
+        if not timed:
+            continue
+        scratch = grid.clone()
+        ms = time_kernel(torch, lambda: timer.add(scratch, col, t0, t1, on, amount, period),
+                         repeats=5)
+        n_samples = grid.shape[1] - 2
+        idx = torch.cat([sample_bucket(t0, period, n_samples),
+                         sample_bucket(t1, period, n_samples)], dim=1)
+        val = torch.where(on, amount, 0.0).to(torch.float32)
+        val = torch.cat([val, -val], dim=1)
+        column = scratch[:, :, col]
+        library_ms = time_kernel(torch, lambda: column.scatter_add_(1, idx, val), repeats=5)
+        s_rows, n = t0.shape
+        per_lane = isinstance(amount, torch.Tensor) and amount.ndim > 0
+        moved = s_rows * n * (4 + 4 + 1 + (4 if per_lane else 0)) + 2 * s_rows * grid.shape[1] * 4
+        lanes = s_rows * n
+        bound = _bound_of(moved, GAUGE_LANE_OPS[0] * lanes, GAUGE_LANE_OPS[1] * lanes)
+        rows.append({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound})
+        del scratch, idx, val, column
+    out = {"calls": len(calls), "forms": dict(kernel.form_launches), "max_abs_err": 0.0}
+    if rows:
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "operations_ms"):
+            out[key] = float(np.mean([r[key] for r in rows]))
+        out["bound_by"] = "bytes" if out["bytes_ms"] >= out["operations_ms"] else "operations"
+    return out
+
+
+def _rows_p95(res, rows) -> float:
+    import numpy as np
+
+    from asyncflow_tpu_torch.engines.results import hist_percentile
+
+    pooled = res.latency_hist[rows].sum(axis=0)
+    return float(hist_percentile(pooled, res.hist_edges, 95)) if pooled.sum() else float(
+        np.nan)
+
+
+def phase_gauge(torch) -> dict:
+    """Phase 6, the gauge grid: the headline with both
+    servers' ready queues streamed at 1 s and the same sweep without, in
+    turns (off, on, on, off), which must agree in every other output, the
+    series run launching gauge_grid (counts set to 0 just before it, its
+    shared form only); that run's calls replayed through the kernel and the
+    plain scatter, bit-exact, and timed; the fine grid of the headline cut
+    to 30 s at a 0.01 s period (the global form), bit-exact; the
+    gauge_series_sweep example's payload at 2048 scenarios with its band and
+    the pooled p95's interval; overload_policy's user_mean axis through
+    make_overrides, each load point's p95 and rejected fraction."""
+    import numpy as np
+
+    from asyncflow_tpu_torch.compiler import compile_payload
+    from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine
+    from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+    from asyncflow_tpu_torch.parallel import SweepRunner, make_overrides
+    from asyncflow_tpu_torch.schemas import SimulationPayload
+
+    t_start = time.perf_counter()
+    off = SweepRunner(TWO_SERVERS_LB, device="cuda")
+    on = SweepRunner(TWO_SERVERS_LB, device="cuda", gauge_series=GAUGE_SERIES)
+    eng = on.engine
+    on.run(MAIN_SCENARIOS, seed=0)  # warm the gauge library
+    walls = {"off": [], "on": []}
+    reports = {}
+    for turn in ("off", "on", "on", "off"):
+        runner = on if turn == "on" else off
+        if turn == "on" and not walls["on"]:
+            eng.gauge.launches = 0
+            eng.gauge.form_launches = dict.fromkeys(eng.gauge.form_launches, 0)
+        report = runner.run(MAIN_SCENARIOS, seed=0)
+        if turn == "on" and not walls["on"]:
+            launches = eng.gauge.launches
+            forms = dict(eng.gauge.form_launches)
+        walls[turn].append(report.wall_seconds)
+        reports.setdefault(turn, report)
+    chunks = -(-MAIN_SCENARIOS // on.default_chunk)
+    if launches < 1 or forms["global"] != 0 or launches % chunks:
+        raise SmokeError(f"gauge: the series sweep launched gauge_grid {launches} times "
+                         f"({forms}) over {chunks} chunks")
+    a, b = reports["on"].results, reports["off"].results
+    for field in dataclasses.fields(a):
+        x, y = getattr(a, field.name), getattr(b, field.name)
+        if field.name.startswith("gauge_") and field.name != "gauge_means":
+            continue
+        if isinstance(x, np.ndarray) and not np.array_equal(x, y):
+            raise SmokeError(f"gauge: the series changed {field.name} of the headline's sweep")
+    series = a.gauge_series
+    if series is None or series.shape != (MAIN_SCENARIOS, eng.plan.n_samples
+                                          // eng.gauge_series_stride, 2) \
+            or not np.isfinite(series).all() or series.min() < 0:
+        raise SmokeError(f"gauge: the headline's series is {None if series is None else series.shape}")
+    calls, kernel = _record_gauge_calls(eng)
+    on.run(MAIN_SCENARIOS, seed=0)
+    eng.gauge = kernel
+    headline = _gauge_replay(torch, "headline stride grid", calls, timed=True)
+    del calls
+    data = copy.deepcopy(TWO_SERVERS_LB)
+    data["sim_settings"].update(total_simulation_time=GAUGE_FINE_HORIZON,
+                                sample_period_s=GAUGE_FINE_PERIOD)
+    fine_eng = FastEngine(compile_payload(SimulationPayload.from_dict(data)), device="cuda",
+                          collect_gauges=True)
+    calls, _ = _record_gauge_calls(fine_eng)
+    fine_eng.run_tensors(scenario_keys(0, MAIN_SCENARIOS, device="cuda"))
+    fine = _gauge_replay(torch, "fine grid (30 s at 0.01 s)", calls)
+    del calls, fine_eng
+    if headline["forms"]["shared"] != headline["calls"] or fine["forms"]["global"] != fine["calls"]:
+        raise SmokeError(f"gauge: the checks took the forms {headline['forms']} and "
+                         f"{fine['forms']}")
+    wall_on, wall_off = min(walls["on"]), min(walls["off"])
+    print(f"gauge: headline {MAIN_SCENARIOS} x {eng.plan.horizon:.0f} s streaming "
+          f"{GAUGE_SERIES}: {wall_on:.3f} s wall, {MAIN_SCENARIOS / wall_on:.1f} scen/s; "
+          f"without the series {wall_off:.3f} s, {MAIN_SCENARIOS / wall_off:.1f} scen/s "
+          f"(turns off, on, on, off: {walls}); every other output equal", flush=True)
+    print(f"gauge: gauge_grid {launches} launches ({launches // chunks} a chunk of "
+          f"{on.default_chunk}), {headline['ms']:.4f} ms a launch (shared form), plain "
+          f"{headline['plain_ms']:.3f} ms, scatter_add_ {headline['library_ms']:.4f} ms, "
+          f"{_bound_text(headline)}; the headline's {headline['calls']} calls and the fine "
+          f"grid's {fine['calls']} ({fine['forms']}) bit-exact with the plain scatter",
+          flush=True)
+
+    sweep_runner = SweepRunner(gauge_series_payload(), device="cuda",
+                               gauge_series=("ready_queue_len", ["srv-1"], 1.0))
+    sweep_runner.run(MAIN_SCENARIOS, seed=7)
+    sweep_runner.engine.gauge.launches = 0
+    report = sweep_runner.run(MAIN_SCENARIOS, seed=7)
+    sweep_launches = sweep_runner.engine.gauge.launches
+    _, p10, p50, p90 = report.gauge_series_band("srv-1", 10, 90)
+    est = report.pooled_percentile_ci(95)
+    if sweep_launches < 1 or not (np.isfinite(p50).all() and est.lo <= est.point <= est.hi):
+        raise SmokeError(f"gauge: gauge_series_sweep gave launches {sweep_launches}, "
+                         f"median {p50[:4]}, interval {est}")
+    print(f"gauge: gauge_series_sweep.py's payload, {MAIN_SCENARIOS} scenarios: "
+          f"{report.scenarios_per_second:.1f} scen/s, ready-queue median {p50.mean():.3f}, "
+          f"10-90% band width {np.mean(p90 - p10):.3f}; pooled p95 {est.point * 1e3:.3f} ms "
+          f"(95% interval [{est.lo * 1e3:.3f}, {est.hi * 1e3:.3f}] ms, n {est.n}); "
+          f"{sweep_launches} gauge_grid launches", flush=True)
+
+    points = np.asarray(OVERLOAD_LOAD_POINTS)
+    block = np.arange(MAIN_SCENARIOS) * len(points) // MAIN_SCENARIOS
+    top = OVERLOAD_BASE_USERS * float(points.max())
+    for cap in (None, 8):
+        runner = SweepRunner(overload_payload(top, None if cap is None
+                                              else {"max_ready_queue": cap}), device="cuda")
+        users = (OVERLOAD_BASE_USERS * points[block]).astype(np.float32)
+        ov = make_overrides(runner.plan, MAIN_SCENARIOS, user_mean=users)
+        res = runner.run(MAIN_SCENARIOS, seed=3, overrides=ov).results
+        cells = []
+        for k, load in enumerate(points):
+            rows = block == k
+            rejected = int(res.total_rejected[rows].sum())
+            shed = rejected / max(rejected + int(res.completed[rows].sum()), 1)
+            p95 = _rows_p95(res, rows)
+            if not np.isfinite(p95) or (cap is None and rejected):
+                raise SmokeError(f"gauge: overload cap {cap} at load {load}: p95 {p95}, "
+                                 f"rejected {rejected}")
+            cells.append(f"{load:.0%} p95 {p95 * 1e3:.2f} ms rejected {shed:.4%}")
+        label = "unbounded" if cap is None else f"ready-queue cap {cap}"
+        print(f"gauge: overload_policy's user_mean axis, {label} ({MAIN_SCENARIOS} scenarios, "
+              f"{MAIN_SCENARIOS // len(points)} a point): " + "; ".join(cells), flush=True)
+    seconds = time.perf_counter() - t_start
+    print(f"gauge: phase seconds {seconds:.1f}", flush=True)
+    return {"launches": launches + sweep_launches, "headline": headline, "fine": fine,
+            "wall_on_s": wall_on, "wall_off_s": wall_off, "seconds": seconds,
+            "launches_a_chunk": launches // chunks}
+
+
+def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict,
+                   gauge: dict) -> list:
     """The kernels line's entries: the DES kernel at the headline's capped
     check (its launches over the six DES paths), each fast kernel at its
     headline call (its launches over the thirteen fast paths), and the
@@ -3086,6 +3356,28 @@ def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict) -> li
             "call": kind,
             "path": path,
         })
+    # the gauge grid at the headline's series run: a launch's mean over its
+    # calls (its launches: that run's, gauge_series_sweep's and the chaos
+    # campaign's)
+    from asyncflow_tpu_torch.engines.torchsim.gauge_grid import GaugeGrid
+
+    g = gauge["headline"]
+    kernels.append({
+        "name": GaugeGrid.name,
+        "route": GaugeGrid.route,
+        "source": GaugeGrid.source,
+        "replaces": GaugeGrid.replaces,
+        "launches": gauge["launches"] + sum(f["gauge_launches"] for f in fast.values()),
+        "max_abs_err": max(g["max_abs_err"], gauge["fine"]["max_abs_err"]),
+        "ms": g["ms"],
+        "plain_ms": g["plain_ms"],
+        "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"],
+        "library_ms": g["library_ms"],
+        "call": "the headline's gauge sites, a launch's mean",
+        "path": "two_servers_lb with a streamed series",
+        "launches_a_chunk": gauge["launches_a_chunk"],
+    })
     return kernels
 
 
@@ -3187,12 +3479,15 @@ def main() -> int:
         t4 = time.perf_counter()
         fast = {name: phase_fast_path(torch, name, paths.get(name)) for name in FAST_PAYLOADS}
         t5 = time.perf_counter()
+        gauge = phase_gauge(torch)
+        t6 = time.perf_counter()
     except (SmokeError, subprocess.CalledProcessError) as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
     print(f"phase seconds: setup {t1 - t0:.1f}, kernel vs twin {t2 - t1:.1f}, "
-          f"paths {t3 - t2:.1f}, fast kernels vs plain {t4 - t3:.1f}, fast paths {t5 - t4:.1f}")
-    kernels = kernels_report(check, paths, fast_check, fast)
+          f"paths {t3 - t2:.1f}, fast kernels vs plain {t4 - t3:.1f}, fast paths {t5 - t4:.1f}, "
+          f"gauge grid {t6 - t5:.1f}")
+    kernels = kernels_report(check, paths, fast_check, fast, gauge)
     redesigned_report(fast)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

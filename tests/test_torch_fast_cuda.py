@@ -852,3 +852,60 @@ def test_fast_engine_controls_match_plain_on_cuda(cuda_device, make) -> None:
                   "n_rejected", "clock", "lat_sum", "gauge_means"):
         assert torch.equal(got[field], want[field]), field
     assert plan.lb_algo == 1 or int(got["n_rejected"].sum()) > 0
+
+
+#: (rows, lanes a row, per-lane amounts) of the gauge grid's card checks:
+#: stride grids in shared memory (the headline's 1 s series: 601 rows), the
+#: largest there, and fine grids past it (30 s and 600 s at 0.01 s)
+GAUGE_CASES = [(601, 87_840, False), (2048, 20_011, True), (2049, 20_011, False),
+               (3001, 20_011, True), (60_001, 4099, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("rows", "n", "per_lane"), GAUGE_CASES)
+def test_gauge_grid_matches_plain_on_cuda(cuda_device, rows: int, n: int,
+                                          per_lane: bool) -> None:
+    """One site's intervals into a grid holding other adds: bit-exact with
+    the plain scatter (whole amounts), each form counted."""
+    from asyncflow_tpu_torch.engines.torchsim import gauge_grid
+
+    g = torch.Generator(device=cuda_device).manual_seed(rows)
+    s = 16
+    period = 0.01
+    t0 = torch.rand((s, n), generator=g, device=cuda_device) * (period * rows)
+    t1 = t0 + torch.rand((s, n), generator=g, device=cuda_device)
+    t1[:, ::7] = 1e30
+    on = torch.rand((s, n), generator=g, device=cuda_device) > 0.25
+    amount = (torch.randint(1, 300, (s, n), generator=g, device=cuda_device).float()
+              if per_lane else 1.0)
+    base = torch.randint(-3, 4, (s, rows, 5), generator=g, device=cuda_device).float()
+    kernel = gauge_grid.GaugeGrid()
+    got = base.clone()
+    kernel.add(got, 3, t0, t1, on, amount, period)
+    want = base.clone()
+    gauge_grid.gauge_add_plain(want, 3, t0, t1, on, amount, period)
+    assert torch.equal(got, want)
+    form = "shared" if rows <= 2048 else "global"
+    assert kernel.launches == 1 and kernel.form_launches[form] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", [{"gauge_series_stride": 20}, {"collect_gauges": True}])
+def test_fast_engine_gauge_grid_matches_plain_on_cuda(cuda_device, option: dict) -> None:
+    """The whole engine's grid on the card, through the kernel and through
+    the plain scatter: identical, and every other output as without it."""
+    from asyncflow_tpu_torch.engines.torchsim import gauge_grid
+
+    plan = compile_payload(SimulationPayload.from_dict(
+        _overload({"max_connections": 6, "max_ready_queue": 4, "queue_timeout_s": 0.1})))
+    eng = FastEngine(plan, device=cuda_device, **option)
+    keys = scenario_keys(5, 16, device=cuda_device)
+    got = eng.run_tensors(keys)
+    assert eng.gauge.launches > 0
+    plain = copy.copy(eng)
+    plain.gauge = gauge_grid.PlainGaugeGrid()
+    assert torch.equal(got["gauge"], plain.run_tensors(keys)["gauge"])
+    off = FastEngine(plan, device=cuda_device).run_tensors(keys)
+    for field, value in off.items():
+        if field != "gauge":
+            assert torch.equal(got[field], value), field

@@ -1,8 +1,8 @@
 """The fast path's CUDA sources, compiled for the host CPU, against their
 plain PyTorch versions.
 
-``csrc/edge_draws.cu``, ``csrc/station_scan.cu`` and ``csrc/lb_route.cu``
-are plain C++ apart
+``csrc/edge_draws.cu``, ``csrc/station_scan.cu``, ``csrc/lb_route.cu`` and
+``csrc/gauge_grid.cu`` are plain C++ apart
 from CUDA's qualifiers, thread indices, shared memory and launches.  Built
 with g++ through a shim header that defines those away (a launch becomes
 a loop over the grid's rows and blocks and the block's threads, one thread
@@ -17,7 +17,10 @@ subtracts and maxima) are compared exactly, the delays and hop times
 within 4 ulps (glibc's ``logf``, ``log1pf`` and ``expf`` may round a
 value differently from torch's), and the gauge spans, float64 sums in one
 fixed order, exactly where the hop times agree, else within 1 ulp.
-Skipped where no g++ is installed.
+The gauge grid's sums of whole amounts are compared exactly.
+``station_scan.cu`` is built without optimisation (its 132 host instances
+took ~30 s of g++ at ``-O2`` and take ~4 s at ``-O0``; its checks run a
+little slower); the others at ``-O2``.  Skipped where no g++ is installed.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse 
     torch_inference_mode,
 )
 
-from asyncflow_tpu_torch.engines.torchsim import _build, draws, routing, station_scan
+from asyncflow_tpu_torch.engines.torchsim import _build, draws, gauge_grid, routing, station_scan
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.engines.torchsim.sampling import (
     D_EXPONENTIAL,
@@ -74,12 +77,15 @@ inline int cudaGetLastError() { return 0; }
 inline float __uint_as_float(unsigned x) { float f; std::memcpy(&f, &x, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned x; std::memcpy(&x, &f, 4); return x; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned old = *p; *p += v; return old; }
+inline float atomicAdd(float* p, float v) { float old = *p; *p += v; return old; }
 #define __launch_bounds__(...)
 #define __host__
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline void __syncthreads() {}
 template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
 template <class T> inline T __shfl_down_sync(unsigned, T v, unsigned) { return v; }
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
+inline int __all_sync(unsigned, int p) { return p; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
 inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
 inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
@@ -110,9 +116,12 @@ HOST_LAUNCH_2D = (
 #: the dynamic shared memory of edge_draws.cu's hop and of lb_route.cu's
 #: table, as static buffers
 HOST_SMEM = {"edge_draws": "uint4 edge_smem[1 << 12];\n",
-             "lb_route": "uint32_t route_smem[1 << 14];\n"}
+             "lb_route": "uint32_t route_smem[1 << 14];\n",
+             "gauge_grid": "float gauge_smem[2048];\n"}
 #: the launch statements on dim3 grids each source has
-LAUNCHES_2D = {"edge_draws": 4, "lb_route": 4}
+LAUNCHES_2D = {"edge_draws": 4, "lb_route": 4, "gauge_grid": 2}
+#: g++'s optimisation of each host build
+HOST_OPT = {"station_scan": "-O0"}
 
 
 def _start(tmp: Path, name: str) -> tuple[subprocess.Popen, Path]:
@@ -132,7 +141,8 @@ def _start(tmp: Path, name: str) -> tuple[subprocess.Popen, Path]:
     (tmp / f"{name}.cpp").write_text(src)
     lib = tmp / f"lib{name}_host.so"
     proc = subprocess.Popen(  # noqa: S603 - fixed argv
-        [shutil.which("g++"), "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+        [shutil.which("g++"), "-std=c++17", HOST_OPT.get(name, "-O2"), "-ffp-contract=off",
+         "-shared", "-fPIC",
          "-Wno-unknown-pragmas", "-o", str(lib), str(tmp / f"{name}.cpp")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
@@ -155,8 +165,9 @@ def host_libs(tmp_path_factory) -> dict[str, ctypes.CDLL]:
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel sources for the host")
     tmp = tmp_path_factory.mktemp("fast_host")
-    # the three g++ builds at once
-    started = {name: _start(tmp, name) for name in ("station_scan", "edge_draws", "lb_route")}
+    # the four g++ builds at once
+    started = {name: _start(tmp, name)
+               for name in ("station_scan", "edge_draws", "lb_route", "gauge_grid")}
     libs = {name: _finish(*job) for name, job in started.items()}
     for name, lib in libs.items():
         getattr(lib, f"{name}_launch").argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -168,6 +179,9 @@ def host_libs(tmp_path_factory) -> dict[str, ctypes.CDLL]:
     assert libs["station_scan"].station_scan_args_size() == ctypes.sizeof(
         station_scan._StationArgs)
     assert libs["lb_route"].lb_route_args_size() == ctypes.sizeof(routing._LbRouteArgs)
+    assert libs["gauge_grid"].gauge_grid_args_size() == ctypes.sizeof(
+        gauge_grid._GaugeGridArgs)
+    libs["gauge_grid"].gauge_grid_shared_rows.restype = ctypes.c_int
     return libs
 
 
@@ -1251,3 +1265,40 @@ def test_a_found_build_reports_its_ptxas_log(tmp_path, monkeypatch) -> None:
     target.with_suffix(".ptxas").unlink()
     with pytest.raises(Rebuilt):
         _build.build(["lb_route"])
+
+
+#: (rows of the grid, lanes a row, per-lane amounts) of the gauge grid's
+#: checks: a stride grid in shared memory, the largest one there, and fine
+#: grids past it (the global form), with +-1 and whole-MB amounts
+GAUGE_CASES = [(61, 4099, False), (2048, 517, True), (2049, 517, False), (3001, 4099, True)]
+
+
+@pytest.mark.parametrize(("rows", "n", "per_lane"), GAUGE_CASES)
+def test_gauge_grid_matches_plain(host_libs, rows: int, n: int, per_lane: bool) -> None:
+    """One gauge site's intervals into column 2 of a (S, rows, 4) grid that
+    already holds other sites' adds: bit-exact with the plain scatter
+    (sums of whole amounts), the other columns untouched; intervals
+    past the horizon land in the last row."""
+    lib = host_libs["gauge_grid"]
+    g = torch.Generator().manual_seed(rows + n)
+    period = 0.05
+    span = period * rows
+    t0 = torch.rand((S, n), generator=g) * span
+    t1 = t0 + torch.rand((S, n), generator=g) * 2.0
+    t1[:, ::7] = 1e30
+    on = torch.rand((S, n), generator=g) > 0.25
+    amount = (torch.randint(1, 300, (S, n), generator=g).float() if per_lane
+              else torch.tensor(1.0))
+    base = torch.randint(-3, 4, (S, rows, 4), generator=g).float()
+    got = base.clone()
+    args = gauge_grid._GaugeGridArgs(
+        t0=t0.data_ptr(), t1=t1.data_ptr(), on=on.data_ptr(),
+        amount=amount.data_ptr() if per_lane else None, grid=got.data_ptr(), S=S, n=n,
+        rows=rows, G=4, col=2, scale=gauge_grid.bucket_scale(period),
+        amount_scalar=0.0 if per_lane else 1.0)
+    _launch(lib, "gauge_grid_launch", args)
+    want = base.clone()
+    gauge_grid.gauge_add_plain(want, 2, t0, t1, on, amount, period)
+    assert torch.equal(got, want)
+    assert torch.equal(got[:, :, [0, 1, 3]], base[:, :, [0, 1, 3]])
+    assert lib.gauge_grid_shared_rows() == 2048

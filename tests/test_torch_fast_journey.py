@@ -48,7 +48,7 @@ def test_journey_on_the_reference_arrivals(name: str) -> None:
                                jnp.zeros(ref_plan.n_gauges))
         return t, alive, out[0], out[1]
 
-    t, alive, finish, done = (np.asarray(x) for x in jax.vmap(one)(keys))
+    t, alive, finish, done = (np.asarray(x) for x in jax.jit(jax.vmap(one))(keys))
     eng = FastEngine(compile_payload(SimulationPayload.from_dict(data)), device="cpu")
     got_finish, got_done = eng._journey(
         torch.as_tensor(np.asarray(keys).astype(np.int64)),

@@ -182,8 +182,7 @@ def test_ineligible_plan_is_refused_with_the_reason() -> None:
 
 @pytest.mark.parametrize(
     ("option", "feature"),
-    [({"collect_gauges": True}, "gauge grid"), ({"trace": {}}, "flight recorder"),
-     ({"blame": True}, "blame")],
+    [({"trace": {}}, "flight recorder"), ({"blame": True}, "blame")],
 )
 def test_out_of_slice_options_are_refused_by_name(option: dict, feature: str) -> None:
     plan = compile_payload(SimulationPayload.from_dict(example("single_server")))
@@ -194,3 +193,17 @@ def test_out_of_slice_options_are_refused_by_name(option: dict, feature: str) ->
         eng.run_batch(np.zeros((1, 2), np.uint32), antithetic=True)
     with pytest.raises(UnsupportedFeatureError, match="run_batch_scanned"):
         eng.run_batch_scanned(np.zeros((1, 2), np.uint32))
+
+
+@pytest.mark.parametrize(
+    ("option", "rows"),
+    [({"collect_gauges": True}, lambda plan: plan.n_samples + 2),
+     ({"gauge_series_stride": 7}, lambda plan: plan.n_samples // 7 + 2)],
+)
+def test_gauge_grid_options_run(option: dict, rows) -> None:
+    """The gauge grid, once refused by name, runs: every gauge's interval
+    endpoints on the fine grid or on one coarsened k-fold."""
+    plan = compile_payload(SimulationPayload.from_dict(example("single_server", horizon=5)))
+    state = FastEngine(plan, device="cpu", **option).run_batch(np.zeros((2, 2), np.uint32))
+    assert state.gauge.shape == (2, rows(plan), plan.n_gauges)
+    assert np.abs(state.gauge).sum() > 0

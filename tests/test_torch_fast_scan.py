@@ -45,7 +45,7 @@ def _jax_rows(fn, *arrays):
 
 def test_lindley_within_4_ulps_of_the_horizon() -> None:
     a, d, v = _stream(1, 4000, rate=80.0, svc=0.011)  # ~0.6 utilisation
-    want = _jax_rows(_lindley_waits, a, d, v)
+    want = _jax_rows(jax.jit(_lindley_waits), a, d, v)
     got = station_scan.lindley_plain(*(torch.as_tensor(x) for x in (a, d, v))).numpy()
     tol = 4 * np.spacing(np.float32(HORIZON))
     assert np.abs(got - want)[v].max() <= tol

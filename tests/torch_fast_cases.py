@@ -482,12 +482,16 @@ def port_examples() -> list[str]:
     return names
 
 
-def reference_window_draws(jax_plan, keys, n_windows: int | None = None):
+def reference_window_draws(jax_plan, keys, n_windows: int | None = None, *,
+                           user_mean=None, rate=None):
     """(users, counts), (S, NW) each, as the reference's ``_arrivals_stream``
     draws them for each key (``jax.random.poisson`` users at
     ``fold_in(fold_in(key, 0), 1)``, counts at ``... 2``).  With several
     generators, a list of each stream's (S, NW_g) users and one of its
-    counts, stream g keyed ``fold_in(fold_in(key, 0), 101 + g)``."""
+    counts, stream g keyed ``fold_in(fold_in(key, 0), 101 + g)``.
+    ``user_mean`` and ``rate`` (requests per user a second), where given,
+    are a scenario's (S,) or, with several generators, (S, G) overrides of
+    the plan's."""
     import jax
     import jax.numpy as jnp
 
@@ -514,19 +518,29 @@ def reference_window_draws(jax_plan, keys, n_windows: int | None = None):
         ).astype(jnp.int32)
         return users, jnp.where(lam > 0, counts, 0)
 
-    if jax_plan.n_generators == 1:
-        users, counts = jax.vmap(lambda key: stream(
-            jax.random.fold_in(key, 0), jax_plan.user_mean, jax_plan.user_var,
-            jax_plan.user_window, jax_plan.req_per_user_per_sec))(keys)
+    s = np.asarray(keys).shape[0]
+    g_all = jax_plan.n_generators
+    base_um = (np.full(s, jax_plan.user_mean) if g_all == 1
+               else np.tile(np.asarray(jax_plan.gen_user_mean), (s, 1)))
+    base_rr = (np.full(s, jax_plan.req_per_user_per_sec) if g_all == 1
+               else np.tile(np.asarray(jax_plan.gen_rate), (s, 1)))
+    um_all = np.broadcast_to(np.asarray(base_um if user_mean is None else user_mean,
+                                        np.float32), base_um.shape)
+    rr_all = np.broadcast_to(np.asarray(base_rr if rate is None else rate, np.float32),
+                             base_rr.shape)
+    if g_all == 1:
+        users, counts = jax.vmap(lambda key, um, rr: stream(
+            jax.random.fold_in(key, 0), um, jax_plan.user_var,
+            jax_plan.user_window, rr))(keys, um_all, rr_all)
         if n_windows is not None:
             assert users.shape[1] == n_windows
         return np.array(users), np.array(counts)
     users, counts = [], []
     for g in range(jax_plan.n_generators):
-        u_g, c_g = jax.vmap(lambda key, g=g: stream(
+        u_g, c_g = jax.vmap(lambda key, um, rr, g=g: stream(
             jax.random.fold_in(jax.random.fold_in(key, 0), 101 + g),
-            float(jax_plan.gen_user_mean[g]), float(jax_plan.gen_user_var[g]),
-            float(jax_plan.gen_window[g]), float(jax_plan.gen_rate[g])))(keys)
+            um, float(jax_plan.gen_user_var[g]),
+            float(jax_plan.gen_window[g]), rr))(keys, um_all[:, g], rr_all[:, g])
         users.append(np.array(u_g))
         counts.append(np.array(c_g))
     return users, counts
@@ -657,3 +671,43 @@ def assert_poisson(counts: np.ndarray, mu: float) -> None:
     assert len(obs) >= 3
     p = stats.chisquare(obs, expected).pvalue
     assert p >= CHI2_P_MIN, (mu, p)
+
+
+def inject_reference_draws(runner, ref_plan) -> None:
+    """Make the port's fast ``SweepRunner`` draw every window's users and
+    arrival counts as the reference's ``FastEngine`` does for the same
+    scenario keys and workload overrides (``reference_window_draws``), so
+    that both packages' sweeps of one seed run the same arrivals."""
+    eng = runner.engine
+    streams = ref_plan.n_generators
+
+    def window_draws(keys, user_mean, req_rate):
+        jkeys = keys.cpu().numpy().astype(np.uint32)
+        s = jkeys.shape[0]
+        um = np.stack([np.broadcast_to(np.asarray(u, np.float32), (s,)) for u in user_mean],
+                      axis=1)
+        rr = np.stack([r.cpu().numpy() for r in req_rate], axis=1)
+        if streams == 1:
+            um, rr = um[:, 0], rr[:, 0]
+        _users, counts = reference_window_draws(ref_plan, jkeys, user_mean=um, rate=rr)
+        counts = counts if streams > 1 else [counts]
+        return None, [torch.as_tensor(c, device=keys.device) for c in counts]
+
+    eng.window_draws = window_draws
+
+
+def scaled_events(data: dict, horizon: float) -> dict:
+    """``data`` cut to ``horizon`` seconds with its events' and fault
+    windows' times scaled with it (``chip_smoke._fast_check_payload``)."""
+    import copy
+
+    data = copy.deepcopy(data)
+    scale = horizon / data["sim_settings"]["total_simulation_time"]
+    data["sim_settings"]["total_simulation_time"] = horizon
+    for event in data.get("events", []):
+        event["start"]["t_start"] *= scale
+        event["end"]["t_end"] *= scale
+    for fault in data.get("fault_timeline", {}).get("events", []):
+        fault["t_start"] *= scale
+        fault["t_end"] *= scale
+    return data
