@@ -21,8 +21,10 @@
 // 16-lane blocks, and this kernel computes every level of it in one pass a
 // row (gap_sum_kernel).  Built with --fmad=false: every float
 // operation rounds on its own, as the plain PyTorch version's does; the
-// multiply-adds XLA fuses in its log1p are fmaf here, and float64 steps
-// rounded once in the plain version (equal on every uniform).
+// multiply-adds XLA fuses (in its log1p, a normal law's mean + var * z,
+// and a delay's last multiply with the spike or the send time it is added
+// to) are fmaf / __fmaf_rn here, and float64 steps rounded once in the
+// plain version (draws.fma_xla: equal on every input).
 //
 // Modes:
 //   0 uniform: out (S, n) = u, or the gap -log1p(-u) with `gap` (of the
@@ -38,8 +40,9 @@
 //      scenario's own row of (S, NF) or on the shared (NF,), the row's
 //      tables staged in the block's shared memory where they fit) boosts
 //      the drop probability, p = clip(drop + boost, 0, 1), and multiplies
-//      the law's delay by its factor before the spike is added (two
-//      roundings, as XLA's _edge_hop); per scenario the drop count (gate &
+//      the law's delay by its factor before the spike is added (the
+//      factor's product rounded with the add after it, as the jitted
+//      _edge_hop rounds them: lane_delay); per scenario the drop count (gate &
 //      dropped, and the LB's drops) and each edge slot's gauge span, the
 //      sum over ok lanes of max(min(t_send + delay, h) - min(t_send, h), 0),
 //      in float64 in a fixed order (a thread's 16 consecutive lanes, the
@@ -203,9 +206,8 @@ __device__ __forceinline__ float uniform_of(uint32_t k0, uint32_t k1, uint32_t i
 }
 
 // a multiply-add that XLA's CPU code fuses, rounded once.  The plain
-// version computes it as float64 a * b + c rounded to float32 (the product
-// is exact in float64); the two agree on all 2**23 uniforms' gaps
-// (chip_smoke.py checks it), and fmaf is the cheaper of the two here.
+// version computes it in float64 (the product exact, the sum rounded to
+// odd) and rounds that to float32: equal to fmaf on every input.
 __device__ __forceinline__ float fma_xla(float a, float b, float c) {
   return fmaf(a, b, c);
 }
@@ -271,7 +273,8 @@ __device__ float log1p_xla(float x) {
   return x + r;
 }
 
-// XLA's float32 erf_inv (Giles' polynomial), one operation at a time
+// XLA's float32 erf_inv (Giles' polynomial) as the jitted reference runs
+// it: its log1p XLA's, its Horner steps fused
 __device__ __forceinline__ float erfinv_xla(float x) {
   const float lt5[9] = {2.81022636e-08f,  3.43273939e-07f, -3.5233877e-06f,
                         -4.39150654e-06f, 0.00021858087f,  -0.00125372503f,
@@ -279,12 +282,12 @@ __device__ __forceinline__ float erfinv_xla(float x) {
   const float ge5[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f,
                         -0.00367342844f,  0.00573950773f,  -0.0076224613f,
                         0.00943887047f,   1.00167406f,     2.83297682f};
-  float w = -log1pf(-x * x);
+  float w = -log1p_xla(-x * x);
   const bool lt = w < 5.0f;
   w = lt ? w - 2.5f : sqrtf(w) - 3.0f;
   float p = lt ? lt5[0] : ge5[0];
 #pragma unroll
-  for (int i = 1; i < 9; ++i) p = (lt ? lt5[i] : ge5[i]) + p * w;
+  for (int i = 1; i < 9; ++i) p = fma_xla(p, w, lt ? lt5[i] : ge5[i]);
   return fabsf(x) == 1.0f ? x * 3.40282347e+38f : p * x;
 }
 
@@ -563,12 +566,20 @@ __global__ void __launch_bounds__(kRowThreads) gap_sum_kernel(EdgeDrawArgs a) {
 
 // One lane's delay over the edge of a slot's parameters p (the bits of its
 // drop, mean and var, and its edge x 8 + law) and whether its uniform drops
-// it, under the fault row's factor and boost (kFault); the spike is added
-// by the caller.  Each operation in the order of the plain version.
+// it, under the fault row's factor and boost (kFault), as a product d x f
+// whose last multiply is not yet rounded (f = 1 where the delay's last
+// step is no multiply): XLA's CPU compiler contracts the exponential's
+// -m * log(..), or a fault's factor, into the add that consumes it (the
+// spike, or the send time), so the jitted reference rounds the two once
+// and the caller adds with __fmaf_rn.  With ``select`` (several laws among
+// the LB's slots) the law's delay is rounded first, as the reference's
+// lane-by-lane select rounds it; a normal law's m + var * z is fused.
+// Each operation in the order of the plain version.
 template <bool kFault>
 __device__ __forceinline__ float lane_delay(uint32_t k0, uint32_t k1, uint32_t z0, uint32_t z1,
                                             uint32_t lane, const uint4 p, float factor,
-                                            float boost, bool& dropped) {
+                                            float boost, bool select, float& f,
+                                            bool& dropped) {
   const float u = uniform_of(k0, k1, lane);
   float pd = __uint_as_float(p.x);
   if (kFault) pd = fminf(fmaxf(pd + boost, 0.0f), 1.0f);
@@ -576,16 +587,25 @@ __device__ __forceinline__ float lane_delay(uint32_t k0, uint32_t k1, uint32_t z
   const uint32_t law = p.w & 7u;
   const float u_lat = (u - pd) / fmaxf(1.0f - pd, kTiny);
   float d;
+  f = 1.0f;
   if (law == kUniform) {
     d = u_lat;
   } else if (law == kExponential) {
-    d = -m * logf(fmaxf(1.0f - u_lat, kTiny));
+    d = -m;
+    f = logf(fmaxf(1.0f - u_lat, kTiny));
+    if (select) {
+      d = d * f;
+      f = 1.0f;
+    }
   } else {
     const float z = normal_of(z0, z1, lane);
-    const float x = m + __uint_as_float(p.z) * z;
+    const float x = __fmaf_rn(__uint_as_float(p.z), z, m);
     d = law == kNormal ? fmaxf(x, 0.0f) : expf(x);
   }
-  if (kFault) d = d * factor;
+  if (kFault) {
+    d = d * f;
+    f = factor;
+  }
   dropped = u < pd;
   return d;
 }
@@ -687,6 +707,11 @@ __global__ void __launch_bounds__(kThreads) hop_kernel(EdgeDrawArgs a) {
     __syncthreads();
 #endif
   }
+  // several laws among the LB's slots: each lane's law's delay is rounded
+  // (the reference selects it lane by lane)
+  bool select = false;
+  if (!kCands && lb)
+    for (int k = 1; k < K; ++k) select = select || (par[k].w & 7u) != (par[0].w & 7u);
   // the spike a lane adds: row si of slot k's column (edge e)
   auto spike_of = [&](int si, int k, uint32_t e) {
     return m.spike_staged ? sp[nb + k * nb + si] : a.spike_v[(size_t)si * ne + e];
@@ -800,12 +825,16 @@ __global__ void __launch_bounds__(kThreads) hop_kernel(EdgeDrawArgs a) {
           const float ts = t[i];
           const bool gate = live[i] && ts < h;
           bool dropped;
+          float f;
           float d = lane_delay<kFault>(kk.x, kk.y, kk.z, kk.w, lane[i], p,
                                        kFault ? flat[fi[i] * ne + e] : 1.0f,
-                                       kFault ? fdrop[fi[i] * ne + e] : 0.0f, dropped);
-          if (nb > 0) d = d + spike_of(si[i], k, e);
+                                       kFault ? fdrop[fi[i] * ne + e] : 0.0f, false, f,
+                                       dropped);
+          d = nb > 0 ? __fmaf_rn(d, f, spike_of(si[i], k, e)) : d * f;
           const bool ok = gate && !dropped;
           const size_t o = (base + lane[i]) * (size_t)K + (size_t)k;
+          // the reference stacks the slots' delays before it adds the send
+          // time: the delay is rounded first
           a.out[o] = ok ? ts + d : ts;
           a.ok[o] = ok ? 1u : 0u;
         }
@@ -832,12 +861,17 @@ __global__ void __launch_bounds__(kThreads) hop_kernel(EdgeDrawArgs a) {
         const uint4 p = par[slot];
         const uint32_t e = p.w >> 3;
         bool dropped;
+        float f;
         float d = lane_delay<kFault>(k0, k1, z0, z1, lane[i], p,
                                      kFault ? flat[fi[i] * ne + e] : 1.0f,
-                                     kFault ? fdrop[fi[i] * ne + e] : 0.0f, dropped);
-        if (nb > 0) d = d + spike_of(si[i], slot, e);
+                                     kFault ? fdrop[fi[i] * ne + e] : 0.0f, select, f,
+                                     dropped);
+        if (nb > 0) {
+          d = __fmaf_rn(d, f, spike_of(si[i], slot, e));
+          f = 1.0f;
+        }
         const bool ok = gate && !dropped;
-        const float t_end = ts + d;
+        const float t_end = __fmaf_rn(d, f, ts);
         // the lane's span (0 where not sent) for its slot: added to the
         // thread's sum in lane order, or left with its slot for the sums
         const float span = ok ? fmaxf(fminf(t_end, h) - fminf(ts, h), 0.0f) : 0.0f;

@@ -20,7 +20,9 @@
 //                   outputs (g - A, s - (g + pre), release);
 //   mode 3          the token bucket of ``burst`` tokens refilled at
 //                   ``rate`` a second, full at time 0: tok = min(burst,
-//                   tokens + (A_k - last) * rate) (three roundings);
+//                   fmaf(A_k - last, rate, tokens)) (the refill's
+//                   multiply and add rounded once, as the jitted
+//                   reference's fused multiply-add rounds them);
 //                   accept where valid and tok >= 1, spending one; the
 //                   tokens and the clock ``last`` advance on every valid
 //                   element, refused ones included; output the accepted
@@ -112,13 +114,14 @@
 //
 // The token bucket (mode 3) a warp a row, its chain on the valid elements
 // only.  The clock ``last`` is the time of the row's previous valid
-// element: it depends on validity alone, so each valid element's refill
-// (t - last) * rate is computed off the chain, a lane an element (the
+// element: it depends on validity alone, so each valid element's elapsed
+// time t - last is computed off the chain, a lane an element (the
 // previous valid lane found in the line's ballot, the line's last valid
 // time carried to the next line), and written compacted (a popcount of the
 // ballot below the lane) to the warp's stage.  The chain then walks only
-// the line's valid elements, every lane alike: y = min(burst, tokens +
-// inc), tokens = y >= 1 ? y - 1 : y, storing the tokens before each step;
+// the line's valid elements, every lane alike: y = min(burst,
+// fmaf(dt, rate, tokens)), tokens = y >= 1 ? y - 1 : y, storing the tokens
+// before each step;
 // each lane recomputes its own y from them (the same operands, so the same
 // bits) for its accepted flag.  A line with no valid element costs a
 // ballot and a store of zero flags, so a row's invalid tail (the fast path
@@ -853,7 +856,7 @@ __global__ void __launch_bounds__(kWarps * kLanes) bucket_warp_kernel(StationArg
         // at the element's place among the line's valid ones
         const unsigned prior = valid & below;
         const float t_prior = __shfl_sync(kAll, ct[i], prior != 0u ? top_bit(prior) : 0);
-        const float inc = (ct[i] - (prior != 0u ? t_prior : last)) * rate;
+        const float inc = ct[i] - (prior != 0u ? t_prior : last);
         const int at = __popc(prior);
         if (ok) sinc[at] = inc;
         last = __shfl_sync(kAll, ct[i], top_bit(valid));
@@ -872,14 +875,14 @@ __global__ void __launch_bounds__(kWarps * kLanes) bucket_warp_kernel(StationArg
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             set_lane(before, u, tokens);
-            const float y = fminf(burst, tokens + lane_of(inc4, u));
+            const float y = fminf(burst, __fmaf_rn(lane_of(inc4, u), rate, tokens));
             tokens = y >= 1.0f ? y - 1.0f : y;
           }
           stage_tok[w][j / 4] = before;
         }
         if ((n & 3) != 0) tokens = stok[n];
         __syncwarp();
-        if (ok) accepted = fminf(burst, stok[at] + inc) >= 1.0f ? 1 : 0;
+        if (ok) accepted = fminf(burst, __fmaf_rn(inc, rate, stok[at])) >= 1.0f ? 1 : 0;
         __syncwarp();  // the stage is rewritten next line
       }
       const int64_t k = k0 + i * kLanes + lane;

@@ -24,7 +24,8 @@ cumsum of ``_arrivals_stream`` and the raw ``draw_uniform`` streams):
   windows (``_edge_fault``) the row of the edge's fault table active at
   the send time boosts ``p`` (``clip(p + boost, 0, 1)``) and multiplies
   the delay by its factor; the network spike active at the send time is
-  added last (two roundings: the product, then the sum);
+  added last, and the send time after it (each add rounds the multiply
+  before it with it, as the jitted reference does: :class:`Delay`);
 - an arrival gap is ``-log1p(-u)`` with XLA's CPU ``log1p`` (Cephes'
   rational form below sqrt(2) - 1 with fused Horner steps, else XLA's CPU
   ``log``, Eigen's ``plog``), and the gaps' prefix sum is XLA's CPU
@@ -33,8 +34,12 @@ cumsum of ``_arrivals_stream`` and the raw ``draw_uniform`` streams):
   take the reference's values on every device.
 
 A fused multiply-add of XLA's is computed here as a float64 ``a * b + c``
-rounded once to float32 (the product is exact in float64), and as
-``fmaf`` in the kernel: the two agree on every uniform a gap draws.
+rounded once to float32 (:func:`fma_xla`: the product is exact in
+float64, the sum rounded to odd), and as ``fmaf`` in the kernel: the two
+agree on every input.  XLA's CPU compiler contracts a float multiply into
+the add that alone consumes it inside one fusion, so the jitted reference
+rounds such a pair once; the hop's delay and its sum with the spike or
+the send time are such pairs (:class:`Delay`).
 
 :class:`EdgeDraws` is the wrapper: on CUDA tensors it launches the kernel
 (built on first use) or raises, on CPU tensors it runs the plain version.
@@ -112,13 +117,14 @@ def sqrt32(x: torch.Tensor) -> torch.Tensor:
 
 
 def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 ``erf_inv``: one operation at a time, in its order."""
-    w = -torch.log1p(-x * x)
+    """XLA's float32 ``erf_inv`` as the jitted reference runs it: in its
+    order, its ``log1p`` XLA's and its Horner steps fused."""
+    w = -log1p_xla(-x * x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, sqrt32(w) - 3.0)
     p = torch.where(lt, f32(ERFINV_LT5[0]), f32(ERFINV_GE5[0]))
     for c_lt, c_ge in zip(ERFINV_LT5[1:], ERFINV_GE5[1:]):
-        p = torch.where(lt, f32(c_lt), f32(c_ge)) + p * w
+        p = fma_xla(p, w, torch.where(lt, f32(c_lt), f32(c_ge)))
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, p * x)
 
 
@@ -130,28 +136,53 @@ def normal(keys: torch.Tensor, n: int) -> torch.Tensor:
     return SQRT2 * erfinv_xla(u)
 
 
-def delay_law(dist: int, mean, var, u: torch.Tensor, z) -> torch.Tensor:
+class Delay(NamedTuple):
+    """An edge delay ``a * b`` whose product is not yet rounded: XLA's CPU
+    compiler contracts a delay's last multiply (the exponential law's
+    ``-mean * log``, a fault's factor) into the add that consumes it (the
+    spike, or the send time), so the jitted reference rounds the two once.
+    ``b`` is 1 where the delay's last step is no multiply (1 * a is
+    exact, and an add of it is rounded once either way)."""
+
+    a: torch.Tensor
+    b: torch.Tensor | float
+
+    def value(self) -> torch.Tensor:
+        """The delay alone, its product rounded."""
+        return self.a * self.b
+
+    def plus(self, c) -> torch.Tensor:
+        """``c + delay``, the product fused into the add."""
+        return fma_xla(self.a, self.b, c)
+
+
+def delay_law(dist: int, mean, var, u: torch.Tensor, z) -> Delay:
     """An edge's delay from its uniform ``u`` (and normal ``z``), as
     ``jaxsim/sampling.py``: uniform ignores the mean; normal and lognormal
-    read the variance field as their scale."""
+    read the variance field as their scale (``mean + var * z`` a fused
+    multiply-add); the exponential's ``-mean * log(..)`` stays unrounded."""
     if dist == D_UNIFORM:
-        return u
+        return Delay(u, 1.0)
     if dist == D_EXPONENTIAL:
-        return -mean * torch.log(torch.clamp_min(1.0 - u, f32(TINY)))
+        return Delay(-mean, torch.log(torch.clamp_min(1.0 - u, f32(TINY))))
     if dist == D_NORMAL:
-        return torch.clamp_min(mean + var * z, 0.0)
+        return Delay(torch.clamp_min(fma_xla(var, z, mean), 0.0), 1.0)
     if dist == D_LOGNORMAL:
-        return torch.exp(mean + var * z)
+        return Delay(torch.exp(fma_xla(var, z, mean)), 1.0)
     msg = f"the fast path draws no edge delay of distribution {dist}"
     raise ValueError(msg)
 
 
-def hop_laws(dist: np.ndarray, edge: int | None) -> list[int]:
+def hop_laws(dist: np.ndarray, edge: int | None, lb_edge=None) -> list[int]:
     """The delay laws a hop may apply: its static edge's, or with per-lane
-    edges every law of the plan (which a fast-path plan keeps free of
-    Poisson edges)."""
+    edges the laws of the LB's edges ``lb_edge`` (every law of the plan
+    where it is not given; a fast-path plan keeps them free of Poisson
+    edges)."""
     if edge is not None:
         return [int(dist[edge])]
+    if lb_edge is not None:
+        edges = np.asarray(torch.as_tensor(lb_edge).cpu(), np.int64)
+        return sorted({int(dist[e]) for e in edges.tolist()})
     return sorted({int(d) for d in np.asarray(dist).tolist()})
 
 
@@ -179,11 +210,19 @@ SCAN_BLOCK = 16
 
 
 def fma_xla(a, b, c) -> torch.Tensor:
-    """``a * b + c`` rounded once to float32 (a fused multiply-add): in
-    float64, where the product of two float32 values is exact."""
-    dbl = [torch.as_tensor(x, dtype=torch.float64) if not isinstance(x, torch.Tensor)
-           else x.double() for x in (a, b, c)]
-    return (dbl[0] * dbl[1] + dbl[2]).float()
+    """``a * b + c`` rounded once to float32 (a fused multiply-add, the
+    kernel's ``fmaf``): in float64, where the product of two float32
+    values is exact, and the sum rounded to odd (its exact error by
+    TwoSum), so that rounding it to float32 rounds the exact value."""
+    a, b, c = (torch.as_tensor(x, dtype=torch.float64) if not isinstance(x, torch.Tensor)
+               else x.double() for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    inexact = (err != 0) & torch.isfinite(s) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, math.inf, -math.inf)
+    return torch.where(inexact, torch.nextafter(s, toward), s).float()
 
 
 def log_xla(v: torch.Tensor) -> torch.Tensor:
@@ -287,16 +326,20 @@ def edge_hop_plain(
     *,
     edge: int | None = None,
     eidx: torch.Tensor | None = None,
+    laws: list[int] | None = None,
     fault: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, Delay]:
     """(dropped, delay) of S x n lanes crossing one static ``edge`` or, with
-    ``eidx`` (S, n), each lane's own edge.  ``u`` is the lanes' uniform;
+    ``eidx`` (S, n), each lane's own edge, whose laws are ``laws`` (every
+    law of the plan where not given).  ``u`` is the lanes' uniform;
     ``mean``, ``var`` and ``drop`` are (S, NE); ``dist`` is the plan's
     (NE,) law table; ``zkey`` keys the normal stream (needed where a law
     reads one); ``fault``, where given, is each lane's (latency factor,
-    dropout boost), (S, n) each (:func:`fault_lookup`)."""
+    dropout boost), (S, n) each (:func:`fault_lookup`).  Several laws are
+    selected lane by lane, which rounds each law's delay (a select stands
+    between its multiply and any add)."""
     s, n = u.shape
-    laws = hop_laws(dist, edge)
+    laws = hop_laws(dist, edge) if laws is None else laws
     if eidx is None:
         m, v, p = (x[:, edge : edge + 1] for x in (mean, var, drop))
     else:
@@ -309,11 +352,12 @@ def edge_hop_plain(
         delay = delay_law(laws[0], m, v, u_lat, z)
     else:
         law = torch.as_tensor(np.asarray(dist, np.int64), device=u.device)[eidx.long()]
-        delay = torch.zeros_like(u)
+        picked = torch.zeros_like(u)
         for d in laws:
-            delay = torch.where(law == d, delay_law(d, m, v, u_lat, z), delay)
+            picked = torch.where(law == d, delay_law(d, m, v, u_lat, z).value(), picked)
+        delay = Delay(picked, 1.0)
     if fault is not None:
-        delay = delay * fault[0]
+        delay = Delay(delay.value(), fault[0])
     return dropped, delay
 
 
@@ -354,22 +398,22 @@ def fault_lookup(
 
 
 def spike_add(
-    delay: torch.Tensor,
+    delay: Delay,
     t_send: torch.Tensor,
     spike_t: torch.Tensor,
     spike_v: torch.Tensor,
     *,
     edge: int | None = None,
     eidx: torch.Tensor | None = None,
-) -> torch.Tensor:
+) -> Delay:
     """``delay`` plus the spike active on each lane's edge at its send time
-    (``_add_spike``): row ``searchsorted(spike_t, t_send, right) - 1`` of
-    ``spike_v`` (NB, NE), -1 wrapping to the last row as jax indexes."""
+    (``_add_spike``, the delay's product fused into the add): row
+    ``searchsorted(spike_t, t_send, right) - 1`` of ``spike_v`` (NB, NE),
+    -1 wrapping to the last row as jax indexes."""
     idx = torch.bucketize(t_send, spike_t, right=True) - 1
     idx = torch.where(idx < 0, spike_t.shape[0] - 1, idx)
-    if eidx is None:
-        return delay + spike_v[:, edge][idx]
-    return delay + spike_v[idx, eidx.long()]
+    spike = spike_v[:, edge][idx] if eidx is None else spike_v[idx, eidx.long()]
+    return Delay(delay.plus(spike), 1.0)
 
 
 #: the kernel's threads a block and lanes a thread (``kThreads``, ``kLanes``)
@@ -477,20 +521,24 @@ def hop_plain(
             pick = torch.where(gate, slot.long(), 0)
         eidx = tables.lb_edge.long()[pick]
         target = tables.lb_target[pick]
-    needs_z = bool(set(hop_laws(tables.dist, edge)) & set(NORMAL_LAWS))
+    laws = hop_laws(tables.dist, edge, None if edge is not None else tables.lb_edge)
+    needs_z = bool(set(laws) & set(NORMAL_LAWS))
     fault = (None if tables.fault_t is None
              else fault_lookup(tables, t_send, edge=edge, eidx=eidx))
     dropped, delay = edge_hop_plain(
         uniform(ukey, n), zkey if needs_z else None, tables.dist, tables.mean, tables.var,
-        tables.drop, edge=edge, eidx=eidx, fault=fault,
+        tables.drop, edge=edge, eidx=eidx, laws=laws, fault=fault,
     )
     if tables.spike_t is not None:
         delay = spike_add(delay, t_send, tables.spike_t, tables.spike_v, edge=edge, eidx=eidx)
     ok = gate & ~dropped
-    t_end = t_send + delay
     if not sums:
+        # least connections' candidates: the reference stacks the slots'
+        # delays before it adds the send time, so it rounds them first
+        t_end = t_send + delay.value()
         return HopOut(t_next=torch.where(ok, t_end, t_send), ok=ok, target=target, span=None,
                       dropped=None)
+    t_end = delay.plus(t_send)
     lane_span = torch.where(
         ok, torch.clamp_min(torch.clamp_max(t_end, h) - torch.clamp_max(t_send, h), 0.0), 0.0,
     ).double()

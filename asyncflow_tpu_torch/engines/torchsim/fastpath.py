@@ -98,6 +98,7 @@ from asyncflow_tpu_torch.engines.torchsim.draws import (
     EdgeTables,
     HopOut,
     fault_rows,
+    fma_xla,
     hop_keys,
     prefix_sum_xla,
 )
@@ -469,7 +470,13 @@ class FastEngine:
         denom = torch.clamp_min(wsum + extra, f32(TINY))
         u = torch.clamp((cum - base.gather(1, win)) / denom.gather(1, win), 0.0, 1.0)
         del cum
-        sampler_t = torch.where(valid, starts[win] + u * lens[win], INF)
+        # XLA's CPU compiler fuses ``starts[win] + u * lens[win]`` into one
+        # rounding, but for two windows: their two-entry table's lookup
+        # becomes a select whose arms share the product, which it then
+        # rounds on its own (one window: the same either way)
+        sampler_t = torch.where(
+            valid, fma_xla(u, lens[win], starts[win]) if nw != 2 else starts[win] + u * lens[win],
+            INF)
         del u
         # the last arrival of each window: sampler_t is nondecreasing within
         # a window (every step from cum is monotone), so the maximum over a
@@ -629,10 +636,12 @@ class FastEngine:
             if record:
                 lane_span = torch.where(ok, torch.clamp_min(
                     torch.clamp_max(t_next, horizon) - torch.clamp_max(t, horizon), 0.0), 0.0)
-                for k, e in enumerate(plan.lb_edge_index.tolist()):
+                edges = plan.lb_edge_index.tolist()
+                for k, e in enumerate(edges):
                     gm[:, e] += torch.where(slot == k, lane_span, 0.0).double().sum(dim=1).float()
-                    if grid is not None:
-                        self._gauge_intervals(grid, e, t, t_next, 1.0, ok & (slot == k))
+                if grid is not None:
+                    self.gauge.add_slots(grid, edges, t, t_next, ok, self._gauge_period,
+                                         slot=slot)
                 del lane_span
                 n_dropped += unrouted.sum(dim=1) + (alive & ~sent).sum(dim=1)
             if fail_t is not None:
@@ -649,13 +658,13 @@ class FastEngine:
             hop = self._hop(tables, keys, 32, t, alive, **lanes)
             srv = hop.target
             if record:
-                pick = (lanes["rank"] % plan.n_lb_edges if "rank" in lanes
-                        else lanes["slot"]) if grid is not None else None
-                for k, e in enumerate(plan.lb_edge_index.tolist()):
+                edges = plan.lb_edge_index.tolist()
+                for k, e in enumerate(edges):
                     gm[:, e] += hop.span[:, k]
-                    if grid is not None:
-                        self._gauge_intervals(grid, e, t, hop.t_next, 1.0, hop.ok & (pick == k))
-                del pick
+                if grid is not None:
+                    # each lane's edge: its slot, or its rank modulo the slots
+                    self.gauge.add_slots(grid, edges, t, hop.t_next, hop.ok,
+                                         self._gauge_period, **lanes)
                 n_dropped += hop.dropped
             del lanes
             if fail_t is not None:
@@ -727,7 +736,7 @@ class FastEngine:
             cores = int(plan.server_cores[s])
             kb = int(plan.n_bursts[s, :nep].max()) if nep else 0
             ram_k = int(plan.ram_slots[s]) if len(plan.ram_slots) else 0
-            w_ram = torch.zeros_like(t)
+            w_ram = None  # the RAM tier's wait: none but under a binding tier
             visits = 0
             cap = int(plan.server_queue_cap[s]) if len(plan.server_queue_cap) else -1
             timeout = (float(plan.server_queue_timeout[s]) if len(plan.server_queue_timeout)
@@ -784,10 +793,8 @@ class FastEngine:
                 gm[:, plan.gauge_ready(s)] += _span(e_k, e_k + w_k, vb, horizon)
                 gm[:, plan.gauge_io(s)] += _span(e_k - p_k, e_k, vb, horizon)
                 if grid is not None:
-                    self._gauge_intervals(grid, plan.gauge_ready(s), e_k, e_k + w_k, 1.0,
-                                          vb & (w_k > 0))
-                    self._gauge_intervals(grid, plan.gauge_io(s), e_k - p_k, e_k, 1.0,
-                                          vb & (p_k > 0))
+                    self.gauge.add_queue(grid, (plan.gauge_ready(s), plan.gauge_io(s)), e_k, w_k,
+                                         p_k, vb, self._gauge_period)
                 del e_k, w_k, p_k
             trail_start = dep - post
             dep = self._db_station(s, ep, mine, trail_start, trail_extra, dep)
@@ -795,12 +802,13 @@ class FastEngine:
                 # the trailing IO sleep holds the DB pool's wait too
                 gm[:, plan.gauge_io(s)] += _span(trail_start, dep, mine & (dep > trail_start),
                                                 horizon)
-                gm[:, plan.gauge_ram(s)] += _span(t + w_ram, dep, mine, horizon, amount=ram)
+                held = t if w_ram is None else t + w_ram
+                gm[:, plan.gauge_ram(s)] += _span(held, dep, mine, horizon, amount=ram)
+                del held
                 if grid is not None:
-                    self._gauge_intervals(grid, plan.gauge_io(s), trail_start, dep, 1.0,
-                                          mine & (dep > trail_start))
-                    self._gauge_intervals(grid, plan.gauge_ram(s), t + w_ram, dep, ram,
-                                          mine & (ram > 0))
+                    self.gauge.add_trail(grid, (plan.gauge_io(s), plan.gauge_ram(s)),
+                                         trail_start, dep, t, w_ram, mine, ram,
+                                         self._gauge_period)
 
             # exit edge: the send happens only while the clock runs
             eidx = int(plan.exit_edge[s])
@@ -825,9 +833,10 @@ class FastEngine:
 
     def _gauge_intervals(self, grid, gidx: int, t0, t1, amount, on) -> None:
         """+amount at ``t0``'s bucket and -amount at ``t1``'s in column
-        ``gidx`` of ``grid`` where ``on`` (``_gauge_intervals``); nothing
-        without a grid (the sites that build their intervals first skip the
-        call themselves)."""
+        ``gidx`` of ``grid`` where ``on`` (``_gauge_intervals``), a site
+        alone; nothing without a grid (the grouped sites, the LB's edges, a
+        visit's queue and a server's trailing IO and RAM, call the grid's
+        groups themselves)."""
         if grid is not None:
             self.gauge.add(grid, gidx, t0, t1, on, amount, self._gauge_period)
 

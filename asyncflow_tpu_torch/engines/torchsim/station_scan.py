@@ -54,6 +54,7 @@ import ctypes
 import torch
 
 from asyncflow_tpu_torch.engines.torchsim import _build
+from asyncflow_tpu_torch.engines.torchsim.draws import fma_xla
 from asyncflow_tpu_torch.engines.torchsim.params import INF
 from asyncflow_tpu_torch.engines.torchsim.sampling import f32
 from asyncflow_tpu_torch.errors import KernelBuildError, KernelLaunchError
@@ -200,7 +201,8 @@ def token_bucket_plain(t: torch.Tensor, v: torch.Tensor, rate: float,
     ``rate`` a second up to ``burst``, accepting a valid element holding a
     whole token and spending it; its tokens and clock advance on every
     valid element, refused ones included (``_token_bucket_scan``).  Float32
-    throughout, each operation rounded on its own."""
+    throughout, each operation rounded on its own but the refill's multiply
+    and add, which the jitted reference rounds once (a fused multiply-add)."""
     rate32 = torch.tensor(rate, dtype=torch.float32, device=t.device)
     burst32 = torch.tensor(burst, dtype=torch.float32, device=t.device)
     tokens = burst32.expand(t.shape[0]).clone()
@@ -208,7 +210,7 @@ def token_bucket_plain(t: torch.Tensor, v: torch.Tensor, rate: float,
     out = torch.empty_like(v)
     for k in range(t.shape[1]):
         tk, vk = t[:, k], v[:, k]
-        tok = torch.minimum(burst32, tokens + (tk - last) * rate32)
+        tok = torch.minimum(burst32, fma_xla(tk - last, rate32, tokens))
         acc = vk & (tok >= 1.0)
         tok = tok - torch.where(acc, 1.0, 0.0)
         tokens = torch.where(vk, tok, tokens)

@@ -76,7 +76,10 @@ no result line):
    least connections on 2048 synthetic rows with and
    without a timeline, at the widest shape (32 slots, rings of 128) and on
    rings of 32 and 33 entries, the edges of the kernel's lane layout
-   (``LC_CASES``); and XLA's ``log1p`` in the kernel
+   (``LC_CASES``); the multiply-adds the jitted reference fuses
+   (``_fused_site_check``: every law's hop with and without spikes and
+   fault tables, LB edges of one law and of several, the candidates) on
+   64 x 20,011 lanes; and XLA's ``log1p`` in the kernel
    against its plain version on each of the 2**23 uniforms;
 5. the thirteen fast paths: ``SweepRunner(payload).run(2048, seed=0)``
    through ``engine="auto"`` (with the path's sweep axes), which must take
@@ -126,9 +129,12 @@ no result line):
    ready queues streamed at 1 s and without, in turns in one process (their
    walls and scen/s printed), every other output equal, the series run
    launching ``gauge_grid`` (its count set to 0 just before it) in its
-   shared-memory form; that run's calls replayed through the kernel and the
-   plain scatter, bit-exact, and timed beside their bound and one
-   ``scatter_add_`` of the same buckets; the fine grid of the headline cut
+   shared-memory form, ``GAUGE_HEADLINE_LAUNCHES`` launches a chunk (a
+   launch a group of sites); that run's calls replayed through the kernel
+   and the plain versions, bit-exact, and timed beside their bound and one
+   ``scatter_add_`` of the same sites' buckets, a launch's mean and a
+   chunk's sum; the gauge work a chunk (one chunk's ``run_tensors`` with and
+   without the grid, in turns); the fine grid of the headline cut
    to 30 s at a 0.01 s period (3,001 rows: the global-memory form),
    bit-exact; examples/sweeps/gauge_series_sweep.py's payload at 2048
    scenarios (its ready-queue band's width and the pooled p95's interval);
@@ -986,7 +992,8 @@ def card_line() -> str:
 #: (their ptxas lines are kept for the summary line): (library, kernel)
 REDESIGNED = (("lb_route", "lc_kernel"), ("edge_draws", "hop_kernel"),
               ("station_scan", "bucket_warp_kernel"), ("station_scan", "lane_walk_kernel"),
-              ("edge_draws", "gap_sum_kernel"))
+              ("edge_draws", "gap_sum_kernel"), ("gauge_grid", "gauge_shared_kernel"),
+              ("gauge_grid", "gauge_global_kernel"))
 #: the dependent clocks of one valid element's chain in the redesigned
 #: station_scan walks, read from their SASS (sm_90a): the bucket's tokens
 #: (add, min, compare, select), the socket scan's connections (the
@@ -1028,7 +1035,7 @@ def phase_setup(torch) -> None:
     for name, report in _build.ptxas_report.items():
         for instance, res in ptxas_instances(report).items():
             print(f"  ptxas[{name}] {instance}: {res}")
-        if name in ("edge_draws", "station_scan", "lb_route"):
+        if name in ("edge_draws", "station_scan", "lb_route", "gauge_grid"):
             for entry, res in ptxas_entries(report).items():
                 print(f"  ptxas[{name}] {entry}: {res}")
                 if any(name == lib and entry.startswith(k) for lib, k in REDESIGNED):
@@ -2160,6 +2167,92 @@ def _hop_width_check(torch, kernel, plain) -> float:
     return err
 
 
+#: the fused multiply-add sites' check (ROADMAP C.8): rows and lanes a row
+FUSED_CHECK_SHAPE = (64, 20_011)
+
+
+def _fused_site_check(torch, kernel, plain, dev: str = "cuda") -> float:
+    """The multiply-adds the jitted reference fuses, in edge_draws' kernel
+    (``__fmaf_rn``) against its plain version (``draws.fma_xla``): an edge of
+    each law (uniform, exponential, normal, lognormal: ``mean + var * z``
+    and the erfinv's steps), each law's static hop with and without the
+    spike and under fault tables (the delay's last multiply fused into the
+    spike's or the send time's add), the LB hop by rank over edges of one
+    law and of several (a select: the law's delay rounded first) and least
+    connections' candidates (the delay rounded before the send time's add),
+    on lanes made on the card from a seed.  Bit-exact; returns the largest
+    difference."""
+    import numpy as np
+
+    from asyncflow_tpu_torch.engines.torchsim import draws
+    from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+    from asyncflow_tpu_torch.engines.torchsim.sampling import (
+        D_EXPONENTIAL,
+        D_LOGNORMAL,
+        D_NORMAL,
+        D_UNIFORM,
+    )
+
+    rows, n = FUSED_CHECK_SHAPE
+    g = torch.Generator(device=dev).manual_seed(41)
+    dist = np.array([D_UNIFORM, D_EXPONENTIAL, D_NORMAL, D_LOGNORMAL, D_EXPONENTIAL], np.int32)
+    ne, horizon = len(dist), 600.0
+    mean = torch.rand((rows, ne), device=dev, generator=g) * 0.01 + 0.001
+    var = torch.rand((rows, ne), device=dev, generator=g) * 0.3
+    drop = torch.rand((rows, ne), device=dev, generator=g) * 0.2
+    nb, nf = 7, 9
+    spike_t = torch.cat([torch.zeros(1, device=dev),
+                         torch.sort(torch.rand(nb - 1, device=dev, generator=g)).values
+                         * horizon])
+    spike_v = torch.rand((nb, ne), device=dev, generator=g) * 0.02
+    fault_t = torch.cat([torch.zeros((rows, 1), device=dev),
+                         torch.sort(torch.rand((rows, nf - 1), device=dev, generator=g),
+                                    dim=1).values * horizon], dim=1)
+    fault_lat = 1.0 + torch.rand((rows, nf, ne), device=dev, generator=g) * 3.0
+    fault_drop = torch.rand((rows, nf, ne), device=dev, generator=g) * 0.3
+    t_send = torch.rand((rows, n), device=dev, generator=g) * (1.05 * horizon)
+    alive = torch.rand((rows, n), device=dev, generator=g) < 0.9
+    rank = torch.randint(0, 1 << 30, (rows, n), device=dev, generator=g)
+    keys = scenario_keys(41, rows, device=dev)
+    uk, zk = draws.hop_keys(keys, 32)
+    err, calls = 0.0, 0
+    for spiked, faulted in itertools.product((False, True), (False, True)):
+        extra = {}
+        if spiked:
+            extra.update(spike_t=spike_t, spike_v=spike_v)
+        if faulted:
+            extra.update(fault_t=fault_t, fault_lat=fault_lat, fault_drop=fault_drop)
+        for lb_edges in ([1, 4], [0, 1, 2, 3]):
+            lb = torch.as_tensor(lb_edges, dtype=torch.int32, device=dev)
+            tables = draws.EdgeTables(dist=dist, mean=mean, var=var, drop=drop,
+                                      horizon=horizon, lb_edge=lb,
+                                      lb_target=torch.arange(len(lb_edges), dtype=torch.int32,
+                                                             device=dev), **extra)
+            label = (f"fast check: the fused sites, spikes {spiked}, faults {faulted}, "
+                     f"LB edges {lb_edges}")
+            err = max(err, _compare(torch, f"{label}, LB hop by rank",
+                                    tuple(kernel.hop(tables, t_send, alive, uk, zk, rank=rank)),
+                                    tuple(plain.hop(tables, t_send, alive, uk, zk, rank=rank))))
+            uks, zks = (torch.stack(x, dim=1) for x in zip(*(draws.hop_keys(keys, 32 + k)
+                                                             for k in range(len(lb_edges)))))
+            err = max(err, _compare(
+                torch, f"{label}, candidates",
+                kernel.candidates(tables, t_send, alive, uks, zks, lb_edges),
+                plain.candidates(tables, t_send, alive, uks, zks, lb_edges)))
+            calls += 2
+        for edge in range(ne):
+            err = max(err, _compare(
+                torch, f"fast check: the fused sites, spikes {spiked}, faults {faulted}, "
+                f"edge {edge} (law {int(dist[edge])})",
+                tuple(kernel.hop(tables, t_send, alive, uk, zk, edge=edge)),
+                tuple(plain.hop(tables, t_send, alive, uk, zk, edge=edge))))
+            calls += 1
+    print(f"fast check: edge_draws' fused multiply-add sites (ROADMAP C.8) == plain in {calls} "
+          f"hops and candidate launches on {rows} x {n} lanes (each law, spikes and fault "
+          f"tables on and off, LB edges of one law and of several)", flush=True)
+    return err
+
+
 #: breakpoints of the fault hop check's wide shared table: 64 KiB of
 #: float32, past the 48 KiB of shared memory the hop stages them in
 WIDE_FAULTS = 16_384
@@ -2559,7 +2652,9 @@ def phase_fast_check(torch) -> dict:
     width_err = _scan_width_check(torch, eng.scan, plains["station_scan"])
     measured["station_scan"] = max(measured["station_scan"], width_err)
     measured["fault_hop"] = _fault_hop_check(torch, eng.draws, plains["edge_draws"])
-    measured["hop_widths"] = _hop_width_check(torch, eng.draws, plains["edge_draws"])
+    measured["hop_widths"] = max(
+        _hop_width_check(torch, eng.draws, plains["edge_draws"]),
+        _fused_site_check(torch, eng.draws, plains["edge_draws"]))
     measured["bucket"] = _bucket_check(torch, eng.scan, plains["station_scan"])
     measured["controls"] = _control_check(torch, eng.scan, plains["station_scan"])
     measured["edge_draws"] = max(measured["edge_draws"], _gap_sum_check(
@@ -2597,11 +2692,13 @@ def _lindley_closed_form(torch, a, d, v):
 #: each earlier fast path's completions and drops at 2048 scenarios of
 #: seed 0 (chip_smoke.py's final run of the earlier slice, NVIDIA H100
 #: 80GB HBM3 at 700 W): the resilience machinery must leave them as they
-#: were
+#: were.  heavy_inj_single_server's spike is added with the delay's product
+#: rounded once, as the jitted reference adds it: one request of 2048 x
+#: 600 s now arrives past the horizon (178,873,692 completions before)
 EARLIER_FAST = {
     "two_servers_lb": {"completed": 157444539, "dropped": 6460007},
     "single_server": {"completed": 33144419, "dropped": 1014953},
-    "heavy_inj_single_server": {"completed": 178873692, "dropped": 5478427},
+    "heavy_inj_single_server": {"completed": 178873691, "dropped": 5478427},
     "event_inj_lb": {"completed": 47250674, "dropped": 1937973},
     "two_gen_lb": {"completed": 157460400, "dropped": 6459417},
     "db_pool_k2": {"completed": 4793678, "dropped": 146356},
@@ -3009,74 +3106,146 @@ def gauge_series_payload() -> dict:
     return data
 
 
+#: the wrapper's group methods: each call's grid, then its arguments
+GAUGE_METHODS = ("add", "add_queue", "add_trail", "add_slots")
+#: gauge_grid's launches a chunk on the headline's series run: two entry
+#: hops, the LB's edges, and a visit's queue, the trailing IO and RAM and
+#: the exit hop at each of the two servers
+GAUGE_HEADLINE_LAUNCHES = 9
+#: the same with one launch a site, the kernel's first design (NVIDIA H100
+#: 80GB HBM3, 700.00 W; this script's phase 6 on that design, PERF.md):
+#: 14 launches, 1.0394 ms each, 14.6 ms a chunk
+GAUGE_SITE_BY_SITE = {"launches": 14, "ms": 1.0394, "chunk_ms": 14.6}
+
+
 def _record_gauge_calls(eng) -> tuple:
     """Put a recorder in place of the engine's gauge_grid wrapper: each call
-    is passed on, its arguments kept with a copy of the grid it was given.
-    Returns the calls and the wrapper, to be put back."""
+    is passed on, its method and arguments kept with a copy of the grid it
+    was given.  Returns the calls and the wrapper, to be put back."""
     calls: list = []
     inner = eng.gauge
 
     class Recorder:
-        def add(self, grid, col, t0, t1, on, amount, period):
-            calls.append((grid.clone(), col, t0, t1, on, amount, period))
-            inner.add(grid, col, t0, t1, on, amount, period)
+        pass
 
-    eng.gauge = Recorder()
+    def recording(method):
+        def call(grid, *args, **kw):
+            calls.append((method, grid.clone(), args, kw))
+            getattr(inner, method)(grid, *args, **kw)
+        return call
+
+    recorder = Recorder()
+    for method in GAUGE_METHODS:
+        setattr(recorder, method, recording(method))
+    eng.gauge = recorder
     return calls, inner
+
+
+def _gauge_sites(torch, method: str, args: tuple, kw: dict) -> list:
+    """The (column, t0, t1, on, amount) sites a recorded call stands for,
+    built as the plain versions build them."""
+    if method == "add":
+        col, t0, t1, on, amount, _ = args
+        return [(col, t0, t1, on, amount)]
+    if method == "add_queue":
+        cols, e, w, p, vb, _ = args
+        return [(cols[0], e, e + w, vb & (w > 0), 1.0), (cols[1], e - p, e, vb & (p > 0), 1.0)]
+    if method == "add_trail":
+        cols, start, dep, t, w_ram, mine, ram, _ = args
+        held = t if w_ram is None else t + w_ram
+        return [(cols[0], start, dep, mine & (dep > start), 1.0),
+                (cols[1], held, dep, mine & (ram > 0), ram)]
+    cols, t0, t1, ok, _ = args
+    pick = kw["rank"] % len(cols) if kw.get("rank") is not None else kw["slot"]
+    return [(c, t0, t1, ok & (pick == k), 1.0) for k, c in enumerate(cols)]
+
+
+def _gauge_moved(torch, method: str, grid, args: tuple, kw: dict) -> tuple:
+    """(bytes, intervals a lane) of a call: each tensor operand read once,
+    the group's columns read and written once a row."""
+    seen, moved = set(), 0
+    for x in (*args, *kw.values()):
+        if isinstance(x, torch.Tensor) and x.ndim == 2 and id(x) not in seen:
+            seen.add(id(x))
+            moved += x.numel() * x.element_size()
+    cols = 1 if method == "add" else len(args[0])
+    intervals = {"add": 1, "add_queue": 2, "add_trail": 2, "add_slots": 1}[method]
+    return moved + 2 * grid.shape[0] * grid.shape[1] * cols * 4, intervals
 
 
 def _gauge_replay(torch, label: str, calls: list, *, timed: bool = False) -> dict:
     """Each recorded call through the kernel and through its plain version
     on a copy of its grid, bit-exact (the amounts are whole); with
     ``timed``, each call's ms between CUDA events, the plain version's, one
-    ``scatter_add_`` of the precomputed buckets (the library call) and the
-    bound: means a launch."""
+    ``scatter_add_`` of the precomputed buckets of its sites into the grid's
+    columns (the library call) and the bound: means a launch, and sums over
+    the calls."""
     import numpy as np
 
-    from asyncflow_tpu_torch.engines.torchsim.gauge_grid import GaugeGrid, gauge_add_plain
+    from asyncflow_tpu_torch.engines.torchsim.gauge_grid import GaugeGrid, PlainGaugeGrid
     from asyncflow_tpu_torch.engines.torchsim.sampling import sample_bucket
 
-    kernel, timer = GaugeGrid(), GaugeGrid()
+    kernel, timer, plain = GaugeGrid(), GaugeGrid(), PlainGaugeGrid()
     rows = []
-    for i, (grid, col, t0, t1, on, amount, period) in enumerate(calls):
-        whole = isinstance(amount, float) or bool(torch.all(amount == torch.round(amount)))
-        if not whole:
-            raise SmokeError(f"gauge {label}: call {i} adds fractional amounts")
+    for i, (method, grid, args, kw) in enumerate(calls):
+        sites = _gauge_sites(torch, method, args, kw)
+        for _, _, _, _, amount in sites:
+            if not (isinstance(amount, float)
+                    or bool(torch.all(amount == torch.round(amount)))):
+                raise SmokeError(f"gauge {label}: call {i} adds fractional amounts")
         got = grid.clone()
-        kernel.add(got, col, t0, t1, on, amount, period)
+        getattr(kernel, method)(got, *args, **kw)
         want = grid.clone()
-        plain_ms, _ = _time_plain(torch, lambda: gauge_add_plain(want, col, t0, t1, on, amount,
-                                                                 period))
+        plain_ms, _ = _time_plain(torch, lambda: getattr(plain, method)(want, *args, **kw))
         if not torch.equal(got, want):
             diff = (got - want).abs().max().item()
-            raise SmokeError(f"gauge {label}: call {i} (column {col}) differs from the plain "
-                             f"scatter by up to {diff}")
+            raise SmokeError(f"gauge {label}: call {i} ({method}) differs from the plain "
+                             f"version by up to {diff}")
         del got, want
         if not timed:
             continue
         scratch = grid.clone()
-        ms = time_kernel(torch, lambda: timer.add(scratch, col, t0, t1, on, amount, period),
+        ms = time_kernel(torch, lambda: getattr(timer, method)(scratch, *args, **kw),
                          repeats=5)
-        n_samples = grid.shape[1] - 2
-        idx = torch.cat([sample_bucket(t0, period, n_samples),
-                         sample_bucket(t1, period, n_samples)], dim=1)
-        val = torch.where(on, amount, 0.0).to(torch.float32)
-        val = torch.cat([val, -val], dim=1)
-        column = scratch[:, :, col]
-        library_ms = time_kernel(torch, lambda: column.scatter_add_(1, idx, val), repeats=5)
-        s_rows, n = t0.shape
-        per_lane = isinstance(amount, torch.Tensor) and amount.ndim > 0
-        moved = s_rows * n * (4 + 4 + 1 + (4 if per_lane else 0)) + 2 * s_rows * grid.shape[1] * 4
-        lanes = s_rows * n
+        s_rows, n_rows, g = grid.shape
+        n_samples = n_rows - 2
+        idx, val = [], []
+        for col, t0, t1, on, amount in sites:
+            v = torch.where(on, amount, 0.0).to(torch.float32)
+            idx += [sample_bucket(t0, args[-1], n_samples) * g + col,
+                    sample_bucket(t1, args[-1], n_samples) * g + col]
+            val += [v, -v]
+        idx, val = torch.cat(idx, dim=1), torch.cat(val, dim=1)
+        flat = scratch.view(s_rows, n_rows * g)
+        library_ms = time_kernel(torch, lambda: flat.scatter_add_(1, idx, val), repeats=5)
+        moved, intervals = _gauge_moved(torch, method, grid, args, kw)
+        lanes = s_rows * args[1].shape[1] * intervals
         bound = _bound_of(moved, GAUGE_LANE_OPS[0] * lanes, GAUGE_LANE_OPS[1] * lanes)
         rows.append({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound})
-        del scratch, idx, val, column
-    out = {"calls": len(calls), "forms": dict(kernel.form_launches), "max_abs_err": 0.0}
+        del scratch, idx, val, flat
+    out = {"calls": len(calls), "forms": dict(kernel.form_launches),
+           "groups": dict(kernel.group_launches), "max_abs_err": 0.0}
     if rows:
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "operations_ms"):
             out[key] = float(np.mean([r[key] for r in rows]))
+            out[f"{key}_sum"] = float(np.sum([r[key] for r in rows]))
         out["bound_by"] = "bytes" if out["bytes_ms"] >= out["operations_ms"] else "operations"
     return out
+
+
+def _gauge_work(torch, on_eng, off_eng, keys, turns: int = 2) -> dict:
+    """The gauge work a chunk: one chunk's ``run_tensors`` with the grid
+    (``on_eng``) and without (``off_eng``) between CUDA events, in turns
+    (off, on, on, off, ..), each the median of three; the difference of
+    the medians is the grid's launches and the passes that feed them."""
+    import numpy as np
+
+    times: dict = {"off": [], "on": []}
+    for turn in ("off", "on", "on", "off") * turns:
+        eng = on_eng if turn == "on" else off_eng
+        times[turn].append(time_kernel(torch, lambda e=eng: e.run_tensors(keys), repeats=3))
+    on_ms, off_ms = float(np.median(times["on"])), float(np.median(times["off"]))
+    return {"on_ms": on_ms, "off_ms": off_ms, "work_ms": on_ms - off_ms, "turns": times}
 
 
 def _rows_p95(res, rows) -> float:
@@ -3094,8 +3263,9 @@ def phase_gauge(torch) -> dict:
     servers' ready queues streamed at 1 s and the same sweep without, in
     turns (off, on, on, off), which must agree in every other output, the
     series run launching gauge_grid (counts set to 0 just before it, its
-    shared form only); that run's calls replayed through the kernel and the
-    plain scatter, bit-exact, and timed; the fine grid of the headline cut
+    shared form only, GAUGE_HEADLINE_LAUNCHES a chunk); that run's calls
+    replayed through the kernel and the plain versions, bit-exact, and
+    timed; the gauge work a chunk; the fine grid of the headline cut
     to 30 s at a 0.01 s period (the global form), bit-exact; the
     gauge_series_sweep example's payload at 2048 scenarios with its band and
     the pooled p95's interval; overload_policy's user_mean axis through
@@ -3127,9 +3297,10 @@ def phase_gauge(torch) -> dict:
         walls[turn].append(report.wall_seconds)
         reports.setdefault(turn, report)
     chunks = -(-MAIN_SCENARIOS // on.default_chunk)
-    if launches < 1 or forms["global"] != 0 or launches % chunks:
+    if launches != GAUGE_HEADLINE_LAUNCHES * chunks or forms["global"] != 0:
         raise SmokeError(f"gauge: the series sweep launched gauge_grid {launches} times "
-                         f"({forms}) over {chunks} chunks")
+                         f"({forms}) over {chunks} chunks, not {GAUGE_HEADLINE_LAUNCHES} a "
+                         f"chunk")
     a, b = reports["on"].results, reports["off"].results
     for field in dataclasses.fields(a):
         x, y = getattr(a, field.name), getattr(b, field.name)
@@ -3147,6 +3318,9 @@ def phase_gauge(torch) -> dict:
     eng.gauge = kernel
     headline = _gauge_replay(torch, "headline stride grid", calls, timed=True)
     del calls
+    keys = scenario_keys(0, on.default_chunk, device="cuda")
+    work = _gauge_work(torch, eng, off.engine, keys)
+    del keys
     data = copy.deepcopy(TWO_SERVERS_LB)
     data["sim_settings"].update(total_simulation_time=GAUGE_FINE_HORIZON,
                                 sample_period_s=GAUGE_FINE_PERIOD)
@@ -3165,11 +3339,21 @@ def phase_gauge(torch) -> dict:
           f"without the series {wall_off:.3f} s, {MAIN_SCENARIOS / wall_off:.1f} scen/s "
           f"(turns off, on, on, off: {walls}); every other output equal", flush=True)
     print(f"gauge: gauge_grid {launches} launches ({launches // chunks} a chunk of "
-          f"{on.default_chunk}), {headline['ms']:.4f} ms a launch (shared form), plain "
-          f"{headline['plain_ms']:.3f} ms, scatter_add_ {headline['library_ms']:.4f} ms, "
-          f"{_bound_text(headline)}; the headline's {headline['calls']} calls and the fine "
-          f"grid's {fine['calls']} ({fine['forms']}) bit-exact with the plain scatter",
+          f"{on.default_chunk}: {headline['groups']}), {headline['ms']:.4f} ms a launch "
+          f"(shared form), plain {headline['plain_ms']:.3f} ms, scatter_add_ "
+          f"{headline['library_ms']:.4f} ms, {_bound_text(headline)}; the headline's "
+          f"{headline['calls']} calls and the fine grid's {fine['calls']} ({fine['forms']}, "
+          f"{fine['groups']}) bit-exact with the plain versions", flush=True)
+    print(f"gauge: a chunk's launches {headline['ms_sum']:.3f} ms against their bound "
+          f"{headline['bound_ms_sum']:.3f} ms ({headline['ms_sum'] / headline['bound_ms_sum']:.2f}"
+          f"x), scatter_add_ of the same sites {headline['library_ms_sum']:.3f} ms; the first "
+          f"design's one launch a site: {GAUGE_SITE_BY_SITE['launches']} launches, "
+          f"{GAUGE_SITE_BY_SITE['ms']} ms each, {GAUGE_SITE_BY_SITE['chunk_ms']} ms a chunk",
           flush=True)
+    print(f"gauge: the gauge work a chunk (run_tensors of {on.default_chunk} scenarios with "
+          f"and without the grid, CUDA events, medians of turns off, on, on, off x 2): "
+          f"{work['work_ms']:.3f} ms ({work['on_ms']:.3f} against {work['off_ms']:.3f} ms; "
+          f"{work['turns']})", flush=True)
 
     sweep_runner = SweepRunner(gauge_series_payload(), device="cuda",
                                gauge_series=("ready_queue_len", ["srv-1"], 1.0))
@@ -3214,7 +3398,7 @@ def phase_gauge(torch) -> dict:
     print(f"gauge: phase seconds {seconds:.1f}", flush=True)
     return {"launches": launches + sweep_launches, "headline": headline, "fine": fine,
             "wall_on_s": wall_on, "wall_off_s": wall_off, "seconds": seconds,
-            "launches_a_chunk": launches // chunks}
+            "launches_a_chunk": launches // chunks, "work": work}
 
 
 def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict,

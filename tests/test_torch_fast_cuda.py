@@ -890,6 +890,49 @@ def test_gauge_grid_matches_plain_on_cuda(cuda_device, rows: int, n: int,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(("rows", "n", "per_lane"), GAUGE_CASES)
+def test_gauge_groups_match_plain_on_cuda(cuda_device, rows: int, n: int,
+                                          per_lane: bool) -> None:
+    """Each group form against its plain version on a grid holding other
+    adds, bit-exact: a visit's ready queue and pre-IO, a server's trailing
+    IO and RAM (with the RAM wait where ``per_lane``), the LB's slots by
+    int64 rank and by int32 slot; arrival-ordered lanes, so that warps see
+    one to a few buckets; each group counted."""
+    from asyncflow_tpu_torch.engines.torchsim import gauge_grid
+
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(rows + 1)
+    s = 16
+    period = 0.01
+    t0 = torch.sort(torch.rand((s, n), generator=g, device=dev) * (period * rows), dim=1).values
+    t1 = t0 + torch.rand((s, n), generator=g, device=dev)
+    t1[:, ::7] = 1e30
+    on = torch.rand((s, n), generator=g, device=dev) > 0.25
+    w = torch.where(torch.rand((s, n), generator=g, device=dev) < 0.3, 0.0, t1 - t0)
+    p = torch.where(torch.rand((s, n), generator=g, device=dev) < 0.3, 0.0,
+                    torch.rand((s, n), generator=g, device=dev) * 0.2)
+    ram = torch.randint(1, 300, (s, n), generator=g, device=dev).float()
+    w_ram = p if per_lane else None
+    rank = torch.randint(0, 1 << 40, (s, n), generator=g, device=dev)
+    slot = torch.randint(-1, 4, (s, n), generator=g, device=dev).to(torch.int32)
+    base = torch.randint(-3, 4, (s, rows, 6), generator=g, device=dev).float()
+    plain, kernel = gauge_grid.PlainGaugeGrid(), gauge_grid.GaugeGrid()
+    calls = {
+        "queue": lambda x, k: k.add_queue(x, (4, 1), t0, w, p, on, period),
+        "trail": lambda x, k: k.add_trail(x, (1, 5), t0 + p, t1, t0, w_ram, on, ram, period),
+        "slots": lambda x, k: k.add_slots(x, (3, 0, 5), t0, t1, on, period, rank=rank),
+        "slots_slot": lambda x, k: k.add_slots(x, (2, 4, 0), t0, t1, on, period, slot=slot),
+    }
+    for name, call in calls.items():
+        got, want = base.clone(), base.clone()
+        call(got, kernel)
+        call(want, plain)
+        assert torch.equal(got, want), name
+    assert kernel.launches == 4
+    assert kernel.group_launches == {"site": 0, "queue": 1, "trail": 1, "slots": 2}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("option", [{"gauge_series_stride": 20}, {"collect_gauges": True}])
 def test_fast_engine_gauge_grid_matches_plain_on_cuda(cuda_device, option: dict) -> None:
     """The whole engine's grid on the card, through the kernel and through

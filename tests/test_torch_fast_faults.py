@@ -117,7 +117,7 @@ def test_fault_hop_matches_reference(case: str) -> None:
         got_drop, got_delay = draws.edge_hop_plain(
             u, zk, plan.edge_dist, em, ev, ed, **where, fault=(torch.as_tensor(factor),
                                                              torch.as_tensor(boost)))
-        got_delay = draws.spike_add(got_delay, t_send, spike_t, spike_v, **where)
+        got_delay = draws.spike_add(got_delay, t_send, spike_t, spike_v, **where).value()
         mean = plan.edge_mean[edge] if edge is not None else plan.edge_mean[eidx]
         assert np.array_equal(got_drop.numpy(), dropped), edge
         assert _ulp_close(got_delay.numpy()[~dropped], delay[~dropped],
@@ -156,9 +156,10 @@ def test_fault_hop_is_the_unfused_hop() -> None:
                  else {"eidx": tables.lb_edge.long()[torch.where(gate, rank % 2, 0)]})
         dropped, delay = draws.edge_hop_plain(
             draws.uniform(uk, N), zk, plan.edge_dist, em, ev, ed, **where,
+            laws=draws.hop_laws(plan.edge_dist, kw.get("edge"), tables.lb_edge),
             fault=draws.fault_lookup(tables, t_send, **where))
         assert torch.equal(got.ok, gate & ~dropped)
-        assert torch.equal(got.t_next, torch.where(got.ok, t_send + delay, t_send))
+        assert torch.equal(got.t_next, torch.where(got.ok, delay.plus(t_send), t_send))
         assert torch.equal(got.dropped, (gate & dropped).sum(dim=1))
         assert bool(torch.isfinite(got.t_next).all()) and bool(torch.isfinite(got.span).all())
 

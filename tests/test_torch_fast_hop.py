@@ -65,12 +65,14 @@ def _unfused(tables: draws.EdgeTables, t, alive, uk, zk, *, edge=None, rank=None
         eidx = tables.lb_edge.long()[slot]
     dropped, delay = draws.edge_hop_plain(draws.uniform(uk, t.shape[1]), zk, tables.dist,
                                           tables.mean, tables.var, tables.drop, edge=edge,
-                                          eidx=eidx)
+                                          eidx=eidx, laws=draws.hop_laws(
+                                              tables.dist, edge, tables.lb_edge))
     if tables.spike_t is not None:
         delay = draws.spike_add(delay, t, tables.spike_t, tables.spike_v, edge=edge, eidx=eidx)
     ok = alive & ~dropped
+    t_end = delay.plus(t)
     lo = torch.clamp_max(t, h)
-    hi = torch.clamp_max(t + delay, h)
+    hi = torch.clamp_max(t_end, h)
     span = torch.where(ok, torch.clamp_min(hi - lo, 0.0), 0.0)
     if slot is None:
         spans = span.sum(dim=1, keepdim=True)
@@ -78,7 +80,7 @@ def _unfused(tables: draws.EdgeTables, t, alive, uk, zk, *, edge=None, rank=None
         spans = torch.stack([torch.where(slot == k, span, 0.0).sum(dim=1)
                              for k in range(tables.lb_edge.shape[0])], dim=1)
     target = None if slot is None else tables.lb_target[slot]
-    return (torch.where(ok, t + delay, t), ok, target, spans, (alive & dropped).sum(dim=1))
+    return (torch.where(ok, t_end, t), ok, target, spans, (alive & dropped).sum(dim=1))
 
 
 def _lanes(horizon: float):

@@ -91,6 +91,7 @@ inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
 inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 """
 #: a one-dimensional launch (station_scan.cu) and a launch on dim3 grids
 #: (edge_draws.cu, lb_route.cu), each made a loop that runs the threads one
@@ -117,7 +118,7 @@ HOST_LAUNCH_2D = (
 #: table, as static buffers
 HOST_SMEM = {"edge_draws": "uint4 edge_smem[1 << 12];\n",
              "lb_route": "uint32_t route_smem[1 << 14];\n",
-             "gauge_grid": "float gauge_smem[2048];\n"}
+             "gauge_grid": "float gauge_smem[12288];\n"}
 #: the launch statements on dim3 grids each source has
 LAUNCHES_2D = {"edge_draws": 4, "lb_route": 4, "gauge_grid": 2}
 #: g++'s optimisation of each host build
@@ -1269,36 +1270,100 @@ def test_a_found_build_reports_its_ptxas_log(tmp_path, monkeypatch) -> None:
 
 #: (rows of the grid, lanes a row, per-lane amounts) of the gauge grid's
 #: checks: a stride grid in shared memory, the largest one there, and fine
-#: grids past it (the global form), with +-1 and whole-MB amounts
-GAUGE_CASES = [(61, 4099, False), (2048, 517, True), (2049, 517, False), (3001, 4099, True)]
+#: grids past it (the global form), with +-1 and whole-MB amounts; rows of
+#: 4099 and 517 lanes are not 16-byte aligned, rows of 4100 are
+GAUGE_CASES = [(61, 4099, False), (61, 4100, True), (2048, 517, True), (2049, 517, False),
+               (3001, 4100, True)]
+
+
+def _gauge_launch(lib, grid, form: int, cols, on, floats, *, period: float, idx=None,
+                  idx_mod: bool = False, amount_scalar: float = 0.0) -> None:
+    """One launch of the host build on CPU tensors, as ``GaugeGrid`` makes it."""
+    s, rows, g = grid.shape
+    args = gauge_grid._GaugeGridArgs(
+        on=on.data_ptr(), idx=None if idx is None else idx.data_ptr(), grid=grid.data_ptr(),
+        S=s, n=on.shape[1], rows=rows, G=g, form=form, ncols=len(cols),
+        idx_bytes=0 if idx is None else idx.element_size(), idx_mod=int(idx_mod),
+        scale=gauge_grid.bucket_scale(period), amount_scalar=amount_scalar)
+    for i, x in enumerate(floats):
+        args.f[i] = None if x is None else x.data_ptr()
+    for i, c in enumerate(cols):
+        args.cols[i] = c
+    _launch(lib, "gauge_grid_launch", args)
+
+
+def _gauge_lanes(rows: int, n: int, seed: int):
+    """Arrival-ordered lanes over a grid of ``rows`` ticks (runs of two or
+    three lanes a bucket), "never" on every seventh end, and a grid that
+    already holds other sites' adds."""
+    g = torch.Generator().manual_seed(seed)
+    period = 0.05
+    t0 = torch.sort(torch.rand((S, n), generator=g) * (period * rows), dim=1).values
+    t1 = t0 + torch.rand((S, n), generator=g) * 2.0
+    t1[:, ::7] = 1e30
+    on = torch.rand((S, n), generator=g) > 0.25
+    ram = torch.randint(1, 300, (S, n), generator=g).float()
+    base = torch.randint(-3, 4, (S, rows, 6), generator=g).float()
+    return g, period, t0, t1, on, ram, base
 
 
 @pytest.mark.parametrize(("rows", "n", "per_lane"), GAUGE_CASES)
 def test_gauge_grid_matches_plain(host_libs, rows: int, n: int, per_lane: bool) -> None:
-    """One gauge site's intervals into column 2 of a (S, rows, 4) grid that
+    """One gauge site's intervals into column 2 of a (S, rows, 6) grid that
     already holds other sites' adds: bit-exact with the plain scatter
     (sums of whole amounts), the other columns untouched; intervals
     past the horizon land in the last row."""
     lib = host_libs["gauge_grid"]
-    g = torch.Generator().manual_seed(rows + n)
-    period = 0.05
-    span = period * rows
-    t0 = torch.rand((S, n), generator=g) * span
-    t1 = t0 + torch.rand((S, n), generator=g) * 2.0
-    t1[:, ::7] = 1e30
-    on = torch.rand((S, n), generator=g) > 0.25
-    amount = (torch.randint(1, 300, (S, n), generator=g).float() if per_lane
-              else torch.tensor(1.0))
-    base = torch.randint(-3, 4, (S, rows, 4), generator=g).float()
+    _, period, t0, t1, on, ram, base = _gauge_lanes(rows, n, rows + n)
+    amount = ram if per_lane else torch.tensor(1.0)
     got = base.clone()
-    args = gauge_grid._GaugeGridArgs(
-        t0=t0.data_ptr(), t1=t1.data_ptr(), on=on.data_ptr(),
-        amount=amount.data_ptr() if per_lane else None, grid=got.data_ptr(), S=S, n=n,
-        rows=rows, G=4, col=2, scale=gauge_grid.bucket_scale(period),
-        amount_scalar=0.0 if per_lane else 1.0)
-    _launch(lib, "gauge_grid_launch", args)
+    _gauge_launch(lib, got, gauge_grid.FORM_SITE, [2], on,
+                  (t0, t1, amount if per_lane else None), period=period,
+                  amount_scalar=0.0 if per_lane else 1.0)
     want = base.clone()
     gauge_grid.gauge_add_plain(want, 2, t0, t1, on, amount, period)
     assert torch.equal(got, want)
-    assert torch.equal(got[:, :, [0, 1, 3]], base[:, :, [0, 1, 3]])
+    assert torch.equal(got[:, :, [0, 1, 3, 4, 5]], base[:, :, [0, 1, 3, 4, 5]])
     assert lib.gauge_grid_shared_rows() == 2048
+
+
+@pytest.mark.parametrize(("rows", "n", "per_lane"), GAUGE_CASES)
+def test_gauge_groups_match_plain(host_libs, rows: int, n: int, per_lane: bool) -> None:
+    """Each group form against its plain version on a grid holding other
+    adds, bit-exact: a visit's ready queue and pre-IO (a pair of columns,
+    some waits and sleeps 0), a server's trailing IO and RAM (with and
+    without the RAM wait), and the LB's slots by rank (int64) and by slot
+    (int32, -1 and out-of-range slots adding nothing)."""
+    lib = host_libs["gauge_grid"]
+    g, period, t0, t1, on, ram, base = _gauge_lanes(rows, n, 3 * rows + n)
+    w = torch.where(torch.rand((S, n), generator=g) < 0.3, 0.0, t1 - t0)
+    p = torch.where(torch.rand((S, n), generator=g) < 0.3, 0.0,
+                    torch.rand((S, n), generator=g) * 0.2)
+    cases = {
+        "queue": ((gauge_grid.FORM_QUEUE, [4, 1], (t0, w, p), {}),
+                  lambda x: gauge_grid.gauge_queue_plain(x, (4, 1), t0, w, p, on, period)),
+        "trail": ((gauge_grid.FORM_TRAIL, [1, 5], (t0 + p, t1, t0, None, ram), {}),
+                  lambda x: gauge_grid.gauge_trail_plain(x, (1, 5), t0 + p, t1, t0, None, on,
+                                                         ram, period)),
+    }
+    if per_lane:
+        cases["trail_wait"] = (
+            (gauge_grid.FORM_TRAIL, [1, 5], (t0 + p, t1, t0, p, ram), {}),
+            lambda x: gauge_grid.gauge_trail_plain(x, (1, 5), t0 + p, t1, t0, p, on, ram,
+                                                   period))
+    rank = torch.randint(0, 1 << 40, (S, n), generator=g)
+    slot = torch.randint(-1, 4, (S, n), generator=g).to(torch.int32)
+    cases["slots_rank"] = (
+        (gauge_grid.FORM_SLOTS, [3, 0, 5], (t0, t1), {"idx": rank, "idx_mod": True}),
+        lambda x: gauge_grid.gauge_slots_plain(x, (3, 0, 5), t0, t1, on, period, rank=rank))
+    cases["slots_slot"] = (
+        (gauge_grid.FORM_SLOTS, [2, 4, 0], (t0, t1), {"idx": slot}),
+        lambda x: gauge_grid.gauge_slots_plain(x, (2, 4, 0), t0, t1, on, period,
+                                               slot=slot.long()))
+    for name, ((form, cols, floats, kw), plain) in cases.items():
+        got = base.clone()
+        _gauge_launch(lib, got, form, cols, on, floats, period=period, **kw)
+        want = base.clone()
+        plain(want)
+        assert torch.equal(got, want), name
+        assert not torch.equal(got, base), name

@@ -65,8 +65,10 @@ def test_journey_on_the_reference_arrivals(name: str) -> None:
 ])
 def test_arrivals_are_the_reference_arrivals(name: str, horizon: float) -> None:
     """Given the reference's per-window counts, ``FastEngine._arrivals``
-    returns the reference's ``_arrivals`` times bit for bit: the gaps
-    through XLA's ``log1p``, their prefix sum in XLA's order."""
+    returns the jitted reference's ``_arrivals`` times bit for bit (the
+    program its ``FastEngine`` runs): the gaps through XLA's ``log1p``,
+    their prefix sum in XLA's order, and ``starts + u * lens`` a fused
+    multiply-add, as XLA's compiler contracts it."""
     import jax
     import numpy as np
     import torch
@@ -86,8 +88,8 @@ def test_arrivals_are_the_reference_arrivals(name: str, horizon: float) -> None:
     ref_plan = jax_compile(JaxPayload.model_validate(data))
     ref_eng, jov = JaxFastEngine(ref_plan), jax_base(ref_plan)
     keys = jax_keys(6, 6)
-    want, valid, overflow = (np.asarray(x) for x in jax.vmap(
-        lambda k: ref_eng._arrivals(jax.random.fold_in(k, 0), jov))(keys))
+    want, valid, overflow = (np.asarray(x) for x in jax.jit(jax.vmap(
+        lambda k: ref_eng._arrivals(jax.random.fold_in(k, 0), jov)))(keys))
     eng = FastEngine(compile_payload(SimulationPayload.from_dict(data)), device="cpu")
     _, counts = reference_window_draws(ref_plan, keys, eng.n_windows)
     t, got_valid, got_overflow = eng._arrivals(

@@ -112,7 +112,9 @@ def test_lc_plain_is_the_reference_scan(scan_case) -> None:
 def test_candidates_are_the_stacked_hops(slots: int) -> None:
     """Least connections' candidates (``EdgeDraws.candidates``, one call for
     every slot) are each slot's hop, keyed ``32 + slot``, over its edge:
-    its t_next and ok in (S, n, slots)."""
+    its t_next and ok in (S, n, slots), the delay rounded before the send
+    time is added (the reference stacks the slots' delays first, where a
+    hop alone rounds the two once)."""
     plan = compile_payload(SimulationPayload.from_dict(mutated("normal_edges", horizon=5)))
     keys = scenario_keys(3, S)
     g = np.random.default_rng(2)
@@ -132,7 +134,11 @@ def test_candidates_are_the_stacked_hops(slots: int) -> None:
     assert t_next.shape == ok.shape == (S, N, slots)
     for k, e in enumerate(edges):
         full = draws.EdgeDraws().hop(tables, t, alive, *hop_keys[k], edge=e)
-        assert torch.equal(t_next[..., k], full.t_next) and torch.equal(ok[..., k], full.ok)
+        bare = draws.hop_plain(tables, t, alive, *hop_keys[k], edge=e, sums=False)
+        assert torch.equal(t_next[..., k], bare.t_next) and torch.equal(ok[..., k], full.ok)
+        # the two roundings of the send time's add differ by an ulp at most
+        gap = (t_next[..., k] - full.t_next).abs()
+        assert bool((gap <= torch.finfo(torch.float32).eps * full.t_next.abs()).all())
 
 
 ENGINE_CASES = {
