@@ -291,10 +291,31 @@ __device__ __forceinline__ float erfinv_xla(float x) {
   return fabsf(x) == 1.0f ? x * 3.40282347e+38f : p * x;
 }
 
-__device__ __forceinline__ float normal_of(uint32_t k0, uint32_t k1, uint32_t i) {
+// the normal draw over sqrt(2): XLA's simplifier reassociates a law's
+// var * (sqrt(2) * erfinv) to (var * sqrt(2)) * erfinv
+__device__ __forceinline__ float normal_erfinv(uint32_t k0, uint32_t k1, uint32_t i) {
   const float lo = -0.99999994f;  // nextafter(-1, 0)
   const float u = fmaxf(uniform_of(k0, k1, i) * 2.0f + lo, lo);
-  return 1.41421354f * erfinv_xla(u);
+  return erfinv_xla(u);
+}
+
+// XLA's CPU float32 exp (Cephes' expf) with the multiply-adds its compiler
+// fuses: the clamp, n = floor(x log2(e) + 1/2) in [-127, 127], x - n ln 2
+// in two steps, the polynomial, 1 + (r + p r^2), times 2^n
+__device__ float exp_xla(float v) {
+  float x = fminf(fmaxf(v, -87.8000030517578125f), 88.8000030517578125f);
+  if (v != v) x = v;
+  const float fx = fminf(fmaxf(floorf(fma_xla(x, 1.44269502f, 0.5f)), -127.0f), 127.0f);
+  x = fma_xla(-fx, 0.693359375f, x);
+  x = fma_xla(-fx, -2.12194440e-4f, x);
+  float y = 1.9875691500e-4f;
+  y = fma_xla(y, x, 1.3981999507e-3f);
+  y = fma_xla(y, x, 8.3334519073e-3f);
+  y = fma_xla(y, x, 4.1665795894e-2f);
+  y = fma_xla(y, x, 1.6666665459e-1f);
+  y = fma_xla(y, x, 5.0000001201e-1f);
+  y = fma_xla(y, x * x, x) + 1.0f;
+  return y * __uint_as_float((uint32_t)((int32_t)fx + 127) << 23);
 }
 
 // the fault search's first step: the largest power of two <= nf (its steps
@@ -592,15 +613,15 @@ __device__ __forceinline__ float lane_delay(uint32_t k0, uint32_t k1, uint32_t z
     d = u_lat;
   } else if (law == kExponential) {
     d = -m;
-    f = logf(fmaxf(1.0f - u_lat, kTiny));
+    f = log_xla(fmaxf(1.0f - u_lat, kTiny));
     if (select) {
       d = d * f;
       f = 1.0f;
     }
   } else {
-    const float z = normal_of(z0, z1, lane);
-    const float x = __fmaf_rn(__uint_as_float(p.z), z, m);
-    d = law == kNormal ? fmaxf(x, 0.0f) : expf(x);
+    const float e = normal_erfinv(z0, z1, lane);
+    const float x = __fmaf_rn(__uint_as_float(p.z) * 1.41421354f, e, m);
+    d = law == kNormal ? fmaxf(x, 0.0f) : exp_xla(x);
   }
   if (kFault) {
     d = d * f;

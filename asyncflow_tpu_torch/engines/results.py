@@ -53,6 +53,14 @@ def build_gauge_hist(series: np.ndarray, caps: np.ndarray, *,
     return counts.reshape(n_t, k, n_bins).astype(np.int64)
 
 
+def build_blame_hist(rows: np.ndarray) -> np.ndarray:
+    """Per-scenario blame grids ``(S, n_cells, B)`` or latency totals ``(S,
+    B)`` pooled into one float64 grid: a float64 sum over the scenarios (the
+    rule every chunk and every merge of chunks shares; numpy adds the
+    scenarios in order into float64, with no float64 copy of the rows)."""
+    return np.add.reduce(np.asarray(rows), axis=0, dtype=np.float64)
+
+
 def gauge_series_of(grid, sel) -> np.ndarray:
     """(S, T_g, k) streamed series of the grid's columns ``sel``: the
     columns sliced before the cumulative sum over the rows, which runs on
@@ -134,6 +142,23 @@ class SweepResults:
     gauge_hist: np.ndarray | None = None
     #: (k,) each column's histogram cap (:func:`gauge_hist_caps`)
     gauge_hist_cap: np.ndarray | None = None
+    #: the flight recorder's rings (sweeps with ``trace``; None otherwise):
+    #: (S, K, slots) event codes, nodes and simulated times, and the (S, K)
+    #: event counts (past ``slots``: the events the rings dropped); decode a
+    #: scenario with :meth:`SweepReport.flight_records`
+    flight_ev: np.ndarray | None = None
+    flight_node: np.ndarray | None = None
+    flight_t: np.ndarray | None = None
+    flight_n: np.ndarray | None = None
+    #: the blame plane (sweeps with ``blame``; None otherwise): (S, n_cells,
+    #: B) float32 seconds a (component x phase cell, coarse latency bin) and
+    #: (S, B) float32 latency totals of each scenario, and their float64
+    #: sums over the scenarios (:func:`build_blame_hist`), summed over the
+    #: chunks (``observability/blame.py`` has the cell layout)
+    blame_rows: np.ndarray | None = None
+    blame_lat_rows: np.ndarray | None = None
+    blame_hist: np.ndarray | None = None
+    blame_lat_hist: np.ndarray | None = None
 
     def percentile(self, q: float) -> np.ndarray:
         """Per-scenario latency percentile estimated from the histograms."""
@@ -156,15 +181,21 @@ class SweepResults:
         return out
 
 
-#: fields that are not stacked over scenarios: shared by the chunks, or (the
-#: band histograms) summed over them
-_UNSTACKED = ("settings", "hist_edges", "gauge_series_period", "gauge_hist", "gauge_hist_cap")
+#: fields summed over the chunks: the gauge band histograms and the pooled
+#: blame grids (float64)
+_SUMMED = ("gauge_hist", "blame_hist", "blame_lat_hist")
+#: fields that are not stacked over scenarios: shared by the chunks, or
+#: summed over them
+_UNSTACKED = ("settings", "hist_edges", "gauge_series_period", "gauge_hist_cap", *_SUMMED)
 
 
 def concat_results(parts: list[SweepResults]) -> SweepResults:
     """Chunks of one sweep, concatenated along the scenario axis in order;
-    the gauge band histograms are summed."""
+    the gauge band histograms and the pooled blame grids are summed.  One
+    chunk is the sweep as it is."""
     first = parts[0]
+    if len(parts) == 1:
+        return first
     return dataclasses.replace(
         first,
         **{
@@ -172,8 +203,9 @@ def concat_results(parts: list[SweepResults]) -> SweepResults:
             for f in dataclasses.fields(first)
             if f.name not in _UNSTACKED and getattr(first, f.name) is not None
         },
-        gauge_hist=(None if first.gauge_hist is None
-                    else np.sum([p.gauge_hist for p in parts], axis=0)),
+        **{name: (None if getattr(first, name) is None
+                  else np.sum([getattr(p, name) for p in parts], axis=0))
+           for name in _SUMMED},
     )
 
 
@@ -184,17 +216,23 @@ def _optional(state, name: str, dtype=None) -> np.ndarray | None:
 
 def sweep_results(state, settings=None, *, has_llm: bool = False, has_retry: bool = False,
                   has_faults: bool = False, gauge_sel=None, series_period: float | None = None,
-                  gauge_hist_cap: np.ndarray | None = None) -> SweepResults:
+                  gauge_hist_cap: np.ndarray | None = None, trace: bool = False,
+                  blame: bool = False) -> SweepResults:
     """Host-side :class:`SweepResults` of a batched DES-kernel or fast-path
     state; the LLM cost moments are kept where the plan has LLM segments,
     the retry counters where it has a retry policy and the dark-lost count
     where it has faults or hazards.  With ``gauge_sel``, the fast path's
     streamed series of those columns of ``state.gauge`` (a stride grid,
     numpy or a tensor on its device; :func:`gauge_series_of`), its
-    ``series_period`` and its band histograms over ``gauge_hist_cap``."""
+    ``series_period`` and its band histograms over ``gauge_hist_cap``.
+    With ``trace`` the flight recorder's rings; with ``blame`` the blame
+    grids, per scenario and pooled."""
 
-    def when(on: bool, name: str):
-        return _optional(state, name) if on else None
+    def when(on: bool, name: str, dtype=None):
+        return _optional(state, name, dtype) if on else None
+
+    bl_rows = when(blame, "bl_grid", np.float32)
+    bl_lat = when(blame, "bl_lat", np.float32)
 
     series = hist = None
     if gauge_sel is not None:
@@ -228,6 +266,14 @@ def sweep_results(state, settings=None, *, has_llm: bool = False, has_retry: boo
         retry_budget_exhausted=when(has_retry, "n_budget_exhausted"),
         attempts_hist=when(has_retry, "att_hist"),
         dark_lost=when(has_faults, "n_dark_lost"),
+        flight_ev=when(trace, "fr_ev"),
+        flight_node=when(trace, "fr_node"),
+        flight_t=when(trace, "fr_t"),
+        flight_n=when(trace, "fr_n"),
+        blame_rows=bl_rows,
+        blame_lat_rows=bl_lat,
+        blame_hist=None if bl_rows is None else build_blame_hist(bl_rows),
+        blame_lat_hist=None if bl_lat is None else build_blame_hist(bl_lat),
     )
 
 

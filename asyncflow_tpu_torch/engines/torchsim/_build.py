@@ -23,7 +23,7 @@ from asyncflow_tpu_torch.errors import KernelBuildError
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 #: library name -> (source, extra nvcc flags): the DES kernel is built twice,
-#: without and with its workload group of instances; the fast path's four
+#: without and with its workload group of instances; the fast path's five
 #: kernels once each
 SOURCES = {
     "des_kernel": (CSRC / "des_kernel.cu", ("-DDES_WORKLOAD=0",)),
@@ -32,6 +32,7 @@ SOURCES = {
     "station_scan": (CSRC / "station_scan.cu", ()),
     "lb_route": (CSRC / "lb_route.cu", ()),
     "gauge_grid": (CSRC / "gauge_grid.cu", ()),
+    "blame_grid": (CSRC / "blame_grid.cu", ()),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -128,12 +128,17 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, p * x)
 
 
+def normal_erfinv(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(S, n) ``erfinv(u)``, u uniform on [nextafter(-1, 0), 1): the normal
+    draw of :func:`normal` before its factor sqrt(2)."""
+    lo = f32(NORMAL_LO)
+    return erfinv_xla(torch.clamp_min(uniform(keys, n) * 2.0 + lo, lo))
+
+
 def normal(keys: torch.Tensor, n: int) -> torch.Tensor:
     """(S, n) ``jax.random.normal(key, (n,))``: sqrt(2) erfinv(u), u uniform
     on [nextafter(-1, 0), 1)."""
-    lo = f32(NORMAL_LO)
-    u = torch.clamp_min(uniform(keys, n) * 2.0 + lo, lo)
-    return SQRT2 * erfinv_xla(u)
+    return SQRT2 * normal_erfinv(keys, n)
 
 
 class Delay(NamedTuple):
@@ -156,19 +161,22 @@ class Delay(NamedTuple):
         return fma_xla(self.a, self.b, c)
 
 
-def delay_law(dist: int, mean, var, u: torch.Tensor, z) -> Delay:
-    """An edge's delay from its uniform ``u`` (and normal ``z``), as
-    ``jaxsim/sampling.py``: uniform ignores the mean; normal and lognormal
-    read the variance field as their scale (``mean + var * z`` a fused
-    multiply-add); the exponential's ``-mean * log(..)`` stays unrounded."""
+def delay_law(dist: int, mean, var, u: torch.Tensor, e) -> Delay:
+    """An edge's delay from its uniform ``u`` (and ``e``, its normal draw
+    over sqrt(2): :func:`normal_erfinv`), as ``jaxsim/sampling.py``: uniform
+    ignores the mean; normal and lognormal read the variance field as their
+    scale, ``mean + var * z``, which XLA's simplifier reassociates to
+    ``mean + (var * sqrt(2)) * erfinv`` and its compiler fuses; the
+    lognormal's ``exp`` is XLA's (:func:`exp_xla`); the exponential's
+    ``-mean * log(..)`` stays unrounded, its ``log`` XLA's (:func:`log_xla`)."""
     if dist == D_UNIFORM:
         return Delay(u, 1.0)
     if dist == D_EXPONENTIAL:
-        return Delay(-mean, torch.log(torch.clamp_min(1.0 - u, f32(TINY))))
+        return Delay(-mean, log_xla(torch.clamp_min(1.0 - u, f32(TINY))))
     if dist == D_NORMAL:
-        return Delay(torch.clamp_min(fma_xla(var, z, mean), 0.0), 1.0)
+        return Delay(torch.clamp_min(fma_xla(var * SQRT2, e, mean), 0.0), 1.0)
     if dist == D_LOGNORMAL:
-        return Delay(torch.exp(fma_xla(var, z, mean)), 1.0)
+        return Delay(exp_xla(fma_xla(var * SQRT2, e, mean)), 1.0)
     msg = f"the fast path draws no edge delay of distribution {dist}"
     raise ValueError(msg)
 
@@ -255,6 +263,31 @@ def log_xla(v: torch.Tensor) -> torch.Tensor:
     x = torch.where(v == 0.0, -math.inf, x)
     x = torch.where(v == math.inf, math.inf, x)
     return torch.where(v >= 0.0, x, math.nan)
+
+
+#: XLA's CPU float32 ``exp`` (Cephes' expf): its input clamp, ln 2 split in
+#: two, and polynomial, highest degree first
+EXP_LO, EXP_HI = f32(-87.8000030517578125), f32(88.8000030517578125)
+EXP_LOG2E = f32(1.44269504088896341)
+EXP_C1, EXP_C2 = f32(0.693359375), f32(-2.12194440e-4)
+EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+         1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp_xla(v: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``exp``: the input clamped, ``n = floor(x log2(e) +
+    1/2)`` clamped to [-127, 127], ``r = x - n ln 2`` in two fused steps,
+    Cephes' degree-5 polynomial by fused Horner steps, ``1 + (r + p r^2)``
+    (the inner add fused) times ``2^n`` from the exponent bits."""
+    x = torch.clamp(v, EXP_LO, EXP_HI)
+    fx = torch.clamp(torch.floor(fma_xla(x, EXP_LOG2E, 0.5)), -127.0, 127.0)
+    x = fma_xla(-fx, EXP_C1, x)
+    x = fma_xla(-fx, EXP_C2, x)
+    y = torch.full_like(x, f32(EXP_P[0]))
+    for c in EXP_P[1:]:
+        y = fma_xla(y, x, f32(c))
+    y = fma_xla(y, x * x, x) + 1.0
+    return y * ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
 def log1p_xla(x: torch.Tensor) -> torch.Tensor:
@@ -347,7 +380,7 @@ def edge_hop_plain(
     if fault is not None:
         p = torch.clamp(p + fault[1], 0.0, 1.0)
     dropped, u_lat = drop_rescale(u, p)
-    z = normal(zkey, n) if set(laws) & set(NORMAL_LAWS) else None
+    z = normal_erfinv(zkey, n) if set(laws) & set(NORMAL_LAWS) else None
     if len(laws) == 1:
         delay = delay_law(laws[0], m, v, u_lat, z)
     else:

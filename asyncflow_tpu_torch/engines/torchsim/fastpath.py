@@ -41,7 +41,12 @@ lanes, here batched over scenarios as (S, n) tensors:
    a + 1 of each logical request), the journey runs once per attempt, and
    between passes the deadlines, failures, backoffs and the retry budget
    (a token bucket over the retry wants in time order) decide which
-   attempts re-issue (``_run_one``'s retry branch).
+   attempts re-issue (``_run_one``'s retry branch);
+8. observability planes (``trace``, ``blame``; ``tapes.py``): the journey
+   emits the flight recorder's candidates at the reference's sites in its
+   order, gathered at the traced lanes, and each server's and hop's
+   latency credits of every lane, which ``blame_grid`` sums keyed by each
+   lane's coarse latency bin.  Neither consumes a draw.
 
 The slice: every plan the reference's analysis accepts (``fastpath_ok``):
 any number of generators; round robin with fixed membership or under an
@@ -100,8 +105,10 @@ from asyncflow_tpu_torch.engines.torchsim.draws import (
     fault_rows,
     fma_xla,
     hop_keys,
+    log_xla,
     prefix_sum_xla,
 )
+from asyncflow_tpu_torch.engines.torchsim.blame_grid import BlameGrid
 from asyncflow_tpu_torch.engines.torchsim.gauge_grid import GaugeGrid
 from asyncflow_tpu_torch.engines.torchsim.kernel_engine import (
     _edge_table,
@@ -142,7 +149,31 @@ from asyncflow_tpu_torch.engines.torchsim.station_scan import (
     FLAG_SHED,
     StationScan,
 )
+from asyncflow_tpu_torch.engines.torchsim.tapes import (
+    BlameTape,
+    FlightTape,
+    blame_store,
+    flight_rings,
+)
 from asyncflow_tpu_torch.errors import FastPathIneligibleError, UnsupportedFeatureError
+from asyncflow_tpu_torch.observability import blame as bl
+from asyncflow_tpu_torch.observability.simtrace import (
+    FR_ABANDON,
+    FR_ARRIVE_LB,
+    FR_ARRIVE_SRV,
+    FR_COMPLETE,
+    FR_DROP,
+    FR_REJECT,
+    FR_RETRY,
+    FR_RUN,
+    FR_SPAWN,
+    FR_TIMEOUT,
+    FR_TRANSIT,
+    FR_WAIT_CPU,
+    FR_WAIT_DB,
+    FR_WAIT_RAM,
+    TraceConfig,
+)
 
 #: fold-in tag of the per-window arrival-count stream (counter (w, 0))
 COUNT_STREAM = 0x77C0
@@ -188,6 +219,22 @@ class FastState(NamedTuple):
     #: (S, max_attempts) attempts used by each ended logical request
     #: (completed or given up); (S, 1) zeros without a retry policy
     att_hist: np.ndarray
+    #: the flight recorder's rings (``trace``): (S, K, slots) codes, nodes
+    #: and times of each traced request's events, (S, K) its event counts
+    #: (past ``slots``: the dropped events); (S, 1, 1) and (S, 1) zeros
+    #: untraced
+    fr_ev: np.ndarray
+    fr_node: np.ndarray
+    fr_t: np.ndarray
+    fr_n: np.ndarray
+    #: the blame plane (``blame``): (S, n_cells, n_blame_bins) seconds a
+    #: (component x phase cell, coarse latency bin), (S, n_blame_bins) the
+    #: latency totals, and with collect_clocks (S, n, n_cells) each
+    #: completed request's credits in clock order; (S, 1, 1), (S, 1) and
+    #: (S, 1, 1) zeros without blame
+    bl_grid: np.ndarray
+    bl_lat: np.ndarray
+    bl_store: np.ndarray
 
 
 def fast_refusal(plan: StaticPlan) -> tuple[str, str] | None:
@@ -286,11 +333,18 @@ class FastEngine:
         plan's sample ticks; ``gauge_series_stride`` k > 0, without it, on a
         grid coarsened k-fold (period ``sample_period * k``, ``n_samples //
         k`` ticks), the sweep's streamed series: the value at a coarse tick
-        is the fine grid's at that time.  The grid consumes no draws."""
+        is the fine grid's at that time.  The grid consumes no draws.
+
+        ``trace`` (a :class:`TraceConfig` or a mapping of its fields) runs
+        the flight recorder: each scenario's first ``sample_requests``
+        logical requests, their events in rings of ``event_slots``.
+        ``blame`` runs the blame plane: every completed request's latency
+        split into (component, phase) credits, summed a coarse latency bin
+        (with ``collect_clocks`` also each request's row).  Neither consumes
+        a draw or changes another output."""
         check_fast_slice(plan)
-        for on, feature in ((trace is not None, "flight recorder"), (blame, "blame")):
-            if on:
-                raise UnsupportedFeatureError(feature, "fast path option")
+        self.trace = TraceConfig.of(trace)
+        self.blame = bool(blame)
         if relax_sweeps is not None and relax_sweeps < 1:
             msg = f"relax_sweeps must be >= 1, got {relax_sweeps}"
             raise ValueError(msg)
@@ -350,6 +404,10 @@ class FastEngine:
         self.scan = StationScan()
         self.route = LbRoute()
         self.gauge = GaugeGrid()
+        self.blame_grid = BlameGrid()
+        self._bl_cells = bl.n_cells(plan.n_servers, plan.n_edges)
+        self._bl_bins = bl.n_blame_bins(n_hist_bins)
+        self._bl_stride = bl.blame_stride(n_hist_bins)
         dev = self.device
         self._dist = np.asarray(plan.edge_dist, np.int32)
         self._tables = {
@@ -544,12 +602,14 @@ class FastEngine:
         return slot, deliv.gather(2, pick)[..., 0], sent.gather(2, pick)[..., 0]
 
     def _entry_chains(self, keys, tables, ts: list, valids: list, gm, n_dropped, record=True,
-                      grid=None):
+                      grid=None, tape=None, btape=None):
         """Each stream's entry chain on its own lanes, then the streams'
         lanes side by side: (t, alive, fail_t), (S, n), ``fail_t`` the issue
         time of a lane dropped on the chain (INF elsewhere; None where the
         engine tracks no failure times).  One stream folds hop j in at site
-        16 + j; stream g of several at 1024 + stride g + j."""
+        16 + j; stream g of several at 1024 + stride g + j.  A hop's drop
+        and delivery go on ``tape`` (processed at the issue: the chain is
+        walked inside the spawn event), its realised advance on ``btape``."""
         plan = self.plan
         if len(ts) == 1:
             chains = [plan.entry_edges.tolist()]
@@ -560,7 +620,9 @@ class FastEngine:
             stride = max(len(c) for c in chains)
             site = lambda g, j: 1024 + stride * g + j  # noqa: E731
         horizon = f32(plan.horizon)
+        width = sum(x.shape[1] for x in ts)
         out_t, out_alive, out_fail = [], [], []
+        off = 0
         for g, chain in enumerate(chains):
             t, alive = ts[g], valids[g]
             t0 = t
@@ -574,7 +636,13 @@ class FastEngine:
                     n_dropped += hop.dropped
                 if fail is not None:
                     fail = torch.where(alive & (t < horizon) & ~hop.ok, t0, fail)
+                if tape is not None:
+                    tape.emit(FR_DROP, eidx, t, t0, alive & (t < horizon) & ~hop.ok, off=off)
+                    tape.emit(FR_TRANSIT, eidx, hop.t_next, t0, hop.ok, off=off)
+                if btape is not None:
+                    btape.credit(btape.transit(eidx), hop.t_next - t, hop.ok, off=off, n=width)
                 t, alive = hop.t_next, hop.ok
+            off += t.shape[1]
             out_t.append(t)
             out_alive.append(alive)
             out_fail.append(fail)
@@ -596,7 +664,8 @@ class FastEngine:
         missed = u < tab["fp_cache_miss_prob"][s][ep]
         return place, torch.where(missed, tab["fp_cache_extra"][s][ep], 0.0)
 
-    def _journey(self, keys, ov: dict, ts: list, valids: list, *, record: bool = True):
+    def _journey(self, keys, ov: dict, ts: list, valids: list, *, record: bool = True,
+                 tape: FlightTape | None = None, btape: BlameTape | None = None):
         """One pass of entry chains, routing, the servers in topological
         order and the exits (``_journey``): (finish, completed, fail_t,
         gauge_means, n_dropped, n_rejected, n_dark_lost, gauge grid).  ``fail_t`` (None
@@ -608,7 +677,13 @@ class FastEngine:
         enqueue, an abandon at the deadline, a drop on the exit edge at the
         departure.  ``record=False`` skips every gauge and counter (the
         retry driver's relaxation passes need only the outcome times); the
-        grid is None where it does not record or collects no grid."""
+        grid is None where it does not record or collects no grid.  ``tape``
+        takes the flight recorder's candidates at the reference's sites in
+        its order (processing times: the event's own, or the issue on the
+        entry chain, or for a completion the departure (the delivery under
+        a retry policy)); ``btape`` each server's queue waits and service
+        (the exact remainder of its occupancy) and each hop's realised
+        advance."""
         plan, dev, n = self.plan, self.device, self.n
         s_rows = ts[0].shape[0]
         horizon = f32(plan.horizon)
@@ -622,17 +697,22 @@ class FastEngine:
         tab = self._tables
         tables = self._edge_tables(ov)
         t, alive, fail_t = self._entry_chains(keys, tables, ts, valids, gm, n_dropped, record,
-                                              grid)
+                                              grid, tape, btape)
 
         # ---- routing: least connections, or round robin by arrival rank or
         # under the timeline ----
         alive = alive & (t < horizon)
         srv = torch.full_like(t, max(plan.entry_target, 0), dtype=torch.int32)
+        lb_cells = [bl.cell(bl.comp_edge(plan.n_servers, e), bl.PH_TRANSIT)
+                    for e in plan.lb_edge_index.tolist()]
+        if plan.n_lb_edges > 0 and tape is not None:
+            tape.emit(FR_ARRIVE_LB, -1, t, t, alive)
         if self.lc:
             slot, t_next, sent = self._lc_route(tables, keys, t, alive)
             unrouted = alive & (slot < 0)
             alive = alive & ~unrouted
             ok = alive & sent
+            self._lb_planes(tape, btape, lb_cells, t, t_next, unrouted, alive & ~sent, ok, slot)
             if record:
                 lane_span = torch.where(ok, torch.clamp_min(
                     torch.clamp_max(t_next, horizon) - torch.clamp_max(t, horizon), 0.0), 0.0)
@@ -657,6 +737,16 @@ class FastEngine:
                 lanes = {"slot": route_lanes(self.route, self.timeline, t, alive)}
             hop = self._hop(tables, keys, 32, t, alive, **lanes)
             srv = hop.target
+            if tape is not None or btape is not None:
+                if "rank" in lanes:
+                    unrouted = torch.zeros_like(alive)
+                    slot = torch.where(alive, lanes["rank"] % plan.n_lb_edges, 0)
+                else:
+                    unrouted = alive & (lanes["slot"] < 0)
+                    slot = lanes["slot"]
+                self._lb_planes(tape, btape, lb_cells, t, hop.t_next, unrouted,
+                                alive & ~unrouted & ~hop.ok, hop.ok, slot)
+                del unrouted, slot
             if record:
                 edges = plan.lb_edge_index.tolist()
                 for k, e in enumerate(edges):
@@ -694,6 +784,8 @@ class FastEngine:
                     n_rej += dark.sum(dim=1)
                 if fail_t is not None:
                     fail_t = torch.where(dark, t, fail_t)
+                if tape is not None:
+                    tape.emit(FR_REJECT, s, t, t, dark)
                 alive = alive & ~dark
                 mine = mine & ~dark
             rate = float(plan.server_rate_limit[s]) if len(plan.server_rate_limit) else -1.0
@@ -710,6 +802,8 @@ class FastEngine:
                     n_rej += limited.sum(dim=1)
                 if fail_t is not None:
                     fail_t = torch.where(limited, t, fail_t)
+                if tape is not None:
+                    tape.emit(FR_REJECT, s, t, t, limited)
                 alive = alive & ~limited
                 mine = mine & ~limited
             nep = int(plan.n_endpoints[s])
@@ -737,17 +831,21 @@ class FastEngine:
             kb = int(plan.n_bursts[s, :nep].max()) if nep else 0
             ram_k = int(plan.ram_slots[s]) if len(plan.ram_slots) else 0
             w_ram = None  # the RAM tier's wait: none but under a binding tier
+            w_cpu = None  # the lanes' core-queue waits summed over their visits
             visits = 0
             cap = int(plan.server_queue_cap[s]) if len(plan.server_queue_cap) else -1
             timeout = (float(plan.server_queue_timeout[s]) if len(plan.server_queue_timeout)
                        else -1.0)
             conn = int(plan.server_conn_cap[s]) if len(plan.server_conn_cap) else -1
+            if tape is not None and conn < 0:
+                # a connection cap's refusals come before the arrival
+                tape.emit(FR_ARRIVE_SRV, s, t, t, mine)
             if conn >= 0 or (kb > 0 and ram_k <= 0 and (cap >= 0 or timeout >= 0)):
                 # the overload controls' scans (at most one burst, no RAM
                 # tier): their rejections leave the lanes here
-                enq, wait, pre, validb, dep, rejected, fail_at = self._controlled_queue(
+                enq, wait, pre, validb, (dep, trail_start), rejected, fail_at = self._controlled_queue(
                     s, cores, t, mine, ep, post, place, extra, cap, timeout, conn, ram, gm,
-                    record, grid)
+                    record, grid, tape)
                 if record:
                     n_rej += rejected.sum(dim=1)
                 if fail_t is not None:
@@ -755,9 +853,11 @@ class FastEngine:
                 alive = alive & ~rejected
                 mine = mine & ~rejected
                 visits = kb
+                if btape is not None:
+                    w_cpu = torch.where(mine, wait[..., 0], 0.0)
                 del rejected, fail_at
             elif kb == 0 and ram_k <= 0:
-                dep = t + post
+                dep, trail_start = self._departure(t, None, post, s, place)
             elif ram_k > 0:
                 nb = tab["n_bursts"][s][ep]
                 pre0 = torch.where(nb >= 1, tab["burst_pre_io"][s][ep][..., 0], 0.0)
@@ -780,13 +880,37 @@ class FastEngine:
                 wait = w_cpu[..., None]
                 pre = pre0[..., None]
                 validb = mine[..., None] & (nb[..., None] > 0)
-                dep = t + w_ram + pre0 + w_cpu + dur0 + post
+                dep, trail_start = self._departure(t + w_ram + pre0 + w_cpu, dur0, post, s,
+                                                   place)
                 visits = min(kb, 1)
+                if tape is not None:
+                    # a blocked acquire: the wait at the enqueue, the run at
+                    # the grant; nothing where the resource was free
+                    rwait = mine & (w_ram > 0)
+                    tape.emit(FR_WAIT_RAM, s, t, t, rwait)
+                    tape.emit(FR_RUN, s, t + w_ram, t + w_ram, rwait)
+                    qwait = mine & (w_cpu > 0)
+                    tape.emit(FR_WAIT_CPU, s, enq[..., 0], enq[..., 0], qwait)
+                    ran = enq[..., 0] + w_cpu
+                    tape.emit(FR_RUN, s, ran, ran, qwait)
+                    del rwait, qwait, ran
             else:
-                enq, wait, pre, validb, dep = self._core_queue(
+                enq, wait, pre, validb, busy = self._core_queue(
                     s, kb, cores, t, mine, ep, post, shared_rank, place, extra,
                 )
+                dep, trail_start = self._departure(t + busy, None, post, s, place)
                 visits = kb
+                if tape is not None:
+                    for k in range(kb):
+                        qwait = validb[..., k] & (wait[..., k] > 0)
+                        tape.emit(FR_WAIT_CPU, s, enq[..., k], enq[..., k], qwait)
+                        ran = enq[..., k] + wait[..., k]
+                        tape.emit(FR_RUN, s, ran, ran, qwait)
+                        del qwait, ran
+                if btape is not None:
+                    w_cpu = torch.where(validb[..., 0], wait[..., 0], 0.0)
+                    for k in range(1, kb):
+                        w_cpu = w_cpu + torch.where(validb[..., k], wait[..., k], 0.0)
             for k in range(visits if record else 0):
                 vb = validb[..., k]
                 e_k, w_k, p_k = enq[..., k], wait[..., k], pre[..., k]
@@ -796,8 +920,7 @@ class FastEngine:
                     self.gauge.add_queue(grid, (plan.gauge_ready(s), plan.gauge_io(s)), e_k, w_k,
                                          p_k, vb, self._gauge_period)
                 del e_k, w_k, p_k
-            trail_start = dep - post
-            dep = self._db_station(s, ep, mine, trail_start, trail_extra, dep)
+            dep, w_db = self._db_station(s, ep, mine, trail_start, trail_extra, dep, tape)
             if record:
                 # the trailing IO sleep holds the DB pool's wait too
                 gm[:, plan.gauge_io(s)] += _span(trail_start, dep, mine & (dep > trail_start),
@@ -809,6 +932,9 @@ class FastEngine:
                     self.gauge.add_trail(grid, (plan.gauge_io(s), plan.gauge_ram(s)),
                                          trail_start, dep, t, w_ram, mine, ram,
                                          self._gauge_period)
+            if btape is not None:
+                self._server_credits(btape, s, t, dep, mine, w_cpu, w_ram, w_db)
+            del w_cpu, w_db
 
             # exit edge: the send happens only while the clock runs
             eidx = int(plan.exit_edge[s])
@@ -819,6 +945,11 @@ class FastEngine:
                 n_dropped += hop.dropped
             if fail_t is not None:
                 fail_t = torch.where(mine & (dep < horizon) & ~hop.ok, dep, fail_t)
+            if tape is not None:
+                tape.emit(FR_DROP, eidx, dep, dep, mine & (dep < horizon) & ~hop.ok)
+                tape.emit(FR_TRANSIT, eidx, hop.t_next, dep, hop.ok)
+            if btape is not None:
+                btape.credit(btape.transit(eidx), hop.t_next - dep, hop.ok)
             ok = hop.ok
             if int(plan.exit_kind[s]) == TARGET_SERVER:
                 t = torch.where(ok, hop.t_next, t)
@@ -826,10 +957,43 @@ class FastEngine:
                 alive = torch.where(mine, ok, alive)
             else:
                 done = ok & (hop.t_next < horizon)
+                if tape is not None:
+                    # a retry plan's client notices the completion at the
+                    # delivery; else it is recorded with the departure
+                    tape.emit(FR_COMPLETE, -1, hop.t_next,
+                              hop.t_next if plan.has_retry else dep, done)
                 finish = torch.where(done, hop.t_next, finish)
                 completed = completed | done
                 alive = torch.where(mine, False, alive)
         return finish, completed, fail_t, gm, n_dropped, n_rej, n_dark, grid
+
+    @staticmethod
+    def _server_credits(btape, s: int, t, dep, mine, w_cpu, w_ram, w_db) -> None:
+        """Server ``s``'s credits of the lanes ``mine``: the core queue's,
+        the RAM tier's and the DB pool's waits where positive (each where
+        the server has it), then the service as the exact remainder of its
+        occupancy, ``max((dep - t) - waits, 0)``, so that a lane's credits
+        here sum to ``dep - t``."""
+        svc = dep - t
+        for phase, wait in ((bl.PH_Q_CPU, w_cpu), (bl.PH_Q_RAM, w_ram), (bl.PH_Q_DB, w_db)):
+            if wait is not None:
+                btape.credit(btape.server(s, phase), wait, mine & (wait > 0))
+                svc = svc - wait
+        btape.credit(btape.server(s, bl.PH_SERVICE), torch.clamp_min(svc, 0.0), mine)
+
+    def _lb_planes(self, tape, btape, cells: list, t, t_next, unrouted, dropped, ok,
+                   slot) -> None:
+        """The LB hop on the planes: a lane with no healthy target dropped at
+        the LB (node -1), a drop on its slot's edge or the delivery over it
+        (at ``t_next``), and the delivery's advance into that edge's transit
+        cell (``cells`` by slot)."""
+        if tape is not None:
+            edge = (self._hop_static["lb_edge"], slot)
+            tape.emit(FR_DROP, -1, t, t, unrouted)
+            tape.emit(FR_DROP, edge, t, t, dropped)
+            tape.emit(FR_TRANSIT, edge, t_next, t, ok)
+        if btape is not None:
+            btape.credit_slots(cells, slot, t_next - t, ok)
 
     def _gauge_intervals(self, grid, gidx: int, t0, t1, amount, on) -> None:
         """+amount at ``t0``'s bucket and -amount at ``t1``'s in column
@@ -841,18 +1005,22 @@ class FastEngine:
             self.gauge.add(grid, gidx, t0, t1, on, amount, self._gauge_period)
 
     def _controlled_queue(self, s, cores, t, mine, ep, post, place, extra, cap: int,
-                          timeout: float, conn: int, ram, gm, record: bool, grid=None):
+                          timeout: float, conn: int, ram, gm, record: bool, grid=None,
+                          tape=None):
         """Server ``s``'s single-burst core queue under its overload
         controls: with a connection cap the socket scan in arrival order,
         else the controlled scan (a ready-queue cap, a dequeue deadline) in
         enqueue order (a cache extra before the burst shifts the enqueue;
         io-only endpoints skip the queue).  Returns the gauge shapes
         (enqueue, wait, pre-IO, valid), (S, n, 1) each (a shed request
-        waits 0, an abandon its full wait), the departure, the rejected
+        waits 0, an abandon its full wait), the departure and the trailing
+        IO's start (:meth:`_departure`), the rejected
         lanes and the instant each fails at (refused: the arrival, shed: the
         enqueue, abandoned: the end of its wait).  Under a connection cap a
         shed or abandoned request holds its RAM from the arrival to that
-        instant (added to ``gm`` and the grid here)."""
+        instant (added to ``gm`` and the grid here).  On ``tape``: a
+        refusal, the arrival, a shed at the enqueue, a wait and its run,
+        an abandon at the deadline."""
         plan, tab = self.plan, self._tables
         horizon = f32(plan.horizon)
         nb = tab["n_bursts"][s][ep]
@@ -897,6 +1065,17 @@ class FastEngine:
         abandoned = (flags & FLAG_ABANDONED) != 0
         enq0 = t + pre0
         fail_at = torch.where(refused, t, torch.where(shed, enq0, enq0 + wait))
+        if tape is not None:
+            if conn >= 0:
+                tape.emit(FR_REJECT, s, t, t, refused)
+                tape.emit(FR_ARRIVE_SRV, s, t, t, mine & ~refused)
+            qwait = part & ~shed & (wait > 0)
+            ran = enq0 + wait
+            tape.emit(FR_REJECT, s, enq0, enq0, shed)
+            tape.emit(FR_WAIT_CPU, s, enq0, enq0, qwait)
+            tape.emit(FR_RUN, s, ran, ran, qwait)
+            tape.emit(FR_REJECT, s, ran, ran, abandoned)
+            del qwait, ran
         if conn >= 0 and record:
             # a shed or abandoned request's RAM, held until it leaves
             rej_end = torch.where(shed, enq0, enq0 + wait)
@@ -905,9 +1084,32 @@ class FastEngine:
             if grid is not None:
                 self._gauge_intervals(grid, plan.gauge_ram(s), t, rej_end, ram, rej_ram)
             del rej_end, rej_ram
-        dep = t + pre0 + wait + dur0 + post
+        dep = self._departure(t + pre0 + wait, dur0, post, s, place)
         return (enq0[..., None], torch.where(shed, 0.0, wait)[..., None], pre0[..., None],
                 part[..., None], dep, refused | shed | abandoned, fail_at)
+
+    def _departure(self, x, dur0, post, s: int, place) -> tuple:
+        """(departure, start of the trailing IO) of server ``s``'s lanes from
+        ``x``, what comes before the last burst's service ``dur0`` (None:
+        none) and the trailing IO ``post``: ``(x + dur0) + post`` and the
+        departure less ``post``.  Where the plan's endpoint tables hold one
+        entry (one server with one endpoint) and no cache extra joins the
+        trailing IO, their lookups are scalar constants of the jitted
+        reference's program, and XLA's simplifier folds them: ``(x + c1) +
+        c2`` into ``x + (c1 + c2)`` and ``(x + c) - post`` into ``x + (c -
+        post)`` (``x`` where that is 0); so does this, the constants' sums
+        rounded to float32.  Larger tables it does not fold so (held against
+        the jitted reference on two-server plans, uniform or not)."""
+        plan = self.plan
+        if plan.n_bursts.shape != (1, 1) or place is not None:
+            dep = x + post if dur0 is None else x + dur0 + post
+            return dep, dep - post
+        dur = (np.float32(plan.burst_dur[s, 0, 0])
+               if dur0 is not None and plan.n_bursts[s, 0] >= 1 else np.float32(0))
+        post_c = np.float32(plan.endpoint_post_io[s, 0])
+        tail = dur + post_c
+        rest = float(tail - post_c)
+        return x + float(tail), (x if rest == 0.0 else x + rest)
 
     def _server_down(self, ov: dict, s: int, t: torch.Tensor) -> torch.Tensor:
         """(S, n) bool: server ``s`` sits in a dark window at each lane's
@@ -918,16 +1120,17 @@ class FastEngine:
         col = down[:, s][idx] if down.ndim == 2 else down[:, :, s].gather(1, idx)
         return col == 1
 
-    def _db_station(self, s, ep, mine, trail_start, trail_extra, dep) -> torch.Tensor:
-        """The departures of server ``s`` after its modelled DB pool: one
-        FIFO station of K connections, entered ``db_pre`` (and any cache
+    def _db_station(self, s, ep, mine, trail_start, trail_extra, dep, tape=None):
+        """(departures, waits) of server ``s`` after its modelled DB pool:
+        one FIFO station of K connections, entered ``db_pre`` (and any cache
         extra before the query) after the trailing IO starts, its merged
         stream ordered by that time; Lindley for K = 1, Kiefer-Wolfowitz
-        for more.  The wait only delays the departure."""
+        for more.  The wait only delays the departure.  Without a pool the
+        departures as given and None; on ``tape`` a wait and its run."""
         plan, tab = self.plan, self._tables
         pool_k = int(plan.server_db_pool[s])
         if pool_k <= 0 or not bool(np.any(plan.fp_db_dur[s] > 0)):
-            return dep
+            return dep, None
         dur = torch.where(mine, tab["fp_db_dur"][s][ep], 0.0)
         use = mine & (dur > 0)
         pre = tab["fp_db_pre"][s][ep]
@@ -939,13 +1142,18 @@ class FastEngine:
             to_sorted(enq, rank, INF), to_sorted(dur, rank, 0.0), to_sorted(use, rank, False),
             pool_k,
         )
-        return dep + torch.where(use, w_s.gather(1, rank), 0.0)
+        wait = torch.where(use, w_s.gather(1, rank), 0.0)
+        if tape is not None:
+            dwait = use & (wait > 0)
+            tape.emit(FR_WAIT_DB, s, enq, enq, dwait)
+            tape.emit(FR_RUN, s, enq + wait, enq + wait, dwait)
+        return dep + wait, wait
 
     def _core_queue(self, s, kb, cores, t, mine, ep, post, shared_rank, place=None,
                     extra=None):
         """The FIFO core queue of server ``s`` visited once a burst:
-        (enqueue, wait, pre-IO, valid), (S, n, kb) each, and the departure
-        (S, n).  A cache miss placed before burst k (``place``, ``extra``)
+        (enqueue, wait, pre-IO, valid), (S, n, kb) each, and the lanes' busy
+        time (S, n), their visits' pre-IO, waits and services summed.  A cache miss placed before burst k (``place``, ``extra``)
         lengthens its pre-IO.  One sweep is exact for single-burst
         endpoints; several bursts relax to the fixed point (2 kb + 2
         sweeps)."""
@@ -991,7 +1199,7 @@ class FastEngine:
         total = busy[..., 0]
         for k in range(1, kb):
             total = total + busy[..., k]
-        return enq, wait, pre, validb, t + total + post
+        return enq, wait, pre, validb, total
 
     # ------------------------------------------------------------------
     # batch
@@ -1059,18 +1267,20 @@ class FastEngine:
                                         device=keys.device))
         return torch.cat(parts, dim=1) if parts else None
 
-    def _attempts(self, keys, ov: dict, t1: torch.Tensor, v1: torch.Tensor):
+    def _attempts(self, keys, ov: dict, t1: torch.Tensor, v1: torch.Tensor, *, tape=None,
+                  btape=None):
         """The retry branch of ``_run_one``: the journey run once per attempt
-        over the A lane blocks (only the last pass records), each pass
-        re-issuing into block a + 1 the granted retries of block a at their
-        want time plus the backoff.  A deadline ``D = T + timeout`` fires
-        where it comes no later than the completion and the failure and
-        before the horizon; a failed or timed-out attempt wants a retry
-        (within the attempt cap), and the budget, one token bucket over the
-        wants in time order, grants it (a grant whose re-issue would land
-        past the horizon spends its token all the same).  Returns the last
-        pass's journey outputs, the lanes' issue times T, the successes and
-        the (timed out, retries, denied, ended) masks."""
+        over the A lane blocks (only the last pass records, and only it
+        takes ``tape`` and ``btape``), each pass re-issuing into block a + 1
+        the granted retries of block a at their want time plus the backoff.
+        A deadline ``D = T + timeout`` fires where it comes no later than
+        the completion and the failure and before the horizon; a failed or
+        timed-out attempt wants a retry (within the attempt cap), and the
+        budget, one token bucket over the wants in time order, grants it (a
+        grant whose re-issue would land past the horizon spends its token
+        all the same).  Returns the last pass's journey outputs, the lanes'
+        issue times T, the successes and the (timed out, retries, denied,
+        ended, failed, want time) lanes."""
         plan, n, n1 = self.plan, self.n, self.gen_n[0]
         s_rows = t1.shape[0]
         horizon = f32(plan.horizon)
@@ -1083,7 +1293,8 @@ class FastEngine:
         for p in range(self.attempts):
             last = p == self.attempts - 1
             issued = big_t < INF
-            out = self._journey(keys, ov, [big_t], [issued], record=last)
+            out = self._journey(keys, ov, [big_t], [issued], record=last,
+                                tape=tape if last else None, btape=btape if last else None)
             finish, completed, fail_t = out[:3]
             c_time = torch.where(completed, finish, INF)
             deadline = big_t + rt
@@ -1109,7 +1320,52 @@ class FastEngine:
         success = issued & ~timed & completed
         denied = want & ~grant
         ended = success | denied | ((timed | failed) & ~can_retry)
-        return out, big_t, success, (timed, grant, denied, ended)
+        return out, big_t, success, (timed, grant, denied, ended, failed, want_t)
+
+    def _trace_lanes(self, t0: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """(S, R) the traced rows' lanes: the first K spawned requests, in
+        arrival order (the first K lanes of one stream; of several, by the
+        stable time rank), or with a retry policy the first min(K, n1)
+        logical requests of each attempt block, block-major."""
+        k = int(self.trace.sample_requests)
+        s_rows, n = t0.shape
+        dev = t0.device
+        if self.plan.has_retry:
+            n1 = self.gen_n[0]
+            k2 = min(k, n1)
+            lanes = (torch.arange(self.attempts, device=dev)[:, None] * n1
+                     + torch.arange(k2, device=dev)[None, :]).reshape(-1)
+        elif len(self.gen_n) > 1:
+            rank = time_rank(t0, valid)
+            lane_of_rank = torch.zeros_like(rank).scatter_(
+                1, rank, torch.arange(n, device=dev).expand(s_rows, n).contiguous())
+            return lane_of_rank[:, : min(k, n)].contiguous()
+        else:
+            lanes = torch.arange(min(k, n), device=dev)
+        return lanes.expand(s_rows, lanes.shape[0]).contiguous()
+
+    def _retry_rings(self, tape: FlightTape, big_t, rt, retry_masks) -> tuple:
+        """The rings of a retry plan: each attempt block's [spawn, the
+        journey's candidates, a timeout, a retry or an abandon], a logical
+        request's blocks one after another; a timed-out attempt's events
+        processed at or after its deadline are orphaned (not recorded)."""
+        timed, grant, _denied, _ended, failed, want_t = retry_masks
+        n1 = self.gen_n[0]
+        lanes = tape.lanes
+        deadline = big_t + rt
+        attempt = (torch.arange(self.n, device=big_t.device) // n1 + 1).to(torch.int32)
+        attempt = attempt.expand_as(big_t)
+        d_l, timed_l = deadline.gather(1, lanes), timed.gather(1, lanes)
+        out = FlightTape(lanes, proc=True)
+        out.emit(FR_SPAWN, 0, big_t, big_t, big_t < INF)
+        for code, node, rec, proc, pred in tape.cands:
+            out.cands.append((code, node, rec, proc, pred & ~(timed_l & (proc >= d_l))))
+        out.emit(FR_TIMEOUT, attempt, deadline, deadline, timed)
+        out.emit(FR_RETRY, attempt, want_t, want_t, grant)
+        out.emit(FR_ABANDON, attempt, want_t, want_t, (timed | failed) & ~grant)
+        k2 = min(int(self.trace.sample_requests), n1)
+        return flight_rings(out.cands, int(self.trace.sample_requests),
+                            int(self.trace.event_slots), blocks=(self.attempts, k2))
 
     def run_tensors(self, keys, overrides: ScenarioOverrides | None = None, *,
                     window_draws=None) -> dict:
@@ -1134,13 +1390,28 @@ class FastEngine:
         t0 = ts[0] if len(ts) == 1 else torch.cat(ts, dim=1)
         valid = valids[0] if len(valids) == 1 else torch.cat(valids, dim=1)
         zero = torch.zeros(s, dtype=torch.int64, device=dev)
+        tape = None
+        if self.trace is not None:
+            tape = FlightTape(self._trace_lanes(t0, valid), proc=plan.has_retry)
+        btape = BlameTape(plan.n_servers) if self.blame else None
+        rings = None
         if not plan.has_retry:
-            out = self._journey(kt, ov, ts, valids)
+            if tape is not None:
+                gen = 0
+                if len(self.gen_n) > 1:
+                    gen = torch.cat([torch.full((s, w), g, dtype=torch.int32, device=dev)
+                                     for g, w in enumerate(self.gen_n)], dim=1)
+                tape.emit(FR_SPAWN, gen, t0, t0, valid)
+            out = self._journey(kt, ov, ts, valids, tape=tape, btape=btape)
             finish, success = out[0], out[1]
             timed_out = retries = denied = zero
             att_hist = torch.zeros((s, 1), dtype=torch.int32, device=dev)
+            if tape is not None:
+                rings = flight_rings(tape.cands, int(self.trace.sample_requests),
+                                     int(self.trace.event_slots))
         else:
-            out, t0, success, (timed, grant, deny, ended) = self._attempts(kt, ov, t0, valid)
+            out, t0, success, masks = self._attempts(kt, ov, t0, valid, tape=tape, btape=btape)
+            timed, grant, deny, ended = masks[:4]
             finish = out[0]
             timed_out, retries, denied = (m.sum(dim=1) for m in (timed, grant, deny))
             blk = torch.arange(n, device=dev) // self.gen_n[0]
@@ -1148,15 +1419,18 @@ class FastEngine:
             att_hist = att_hist.scatter_add_(
                 1, torch.where(ended, blk, self.attempts), ended.to(torch.int64),
             )[:, : self.attempts].to(torch.int32)
-            del timed, grant, deny, ended
+            if tape is not None:
+                rings = self._retry_rings(tape, t0, ov["rt"][:, None], masks)
+            del timed, grant, deny, ended, masks
         gm, n_dropped, n_rej, n_dark, grid = out[3:]
         if grid is None:
             grid = torch.zeros((s, 1, 1), dtype=torch.float32, device=dev)
-        del ts, valids, out
+        del ts, valids, out, tape
 
         latency = torch.where(success, finish - t0, 0.0)
         bins = self.n_hist_bins
-        lbin = latency_bin(latency, self.hist_lo, self.hist_scale, bins).to(torch.int64)
+        lbin = latency_bin(latency, self.hist_lo, self.hist_scale, bins, log=log_xla).to(
+            torch.int64)
         ones = success.to(torch.int64)
         hist = torch.zeros((s, bins + 1), dtype=torch.int64, device=dev).scatter_add_(
             1, torch.where(success, lbin, bins), ones)[:, :bins]
@@ -1173,6 +1447,8 @@ class FastEngine:
         else:
             clock = torch.zeros((1, 2), dtype=torch.float32, device=dev)
         count = ones.sum(dim=1).to(torch.int32)
+        planes = self._plane_outputs(s, rings, btape, success, lbin, latency)
+        del btape
         return {
             "hist": hist.to(torch.int32),
             "lat_count": count,
@@ -1194,7 +1470,34 @@ class FastEngine:
             "n_retries": retries.to(torch.int32),
             "n_budget_exhausted": denied.to(torch.int32),
             "att_hist": att_hist,
+            **planes,
         }
+
+    def _plane_outputs(self, s: int, rings, btape, success, lbin, latency) -> dict:
+        """The planes' outputs: the rings (placeholders untraced) and the
+        blame grid of every credit keyed by each successful lane's coarse
+        bin, ``clip(lbin // stride, 0, nbb - 1)`` (the others' target is
+        ``nbb``: dropped), its latency totals and, with collect_clocks, the
+        per-request rows (placeholders without blame)."""
+        dev = success.device
+        if rings is None:
+            rings = (torch.zeros((s, 1, 1), dtype=torch.int32, device=dev),
+                     torch.zeros((s, 1, 1), dtype=torch.int32, device=dev),
+                     torch.zeros((s, 1, 1), dtype=torch.float32, device=dev),
+                     torch.zeros((s, 1), dtype=torch.int32, device=dev))
+        bl_grid = torch.zeros((s, 1, 1), dtype=torch.float32, device=dev)
+        bl_lat = torch.zeros((s, 1), dtype=torch.float32, device=dev)
+        bl_rows = torch.zeros((s, 1, 1), dtype=torch.float32, device=dev)
+        if btape is not None:
+            nbb = self._bl_bins
+            target = torch.where(success, torch.clamp(lbin // self._bl_stride, 0, nbb - 1),
+                                 nbb).to(torch.int16)
+            bl_grid, bl_lat = self.blame_grid.reduce(btape.credits, target, latency,
+                                                     self._bl_cells, nbb)
+            if self.collect_clocks:
+                bl_rows = blame_store(btape.credits, success, self._bl_cells)
+        return dict(zip(("fr_ev", "fr_node", "fr_t", "fr_n"), rings),
+                    bl_grid=bl_grid, bl_lat=bl_lat, bl_store=bl_rows)
 
     def run_batch(self, keys, overrides: ScenarioOverrides | None = None, *,
                   window_draws=None, antithetic: bool = False) -> FastState:

@@ -30,12 +30,28 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def latency_bin(latency, lo: float, scale: float, n_bins: int):
+#: a bin position within this of a whole number is computed again with the
+#: exact ``log``: torch's ``log`` and XLA's are within a few float32 ulps of
+#: each other, which moves ``(log - lo) * scale`` (at most ~64 x 10 a bin
+#: position) by less than 1e-3, so a truncation can differ only inside it
+BIN_EDGE_MARGIN = 1e-2
+
+
+def latency_bin(latency, lo: float, scale: float, n_bins: int, *, log=None):
     """Log-histogram bin of float32 latencies (torch tensor): truncation of
-    ``(log(max(lat, 1e-6)) - lo) * scale`` toward zero, then a clip."""
+    ``(log(max(lat, 1e-6)) - lo) * scale`` toward zero, then a clip.  The
+    ``log`` is torch's (the DES kernel's ``logf``) unless given: the fast
+    path passes ``draws.log_xla``, the jitted reference's ``log``, which
+    costs ~30 passes a lane; so torch's ``log`` positions every lane, and
+    the given one positions again the lanes within ``BIN_EDGE_MARGIN`` of
+    a bin edge, the only ones whose bin it can change."""
     import torch
 
-    x = (torch.log(torch.clamp_min(latency, f32(1e-6))) - f32(lo)) * f32(scale)
+    lat = torch.clamp_min(latency, f32(1e-6))
+    x = (torch.log(lat) - f32(lo)) * f32(scale)
+    if log is not None:
+        near = (x - torch.round(x)).abs() < BIN_EDGE_MARGIN
+        x = x.masked_scatter(near, (log(lat[near]) - f32(lo)) * f32(scale))
     return torch.clamp(x.to(torch.int32), 0, n_bins - 1)
 
 

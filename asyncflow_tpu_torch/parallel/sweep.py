@@ -40,6 +40,14 @@ bands over the scenarios with :meth:`SweepReport.gauge_series_band` and
 :meth:`SweepReport.gauge_bands`, and confidence intervals with
 :meth:`SweepReport.metric_ci`, :meth:`SweepReport.per_scenario_percentile_mean_ci`
 and :meth:`SweepReport.pooled_percentile_ci`.
+
+``SweepRunner(trace=TraceConfig(...), blame=True)`` runs the fast path's
+two observability planes: the flight recorder's rings of each scenario's
+first requests (:meth:`SweepReport.flight_records`,
+:meth:`SweepReport.flight_dropped_events`) and the latency blame grids,
+pooled over the chunks in float64 (:meth:`SweepReport.latency_blame`,
+``summary()``'s ``blame_share_<phase>`` keys).  Neither changes any other
+output.  The DES kernel runs neither and refuses both by name.
 """
 
 from __future__ import annotations
@@ -78,6 +86,8 @@ from asyncflow_tpu_torch.errors import (
     ProofHeadroomError,
     UnsupportedFeatureError,
 )
+from asyncflow_tpu_torch.observability import blame as bl
+from asyncflow_tpu_torch.observability.simtrace import TraceConfig, decode_flight
 from asyncflow_tpu_torch.schemas.payload import SimulationPayload
 
 #: the fast path's lanes a chunk (scenarios x lanes a scenario, a
@@ -152,6 +162,45 @@ class SweepReport:
             raise ValueError(msg)
         col = self.gauge_series_ids.index(component_id)
         return times, bands[:, :, col]
+
+    def flight_records(self, scenario: int) -> dict:
+        """One scenario's flight records (a sweep run with ``trace``): spawn
+        sequence -> :class:`~asyncflow_tpu_torch.observability.FlightRecord`."""
+        res = self.results
+        if res.flight_ev is None:
+            msg = ("no flight records were collected: construct "
+                   "SweepRunner(..., trace=TraceConfig(...)); the recorder runs on the fast path")
+            raise ValueError(msg)
+        return decode_flight(res.flight_ev[scenario], res.flight_node[scenario],
+                             res.flight_t[scenario], res.flight_n[scenario])
+
+    def flight_dropped_events(self) -> np.ndarray:
+        """(S,) events each scenario's rings dropped (the explicit
+        truncation: raise ``TraceConfig.event_slots`` where it is not 0)."""
+        res = self.results
+        if res.flight_n is None:
+            msg = "no flight records were collected (trace=TraceConfig)"
+            raise ValueError(msg)
+        slots = res.flight_ev.shape[2]
+        return np.maximum(res.flight_n - slots, 0).sum(axis=1)
+
+    def latency_blame(self, q: float = 0.95, *, tail: bool = False) -> bl.BlameReport:
+        """The pooled ``q``-quantile's latency split into per-phase and
+        per-component shares (a sweep run with ``blame``): ``tail=False``
+        the one coarse latency bin that holds the quantile (exact to a
+        bin), ``tail=True`` every bin from it up.  ``q`` above 1 reads as a
+        percentage."""
+        res = self.results
+        if res.blame_hist is None or self.plan is None:
+            msg = ("no latency attribution was collected: construct "
+                   "SweepRunner(..., blame=True); the blame plane runs on the fast path")
+            raise ValueError(msg)
+        return bl.blame_breakdown(
+            res.blame_hist, res.latency_hist.sum(axis=0),
+            n_servers=self.plan.n_servers, n_edges=self.plan.n_edges,
+            server_ids=self.plan.server_ids, edge_ids=self.plan.edge_ids,
+            q=q / 100.0 if q > 1.0 else q, tail=tail,
+        )
 
     @property
     def scenarios_per_second(self) -> float:
@@ -237,6 +286,10 @@ class SweepReport:
             "latency_p99_s": self.aggregate_percentile(99),
             # the resilience scorecard, on plans with faults or hazards only
             **self._scorecard_fields(res),
+            # the whole run's blame shares, on sweeps with blame only
+            **({} if res.blame_hist is None else {
+                f"blame_share_{phase}": float(share)
+                for phase, share in bl.blame_shares(res.blame_hist).items()}),
         }
 
     @staticmethod
@@ -593,13 +646,17 @@ class SweepRunner:
         engine: str = "auto",
         device: torch.device | str | None = None,
         gauge_series: tuple | None = None,
+        trace=None,
+        blame: bool = False,
     ) -> None:
         """``gauge_series``: ``(metric, component_ids, resample_s)`` streams
         each scenario's series of the gauge ``metric`` (a
         :class:`SampledMetricName` value) of the named components (edge ids
         for edge concurrency, server ids for ready, io and ram), resampled
         to ``resample_s`` seconds, on the fast path (the DES kernel collects
-        no gauge grid and refuses it)."""
+        no gauge grid and refuses it).  ``trace`` (a :class:`TraceConfig` or
+        a mapping of its fields) runs the flight recorder and ``blame`` the
+        latency blame plane, on the fast path only, as the series."""
         if engine not in ("auto", "fast", "kernel"):
             msg = f"engine must be 'auto', 'fast' or 'kernel', got {engine!r}"
             raise ValueError(msg)
@@ -616,17 +673,24 @@ class SweepRunner:
                 self.plan, gauge_series)
             # the scorecard's time to drain reads only a ready-queue series
             self._gauge_series_metric = str(gauge_series[0])
+        self.trace = TraceConfig.of(trace)
+        self.blame = bool(blame)
         fast = engine == "fast" or (engine == "auto" and fast_refusal(self.plan) is None)
-        if self._gauge_sel is not None and not fast:
-            # the series ride the fast path's gauge grid; the DES kernel has
-            # none, and the reference's event engine, which would take a
-            # plan the fast path declines, is not ported
-            where = ("engine='kernel'" if engine == "kernel"
-                     else "engine='auto' on a plan the fast path declines")
-            raise UnsupportedFeatureError("streaming gauge series", where)
+        # the series and the planes ride the fast path; the DES kernel has
+        # none of them (as the reference's Pallas kernel), and the
+        # reference's event engine, which would take a plan the fast path
+        # declines, is not ported
+        where = ("engine='kernel'" if engine == "kernel"
+                 else "engine='auto' on a plan the fast path declines")
+        for on, feature in ((self._gauge_sel is not None, "streaming gauge series"),
+                            (self.trace is not None, "flight recorder"),
+                            (self.blame, "latency blame")):
+            if on and not fast:
+                raise UnsupportedFeatureError(feature, where)
         # each engine refuses what it does not model before any launch
         if fast:
-            self.engine = FastEngine(self.plan, device=device, gauge_series_stride=stride)
+            self.engine = FastEngine(self.plan, device=device, gauge_series_stride=stride,
+                                     trace=self.trace, blame=self.blame)
             self.engine_kind = "fast"
         else:
             self.engine = KernelEngine(self.plan, device=device)
@@ -704,7 +768,8 @@ class SweepRunner:
             parts.append(
                 sweep_results(state, self.payload.sim_settings, has_llm=plan.has_llm,
                               has_retry=plan.has_retry,
-                              has_faults=plan.has_faults or plan.has_hazards, **series),
+                              has_faults=plan.has_faults or plan.has_hazards,
+                              trace=self.trace is not None, blame=self.blame, **series),
             )
             del state
         merged = concat_results(parts)

@@ -79,8 +79,13 @@ no result line):
    (``LC_CASES``); the multiply-adds the jitted reference fuses
    (``_fused_site_check``: every law's hop with and without spikes and
    fault tables, LB edges of one law and of several, the candidates) on
-   64 x 20,011 lanes; and XLA's ``log1p`` in the kernel
-   against its plain version on each of the 2**23 uniforms;
+   64 x 20,011 lanes; XLA's ``log1p`` in the kernel
+   against its plain version on each of the 2**23 uniforms; and
+   ``blame_grid`` at ``BLAME_CASES`` (static and per-lane cells, an empty
+   credit, dropped lanes, rows off every multiple of 32, several passes of
+   rows, the headline's width) and on a planes run's credits, each launch
+   twice (the same bits) and each cell within one float32 ulp of the plain
+   float64 sums;
 5. the thirteen fast paths: ``SweepRunner(payload).run(2048, seed=0)``
    through ``engine="auto"`` (with the path's sweep axes), which must take
    the fast path and launch its kernels (counts set to 0 before the run:
@@ -140,7 +145,18 @@ no result line):
    scenarios (its ready-queue band's width and the pooled p95's interval);
    examples/sweeps/overload_policy.py's user_mean axis through
    ``make_overrides`` (each load point's p95 and rejected fraction, with
-   and without a ready-queue cap of 8).
+   and without a ready-queue cap of 8);
+7. the observability planes: the headline (600 s, 2048 scenarios) through
+   ``SweepRunner`` untraced, with ``trace=TraceConfig()`` and with both
+   planes (``blame=True``), their scen/s printed, every other output
+   bit-identical across the three, pooled conservation within 1e-3 in
+   every coarse latency bin, the both-planes run launching ``blame_grid``
+   (its count set to 0 just before it) once a chunk, its peak device
+   memory; scenario 0's flight records decoded and the p95 bin's blame
+   printed; outage_retry with both planes against its untraced sweep (the
+   rings across attempt blocks); the headline's ``blame_grid`` call timed
+   beside its bound, its plain version and one ``scatter_add_`` of the
+   same credits.
 
 It prints the redesigned kernels' times beside their bounds (and, for
 this slice's two, the parent tree's times, ``PARENT_MS``) with their
@@ -754,15 +770,20 @@ POOL_GLOBAL = 2048
 #: twin (one batched step per event) under a minute on the card (8,000
 #: iterations took 88.7–107.9 s, varying with the card's host: the smoke's
 #: whole run must stay well inside its time limit; 5,000 until the fast
-#: path's overload and routing paths joined it)
-CHECK_ITERATIONS = 3500
-#: the same for event_inj_lb's and resilience_all's plans (~12 s simulated
-#: at ~40 req/s; 4,000 before)
+#: path's overload and routing paths joined it; 3,500 until the
+#: observability planes joined it)
+CHECK_ITERATIONS = 2500
+#: the same for event_inj_lb's plan (~12 s simulated at ~40 req/s; 4,000
+#: before)
 PATH_CHECK_ITERATIONS = 3000
-#: the same for the three workload paths' plans: db_pool_k2 ~20 s
-#: simulated of its 120 s, llm_cost ~19 s of its 60 s (at ~20 req/s),
-#: two_gen_lb ~3 s (at ~133 req/s; 2,000 each before)
-WORKLOAD_CHECK_ITERATIONS = {"db_pool_k2": 1500, "llm_cost": 1500, "two_gen_lb": 1500}
+#: the same for resilience_all's plan (~8 s simulated; 3,000 before the
+#: observability planes joined the smoke)
+RESILIENCE_CHECK_ITERATIONS = 2000
+#: the same for the three workload paths' plans: db_pool_k2 ~13 s
+#: simulated of its 120 s, llm_cost ~12 s of its 60 s (at ~20 req/s),
+#: two_gen_lb ~2 s (at ~133 req/s; 2,000 each earlier, 1,500
+#: before the observability planes joined it)
+WORKLOAD_CHECK_ITERATIONS = {"db_pool_k2": 1000, "llm_cost": 1000, "two_gen_lb": 1000}
 #: event_inj_lb's windows, scaled into the capped check's simulated time:
 #: they end by 8.1 s
 EVENT_CHECK_TIME_SCALE = 0.015
@@ -1462,7 +1483,7 @@ def phase_kernel_vs_twin(torch) -> dict:
             plan_of(TWO_SERVERS_LB), max_iterations=CHECK_ITERATIONS),
         "event_inj_lb": event_plan,
         "resilience_all": dataclasses.replace(
-            plan_of(RESILIENCE_ALL), max_iterations=PATH_CHECK_ITERATIONS),
+            plan_of(RESILIENCE_ALL), max_iterations=RESILIENCE_CHECK_ITERATIONS),
         **{
             name: dataclasses.replace(plan_of(PAYLOADS[name]), max_iterations=cap)
             for name, cap in WORKLOAD_CHECK_ITERATIONS.items()
@@ -2665,6 +2686,7 @@ def phase_fast_check(torch) -> dict:
         torch, "fast check: log1p_xla on every uniform", _call(eng.draws, "gap_of", (u,), {}),
         _call(plains["edge_draws"], "gap_of", (u,), {})))
     print("fast check: XLA's log1p in the kernel == plain on all 2**23 uniforms", flush=True)
+    measured["blame_grid"] = _blame_grid_check(torch)
     return measured
 
 
@@ -3401,8 +3423,273 @@ def phase_gauge(torch) -> dict:
             "launches_a_chunk": launches // chunks, "work": work}
 
 
+
+#: blame_grid's shapes phase 4 holds to the plain version: (scenarios,
+#: lanes, credits, coarse bins, cells, per-lane cells): a tile and less,
+#: rows off every multiple of 32, many credits and cells (several passes of
+#: rows), and the headline's width
+BLAME_CASES = ((3, 1000, 4, 64, 108, True), (5, 33, 2, 64, 36, False),
+               (64, 20011, 9, 64, 108, True), (17, 4111, 30, 64, 600, True),
+               (2048, 87840, 9, 64, 108, True))
+
+
+def _blame_credits(torch, s: int, n: int, c_n: int, n_cells: int, per_lane: bool, seed: int):
+    """Random credits of ``s`` x ``n`` lanes (a third of each zero, the
+    first all zero), a per-lane credit among them where asked, targets
+    from -1 to nbb + 1 (out of range: dropped) and latencies."""
+    from asyncflow_tpu_torch.engines.torchsim.blame_grid import Credit
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    credits = []
+    for c in range(c_n):
+        secs = torch.rand((s, n), generator=g, device="cuda") * 0.01
+        secs = torch.where(torch.rand((s, n), generator=g, device="cuda") < 0.3, 0.0, secs)
+        if c == 0:
+            secs = torch.zeros_like(secs)
+        if per_lane and c == 2:
+            slot = torch.randint(0, 3, (s, n), generator=g, device="cuda", dtype=torch.int32)
+            credits.append(Credit(secs, slot=slot.to(torch.uint8),
+                                  slot_cells=((7 * c) % n_cells, (7 * c + 1) % n_cells, 5)))
+        else:
+            credits.append(Credit(secs, cell=(13 * c) % n_cells))
+    return credits, g
+
+
+def _blame_compare(torch, label: str, kernel, credits, target, latency, n_cells: int,
+                   nbb: int) -> float:
+    """``blame_grid`` twice (the same bits) and its plain version on the
+    same credits: each cell within one float32 ulp of the plain sums (the
+    float64 sums' order); prints the cells that differ.  Returns the
+    largest absolute difference."""
+    from asyncflow_tpu_torch.engines.torchsim.blame_grid import blame_grid_plain
+
+    grid, lat = kernel.reduce(credits, target, latency, n_cells, nbb)
+    again = kernel.reduce(credits, target, latency, n_cells, nbb)
+    if not (torch.equal(grid, again[0]) and torch.equal(lat, again[1])):
+        raise SmokeError(f"blame_grid {label}: two launches gave different bits")
+    want = blame_grid_plain(credits, target, latency, n_cells, nbb)
+    worst, off = 0.0, 0
+    for got, exp in zip((grid, lat), want, strict=True):
+        ulps = (got.view(torch.int32).long() - exp.view(torch.int32).long()).abs()
+        if int(ulps.max()) > 1:
+            raise SmokeError(f"blame_grid {label}: a cell {int(ulps.max())} ulps from the "
+                             "plain version")
+        off += int((ulps > 0).sum())
+        worst = max(worst, float((got.double() - exp.double()).abs().max()))
+    print(f"fast check: blame_grid {label} == plain within 1 ulp ({off} cells 1 ulp off, "
+          f"max abs {worst:.3g}); two launches bit-identical", flush=True)
+    return worst
+
+
+def _blame_grid_check(torch) -> float:
+    """blame_grid against its plain version at BLAME_CASES and on the
+    credits of a planes run of the headline cut to FAST_CHECK_HORIZON (each
+    twice, which must give the same bits).  Returns the largest absolute
+    difference."""
+    from asyncflow_tpu_torch.compiler import compile_payload
+    from asyncflow_tpu_torch.engines.torchsim.blame_grid import BlameGrid
+    from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine
+    from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
+    from asyncflow_tpu_torch.schemas import SimulationPayload
+
+    kernel, worst = BlameGrid(), 0.0
+    for i, (s, n, c_n, nbb, n_cells, per_lane) in enumerate(BLAME_CASES):
+        credits, g = _blame_credits(torch, s, n, c_n, n_cells, per_lane, i)
+        target = torch.randint(-1, nbb + 2, (s, n), generator=g, device="cuda").to(torch.int16)
+        latency = torch.rand((s, n), generator=g, device="cuda")
+        worst = max(worst, _blame_compare(torch, f"{s} x {n}, {c_n} credits, {n_cells} cells",
+                                          kernel, credits, target, latency, n_cells, nbb))
+        del credits, target, latency
+    data = copy.deepcopy(TWO_SERVERS_LB)
+    data["sim_settings"]["total_simulation_time"] = FAST_CHECK_HORIZON
+    eng = FastEngine(compile_payload(SimulationPayload.from_dict(data)), device="cuda",
+                     blame=True)
+    calls, _ = _record_blame_calls(eng)
+    eng.run_tensors(scenario_keys(0, FAST_CHECK_SCENARIOS, device="cuda"))
+    for credits, target, latency, n_cells, nbb in calls:
+        worst = max(worst, _blame_compare(torch, "the headline's credits, 64 x 60 s", kernel,
+                                          credits, target, latency, n_cells, nbb))
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _record_blame_calls(eng) -> tuple:
+    """Put a recorder in place of the engine's blame_grid wrapper: each call
+    is passed on and its arguments kept.  Returns the calls and the
+    wrapper."""
+    calls: list = []
+    inner = eng.blame_grid
+
+    class Recorder:
+        launches = 0
+
+        def reduce(self, *args):
+            calls.append(args)
+            return inner.reduce(*args)
+
+    eng.blame_grid = Recorder()
+    return calls, inner
+
+
+def _blame_timed(torch, call) -> dict:
+    """One recorded blame_grid call timed between CUDA events: the kernel,
+    its plain version (host clock), one ``scatter_add_`` of the same credits
+    and latencies into a float32 grid (the library call, their keys made
+    beforehand), and the bound: each credit, slot, target and latency read
+    once, the grid and totals written once (the float64 adds far below)."""
+    from asyncflow_tpu_torch.engines.torchsim.blame_grid import BlameGrid, blame_grid_plain
+
+    credits, target, latency, n_cells, nbb = call
+    kernel = BlameGrid()
+    ms = time_kernel(torch, lambda: kernel.reduce(credits, target, latency, n_cells, nbb), 5)
+    plain_ms, _ = _time_plain(torch, lambda: blame_grid_plain(credits, target, latency,
+                                                              n_cells, nbb))
+    s, n = target.shape
+    tgt = torch.where((target < 0) | (target >= nbb), nbb, target.long())
+    keys = [torch.as_tensor(c.cells(), device="cuda") * (nbb + 1) + tgt for c in credits]
+    keys.append(n_cells * (nbb + 1) + tgt)
+    idx = torch.cat([k.expand(s, n) for k in keys], dim=1)
+    del keys
+    val = torch.cat([c.secs for c in credits] + [latency], dim=1)
+    flat = torch.zeros((s, (n_cells + 1) * (nbb + 1)), dtype=torch.float32, device="cuda")
+    library_ms = time_kernel(torch, lambda: flat.zero_().scatter_add_(1, idx, val), 5)
+    del idx, val, flat
+    moved = (sum(c.secs.numel() * 4 + (0 if c.slot is None else c.slot.numel())
+                 for c in credits)
+             + target.numel() * 2 + latency.numel() * 4 + s * (n_cells + 1) * nbb * 4)
+    bound = _bound_of(moved, 0, 0, (len(credits) + 1) * s * n)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "moved": moved, **bound}
+
+
+#: TraceConfig of the planes phase (the reference's defaults)
+PLANE_TRACE = {"sample_requests": 8, "event_slots": 48}
+
+
+def _plane_fields(res) -> list:
+    """The SweepResults fields of the planes (every other is held equal)."""
+    return [f.name for f in dataclasses.fields(res)
+            if f.name.startswith(("flight_", "blame_"))]
+
+
+def _check_planes(label: str, base, traced, both) -> None:
+    """Every output but the planes' bit-identical across the three runs;
+    the rings equal with one plane and with both; pooled conservation in
+    every coarse bin within 1e-3."""
+    import numpy as np
+
+    planes = _plane_fields(base.results)
+    for field in dataclasses.fields(base.results):
+        if field.name in planes:
+            continue
+        want = getattr(base.results, field.name)
+        for other in (traced, both):
+            got = getattr(other.results, field.name)
+            if isinstance(want, np.ndarray) and not np.array_equal(want, got):
+                raise SmokeError(f"planes {label}: the planes changed {field.name}")
+    for name in ("flight_ev", "flight_node", "flight_t", "flight_n"):
+        if not np.array_equal(getattr(traced.results, name), getattr(both.results, name)):
+            raise SmokeError(f"planes {label}: {name} differs with blame on")
+    res = both.results
+    cells = res.blame_hist.sum(axis=0)
+    lat = res.blame_lat_hist
+    rel = np.abs(cells - lat) / np.maximum(lat, 1e-300)
+    if np.any((lat == 0) & (cells != 0)) or np.any(rel[lat > 0] > 1e-3) or lat.sum() <= 0:
+        raise SmokeError(f"planes {label}: pooled conservation off by up to "
+                         f"{rel[lat > 0].max()} in a coarse bin")
+    print(f"planes {label}: every other output bit-identical across untraced, traced and "
+          f"both planes; pooled conservation within {rel[lat > 0].max():.3g} in all "
+          f"{int((lat > 0).sum())} occupied coarse bins", flush=True)
+
+
+def phase_planes(torch) -> dict:
+    """Phase 7, the observability planes on the main path: the headline
+    (600 s, 2048 scenarios) through ``SweepRunner`` untraced, with
+    ``trace=TraceConfig()`` and with both planes, in turns (scen/s each),
+    every other output bit-identical, pooled conservation in every coarse
+    bin, the both-planes run launching blame_grid (its count set to 0 just
+    before it) and its peak device memory; one scenario's flight records
+    decoded and the p95 bin's blame; outage_retry with both planes against
+    its untraced sweep (its rings across attempt blocks); the headline's
+    blame_grid call timed."""
+    from asyncflow_tpu_torch.observability import TraceConfig
+    from asyncflow_tpu_torch.parallel import SweepRunner
+
+    t_start = time.perf_counter()
+    runners = {"off": SweepRunner(TWO_SERVERS_LB, device="cuda"),
+               "trace": SweepRunner(TWO_SERVERS_LB, device="cuda",
+                                    trace=TraceConfig(**PLANE_TRACE)),
+               "both": SweepRunner(TWO_SERVERS_LB, engine="auto", device="cuda",
+                                   trace=TraceConfig(**PLANE_TRACE), blame=True)}
+    for runner in runners.values():
+        if runner.engine_kind != "fast":
+            raise SmokeError(f"planes: auto took the {runner.engine_kind} engine")
+        runner.run(MAIN_SCENARIOS, seed=0)  # warm the allocator and libraries
+    reports, scen_s, peak_gb = {}, {}, 0.0
+    for label, runner in runners.items():
+        torch.cuda.synchronize()
+        if label == "both":
+            runner.engine.blame_grid.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+        reports[label] = runner.run(MAIN_SCENARIOS, seed=0)
+        if label == "both":
+            launches = runner.engine.blame_grid.launches
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        scen_s[label] = reports[label].scenarios_per_second
+    chunks = -(-MAIN_SCENARIOS // runners["both"].default_chunk)
+    if launches != chunks:
+        raise SmokeError(f"planes: blame_grid launched {launches} times over {chunks} chunks")
+    print("planes: the headline at 2048 x 600 s: "
+          + ", ".join(f"{k} {v:.1f} scen/s" for k, v in scen_s.items())
+          + f"; peak {peak_gb:.2f} GB with both planes; blame_grid {launches} launches "
+          f"({chunks} chunks)", flush=True)
+    _check_planes("headline", reports["off"], reports["trace"], reports["both"])
+    both = reports["both"]
+    plan = runners["both"].plan
+    for req, rec in sorted(both.flight_records(0).items())[:2]:
+        print(f"planes: scenario 0, request {req}: "
+              + "; ".join(rec.describe(server_ids=plan.server_ids, edge_ids=plan.edge_ids)),
+              flush=True)
+    blame = both.latency_blame(0.95)
+    print(f"planes: the p95 bin [{blame.bin_lo_s:.4f}, {blame.bin_hi_s:.4f}) s, "
+          f"{blame.n_requests:.0f} requests: "
+          + ", ".join(f"{c} {p} {share:.3f}" for c, p, share in blame.top(4)), flush=True)
+    # outage_retry: the rings across attempt blocks
+    data = FAST_PAYLOADS["outage_retry"]
+    off = SweepRunner(data, device="cuda")
+    on = SweepRunner(data, device="cuda", trace=TraceConfig(**PLANE_TRACE), blame=True)
+    ov = path_overrides("outage_retry", off.plan, MAIN_SCENARIOS)
+    retry_reports = [r.run(MAIN_SCENARIOS, seed=0, overrides=ov) for r in (off, on)]
+    _check_planes("outage_retry", retry_reports[0], retry_reports[1], retry_reports[1])
+    from asyncflow_tpu_torch.observability.simtrace import FR_RETRY, FR_SPAWN
+
+    ev = retry_reports[1].results.flight_ev
+    if not (ev == FR_RETRY).any() or ((ev == FR_SPAWN).sum(axis=2) >= 2).sum() == 0:
+        raise SmokeError("planes outage_retry: no ring holds a retry and a re-issue")
+    print(f"planes outage_retry: {int((ev == FR_RETRY).sum())} retries in the rings, "
+          f"{int(((ev == FR_SPAWN).sum(axis=2) >= 2).sum())} requests spawned twice or more, "
+          f"{int(retry_reports[1].flight_dropped_events().sum())} events past the rings",
+          flush=True)
+    del retry_reports, off, on
+    # the headline's blame_grid call, timed
+    eng = runners["both"].engine
+    calls, kernel = _record_blame_calls(eng)
+    runners["both"].run(MAIN_SCENARIOS, seed=0)
+    eng.blame_grid = kernel
+    timed = _blame_timed(torch, calls[0])
+    err = _blame_compare(torch, "the headline's call at 2048 x 87,840", kernel, *calls[0])
+    del calls, runners, reports, both
+    torch.cuda.empty_cache()
+    print(f"planes: blame_grid {timed['ms']:.3f} ms a launch, {timed['ms'] * launches / chunks:.3f} "
+          f"ms a chunk ({launches // chunks} launch a chunk); bound {timed['bound_ms']:.3f} ms "
+          f"({timed['bound_by']}, {timed['moved'] / 1e9:.2f} GB); plain {timed['plain_ms']:.3f} "
+          f"ms; one scatter_add_ {timed['library_ms']:.3f} ms", flush=True)
+    print(f"planes: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"launches": launches, "scen_s": scen_s, "peak_gb": peak_gb,
+            "max_abs_err": err, **timed}
+
+
 def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict,
-                   gauge: dict) -> list:
+                   gauge: dict, planes: dict) -> list:
     """The kernels line's entries: the DES kernel at the headline's capped
     check (its launches over the six DES paths), each fast kernel at its
     headline call (its launches over the thirteen fast paths), and the
@@ -3562,6 +3849,25 @@ def kernels_report(check: dict, paths: dict, fast_check: dict, fast: dict,
         "path": "two_servers_lb with a streamed series",
         "launches_a_chunk": gauge["launches_a_chunk"],
     })
+    # the blame grid at the headline's call with both planes (its launches:
+    # that run's)
+    from asyncflow_tpu_torch.engines.torchsim.blame_grid import BlameGrid
+
+    kernels.append({
+        "name": BlameGrid.name,
+        "route": BlameGrid.route,
+        "source": BlameGrid.source,
+        "replaces": BlameGrid.replaces,
+        "launches": planes["launches"],
+        "max_abs_err": max(planes["max_abs_err"], fast_check["blame_grid"]),
+        "ms": planes["ms"],
+        "plain_ms": planes["plain_ms"],
+        "bound_ms": planes["bound_ms"],
+        "bound_by": planes["bound_by"],
+        "library_ms": planes["library_ms"],
+        "call": "the headline's credits with both planes, a launch",
+        "path": "two_servers_lb with trace and blame",
+    })
     return kernels
 
 
@@ -3665,13 +3971,15 @@ def main() -> int:
         t5 = time.perf_counter()
         gauge = phase_gauge(torch)
         t6 = time.perf_counter()
+        planes = phase_planes(torch)
+        t7 = time.perf_counter()
     except (SmokeError, subprocess.CalledProcessError) as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
     print(f"phase seconds: setup {t1 - t0:.1f}, kernel vs twin {t2 - t1:.1f}, "
           f"paths {t3 - t2:.1f}, fast kernels vs plain {t4 - t3:.1f}, fast paths {t5 - t4:.1f}, "
-          f"gauge grid {t6 - t5:.1f}")
-    kernels = kernels_report(check, paths, fast_check, fast, gauge)
+          f"gauge grid {t6 - t5:.1f}, planes {t7 - t6:.1f}")
+    kernels = kernels_report(check, paths, fast_check, fast, gauge, planes)
     redesigned_report(fast)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -2,7 +2,7 @@
 """Time one checkout's edge draws on one CUDA card, at each path's own calls.
 
     python3 scripts/torch_hop_times.py [--tree DIR] [--source FILE] [--against FILE ...]
-                                       [--paths NAME,...] [--repeats 5]
+                                       [--paths NAME,...] [--repeats 5] [--outputs-may-differ]
 
 For each fast path (a key of ``chip_smoke.FAST_PAYLOADS``; by default
 event_inj_lb, lc_mixed_fleet, heavy_inj_single_server, two_servers_lb,
@@ -33,7 +33,8 @@ tree's library and each other build in alternation, a launch of each a
 round in turn (the order reversed every other round), so that the card's
 drift reaches every build alike; a build that refuses a call's arguments
 (an older source without its mode) shows "refused".  Every build must
-give the same outputs.
+give the same outputs, unless ``--outputs-may-differ`` (a change of the
+draws' arithmetic), which prints each build's checksum that differs.
 
 Each line gives the milliseconds and the picoseconds a lane (rows x
 lanes a row; the candidates also a lane and slot), the edge_draws
@@ -167,6 +168,8 @@ def main() -> int:
                         help="other edge_draws.cu sources to time in alternation with it")
     parser.add_argument("--paths", default=PATHS)
     parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument("--outputs-may-differ", action="store_true",
+                        help="time the --against builds even where their outputs differ")
     opts = parser.parse_args()
     tree = Path(opts.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -237,11 +240,12 @@ def main() -> int:
                     if ms is None:
                         parts.append(f"{label}: refused")
                         continue
-                    if c != checksum:
+                    if c != checksum and not opts.outputs_may_differ:
                         print(f"torch_hop_times: {name} {kind}: {label}'s outputs differ",
                               file=sys.stderr)
                         return 1
-                    parts.append(f"{label}: {ms:.4f} ms, {ms * 1e9 / lanes:.2f} ps a lane")
+                    parts.append(f"{label}: {ms:.4f} ms, {ms * 1e9 / lanes:.2f} ps a lane"
+                                 + (f" (outputs differ: checksum {c})" if c != checksum else ""))
                 print(f"{head}: " + "; ".join(parts)
                       + f"; {launches} launches a call; checksum {checksum}", flush=True)
                 continue

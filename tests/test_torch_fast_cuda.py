@@ -952,3 +952,78 @@ def test_fast_engine_gauge_grid_matches_plain_on_cuda(cuda_device, option: dict)
     for field, value in off.items():
         if field != "gauge":
             assert torch.equal(got[field], value), field
+
+
+def _blame_inputs(dev, s: int, n: int, n_cells: int, nbb: int, seed: int):
+    from asyncflow_tpu_torch.engines.torchsim.blame_grid import Credit
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    credits = []
+    for c in range(9):
+        secs = torch.rand((s, n), generator=g, device=dev) * 0.01
+        secs = torch.where(torch.rand((s, n), generator=g, device=dev) < 0.3, 0.0, secs)
+        if c == 4:
+            slot = torch.randint(0, 3, (s, n), generator=g, device=dev).to(torch.uint8)
+            credits.append(Credit(secs, slot=slot, slot_cells=(3 % n_cells, 40 % n_cells, (c * 13) % n_cells)))
+        else:
+            credits.append(Credit(secs if c else torch.zeros_like(secs), cell=(c * 13) % n_cells))
+    target = torch.randint(-1, nbb + 2, (s, n), generator=g, device=dev).to(torch.int16)
+    return credits, target, torch.rand((s, n), generator=g, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("s", "n", "n_cells"), [(3, 1000, 108), (64, 20_011, 108),
+                                                 (17, 4111, 2400), (1, 31, 12)])
+def test_blame_grid_matches_plain_on_cuda(cuda_device, s: int, n: int, n_cells: int) -> None:
+    """The blame grid's kernel on the card: two launches give the same bits,
+    and each cell is within one float32 ulp of the plain float64 sums (the
+    two sum in different orders); 2,400 cells take several passes."""
+    from asyncflow_tpu_torch.engines.torchsim.blame_grid import BlameGrid, blame_grid_plain
+
+    nbb = 64
+    credits, target, latency = _blame_inputs(cuda_device, s, n, n_cells, nbb, n)
+    kernel = BlameGrid()
+    grid, lat = kernel.reduce(credits, target, latency, n_cells, nbb)
+    again = kernel.reduce(credits, target, latency, n_cells, nbb)
+    assert torch.equal(grid, again[0]) and torch.equal(lat, again[1])
+    assert kernel.launches == 2
+    want = blame_grid_plain(credits, target, latency, n_cells, nbb)
+    for got, exp in zip((grid, lat), want):
+        ulps = (got.view(torch.int32).long() - exp.view(torch.int32).long()).abs()
+        assert int(ulps.max()) <= 1
+
+
+@pytest.mark.cuda
+def test_fast_engine_planes_on_cuda(cuda_device) -> None:
+    """The engine's planes on the card (two streams behind an LB under an
+    outage timeline): the blame grid through the kernel within one ulp of
+    the plain version, the rings as on the plain path, and every other
+    output as without the planes."""
+    from asyncflow_tpu_torch.engines.torchsim import blame_grid
+    from asyncflow_tpu_torch.observability import TraceConfig
+
+    plan = compile_payload(SimulationPayload.from_dict(_two_streams_outage()))
+    keys = scenario_keys(5, 16, device=cuda_device)
+    eng = FastEngine(plan, device=cuda_device, trace=TraceConfig(), blame=True)
+    got = eng.run_tensors(keys)
+    assert eng.blame_grid.launches == 1
+
+    class Plain:
+        launches = 0
+
+        @staticmethod
+        def reduce(*args):
+            return blame_grid.blame_grid_plain(*args)
+
+    plain = copy.copy(eng)
+    plain.blame_grid = Plain()
+    want = plain.run_tensors(keys)
+    for name in ("bl_grid", "bl_lat"):
+        ulps = (got[name].view(torch.int32).long() - want[name].view(torch.int32).long()).abs()
+        assert int(ulps.max()) <= 1
+    off = FastEngine(plan, device=cuda_device).run_tensors(keys)
+    for field, value in off.items():
+        if not field.startswith(("fr_", "bl_")):
+            assert torch.equal(got[field], value), field
+    for name in ("fr_ev", "fr_node", "fr_t", "fr_n"):
+        assert torch.equal(got[name], want[name])

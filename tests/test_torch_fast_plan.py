@@ -185,9 +185,17 @@ def test_ineligible_plan_is_refused_with_the_reason() -> None:
     [({"trace": {}}, "flight recorder"), ({"blame": True}, "blame")],
 )
 def test_out_of_slice_options_are_refused_by_name(option: dict, feature: str) -> None:
+    """The flight recorder and blame run on the fast path (a trace mapping
+    validated into a TraceConfig); antithetic draws and the scanned entry
+    point are still refused by name."""
+    from asyncflow_tpu_torch.observability import TraceConfig
+
     plan = compile_payload(SimulationPayload.from_dict(example("single_server")))
-    with pytest.raises(UnsupportedFeatureError, match=feature):
-        FastEngine(plan, device="cpu", **option)
+    on = FastEngine(plan, device="cpu", **option)
+    if feature == "flight recorder":
+        assert on.trace == TraceConfig() and not on.blame
+    else:
+        assert on.trace is None and on.blame
     eng = FastEngine(plan, device="cpu")
     with pytest.raises(UnsupportedFeatureError, match="antithetic"):
         eng.run_batch(np.zeros((1, 2), np.uint32), antithetic=True)
