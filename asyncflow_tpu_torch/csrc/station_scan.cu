@@ -8,9 +8,13 @@
 // _token_bucket_scan (:302), and the overload controls' lax.scans,
 // _controlled_station_scan (:331) and _socket_station_scan (:374).  Each
 // row of the (S, m) inputs is one station's time-sorted stream of one
-// scenario, walked in order with the station's state:
+// scenario, walked with the station's state:
 //
-//   mode 0 (c = 1)  C_k = max(A_k + S_k, C_{k-1} + S_k),
+//   mode 0 (c = 1)  C_k = max(A_k + S_k, C_{k-1} + S_k) as the inclusive
+//                   max-plus scan of e_k = (S_k, A_k + S_k) under
+//                   (a1, b1) o (a2, b2) = (a1 + a2, max(b2, b1 + a2)), in
+//                   the reference's associative_scan tree (no multiply,
+//                   so no fused multiply-add can enter),
 //                   wait_k = max(0, (C_k - S_k) - A_k);
 //   mode 1 (c > 1)  the ascending vector of the c core-free times: wait on
 //                   the first, replace it by max(f_0, A_k) + S_k, re-sort;
@@ -43,27 +47,45 @@
 //                   if io-only), a burst one that is not shed takes a core
 //                   and pushes g; flag 4 refused.
 //
-// Invalid elements leave the carry unchanged, so a row may interleave
-// other stations' lanes.  Built with --fmad=false: each float operation
-// rounds as the plain PyTorch version's does.
+// Invalid elements leave the carry unchanged (in mode 0 they are the
+// scan's identity, (0, -inf), but their positions shape its tree), so a
+// row may interleave other stations' lanes.  Built with --fmad=false: each
+// float operation rounds as the plain PyTorch version's does.
 //
 // Bound: bytes.  An element is read once (arrival, service, validity;
 // pre-IO and post-IO in mode 2) and its outputs written once, for a few
-// float operations.  A row is sequential, and a K-server FIFO has no cheap
-// associative form (a K x K max-plus product a combine), so the
-// parallelism is across rows and across the carry vector.  The walks:
+// float operations.  A K-server FIFO has no cheap associative form (a K x
+// K max-plus product a combine), so the carry modes' parallelism is across
+// rows and across the carry vector; the one-server scan's is the
+// reference's tree.  The walks:
 //
-// The thread walk (mode 0; the carry modes past kWarpWidthMax entries): one
-// thread a row, 16 rows a block (half a warp: the lanes of a warp read
+// The tree walk (mode 0): a block of kTreeThreads a row, walked in tiles
+// of kTreeTile elements, a thread a run of kTreeRun consecutive elements:
+// its loads as 16-byte vectors (scalars on a row off a 16-byte boundary),
+// its run's tree in registers, the tile's tree of runs in shared memory
+// (a warp's levels under __syncwarp, the top levels by one thread), each
+// run's prefix before it folded from the carry and its path's left
+// siblings, then the run's down-sweep in registers and its waits stored as
+// vectors.  The carry from tile to tile is a binary counter of whole
+// aligned blocks of tiles, kept by one thread.  A tile costs two barriers
+// (its levels are double-buffered by the tile's parity); at 2048 rows
+// the grid is 2048 blocks.  Runs of 8: at 16 and 32 elements the run's
+// register arrays went to local memory (448 and 912 bytes a thread) and
+// the headline's scan took 2.8 and 3.4 ms against 0.82
+// (scripts/torch_scan_variants.py --tree-run).  The reference's order is described at
+// tree_walk_kernel.
+//
+// The thread walk (the carry modes past kWarpWidthMax entries: the global
+// walk): one thread a row, 16 rows a block (half a warp: the lanes of a warp read
 // different rows, one L1 wavefront each, so the wavefronts, not the lanes,
 // are the cost, and 16-row blocks spread the 2048 rows over 128 SMs).  It
 // moves 16 bytes a lane an instruction: the elements before the row's first
 // 16-byte boundary one at a time, then kVec elements at a time as float4 /
 // uchar4 vectors (their loads issued together), then the tail; each lane
-// prefetches into L1 the lines of its row kAhead elements on.  Mode 0
-// carries one float; a carry past kWarpWidthMax entries (a core count the
-// schema does not bound) lives in global scratch the wrapper allocates,
-// with the shifting insertion (MemVec).  scripts/torch_scan_variants.py
+// prefetches into L1 the lines of its row kAhead elements on.  The carry
+// (past kWarpWidthMax entries: a core count the schema does not bound)
+// lives in global scratch the wrapper allocates, with the shifting
+// insertion (MemVec).  scripts/torch_scan_variants.py
 // times other block sizes and prefetch distances (-DSTATION_ROWS,
 // -DSTATION_AHEAD).
 //
@@ -223,7 +245,7 @@ constexpr int kLaneWhole = 8;   // connections, ring entries and cores of the la
 constexpr int kBucketLines = 8;  // lines of kLanes elements the bucket keeps in flight
 
 // which walk a launch takes (station_scan_walk)
-constexpr int kWalkThread = 0;
+constexpr int kWalkTree = 0;
 constexpr int kWalkWarp = 1;
 constexpr int kWalkGlobal = 2;
 constexpr int kWalkLane = 3;
@@ -232,6 +254,222 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 #ifdef __CUDA_ARCH__
   asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
 #endif
+}
+
+// ---------------------------------------------------------------------------
+// the tree walk (mode 0)
+// ---------------------------------------------------------------------------
+
+// An element or block aggregate of Lindley's max-plus scan: x -> max(b, x +
+// a).  A prefix (a left operand) only ever needs its b.
+struct Agg {
+  float a, b;
+};
+
+// The reference's combine, left o right: (a1 + a2, max(b2, b1 + a2)).
+__device__ __forceinline__ Agg agg_of(Agg l, Agg r) { return {l.a + r.a, fmaxf(r.b, l.b + r.a)}; }
+// The b of prefix o r.
+__device__ __forceinline__ float prefix_of(float p, Agg r) { return fmaxf(r.b, p + r.a); }
+
+#ifndef TREE_RUN
+#define TREE_RUN 8
+#endif
+constexpr int kTreeRun = TREE_RUN;  // elements a run: a thread's, in registers
+constexpr int kTreeRunLevels = kTreeRun == 32 ? 5 : kTreeRun == 16 ? 4 : kTreeRun == 8 ? 3 : 2;
+static_assert(1 << kTreeRunLevels == kTreeRun, "a run is 4, 8, 16 or 32 elements");
+constexpr int kTreeRuns = 256;   // runs a tile
+constexpr int kTreeLevels = 8;   // log2(kTreeRuns)
+constexpr int kTreeTile = kTreeRun * kTreeRuns;
+constexpr int kTreeStack = 48;   // the binary counter's blocks (rows up to 2^48 tiles)
+#ifdef __CUDACC__
+constexpr int kTreeThreads = kTreeRuns;  // a thread a run
+#else
+constexpr int kTreeThreads = 1;  // the host build: one thread runs every run in turn
+#endif
+constexpr int kTreeRunsPer = kTreeRuns / kTreeThreads;
+
+// Where run level s (blocks of 2^s runs) starts in a tile's level array.
+__device__ __forceinline__ int tree_off(int s) { return 2 * kTreeRuns - ((2 * kTreeRuns) >> s); }
+
+// A run's registers between its up-sweep and its down-sweep: the services
+// and arrivals (for the waits), and the left operands the down-sweep needs:
+// at each level of the run's tree the even entries (level L's at
+// left[kTreeRun - (kTreeRun >> L) + j]: the even elements, then the even
+// blocks of 2, 4, ...).
+struct TreeRun {
+  float svc[kTreeRun], arr[kTreeRun];
+  Agg left[kTreeRun - 1];
+};
+
+// Load run r's elements (the row's elements k0 .. k0 + kTreeRun - 1, those
+// past m the identity), keep what the down-sweep needs and return the
+// run's aggregate: a balanced tree of its pairs, as the reference's levels.
+__device__ __forceinline__ Agg tree_up(const StationArgs& a, const float* A, const float* D,
+                                       const uint8_t* V, int64_t k0, bool vec, TreeRun& t) {
+  float av[kTreeRun], dv[kTreeRun];
+  bool ok[kTreeRun];
+  if (vec && k0 + kTreeRun <= a.m) {
+#pragma unroll
+    for (int q = 0; q < kTreeRun / 4; ++q) {
+      const float4 x = *reinterpret_cast<const float4*>(A + k0 + 4 * q);
+      const float4 y = *reinterpret_cast<const float4*>(D + k0 + 4 * q);
+      const uchar4 w = *reinterpret_cast<const uchar4*>(V + k0 + 4 * q);
+      av[4 * q] = x.x, av[4 * q + 1] = x.y, av[4 * q + 2] = x.z, av[4 * q + 3] = x.w;
+      dv[4 * q] = y.x, dv[4 * q + 1] = y.y, dv[4 * q + 2] = y.z, dv[4 * q + 3] = y.w;
+      ok[4 * q] = w.x != 0, ok[4 * q + 1] = w.y != 0, ok[4 * q + 2] = w.z != 0;
+      ok[4 * q + 3] = w.w != 0;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kTreeRun; ++i) {
+      const bool in = k0 + i < a.m;
+      av[i] = in ? A[k0 + i] : 0.0f;
+      dv[i] = in ? D[k0 + i] : 0.0f;
+      ok[i] = in && V[k0 + i] != 0;
+    }
+  }
+  Agg cur[kTreeRun];
+#pragma unroll
+  for (int i = 0; i < kTreeRun; ++i) {
+    t.svc[i] = ok[i] ? dv[i] : 0.0f;
+    t.arr[i] = ok[i] ? av[i] : 0.0f;
+    cur[i] = {t.svc[i], ok[i] ? t.arr[i] + t.svc[i] : -kInf};
+  }
+#pragma unroll
+  for (int L = 0; L < kTreeRunLevels; ++L) {
+    const int n = kTreeRun >> L;
+#pragma unroll
+    for (int j = 0; j < n / 2; ++j) {
+      t.left[kTreeRun - n + j] = cur[2 * j];
+      cur[j] = agg_of(cur[2 * j], cur[2 * j + 1]);
+    }
+  }
+  return cur[0];
+}
+
+// The run's prefixes from ``in``, the prefix before its first element, and
+// ``out``, the prefix through its last: the reference's down-sweep, an
+// even entry 2j of a level ``(prefix through entry j - 1 of the level
+// above) o e(2j)``, an odd one the level above's; then the waits.
+__device__ __forceinline__ void tree_down(const StationArgs& a, float* W, int64_t k0, bool vec,
+                                          const TreeRun& t, float in, float out) {
+  float o[kTreeRun];
+  o[0] = out;
+#pragma unroll
+  for (int L = kTreeRunLevels - 1; L >= 0; --L) {
+    const int n = kTreeRun >> L;
+#pragma unroll
+    for (int j = n / 2 - 1; j >= 0; --j) {
+      o[2 * j + 1] = o[j];
+      o[2 * j] = prefix_of(j == 0 ? in : o[j - 1], t.left[kTreeRun - n + j]);
+    }
+  }
+  float w[kTreeRun];
+#pragma unroll
+  for (int i = 0; i < kTreeRun; ++i) w[i] = fmaxf((o[i] - t.svc[i]) - t.arr[i], 0.0f);
+  if (vec && k0 + kTreeRun <= a.m) {
+#pragma unroll
+    for (int q = 0; q < kTreeRun / 4; ++q) {
+      float4 x;
+      x.x = w[4 * q], x.y = w[4 * q + 1], x.z = w[4 * q + 2], x.w = w[4 * q + 3];
+      *reinterpret_cast<float4*>(W + k0 + 4 * q) = x;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kTreeRun; ++i)
+      if (k0 + i < a.m) W[k0 + i] = w[i];
+  }
+}
+
+// Lindley's waits in the reference's tree order (_lindley_waits'
+// associative_scan): a block a row, walked in tiles of kTreeTile elements.
+// The prefix at k is the left fold, largest first, of the aligned
+// power-of-two blocks of k + 1, each block's aggregate a balanced tree.
+// In a tile at offset o (a multiple of kTreeTile) the blocks of element
+// o + i < o + kTreeTile - 1 are those of o (whole tiles: the carry) and
+// then those of i + 1 within the tile; so a run's prefix before it is the
+// carry folded with the left siblings of its path in the tile's tree of
+// runs, and the run's own prefixes are the reference's down-sweep from
+// there.  The tile's last element takes the carry of the tiles through it:
+// a binary counter of the aggregates of whole aligned blocks of tiles,
+// merged ``lower o upper`` where two have one size, folded from the
+// largest.  The first tile's carry is the identity (b = -inf), which
+// leaves every b as it is bit for bit.  Every add and max is the
+// reference's, on the same operands in the same order.
+__global__ void __launch_bounds__(kTreeThreads) tree_walk_kernel(StationArgs a) {
+  __shared__ Agg lev[2][2 * kTreeRuns];  // a tile's levels of runs, by tile parity
+  __shared__ float edge[2];              // the prefix through a tile's end, by parity
+  __shared__ Agg stack[kTreeStack];      // the counter's blocks, largest first
+  __shared__ int stack_lvl[kTreeStack];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const int64_t base = row * a.m;
+  const float* A = a.a + base;
+  const float* D = a.d + base;
+  const uint8_t* V = a.v + base;
+  float* W = a.out0 + base;
+  const bool vec = (((uintptr_t)A | (uintptr_t)D | (uintptr_t)W | (uintptr_t)V) & 15u) == 0u;
+  int depth = 0;  // thread 0's
+  TreeRun run[kTreeRunsPer];
+  int parity = 0;
+  for (int64_t tile0 = 0; tile0 < a.m; tile0 += kTreeTile, parity ^= 1) {
+    Agg* L = lev[parity];
+    // each run's aggregate, then the levels of blocks of 2 .. 32 runs, a
+    // warp's own
+    for (int q = 0; q < kTreeRunsPer; ++q) {
+      const int r = tid + q * kTreeThreads;
+      L[r] = tree_up(a, A, D, V, tile0 + (int64_t)r * kTreeRun, vec, run[q]);
+    }
+    __syncwarp();
+    for (int s = 1; s <= 5; ++s) {
+      for (int q = 0; q < kTreeRunsPer; ++q) {
+        const int t = tid + q * kTreeThreads;
+        const int lane = t & 31;
+        if (lane < (32 >> s)) {
+          const int j = (t >> 5) * (32 >> s) + lane;
+          L[tree_off(s) + j] = agg_of(L[tree_off(s - 1) + 2 * j], L[tree_off(s - 1) + 2 * j + 1]);
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    // thread 0: the levels of 64 .. 256 runs, then the tile enters the
+    // counter and its end prefix is the counter's fold
+    if (tid == 0) {
+      for (int s = 6; s <= kTreeLevels; ++s)
+        for (int j = 0; j < (kTreeRuns >> s); ++j)
+          L[tree_off(s) + j] = agg_of(L[tree_off(s - 1) + 2 * j], L[tree_off(s - 1) + 2 * j + 1]);
+      Agg top = L[tree_off(kTreeLevels)];
+      int lvl = 0;
+      while (depth > 0 && stack_lvl[depth - 1] == lvl) {
+        top = agg_of(stack[depth - 1], top);
+        --depth;
+        ++lvl;
+      }
+      stack[depth] = top;
+      stack_lvl[depth] = lvl;
+      ++depth;
+      float f = stack[0].b;
+      for (int i = 1; i < depth; ++i) f = prefix_of(f, stack[i]);
+      edge[parity] = f;
+    }
+    __syncthreads();
+    // each run: its prefix before it and through it, then its own
+    const float carry = tile0 == 0 ? -kInf : edge[parity ^ 1];
+    for (int q = 0; q < kTreeRunsPer; ++q) {
+      const int r = tid + q * kTreeThreads;
+      float in = carry;
+      for (int s = kTreeLevels - 1; s >= 0; --s)
+        if ((r >> s) & 1) in = prefix_of(in, L[tree_off(s) + (r >> s) - 1]);
+      float out = edge[parity];
+      if (r + 1 < kTreeRuns) {
+        out = carry;
+        for (int s = kTreeLevels - 1; s >= 0; --s)
+          if (((r + 1) >> s) & 1) out = prefix_of(out, L[tree_off(s) + ((r + 1) >> s) - 1]);
+      }
+      tree_down(a, W, tile0 + (int64_t)r * kTreeRun, vec, run[q], in, out);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -259,23 +497,16 @@ struct MemVec {
   }
 };
 
-// A row's state in mode kMode and the step of one element: its outputs
-// from (arrival, service, validity, pre-IO, post-IO).
+// A row's state in mode kMode (1 or 2) and the step of one element: its
+// outputs from (arrival, service, validity, pre-IO, post-IO).
 template <int kMode>
 struct Station {
   MemVec& wc;
   MemVec& wr;
-  float c;  // mode 0: the last completion
 
   __device__ __forceinline__ void step(float ak, float dk, bool ok, float pk, float qk,
                                        float& o0, float& o1, float& o2) {
-    if (kMode == 0) {
-      const float svc = ok ? dk : 0.0f;
-      const float arr = ok ? ak : 0.0f;
-      const float b = ok ? arr + svc : -kInf;
-      c = fmaxf(b, c + svc);
-      o0 = fmaxf((c - svc) - arr, 0.0f);
-    } else if (kMode == 1) {
+    if (kMode == 1) {
       if (ok) {
         const float f0 = wc.first();
         o0 = fmaxf(f0 - ak, 0.0f);
@@ -312,8 +543,8 @@ __device__ __forceinline__ void set_lane(float4& v, int i, float x) {
   else v.w = x;
 }
 
-// One row's walk in mode kMode by one thread; wc and wr are its core and
-// RAM-slot vectors (unused in mode 0).
+// One row's walk in mode kMode (1 or 2) by one thread, the global walk;
+// wc and wr are its core and RAM-slot vectors.
 template <int kMode>
 __device__ __forceinline__ void walk(const StationArgs& a, int64_t row, MemVec& wc, MemVec& wr) {
   const int64_t base = row * a.m;
@@ -325,7 +556,7 @@ __device__ __forceinline__ void walk(const StationArgs& a, int64_t row, MemVec& 
   float* __restrict__ W0 = a.out0 + base;
   float* __restrict__ W1 = kMode == 2 ? a.out1 + base : nullptr;
   float* __restrict__ W2 = kMode == 2 ? a.out2 + base : nullptr;
-  Station<kMode> st{wc, wr, -kInf};
+  Station<kMode> st{wc, wr};
 
   const auto one = [&](int64_t k) {
     float o0, o1, o2;
@@ -395,11 +626,6 @@ __device__ __forceinline__ void walk(const StationArgs& a, int64_t row, MemVec& 
 __global__ void station_scan_kernel(StationArgs a) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= a.S) return;
-  if (a.mode == 0) {
-    MemVec none{nullptr, 0};
-    walk<0>(a, row, none, none);
-    return;
-  }
   const int slots = a.mode == 2 ? a.ram_k : 0;
   float* carry = a.scratch + row * (int64_t)(slots + a.cores);
   MemVec wr{carry, slots};
@@ -1187,14 +1413,14 @@ int station_scan_args_size() { return (int)sizeof(StationArgs); }
 int station_scan_lanes() { return kLanes; }
 int station_scan_warp_width_max() { return kWarpWidthMax; }
 
-// The walk a launch takes: 0 one thread a row (mode 0), 1 one warp a row
-// (mode 3; modes 1, 2, 4 and 5 with both vectors up to kWarpWidthMax
-// entries), 2 one thread a row with the carry in global scratch of ram_k +
+// The walk a launch takes: 0 a block a row in the reference's tree (mode
+// 0), 1 one warp a row (mode 3; modes 1, 2, 4 and 5 with both vectors up to
+// kWarpWidthMax entries), 2 one thread a row with the carry in global scratch of ram_k +
 // cores floats a row (wider; ram_k is the connection cap in mode 5), 3 one
 // lane a row (modes 4 and 5 with their ring, cores and, in mode 5,
 // connections up to kLaneWhole entries each).
 int station_scan_walk(int mode, int cores, int ram_k, int cap) {
-  if (mode == 0) return kWalkThread;
+  if (mode == 0) return kWalkTree;
   if (mode == 3) return kWalkWarp;
   if ((mode == 4 || (mode == 5 && ram_k <= kLaneWhole)) && cap <= kLaneWhole &&
       cores <= kLaneWhole)
@@ -1234,6 +1460,12 @@ int station_scan_launch(const StationArgs* args, void* stream) {
                          (uintptr_t)a.v | (uintptr_t)a.b | (uintptr_t)a.out0 | (uintptr_t)a.flag;
     if ((at & 15u) != 0u) return -1;
     return a.mode == 4 ? launch_lane_walk<4, 1>(a, stream) : launch_lane_walk<5, 1>(a, stream);
+  }
+  if (a.mode == 0) {
+    const int threads = kTreeThreads;
+    const int64_t blocks = a.S;
+    tree_walk_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
   }
   if (a.mode == 3) {
     const int threads = kWarps * kLanes;

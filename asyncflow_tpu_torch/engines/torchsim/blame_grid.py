@@ -12,10 +12,12 @@ succeeded, else ``nbb`` (dropped).
 
 The plain version sums each credit in float64 with ``scatter_add_``, credit
 by credit, and rounds once.  On a CUDA tensor :class:`BlameGrid` launches
-``csrc/blame_grid.cu``, whose float64 sums run in a fixed order, so two
-launches give the same bits; a cell may differ from the plain version's by
-one float32 ulp (the order of the float64 sums).  On a CPU tensor it runs
-the plain version.
+``csrc/blame_grid.cu`` (a block a slice of a row, each segment of its lanes
+sorted once by (bin, slot), a credit's runs summed by stretches of sorted
+lanes), whose float64 sums run in a fixed order, so two launches give the
+same bits; a cell may differ from the plain version's by one float32 ulp
+(the order of the float64 sums).  On a CPU tensor it runs the plain
+version.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from asyncflow_tpu_torch.errors import KernelBuildError, KernelLaunchError
 #: last, part-empty wave costs little): a row's lanes are cut into slices
 #: until the grid has about these many
 TARGET_BLOCKS = 4096
+#: the most coarse bins the kernel takes (its counting sort's keys, less the
+#: dropped lanes' key: kMaxKeys - 1)
+MAX_BINS = 511
 
 
 class Credit(NamedTuple):
@@ -152,7 +157,9 @@ class BlameGrid:
                 if not 0 < len(c.slot_cells) <= 256:
                     msg = f"blame_grid: credit {i} needs 1 to 256 slot cells"
                     raise ValueError(msg)
-                slots.append(_lanes(c.slot, torch.uint8, shape, dev, f"credit {i}'s slots"))
+                slots.append(_distinct_slots(
+                    _lanes(c.slot, torch.uint8, shape, dev, f"credit {i}'s slots"),
+                    c.slot_cells))
             else:
                 slots.append(None)
         secs.append(_lanes(latency, torch.float32, shape, dev, "latency"))
@@ -169,6 +176,9 @@ class BlameGrid:
         if tuple(tgt.shape) != shape or tgt.device != dev:
             msg = f"blame_grid: the targets must have shape {shape} on {dev}"
             raise ValueError(msg)
+        if nbb > MAX_BINS:
+            msg = f"blame_grid: {nbb} coarse bins exceed the kernel's {MAX_BINS}"
+            raise ValueError(msg)
         lib = _library()
         rows = len(row_cell)
         per_pass = lib.blame_grid_pass_rows(nbb)
@@ -177,7 +187,7 @@ class BlameGrid:
             raise ValueError(msg)
         tile = lib.blame_grid_tile_lanes()
         n_slices = max(1, min(-(-TARGET_BLOCKS // s), -(-n // tile)))
-        slice_len = -(-(-(-n // n_slices)) // 32) * 32
+        slice_len = -(-(-(-n // n_slices)) // tile) * tile
         n_slices = -(-n // slice_len)
         ptrs = torch.tensor([x.data_ptr() for x in secs], dtype=torch.int64, device=dev)
         slot_ptrs = torch.tensor([0 if x is None else x.data_ptr() for x in slots],
@@ -206,6 +216,17 @@ class BlameGrid:
         # their memory only to work queued after these launches on the stream
         self.launches += 1
         return grid, lat_out
+
+
+def _distinct_slots(slot: torch.Tensor, cells: tuple[int, ...]) -> torch.Tensor:
+    """``slot`` with each slot whose cell an earlier slot has made that
+    slot, so that the kernel's (bin, slot) runs of one credit add into
+    cells of their own."""
+    first = [cells.index(c) for c in cells]
+    if first == list(range(len(cells))):
+        return slot
+    table = torch.tensor(first + [0] * (256 - len(first)), dtype=torch.uint8, device=slot.device)
+    return table[slot.long()]
 
 
 def _lanes(x: torch.Tensor, dtype: torch.dtype, shape: tuple, dev, name: str) -> torch.Tensor:

@@ -3,15 +3,16 @@ with the CUDA kernel that walks them (``csrc/station_scan.cu``).
 
 Each row of an (S, m) input is one station's merged stream of one
 scenario, in its time order (lanes of other stations masked invalid
-anywhere in it).  The plain versions step through the stream one element
-at a time, vectorised over the rows, and compute what the kernel
-computes, operation for operation:
+anywhere in it).  The plain versions compute what the kernel computes,
+operation for operation, vectorised over the rows; all but Lindley's step
+through the stream one element at a time:
 
 - :func:`lindley_plain`, c = 1: the completion recursion
-  ``C_k = max(A_k + S_k, C_{k-1} + S_k)`` and the wait
-  ``max(0, (C_k - S_k) - A_k)`` (the reference's ``_lindley_waits``,
-  ``fastpath.py:278``, evaluates the same recursion as a max-plus
-  ``associative_scan``, whose float sums associate differently);
+  ``C_k = max(A_k + S_k, C_{k-1} + S_k)`` as the reference's
+  ``_lindley_waits`` (``fastpath.py:278``) evaluates it, a max-plus
+  ``associative_scan`` in JAX's tree order (:func:`_maxplus_scan`: about
+  2 log2(m) passes), and the wait ``max(0, (C_k - S_k) - A_k)``: equal to
+  the jitted reference's bit for bit;
 - :func:`kw_plain`, c > 1: the Kiefer-Wolfowitz vector of the c core-free
   times (``_kw_waits``, ``:198``);
 - :func:`ram_core_plain`: the joint FIFO of RAM admission slots and cores
@@ -32,9 +33,12 @@ computes, operation for operation:
 
 Invalid entries leave the carry as it is (their outputs are computed and
 ignored), so a stream may interleave other stations' lanes.
+Invalid Lindley entries are the scan's identity, but their positions shape
+its tree, so the rows keep the reference's positions.
 :class:`StationScan` is the wrapper: CUDA tensors launch the kernel (built
 on first use) or raise, CPU tensors run the plain version.  The kernel
-walks a row with one thread in Lindley's mode; with one warp in the
+walks a row with a block in Lindley's mode, in the same tree (the tree
+walk, :data:`WALK_TREE`); with one warp in the
 bucket's mode (its chain over the valid elements only), the carry modes,
 and the controlled and socket modes past the lane walk's shapes, each
 carry vector spread over the warp's lanes, or whole on every lane where it
@@ -75,16 +79,17 @@ FLAG_REFUSED = 4
 #: the widest ready-queue ring and connection vector the two modes take
 #: (the compiler refuses larger caps on the fast path)
 RING_MAX = 128
-#: the kernel's walks (station_scan.cu, ``station_scan_walk``): one thread
-#: a row (Lindley), one warp a row (the bucket; the carry modes up to
-#: WARP_WIDTH_MAX entries a vector, the carry over its lanes), one thread a
-#: row with the carry in global scratch (wider), one lane a row (the
-#: controlled and socket modes up to LANE_WHOLE entries a vector)
-WALK_THREAD = 0
+#: the kernel's walks (station_scan.cu, ``station_scan_walk``): a block a
+#: row in the reference's tree order (Lindley), one warp a row (the bucket;
+#: the carry modes up to WARP_WIDTH_MAX entries a vector, the carry over its
+#: lanes), one thread a row with the carry in global scratch (wider), one
+#: lane a row (the controlled and socket modes up to LANE_WHOLE entries a
+#: vector)
+WALK_TREE = 0
 WALK_WARP = 1
 WALK_GLOBAL = 2
 WALK_LANE = 3
-WALK_NAMES = {WALK_THREAD: "thread", WALK_WARP: "warp", WALK_GLOBAL: "global",
+WALK_NAMES = {WALK_TREE: "tree", WALK_WARP: "warp", WALK_GLOBAL: "global",
               WALK_LANE: "lane"}
 #: the widest ring, core vector and connection vector of the lane walk
 #: (kLaneWhole)
@@ -101,7 +106,7 @@ def walk_of(mode: int, cores: int, ram_k: int, cap: int = -1) -> int:
     ``ram_k`` is the RAM slots in the RAM-core mode and the connection cap
     in the socket mode, ``cap`` the ready-queue cap."""
     if mode == MODE_LINDLEY:
-        return WALK_THREAD
+        return WALK_TREE
     if mode == MODE_BUCKET:
         return WALK_WARP
     if (mode == MODE_CONTROLLED or (mode == MODE_SOCKET and ram_k <= LANE_WHOLE)) \
@@ -130,16 +135,40 @@ def carry_form(width: int, lanes: int = WARP_LANES) -> tuple[int, int]:
 
 def lindley_plain(a: torch.Tensor, d: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(S, m) single-server FIFO waits of sorted arrivals ``a``, services
-    ``d`` and validity ``v``."""
+    ``d`` and validity ``v``: the completion clocks as the inclusive
+    max-plus scan of ``e_k = (svc_k, arr_k + svc_k)`` (``-inf`` where
+    invalid) in the reference's tree order (:func:`_maxplus_scan`)."""
     svc = torch.where(v, d, 0.0)
     arr = torch.where(v, a, 0.0)
     b = torch.where(v, arr + svc, -INF)
-    c = torch.full_like(a[:, 0], -INF)
-    out = torch.empty_like(a)
-    for k in range(a.shape[1]):
-        c = torch.maximum(b[:, k], c + svc[:, k])
-        out[:, k] = torch.clamp_min((c - svc[:, k]) - arr[:, k], 0.0)
-    return out
+    _, cb = _maxplus_scan(svc, b)
+    return torch.clamp_min((cb - svc) - arr, 0.0)
+
+
+def _maxplus_scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inclusive scan along each row of ``(a, b)`` under ``(a1, b1) o
+    (a2, b2) = (a1 + a2, max(b2, b1 + a2))``, as ``jax.lax.associative_scan``
+    evaluates it: pair elements (2j, 2j + 1), scan the pairs, then element
+    2j is ``scan[j - 1] o e[2j]``.  So the prefix at k is the left fold,
+    largest first, of the aligned power-of-two blocks of k + 1, each
+    block's aggregate a balanced pairwise tree; the tree does not depend
+    on the row's length."""
+    m = a.shape[1]
+    if m < 2:
+        return a, b
+    ra = a[:, 1::2]
+    odd_a, odd_b = _maxplus_scan(a[:, 0:-1:2] + ra, torch.maximum(b[:, 1::2], b[:, 0:-1:2] + ra))
+    if m % 2 == 0:
+        left_a, left_b = odd_a[:, :-1], odd_b[:, :-1]
+    else:
+        left_a, left_b = odd_a, odd_b
+    ea = a[:, 2::2]
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    out_a[:, 0], out_b[:, 0] = a[:, 0], b[:, 0]
+    out_a[:, 2::2] = left_a + ea
+    out_b[:, 2::2] = torch.maximum(b[:, 2::2], left_b + ea)
+    out_a[:, 1::2], out_b[:, 1::2] = odd_a, odd_b
+    return out_a, out_b
 
 
 def insert_sorted(f: torch.Tensor, value: torch.Tensor) -> torch.Tensor:

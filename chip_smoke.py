@@ -2502,6 +2502,41 @@ def _control_check(torch, kernel, plain) -> float:
     return err
 
 
+#: the one-server scan's row lengths beyond the paths' calls: one element,
+#: a 2,048-element tile of the tree walk, two tiles, their neighbours, and
+#: the headline's width (42 tiles and a part)
+LINDLEY_CHECK_LENGTHS = (1, 2_047, 2_048, 2_049, 4_095, 4_096, 4_097, 87_840)
+
+
+def _lindley_tree_check(torch, kernel, plain) -> float:
+    """station_scan's one-server waits (the tree walk) against the plain
+    version at LINDLEY_CHECK_LENGTHS on 2048 rows near capacity, row 0
+    every lane masked, row 1 one valid lane, row 2 overloaded; bit-exact."""
+    from asyncflow_tpu_torch.engines.torchsim.station_scan import WALK_TREE, WALK_NAMES
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    err = 0.0
+    for m in LINDLEY_CHECK_LENGTHS:
+        s = MAIN_SCENARIOS
+        a = torch.cumsum(torch.empty((s, m), device="cuda").exponential_(1.0, generator=g), 1)
+        load = torch.full((s, 1), 0.98 / 0.67, device="cuda")
+        load[2] = 1.05 / 0.67
+        d = torch.empty((s, m), device="cuda").exponential_(1.0, generator=g) * load
+        v = torch.rand((s, m), device="cuda", generator=g) > 0.33
+        v[:2] = False
+        v[1, m // 2] = True
+        tree = kernel.walk_launches[WALK_NAMES[WALK_TREE]]
+        got = kernel.waits(a, d, v, 1)
+        if kernel.walk_launches[WALK_NAMES[WALK_TREE]] != tree + 1:
+            raise SmokeError(f"lindley check: {s} x {m} did not take the tree walk")
+        err = max(err, _compare(torch, f"lindley check: {s} x {m}", (got,),
+                                (plain.waits(a, d, v, 1),)))
+        del a, d, v, got
+    print(f"fast check: station_scan's one-server waits (tree walk) == plain on {MAIN_SCENARIOS} "
+          f"rows of {LINDLEY_CHECK_LENGTHS} elements", flush=True)
+    return err
+
+
 def _gap_sum_check(torch, kernel, plain) -> float:
     """edge_draws' gap prefix sum against its plain version at the
     headline's lanes (2048 x 87,840: five levels) and at GAP_SUM_CASES,
@@ -2680,6 +2715,8 @@ def phase_fast_check(torch) -> dict:
     measured["controls"] = _control_check(torch, eng.scan, plains["station_scan"])
     measured["edge_draws"] = max(measured["edge_draws"], _gap_sum_check(
         torch, eng.draws, plains["edge_draws"]))
+    measured["station_scan"] = max(measured["station_scan"], _lindley_tree_check(
+        torch, eng.scan, plains["station_scan"]))
     measured["lc"] = _lc_check(torch, eng.route, plains["lb_route"])
     u = torch.arange(2**23, dtype=torch.float64, device="cuda").div(2**23).float().view(8, -1)
     measured["edge_draws"] = max(measured["edge_draws"], _compare(
@@ -2891,6 +2928,7 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     if (min(launches[k] for k in need) < 1 or (kw_pool and mode_launches["kw"] < 1)
             or walk_launches["global"] != 0 or walk_launches["warp"] != carries
             or walk_launches["lane"] != lanes
+            or walk_launches["tree"] != mode_launches["lindley"]
             or (eng.has_edge_faults and fault_launches < 1)
             or (plan.retry_budget_tokens >= 0 and mode_launches["bucket"] < 1)
             or (name in CONTROL_MODES and mode_launches[CONTROL_MODES[name]] < 1)
@@ -3000,6 +3038,8 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
                  else _scan_bound(kind, args))
         timed[kernel][kind] = {"call": kind, "ms": ms, "plain_ms": plain_ms,
                                "library_ms": library_ms, **bound}
+        if kind == "waits" and args[3] == 1:
+            timed[kernel][kind]["walk"] = "tree"
         if kind == "gap_cumsum":
             # a yardstick for the scan alone: torch's cumsum over the same
             # gaps (another order, no draws: not the same function)
@@ -3064,7 +3104,8 @@ def phase_fast_path(torch, name: str, des: dict | None) -> dict:
     for kernel, modes in timed.items():
         for kind, m in modes.items():
             lib = "null" if m["library_ms"] is None else f"{m['library_ms']:.3f} ms"
-            print(f"  {kernel} ({kind}): {m['ms']:.3f} ms, plain {m['plain_ms']:.1f} ms, "
+            walk = f", {m['walk']} walk" if "walk" in m else ""
+            print(f"  {kernel} ({kind}{walk}): {m['ms']:.3f} ms, plain {m['plain_ms']:.1f} ms, "
                   f"library {lib}, {_bound_text(m)}", flush=True)
     print(f"  stable row rank (torch.sort) of the arrivals: {rank_ms:.3f} ms; calls "
           f"{sorted(kinds)} at full width bit-exact with their plain versions", flush=True)
@@ -3425,12 +3466,12 @@ def phase_gauge(torch) -> dict:
 
 
 #: blame_grid's shapes phase 4 holds to the plain version: (scenarios,
-#: lanes, credits, coarse bins, cells, per-lane cells): a tile and less,
-#: rows off every multiple of 32, many credits and cells (several passes of
-#: rows), and the headline's width
+#: lanes, credits, coarse bins, cells, per-lane cells): a segment and less,
+#: rows off every multiple of 32, many credits and cells (31 rows: one pass;
+#: 81 rows: two passes of 64), and the headline's width
 BLAME_CASES = ((3, 1000, 4, 64, 108, True), (5, 33, 2, 64, 36, False),
                (64, 20011, 9, 64, 108, True), (17, 4111, 30, 64, 600, True),
-               (2048, 87840, 9, 64, 108, True))
+               (5, 3001, 80, 64, 600, True), (2048, 87840, 9, 64, 108, True))
 
 
 def _blame_credits(torch, s: int, n: int, c_n: int, n_cells: int, per_lane: bool, seed: int):

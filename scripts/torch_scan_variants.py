@@ -2,12 +2,14 @@
 """Time builds of the port's station_scan kernel on one CUDA card.
 
     python3 scripts/torch_scan_variants.py [--rows 16] [--ahead 256] [--against SOURCE]
-                                           [--row-counts 132,2048] [--paths NAME,...]
-                                           [--no-synthetic]
+                                           [--tree-run 8,32] [--row-counts 132,2048]
+                                           [--paths NAME,...] [--no-synthetic]
 
 Builds ``csrc/station_scan.cu`` once for each pair of rows a block of the
-thread walk (``-DSTATION_ROWS``) and prefetch distance in elements
-(``-DSTATION_AHEAD``, 0 for none), and, with ``--against``, another
+global walk (``-DSTATION_ROWS``) and prefetch distance in elements
+(``-DSTATION_AHEAD``, 0 for none), once for each of ``--tree-run``'s
+elements a thread of the tree walk (``-DTREE_RUN``: 4, 8, 16 or 32), and,
+with ``--against``, another
 ``station_scan.cu`` (say an earlier commit's, unpacked with ``git
 archive``) as it is, one nvcc each, all at once.  Then it times each build
 between CUDA events (``chip_smoke.time_kernel``, median of 5 launches after
@@ -18,7 +20,11 @@ streams made on the card from a seed: the c = 1 wait scan over (2048,
 (heavy_inj_single_server's chunk), and the Kiefer-Wolfowitz scan at K = 2
 over (2048, 3,810) (db_pool_k2).  The builds take their turns in the order
 given and then the reverse (A, B, B, A), each case on the same inputs, and
-every build's outputs must equal the first build's bit for bit.  With
+every build's outputs must equal the first build's bit for bit, but for the
+c = 1 wait scan, whose order each source sets: there each build of this
+tree must equal this tree's plain version (``lindley_plain``, the
+reference's tree order) bit for bit, and the other source's lanes that
+differ from it are printed (a source that walks Lindley in order).  With
 ``--row-counts``, each case is timed again on this source's last build
 at those row counts (its rows' length kept): 132 rows is one warp an SM of the
 warp walk, so the time an element a row there is the walk's chain, and at
@@ -166,6 +172,8 @@ def main() -> int:
     parser.add_argument("--ahead", default="256")
     parser.add_argument("--against", default=None,
                         help="another station_scan.cu to build and time beside this one")
+    parser.add_argument("--tree-run", default="",
+                        help="elements a thread of the tree walk, each a build")
     parser.add_argument("--row-counts", default="",
                         help="row counts to time each case at on this source's build")
     parser.add_argument("--paths", default="",
@@ -193,6 +201,10 @@ def main() -> int:
             name = f"station_scan_rows{rows}_ahead{ahead}"
             _build.SOURCES[name] = (src, (f"-DSTATION_ROWS={rows}", f"-DSTATION_AHEAD={ahead}"))
             names.append(name)
+    for run in (int(r) for r in opts.tree_run.split(",") if r):
+        name = f"station_scan_tree_run{run}"
+        _build.SOURCES[name] = (src, (f"-DTREE_RUN={run}",))
+        names.append(name)
     t0 = time.perf_counter()
     # with --paths, the fast engine's own libraries besides, all at once
     _build.build(None if opts.paths else names)
@@ -240,17 +252,24 @@ def main() -> int:
         return 0
     for case, (mode, cores, ram_k, shape) in cases.items():
         inputs = streams(torch, *shape)
-        first = None
+        lindley = mode == station_scan.MODE_LINDLEY
+        first = ([station_scan.lindley_plain(inputs["a"], inputs["d"], inputs["v"])]
+                 if lindley else None)
         for name in order:
             run = launcher(torch, libs[name], mode, cores, ram_k, inputs)
             out = [x.clone() for x in run()]
+            note = ""
             if first is None:
                 first = out
+            elif lindley and name == "station_scan_against":
+                off = int((out[0].view(torch.int32) != first[0].view(torch.int32)).sum())
+                note = f"; {off} of {out[0].numel()} lanes differ from the tree order"
             elif not all(torch.equal(x, y) for x, y in zip(out, first, strict=True)):
-                print(f"{case}: {name} differs from {order[0]}", file=sys.stderr)
+                what = "the plain version" if lindley else order[0]
+                print(f"{case}: {name} differs from {what}", file=sys.stderr)
                 return 1
             ms = chip_smoke.time_kernel(torch, run, repeats=5)
-            print(f"{case}: {name} {ms:.3f} ms", flush=True)
+            print(f"{case}: {name} {ms:.3f} ms{note}", flush=True)
             del out
         del inputs, first
         for rows in (int(r) for r in opts.row_counts.split(",") if r):

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from asyncflow_tpu_torch.compiler import compile_payload
-from asyncflow_tpu_torch.engines.torchsim import draws, routing, station_scan
+from asyncflow_tpu_torch.engines.torchsim import blame_grid, draws, routing, station_scan
 from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine
 from asyncflow_tpu_torch.engines.torchsim.keys import scenario_keys
 from asyncflow_tpu_torch.engines.torchsim.sampling import (
@@ -233,7 +233,7 @@ def test_lb_route_matches_plain_on_cuda(cuda_device, marks) -> None:
     assert bool((got[alive] >= 0).any())
 
 
-#: rows of the scan tests: blocks of 4 rows (warp walk) and 16 (thread
+#: rows of the scan tests: blocks of 4 rows (warp walk) and 16 (global
 #: walk), the last one part-full
 ROWS = 45
 
@@ -271,9 +271,10 @@ def test_station_walks_on_cuda(cuda_device) -> None:
 @pytest.mark.cuda
 @pytest.mark.parametrize("cores", [1, 2, 4, 5, 8, 9, 33, station_scan.WARP_WIDTH_MAX + 1])
 def test_station_waits_match_plain_on_cuda(cuda_device, cores: int) -> None:
-    """c = 1 (a thread a row), the warp walk at the edges of its width
-    classes (whole on every lane up to 4 cores, then spread over the lanes
-    one, two, ... entries a lane), and one core past it (global scratch)."""
+    """c = 1 (the tree walk, a block a row), the warp walk at the edges of
+    its width classes (whole on every lane up to 4 cores, then spread over
+    the lanes one, two, ... entries a lane), and one core past it (global
+    scratch)."""
     # rows of 2001: each row starts at another offset from a 16-byte boundary;
     # the widest station is loaded past its cores, so that it queues at all
     rate = (40.0 if cores <= station_scan.WARP_WIDTH_MAX else 200.0) * cores
@@ -286,6 +287,38 @@ def test_station_waits_match_plain_on_cuda(cuda_device, cores: int) -> None:
     assert kernel.launches == 1
     mode = station_scan.MODE_LINDLEY if cores == 1 else station_scan.MODE_KW
     assert kernel.walk_launches[_walk(mode, cores, 0)] == 1
+
+
+def _lindley_rows(dev, m: int, rows: int = 64):
+    """Rows of one server near capacity (load ~0.98, a third of the lanes
+    masked anywhere): row 0 every lane masked, row 1 one valid lane, row 2
+    overloaded (one busy period)."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    a = torch.cumsum(torch.empty((rows, m), device=dev).exponential_(1.0, generator=g), dim=1)
+    load = torch.full((rows, 1), 0.98 / 0.67, device=dev)
+    load[2] = 1.05 / 0.67
+    d = torch.empty((rows, m), device=dev).exponential_(1.0, generator=g) * load
+    v = torch.rand((rows, m), device=dev, generator=g) > 0.33
+    v[:2] = False
+    v[1, m // 2] = True
+    return a, d, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 2047, 2048, 2049, 4095, 4096, 4097, 87_840])
+def test_lindley_tree_walk_matches_plain_on_cuda(cuda_device, m: int) -> None:
+    """The one-server scan's tree walk (a block a row, tiles of 2,048) in
+    the reference's tree order: bit for bit the plain version's, on a part
+    of a tile, one and two tiles and their neighbours and the headline's
+    width."""
+    a, d, v = _lindley_rows(cuda_device, m)
+    kernel = station_scan.StationScan()
+    got = kernel.waits(a, d, v, 1)
+    want = station_scan.lindley_plain(a, d, v)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert kernel.walk_launches["tree"] == 1
+    if m > 100:
+        assert float((want[2:][v[2:]] > 0).float().mean()) > 0.5
 
 
 @pytest.mark.cuda
@@ -991,6 +1024,38 @@ def test_blame_grid_matches_plain_on_cuda(cuda_device, s: int, n: int, n_cells: 
     for got, exp in zip((grid, lat), want):
         ulps = (got.view(torch.int32).long() - exp.view(torch.int32).long()).abs()
         assert int(ulps.max()) <= 1
+
+
+@pytest.mark.cuda
+def test_blame_grid_smoke_cases_on_cuda(cuda_device) -> None:
+    """blame_grid at chip_smoke's BLAME_CASES (static and per-lane cells,
+    an empty credit, dropped lanes, two passes of rows, the headline's
+    width): two launches give the same bits, each cell within one float32
+    ulp of the plain sums."""
+    import chip_smoke
+    from asyncflow_tpu_torch.engines.torchsim.blame_grid import (
+        BlameGrid,
+        blame_grid_plain,
+        blame_layout,
+    )
+
+    lib = BlameGrid()
+    passes = []
+    for i, (s, n, c_n, nbb, n_cells, per_lane) in enumerate(chip_smoke.BLAME_CASES):
+        credits, g = chip_smoke._blame_credits(torch, s, n, c_n, n_cells, per_lane, i)
+        target = torch.randint(-1, nbb + 2, (s, n), generator=g, device="cuda").to(torch.int16)
+        latency = torch.rand((s, n), generator=g, device="cuda")
+        grid, lat = lib.reduce(credits, target, latency, n_cells, nbb)
+        again = lib.reduce(credits, target, latency, n_cells, nbb)
+        assert torch.equal(grid, again[0]) and torch.equal(lat, again[1]), i
+        want = blame_grid_plain(credits, target, latency, n_cells, nbb)
+        for got, exp in zip((grid, lat), want):
+            ulps = (got.view(torch.int32).long() - exp.view(torch.int32).long()).abs()
+            assert int(ulps.max()) <= 1, i
+        per_pass = blame_grid._library().blame_grid_pass_rows(nbb)
+        passes.append(-(-len(blame_layout(credits)[0]) // per_pass))
+        del credits, target, latency, grid, lat, again, want
+    assert max(passes) > 1
 
 
 @pytest.mark.cuda

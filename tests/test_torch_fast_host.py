@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 from torch_fast_cases import (  # noqa: F401 - torch_inference_mode: an autouse fixture
+    LINDLEY_LENGTHS,
+    lindley_rows,
     one_torch_thread,
     torch_inference_mode,
 )
@@ -135,7 +137,7 @@ def _start(tmp: Path, name: str) -> tuple[subprocess.Popen, Path]:
             "the launch statements changed: update LAUNCH_2D"
         src = LAUNCH_2D.sub(HOST_LAUNCH_2D, src) + HOST_SMEM[name]
     else:
-        assert len(LAUNCH.findall(src)) == 5, "the launch statements changed: update LAUNCH"
+        assert len(LAUNCH.findall(src)) == 6, "the launch statements changed: update LAUNCH"
         src = LAUNCH.sub(HOST_LAUNCH, src)
     if not (tmp / "shim.h").exists():  # builds running at once share it
         (tmp / "shim.h").write_text(SHIM)
@@ -543,6 +545,21 @@ def test_station_waits_match_plain(host_libs, cores: int) -> None:
     assert float(want[v].max()) > 0.0
 
 
+@pytest.mark.parametrize("m", [*LINDLEY_LENGTHS, 7 * 4096 + 3, 8 * 4096])
+def test_lindley_tree_walk_matches_plain(host_libs, m: int) -> None:
+    """The tree walk over rows of one tile or part of one, and of several
+    (8 tiles: the counter merges up to one block of all), aligned rows
+    (vector loads) and rows of odd length (scalar), bit for bit."""
+    a, d, v = (torch.as_tensor(x) for x in lindley_rows(m, m))
+    out = torch.empty_like(a)
+    args = station_scan._StationArgs(
+        a=a.data_ptr(), d=d.data_ptr(), v=v.data_ptr(), out0=out.data_ptr(),
+        S=a.shape[0], m=m, mode=station_scan.MODE_LINDLEY, cores=1, ram_k=0,
+    )
+    _launch(host_libs["station_scan"], "station_scan_launch", args)
+    assert torch.equal(out.view(torch.int32), station_scan.lindley_plain(a, d, v).view(torch.int32))
+
+
 #: (RAM slots, cores): the slots at the edges of the warp walk's width
 #: classes up to its widest vector, the earlier register and scratch cases
 #: (3, 1), (5, 2), (32, 8), (20, 2), (70, 1), a core vector wider than the
@@ -597,9 +614,9 @@ def test_wide_carry_needs_scratch(host_libs) -> None:
     assert lib.station_scan_lane_whole() == whole
     kw, ram, sock = station_scan.MODE_KW, station_scan.MODE_RAM_CORE, station_scan.MODE_SOCKET
     ctl = station_scan.MODE_CONTROLLED
-    thread, warp, wide, lane = (station_scan.WALK_THREAD, station_scan.WALK_WARP,
-                                station_scan.WALK_GLOBAL, station_scan.WALK_LANE)
-    cases = [(station_scan.MODE_LINDLEY, 1, 0, -1, thread), (kw, 2, 0, -1, warp),
+    tree, warp, wide, lane = (station_scan.WALK_TREE, station_scan.WALK_WARP,
+                              station_scan.WALK_GLOBAL, station_scan.WALK_LANE)
+    cases = [(station_scan.MODE_LINDLEY, 1, 0, -1, tree), (kw, 2, 0, -1, warp),
              (kw, top, 0, -1, warp), (kw, top + 1, 0, -1, wide), (ram, 1, 1, -1, warp),
              (ram, top, top, -1, warp), (ram, 1, top + 1, -1, wide), (ram, top + 1, 1, -1, wide),
              (station_scan.MODE_BUCKET, 1, 0, -1, warp), (sock, 1, 6, 4, lane),

@@ -39,6 +39,30 @@ def torch_inference_mode():
         yield
 
 
+#: row lengths of the Lindley tests: one element to three, a part of a
+#: 2,048-element tile of the tree walk (csrc/station_scan.cu), a tile and
+#: its neighbours, two tiles and their neighbours, and rows of several tiles
+#: whose counter of whole blocks merges
+LINDLEY_LENGTHS = (1, 2, 3, 7, 8, 2047, 2048, 2049, 4095, 4096, 4097, 20000)
+
+
+def lindley_rows(seed: int, m: int, rows: int = 4):
+    """(arrivals, services, validity) numpy rows of one server near its
+    capacity: row 0 every lane masked, row 1 one valid lane, the others a
+    third of their lanes masked anywhere and the rest at load ~0.98, row 2
+    overloaded (load ~1.05: one busy period, so that every prefix sums its
+    services over the whole row in the tree's order)."""
+    g = np.random.default_rng(seed)
+    a = np.cumsum(g.exponential(1.0, (rows, m)), axis=1).astype(np.float32)
+    v = g.random((rows, m)) > 0.33
+    load = np.where(np.arange(rows) == 2, 1.05, 0.98)[:, None]
+    d = (g.exponential(1.0, (rows, m)) * load / 0.67).astype(np.float32)
+    v[0] = False
+    v[1] = False
+    v[1, g.integers(m)] = True
+    return a, d, v
+
+
 def load(path: Path, mutate=None, *, horizon: float | None = None) -> dict:
     data = yaml.safe_load(path.read_text())
     if mutate:
@@ -596,6 +620,38 @@ def run_both(data: dict, n: int, seed: int, transform=None, overrides=None):
     ov = None if jov is None else overrides_from_arrays(jov._asdict())
     got = eng.run_batch(np.asarray(keys), ov, window_draws=windows)
     return ref, got, plan
+
+
+def clock_runs(data: dict, n: int, seed: int):
+    """(reference state, port state) of ``n`` scenarios of ``seed`` with
+    each request's clocks: the jitted JAX ``FastEngine`` (``run_batch``
+    jits its program) and the port's on the CPU, fed the reference's window
+    draws, both with ``collect_clocks``."""
+    import jax
+
+    from asyncflow_tpu.compiler import compile_payload as jax_compile
+    from asyncflow_tpu.engines.jaxsim.engine import scenario_keys as jax_keys
+    from asyncflow_tpu.engines.jaxsim.fastpath import FastEngine as JaxFastEngine
+    from asyncflow_tpu.schemas.payload import SimulationPayload as JaxPayload
+    from asyncflow_tpu_torch.compiler import compile_payload
+    from asyncflow_tpu_torch.engines.torchsim.fastpath import FastEngine
+    from asyncflow_tpu_torch.schemas import SimulationPayload
+
+    ref_plan = jax_compile(JaxPayload.model_validate(data))
+    keys = jax_keys(seed, n)
+    ref = jax.tree_util.tree_map(
+        np.asarray, JaxFastEngine(ref_plan, collect_clocks=True).run_batch(keys))
+    eng = FastEngine(compile_payload(SimulationPayload.from_dict(data)), device="cpu",
+                     collect_clocks=True)
+    got = eng.run_batch(np.asarray(keys), window_draws=reference_window_draws(ref_plan, keys))
+    return ref, got
+
+
+def clocks_off(ref, got) -> int:
+    """Requests whose (arrival, completion) clock row differs in any bit."""
+    a, b = np.asarray(ref.clock), np.asarray(got.clock)
+    assert a.shape == b.shape
+    return int((a.view(np.int32) != b.view(np.int32)).any(axis=-1).sum())
 
 
 #: one bin of the 1024-bin latency histogram (log-spaced over 1e-4..1e3 s)
