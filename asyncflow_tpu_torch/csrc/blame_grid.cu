@@ -77,6 +77,10 @@ constexpr int kPer = 16;                  // sorted positions a thread's stretch
 constexpr int kSeg = kThreads * kPer;     // lanes a segment, sorted once
 constexpr int kRounds = kSeg / kThreads;  // rounds of 32 lanes a warp's sort
 constexpr int kMaxKeys = 512;             // keys of one counting pass
+// a sorted position in registers: bin << kBinShift | slot << kLaneBits | lane
+constexpr int kLaneBits = 12;
+constexpr int kBinShift = kLaneBits + 8;
+static_assert(kSeg <= 1 << kLaneBits, "a segment's lanes fit kLaneBits");
 constexpr int kFinishThreads = 256;
 // the shared memory of a launch's float64 row set (rows x nbb doubles)
 constexpr int kRowBytes = 32 * 1024;
@@ -217,34 +221,36 @@ __device__ __forceinline__ void sort_segment(Stage& st, const uint8_t* slp, int6
   }
 }
 
-// A thread's stretch: its sorted lanes and keys, and the keys before and
-// after it (-1 at the segment's ends).
+// A thread's stretch: its sorted positions, each packed as bin <<
+// kBinShift | slot << kLaneBits | lane (a dropped lane: bin nbb, slot 0),
+// and the positions before and after it (-1 at the segment's ends).  One
+// register a position: the stretch, a credit's values in flight and the
+// float64 sums stay in registers.
 struct Stretch {
-  int lane[kPer], key[kPer];
+  int pos[kPer];
   int prev, next;
 };
 
-// The run structure of a stretch under a run key (div = the slots: a bin's
-// runs; 1: the (bin, slot) runs), and the segmented scan's steps, which
-// depend on it alone.
+// The run structure of a stretch under a run key (the packed position
+// shifted right by ``shift``: kBinShift, a bin's runs; kLaneBits, the
+// (bin, slot) runs), and the segmented scan's steps, which depend on it
+// alone.
 struct Runs {
-  int key[kPer];
+  unsigned cut;   // bit i: a run starts at position i > 0 of the stretch
   bool cont_prev, cont_next, single;
   unsigned take;  // bit i: scan step i adds the value from lane - 2^i
   bool starts;    // the open run through this stretch starts in the warp
 };
 
-__device__ __forceinline__ Runs runs_of(const Stretch& s, int div) {
+__device__ __forceinline__ Runs runs_of(const Stretch& s, int shift) {
   Runs r;
+  r.cut = 0;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) r.key[i] = s.key[i] / div;
-  const int prev = s.prev < 0 ? -1 : s.prev / div;
-  const int next = s.next < 0 ? -1 : s.next / div;
-  r.single = true;
-#pragma unroll
-  for (int i = 1; i < kPer; ++i) r.single = r.single && r.key[i] == r.key[0];
-  r.cont_prev = prev == r.key[0];
-  r.cont_next = next == r.key[kPer - 1];
+  for (int i = 1; i < kPer; ++i)
+    if ((s.pos[i] >> shift) != (s.pos[i - 1] >> shift)) r.cut |= 1u << i;
+  r.single = r.cut == 0;
+  r.cont_prev = (s.prev >> shift) == (s.pos[0] >> shift);  // -1 >> shift is -1
+  r.cont_next = (s.next >> shift) == (s.pos[kPer - 1] >> shift);
   const int lane = lane_id();
   int f = r.single && r.cont_prev ? 0 : 1;
   r.take = 0;
@@ -259,37 +265,37 @@ __device__ __forceinline__ Runs runs_of(const Stretch& s, int div) {
   return r;
 }
 
-// One credit's pass over the segment's staged values: row_of(key) maps a
-// run's key to its row in the pass (< 0: none, or dropped).
+// One credit's pass over the segment's staged values: row_of(pos) maps a
+// run's packed position to its row in the pass (< 0: none, or dropped).
 template <class RowOf>
-__device__ __forceinline__ void credit_pass(Stage& st, double* acc, int nbb, int bin_div,
-                                            const Stretch& s, const Runs& r, RowOf row_of) {
-  const auto add = [&](int key, double x) {
-    const int b = key / bin_div;  // the bin of a run's key
-    const int u = row_of(key);
+__device__ __forceinline__ void credit_pass(Stage& st, double* acc, int nbb, const Stretch& s,
+                                            const Runs& r, RowOf row_of) {
+  const auto add = [&](int pos, double x) {
+    const int b = pos >> kBinShift;
+    const int u = row_of(pos);
     if (u >= 0 && b < nbb) acc[u * nbb + b] += x;
   };
   double run = 0.0, head = 0.0;
   bool open_head = r.cont_prev;  // the leading run continues a run before
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    if (i > 0 && r.key[i] != r.key[i - 1]) {
+    if ((r.cut >> i) & 1u) {
       if (open_head) {
         head = run;
         open_head = false;
       } else {
-        add(r.key[i - 1], run);
+        add(s.pos[i - 1], run);
       }
       run = 0.0;
     }
-    run = run + (double)st.vals[s.lane[i]];
+    run = run + (double)st.vals[s.pos[i] & (kSeg - 1)];
   }
   const bool head_here = open_head;  // the stretch is one run continuing one before
   if (!r.cont_next) {
     if (head_here) {
       head = run;
     } else {
-      add(r.key[kPer - 1], run);
+      add(s.pos[kPer - 1], run);
     }
   }
   // the open run's sum through each stretch: a segmented scan
@@ -311,10 +317,13 @@ __device__ __forceinline__ void credit_pass(Stage& st, double* acc, int nbb, int
   double before = __shfl_up_sync(kAll, through, 1);
   if (lane == 0) before = into;
   // the run that ends in this stretch and began before it: its last holder
-  if (r.cont_prev && !(r.single && r.cont_next)) add(r.key[0], before + head);
+  if (r.cont_prev && !(r.single && r.cont_next)) add(s.pos[0], before + head);
 }
 
-__global__ void __launch_bounds__(kThreads) blame_partial_kernel(const BlameGridArgs a) {
+// Two blocks an SM: the shared memory (the stage and a row set, ~104 KB a
+// block) allows no more, and registers beyond 128 a thread would allow
+// fewer.
+__global__ void __launch_bounds__(kThreads, 2) blame_partial_kernel(const BlameGridArgs a) {
   extern __shared__ double smem[];
   const int rows = a.u_hi - a.u_lo;
   const int cells = rows * a.nbb;
@@ -346,17 +355,19 @@ __global__ void __launch_bounds__(kThreads) blame_partial_kernel(const BlameGrid
     const uint8_t* sorted_by = sort_slots;
     sort_segment(st, sorted_by, at, live_n, a.nbb);
     Stretch s;
+    const auto packed = [&](int p) {
+      const int l = st.perm[0][p];
+      const int b = st.bin[l];
+      return b << kBinShift | (b < a.nbb ? (int)st.slot[l] : 0) << kLaneBits | l;
+    };
     const auto load_stretch = [&]() {
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        s.lane[i] = st.perm[0][threadIdx.x * kPer + i];
-        s.key[i] = st.key[s.lane[i]];
-      }
-      s.prev = threadIdx.x == 0 ? -1 : st.key[st.perm[0][threadIdx.x * kPer - 1]];
-      s.next = threadIdx.x == kThreads - 1 ? -1 : st.key[st.perm[0][threadIdx.x * kPer + kPer]];
+      for (int i = 0; i < kPer; ++i) s.pos[i] = packed(threadIdx.x * kPer + i);
+      s.prev = threadIdx.x == 0 ? -1 : packed(threadIdx.x * kPer - 1);
+      s.next = threadIdx.x == kThreads - 1 ? -1 : packed(threadIdx.x * kPer + kPer);
     };
     load_stretch();
-    Runs by_bin = runs_of(s, st.kslots), by_slot = runs_of(s, 1);
+    Runs by_bin = runs_of(s, kBinShift), by_slot = runs_of(s, kLaneBits);
     // a credit's values, kPer a thread in flight while the one before is summed
     float next[kPer];
     const auto fetch = [&](int c) {
@@ -377,8 +388,8 @@ __global__ void __launch_bounds__(kThreads) blame_partial_kernel(const BlameGrid
         sorted_by = slp;
         sort_segment(st, sorted_by, at, live_n, a.nbb);
         load_stretch();
-        by_bin = runs_of(s, st.kslots);
-        by_slot = runs_of(s, 1);
+        by_bin = runs_of(s, kBinShift);
+        by_slot = runs_of(s, kLaneBits);
       }
 #pragma unroll
       for (int i = 0; i < kPer; ++i) st.vals[threadIdx.x + i * kThreads] = next[i];
@@ -388,12 +399,11 @@ __global__ void __launch_bounds__(kThreads) blame_partial_kernel(const BlameGrid
       if (c_next < a.C) fetch(c_next);
       if (slp == nullptr) {
         const int u = a.cand_row[c] - a.u_lo;
-        credit_pass(st, acc, a.nbb, 1, s, by_bin, [&](int) { return u; });
+        credit_pass(st, acc, a.nbb, s, by_bin, [&](int) { return u; });
       } else {
         const int first = a.cand_row[c];
-        const int ks = st.kslots;
-        credit_pass(st, acc, a.nbb, ks, s, by_slot, [&](int key) {
-          const int u = a.slot_row[first + key % ks] - a.u_lo;
+        credit_pass(st, acc, a.nbb, s, by_slot, [&](int pos) {
+          const int u = a.slot_row[first + ((pos >> kLaneBits) & 0xff)] - a.u_lo;
           return u >= 0 && u < rows ? u : -1;
         });
       }
@@ -432,10 +442,10 @@ extern "C" {
 
 int blame_grid_args_size() { return (int)sizeof(BlameGridArgs); }
 
-// Rows of a pass and lanes a segment (a slice is best a whole number of
-// them), for the wrapper's scratch and slices.
+// Rows of a pass and lanes a segment (a slice is a whole number of
+// segments), for the wrapper's scratch and slices.
 int blame_grid_pass_rows(int nbb) { return nbb > 0 ? kRowBytes / (nbb * 8) : 0; }
-int blame_grid_tile_lanes() { return kSeg; }
+int blame_grid_segment_lanes() { return kSeg; }
 
 // One pass (rows u_lo .. u_hi) on ``stream``: both kernels.  Returns the
 // launches' cudaError_t if it is not 0, or -1 for arguments they do not take.

@@ -71,9 +71,9 @@
 // (its levels are double-buffered by the tile's parity); at 2048 rows
 // the grid is 2048 blocks.  Runs of 8: at 16 and 32 elements the run's
 // register arrays went to local memory (448 and 912 bytes a thread) and
-// the headline's scan took 2.8 and 3.4 ms against 0.82
-// (scripts/torch_scan_variants.py --tree-run).  The reference's order is described at
-// tree_walk_kernel.
+// the headline's scan took 2.8 and 3.4 ms against 0.82 (builds of this
+// file with other run lengths, timed by scripts/torch_scan_variants.py
+// --against).  The reference's order is described at tree_walk_kernel.
 //
 // The thread walk (the carry modes past kWarpWidthMax entries: the global
 // walk): one thread a row, 16 rows a block (half a warp: the lanes of a warp read
@@ -271,12 +271,8 @@ __device__ __forceinline__ Agg agg_of(Agg l, Agg r) { return {l.a + r.a, fmaxf(r
 // The b of prefix o r.
 __device__ __forceinline__ float prefix_of(float p, Agg r) { return fmaxf(r.b, p + r.a); }
 
-#ifndef TREE_RUN
-#define TREE_RUN 8
-#endif
-constexpr int kTreeRun = TREE_RUN;  // elements a run: a thread's, in registers
-constexpr int kTreeRunLevels = kTreeRun == 32 ? 5 : kTreeRun == 16 ? 4 : kTreeRun == 8 ? 3 : 2;
-static_assert(1 << kTreeRunLevels == kTreeRun, "a run is 4, 8, 16 or 32 elements");
+constexpr int kTreeRun = 8;        // elements a run: a thread's, in registers
+constexpr int kTreeRunLevels = 3;  // log2(kTreeRun)
 constexpr int kTreeRuns = 256;   // runs a tile
 constexpr int kTreeLevels = 8;   // log2(kTreeRuns)
 constexpr int kTreeTile = kTreeRun * kTreeRuns;

@@ -97,7 +97,7 @@ def _library() -> ctypes.CDLL:
     lib.blame_grid_args_size.restype = ctypes.c_int
     lib.blame_grid_pass_rows.argtypes = [ctypes.c_int]
     lib.blame_grid_pass_rows.restype = ctypes.c_int
-    lib.blame_grid_tile_lanes.restype = ctypes.c_int
+    lib.blame_grid_segment_lanes.restype = ctypes.c_int
     if lib.blame_grid_args_size() != ctypes.sizeof(_BlameGridArgs):
         msg = "BlameGridArgs layout mismatch between blame_grid.cu and its ctypes mirror"
         raise KernelBuildError(msg)
@@ -185,9 +185,9 @@ class BlameGrid:
         if per_pass < 1:
             msg = f"blame_grid: {nbb} coarse bins do not fit a pass"
             raise ValueError(msg)
-        tile = lib.blame_grid_tile_lanes()
-        n_slices = max(1, min(-(-TARGET_BLOCKS // s), -(-n // tile)))
-        slice_len = -(-(-(-n // n_slices)) // tile) * tile
+        seg = lib.blame_grid_segment_lanes()
+        n_slices = max(1, min(-(-TARGET_BLOCKS // s), -(-n // seg)))
+        slice_len = -(-(-(-n // n_slices)) // seg) * seg
         n_slices = -(-n // slice_len)
         ptrs = torch.tensor([x.data_ptr() for x in secs], dtype=torch.int64, device=dev)
         slot_ptrs = torch.tensor([0 if x is None else x.data_ptr() for x in slots],

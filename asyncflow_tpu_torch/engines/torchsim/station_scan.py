@@ -394,8 +394,8 @@ class StationScan:
     """The station recursions with their launch count, in all, by mode
     (``mode_launches``: Lindley, Kiefer-Wolfowitz, RAM-core, the token
     bucket, the controlled and the socket scans) and by walk
-    (``walk_launches``: a thread a row, a warp a row, the global-scratch
-    walk, a lane a row).  A carry vector of up to :data:`WARP_WIDTH_MAX`
+    (``walk_launches``: the tree walk, a block a row; a warp a row; the
+    global-scratch walk, a thread a row; a lane a row).  A carry vector of up to :data:`WARP_WIDTH_MAX`
     entries is held by a warp's lanes (:func:`carry_form`); a wider one
     lives in global scratch that the launch allocates.  The lane walk takes
     its inputs on 16-byte boundaries: an input off one is copied first."""

@@ -1014,7 +1014,8 @@ def card_line() -> str:
 REDESIGNED = (("lb_route", "lc_kernel"), ("edge_draws", "hop_kernel"),
               ("station_scan", "bucket_warp_kernel"), ("station_scan", "lane_walk_kernel"),
               ("edge_draws", "gap_sum_kernel"), ("gauge_grid", "gauge_shared_kernel"),
-              ("gauge_grid", "gauge_global_kernel"))
+              ("gauge_grid", "gauge_global_kernel"), ("station_scan", "tree_walk_kernel"),
+              ("blame_grid", "blame_partial_kernel"))
 #: the dependent clocks of one valid element's chain in the redesigned
 #: station_scan walks, read from their SASS (sm_90a): the bucket's tokens
 #: (add, min, compare, select), the socket scan's connections (the
@@ -1056,7 +1057,7 @@ def phase_setup(torch) -> None:
     for name, report in _build.ptxas_report.items():
         for instance, res in ptxas_instances(report).items():
             print(f"  ptxas[{name}] {instance}: {res}")
-        if name in ("edge_draws", "station_scan", "lb_route", "gauge_grid"):
+        if name in ("edge_draws", "station_scan", "lb_route", "gauge_grid", "blame_grid"):
             for entry, res in ptxas_entries(report).items():
                 print(f"  ptxas[{name}] {entry}: {res}")
                 if any(name == lib and entry.startswith(k) for lib, k in REDESIGNED):

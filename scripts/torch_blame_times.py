@@ -11,9 +11,9 @@ and latencies), then replays it through each build in turns (this tree's,
 then each FILE, then back: N rounds), each launch timed between CUDA
 events (the median of five), and prints each build's registers and spills,
 its ms, whether two of
-its launches give the same bits, and its cells one float32 ulp from the
-plain version's sums (none may be further), with the card's name and
-power limit.  A FILE must keep this tree's ``BlameGridArgs`` and launch
+its launches give the same bits, whether its grid equals this tree's bit
+for bit, and its cells one float32 ulp from the plain version's sums
+(none may be further), with the card's name and power limit.  A FILE must keep this tree's ``BlameGridArgs`` and launch
 interface.  It needs a CUDA card and imports neither JAX nor the JAX
 package.
 """
@@ -65,6 +65,7 @@ def main() -> int:
     order = list(builds)
     times: dict = {name: [] for name in order}
     notes: dict = {}
+    first: dict = {}
     for turn in (order + order[::-1]) * args.turns:
         blame_grid._build.load = lambda _name, t=turn: load(f"blame_times_{t}")
         wrapper = blame_grid.BlameGrid()
@@ -82,6 +83,7 @@ def main() -> int:
         if not same:
             print(f"torch_blame_times: {turn}'s two launches differ", file=sys.stderr)
             return 1
+        first.setdefault(turn, got)
         notes[turn] = off
         times[turn].append(chip_smoke.time_kernel(torch, lambda w=wrapper: w.reduce(*call), 5))
     blame_grid._build.load = load
@@ -90,8 +92,10 @@ def main() -> int:
           f"{target.shape[0]} x {target.shape[1]} lanes, {call[3]} cells x {call[4]} bins",
           flush=True)
     for name in order:
+        equal = all(torch.equal(x, y) for x, y in zip(first[name], first[order[0]], strict=True))
         print(f"{name}: " + ", ".join(f"{ms:.3f}" for ms in times[name]) + " ms; two launches "
-              f"bit-identical; {notes[name]} cells one ulp from the plain sums", flush=True)
+              f"bit-identical; {'equal' if equal else 'not equal'} to {order[0]}'s bits; "
+              f"{notes[name]} cells one ulp from the plain sums", flush=True)
     return 0
 
 

@@ -2,14 +2,12 @@
 """Time builds of the port's station_scan kernel on one CUDA card.
 
     python3 scripts/torch_scan_variants.py [--rows 16] [--ahead 256] [--against SOURCE]
-                                           [--tree-run 8,32] [--row-counts 132,2048]
+                                           [--row-counts 132,2048]
                                            [--paths NAME,...] [--no-synthetic]
 
 Builds ``csrc/station_scan.cu`` once for each pair of rows a block of the
 global walk (``-DSTATION_ROWS``) and prefetch distance in elements
-(``-DSTATION_AHEAD``, 0 for none), once for each of ``--tree-run``'s
-elements a thread of the tree walk (``-DTREE_RUN``: 4, 8, 16 or 32), and,
-with ``--against``, another
+(``-DSTATION_AHEAD``, 0 for none), and, with ``--against``, another
 ``station_scan.cu`` (say an earlier commit's, unpacked with ``git
 archive``) as it is, one nvcc each, all at once.  Then it times each build
 between CUDA events (``chip_smoke.time_kernel``, median of 5 launches after
@@ -172,8 +170,6 @@ def main() -> int:
     parser.add_argument("--ahead", default="256")
     parser.add_argument("--against", default=None,
                         help="another station_scan.cu to build and time beside this one")
-    parser.add_argument("--tree-run", default="",
-                        help="elements a thread of the tree walk, each a build")
     parser.add_argument("--row-counts", default="",
                         help="row counts to time each case at on this source's build")
     parser.add_argument("--paths", default="",
@@ -201,10 +197,6 @@ def main() -> int:
             name = f"station_scan_rows{rows}_ahead{ahead}"
             _build.SOURCES[name] = (src, (f"-DSTATION_ROWS={rows}", f"-DSTATION_AHEAD={ahead}"))
             names.append(name)
-    for run in (int(r) for r in opts.tree_run.split(",") if r):
-        name = f"station_scan_tree_run{run}"
-        _build.SOURCES[name] = (src, (f"-DTREE_RUN={run}",))
-        names.append(name)
     t0 = time.perf_counter()
     # with --paths, the fast engine's own libraries besides, all at once
     _build.build(None if opts.paths else names)
